@@ -1,0 +1,767 @@
+#!/usr/bin/env python3
+"""Run the PyTorch/CUDA port's serving step on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and skipped):
+
+1. device: the card's name and power limit (nvidia-smi);
+2. build: every kernel of ``cilium_tpu_torch/csrc`` from the checkout's
+   sources, one ``nvcc`` per source, all at once;
+3. kernel parity at full size: each kernel against its plain PyTorch
+   version on the same CUDA tensors, bit-exact (every output is an
+   integer): LPM over 2^18 v4+v6 addresses, a CT lookup and a
+   ct_update on a 2^20 table filled to about half (duplicate tuples,
+   window contention, counters near 2^32), ring_append with overflow;
+4. the slice at full size: the 10k-identity world (BASELINE.md config
+   #3), ``TorchLoader(device="cuda")`` through 8 ``serve_packed``
+   batches of 2^18, 2 wide ``serve`` batches with IPv6 and ICMP errors
+   and 1 ``step``.  The same sequence through the plain versions on the
+   card must give equal ring rows, out rows, metrics, CT table and drop
+   count.  Then the verdict kernel, packed and wide with every optional
+   channel, against its plain version on that state;
+5. timings: each kernel's device time at the main path's shapes (calls
+   run back to back behind a spin kernel, so no host enqueue falls in
+   the window) beside its plain version's and its bound; then where a
+   steady ``serve_packed`` batch spends its time (torch.profiler).
+
+The line before the last is one JSON object describing every kernel of
+the main path; the last line is the device record.  Details go to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+N = 1 << 18  # the serving batch (bench.py's packed bucket)
+CT_CAPACITY = 1 << 20
+RING_CAPACITY = 1 << 18
+SLICE_RING_CAPACITY = 1 << 21  # holds every event of the slice's 11 batches
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+# the guide's 67 TFLOP/s float32 is 132 SMs x 128 lanes x 2 (FMA) x
+# 1.98 GHz; Hopper has 64 INT32 lanes per SM, so integer work peaks at
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def max_abs_err(got, want, what) -> int:
+    """Max |got - want| over integer tensors (bit patterns as u32);
+    anything but 0 fails the smoke."""
+    import torch
+
+    g = got.to(torch.int64) & 0xFFFFFFFF
+    w = want.to(torch.int64) & 0xFFFFFFFF
+    check(g.shape == w.shape, f"{what}: shape {tuple(g.shape)} vs "
+          f"{tuple(w.shape)}")
+    err = int((g - w).abs().max().item()) if g.numel() else 0
+    check(err == 0, f"{what}: kernel differs from its plain version "
+          f"(max abs err {err}, {int((g != w).sum())} cells)")
+    return err
+
+
+SPIN_MS = 200.0  # how far the host may run ahead of a timed window
+_CYCLES_PER_MS = []
+
+
+def _spin_cycles(ms) -> int:
+    """GPU clock cycles that ``torch.cuda._sleep`` needs to spin ``ms``
+    (calibrated once by CUDA events)."""
+    import torch
+
+    if not _CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        torch.cuda.synchronize()
+        _CYCLES_PER_MS.append(10 ** 7 / start.elapsed_time(end))
+    return int(ms * _CYCLES_PER_MS[0])
+
+
+def device_ms(fn, reps, fresh=None) -> float:
+    """Time of one call of ``fn`` on the card: the mean over ``reps``
+    calls run back to back between two CUDA events.  The calls queue
+    behind a spin kernel, so the card runs them without waiting for the
+    host and no host enqueue time falls in the window (a call that
+    syncs, as a plain version may, is timed with its waits).  A call
+    that mutates its inputs gets ``fresh()`` ones, made before the
+    window; one untimed call first loads the kernel's module."""
+    import torch
+
+    inputs = [fresh() if fresh else None for _ in range(reps + 1)]
+
+    def call(x):
+        return fn(x) if fresh else fn()
+
+    call(inputs[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    spin = _spin_cycles(SPIN_MS)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(spin)
+    start.record()
+    for x in inputs[1:]:
+        call(x)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(bytes_moved, int_ops):
+    """Least time the card could take: bytes over HBM rate or integer
+    operations over the INT32 rate, whichever is larger."""
+    tb = bytes_moved / HBM_BYTES_PER_S * 1e3
+    to = int_ops / INT32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# -- inputs -----------------------------------------------------------
+
+
+def random_keys(rng, n, protos=(6, 17, 1)):
+    import numpy as np
+    from cilium_tpu_torch.datapath.conntrack import KEY_WORDS
+
+    keys = rng.integers(0, 1 << 32, (n, KEY_WORDS), dtype=np.uint64)
+    keys = keys.astype(np.uint32)
+    keys[:, 9] = rng.choice(np.array(protos, np.uint32), n) | (
+        rng.integers(0, 2, n, dtype=np.uint32) << 8)
+    return keys
+
+
+def half_full_table(rng, now):
+    """A 2^20 CT table holding ~2^19 entries placed by the device hash,
+    some expired, with counters near 2^32 on a slice of them."""
+    import numpy as np
+    from cilium_tpu_torch.datapath import conntrack as ct
+
+    n = CT_CAPACITY // 2
+    rows = np.zeros((n, ct.ROW_WORDS), np.uint32)
+    rows[:, :ct.KEY_WORDS] = random_keys(rng, n)
+    rows[:, ct.V_STATE] = rng.integers(1, 4, n)
+    rows[:, ct.V_EXPIRES] = np.where(rng.random(n) < 0.1, now - 5,
+                                     now + 100)
+    rows[:, ct.V_TX_PKTS:ct.V_RX_BYTES + 1] = rng.integers(
+        0, 1 << 20, (n, 4))
+    near = rng.random(n) < 0.05
+    rows[near, ct.V_TX_BYTES] = 0xFFFFFFFF - rng.integers(0, 3000,
+                                                          int(near.sum()))
+    rows[:, ct.V_PROXY] = rng.choice(np.array([0, 0, 0, 10000], np.uint32),
+                                     n)
+    table, dropped = ct.ct_table_from_rows(rows, CT_CAPACITY)
+    return table, ct.ct_fp_from_table(table), rows
+
+
+def crowded_keys(rng, n_regions=64, width=8):
+    """New keys whose home slots pile into a few 8-slot regions, so
+    their inserts contend for one window and run the full rounds."""
+    import numpy as np
+    from cilium_tpu_torch.datapath.conntrack import _hash_np
+
+    homes = rng.integers(0, CT_CAPACITY, n_regions) & ~(width - 1)
+    keys = random_keys(rng, 1 << 23)
+    home = _hash_np(keys) & (CT_CAPACITY - 1)
+    hit = np.isin(home & ~np.uint32(width - 1), homes.astype(np.uint32))
+    return keys[hit]
+
+
+# -- phases -----------------------------------------------------------
+
+
+def phase_lpm(torch, rng, world, kernels):
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import ip_to_words
+    from cilium_tpu_torch.datapath.lpm import (DeviceLPM, lpm_lookup,
+                                               lpm_lookup_plain)
+
+    t = DeviceLPM.from_tensors(world.lpm, "cuda")
+    words = np.zeros((N, 4), np.uint32)
+    fam = np.full(N, 4, np.uint32)
+    pods = np.array([ip_to_words(ip)[3] for ip in world.pod_ips],
+                    np.uint32)
+    words[:, 3] = np.where(rng.random(N) < 0.7, rng.choice(pods, N),
+                           rng.integers(0, 1 << 32, N, dtype=np.uint64))
+    v6 = rng.random(N) < 0.2
+    pods6 = np.array([ip_to_words(ip) for ip in world.pod_ips6], np.uint32)
+    words[v6] = pods6[rng.integers(0, len(pods6), int(v6.sum()))]
+    miss6 = v6 & (rng.random(N) < 0.3)
+    words[miss6, 0] = 0x20020000  # outside 2001:db8::/32: ::/0 only
+    fam[v6] = 6
+    w, f = u32.from_numpy(words, "cuda"), u32.from_numpy(fam, "cuda")
+    got = lpm_lookup(t, w, f)
+    want = lpm_lookup_plain(t, w, f)
+    err = max_abs_err(got, want, "lpm_lookup")
+    kernels["lpm_lookup"]["max_abs_err"] = err
+    kernels["lpm_lookup"]["ms"] = device_ms(lambda: lpm_lookup(t, w, f), 20)
+    kernels["lpm_lookup"]["plain_ms"] = device_ms(
+        lambda: lpm_lookup_plain(t, w, f), 3)
+    levels = 1 + int((t.l1[(w[:, 3].to(torch.int64) & 0xFFFFFFFF) >> 16]
+                      < 0).sum())
+    kernels["lpm_lookup"]["bytes"] = (N * (16 + 4 + 4) + 4 * levels
+                                      + t.v6_net.numel() * 9)
+    kernels["lpm_lookup"]["ops"] = N * 12 + int(v6.sum()) * (
+        t.v6_net.shape[0] * 14)
+    print(f"parity lpm_lookup: {N} addresses ({int(v6.sum())} v6), "
+          f"bit-exact")
+
+
+def phase_ct(torch, rng, kernels):
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+
+    now = 10_000
+    table, fp, rows = half_full_table(rng, now)
+    # lookups: 40% present forward keys, 20% their reverse (swapped
+    # halves and direction), 40% misses, plus a fingerprint-overflow trap
+    live = rows[rng.integers(0, len(rows), N)]
+    keys = random_keys(rng, N)
+    pick = rng.random(N)
+    fwd = np.where((pick < 0.4)[:, None], live[:, :ct.KEY_WORDS], keys)
+    rev = fwd.copy()
+    rev[:, 0:4], rev[:, 4:8] = fwd[:, 4:8], fwd[:, 0:4]
+    rev[:, 9] ^= 1 << 8
+    swap = (pick >= 0.4) & (pick < 0.6)
+    fwd[swap], rev[swap] = rev[swap], live[swap, :ct.KEY_WORDS]
+    trap = fwd[0]
+    h = int(ct._hash_np(trap[None])[0])
+    for pos in range(ct.N_CAND + 2):
+        s = (h + pos) & (CT_CAPACITY - 1)
+        table[s] = 0
+        table[s, :ct.KEY_WORDS] = trap
+        table[s, ct.V_STATE] = ct.ST_ESTABLISHED
+        table[s, ct.V_EXPIRES] = now - 1 if pos <= ct.N_CAND else now + 9
+    fp = ct.ct_fp_from_table(table)
+    cti = ct.CTTable(table=u32.from_numpy(table, "cuda"),
+                     fp=u32.from_numpy(fp, "cuda"),
+                     dropped=torch.zeros((), dtype=torch.int32,
+                                         device="cuda"))
+    tf, tr = u32.from_numpy(fwd, "cuda"), u32.from_numpy(rev, "cuda")
+    got = ct.ct_lookup(cti, tf, tr, now)
+    want = ct.ct_lookup_plain(cti, tf, tr, now)
+    err = max(max_abs_err(g, w, f"ct_lookup[{i}]")
+              for i, (g, w) in enumerate(zip(got, want)))
+    check(int(got[0][0]) == ct.CT_ESTABLISHED,
+          "ct_lookup: the overflow trap was not found")
+    hits = int((got[0] != ct.CT_NEW).sum())
+    kernels["ct_lookup"].update(
+        max_abs_err=err,
+        ms=device_ms(lambda: ct.ct_lookup(cti, tf, tr, now), 20),
+        plain_ms=device_ms(lambda: ct.ct_lookup_plain(cti, tf, tr, now), 3),
+        bytes=N * (80 + 9) + N * 2 * 64 + hits * 68,
+        ops=N * 2 * (10 * 4 + 12 + 16 * 3))
+    print(f"parity ct_lookup: {N} keys on a {CT_CAPACITY} table "
+          f"({int((table[:, ct.V_STATE] != 0).sum())} live), {hits} hits, "
+          f"bit-exact")
+
+    # ct_update: refreshes (state machine, replies, counters near 2^32),
+    # new flows with duplicate tuples, crowded windows, masked rows
+    res, slot, rep = (t.clone() for t in got)
+    crowd = crowded_keys(rng)
+    n_crowd = min(len(crowd), N // 8)
+    new = np.where((pick >= 0.6)[:, None], keys, fwd)
+    new[-n_crowd:] = crowd[:n_crowd]
+    dup_src = rng.integers(N // 2, N - n_crowd, N // 16)
+    dup_dst = rng.integers(N // 2, N - n_crowd, N // 16)
+    new[dup_dst] = new[dup_src]
+    tn = u32.from_numpy(new, "cuda")
+    res, slot, rep = ct.ct_lookup_plain(cti, tn, tr, now)
+    l4 = np.zeros((N, 3), np.uint32)
+    l4[:, 0] = new[:, 9] & 0xFF
+    l4[:, 1] = rng.choice(np.array([0x10, 0x11, 0x14, 0x02, 0], np.uint32),
+                          N)
+    l4[:, 2] = rng.integers(40, 9000, N)
+    do_create = torch.from_numpy(rng.random(N) < 0.9).cuda()
+    valid = torch.from_numpy(rng.random(N) < 0.97).cuda()
+    proxy = u32.from_numpy(rng.choice(np.array([0, 10000], np.uint32), N),
+                           "cuda")
+    tl4 = u32.from_numpy(l4, "cuda")
+    base = (cti.table.clone(), cti.fp.clone(), cti.dropped.clone())
+    kc = ct.CTTable(*(t.clone() for t in base))
+    pc = ct.CTTable(*(t.clone() for t in base))
+    args = (tl4, tn, res, slot, rep, do_create, proxy, now)
+    ct.ct_update(kc, *args, valid=valid)
+    ct.ct_update_plain(pc, *args, valid=valid)
+    err = max(max_abs_err(kc.table, pc.table, "ct_update table"),
+              max_abs_err(kc.fp, pc.fp, "ct_update fp"),
+              max_abs_err(kc.dropped, pc.dropped, "ct_update dropped"))
+    check(bool((kc.claim == -1).all()),
+          "ct_update left claim words set (they must be -1 between calls)")
+    inserted = int(((pc.table[:, ct.V_STATE] != 0)
+                    & (base[0][:, ct.V_STATE] == 0)).sum())
+    print(f"parity ct_update: {N} rows, {int((res != 0).sum())} hits, "
+          f"{inserted} inserts, {n_crowd} crowded keys, "
+          f"{len(dup_src)} duplicated tuples, dropped "
+          f"{int(pc.dropped)}, bit-exact")
+    kernels["ct_update"]["max_abs_err"] = err
+
+
+def phase_ring(torch, rng, kernels):
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.monitor import ring as rg
+
+    out = rng.integers(0, 1 << 32, (N, 6), dtype=np.uint64).astype(
+        np.uint32)
+    out[:, 5] = rng.choice(np.array([0, 0, 1, 2], np.uint32), N)
+    out[:, 1] = rng.choice(np.array([0, 10000, 10001, 3], np.uint32), N)
+    tout = u32.from_numpy(out, "cuda")
+    valid = torch.from_numpy(rng.random(N) < 0.95).cuda()
+    ports = u32.from_numpy(np.array([10000, 10001], np.uint32), "cuda")
+    err = 0
+    for cap, cursor, ts in ((1 << 15, (0xFFFFFF00, 7), 1024),
+                            (RING_CAPACITY, (0, 0), 0)):
+        rings = [rg.EventRing.create(cap, "cuda") for _ in range(2)]
+        for r in rings:
+            r.cursor.copy_(u32.from_numpy(np.array(cursor, np.uint32),
+                                          "cuda"))
+        rg.ring_append(rings[0], tout, 4097, ts, valid, ports)
+        rg.ring_append_plain(rings[1], tout, 4097, ts, valid, ports)
+        err = max(err, max_abs_err(rings[0].buf, rings[1].buf, "ring buf"),
+                  max_abs_err(rings[0].cursor, rings[1].cursor,
+                              "ring cursor"))
+        got = rg.ring_drain(rings[0], np.array([10000, 10001]))
+        kept = got[1] - cursor[0] - (cursor[1] << 32)
+        print(f"parity ring_append: capacity {cap}, {kept} kept, {got[2]} "
+              f"overwritten, bit-exact")
+    kernels["ring_append"]["max_abs_err"] = err
+
+
+def plain_serve(state, ring, rows, now, batch_id, ep=None, dirn=None,
+                proxy_ports=None, trace_sample=1024, valid=None):
+    """One serving step through the plain versions only (the yardstick
+    path on the card)."""
+    from cilium_tpu_torch.core.packets import unpack_hdr
+    from cilium_tpu_torch.datapath.conntrack import ct_update_plain
+    from cilium_tpu_torch.datapath.verdict import verdict_stage_plain
+    from cilium_tpu_torch.monitor.ring import ring_append_plain
+
+    hdr = rows if ep is None else unpack_hdr(rows, ep, dirn)
+    out, c = verdict_stage_plain(state, hdr, now, valid=valid)
+    ct_update_plain(state.ct, c.l4, c.fwd, c.result, c.slot, c.is_reply,
+                    c.do_create, c.proxy_port, now, valid)
+    if ring is not None:
+        ring_append_plain(ring, out, batch_id, trace_sample, valid,
+                          proxy_ports)
+    return out
+
+
+def warm_up(torch, state, packed, wide):
+    """One untimed serving step, packed and wide, on a scratch CT table
+    and ring beside ``state``: loads every library and kernel module of
+    the main path before a timed window."""
+    import copy
+
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath.conntrack import CTTable
+    from cilium_tpu_torch.monitor.ring import (EventRing, serve_step,
+                                               serve_step_packed)
+
+    s = copy.copy(state)
+    s.ct = CTTable.create(CT_CAPACITY, "cuda")
+    s.metrics = state.metrics.clone()
+    ring = EventRing.create(RING_CAPACITY, "cuda")
+    s, ring = serve_step_packed(s, ring, u32.from_numpy(packed, "cuda"), 1,
+                                0, 0, 0)
+    serve_step(s, ring, u32.from_numpy(wide, "cuda"), 1, 1)
+    torch.cuda.synchronize()
+
+
+def phase_slice(torch, rng, world, kernels, report):
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import pack_rows
+    from cilium_tpu_torch.datapath.loader import TorchLoader
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.monitor.ring import EventRing, ring_drain
+    from cilium_tpu_torch.testing import fixtures as fx
+
+    proxy_np = np.array([10000], np.uint32)
+    pool = fx.steady_flow_pool(world, N, rng)
+    packed_batches = []
+    for b in range(8):
+        hdr = pool if b == 0 else fx.steady_traffic(pool, N, rng)
+        if b == 5:
+            hdr = fx.bench_traffic(world, N, rng)
+        packed_batches.append(pack_rows(hdr))
+    clock = [1000 + b for b in range(6)] + [1000 + 70, 1000 + 71]
+    wpool = fx.wide_flow_pool(world, 1 << 16, rng)
+    wide_batches = [fx.wide_traffic(wpool, N, rng) for _ in range(2)]
+    step_batch = fx.bench_traffic(world, N, rng)
+
+    eps = {0: 0}
+    kl = TorchLoader(ct_capacity=CT_CAPACITY, device="cuda")
+    kl.attach(world.policies, world.ipcache, eps, world.row_map)
+    warm_up(torch, kl.state, packed_batches[0], wide_batches[0])
+    ring = EventRing.create(SLICE_RING_CAPACITY, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    for b, packed in enumerate(packed_batches):
+        ring, _ = kl.serve_packed(ring, packed, clock[b], b, 0, 0,
+                                  proxy_ports=proxy_np)
+    torch.cuda.synchronize()
+    t_packed = time.monotonic() - t0
+    for b, hdr in enumerate(wide_batches):
+        ring, _ = kl.serve(ring, hdr, 1072 + b, 8 + b, proxy_ports=proxy_np)
+    out_step, _ = kl.step(step_batch, 1075)
+    torch.cuda.synchronize()
+    t_all = time.monotonic() - t0
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    n_all = N * (len(packed_batches) + len(wide_batches) + 1)
+    print(f"slice: 10k identities, {len(world.pod_ips6)} v6 pods, CT "
+          f"{CT_CAPACITY}, batches of {N}")
+    print(f"slice verdicts/s: packed {len(packed_batches) * N / t_packed:.0f}"
+          f" (8 serve_packed from host arrays, warmed), all "
+          f"{n_all / t_all:.0f} "
+          f"({n_all} packets in {t_all:.3f} s)")
+    print(f"slice launches: {json.dumps(launches)}")
+    print(f"slice max_memory_allocated: {peak} bytes")
+    report["slice"] = {"packed_verdicts_per_s": len(packed_batches) * N
+                       / t_packed, "verdicts_per_s": n_all / t_all,
+                       "seconds": t_all, "packets": n_all,
+                       "max_memory_allocated": peak, "launches": launches}
+
+    # the same sequence through the plain versions on the card
+    pl = TorchLoader(ct_capacity=CT_CAPACITY, device="cuda")
+    pl.attach(world.policies, world.ipcache, eps, world.row_map)
+    pring = EventRing.create(SLICE_RING_CAPACITY, "cuda")
+    pp = u32.from_numpy(proxy_np, "cuda")
+    for b, packed in enumerate(packed_batches):
+        plain_serve(pl.state, pring, u32.from_numpy(packed, "cuda"),
+                    clock[b], b, 0, 0, proxy_ports=pp)
+    for b, hdr in enumerate(wide_batches):
+        plain_serve(pl.state, pring, u32.from_numpy(hdr, "cuda"), 1072 + b,
+                    8 + b, proxy_ports=pp)
+    out_plain = plain_serve(pl.state, None,
+                            u32.from_numpy(step_batch, "cuda"), 1075, 0)
+    got, want = ring_drain(ring, proxy_np), ring_drain(pring, proxy_np)
+    check(np.array_equal(got[0], want[0]) and got[1:] == want[1:],
+          "slice: ring rows differ from the plain path")
+    check(np.array_equal(out_step, u32.to_numpy(out_plain)),
+          "slice: step out rows differ from the plain path")
+    max_abs_err(kl.state.metrics, pl.state.metrics, "slice metrics")
+    max_abs_err(kl.state.ct.table, pl.state.ct.table, "slice CT table")
+    max_abs_err(kl.state.ct.fp, pl.state.ct.fp, "slice CT fp")
+    max_abs_err(kl.state.ct.dropped, pl.state.ct.dropped, "slice dropped")
+    m = kl.metrics()
+    live = int((kl.state.ct.table[:, 10] != 0).sum())
+    check(got[1] > 0 and m.sum() == n_all, "slice: no events or counts")
+    check(np.isin(out_step[:, 0], [0, 1, 2, 3]).all()
+          and np.isin(out_step[:, 5], [0, 1, 2]).all(),
+          "slice: step verdict/event codes out of range")
+    print(f"slice equals the plain path: {got[1]} events ({got[2]} "
+          f"overwritten), metrics {m.sum(axis=0).tolist()} by direction, "
+          f"{live} CT entries, dropped {int(kl.state.ct.dropped)}")
+    report["slice"].update(events=got[1], ct_live=live,
+                           metrics=m.tolist())
+    for name in ("datapath_packed", "datapath_wide", "ct_update",
+                 "ring_append"):
+        kernels[name]["launches"] = launches[name]
+        check(launches[name] > 0, f"slice: {name} never launched")
+    for name in ("lpm_lookup", "ct_lookup"):
+        kernels[name]["launches"] = launches[name]
+    return kl, packed_batches, wide_batches[-1], clock[-1]
+
+
+def phase_verdict_and_timing(torch, rng, kl, packed_np, wide_np, now,
+                             kernels):
+    """The verdict kernel against its plain version on the slice's
+    state (packed; wide with every channel and audit), then the main
+    path's kernels timed at its shapes."""
+    import copy
+
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import unpack_hdr
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.datapath.verdict import (verdict_stage,
+                                                   verdict_stage_plain)
+    from cilium_tpu_torch.monitor import ring as rg
+
+    def fork(state):
+        s = copy.copy(state)
+        s.metrics = state.metrics.clone()
+        return s
+
+    packed = u32.from_numpy(packed_np, "cuda")
+    wide = wide_np.copy()
+    wide[:64, 14] = rng.choice(np.array([5, 5000, 0xFFFFFFFF], np.uint32),
+                               64)  # forged / unregistered endpoints
+    wide[64:96, 15] = 2
+    wide = u32.from_numpy(wide, "cuda")
+    ch = dict(valid=torch.from_numpy(rng.random(N) < 0.9).cuda(),
+              pre_drop=torch.from_numpy(rng.random(N) < 0.05).cuda(),
+              pre_drop_reason=u32.from_numpy(
+                  np.where(rng.random(N) < 0.05, 6, 0), "cuda"),
+              lb_drop=torch.from_numpy(rng.random(N) < 0.02).cuda())
+    cases = {"datapath_packed": (packed, dict(ep=0, dirn=0), {}),
+             "datapath_wide": (wide, {}, dict(ch, audit=True))}
+    ctins = {}
+    for name, (rows, scal, opts) in cases.items():
+        sk, sp = fork(kl.state), fork(kl.state)
+        out_k, cin_k = verdict_stage(sk, rows, now, **scal, **opts)
+        hdr = unpack_hdr(rows, **scal) if scal else rows
+        out_p, cin_p = verdict_stage_plain(sp, hdr, now, **opts)
+        err = max_abs_err(out_k, out_p, f"{name} out")
+        for f in ("l4", "fwd", "result", "slot", "is_reply", "do_create",
+                  "proxy_port"):
+            err = max(err, max_abs_err(getattr(cin_k, f), getattr(cin_p, f),
+                                       f"{name} {f}"))
+        err = max(err, max_abs_err(sk.metrics, sp.metrics,
+                                   f"{name} metrics"))
+        kernels[name]["max_abs_err"] = err
+        ctins[name] = (out_k, cin_k)
+        hits = int((out_k[:, 2] != 0).sum())
+        n_v6 = int((hdr[:, 13] != 4).sum())
+        row_b = 16 if scal else 64
+        # rows in, out rows written, two fingerprint windows and eight
+        # table gathers a packet, the candidate row of each CT hit, the
+        # v6 TCAM once, the optional channels.  The ct_update hand-off
+        # (fwd key, l4, result, slot, flags, proxy: 66 B a packet) is
+        # left out: it exists only because the port splits the step
+        # that XLA ran as one program
+        kernels[name]["bytes"] = (
+            N * (row_b + 24 + 2 * 64 + 8 * 4)
+            + hits * 68 + kl.state.ipcache.v6_net.numel() * 9
+            + (0 if scal else N * 7))
+        kernels[name]["ops"] = (N * (2 * (10 * 4 + 12 + 16 * 3) + 120)
+                                + n_v6 * kl.state.ipcache.v6_net.shape[0]
+                                * 14)
+        print(f"parity {name}: {N} rows ({n_v6} v6, {hits} CT hits"
+              f"{', every channel + audit' if opts else ''}), bit-exact")
+        s_t = fork(kl.state)  # only its metrics change, by atomic adds
+        kernels[name]["ms"] = device_ms(
+            lambda: verdict_stage(s_t, rows, now, **scal, **opts), 20)
+        kernels[name]["plain_ms"] = device_ms(
+            lambda: verdict_stage_plain(
+                s_t, unpack_hdr(rows, **scal) if scal else rows, now,
+                **opts), 3)
+
+    # ct_update and ring_append at the packed batch's shapes
+    out_k, c = ctins["datapath_packed"]
+    base = kl.state.ct
+
+    def fresh_ct():
+        return ct.CTTable(base.table.clone(), base.fp.clone(),
+                          base.dropped.clone(), torch.full_like(base.claim,
+                                                                -1))
+
+    args = (c.l4, c.fwd, c.result, c.slot, c.is_reply, c.do_create,
+            c.proxy_port, now)
+    kernels["ct_update"]["ms"] = device_ms(
+        lambda w: ct.ct_update(w, *args), 20, fresh_ct)
+    kernels["ct_update"]["plain_ms"] = device_ms(
+        lambda w: ct.ct_update_plain(w, *args), 3, fresh_ct)
+    work = fresh_ct()
+    ct.ct_update_plain(work, *args)
+    # what ct_update must move: per row the words that decide its fate
+    # (result, do_create; no valid mask here), per hit its slot, reply
+    # flag and l4 words, and the 32 B sectors holding state, expiry and
+    # the four counters (words 10-15) of each refreshed slot, read and
+    # written; per pending insert its key, proto, length and proxy port
+    # and its fingerprint window; per new entry its row and fingerprint
+    hit = c.result != 0
+    hs = torch.unique(c.slot[hit]).to(torch.int64)
+    sectors = torch.unique(torch.cat([(hs * 68 + 40) // 32,
+                                      (hs * 68 + 63) // 32])).numel()
+    inserted = int(((work.table[:, 10] != 0)
+                    & (base.table[:, 10] == 0)).sum())
+    pend = int((c.do_create & ~hit).sum())
+    kernels["ct_update"]["bytes"] = (
+        N * (4 + 1) + int(hit.sum()) * (4 + 1 + 12) + sectors * 32 * 2
+        + pend * (40 + 8 + 4 + 64) + inserted * (68 + 4) + 4)
+    kernels["ct_update"]["ops"] = N * 40 + pend * (10 * 4 + 20 * 30)
+    ports = u32.from_numpy(np.array([10000], np.uint32), "cuda")
+    kernels["ring_append"]["ms"] = device_ms(
+        lambda r: rg.ring_append(r, out_k, 7, 1024, None, ports), 20,
+        lambda: rg.EventRing.create(RING_CAPACITY, "cuda"))
+    kernels["ring_append"]["plain_ms"] = device_ms(
+        lambda r: rg.ring_append_plain(r, out_k, 7, 1024, None, ports), 3,
+        lambda: rg.EventRing.create(RING_CAPACITY, "cuda"))
+    kept = int(((out_k[:, 5] != 0)
+                | (torch.arange(N, device="cuda") % 1024 == 0)).sum())
+    kernels["ring_append"]["bytes"] = N * 24 + kept * 8 + 16
+    kernels["ring_append"]["ops"] = N * 30
+
+
+def phase_breakdown(torch, kl, packed_batches, now, report):
+    """Where a serve_packed batch spends its time: the h2d staging alone
+    on the host clock, then a profiled window of steady batches (device
+    kernel time over the window's wall time)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.monitor.ring import EventRing
+
+    staging = []
+    for packed in packed_batches:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        u32.from_numpy(packed, "cuda")
+        torch.cuda.synchronize()
+        staging.append((time.monotonic() - t0) * 1e3)
+    ring = EventRing.create(SLICE_RING_CAPACITY, "cuda")
+    proxy = np.array([10000], np.uint32)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for b, packed in enumerate(packed_batches):
+        kl.serve_packed(ring, packed, now + b, b, 0, 0, proxy_ports=proxy)
+    torch.cuda.synchronize()
+    per_batch = (time.monotonic() - t0) * 1e3 / len(packed_batches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for b, packed in enumerate(packed_batches):
+            kl.serve_packed(ring, packed, now + b, b, 0, 0,
+                            proxy_ports=proxy)
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    # device-side events only: a CPU op's device time repeats its
+    # kernels', and "Activity Buffer Request" is the tracer's own work
+    device = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith("Activity Buffer")
+                and e.self_device_time_total > 0):
+            device[e.key] = e.self_device_time_total
+    busy = sum(device.values())
+    stages = {"h2d copy": ("Memcpy",), "datapath_kernel": ("void datapath",),
+              "ct_update": ("ct_", "Memset"), "ring_append": ("ring_",)}
+    n = len(packed_batches)
+    per_stage = {st: sum(v for k, v in device.items()
+                         if k.startswith(prefixes)) / n / 1e3
+                 for st, prefixes in stages.items()}
+    print(f"breakdown: serve_packed {per_batch:.3f} ms a batch (host "
+          f"clock, {n} steady batches); h2d staging of the packed rows "
+          f"alone {statistics.median(staging):.3f} ms")
+    if busy:
+        print(f"breakdown: profiled window {wall_us / 1e3:.3f} ms, device "
+              f"busy {busy / 1e3:.3f} ms ({busy / wall_us:.1%}), idle "
+              f"{1 - busy / wall_us:.1%}; device ms a batch: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in per_stage.items()))
+    else:
+        print("breakdown: the profiler recorded no device time")
+    report["breakdown"] = {
+        "serve_packed_ms_per_batch": per_batch,
+        "staging_ms": statistics.median(staging),
+        "profiled_wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "device_ms_per_batch_by_stage": per_stage,
+        "device_time_ms_by_name": {k: v / 1e3 for k, v in device.items()}}
+
+
+def main() -> int:
+    if not (ROOT / "cilium_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout (cilium_tpu_torch/ is "
+              "missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    report = {}
+    try:
+        # -- 1. device ----------------------------------------------------
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        kind = torch.cuda.get_device_name(0)
+        print(f"device: {kind}, count {torch.cuda.device_count()}, torch "
+              f"{torch.__version__}, cuda {torch.version.cuda}")
+        report["device"] = {"nvidia_smi": smi, "kind": kind}
+
+        # -- 2. build -----------------------------------------------------
+        from cilium_tpu_torch.kernels import KERNELS
+        from cilium_tpu_torch.kernels import build as kbuild
+
+        t0 = time.monotonic()
+        for name, s in kbuild.build().items():
+            print(f"build {name}.cu: {s:.1f} s")
+        report["build_s"] = time.monotonic() - t0
+        print(f"build: {report['build_s']:.1f} s")
+        report["ptxas"] = {
+            n: (kbuild.BUILD_DIR / f"{n}.log").read_text()
+            for n in kbuild.SOURCES
+            if (kbuild.BUILD_DIR / f"{n}.log").exists()}
+
+        kernels = {
+            name: {"name": name, "route": "cuda",
+                   "source": f"cilium_tpu_torch/csrc/{k.source}.cu",
+                   "replaces": k.replaces, "launches": 0,
+                   "library_ms": None}
+            for name, k in KERNELS.items()}
+
+        # -- 3. kernel parity at full size --------------------------------
+        from cilium_tpu_torch.testing.fixtures import build_world
+
+        rng = np.random.default_rng(20261017)
+        t0 = time.monotonic()
+        world = build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
+                            device="cpu")
+        print(f"world: 10k identities, 64 rules, 256 v6 pods, built in "
+              f"{time.monotonic() - t0:.1f} s")
+        phase_lpm(torch, rng, world, kernels)
+        phase_ct(torch, rng, kernels)
+        phase_ring(torch, rng, kernels)
+
+        # -- 4. the slice at full size ------------------------------------
+        kl, packed_all, wide_np, now = phase_slice(torch, rng, world,
+                                                   kernels, report)
+
+        # -- 5. timings (and the verdict kernel's parity) ------------------
+        phase_verdict_and_timing(torch, rng, kl, packed_all[-1], wide_np,
+                                 now, kernels)
+        phase_breakdown(torch, kl, packed_all[1:5], now, report)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+    on_path, launchers = [], []
+    for name, k in kernels.items():
+        k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"))
+        print(f"kernel {name}: {k['launches']} launches on the main path, "
+              f"{k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "
+              f"{k['bound_ms']:.4f} ms by {k['bound_by']}), max abs err "
+              f"{k['max_abs_err']}")
+        (on_path if k["launches"] else launchers).append(k)
+    report["kernels"] = on_path
+    report["standalone_launchers"] = launchers
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(smi)
+    print(json.dumps({"kernels": on_path}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

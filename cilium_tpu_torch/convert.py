@@ -1,0 +1,91 @@
+"""Carry datapath state across from the JAX package, and back.
+
+The state travels as numpy arrays in nested dicts whose keys are the
+dataclass field names both packages share::
+
+    {"policy":  {"proto_table", "port_class", "class_map", "verdict",
+                 "ep_policy", "auth"},
+     "ipcache": {"l1", "l2", "l3", "v6_net", "v6_mask", "v6_value",
+                 "v6_plen", "default"},
+     "ct":      {"table", "fp", "dropped"},
+     "metrics": array}
+
+Each array keeps the JAX package's dtype (int32 or uint32); here every
+word lands in an int32 tensor as its bit pattern.  A caller holding a
+JAX state flattens it with ``np.asarray`` per leaf; this module never
+sees a JAX object.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+
+from .datapath.conntrack import CTTable
+from .datapath.lpm import DeviceLPM
+from .datapath.verdict import DatapathState, DevicePolicy
+from .device import resolve_device
+from .monitor.ring import EventRing
+from .u32 import from_numpy, to_numpy
+
+# the JAX package's dtype of every leaf (the rest are int32)
+_U32 = {("policy", "auth"), ("ipcache", "v6_net"), ("ipcache", "v6_mask"),
+        ("ct", "table"), ("ct", "fp"), ("ct", "dropped"), ("metrics",)}
+_GROUPS = {"policy": DevicePolicy, "ipcache": DeviceLPM, "ct": CTTable}
+
+
+def _field_names(cls) -> Tuple[str, ...]:
+    return tuple(n for n in cls.__dataclass_fields__ if n != "claim")
+
+
+def datapath_state_from_numpy(arrays: Dict, device=None) -> DatapathState:
+    """Nested dict of numpy arrays (layout in the module doc) -> a
+    :class:`DatapathState` on ``device`` (None: the card)."""
+    device = resolve_device(device)
+    def leaf(a):
+        return from_numpy(a, device)
+
+    parts = {}
+    for group, cls in _GROUPS.items():
+        fields = {}
+        for name in _field_names(cls):
+            if name == "default":
+                fields[name] = int(arrays[group][name])
+            else:
+                fields[name] = leaf(arrays[group][name])
+        parts[group] = cls(**fields)
+    return DatapathState(metrics=leaf(arrays["metrics"]), **parts)
+
+
+def datapath_state_to_numpy(state: DatapathState) -> Dict:
+    """The inverse of :func:`datapath_state_from_numpy`, with the JAX
+    package's dtypes (for comparisons against its state)."""
+    def leaf(key, t):
+        a = to_numpy(t)
+        return a if key in _U32 else a.view(np.int32)
+
+    out: Dict = {}
+    for group, cls in _GROUPS.items():
+        obj = getattr(state, group)
+        out[group] = {
+            name: (obj.default if name == "default"
+                   else leaf((group, name), getattr(obj, name)))
+            for name in _field_names(cls)}
+    out["metrics"] = leaf(("metrics",), state.metrics)
+    return out
+
+
+def event_ring_from_numpy(buf: np.ndarray, cursor: np.ndarray,
+                          device=None) -> EventRing:
+    """JAX ``EventRing`` leaves (u32 ``buf`` [cap, 2], ``cursor`` [2])
+    -> an :class:`EventRing` on ``device`` (None: the card)."""
+    device = resolve_device(device)
+    return EventRing(buf=from_numpy(buf, device),
+                     cursor=from_numpy(cursor, device))
+
+
+def event_ring_to_numpy(ring: EventRing) -> Tuple[np.ndarray, np.ndarray]:
+    """-> (buf [cap, 2] u32, cursor [2] u32)."""
+    return to_numpy(ring.buf), to_numpy(ring.cursor)
+

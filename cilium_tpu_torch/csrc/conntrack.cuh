@@ -1,0 +1,173 @@
+// Conntrack device functions: keys, hash, fingerprint, probes.
+//
+// Replaces: cilium_tpu/datapath/conntrack.py ct_keys_from_headers,
+// _hash, _fp_mix, _probe, _probe_fp, ct_lookup (:132-319).
+// Bound: latency of random reads into a table larger than L2 (2^20 x
+// 68 B rows = 68 MB, fingerprints 4 MB).  A probe reads the 64 B
+// fingerprint window (two sectors), then a full 68 B row only for the
+// few fingerprint matches.
+// Design: one thread per key, everything in registers.  The exact
+// full-window fallback runs PER ROW, for rows whose fingerprint
+// candidates overflowed; JAX's lax.cond reruns the whole batch
+// instead.  The two agree row for row: a live slot's fingerprint is a
+// function of its stored key, so for a row that did not overflow the
+// filtered and the full probe find the same first live match.
+#pragma once
+
+#include "views.cuh"
+
+constexpr int KEY_WORDS = 10;
+constexpr int ROW_WORDS = 17;
+constexpr int N_PROBE = 16;
+constexpr int N_CAND = 4;
+constexpr int N_CAND_INS = 4;
+constexpr int V_STATE = 10;
+constexpr int V_EXPIRES = 11;
+constexpr int V_TX_PKTS = 12;
+constexpr int V_RX_PKTS = 13;
+constexpr int V_TX_BYTES = 14;
+constexpr int V_RX_BYTES = 15;
+constexpr int V_PROXY = 16;
+
+constexpr int32_t CT_NEW = 0;
+constexpr int32_t CT_ESTABLISHED = 1;
+constexpr int32_t CT_REPLY = 2;
+constexpr int32_t CT_RELATED = 3;
+
+constexpr uint32_t ST_FREE = 0;
+constexpr uint32_t ST_SYN_SENT = 1;
+constexpr uint32_t ST_ESTABLISHED = 2;
+constexpr uint32_t ST_CLOSING = 3;
+
+constexpr uint32_t LIFETIME_TCP = 21600;
+constexpr uint32_t LIFETIME_NONTCP = 60;
+constexpr uint32_t LIFETIME_SYN = 60;
+constexpr uint32_t LIFETIME_CLOSE = 10;
+
+constexpr uint32_t FLAG_RELATED = 0x100;
+constexpr uint32_t TCP_FIN = 0x01;
+constexpr uint32_t TCP_RST = 0x04;
+
+// FNV-1a over the key words + murmur3 finalizer (u32 wrapping).
+__device__ __forceinline__ uint32_t ct_hash(const uint32_t k[KEY_WORDS]) {
+  uint32_t h = 0x811C9DC5u;
+#pragma unroll
+  for (int w = 0; w < KEY_WORDS; ++w) h = (h ^ k[w]) * 0x01000193u;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
+// Key hash -> fingerprint byte in 1..255 (0 marks a free slot).
+__device__ __forceinline__ uint32_t ct_fp_mix(uint32_t h) {
+  uint32_t g = h ^ (h >> 16);
+  g *= 0x85EBCA6Bu;
+  g ^= g >> 13;
+  g *= 0xC2B2AE35u;
+  return (g >> 24) % 255u + 1u;
+}
+
+// Forward and reverse keys of one header (see ct_keys_from_headers):
+// word 9 = proto | dir << 8; ICMP zeroes the ports; a RELATED row's
+// reverse key keeps the embedded tuple and flips only the direction.
+__device__ __forceinline__ void ct_keys(const uint32_t src[4],
+                                        const uint32_t dst[4],
+                                        uint32_t sport, uint32_t dport,
+                                        uint32_t proto, uint32_t flags,
+                                        uint32_t dirn,
+                                        uint32_t fwd[KEY_WORDS],
+                                        uint32_t rev[KEY_WORDS]) {
+  bool portless = proto == 1 || proto == 58;
+  uint32_t sp = portless ? 0u : sport, dp = portless ? 0u : dport;
+  uint32_t fports = (sp << 16) | dp, rports = (dp << 16) | sp;
+  uint32_t fpd = proto | (dirn << 8), rpd = proto | ((1u - dirn) << 8);
+  bool related = (flags & FLAG_RELATED) != 0;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    fwd[w] = src[w];
+    fwd[4 + w] = dst[w];
+    rev[w] = related ? src[w] : dst[w];
+    rev[4 + w] = related ? dst[w] : src[w];
+  }
+  fwd[8] = fports;
+  fwd[9] = fpd;
+  rev[8] = related ? fports : rports;
+  rev[9] = rpd;
+}
+
+__device__ __forceinline__ bool ct_live_match(const uint32_t* row,
+                                              const uint32_t k[KEY_WORDS],
+                                              uint32_t now) {
+  if (row[V_STATE] == ST_FREE || row[V_EXPIRES] < now) return false;
+#pragma unroll
+  for (int w = 0; w < KEY_WORDS; ++w)
+    if (row[w] != k[w]) return false;
+  return true;
+}
+
+// Exact probe: the first live match in the whole window.
+__device__ __forceinline__ bool ct_probe_full(const CtView& ct,
+                                              const uint32_t k[KEY_WORDS],
+                                              uint32_t h, uint32_t now,
+                                              int32_t* slot) {
+  uint32_t mask = (uint32_t)ct.capacity - 1u;
+  for (int step = 0; step < N_PROBE; ++step) {
+    uint32_t s = (h + (uint32_t)step) & mask;
+    if (ct_live_match(ct.table + (size_t)s * ROW_WORDS, k, now)) {
+      *slot = (int32_t)s;
+      return true;
+    }
+  }
+  *slot = 0;
+  return false;
+}
+
+// Fingerprint-filtered probe: full rows for the first N_CAND
+// fingerprint matches only.  A miss with more than N_CAND matches sets
+// *overflow (the entry could hide past the candidate budget).
+__device__ __forceinline__ bool ct_probe_fp(const CtView& ct,
+                                            const uint32_t k[KEY_WORDS],
+                                            uint32_t h, uint32_t now,
+                                            int32_t* slot, bool* overflow) {
+  uint32_t mask = (uint32_t)ct.capacity - 1u;
+  uint32_t kfp = ct_fp_mix(h);
+  int matches = 0;
+  for (int step = 0; step < N_PROBE; ++step) {
+    uint32_t s = (h + (uint32_t)step) & mask;
+    if (ct.fp[s] != kfp) continue;
+    if (matches < N_CAND &&
+        ct_live_match(ct.table + (size_t)s * ROW_WORDS, k, now)) {
+      *slot = (int32_t)s;
+      *overflow = false;
+      return true;
+    }
+    ++matches;
+  }
+  *slot = 0;
+  *overflow = matches > N_CAND;
+  return false;
+}
+
+// ct_lookup for one row: -> result (CT_*), slot, is_reply.
+__device__ __forceinline__ void ct_lookup_row(const CtView& ct,
+                                              const uint32_t fwd[KEY_WORDS],
+                                              const uint32_t rev[KEY_WORDS],
+                                              uint32_t now, int32_t* result,
+                                              int32_t* slot,
+                                              bool* is_reply) {
+  uint32_t hf = ct_hash(fwd), hr = ct_hash(rev);
+  int32_t fs, rs;
+  bool fo, ro;
+  bool ff = ct_probe_fp(ct, fwd, hf, now, &fs, &fo);
+  bool rf = ct_probe_fp(ct, rev, hr, now, &rs, &ro);
+  if (fo || ro) {
+    ff = ct_probe_full(ct, fwd, hf, now, &fs);
+    rf = ct_probe_full(ct, rev, hr, now, &rs);
+  }
+  bool rep = !ff && rf;
+  *slot = ff ? fs : rs;
+  *result = ff ? CT_ESTABLISHED : (rep ? CT_REPLY : CT_NEW);
+  *is_reply = rep;
+}

@@ -1,0 +1,150 @@
+// K5: ring_append, event compaction into the device ring.
+//
+// Replaces: cilium_tpu/monitor/ring.py ring_append (:100-164).
+// Bound: bytes.  It reads the 24 B out row of every packet (the event
+// word decides) and writes 8 B per kept event, a few percent of the
+// batch; the cross-block prefix sum adds two more launches.
+// Design: the exclusive prefix sum is written out as three kernels:
+// (1) each block of 1024 rows counts its kept rows, (2) one block scans
+// the block counts, fixes the batch's base slot from the cursor and
+// carries the 64-bit cursor (lo, hi) on the device, (3) each block
+// rescans its rows with warp shuffles and writes its kept rows at
+// base + block offset + rank.  Newest-wins when one batch keeps more
+// than the ring holds: only the last `capacity` kept rows write, so no
+// two rows share a slot.  The proxy port's listener index is the first
+// match in the table, like the reference's argmax.
+#include "views.cuh"
+
+constexpr int RING_TPB = 1024;
+constexpr int N_OUT = 6;
+constexpr int OUT_VERDICT = 0, OUT_PROXY = 1, OUT_CT = 2, OUT_ID_ROW = 3,
+              OUT_REASON = 4, OUT_EVENT = 5;
+constexpr uint32_t EV_TRACE = 0;
+
+struct RingIO {
+  const uint32_t* out;          // [n, 6]
+  const bool* valid;            // [n] or null
+  const uint32_t* proxy_ports;  // [n_proxy] or null
+  uint32_t* buf;                // [capacity, 2]
+  uint32_t* cursor;             // [2] lo, hi
+  uint32_t* block_counts;       // [n_blocks] scratch
+  uint32_t* meta;               // [2] scratch: base lo, kept count
+  int32_t n;
+  int32_t n_proxy;
+  int32_t capacity;
+  uint32_t trace_sample;
+  uint32_t batch_id;
+  int32_t pad;
+};
+
+__device__ __forceinline__ bool ring_keep(const RingIO& io, int32_t i) {
+  if (i >= io.n) return false;
+  bool keep = io.out[(size_t)i * N_OUT + OUT_EVENT] != EV_TRACE;
+  if (io.trace_sample) keep |= ((uint32_t)i % io.trace_sample) == 0;
+  if (io.valid) keep &= io.valid[i];
+  return keep;
+}
+
+// Exclusive scan of one value per thread over a block of RING_TPB
+// threads; returns the thread's prefix and sets *total.
+__device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v,
+                                                         uint32_t* total) {
+  __shared__ uint32_t warp_sums[RING_TPB / 32];
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    uint32_t y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t s = warp_sums[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      uint32_t y = __shfl_up_sync(0xFFFFFFFFu, s, o);
+      if (lane >= o) s += y;
+    }
+    warp_sums[lane] = s;  // inclusive over warps
+  }
+  __syncthreads();
+  uint32_t before = warp == 0 ? 0 : warp_sums[warp - 1];
+  *total = warp_sums[RING_TPB / 32 - 1];
+  __syncthreads();  // warp_sums is reused by the caller's next scan
+  return before + x - v;
+}
+
+__global__ void __launch_bounds__(RING_TPB) ring_count(RingIO io) {
+  int32_t i = blockIdx.x * RING_TPB + threadIdx.x;
+  uint32_t total;
+  block_exclusive_scan(ring_keep(io, i) ? 1u : 0u, &total);
+  if (threadIdx.x == 0) io.block_counts[blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(RING_TPB) ring_scan_blocks(RingIO io,
+                                                             int32_t n_blocks) {
+  uint32_t running = 0;
+  for (int32_t base = 0; base < n_blocks; base += RING_TPB) {
+    int32_t b = base + threadIdx.x;
+    uint32_t v = b < n_blocks ? io.block_counts[b] : 0u, total;
+    uint32_t pre = block_exclusive_scan(v, &total);
+    if (b < n_blocks) io.block_counts[b] = running + pre;  // now offsets
+    running += total;
+  }
+  if (threadIdx.x == 0) {
+    uint32_t lo = io.cursor[0], hi = io.cursor[1];
+    uint32_t new_lo = lo + running;
+    io.meta[0] = lo;
+    io.meta[1] = running;
+    io.cursor[0] = new_lo;
+    io.cursor[1] = hi + (new_lo < lo ? 1u : 0u);  // carry
+  }
+}
+
+__global__ void __launch_bounds__(RING_TPB) ring_write(RingIO io) {
+  int32_t i = blockIdx.x * RING_TPB + threadIdx.x;
+  bool keep = ring_keep(io, i);
+  uint32_t total;
+  uint32_t rank = block_exclusive_scan(keep ? 1u : 0u, &total);
+  if (!keep) return;
+  uint32_t pos = io.block_counts[blockIdx.x] + rank;
+  uint32_t lo = io.meta[0], count = io.meta[1];
+  uint32_t cap = (uint32_t)io.capacity;
+  if (pos + cap < count) return;  // older than the newest `capacity`
+  const uint32_t* o = io.out + (size_t)i * N_OUT;
+  uint32_t port = o[OUT_PROXY], pidx = 0;
+  if (port != 0) {
+    for (int32_t k = 0; k < io.n_proxy; ++k) {
+      if (io.proxy_ports[k] == port) {
+        pidx = (uint32_t)k + 1;
+        break;
+      }
+    }
+  }
+  uint32_t w0 = (o[OUT_VERDICT] & 0x7) | ((o[OUT_EVENT] & 0x3) << 3) |
+                ((o[OUT_REASON] & 0xF) << 5) | ((o[OUT_CT] & 0x7) << 9) |
+                (pidx << 12) | ((o[OUT_ID_ROW] & 0xFFFF) << 16);
+  uint32_t w1 = (uint32_t)i | ((io.batch_id & 0x1FFF) << 19);
+  uint32_t slot = (lo + pos) & (cap - 1);
+  io.buf[(size_t)slot * 2] = w0;
+  io.buf[(size_t)slot * 2 + 1] = w1;
+}
+
+extern "C" int ring_append_launch(const RingIO* iop, cudaStream_t stream) {
+  const RingIO io = *iop;
+  int32_t n_blocks = (io.n + RING_TPB - 1) / RING_TPB;
+  if (n_blocks > 0) {
+    ring_count<<<n_blocks, RING_TPB, 0, stream>>>(io);
+  }
+  // the cursor carry runs even for an empty batch, like the reference
+  ring_scan_blocks<<<1, RING_TPB, 0, stream>>>(io, n_blocks);
+  if (n_blocks > 0) {
+    ring_write<<<n_blocks, RING_TPB, 0, stream>>>(io);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" size_t ring_abi_size(int which) {
+  return which == 0 ? sizeof(RingIO) : 0;
+}
