@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving step on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's serving step and serving daemon on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,7 +13,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    version on the same CUDA tensors, bit-exact (every output is an
    integer): LPM over 2^18 v4+v6 addresses, a CT lookup and a
    ct_update on a 2^20 table filled to about half (duplicate tuples,
-   window contention, counters near 2^32), ring_append with overflow;
+   window contention, counters near 2^32), ring_append with overflow,
+   the CT aging sweep and occupancy count on a half-full 2^20 table
+   whose expiries straddle 2^31 and ``now``, and ring_gather on lapped
+   and unlapped 2^18 rings at several rungs;
 4. the slice at full size: the 10k-identity world (BASELINE.md config
    #3), ``TorchLoader(device="cuda")`` through 8 ``serve_packed``
    batches of 2^18, 2 wide ``serve`` batches with IPv6 and ICMP errors
@@ -23,10 +27,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 5. timings: each kernel's device time at the main path's shapes (calls
    run back to back behind a spin kernel, so no host enqueue falls in
    the window) beside its plain version's and its bound; then where a
-   steady ``serve_packed`` batch spends its time (torch.profiler).
+   steady ``serve_packed`` batch spends its time (torch.profiler), and
+   what staging a batch costs from pinned memory;
+6. the superbatch: one ``serve_superbatch`` of K = 4 packed steps of
+   2^16 (the last all-false) against four sequential ``serve_packed``
+   calls: ring rows, cursor, metrics, CT table and drop count equal;
+7. the daemon at full width: BASELINE.md config #3 built through the
+   ``Daemon`` API (10k identities and their /32s, the world's rules
+   without its L7 rule, the ``db`` endpoint), ``start()``, then
+   ``start_serving(ingress=True, packed=True, superbatch_k=4)``; a
+   producer thread submits 2^21 packets of steady traffic and
+   ``stop_serving()`` returns the ledger, which must be exact, with no
+   event lost; the per-reason metrics must equal those of the same rows
+   through ``TorchLoader.serve_packed`` in fixed batches; the ct-gc and
+   map-pressure controllers must have run.
 
-The line before the last is one JSON object describing every kernel of
-the main path; the last line is the device record.  Details go to
+The kernel launch counts are read per path (the slice of phase 4, the
+daemon of phase 7), each zeroed just before its path runs.  The line
+before the last is one JSON object describing every kernel of the main
+paths; the last line is the device record.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -345,6 +364,501 @@ def phase_ring(torch, rng, kernels):
     kernels["ring_append"]["max_abs_err"] = err
 
 
+def phase_maint(torch, rng, kernels):
+    """The CT aging sweep and the occupancy count against their plain
+    versions on a half-full 2^20 table whose expiries straddle 2^31 and
+    ``now`` (an unsigned compare: a signed one gets them wrong)."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.datapath.loader import (_ct_occupied,
+                                                  _ct_occupied_plain)
+
+    now = (1 << 31) + 1000
+    table, fp, _rows = half_full_table(rng, now)
+    live = table[:, ct.V_STATE] != ct.ST_FREE
+    edges = np.array([(1 << 31) - 1, 1 << 31, (1 << 31) + 1, now - 1, now,
+                      now + 1, 0xFFFFFFFF, 5, now + 100], np.uint32)
+    table[live, ct.V_EXPIRES] = rng.choice(edges, int(live.sum()))
+    expired = int((live & (table[:, ct.V_EXPIRES] < now)).sum())
+    base = ct.CTTable(table=u32.from_numpy(table, "cuda"),
+                      fp=u32.from_numpy(fp, "cuda"),
+                      dropped=torch.zeros((), dtype=torch.int32,
+                                          device="cuda"))
+
+    def fresh():
+        return ct.CTTable(base.table.clone(), base.fp.clone(),
+                          base.dropped.clone())
+
+    occ_k = int(_ct_occupied(base.fp).sum())
+    occ_p = int(_ct_occupied_plain(base.fp))
+    check(occ_k == occ_p == int((fp != 0).sum()),
+          f"ct_occupied: kernel {occ_k}, plain {occ_p}, host "
+          f"{int((fp != 0).sum())}")
+    kc, pc = fresh(), fresh()
+    n_k = int(ct.ct_gc(kc, now).sum())
+    n_p = int(ct.ct_gc_plain(pc, now))
+    check(n_k == n_p == expired, f"ct_gc: kernel evicted {n_k}, plain "
+          f"{n_p}, host {expired}")
+    err = max(max_abs_err(kc.table, pc.table, "ct_gc table"),
+              max_abs_err(kc.fp, pc.fp, "ct_gc fp"),
+              max_abs_err(kc.dropped, pc.dropped, "ct_gc dropped"))
+    kernels["ct_gc"]["max_abs_err"] = err
+    kernels["ct_occupied"]["max_abs_err"] = abs(occ_k - occ_p)
+    print(f"parity ct_gc: {CT_CAPACITY} slots, {int(live.sum())} live, "
+          f"{expired} expired at now={now}, bit-exact")
+    print(f"parity ct_occupied: {occ_k} occupied of {CT_CAPACITY}, "
+          f"bit-exact")
+    kernels["ct_gc"].update(
+        ms=device_ms(lambda w: ct.ct_gc(w, now), 20, fresh),
+        plain_ms=device_ms(lambda w: ct.ct_gc_plain(w, now), 3, fresh),
+        # every slot's state word, each live slot's expiry, and the
+        # state and fingerprint of each expired slot written back
+        bytes=CT_CAPACITY * 4 + int(live.sum()) * 4 + expired * 8 + 4,
+        ops=CT_CAPACITY * 4)
+    kernels["ct_occupied"].update(
+        ms=device_ms(lambda: _ct_occupied(base.fp), 20),
+        plain_ms=device_ms(lambda: _ct_occupied_plain(base.fp), 3),
+        library_ms=device_ms(lambda: torch.count_nonzero(base.fp), 20),
+        bytes=CT_CAPACITY * 4 + 4, ops=CT_CAPACITY * 2)
+
+
+def random_ring_words(rng, n, empty_frac=0.03):
+    """Event-ring words: real event rows with some EMPTY slots."""
+    import numpy as np
+
+    w = rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64).astype(np.uint32)
+    w[:, 0] &= ~np.uint32(0x18)
+    w[rng.random(n) < empty_frac] = 0xFFFFFFFF
+    return w
+
+
+def phase_gather(torch, rng, kernels):
+    """ring_gather against its plain version on lapped and unlapped
+    2^18 rings at several rungs; then windows through the card's drainer
+    (gather or full copy, pinned copy, event) against the CPU drainer."""
+    import numpy as np
+    from cilium_tpu_torch import convert, u32
+    from cilium_tpu_torch.monitor import ring as rg
+
+    cap = RING_CAPACITY
+    words = random_ring_words(rng, cap)
+    buf = u32.from_numpy(words, "cuda")
+    err = 0
+    for start in (0, int(rng.integers(1, cap))):
+        for rung in (64, 1 << 12, 1 << 16, cap):
+            got = rg.ring_gather(buf, [start], rung, cap)
+            want = rg.ring_gather_plain(buf, [start], rung, cap)
+            err = max(err, max_abs_err(got, want,
+                                       f"ring_gather start {start} rung "
+                                       f"{rung}"))
+    kernels["ring_gather"]["max_abs_err"] = err
+    print(f"parity ring_gather: {cap} slots, unlapped and lapped, rungs "
+          f"64 .. {cap}, bit-exact")
+    for total, gather in ((100_000, True), (3 * cap + 12345, True),
+                          (100_000, False)):
+        cur = np.array([total & 0xFFFFFFFF, total >> 32], np.uint32)
+        w = words.copy()
+        if total < cap:
+            w[total:] = 0xFFFFFFFF
+        results = []
+        for dev in ("cuda", "cpu"):
+            d = rg.AsyncRingDrainer(cap, gather=gather, device=dev)
+            win, _fresh = d.swap_window(
+                convert.event_ring_from_numpy(w, cur, dev))
+            rows, _shards, appended, lost = win.fetch()
+            results.append((win.rung, win.d2h_bytes, appended, lost, rows))
+        (rk, bk, ak, lk, rows_k), (rp, bp, ap, lp, rows_p) = results
+        check((rk, bk, ak, lk) == (rp, bp, ap, lp)
+              and np.array_equal(rows_k, rows_p),
+              f"drainer window of {total}: card and CPU differ")
+        print(f"parity drain window ({'gather' if gather else 'full copy'}"
+              f"): {total} appended, rung {rk}, "
+              f"{bk} bytes to the host, {len(rows_k)} rows, lost {lk}, "
+              f"equal to the CPU drainer")
+
+
+def time_gather(torch, rng, kernels, rung):
+    """ring_gather's times at the rung the daemon's windows used."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.monitor import ring as rg
+
+    cap = RING_CAPACITY
+    buf = u32.from_numpy(random_ring_words(rng, cap), "cuda")
+    start = [int(rng.integers(0, cap))]
+    kernels["ring_gather"].update(
+        ms=device_ms(lambda: rg.ring_gather(buf, start, rung, cap), 20),
+        plain_ms=device_ms(
+            lambda: rg.ring_gather_plain(buf, start, rung, cap), 3),
+        bytes=rung * 8 * 2, ops=rung * 4, rung=rung)
+    print(f"timing ring_gather at rung {rung}")
+
+
+def phase_superbatch(torch, rng, world, report):
+    """One packed superbatch (K = 4 steps of 2^16, the third partly
+    masked, the last all-false) against four sequential serve_packed
+    calls with the same batch ids, both through the kernels."""
+    import numpy as np
+    from cilium_tpu_torch.core.packets import pack_rows
+    from cilium_tpu_torch.datapath.loader import TorchLoader
+    from cilium_tpu_torch.monitor.ring import EventRing, ring_drain
+    from cilium_tpu_torch.testing import fixtures as fx
+
+    k_steps, bucket = 4, 1 << 16
+    pool = fx.steady_flow_pool(world, bucket, rng)
+    steps = [pool] + [fx.steady_traffic(pool, bucket, rng)
+                      for _ in range(k_steps - 1)]
+    packed = np.stack([pack_rows(h) for h in steps])
+    valid = np.ones((k_steps, bucket), bool)
+    valid[k_steps - 2] = rng.random(bucket) < 0.9
+    valid[k_steps - 1] = False
+    zeros = np.zeros(k_steps, np.uint32)
+    proxy = np.array([10000], np.uint32)
+    loaders = [TorchLoader(ct_capacity=CT_CAPACITY, device="cuda")
+               for _ in range(2)]
+    rings = [EventRing.create(RING_CAPACITY, "cuda") for _ in range(2)]
+    for l in loaders:
+        l.attach(world.policies, world.ipcache, {0: 0}, world.row_map)
+    rings[0], _ = loaders[0].serve_superbatch(
+        rings[0], packed, 2000, 8190, eps=zeros, dirns=zeros, valid=valid,
+        proxy_ports=proxy, packed=True)
+    for k in range(k_steps):
+        rings[1], _ = loaders[1].serve_packed(
+            rings[1], packed[k], 2000, 8190 + k, 0, 0, valid=valid[k],
+            proxy_ports=proxy)
+    torch.cuda.synchronize()
+    max_abs_err(rings[0].buf, rings[1].buf, "superbatch ring buf")
+    max_abs_err(rings[0].cursor, rings[1].cursor, "superbatch cursor")
+    for a, b, what in ((loaders[0].state.metrics, loaders[1].state.metrics,
+                        "metrics"),
+                       (loaders[0].state.ct.table, loaders[1].state.ct.table,
+                        "CT table"),
+                       (loaders[0].state.ct.fp, loaders[1].state.ct.fp,
+                        "CT fp"),
+                       (loaders[0].state.ct.dropped,
+                        loaders[1].state.ct.dropped, "dropped")):
+        max_abs_err(a, b, f"superbatch {what}")
+    rows, total, lost = ring_drain(rings[0], proxy)
+    batches = set(np.unique(rows[:, -1]).tolist())
+    check(total > 0 and (8190 + k_steps - 1) & 0x1FFF not in batches,
+          f"superbatch: events {total}, batch ids {sorted(batches)}")
+    print(f"superbatch: K={k_steps} x {bucket} packed (last step "
+          f"all-false) equals 4 serve_packed: {total} events, lost {lost}, "
+          f"metrics {loaders[0].metrics().sum(axis=0).tolist()}")
+    report["superbatch"] = {"events": total, "k": k_steps,
+                            "bucket": bucket}
+
+
+class StageClock:
+    """Host-clock times of the serving stages inside a daemon session,
+    on the daemon's own threads: each stage's callable is replaced on
+    its owner by a wrapper that records every call's wall time (a
+    ``perf_counter`` pair and a list append, ~1 us a call).  The
+    stages overlap across threads (producer, drain loop, event worker),
+    so each thread's share of the session is read on its own."""
+
+    # stage -> the thread that runs it
+    THREADS = {"submit: queue copy in": "producer",
+               "batcher: dequeue + eligibility + pack": "drain",
+               "dispatch: serve_superbatch / serve_batch, all": "drain",
+               "loader: staging copy + K steps enqueued": "drain",
+               "drain tick: cursor read (waits for the card), K6 gather, "
+               "copy start": "drain",
+               "event join, all": "worker",
+               "event join: unpack + decode_ring_rows + publish": "worker"}
+
+    def __init__(self):
+        import threading
+
+        self.times = {name: [] for name in self.THREADS}
+        self._depth = threading.local()
+
+    def wrap(self, owner, attr, name, skip_none=False):
+        """Replace ``owner.attr`` by a timed wrapper.  A call made
+        inside another call of the same stage (the batcher's K-batch
+        assembly falls back to the single one) counts once, in the
+        outer call; with ``skip_none`` a call that returns None (an
+        idle poll of the batcher) is not recorded."""
+        fn = getattr(owner, attr)
+        times, depth = self.times[name], self._depth
+
+        def timed(*args, **kwargs):
+            outer = not getattr(depth, name, 0)
+            setattr(depth, name, getattr(depth, name, 0) + 1)
+            t0 = time.perf_counter()
+            r = None
+            try:
+                r = fn(*args, **kwargs)
+                return r
+            finally:
+                setattr(depth, name, getattr(depth, name) - 1)
+                if outer and not (skip_none and r is None):
+                    times.append((time.perf_counter() - t0) * 1e3)
+
+        setattr(owner, attr, timed)
+
+    def before_start(self, d):
+        """Wrap what start_serving hands to its threads as bound
+        methods (the worker's join) and what the daemon reaches through
+        itself or its loader."""
+        self.wrap(d, "submit", "submit: queue copy in")
+        for attr in ("serve_superbatch", "serve_batch"):
+            self.wrap(d, attr,
+                      "dispatch: serve_superbatch / serve_batch, all")
+        for attr in ("serve_superbatch", "serve_packed"):
+            self.wrap(d.loader, attr,
+                      "loader: staging copy + K steps enqueued")
+        self.wrap(d, "_event_join", "event join, all")
+        self.wrap(d, "_emit_ring_rows",
+                  "event join: unpack + decode_ring_rows + publish")
+
+    def after_start(self, d):
+        """Wrap the session's batcher and drainer, which start_serving
+        builds (before the first submit, so no call escapes)."""
+        s = d._serving
+        for attr in ("assemble_super", "assemble"):
+            self.wrap(s["runtime"].batcher, attr,
+                      "batcher: dequeue + eligibility + pack",
+                      skip_none=True)
+        self.wrap(s["drainer"], "swap_window",
+                  "drain tick: cursor read (waits for the card), K6 "
+                  "gather, copy start")
+
+    def unwrap(self, d):
+        for owner, attrs in ((d, ("submit", "serve_superbatch",
+                                  "serve_batch", "_event_join",
+                                  "_emit_ring_rows")),
+                             (d.loader, ("serve_superbatch",
+                                         "serve_packed"))):
+            for attr in attrs:
+                delattr(owner, attr)
+
+    def summary(self, seconds):
+        out = {}
+        for name, v in self.times.items():
+            out[name] = {"thread": self.THREADS[name], "calls": len(v),
+                         "median_ms": statistics.median(v) if v else None,
+                         "total_ms": sum(v),
+                         "share": sum(v) / 1e3 / seconds}
+        return out
+
+
+def strip_l7(rules):
+    """The world's rules without their L7 (HTTP) port rules, which the
+    port's daemon does not enforce yet."""
+    out = []
+    for r in rules:
+        r = dict(r)
+        for key in ("ingress", "egress"):
+            if key in r:
+                r[key] = [e for e in r[key]
+                          if not any("rules" in p for p in
+                                     e.get("toPorts", []))]
+        out.append(r)
+    return out
+
+
+def phase_daemon(torch, rng, world, report):
+    """BASELINE.md config #3 through the daemon's own API, served
+    through its ingress front end; returns (launches, rung)."""
+    import threading
+
+    import numpy as np
+    from cilium_tpu_torch.agent import Daemon, DaemonConfig
+    from cilium_tpu_torch.core.packets import (COL_DST_IP3, COL_EP,
+                                               ip_to_words, pack_rows)
+    from cilium_tpu_torch.datapath.loader import TorchLoader
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.labels import LabelSet
+    from cilium_tpu_torch.monitor.ring import EventRing, _gather_rung
+    from cilium_tpu_torch.testing import fixtures as fx
+
+    db_ip = "10.0.0.5"
+    cfg = DaemonConfig(ct_capacity=CT_CAPACITY, serving_packed_ingest=True,
+                       serving_superbatch_k=4,
+                       serving_queue_depth=1 << 19, ct_gc_interval=0.5,
+                       map_pressure_interval=0.5)
+    t0 = time.monotonic()
+    d = Daemon(cfg)
+    # the remote identities and their /32s, all before start() and
+    # before any endpoint: the allocator hook only clears the cache
+    for i, ip in enumerate(world.pod_ips):
+        ident = d.allocator.allocate(
+            LabelSet.parse(f"k8s:app=svc{i}", "k8s:ns=default"))
+        d.ipcache.upsert(ip + "/32", ident.numeric_id, source="k8s")
+    d.policy_import(strip_l7(fx.world_rules(len(world.pod_ips), 64)))
+    db = d.add_endpoint("db", (db_ip,), ["k8s:app=db"])
+    t_build = time.monotonic() - t0
+    print(f"daemon: {len(world.pod_ips)} identities, "
+          f"{d.endpoints.regenerations} regenerations, built through the "
+          f"API in {t_build:.1f} s")
+
+    bucket = d.config.serving_bucket_ladder[-1]
+    per = (1 << 21) // 8  # a pool of SYNs, then 7 steady draws from it
+    pool = fx.steady_flow_pool(world, per, rng)
+    rows = np.concatenate([pool] + [fx.steady_traffic(pool, per, rng)
+                                    for _ in range(7)])
+    rows[:, COL_EP] = db.id
+    rows[:, COL_DST_IP3] = ip_to_words(db_ip)[3]
+    chunk = 4 * bucket
+    depth = d.config.serving_queue_depth
+
+    def serve(rows, clock=None):
+        """One serving session: a producer thread submits ``rows`` in
+        chunks of four top buckets, holding back while the rows
+        admitted but not yet verdicted would leave no room for a chunk
+        (a closed loop: nothing sheds), then stop_serving().  A
+        :class:`StageClock` times the stages on the daemon's threads.
+        Returns (stop_serving's result, seconds from the first
+        submit)."""
+        if clock is not None:
+            clock.before_start(d)
+        d.start_serving(ring_capacity=RING_CAPACITY, ingress=True,
+                        packed=True, superbatch_k=4)
+        if clock is not None:
+            clock.after_start(d)
+
+        def produce():
+            off = 0
+            while off < len(rows):
+                st = d.serving_stats()
+                if st["admitted"] - st["verdicts"] > depth - chunk:
+                    time.sleep(0.0002)
+                    continue
+                off += d.submit(rows[off:off + chunk])
+
+        t0 = time.monotonic()
+        producer = threading.Thread(target=produce, name="smoke-producer")
+        producer.start()
+        producer.join(timeout=600)
+        check(not producer.is_alive(), "daemon: the producer did not finish")
+        out = d.stop_serving()
+        if clock is not None:
+            clock.unwrap(d)
+        return out, time.monotonic() - t0
+
+    reset_launch_counts()
+    d.start()
+    out, t_serve = serve(rows)
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    fe = out["front-end"]
+    ft = fe["fault-tolerance"]
+    check(fe["submitted"] == fe["verdicts"] + fe["shed"]
+          + ft["recovery-dropped"], f"daemon: ledger broken: {fe}")
+    check(fe["verdicts"] == len(rows) and ft["recovery-dropped"] == 0,
+          f"daemon: {fe['verdicts']} verdicts of {len(rows)}")
+    check(out["lost"] == 0 and out["events"] > 0,
+          f"daemon: {out['events']} events, {out['lost']} lost")
+    for name in ("datapath_packed", "ct_update", "ring_append",
+                 "ring_gather", "ct_gc", "ct_occupied"):
+        check(launches[name] > 0, f"daemon: {name} never launched")
+    # the controllers (they run at start() and every 0.5 s)
+    st = d.controllers.statuses()
+    check(st["ct-gc"].success_count >= 1
+          and st["map-pressure"].success_count >= 1
+          and d.pressure.last is not None,
+          f"daemon: controllers did not run: {st}")
+    sample = d.pressure.last
+    print(f"daemon ledger: submitted {fe['submitted']} = verdicts "
+          f"{fe['verdicts']} + shed {fe['shed']} + recovery-dropped "
+          f"{ft['recovery-dropped']}")
+    print(f"daemon events: {out['windows']} windows, {out['events']} "
+          f"events, lost {out['lost']}; dispatches "
+          f"{fe['dispatch']['dispatches']} for {fe['batches']} batches "
+          f"({fe['dispatch']['superbatches']} superbatches)")
+    print(f"daemon verdicts/s: {len(rows) / t_serve:.0f} ({len(rows)} "
+          f"packets submit -> stop_serving in {t_serve:.3f} s, host clock)")
+    print(f"daemon launches: {json.dumps(launches)}")
+    print(f"daemon controllers: ct-gc ran {st['ct-gc'].success_count} "
+          f"times (evicted {d.ct_gc_evicted}), map-pressure "
+          f"{st['map-pressure'].success_count} times; "
+          f"last sample ct {sample['ct']}, lpm {sample['lpm']}, policy "
+          f"{sample['policy']}")
+
+    # the same rows through TorchLoader.serve_packed in fixed batches,
+    # on the tables the daemon compiled (forward-only traffic: the
+    # per-reason counts do not depend on batch boundaries)
+    m_daemon = d.loader.metrics()
+    fl = TorchLoader(ct_capacity=CT_CAPACITY)
+    fl.attach([d.repo.resolve(LabelSet.parse("k8s:app=db"))],
+              d.ipcache.to_identity_map(), {db.id: 0}, d.endpoints.row_map)
+    fring = EventRing.create(RING_CAPACITY)
+    for b in range(0, len(rows), per):
+        fring, _ = fl.serve_packed(fring, pack_rows(rows[b:b + per]), 1,
+                                   b // per, db.id, 0)
+    m_fixed = fl.metrics()
+    check(np.array_equal(m_daemon, m_fixed),
+          f"daemon: metrics {m_daemon.tolist()} differ from the fixed-batch "
+          f"run {m_fixed.tolist()}")
+    print(f"daemon metrics equal the fixed-batch serve_packed run: "
+          f"{m_daemon.sum(axis=0).tolist()} by direction, "
+          f"{int(m_daemon[0].sum())} forwarded")
+    # a second session of steady traffic (every flow now established)
+    # with the stages timed on the daemon's own threads
+    clock = StageClock()
+    out_st, t_st = serve(rows[per:], clock)
+    fe_st = out_st["front-end"]
+    check(fe_st["verdicts"] == len(rows) - per and fe_st["shed"] == 0
+          and out_st["lost"] == 0,
+          f"daemon: the timed session lost rows or events: {fe_st}")
+    stages = clock.summary(t_st)
+    n_super = fe_st["dispatch"]["superbatches"]
+    print(f"daemon timed session: {len(rows) - per} packets in "
+          f"{t_st:.3f} s ({(len(rows) - per) / t_st:.0f} verdicts/s), "
+          f"{n_super} superbatches, {out_st['windows']} windows; stages "
+          f"on the daemon's threads (calls, median ms, total ms, share "
+          f"of the session):")
+    for name, v in stages.items():
+        med = "-" if v["median_ms"] is None else f"{v['median_ms']:.3f}"
+        print(f"  [{v['thread']}] {name}: {v['calls']}, {med}, "
+              f"{v['total_ms']:.3f}, {v['share']:.1%}")
+    # a third session under the profiler (device activity only): how
+    # busy the card is while the daemon serves steady traffic
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out2, t_prof = serve(rows[per:])
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("Activity Buffer"))
+    by_name = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0}
+    fe2 = out2["front-end"]
+    print(f"daemon profiled session: {len(rows) - per} packets in "
+          f"{t_prof:.3f} s ({(len(rows) - per) / t_prof:.0f} verdicts/s "
+          f"under the tracer), {fe2['dispatch']['dispatches']} dispatches; "
+          f"device busy {busy_us / 1e3:.3f} ms ({busy_us / 1e6 / t_prof:.1%}"
+          f"), idle {1 - busy_us / 1e6 / t_prof:.1%}")
+    # a final sweep far in the future evicts every occupied slot
+    occ = d.loader.map_pressure(1)["ct"]["occupied"]
+    evicted = d.loader.gc(1 << 30)
+    left = d.loader.map_pressure(1 << 30)["ct"]["occupied"]
+    check(evicted == occ > 0 and left == 0,
+          f"daemon: gc evicted {evicted} of {occ} occupied, {left} left")
+    print(f"daemon: a sweep at now=2^30 evicts all {evicted} occupied CT "
+          f"slots")
+    d.shutdown()
+    rung = _gather_rung(-(-out["events"] // max(out["windows"], 1)),
+                        RING_CAPACITY)
+    report["daemon"] = {
+        "build_s": t_build, "serve_s": t_serve, "packets": len(rows),
+        "verdicts_per_s": len(rows) / t_serve, "front_end": fe,
+        "windows": out["windows"], "events": out["events"],
+        "lost": out["lost"], "event_plane": out["event-plane"],
+        "launches": launches, "pressure_sample": sample,
+        "evicted_at_end": evicted, "metrics": m_daemon.tolist(),
+        "stages": {"seconds": t_st, "packets": len(rows) - per,
+                   "front_end": fe_st, "by_stage": stages},
+        "profiled": {"seconds": t_prof, "packets": len(rows) - per,
+                     "device_busy_ms": busy_us / 1e3,
+                     "front_end": fe2, "event_plane": out2["event-plane"],
+                     "device_ms_by_name": by_name}}
+    return launches, rung
+
+
 def plain_serve(state, ring, rows, now, batch_id, ep=None, dirn=None,
                 proxy_ports=None, trace_sample=1024, valid=None):
     """One serving step through the plain versions only (the yardstick
@@ -606,34 +1120,58 @@ def phase_verdict_and_timing(torch, rng, kl, packed_np, wide_np, now,
 
 
 def phase_breakdown(torch, kl, packed_batches, now, report):
-    """Where a serve_packed batch spends its time: the h2d staging alone
-    on the host clock, then a profiled window of steady batches (device
-    kernel time over the window's wall time)."""
+    """Where a serve_packed batch spends its time: the host-to-device
+    staging alone on the host clock (``u32.from_numpy``, then the
+    loader's one copy from pageable and from pinned memory), steady
+    batches from pageable arrays and from pinned arena slots, then a
+    profiled window of steady batches (device kernel time over the
+    window's wall time)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.monitor.ring import EventRing
+    from cilium_tpu_torch.serving.batcher import BucketArena
 
-    staging = []
+    arena = BucketArena(len(packed_batches) + 1, pin=True)
+    pinned = []
     for packed in packed_batches:
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        u32.from_numpy(packed, "cuda")
-        torch.cuda.synchronize()
-        staging.append((time.monotonic() - t0) * 1e3)
+        slot = arena.slot(packed.shape[0], packed.shape[1])
+        slot[:] = packed
+        pinned.append(slot)
+
+    def staging_ms(stage, arrays):
+        times = []
+        for a in arrays:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            stage(a)
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+        return statistics.median(times)
+
+    staging = staging_ms(lambda a: u32.from_numpy(a, "cuda"),
+                         packed_batches)
+    staging_pageable = staging_ms(kl._to_device, packed_batches)
+    staging_pinned = staging_ms(kl._to_device, pinned)
     ring = EventRing.create(SLICE_RING_CAPACITY, "cuda")
     proxy = np.array([10000], np.uint32)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    for b, packed in enumerate(packed_batches):
-        kl.serve_packed(ring, packed, now + b, b, 0, 0, proxy_ports=proxy)
-    torch.cuda.synchronize()
-    per_batch = (time.monotonic() - t0) * 1e3 / len(packed_batches)
+
+    def serve_ms(arrays):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for b, packed in enumerate(arrays):
+            kl.serve_packed(ring, packed, now + b, b, 0, 0,
+                            proxy_ports=proxy)
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3 / len(arrays)
+
+    per_batch = serve_ms(packed_batches)
+    per_batch_pinned = serve_ms(pinned)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for b, packed in enumerate(packed_batches):
+        for b, packed in enumerate(pinned):
             kl.serve_packed(ring, packed, now + b, b, 0, 0,
                             proxy_ports=proxy)
         torch.cuda.synchronize()
@@ -653,9 +1191,12 @@ def phase_breakdown(torch, kl, packed_batches, now, report):
     per_stage = {st: sum(v for k, v in device.items()
                          if k.startswith(prefixes)) / n / 1e3
                  for st, prefixes in stages.items()}
-    print(f"breakdown: serve_packed {per_batch:.3f} ms a batch (host "
-          f"clock, {n} steady batches); h2d staging of the packed rows "
-          f"alone {statistics.median(staging):.3f} ms")
+    print(f"breakdown: serve_packed {per_batch:.3f} ms a batch from "
+          f"pageable arrays, {per_batch_pinned:.3f} ms from pinned arena "
+          f"slots (host clock, {n} steady batches); staging the packed "
+          f"rows alone: u32.from_numpy {staging:.3f} ms, one copy from "
+          f"pageable {staging_pageable:.3f} ms, from pinned "
+          f"{staging_pinned:.3f} ms")
     if busy:
         print(f"breakdown: profiled window {wall_us / 1e3:.3f} ms, device "
               f"busy {busy / 1e3:.3f} ms ({busy / wall_us:.1%}), idle "
@@ -665,7 +1206,10 @@ def phase_breakdown(torch, kl, packed_batches, now, report):
         print("breakdown: the profiler recorded no device time")
     report["breakdown"] = {
         "serve_packed_ms_per_batch": per_batch,
-        "staging_ms": statistics.median(staging),
+        "serve_packed_pinned_ms_per_batch": per_batch_pinned,
+        "staging_ms": staging,
+        "staging_pageable_ms": staging_pageable,
+        "staging_pinned_ms": staging_pinned,
         "profiled_wall_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3,
         "device_ms_per_batch_by_stage": per_stage,
@@ -729,15 +1273,26 @@ def main() -> int:
         phase_lpm(torch, rng, world, kernels)
         phase_ct(torch, rng, kernels)
         phase_ring(torch, rng, kernels)
+        phase_maint(torch, rng, kernels)
+        phase_gather(torch, rng, kernels)
 
         # -- 4. the slice at full size ------------------------------------
         kl, packed_all, wide_np, now = phase_slice(torch, rng, world,
                                                    kernels, report)
+        by_path = {"slice": report["slice"]["launches"]}
 
         # -- 5. timings (and the verdict kernel's parity) ------------------
         phase_verdict_and_timing(torch, rng, kl, packed_all[-1], wide_np,
                                  now, kernels)
         phase_breakdown(torch, kl, packed_all[1:5], now, report)
+        del kl
+
+        # -- 6. the superbatch ----------------------------------------------
+        phase_superbatch(torch, rng, world, report)
+
+        # -- 7. the daemon at full width -------------------------------------
+        by_path["daemon"], rung = phase_daemon(torch, rng, world, report)
+        time_gather(torch, rng, kernels, rung)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -745,10 +1300,16 @@ def main() -> int:
     on_path, launchers = [], []
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"))
-        print(f"kernel {name}: {k['launches']} launches on the main path, "
-              f"{k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, bound "
-              f"{k['bound_ms']:.4f} ms by {k['bound_by']}), max abs err "
-              f"{k['max_abs_err']}")
+        # launches: the daemon path's count where the kernel runs there,
+        # else the slice path's (each path's counts zeroed before it ran)
+        k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        k["launches"] = by_path["daemon"][name] or by_path["slice"][name]
+        lib = ("" if k["library_ms"] is None
+               else f", library {k['library_ms']:.4f} ms")
+        print(f"kernel {name}: {k['launches']} launches on the main path "
+              f"({k['launches_by_path']}), {k['ms']:.4f} ms (plain "
+              f"{k['plain_ms']:.3f} ms{lib}, bound {k['bound_ms']:.4f} ms "
+              f"by {k['bound_by']}), max abs err {k['max_abs_err']}")
         (on_path if k["launches"] else launchers).append(k)
     report["kernels"] = on_path
     report["standalone_launchers"] = launchers

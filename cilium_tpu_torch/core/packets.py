@@ -131,6 +131,36 @@ def pack_rows(hdr: np.ndarray, out: Optional[np.ndarray] = None
     return p
 
 
+def pack_eligibility(hdr: np.ndarray,
+                     n: Optional[int] = None) -> Tuple[bool, int, int]:
+    """May ``hdr[:n]`` ship as packed 16 B rows VERDICT-IDENTICALLY?
+
+    Returns ``(eligible, ep, dirn)``.  Eligible means: IPv4 in the
+    mapped layout (src/dst words 0-2 zero), every field inside its
+    packed wire width (ports 16 bit, proto 8 bit, flags 8 bit +
+    RELATED, len <= 0x7FFF — capping would change what the datapath
+    sees), and ONE (ep, dir) stream (they ride as scalars, the
+    per-endpoint tc hook analogue).  Anything else takes the wide
+    fallback shape."""
+    h = np.asarray(hdr)[:n]
+    if len(h) == 0:
+        return False, 0, 0
+    ep, dirn = int(h[0, COL_EP]), int(h[0, COL_DIR])
+    ok = (
+        (h[:, COL_FAMILY] == 4).all()
+        and not h[:, COL_SRC_IP0:COL_SRC_IP3].any()
+        and not h[:, COL_DST_IP0:COL_DST_IP3].any()
+        and (h[:, COL_SPORT] < (1 << 16)).all()
+        and (h[:, COL_DPORT] < (1 << 16)).all()
+        and (h[:, COL_PROTO] < (1 << 8)).all()
+        and not (h[:, COL_FLAGS] & ~np.uint32(0xFF | FLAG_RELATED)).any()
+        and (h[:, COL_LEN] <= META_LEN_MASK).all()
+        and (h[:, COL_EP] == ep).all()
+        and (h[:, COL_DIR] == dirn).all()
+    )
+    return bool(ok), ep, dirn
+
+
 def _unpack_hdr_xp(xp, packed, ep, dirn):
     """The packed->wide bit layout, ONCE, over xp = np — the host event
     join (:func:`unpack_rows_np`) and the plain device unpack

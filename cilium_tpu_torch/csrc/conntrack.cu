@@ -33,6 +33,21 @@
 //   Every claim word a call sets is back at -1 when it ends (the
 //   refresh's in ct_insert_prep, each round's in its verify), so the
 //   claim array lives with the table and is set to -1 only once.
+//
+// K7 ct_gc replaces conntrack.py ct_gc (:441), the CT aging sweep:
+// every live slot whose expiry lies before `now` (an UNSIGNED compare:
+// expiries at or above 2^31 are late, not early) becomes free, state
+// and fingerprint zeroed, and the evictions are counted.
+// Bound: bytes.  Each slot's state and expiry words (8 B, one 32 B
+// sector of its 68 B row) are read; an expired slot writes its state
+// and fingerprint.  Design: one thread per slot, rewriting in place; a
+// warp ballot and a block sum leave one atomicAdd per block.
+//
+// K8 ct_occupied replaces loader.py _ct_occupied (:76), the map-
+// pressure sample: the count of slots whose fingerprint is not 0.
+// Bound: bytes, the 4 B fingerprint of every slot.  Design: a grid of a
+// few blocks per SM strides over the slots, counting in registers, then
+// a warp and block sum and one atomicAdd per block.
 #include "conntrack.cuh"
 
 constexpr int N_ROUNDS = N_CAND_INS + N_PROBE;
@@ -244,6 +259,76 @@ extern "C" int ct_update_launch(const CtView* ctp, const CtUpdateIO* iop,
   for (int r = 0; r < N_ROUNDS; ++r) {
     ct_claim_write<<<rblocks, TPB, 0, stream>>>(ct, io, r);
     ct_claim_verify_try<<<rblocks, TPB, 0, stream>>>(ct, io, r, r + 1);
+  }
+  return (int)cudaGetLastError();
+}
+
+// --- maintenance: aging sweep and occupancy ---------------------------
+
+// Sum of one value per thread over a block of TPB threads; thread 0
+// adds the block's total to *count (when not 0).
+__device__ __forceinline__ void block_count_add(uint32_t v,
+                                                uint32_t* count) {
+  __shared__ uint32_t warp_sums[TPB / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
+  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < TPB / 32 ? warp_sums[lane] : 0u;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      v += __shfl_down_sync(0xFFFFFFFFu, v, o);
+    }
+    if (lane == 0 && v) atomicAdd(count, v);
+  }
+}
+
+__global__ void __launch_bounds__(TPB) ct_gc_kernel(CtView ct, uint32_t now,
+                                                    uint32_t* count) {
+  int32_t i = blockIdx.x * TPB + threadIdx.x;
+  bool expired = false;
+  if (i < ct.capacity) {
+    uint32_t* row = ct.table + (size_t)i * ROW_WORDS;
+    expired = row[V_STATE] != ST_FREE && row[V_EXPIRES] < now;
+    if (expired) {
+      row[V_STATE] = ST_FREE;
+      ct.fp[i] = 0;
+    }
+  }
+  block_count_add(expired ? 1u : 0u, count);
+}
+
+__global__ void __launch_bounds__(TPB) ct_occupied_kernel(const uint32_t* fp,
+                                                          int32_t n,
+                                                          uint32_t* count) {
+  uint32_t c = 0;
+  for (int32_t i = blockIdx.x * TPB + threadIdx.x; i < n;
+       i += gridDim.x * TPB) {
+    c += fp[i] != 0 ? 1u : 0u;
+  }
+  block_count_add(c, count);
+}
+
+extern "C" int ct_gc_launch(const CtView* ctp, uint32_t now, uint32_t* count,
+                            cudaStream_t stream) {
+  const CtView ct = *ctp;
+  cudaMemsetAsync(count, 0, sizeof(uint32_t), stream);
+  if (ct.capacity > 0) {
+    ct_gc_kernel<<<(ct.capacity + TPB - 1) / TPB, TPB, 0, stream>>>(ct, now,
+                                                                   count);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ct_occupied_launch(const uint32_t* fp, int32_t n,
+                                  uint32_t* count, cudaStream_t stream) {
+  cudaMemsetAsync(count, 0, sizeof(uint32_t), stream);
+  if (n > 0) {
+    int blocks = (n + TPB - 1) / TPB;
+    blocks = blocks < 132 * 8 ? blocks : 132 * 8;
+    ct_occupied_kernel<<<blocks, TPB, 0, stream>>>(fp, n, count);
   }
   return (int)cudaGetLastError();
 }

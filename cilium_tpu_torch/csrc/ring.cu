@@ -13,6 +13,16 @@
 // than the ring holds: only the last `capacity` kept rows write, so no
 // two rows share a slot.  The proxy port's listener index is the first
 // match in the table, like the reference's argmax.
+//
+// K6: ring_gather, the occupancy-bounded drain.
+//
+// Replaces: cilium_tpu/monitor/ring.py ring_gather (:344-366).
+// Bound: bytes, one 8 B row read and one written per gathered slot (the
+// rung, a power of two at least as large as the window's events).
+// Design: one thread per output row of a 2-D grid (x: rows, y: shard),
+// each copying one 8 B row from slot (start + i) & (capacity - 1) of its
+// shard's ring.  The per-shard starts ride in the argument block by
+// value; the host computed them from the cursor it had just read.
 #include "views.cuh"
 
 constexpr int RING_TPB = 1024;
@@ -145,6 +155,36 @@ extern "C" int ring_append_launch(const RingIO* iop, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+constexpr int GATHER_TPB = 256;
+constexpr int MAX_GATHER_SHARDS = 8;
+
+struct GatherIO {
+  const uint2* buf;  // [n_shards * capacity] rows of 2 u32
+  uint2* out;        // [n_shards * rung]
+  int32_t n_shards;
+  int32_t rung;
+  int32_t capacity;  // 2^k
+  int32_t pad;
+  uint32_t starts[MAX_GATHER_SHARDS];  // oldest surviving slot per shard
+};
+
+__global__ void __launch_bounds__(GATHER_TPB) ring_gather_kernel(GatherIO io) {
+  int32_t s = blockIdx.y;
+  int32_t i = blockIdx.x * GATHER_TPB + threadIdx.x;
+  if (i >= io.rung) return;
+  uint32_t slot = (io.starts[s] + (uint32_t)i) & (uint32_t)(io.capacity - 1);
+  io.out[(size_t)s * io.rung + i] = io.buf[(size_t)s * io.capacity + slot];
+}
+
+extern "C" int ring_gather_launch(const GatherIO* iop, cudaStream_t stream) {
+  const GatherIO io = *iop;
+  if (io.rung > 0 && io.n_shards > 0) {
+    dim3 grid((io.rung + GATHER_TPB - 1) / GATHER_TPB, io.n_shards);
+    ring_gather_kernel<<<grid, GATHER_TPB, 0, stream>>>(io);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" size_t ring_abi_size(int which) {
-  return which == 0 ? sizeof(RingIO) : 0;
+  return which == 0 ? sizeof(RingIO) : which == 1 ? sizeof(GatherIO) : 0;
 }

@@ -52,7 +52,7 @@ from ..core.packets import (
     normalize_ports,
 )
 from ..device import resolve_device
-from ..u32 import mul, narrow, widen
+from ..u32 import MASK, mul, narrow, widen
 
 # Lookup results (reference: bpf/lib/common.h CT_* codes).
 CT_NEW = 0
@@ -461,6 +461,31 @@ def ct_update(ct: CTTable, l4: torch.Tensor, fwd: torch.Tensor,
     _require_cpu(fwd, "ct_update")
     return ct_update_plain(ct, l4, fwd, result, slot, is_reply, do_create,
                            proxy_port, now, valid)
+
+
+def ct_gc_plain(ct: CTTable, now: int) -> torch.Tensor:
+    """Age out expired entries in place (reference: pkg/maps/ctmap.GC
+    interval sweep; plain version).  A live slot whose expiry is before
+    ``now`` (u32 compare) gets state ``ST_FREE`` and fingerprint 0.
+    Returns the eviction count as a 0-d tensor."""
+    state = ct.table[:, V_STATE]
+    expired = (state != ST_FREE) & (widen(ct.table[:, V_EXPIRES])
+                                     < (int(now) & MASK))
+    ct.table[:, V_STATE] = torch.where(expired, ST_FREE, state)
+    ct.fp.masked_fill_(expired, 0)
+    return expired.sum()
+
+
+def ct_gc(ct: CTTable, now: int) -> torch.Tensor:
+    """The CT aging sweep, in place: see :func:`ct_gc_plain`.  CUDA
+    tensors launch the ``ct_gc`` kernel; the count stays on the card
+    until the caller reads it."""
+    if ct.table.is_cuda:
+        from ..kernels import launch_ct_gc
+
+        return launch_ct_gc(ct, now)
+    _require_cpu(ct.table, "ct_gc")
+    return ct_gc_plain(ct, now)
 
 
 _STATE_NAMES = {ST_SYN_SENT: "SYN_SENT", ST_ESTABLISHED: "ESTABLISHED",

@@ -14,6 +14,7 @@ that own them.
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -55,6 +56,12 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "cilium_tpu/datapath/conntrack.py:322"),
     Kernel("ring_append", "ring", "ring_append_launch",
            "cilium_tpu/monitor/ring.py:100"),
+    Kernel("ring_gather", "ring", "ring_gather_launch",
+           "cilium_tpu/monitor/ring.py:344"),
+    Kernel("ct_gc", "conntrack", "ct_gc_launch",
+           "cilium_tpu/datapath/conntrack.py:441"),
+    Kernel("ct_occupied", "conntrack", "ct_occupied_launch",
+           "cilium_tpu/datapath/loader.py:76"),
     Kernel("lpm_lookup", "lpm", "lpm_lookup_launch",
            "cilium_tpu/datapath/lpm.py:284"),
     Kernel("ct_lookup", "conntrack", "ct_lookup_launch",
@@ -68,13 +75,18 @@ def reset_launch_counts() -> None:
 
 
 _READY: set = set()
+_READY_LOCK = threading.Lock()
 
 
 def _library(source: str) -> ctypes.CDLL:
     from .build import load
 
     lib = load(source)
-    if source not in _READY:
+    if source in _READY:
+        return lib
+    with _READY_LOCK:
+        if source in _READY:
+            return lib
         size_fn, structs = abi.ABI[source]
         getattr(lib, size_fn).restype = ctypes.c_size_t
         getattr(lib, size_fn).argtypes = [ctypes.c_int]
@@ -296,3 +308,45 @@ def launch_ring_append(ring, out: torch.Tensor, batch_id: int,
         batch_id=int(batch_id) & MASK)
     KERNELS["ring_append"].launch(ctypes.addressof(io), _stream(dev))
     return ring
+
+
+def launch_ring_gather(buf: torch.Tensor, starts, rung: int,
+                       cap: int) -> torch.Tensor:
+    """K6: each shard's ``rung`` slots from its oldest surviving one, in
+    append order, into a fresh [n_shards * rung, 2] tensor."""
+    dev = buf.device
+    starts = [int(x) & MASK for x in starts]
+    n_shards = len(starts)
+    if not 0 < n_shards <= abi.MAX_GATHER_SHARDS:
+        raise ValueError(f"ring_gather: {n_shards} shards, the kernel "
+                         f"takes 1..{abi.MAX_GATHER_SHARDS}")
+    if cap & (cap - 1) or not 0 < rung <= cap:
+        raise ValueError(f"ring_gather: rung {rung}, capacity {cap}")
+    out = torch.empty((n_shards * rung, 2), dtype=I32, device=dev)
+    io = abi.GatherIO(
+        buf=_ptr(buf, I32, dev, (n_shards * cap, 2), align=8,
+                 name="ring.buf"),
+        out=out.data_ptr(), n_shards=n_shards, rung=rung, capacity=cap,
+        starts=(ctypes.c_uint32 * abi.MAX_GATHER_SHARDS)(*starts))
+    KERNELS["ring_gather"].launch(ctypes.addressof(io), _stream(dev))
+    return out
+
+
+def launch_ct_gc(ct, now: int) -> torch.Tensor:
+    """K7: the CT aging sweep, in place; returns the eviction count as a
+    [1] u32 tensor on the card (no host sync)."""
+    dev = ct.table.device
+    count = torch.empty(1, dtype=I32, device=dev)
+    view = ct_view(ct, dev)
+    KERNELS["ct_gc"].launch(ctypes.addressof(view), int(now) & MASK,
+                            count.data_ptr(), _stream(dev))
+    return count
+
+
+def launch_ct_occupied(fp: torch.Tensor) -> torch.Tensor:
+    """K8: occupied CT slots (fingerprint not 0) as a [1] u32 tensor."""
+    dev, c = fp.device, fp.shape[0]
+    count = torch.empty(1, dtype=I32, device=dev)
+    KERNELS["ct_occupied"].launch(_ptr(fp, I32, dev, (c,), name="ct.fp"), c,
+                                  count.data_ptr(), _stream(dev))
+    return count

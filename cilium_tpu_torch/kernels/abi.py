@@ -57,20 +57,31 @@ class RingIO(ctypes.Structure):
                 ("trace_sample", U32), ("batch_id", U32), ("pad", I32)]
 
 
+MAX_GATHER_SHARDS = 8
+
+
+class GatherIO(ctypes.Structure):
+    _fields_ = [("buf", P), ("out", P), ("n_shards", I32), ("rung", I32),
+                ("capacity", I32), ("pad", I32),
+                ("starts", U32 * MAX_GATHER_SHARDS)]
+
+
 # per library: (symbol reporting sizeof, [structs in its index order])
 ABI = {
     "verdict": ("verdict_abi_size", [LpmView, PolicyView, CtView,
                                      DatapathIO]),
     "conntrack": ("ct_abi_size", [CtView, CtUpdateIO]),
     "lpm": ("lpm_abi_size", [LpmView]),
-    "ring": ("ring_abi_size", [RingIO]),
+    "ring": ("ring_abi_size", [RingIO, GatherIO]),
 }
 
 # per library: {symbol: argtypes}; every launcher returns cudaError_t
 SIGNATURES = {
     "verdict": {"datapath_launch": [P, P, P, P, ctypes.c_int, P]},
     "conntrack": {"ct_lookup_launch": [P, P, P, U32, P, P, P, I32, P],
-                  "ct_update_launch": [P, P, P]},
+                  "ct_update_launch": [P, P, P],
+                  "ct_gc_launch": [P, U32, P, P],
+                  "ct_occupied_launch": [P, I32, P, P]},
     "lpm": {"lpm_lookup_launch": [P, P, P, P, I32, P]},
-    "ring": {"ring_append_launch": [P, P]},
+    "ring": {"ring_append_launch": [P, P], "ring_gather_launch": [P, P]},
 }

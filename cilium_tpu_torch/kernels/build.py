@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -85,17 +86,23 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the serving path's threads (drain, controllers) may ask for one
+# library at once: one builds, the others wait for it
+_LOAD_LOCK = threading.Lock()
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        lib.cuda_error_name.restype = ctypes.c_char_p
-        lib.cuda_error_name.argtypes = [ctypes.c_int]
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                lib.cuda_error_name.restype = ctypes.c_char_p
+                lib.cuda_error_name.argtypes = [ctypes.c_int]
+                _LIBS[name] = lib
     return lib
 
 

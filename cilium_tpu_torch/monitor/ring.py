@@ -12,16 +12,24 @@ Ring semantics: wrap-overwrite (newest wins), like the Hubble observer
 ring; the total appended count is monotone so the host computes loss as
 ``appended - capacity`` when it lags a full lap.
 
-On the card ``ring_append`` launches the ``ring_append`` kernels
-(``csrc/ring.cu``).  JAX donated the ring; here ``ring_append`` writes
-``buf`` and ``cursor`` IN PLACE on the current stream.  The host decode
-(``_unpack_rows`` .. ``_drain_window``) is a copy of the JAX package's.
+On the card ``ring_append`` launches the ``ring_append`` kernels and
+``ring_gather`` the gather kernel (``csrc/ring.cu``).  JAX donated the
+ring; here ``ring_append`` writes ``buf`` and ``cursor`` IN PLACE on
+the current stream.  The host decode (``_unpack_rows`` ..
+``_drain_window``) is a copy of the JAX package's.
+
+Streams and threads: every kernel, copy and event of the serving path
+goes to the current stream of the device, and no thread of the port
+sets another, so all of them share the device's default stream and run
+in the order the host enqueued them.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +38,7 @@ from ..datapath.verdict import (EV_TRACE, N_OUT, OUT_CT, OUT_EVENT,
                                 OUT_ID_ROW, OUT_PROXY, OUT_REASON,
                                 OUT_VERDICT)
 from ..device import resolve_device
-from ..u32 import narrow, to_numpy, widen
+from ..u32 import MASK, narrow, to_numpy, widen
 
 # Decoded ring row: the N_OUT out-columns + packet index within batch
 # + batch seq.  On the device each row packs into RING_WORDS u32 (8 B):
@@ -183,12 +191,283 @@ def serve_step_packed(state, ring: EventRing, packed: torch.Tensor,
     return state, ring
 
 
+# -- K-batch superbatch dispatch -------------------------------------
+# K batches in one host call: one staging copy, one lock window, then
+# K steps of the verdict, CT update and ring append kernels queued on
+# the stream.  Per-step ``valid`` masks do double duty, as on the
+# reference: within a step they mask the batcher's padding rows, and an
+# ALL-FALSE step masks an empty slot of a partially filled superbatch:
+# it touches neither CT, metrics nor the ring (its append moves the
+# cursor by 0).  The K steps all read the state the caller passed, so a
+# concurrent table swap lands wholly before or after the superbatch.
+
+
+def serve_superbatch(state, ring: EventRing, hdr: torch.Tensor, now: int,
+                     batch_id0: int, trace_sample: int = 1024,
+                     valid: Optional[torch.Tensor] = None,
+                     proxy_ports: Optional[torch.Tensor] = None,
+                     audit: bool = False):
+    """K wide batches: ``hdr`` [K, bucket, N_COLS], ``valid`` [K,
+    bucket] (required: the empty-step masking depends on it), batch
+    ids ``batch_id0 + k`` (u32, wrapping; the ring keeps 13 bits).
+    Returns (state, ring), both updated in place."""
+    if valid is None:
+        raise ValueError("superbatch dispatch requires valid masks")
+    for k in range(hdr.shape[0]):
+        state, ring = serve_step(state, ring, hdr[k], now,
+                                 (int(batch_id0) + k) & MASK,
+                                 trace_sample=trace_sample,
+                                 valid=valid[k], proxy_ports=proxy_ports,
+                                 audit=audit)
+    return state, ring
+
+
+def serve_superbatch_packed(state, ring: EventRing, packed: torch.Tensor,
+                            now: int, batch_id0: int, eps, dirns,
+                            trace_sample: int = 1024,
+                            valid: Optional[torch.Tensor] = None,
+                            proxy_ports: Optional[torch.Tensor] = None,
+                            audit: bool = False):
+    """K packed batches: ``packed`` [K, bucket, 4], ``eps``/``dirns``
+    the K per-step stream scalars (host integers), ``valid`` [K,
+    bucket]; otherwise as :func:`serve_superbatch`."""
+    if valid is None:
+        raise ValueError("superbatch dispatch requires valid masks")
+    for k in range(packed.shape[0]):
+        state, ring = serve_step_packed(
+            state, ring, packed[k], now, (int(batch_id0) + k) & MASK,
+            int(eps[k]), int(dirns[k]), trace_sample=trace_sample,
+            valid=valid[k], proxy_ports=proxy_ports, audit=audit)
+    return state, ring
+
+
+# -- occupancy-bounded drain ------------------------------------------
+# The fetched window's byte count scales with the EVENTS the window
+# appended, not the ring's capacity: the swap reads the 8-byte cursor
+# first, so the host knows the occupancy before a buffer byte moves.  A
+# device gather pulls just the occupied slots (wrap-aware: the i-th
+# surviving event sits in slot (start + i) & mask, start = 0 until the
+# ring laps) into a contiguous buffer of a power-of-two RUNG, and the
+# device-to-host copy ships rung * 8 bytes instead of capacity * 8.
+GATHER_MIN_RUNG = 64
+
+
+def _gather_rung(kept: int, cap: int) -> int:
+    """Smallest ladder rung holding ``kept`` rows (power of two,
+    floored at GATHER_MIN_RUNG, capped at the ring capacity)."""
+    r = min(GATHER_MIN_RUNG, cap)
+    while r < kept:
+        r <<= 1
+    return min(r, cap)
+
+
+def ring_gather_plain(buf: torch.Tensor, starts, rung: int,
+                      cap: int) -> torch.Tensor:
+    """Gather each shard's window slots, in append order, into a
+    contiguous [n_shards * rung, RING_WORDS] tensor (plain version).
+
+    ``buf`` is [n_shards * cap, RING_WORDS] (one shard for the
+    single-card ring), ``starts`` the host integers of each shard's
+    oldest surviving slot ((total - kept) & mask; 0 until the ring
+    laps).  Slots past a shard's occupancy are EMPTY on a fresh-per-
+    window ring, so the host's empty-slot filter drops them as the
+    full-copy path does."""
+    st = torch.tensor([int(x) & MASK for x in starts], dtype=torch.int64,
+                      device=buf.device)
+    offs = torch.arange(rung, dtype=torch.int64, device=buf.device)
+    idx = (st[:, None] + offs[None, :]) & (cap - 1)
+    idx = idx + (torch.arange(st.shape[0], dtype=torch.int64,
+                              device=buf.device) * cap)[:, None]
+    return buf[idx.reshape(-1)]
+
+
+def ring_gather(buf: torch.Tensor, starts, rung: int,
+                cap: int) -> torch.Tensor:
+    """See :func:`ring_gather_plain`.  CUDA tensors launch the
+    ``ring_gather`` kernel."""
+    if buf.is_cuda:
+        from ..kernels import launch_ring_gather
+
+        return launch_ring_gather(buf, starts, rung, cap)
+    if buf.device.type != "cpu":
+        raise ValueError(f"ring_gather: no kernel for {buf.device}")
+    return ring_gather_plain(buf, starts, rung, cap)
+
+
 def _cursor_totals(cursor: np.ndarray) -> np.ndarray:
     """Host cursor ([2] or [S, 2] of u32 lo/hi words) -> int64 totals
     per shard ([S])."""
     c = np.asarray(cursor, dtype=np.uint64).reshape(-1, 2)
     return (c[:, 0] | (c[:, 1] << np.uint64(32))).astype(np.int64)
 
+
+
+@dataclass
+class RingWindow:
+    """One drained window's in-flight handle: the host buffer its
+    device-to-host copy is filling, the event that marks the copy done,
+    and what the event-join worker needs to finish the window: the
+    host cursor, the occupancy and loss math done at swap time, and the
+    drainer for counter accounting.
+
+    The window holds the ring and the gathered device rows until
+    :meth:`fetch`, so neither is freed while its copy is queued.
+    Ownership: ``swap_window`` hands the window out and the drainer
+    forgets it; exactly one thread (the event-join worker) calls
+    :meth:`fetch` exactly once."""
+
+    buf: Optional[object]  # host rows: pinned tensor, or numpy (CPU)
+    cursor: np.ndarray  # host copy, [1, 2] u32
+    capacity: int
+    appended: int  # events appended this window
+    lost: int  # lap loss (appended - capacity when the host lagged)
+    d2h_bytes: int  # bytes this window put on the device-to-host link
+    gathered: bool  # buf is a rung gather, already in append order
+    rung: int
+    proxy_ports: Optional[np.ndarray]
+    drainer: object
+    done: Optional[object] = None  # torch.cuda.Event after the copy
+    device_refs: tuple = ()  # ring and gather output, kept until fetch
+    t_swap: float = field(default_factory=time.monotonic)
+
+    def fetch(self):
+        # thread-affinity: event-worker, api, offline -- the blocking
+        # wait for the copy lives here; the drain thread only swaps
+        """Wait for the copy, decode, and give the host buffer back to
+        the drainer's pool.  Returns ``(rows, None, appended, lost)``
+        (the None stands for the shard ids of a sharded window) and
+        updates the drainer's windows/events/lost counters."""
+        d = self.drainer
+        if self.buf is None:
+            if d is not None:
+                d.windows += 1
+            return np.zeros((0, RING_COLS), dtype=np.uint32), None, 0, 0
+        host, self.buf = self.buf, None
+        if self.done is not None:
+            self.done.synchronize()
+        words = (host.numpy().view(np.uint32)
+                 if isinstance(host, torch.Tensor) else host)
+        total = int(_cursor_totals(self.cursor)[0])
+        rows, _total, _lost = _decode_fetched(
+            words, total, self.capacity, self.proxy_ports,
+            gathered=self.gathered)
+        self.device_refs = ()
+        if d is not None:
+            if isinstance(host, torch.Tensor):
+                d._release(host)
+            d.windows += 1
+            d.events += self.appended - self.lost
+            d.lost += self.lost
+        return rows, None, self.appended, self.lost
+
+
+def _start_window(ring: EventRing, capacity: int, proxy_ports, drainer,
+                  gather: bool) -> RingWindow:
+    # thread-affinity: drain, api, offline
+    """The swap leg: read the cursor (which retires every queued
+    dispatch), do the occupancy math on the host, start the
+    asynchronous copy of either the rung gather or the whole buffer,
+    and wrap it all in a :class:`RingWindow`."""
+    # hot-path-ok: the 8-byte cursor read waits for every kernel and
+    # copy queued on the stream before it (the staging copies of the
+    # pinned batcher arena included: see serving/batcher.py); it also
+    # makes the occupancy-bounded gather possible at all
+    cur = to_numpy(ring.cursor).reshape(-1, 2).copy()
+    totals = _cursor_totals(cur)
+    appended = int(totals.sum())
+    lost = int(np.maximum(totals - capacity, 0).sum())
+    if appended == 0:
+        return RingWindow(buf=None, cursor=cur, capacity=capacity,
+                          appended=0, lost=0, d2h_bytes=0,
+                          gathered=False, rung=0,
+                          proxy_ports=proxy_ports, drainer=drainer)
+    if gather:
+        kept = np.minimum(totals, capacity)
+        rung = _gather_rung(int(kept.max()), capacity)
+        # oldest surviving slot: 0 until the ring laps, then the
+        # wrapped cursor (total & mask)
+        starts = np.where(totals > capacity, totals & (capacity - 1), 0)
+        dev = ring_gather(ring.buf, starts, rung, capacity)
+    else:
+        rung, dev = capacity, ring.buf
+    host, done = drainer._copy_to_host(dev)
+    return RingWindow(buf=host, cursor=cur, capacity=capacity,
+                      appended=appended, lost=lost,
+                      d2h_bytes=dev.numel() * 4 + cur.nbytes,
+                      gathered=gather, rung=rung, proxy_ports=proxy_ports,
+                      drainer=drainer, done=done, device_refs=(ring, dev))
+
+
+class AsyncRingDrainer:
+    """Double-buffered drain: the host fetches window N-1 while the
+    device steps window N.
+
+    At each window boundary ``swap_window(ring)`` reads the cursor,
+    starts an ASYNCHRONOUS copy of the window's rows into pinned host
+    memory (followed by a CUDA event) and hands the serve loop a fresh
+    ring; the event-join worker's ``fetch`` waits on that event, so the
+    drain thread never waits for the buffer.  Pinned buffers cost
+    milliseconds to allocate, so each rung keeps a small pool of them;
+    a buffer goes back to its pool when its window is fetched.
+
+    Because every window starts on a fresh ring, the fetched cursor IS
+    the window's append count and per-window loss is ``max(0,
+    appended - capacity)`` with no cross-window bookkeeping."""
+
+    def __init__(self, capacity: int = 1 << 15,
+                 proxy_ports: np.ndarray = None, gather: bool = True,
+                 device=None):
+        self.capacity = capacity
+        self.proxy_ports = proxy_ports
+        # occupancy-bounded fetch (module comment at GATHER_MIN_RUNG)
+        self.gather = bool(gather)
+        self.device = resolve_device(device)
+        self._pool: Dict[int, List[torch.Tensor]] = {}
+        self._pool_lock = threading.Lock()
+        # guarded-by: _pool_lock: _pool
+        self.windows = 0
+        self.events = 0
+        self.lost = 0
+
+    def fresh(self) -> EventRing:
+        return EventRing.create(self.capacity, self.device)
+
+    def _copy_to_host(self, dev: torch.Tensor):
+        # thread-affinity: drain, api, offline
+        """Start the copy of ``dev`` to the host; returns (host buffer,
+        CUDA event recorded after the copy, or None on the CPU)."""
+        if not dev.is_cuda:
+            return to_numpy(dev), None
+        rows = dev.shape[0]
+        with self._pool_lock:
+            free = self._pool.setdefault(rows, [])
+            host = free.pop() if free else None
+        if host is None:
+            host = torch.empty((rows, RING_WORDS), dtype=torch.int32,
+                               pin_memory=True)
+        host.copy_(dev, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _release(self, host: torch.Tensor) -> None:
+        # thread-affinity: event-worker, api, offline
+        with self._pool_lock:
+            self._pool.setdefault(host.shape[0], []).append(host)
+
+    def swap_window(self, ring: EventRing
+                    ) -> Tuple[RingWindow, EventRing]:
+        # thread-affinity: drain, api, offline
+        """Start the asynchronous fetch of ``ring`` and hand its window
+        out as a :class:`RingWindow` (ownership transfers to the
+        caller, the event-join worker's shape); returns the fresh ring
+        for the next window beside it."""
+        from ..infra import faults
+
+        faults.check(faults.SITE_RING_SWAP)
+        window = _start_window(ring, self.capacity, self.proxy_ports,
+                               self, self.gather)
+        return window, self.fresh()
 
 
 def _unpack_rows(packed: np.ndarray,

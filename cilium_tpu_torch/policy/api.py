@@ -570,7 +570,7 @@ def rules_from_obj(obj) -> List[Rule]:
                                "CiliumClusterwideNetworkPolicy"):
             raise NotImplementedError(
                 "CiliumNetworkPolicy translation is not ported yet "
-                "(ROADMAP A: k8s CNP translation); pass plain rule "
+                "(ROADMAP A6: k8s CNP translation); pass plain rule "
                 "dicts or lists")
         return [rule_from_dict(obj)]
     out: List[Rule] = []

@@ -45,6 +45,49 @@ def _pod_ip(i: int) -> str:
     return f"10.{(i >> 16) & 0xFF}.{(i >> 8) & 0xFF}.{i & 0xFF}"
 
 
+def world_rules(n_identities: int = 10_000,
+                n_rules: int = 64) -> List[dict]:
+    """The rule set of :func:`build_world` for the ``db`` endpoint, as
+    policy-import dicts."""
+    # rule set: each rule allows one "service group" label slice on a
+    # port range; every identity matches ns=default so selector slices
+    # use app labels
+    rules: List[dict] = []
+    group = max(n_identities // n_rules, 1)
+    for r in range(n_rules):
+        ports = [{"port": str(1000 + r * 7), "protocol": "TCP",
+                  "endPort": 1000 + r * 7 + 5}]
+        sel = {"matchLabels": {"app": f"svc{r * group}"}}
+        rules.append({
+            "endpointSelector": {"matchLabels": {"app": "db"}},
+            "ingress": [
+                {"fromEndpoints": [sel], "toPorts": [{"ports": ports}]},
+            ],
+        })
+    rules.append({
+        "endpointSelector": {"matchLabels": {"app": "db"}},
+        "ingress": [
+            # broad: everyone in the namespace may reach 5432/TCP
+            {"fromEndpoints": [{"matchLabels": {"ns": "default"}}],
+             "toPorts": [{"ports": [{"port": "5432", "protocol": "TCP"}]}]},
+            {"fromCIDR": ["192.168.0.0/16"],
+             "toPorts": [{"ports": [{"port": "8000", "endPort": 8999}]}]},
+            {"fromEndpoints": [{"matchLabels": {"ns": "default"}}],
+             "toPorts": [{"ports": [{"port": "80", "protocol": "TCP"}],
+                          "rules": {"http": [{"method": "GET"}]}}]},
+        ],
+        "ingressDeny": [
+            {"fromEndpoints": [{"matchLabels": {"app": "svc0"}}],
+             "toPorts": [{"ports": [{"port": "22", "protocol": "TCP"}]}]},
+        ],
+        "egress": [
+            {"toEntities": ["world"],
+             "toPorts": [{"ports": [{"port": "53", "protocol": "UDP"}]}]},
+        ],
+    })
+    return rules
+
+
 def build_world(n_identities: int = 10_000, n_rules: int = 64,
                 ct_capacity: int = 1 << 20,
                 row_capacity: Optional[int] = None,
@@ -85,43 +128,7 @@ def build_world(n_identities: int = 10_000, n_rules: int = 64,
     if n_v6:
         ipcache["::/0"] = world_id
 
-    # rule set: each rule allows one "service group" label slice on a
-    # port range; every identity matches ns=default so selector slices
-    # use app labels
-    rules: List[dict] = []
-    group = max(n_identities // n_rules, 1)
-    for r in range(n_rules):
-        ports = [{"port": str(1000 + r * 7), "protocol": "TCP",
-                  "endPort": 1000 + r * 7 + 5}]
-        sel = {"matchLabels": {"app": f"svc{r * group}"}}
-        rules.append({
-            "endpointSelector": {"matchLabels": {"app": "db"}},
-            "ingress": [
-                {"fromEndpoints": [sel], "toPorts": [{"ports": ports}]},
-            ],
-        })
-    rules.append({
-        "endpointSelector": {"matchLabels": {"app": "db"}},
-        "ingress": [
-            # broad: everyone in the namespace may reach 5432/TCP
-            {"fromEndpoints": [{"matchLabels": {"ns": "default"}}],
-             "toPorts": [{"ports": [{"port": "5432", "protocol": "TCP"}]}]},
-            {"fromCIDR": ["192.168.0.0/16"],
-             "toPorts": [{"ports": [{"port": "8000", "endPort": 8999}]}]},
-            {"fromEndpoints": [{"matchLabels": {"ns": "default"}}],
-             "toPorts": [{"ports": [{"port": "80", "protocol": "TCP"}],
-                          "rules": {"http": [{"method": "GET"}]}}]},
-        ],
-        "ingressDeny": [
-            {"fromEndpoints": [{"matchLabels": {"app": "svc0"}}],
-             "toPorts": [{"ports": [{"port": "22", "protocol": "TCP"}]}]},
-        ],
-        "egress": [
-            {"toEntities": ["world"],
-             "toPorts": [{"ports": [{"port": "53", "protocol": "UDP"}]}]},
-        ],
-    })
-    repo.add_obj(rules)
+    repo.add_obj(world_rules(n_identities, n_rules))
     pol_db = repo.resolve(db)
 
     if row_capacity is None:

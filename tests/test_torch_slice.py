@@ -153,7 +153,12 @@ def test_port_import_leaves_jax_unloaded():
             "before = set(sys.modules)\n"
             "import cilium_tpu_torch.datapath.loader, "
             "cilium_tpu_torch.monitor.ring, cilium_tpu_torch.convert, "
-            "cilium_tpu_torch.testing.fixtures, cilium_tpu_torch.kernels\n"
+            "cilium_tpu_torch.testing.fixtures, cilium_tpu_torch.kernels, "
+            "cilium_tpu_torch.agent.daemon, cilium_tpu_torch.serving, "
+            "cilium_tpu_torch.serving.eventplane, "
+            "cilium_tpu_torch.monitor.api, cilium_tpu_torch.monitor.agent, "
+            "cilium_tpu_torch.datapath.pressure, cilium_tpu_torch.infra, "
+            "cilium_tpu_torch.ipcache\n"
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cilium_tpu')]\n"
             "assert not bad, bad\n")
