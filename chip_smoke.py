@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving step and serving daemon on one
-NVIDIA GPU.
+"""Run the PyTorch/CUDA port's serving step, serving daemon and L7 proxy
+plane on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -15,8 +15,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ct_update on a 2^20 table filled to about half (duplicate tuples,
    window contention, counters near 2^32), ring_append with overflow,
    the CT aging sweep and occupancy count on a half-full 2^20 table
-   whose expiries straddle 2^31 and ``now``, and ring_gather on lapped
-   and unlapped 2^18 rings at several rungs;
+   whose expiries straddle 2^31 and ``now``, ring_gather on lapped
+   and unlapped 2^18 rings at several rungs, and the L7 verdict at
+   BASELINE.md config #4 (192 literal and 16 prefix HTTP rules, 4096
+   requests a batch; ``bench.py`` ``bench_l7``'s world), where
+   ``L7Proxy.handle_http`` on the card must also equal the same call on
+   a CPU proxy (verdicts and counters), and requests/s through it are
+   timed;
 4. the slice at full size: the 10k-identity world (BASELINE.md config
    #3), ``TorchLoader(device="cuda")`` through 8 ``serve_packed``
    batches of 2^18, 2 wide ``serve`` batches with IPv6 and ICMP errors
@@ -34,16 +39,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    calls: ring rows, cursor, metrics, CT table and drop count equal;
 7. the daemon at full width: BASELINE.md config #3 built through the
    ``Daemon`` API (10k identities and their /32s, the world's rules
-   without its L7 rule, the ``db`` endpoint), ``start()``, then
+   with its L7 HTTP rule, the ``db`` endpoint), ``start()``, then
    ``start_serving(ingress=True, packed=True, superbatch_k=4)``; a
    producer thread submits 2^21 packets of steady traffic and
    ``stop_serving()`` returns the ledger, which must be exact, with no
-   event lost; the per-reason metrics must equal those of the same rows
+   event lost; the port-80 flows REDIRECT into the L7 plane, whose
+   ledger (redirected = allowed + denied + shed + failed) must be
+   exact; the per-reason metrics must equal those of the same rows
    through ``TorchLoader.serve_packed`` in fixed batches; the ct-gc and
-   map-pressure controllers must have run.
+   map-pressure controllers must have run;
+8. the redirect overhead (``bench.py`` ``bench_l7_redirect``'s shape):
+   two daemons on the card, an L4 allow on port 80 and the same port
+   with an HTTP GET rule, fresh-sport SYN batches of 1024, six a leg,
+   legs paired three times in alternating order;
+9. the FQDN flip: the config #3 world plus a DNS L7 rule and
+   ``toFQDNs`` egress (``tests/test_l7plane.py`` ``RULES_DNS``), served
+   through ``submit``: probes to an unresolved IP drop, a DNS batch is
+   allowed by the L7 workers, the resolver's answer mints an FQDN
+   identity (a full regeneration of the 10k-identity world, timed),
+   and the next probes are allowed.
 
 The kernel launch counts are read per path (the slice of phase 4, the
-daemon of phase 7), each zeroed just before its path runs.  The line
+daemon of phase 7, the L7 paths of phases 3, 8 and 9), each zeroed
+just before its path runs.  The line
 before the last is one JSON object describing every kernel of the main
 paths; the last line is the device record.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -495,6 +513,122 @@ def time_gather(torch, rng, kernels, rung):
     print(f"timing ring_gather at rung {rung}")
 
 
+L7_PORT = 10000
+L7_BATCH = 4096  # requests a handle_http call (bench.py bench_l7)
+
+
+def l7_world(rng, n_exact=192, n_prefix=16):
+    """BASELINE.md config #4 as ``bench.py`` ``bench_l7`` builds it: 192
+    literal HTTP rules and 16 ``/static/{i}/.*`` prefix rules on one
+    listener, and a batch of 4096 requests (70% literal hits, 15%
+    prefix hits, 15% denied)."""
+    from cilium_tpu_torch.policy.api import L7Rules
+
+    rules = [{"method": ("GET", "POST", "PUT", "DELETE")[i % 4],
+              "path": f"/api/v{i % 3}/resource{i}"} for i in range(n_exact)]
+    rules += [{"method": "GET", "path": f"/static/{i}/.*"}
+              for i in range(n_prefix)]
+    pol = type("P", (), {"redirects": [
+        (L7_PORT, "bench", L7Rules.from_dict({"http": rules}))]})()
+    reqs = []
+    for _ in range(L7_BATCH):
+        r = rng.random()
+        if r < 0.70:
+            i = int(rng.integers(0, n_exact))
+            reqs.append({"method": ("GET", "POST", "PUT", "DELETE")[i % 4],
+                         "path": f"/api/v{i % 3}/resource{i}",
+                         "host": "db.svc"})
+        elif r < 0.85:
+            i = int(rng.integers(0, n_prefix))
+            reqs.append({"method": "GET", "path": f"/static/{i}/app.js",
+                         "host": "db.svc"})
+        else:
+            reqs.append({"method": "DELETE", "path": "/etc/passwd",
+                         "host": "db.svc"})
+    return pol, reqs
+
+
+def phase_l7(torch, rng, kernels, report):
+    """K9 against its plain version on the card at config #4, the
+    card's proxy against a CPU proxy, and requests/s through
+    ``handle_http`` on the card; returns that loop's launch counts."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.proxy import L7Proxy
+    from cilium_tpu_torch.proxy.featurize import (featurize_http,
+                                                  path_prefix_hashes)
+    from cilium_tpu_torch.proxy.l7policy import (compile_l7, l7_verdict,
+                                                 l7_verdict_plain,
+                                                 prefix_columns)
+
+    pol, reqs = l7_world(rng)
+    t = compile_l7(pol.redirects)
+    rows, raw = featurize_http(reqs, L7_PORT)
+    pref = path_prefix_hashes([r["path"] for r in raw], t.prefix_lengths)
+    rules_d, rows_d, pref_d = (u32.from_numpy(a, "cuda")
+                               for a in (t.rules, rows, pref))
+    lens_d = u32.from_numpy(np.asarray(t.prefix_lengths), "cuda")
+    cols_d = prefix_columns(rules_d, lens_d)
+    got = l7_verdict(rules_d, rows_d, pref_d, lens_d, rule_cols=cols_d)
+    want = l7_verdict_plain(rules_d, rows_d, pref_d, lens_d)
+    err = max_abs_err(got.to(torch.int32), want.to(torch.int32),
+                      "l7_verdict")
+    # without the prefix tensor (prefix rows then match nothing)
+    err = max(err, max_abs_err(l7_verdict(rules_d, rows_d).to(torch.int32),
+                               l7_verdict_plain(rules_d, rows_d).to(
+                                   torch.int32), "l7_verdict, no pref"))
+    n_rules, k = t.rules.shape[0], len(t.prefix_lengths)
+    kernels["l7_verdict"].update(
+        max_abs_err=err,
+        ms=device_ms(lambda: l7_verdict(rules_d, rows_d, pref_d, lens_d,
+                                        rule_cols=cols_d), 20),
+        plain_ms=device_ms(lambda: l7_verdict_plain(rules_d, rows_d,
+                                                    pref_d, lens_d), 3),
+        # each request row, its prefix hashes and its verdict once; the
+        # rules and their prefix columns once
+        bytes=L7_BATCH * (32 + 8 * k + 1) + n_rules * (28 + 8),
+        ops=L7_BATCH * n_rules * 16)
+    print(f"parity l7_verdict: {L7_BATCH} requests x {n_rules} rules "
+          f"({t.n_prefix} prefix, K={k}), {int(want.sum())} admitted on "
+          f"the card, bit-exact")
+
+    proxies = [L7Proxy(), L7Proxy(device="cpu")]
+    for px in proxies:
+        px.update([pol])
+    v_card, v_cpu = (px.handle_http(L7_PORT, reqs) for px in proxies)
+    counters = ("requests_total", "requests_denied",
+                "host_fallback_checked", "host_fallback_allowed")
+    check(np.array_equal(v_card, v_cpu)
+          and all(getattr(proxies[0], c) == getattr(proxies[1], c)
+                  for c in counters),
+          "L7Proxy on the card differs from L7Proxy on the CPU")
+    print(f"l7 proxy: handle_http on the card equals the CPU proxy: "
+          f"{int(v_card.sum())} of {L7_BATCH} forwarded, "
+          f"{proxies[0].requests_denied} denied, host fallback "
+          f"{proxies[0].host_fallback_checked} checked")
+    card = proxies[0]
+    iters = 24
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        card.handle_http(L7_PORT, reqs)
+    dt = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    check(launches["l7_verdict"] == iters,
+          f"l7: {launches['l7_verdict']} K9 launches for {iters} calls")
+    rps = L7_BATCH * iters / dt
+    print(f"l7 requests/s through handle_http on the card: {rps:.0f} "
+          f"({iters} calls of {L7_BATCH}, host clock, {dt:.3f} s)")
+    report["l7"] = {"requests_per_s": rps, "iters": iters,
+                    "batch": L7_BATCH, "rules": n_rules,
+                    "prefix_rules": t.n_prefix, "k": k,
+                    "admitted": int(v_card.sum()),
+                    "host_fallback_checked":
+                        proxies[0].host_fallback_checked}
+    return launches
+
+
 def phase_superbatch(torch, rng, world, report):
     """One packed superbatch (K = 4 steps of 2^16, the third partly
     masked, the last all-false) against four sequential serve_packed
@@ -566,7 +700,9 @@ class StageClock:
                "drain tick: cursor read (waits for the card), K6 gather, "
                "copy start": "drain",
                "event join, all": "worker",
-               "event join: unpack + decode_ring_rows + publish": "worker"}
+               "event join: unpack + decode_ring_rows + publish": "worker",
+               "event join: L7Plane.ingest": "worker",
+               "l7 task: request source + parse + K9 + fallback": "l7"}
 
     def __init__(self):
         import threading
@@ -624,6 +760,11 @@ class StageClock:
         self.wrap(s["drainer"], "swap_window",
                   "drain tick: cursor read (waits for the card), K6 "
                   "gather, copy start")
+        # the session's L7 plane: its ingest, and the handler its pool
+        # calls (the plane is dropped at stop, so nothing to unwrap)
+        self.wrap(d._l7plane, "ingest", "event join: L7Plane.ingest")
+        self.wrap(d._l7plane.pool, "_handle_fn",
+                  "l7 task: request source + parse + K9 + fallback")
 
     def unwrap(self, d):
         for owner, attrs in ((d, ("submit", "serve_superbatch",
@@ -642,21 +783,6 @@ class StageClock:
                          "total_ms": sum(v),
                          "share": sum(v) / 1e3 / seconds}
         return out
-
-
-def strip_l7(rules):
-    """The world's rules without their L7 (HTTP) port rules, which the
-    port's daemon does not enforce yet."""
-    out = []
-    for r in rules:
-        r = dict(r)
-        for key in ("ingress", "egress"):
-            if key in r:
-                r[key] = [e for e in r[key]
-                          if not any("rules" in p for p in
-                                     e.get("toPorts", []))]
-        out.append(r)
-    return out
 
 
 def phase_daemon(torch, rng, world, report):
@@ -687,7 +813,7 @@ def phase_daemon(torch, rng, world, report):
         ident = d.allocator.allocate(
             LabelSet.parse(f"k8s:app=svc{i}", "k8s:ns=default"))
         d.ipcache.upsert(ip + "/32", ident.numeric_id, source="k8s")
-    d.policy_import(strip_l7(fx.world_rules(len(world.pod_ips), 64)))
+    d.policy_import(fx.world_rules(len(world.pod_ips), 64))
     db = d.add_endpoint("db", (db_ip,), ["k8s:app=db"])
     t_build = time.monotonic() - t0
     print(f"daemon: {len(world.pod_ips)} identities, "
@@ -751,8 +877,13 @@ def phase_daemon(torch, rng, world, report):
     check(out["lost"] == 0 and out["events"] > 0,
           f"daemon: {out['events']} events, {out['lost']} lost")
     for name in ("datapath_packed", "ct_update", "ring_append",
-                 "ring_gather", "ct_gc", "ct_occupied"):
+                 "ring_gather", "ct_gc", "ct_occupied", "l7_verdict"):
         check(launches[name] > 0, f"daemon: {name} never launched")
+    l7 = out["l7"]
+    check(l7["ledger-exact"] and l7["redirected"] == l7["l7-allowed"]
+          + l7["l7-denied"] + l7["l7-shed"] + l7["l7-failed"]
+          and l7["redirected"] > 0 and l7["l7-allowed"] > 0,
+          f"daemon: L7 ledger broken: {l7}")
     # the controllers (they run at start() and every 0.5 s)
     st = d.controllers.statuses()
     check(st["ct-gc"].success_count >= 1
@@ -770,6 +901,13 @@ def phase_daemon(torch, rng, world, report):
     print(f"daemon verdicts/s: {len(rows) / t_serve:.0f} ({len(rows)} "
           f"packets submit -> stop_serving in {t_serve:.3f} s, host clock)")
     print(f"daemon launches: {json.dumps(launches)}")
+    print(f"daemon L7 plane: redirected {l7['redirected']} = allowed "
+          f"{l7['l7-allowed']} + denied {l7['l7-denied']} + shed "
+          f"{l7['l7-shed']} + failed {l7['l7-failed']}; "
+          f"{l7['tasks-submitted']} tasks ({l7['queue-overflows']} "
+          f"overflows), {l7['tasks-done']} handled by "
+          f"{l7['workers']} workers, parse lag p50 "
+          f"{l7['parse-lag-us']['p50']:.0f} us")
     print(f"daemon controllers: ct-gc ran {st['ct-gc'].success_count} "
           f"times (evicted {d.ct_gc_evicted}), map-pressure "
           f"{st['map-pressure'].success_count} times; "
@@ -800,8 +938,9 @@ def phase_daemon(torch, rng, world, report):
     out_st, t_st = serve(rows[per:], clock)
     fe_st = out_st["front-end"]
     check(fe_st["verdicts"] == len(rows) - per and fe_st["shed"] == 0
-          and out_st["lost"] == 0,
-          f"daemon: the timed session lost rows or events: {fe_st}")
+          and out_st["lost"] == 0 and out_st["l7"]["ledger-exact"],
+          f"daemon: the timed session lost rows or events: {fe_st}, "
+          f"{out_st['l7']}")
     stages = clock.summary(t_st)
     n_super = fe_st["dispatch"]["superbatches"]
     print(f"daemon timed session: {len(rows) - per} packets in "
@@ -848,15 +987,238 @@ def phase_daemon(torch, rng, world, report):
         "verdicts_per_s": len(rows) / t_serve, "front_end": fe,
         "windows": out["windows"], "events": out["events"],
         "lost": out["lost"], "event_plane": out["event-plane"],
-        "launches": launches, "pressure_sample": sample,
+        "l7": l7, "launches": launches, "pressure_sample": sample,
         "evicted_at_end": evicted, "metrics": m_daemon.tolist(),
         "stages": {"seconds": t_st, "packets": len(rows) - per,
-                   "front_end": fe_st, "by_stage": stages},
+                   "front_end": fe_st, "l7": out_st["l7"],
+                   "by_stage": stages},
         "profiled": {"seconds": t_prof, "packets": len(rows) - per,
                      "device_busy_ms": busy_us / 1e3,
                      "front_end": fe2, "event_plane": out2["event-plane"],
                      "device_ms_by_name": by_name}}
     return launches, rung
+
+
+def syn_rows(src, dst, sport0, n, dport, ep, dirn, proto=6):
+    """``n`` SYN header rows from ``src`` to ``dst``, each a new flow
+    (sports ``sport0`` .. ``sport0 + n - 1``)."""
+    import numpy as np
+    from cilium_tpu_torch.core import packets as pk
+
+    rows = np.zeros((n, pk.N_COLS), np.uint32)
+    rows[:, pk.COL_SRC_IP3] = pk.ip_to_words(src)[3]
+    rows[:, pk.COL_DST_IP3] = pk.ip_to_words(dst)[3]
+    check(0 < sport0 and sport0 + n <= 1 << 16, f"sports {sport0} + {n}")
+    rows[:, pk.COL_SPORT] = sport0 + np.arange(n)
+    rows[:, pk.COL_DPORT] = dport
+    rows[:, pk.COL_PROTO] = proto
+    rows[:, pk.COL_FLAGS] = pk.TCP_SYN
+    rows[:, pk.COL_LEN] = 64
+    rows[:, pk.COL_FAMILY] = 4
+    rows[:, pk.COL_EP] = ep
+    rows[:, pk.COL_DIR] = dirn
+    return rows
+
+
+def wait_for(pred, what, timeout=120.0):
+    t0 = time.monotonic()
+    while not pred():
+        check(time.monotonic() - t0 < timeout, f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def phase_l7_redirect(torch, report):
+    """``bench.py`` ``bench_l7_redirect`` on the card: two daemons, an L4
+    allow on port 80 and the same port with an HTTP GET rule; every row
+    a new flow, so every candidate row REDIRECTs into the L7 plane and
+    the candidate leg's clock includes the pool draining it.  Returns
+    the launch counts of the legs."""
+    import statistics as st
+
+    from cilium_tpu_torch.agent import Daemon, DaemonConfig
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    batch, iters, reps = 1024, 6, 3
+
+    def build(with_l7):
+        d = Daemon(DaemonConfig(ct_capacity=1 << 16,
+                                serving_bucket_ladder=(batch,),
+                                serving_queue_depth=1 << 14))
+        d.add_endpoint("web", ("10.0.1.1",), ["k8s:app=web"])
+        db = d.add_endpoint("db", ("10.0.2.1",), ["k8s:app=db"])
+        tp = {"ports": [{"port": "80", "protocol": "TCP"}]}
+        if with_l7:
+            tp["rules"] = {"http": [{"method": "GET"}]}
+        d.policy_import([{
+            "endpointSelector": {"matchLabels": {"app": "db"}},
+            "ingress": [{"fromEndpoints": [{"matchLabels": {"app": "web"}}],
+                         "toPorts": [tp]}]}])
+        d.start_serving(ring_capacity=1 << 13, trace_sample=0,
+                        drain_every=1)
+        return d, db.id
+
+    legs = {"base": build(False), "redir": build(True)}
+    sent = {"base": 0, "redir": 0}
+
+    def rows_for(key):
+        d, ep = legs[key]
+        r = syn_rows("10.0.1.1", "10.0.2.1", 1024 + sent[key], batch, 80,
+                     ep, 0)
+        sent[key] += batch
+        return r
+
+    for key in legs:  # warm each daemon's path
+        legs[key][0].serve_batch(rows_for(key))
+
+    def leg(key):
+        d = legs[key][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            d.serve_batch(rows_for(key))
+        if key == "redir":
+            # the candidate pays its detour in full: every redirect the
+            # drain ticks have handed over (all but the last batch's,
+            # whose tick comes with the next dispatch) ingested and
+            # handled by the pool
+            want, pool = sent[key] - batch, d._l7plane.pool
+            wait_for(lambda: pool.stats()["redirected"] >= want
+                     and pool.pending == 0, "the redirect leg's pool")
+        return batch * iters / (time.perf_counter() - t0)
+
+    reset_launch_counts()
+    pairs, best = [], {"base": 0.0, "redir": 0.0}
+    for rep in range(reps):
+        order = ["base", "redir"] if rep % 2 == 0 else ["redir", "base"]
+        res = {k: leg(k) for k in order}
+        pairs.append(res["redir"] / res["base"])
+        for k in res:
+            best[k] = max(best[k], res[k])
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    outs = {k: legs[k][0].stop_serving() for k in legs}
+    for k in legs:
+        legs[k][0].shutdown()
+    l7 = outs["redir"]["l7"]
+    check(l7["ledger-exact"] and l7["redirected"] == sent["redir"]
+          == l7["l7-allowed"] + l7["l7-shed"],
+          f"redirect phase: {sent['redir']} rows sent, L7 ledger {l7}")
+    check("l7" not in outs["base"] or outs["base"]["l7"]["redirected"] == 0,
+          f"redirect phase: the L4 leg redirected: {outs['base'].get('l7')}")
+    print(f"l7 redirect overhead: paired ratios (redirect / L4) "
+          f"{[round(x, 4) for x in pairs]}, median "
+          f"{st.median(pairs):.4f}; best legs {best['base']:.0f} vs "
+          f"{best['redir']:.0f} packets/s ({iters} x {batch} a leg); "
+          f"plane: {l7['l7-allowed']} allowed, {l7['l7-shed']} shed of "
+          f"{l7['redirected']} redirected")
+    report["l7_redirect"] = {"pairs": pairs, "ratio_median":
+                             st.median(pairs), "best_pps": best,
+                             "batch": batch, "iters": iters, "l7": l7}
+    return launches
+
+
+RULES_DNS = [{
+    "endpointSelector": {"matchLabels": {"app": "client"}},
+    "egress": [
+        {"toEntities": ["world"],
+         "toPorts": [{"ports": [{"port": "53", "protocol": "UDP"}],
+                      "rules": {"dns": [
+                          {"matchName": "example.com"},
+                          {"matchPattern": "*.corp.io"}]}}]},
+        {"toFQDNs": ["example.com"],
+         "toPorts": [{"ports": [{"port": "443", "protocol": "TCP"}]}]},
+        {"toFQDNs": ["*.corp.io"],
+         "toPorts": [{"ports": [{"port": "8443", "protocol": "TCP"}]}]},
+    ],
+}]
+
+
+def phase_fqdn(torch, world, report):
+    """The DNS-answer -> FQDN identity loop on the card, in the config
+    #3 world: probes drop, a DNS batch is allowed, its answer mints an
+    identity (a full regeneration, timed), the next probes are allowed.
+    Returns the launch counts of the session."""
+    import numpy as np
+
+    from cilium_tpu_torch.agent import Daemon, DaemonConfig
+    from cilium_tpu_torch.core.packets import COL_DPORT, COL_SPORT
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.labels import LabelSet
+    from cilium_tpu_torch.policy.mapstate import VERDICT_ALLOW
+    from cilium_tpu_torch.testing import fixtures as fx
+
+    client_ip, answer_ip = "10.0.0.9", "93.184.216.34"
+    d = Daemon(DaemonConfig(ct_capacity=CT_CAPACITY,
+                            serving_bucket_ladder=(64, 1024),
+                            map_pressure_interval=0.0))
+    for i, ip in enumerate(world.pod_ips):
+        ident = d.allocator.allocate(
+            LabelSet.parse(f"k8s:app=svc{i}", "k8s:ns=default"))
+        d.ipcache.upsert(ip + "/32", ident.numeric_id, source="k8s")
+    d.policy_import(fx.world_rules(len(world.pod_ips), 64) + RULES_DNS)
+    d.add_endpoint("db", ("10.0.0.5",), ["k8s:app=db"])
+    client = d.add_endpoint("client", (client_ip,), ["k8s:app=client"])
+    d.l7_request_source = lambda port, kind, task: ["example.com"] * task.rows
+    d.l7_dns_resolver = lambda q: ([answer_ip], 300)
+    regen = []
+    trig = d.endpoints._regen_trigger
+    inner = trig._fn
+
+    def timed_regen():
+        t0 = time.perf_counter()
+        inner()
+        regen.append(time.perf_counter() - t0)
+
+    trig._fn = timed_regen
+    got = []
+    d.monitor.register("smoke", got.append)
+    d.start()
+    reset_launch_counts()
+    d.start_serving(ring_capacity=RING_CAPACITY, ingress=True, drain_every=1)
+
+    def probe_verdicts(lo, n):
+        out = {}
+        for b in list(got):
+            m = ((b.hdr[:, COL_DPORT] == 443) & (b.hdr[:, COL_SPORT] >= lo)
+                 & (b.hdr[:, COL_SPORT] < lo + n))
+            for sp, v in zip(b.hdr[m, COL_SPORT].tolist(),
+                             b.verdict[m].tolist()):
+                out[sp] = v
+        return out
+
+    n = 64
+    d.submit(syn_rows(client_ip, answer_ip, 49000, n, 443, client.id, 1))
+    wait_for(lambda: len(probe_verdicts(49000, n)) == n, "the first probes")
+    pre = set(probe_verdicts(49000, n).values())
+    check(VERDICT_ALLOW not in pre, f"fqdn: probes allowed before the "
+          f"mint: {pre}")
+    attaches, n_regen = d.loader.attach_count, len(regen)
+    t0 = time.perf_counter()
+    d.submit(syn_rows(client_ip, "8.8.8.8", 20000, n, 53, client.id, 1,
+                      proto=17))
+    wait_for(lambda: d.loader.attach_count > attaches
+             and d._l7plane.pool.pending == 0, "the mint's regeneration")
+    t_flip = time.perf_counter() - t0
+    d.submit(syn_rows(client_ip, answer_ip, 50000, n, 443, client.id, 1))
+    wait_for(lambda: len(probe_verdicts(50000, n)) == n, "the second probes")
+    post = set(probe_verdicts(50000, n).values())
+    check(post == {VERDICT_ALLOW}, f"fqdn: probes after the mint: {post}")
+    out = d.stop_serving()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    l7 = out["l7"]
+    entries = d.fqdn.entries()
+    d.shutdown()
+    check(l7["ledger-exact"] and l7["l7-allowed"] == n
+          and l7["dns-answers"] >= 1 and [e["ip"] for e in entries]
+          == [answer_ip], f"fqdn: L7 ledger {l7}, fqdn entries {entries}")
+    mint_regen = regen[n_regen:]
+    print(f"fqdn flip: probes {sorted(pre)} before the mint, {sorted(post)} "
+          f"after; the DNS batch to the flipped tables took {t_flip:.3f} s "
+          f"(host clock), of which {len(mint_regen)} full regeneration(s) "
+          f"of the 10k-identity world: "
+          f"{', '.join(f'{x:.3f}' for x in mint_regen)} s")
+    report["fqdn"] = {"regeneration_s": mint_regen, "dns_to_flip_s": t_flip,
+                      "l7": l7, "launches": launches}
+    return launches
 
 
 def plain_serve(state, ring, rows, now, batch_id, ep=None, dirn=None,
@@ -1275,11 +1637,12 @@ def main() -> int:
         phase_ring(torch, rng, kernels)
         phase_maint(torch, rng, kernels)
         phase_gather(torch, rng, kernels)
+        l7_launches = phase_l7(torch, rng, kernels, report)
 
         # -- 4. the slice at full size ------------------------------------
         kl, packed_all, wide_np, now = phase_slice(torch, rng, world,
                                                    kernels, report)
-        by_path = {"slice": report["slice"]["launches"]}
+        by_path = {"slice": report["slice"]["launches"], "l7": l7_launches}
 
         # -- 5. timings (and the verdict kernel's parity) ------------------
         phase_verdict_and_timing(torch, rng, kl, packed_all[-1], wide_np,
@@ -1293,6 +1656,12 @@ def main() -> int:
         # -- 7. the daemon at full width -------------------------------------
         by_path["daemon"], rung = phase_daemon(torch, rng, world, report)
         time_gather(torch, rng, kernels, rung)
+
+        # -- 8. the redirect overhead ---------------------------------------
+        by_path["l7_redirect"] = phase_l7_redirect(torch, report)
+
+        # -- 9. the FQDN flip -------------------------------------------------
+        by_path["fqdn"] = phase_fqdn(torch, world, report)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -5,17 +5,22 @@ cilium's ``daemon/cmd``): identity allocator, policy repository,
 ipcache, endpoint regeneration, the monitor, background controllers,
 and the serving front end -- admission queue, adaptive batcher, drain
 runtime, K-batch superbatch dispatch, the occupancy-bounded ring drain
-and the event-join worker.  The datapath is :class:`TorchLoader` on
-``device`` (None: the card; the tests pass ``device="cpu"``).
+and the event-join worker, and the L7 proxy plane (the proxy, its
+worker pool fed by the event join's REDIRECT rows, and the DNS-answer
+-> FQDN identity loop).  The datapath is :class:`TorchLoader` on
+``device`` (None: the card; the tests pass ``device="cpu"``), and the
+proxy runs its L7 verdicts on the same device.
 
 Ported members keep the reference's names and semantics.  What the
 reference wires in besides, and the port does not have yet, raises
 NotImplementedError naming its ROADMAP item, at construction (a config
 knob turned on) or at the call: a multi-card mesh, span tracing and the
-profiler window, the L7 plane and L7 policy rules, mutual auth,
-encryption, the SLO plane and metric history, the flight recorder, flow
-analytics, Hubble, NAT and masquerade, the bandwidth manager, policy
-audit mode and monitor trace aggregation.
+profiler window, mutual auth, encryption, the SLO plane and metric
+history, the flight recorder, flow analytics, Hubble, NAT and
+masquerade, the bandwidth manager, policy audit mode and monitor trace
+aggregation.  The proxy's socket listeners, the DNS proxy and the xDS
+surface are not ported (ROADMAP A17): L7 requests arrive through the
+``handle_l7*`` calls and the serving plane's request source.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import u32
 from ..datapath.loader import TorchLoader
+from ..fqdn import NameManager
 from ..identity.allocator import CachingIdentityAllocator
 from ..infra.controller import ControllerManager
 from ..ipcache import IPCache
@@ -37,6 +44,7 @@ from ..monitor.agent import MonitorAgent
 from ..monitor.api import EventBatch
 from ..policy.api import rules_from_obj
 from ..policy.repository import PolicyRepository
+from ..proxy import L7Proxy
 from .endpoint import Endpoint
 from .endpointmanager import EndpointManager
 
@@ -57,6 +65,7 @@ class DaemonConfig:
 
     ct_capacity: int = 1 << 20
     ct_gc_interval: float = 30.0
+    fqdn_gc_interval: float = 15.0  # pkg/fqdn TTL sweep cadence
     # -- serving front end (serving/): see the reference for each knob
     serving_queue_depth: int = 1 << 16
     serving_bucket_ladder: Tuple[int, ...] = (1024, 4096, 16384, 65536)
@@ -66,6 +75,13 @@ class DaemonConfig:
     serving_superbatch_k: int = 1
     serving_window_queue_depth: int = 4
     serving_event_gather: bool = True
+    # -- the L7 proxy plane (serving/l7plane.py + proxy/worker.py):
+    # redirected rows fan out of the event-join worker into a bounded
+    # pool of L7 workers.  Worker count and task-queue depth; overflow
+    # sheds the OLDEST queued task, counted l7_shed, never silently.
+    # The pool shares serving_restart_budget for its restart budget
+    l7_workers: int = 2
+    l7_queue_depth: int = 128
     # -- serving fault tolerance (watchdog + degraded-mode ladder)
     serving_dispatch_deadline_ms: float = 1000.0
     serving_restart_budget: int = 8
@@ -115,17 +131,13 @@ _UNPORTED_KNOBS = {
 }
 
 
-def _l7_or_auth(rules) -> Optional[str]:
-    """The first rule section the port cannot enforce yet: an L7
-    (proxy-redirect) port rule or a mutual-auth requirement."""
-    for r in rules:
-        for entry in (r.ingress + r.egress + r.ingress_deny
-                      + r.egress_deny):
-            if entry.auth_mode == "required":
-                return "auth"
-            if any(not pr.rules.is_empty for pr in entry.to_ports):
-                return "l7"
-    return None
+def _requires_auth(rules) -> bool:
+    """Whether a rule section asks for mutual authentication, which the
+    port cannot enforce yet (ROADMAP A5)."""
+    return any(entry.auth_mode == "required"
+               for r in rules
+               for entry in (r.ingress + r.egress + r.ingress_deny
+                             + r.egress_deny))
 
 
 class Daemon:
@@ -164,6 +176,15 @@ class Daemon:
             raise ValueError(
                 "serving_window_queue_depth must be >= 1 (the "
                 "event-join worker's bounded window queue)")
+        cfg.l7_workers = int(cfg.l7_workers)
+        if cfg.l7_workers < 1:
+            raise ValueError(
+                "l7_workers must be >= 1 (the L7 proxy worker pool)")
+        cfg.l7_queue_depth = int(cfg.l7_queue_depth)
+        if cfg.l7_queue_depth < 1:
+            raise ValueError(
+                "l7_queue_depth must be >= 1 (the L7 pool's bounded "
+                "task queue)")
         (cfg.map_pressure_interval, cfg.ct_pressure_threshold,
          cfg.ct_pressure_clear,
          cfg.ct_gc_pressure_interval) = validate_pressure_config(
@@ -179,6 +200,21 @@ class Daemon:
         self.loader = TorchLoader(cfg.ct_capacity, device=device)
         self.endpoints = EndpointManager(self.repo, self.ipcache,
                                          self.loader)
+        # L7 proxy plane: listeners follow the resolved redirects
+        # (reference: pkg/proxy redirect lifecycle + Envoy filter)
+        self.proxy = L7Proxy(device=self.loader.device)
+        self.endpoints.on_attach(self.proxy.update)
+        # the live L7 plane (serving/l7plane.py): built per serving
+        # session in start_serving and read by the event-join worker
+        # through this attribute, never through self._serving.
+        # _l7_last keeps the last session's final stats
+        self._l7plane = None
+        self._l7_last: Optional[dict] = None
+        # embedder seams for the plane's parse leg: a request source
+        # (port, kind, task) -> requests, and a DNS resolver
+        # (qname) -> (ips, ttl) feeding live FQDN identity mints
+        self.l7_request_source = None
+        self.l7_dns_resolver = None
         self.monitor = MonitorAgent()
         self.controllers = ControllerManager()
         self.incidents: collections.deque = collections.deque(
@@ -204,6 +240,10 @@ class Daemon:
         self.ipcache.upsert("0.0.0.0/0", world.numeric_id,
                             source="reserved")
         self.ipcache.upsert("::/0", world.numeric_id, source="reserved")
+        # fqdn loop: DNS answers observed by the proxy become identities
+        # and ipcache entries (reference: pkg/fqdn)
+        self.fqdn = NameManager(self.allocator, self.delete_ipcache)
+        self.proxy.observe_dns(self.fqdn.observe)
         # rule changes and identity churn both end in one coalesced
         # regeneration
         self.repo.on_change(lambda rev: self.endpoints.regenerate())
@@ -235,6 +275,10 @@ class Daemon:
 
     def _eventworker_incident(self, error: str) -> None:
         self.record_incident("eventworker-terminal", {"error": error})
+
+    def _l7pool_incident(self, error: str) -> None:
+        """The L7 worker pool's on_terminal hook (a dying l7 thread)."""
+        self.record_incident("l7pool-terminal", {"error": error})
 
     # -- identity churn ----------------------------------------------
     def _on_identity_change(self, kind: str, ident) -> None:
@@ -302,9 +346,9 @@ class Daemon:
 
     # -- lifecycle ----------------------------------------------------
     def start(self) -> None:
-        """Start the background controllers: the CT aging sweep and the
+        """Start the background controllers: the CT aging sweep, the
         map-pressure sampler (one synchronous sample first, which seeds
-        the insert-drop baseline)."""
+        the insert-drop baseline) and the FQDN TTL sweep."""
         self._started = True
         self._ct_gc_schedule(self.config.ct_gc_interval)
         if self.config.map_pressure_interval > 0:
@@ -312,6 +356,8 @@ class Daemon:
             self.controllers.update(
                 "map-pressure", self.pressure.sample,
                 self.config.map_pressure_interval)
+        self.controllers.update(
+            "fqdn-gc", self.fqdn.gc, self.config.fqdn_gc_interval)
 
     def shutdown(self) -> None:
         self.controllers.stop_all()
@@ -329,12 +375,7 @@ class Daemon:
     # -- policy, endpoint and ipcache API ------------------------------
     def policy_import(self, obj) -> int:
         rules = rules_from_obj(obj)
-        what = _l7_or_auth(rules)
-        if what == "l7":
-            raise _not_ported("a policy rule with an L7 section (the L7 "
-                              "proxy plane, proxy/ and serving/"
-                              "l7plane.py)", "A9, B15")
-        if what == "auth":
+        if _requires_auth(rules):
             raise _not_ported("a policy rule requiring mutual "
                               "authentication (agent/auth.py)", "A5")
         return self.repo.add_list(rules)
@@ -366,9 +407,54 @@ class Daemon:
         raise _not_ported("the bandwidth manager (datapath/bandwidth.py)",
                           "A8, B14")
 
+    # -- L7 proxy API (the listener-facing entry) ----------------------
+    def _src_row(self, src_identity: int) -> int:
+        return (self.loader.row_map.row(src_identity)
+                if self.loader.row_map else 0)
+
+    def handle_l7_http(self, proxy_port: int, requests,
+                       src_identity: int = 0) -> np.ndarray:
+        """Verdict HTTP requests arriving on a redirect listener
+        (1 = forward, 0 = 403)."""
+        return self.proxy.handle_http(proxy_port, requests,
+                                      self._src_row(src_identity))
+
+    def handle_l7_dns(self, proxy_port: int, qnames,
+                      src_identity: int = 0) -> np.ndarray:
+        return self.proxy.handle_dns(proxy_port, qnames,
+                                     self._src_row(src_identity))
+
+    def handle_l7_kafka(self, proxy_port: int, requests,
+                        src_identity: int = 0) -> np.ndarray:
+        return self.proxy.handle_kafka(proxy_port, requests,
+                                       self._src_row(src_identity))
+
     def handle_l7(self, kind: str, proxy_port: int, requests,
-                  now: Optional[int] = None):
-        raise _not_ported("the L7 proxy plane (proxy/)", "A9, B15")
+                  src_identity: int = 0) -> np.ndarray:
+        """Verdict requests of a PLUGIN protocol (cassandra,
+        memcached, or anything proxy/registry.py knows)."""
+        return self.proxy.handle(kind, proxy_port, requests,
+                                 self._src_row(src_identity))
+
+    def proxy_stats(self) -> dict:
+        """The proxy plane's picture: listener table, offline proxy
+        counters, the LIVE L7 worker-pool ledger (or the last session's
+        final one), per-plugin parse latency."""
+        from ..proxy import registry as l7registry
+
+        l7 = self._l7plane
+        out = {
+            "listeners": self.proxy.listeners(),
+            "requests-total": self.proxy.requests_total,
+            "requests-denied": self.proxy.requests_denied,
+            "plane-active": l7 is not None,
+            "parse-latency-by-plugin": l7registry.latency_snapshot(),
+        }
+        if l7 is not None:
+            out["plane"] = l7.stats()
+        elif self._l7_last is not None:
+            out["plane"] = self._l7_last
+        return out
 
     # -- the serving path ----------------------------------------------
     def start_serving(self, ring_capacity: int = 1 << 15,
@@ -424,9 +510,12 @@ class Daemon:
         if superbatch_k is None:
             superbatch_k = cfg.serving_superbatch_k
         superbatch_k, k_ladder = validate_superbatch_config(superbatch_k)
-        # the listener table: the L7 plane is not ported, so no
-        # redirect port has a listener (ROADMAP A9)
-        table = np.zeros(0, dtype=np.uint32)
+        # the listener table: redirect events carry their proxy port as
+        # an index into it (ring_append and the drainer share it)
+        from ..kernels import MAX_PROXY_PORTS
+
+        table = np.asarray(sorted(self.proxy.ports)[:MAX_PROXY_PORTS],
+                           dtype=np.uint32)
         dev = self.loader.device
         drainer = AsyncRingDrainer(ring_capacity, proxy_ports=table,
                                    gather=event_gather, device=dev)
@@ -441,10 +530,22 @@ class Daemon:
             self._event_join, queue_depth=window_queue_depth,
             restart_budget=cfg.serving_restart_budget,
             on_terminal=self._eventworker_incident)
+        # the L7 proxy plane: redirected rows fan out of the event-join
+        # worker into its bounded worker pool
+        from ..serving.l7plane import L7Plane
+
+        l7plane = L7Plane(
+            self.proxy, workers=cfg.l7_workers,
+            queue_depth=cfg.l7_queue_depth,
+            restart_budget=cfg.serving_restart_budget,
+            on_terminal=self._l7pool_incident,
+            request_source=self.l7_request_source,
+            dns_resolver=self.l7_dns_resolver)
         self._serving = {
             "drainer": drainer,
             "ring": drainer.fresh(),
-            "table_dev": None,
+            "table_dev": (u32.from_numpy(table, dev) if len(table)
+                          else None),
             "proxy_table": table,
             "ring_capacity": ring_capacity,
             "trace_sample": trace_sample,
@@ -469,6 +570,8 @@ class Daemon:
             # seq at the last drain tick
             "last_tick": 0,
         }
+        l7plane.start()
+        self._l7plane = l7plane
         worker.start()
         if ingress:
             from ..core.packets import N_COLS
@@ -703,6 +806,9 @@ class Daemon:
         runtime = s.get("runtime")
         if runtime is not None:
             out.update(runtime.snapshot())
+        l7 = self._l7plane
+        if l7 is not None:
+            out["l7"] = l7.stats()
         return out
 
     def serve_batch(self, hdr: np.ndarray, now: Optional[int] = None,
@@ -894,6 +1000,14 @@ class Daemon:
         d = s["drainer"]
         self._serving_drain_tick(s)
         ev = s["eventplane"].stop(drain=True)
+        # the L7 plane stops AFTER the event plane: the join worker was
+        # still fanning redirect rows into the pool until its drain
+        # completed.  Drain the pool and keep its final stats
+        l7 = None
+        if self._l7plane is not None:
+            l7 = self._l7plane.stop(drain=True)
+            self._l7_last = l7
+            self._l7plane = None
         self._serving = None
         out = {"windows": d.windows, "events": d.events,
                "lost": d.lost, "event-plane": ev}
@@ -902,6 +1016,8 @@ class Daemon:
             out["ladder"] = lad.to_dict()
         if front is not None:
             out["front-end"] = front
+        if l7 is not None:
+            out["l7"] = l7
         return out
 
     def _emit_ring_rows(self, rows: np.ndarray, records: dict) -> None:
@@ -927,6 +1043,13 @@ class Daemon:
                 sel = unpack_rows_np(sel, *meta)
             batch = decode_ring_rows(rows_b, sel, numerics, ts,
                                      aligned=True)
+            # redirect fan-out: the L7 plane's bounded submit (never
+            # blocks, shed is counted).  An attribute read, not a
+            # _serving key; a racing stop_serving already drained what
+            # was submitted or sheds it counted
+            l7 = self._l7plane
+            if l7 is not None:
+                l7.ingest(batch)
             self.monitor.publish(self._filter_events(batch))
 
     def _filter_events(self, batch: EventBatch) -> EventBatch:

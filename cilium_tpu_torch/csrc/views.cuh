@@ -100,6 +100,20 @@ struct CtUpdateIO {
   uint32_t now;
 };
 
+// One batch of L7 requests against a listener table (proxy/l7policy.py
+// l7_verdict).
+struct L7IO {
+  const uint32_t* rules;     // [n_rules, 7]
+  const int32_t* rule_cols;  // [n_rules, 2] prefix columns; null if k == 0
+  const uint32_t* rows;      // [n, 8], 16-byte aligned
+  const uint32_t* pref;      // [n, k, 2] rolling path hashes; null if k == 0
+  bool* out;                 // [n]
+  int32_t n;
+  int32_t n_rules;
+  int32_t k;  // prefix columns sampled (0: no prefix tensor)
+  int32_t pad;
+};
+
 // The XLA gather index rule: a negative index counts from the end once,
 // then the index clamps into [0, n).  Gathers in the JAX reference
 // follow it, so forged ids read the same cells on both sides.

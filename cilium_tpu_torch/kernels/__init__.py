@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of the serving path: their registry,
-launch counts and launchers.
+"""The hand-written CUDA kernels of the serving path and the L7 proxy:
+their registry, launch counts and launchers.
 
 Each launcher checks the device, dtype, shape, contiguity and alignment
 of every tensor, allocates outputs and scratch with ``torch.empty`` on
@@ -66,6 +66,8 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "cilium_tpu/datapath/lpm.py:284"),
     Kernel("ct_lookup", "conntrack", "ct_lookup_launch",
            "cilium_tpu/datapath/conntrack.py:288"),
+    Kernel("l7_verdict", "l7", "l7_verdict_launch",
+           "cilium_tpu/proxy/l7policy.py:325"),
 )}
 
 
@@ -350,3 +352,32 @@ def launch_ct_occupied(fp: torch.Tensor) -> torch.Tensor:
     KERNELS["ct_occupied"].launch(_ptr(fp, I32, dev, (c,), name="ct.fp"), c,
                                   count.data_ptr(), _stream(dev))
     return count
+
+
+def launch_l7_verdict(rules: torch.Tensor, rows: torch.Tensor,
+                      pref: Optional[torch.Tensor],
+                      rule_cols: Optional[torch.Tensor]) -> torch.Tensor:
+    """K9: the L7 verdict of [N, 8] request rows against [R, 7] rules;
+    ``pref`` [N, K, 2] with its [R, 2] ``rule_cols`` serves the prefix
+    rules (None: they match nothing); ``rule_cols`` must come from
+    ``proxy.l7policy.prefix_columns`` for that sampling, which keeps
+    every column inside [0, K).  Returns [N] bool."""
+    dev, n, n_rules = rows.device, rows.shape[0], rules.shape[0]
+    k = 0 if pref is None else pref.shape[1]
+    if n_rules == 0:
+        raise ValueError("l7_verdict: no rules (the caller answers all "
+                         "false without a launch)")
+    if k and rule_cols is None:
+        raise ValueError("l7_verdict: a prefix tensor needs its rule_cols")
+    out = torch.empty(n, dtype=BOOL, device=dev)
+    if n == 0:
+        return out
+    io = abi.L7IO(
+        rules=_ptr(rules, I32, dev, (n_rules, 7), name="rules"),
+        rule_cols=(_ptr(rule_cols, I32, dev, (n_rules, 2),
+                        name="rule_cols") if k else None),
+        rows=_ptr(rows, I32, dev, (n, 8), align=16, name="rows"),
+        pref=_ptr(pref, I32, dev, (n, k, 2), name="pref") if k else None,
+        out=out.data_ptr(), n=n, n_rules=n_rules, k=k)
+    KERNELS["l7_verdict"].launch(ctypes.addressof(io), _stream(dev))
+    return out

@@ -66,6 +66,12 @@ class GatherIO(ctypes.Structure):
                 ("starts", U32 * MAX_GATHER_SHARDS)]
 
 
+class L7IO(ctypes.Structure):
+    _fields_ = [("rules", P), ("rule_cols", P), ("rows", P), ("pref", P),
+                ("out", P), ("n", I32), ("n_rules", I32), ("k", I32),
+                ("pad", I32)]
+
+
 # per library: (symbol reporting sizeof, [structs in its index order])
 ABI = {
     "verdict": ("verdict_abi_size", [LpmView, PolicyView, CtView,
@@ -73,6 +79,7 @@ ABI = {
     "conntrack": ("ct_abi_size", [CtView, CtUpdateIO]),
     "lpm": ("lpm_abi_size", [LpmView]),
     "ring": ("ring_abi_size", [RingIO, GatherIO]),
+    "l7": ("l7_abi_size", [L7IO]),
 }
 
 # per library: {symbol: argtypes}; every launcher returns cudaError_t
@@ -84,4 +91,5 @@ SIGNATURES = {
                   "ct_occupied_launch": [P, I32, P, P]},
     "lpm": {"lpm_lookup_launch": [P, P, P, P, I32, P]},
     "ring": {"ring_append_launch": [P, P], "ring_gather_launch": [P, P]},
+    "l7": {"l7_verdict_launch": [P, P]},
 }

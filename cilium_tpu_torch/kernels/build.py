@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("verdict", "conntrack", "lpm", "ring")
+SOURCES = ("verdict", "conntrack", "lpm", "ring", "l7")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

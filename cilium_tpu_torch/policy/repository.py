@@ -7,6 +7,14 @@ Reference: upstream cilium ``pkg/policy/repository.go`` (``Repository``,
 
 Mutations notify listeners (the endpoint manager) so affected endpoints
 regenerate — the 3.3 call stack in SURVEY.md.
+
+Proxy redirect ports come from one registry per repository, so they are
+unique across every subject's policy and stable across re-resolves, as
+the reference's ``resolve_policy`` docstring describes.  The reference
+repository passes no registry, so each subject's first redirect gets
+port 10000 and two subjects' listeners collide (the proxy keeps only
+the first); the port repairs that (ROADMAP queue C).  A single subject
+gets the reference's ports.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 from ..labels import LabelSet
 from ..identity.allocator import CachingIdentityAllocator
 from .api import Rule, rules_from_obj
-from .resolve import EndpointPolicy, resolve_policy
+from .resolve import PROXY_PORT_BASE, EndpointPolicy, resolve_policy
 from .selectorcache import SelectorCache
 
 
@@ -39,6 +47,9 @@ class PolicyRepository:
         # outlive the map they resolved against.
         self.peer_named_ports_getter: Optional[
             Callable[[], Dict[str, frozenset]]] = None
+        # redirect key (subject, rule, direction, port range) -> proxy
+        # port, allocated in first-resolve order and never reused
+        self._proxy_ports: Dict[str, int] = {}
 
     # -- mutation --------------------------------------------------------
     def add_list(self, rules: Sequence[Rule]) -> int:
@@ -129,7 +140,19 @@ class PolicyRepository:
             pol = resolve_policy(self._rules, subject_labels,
                                  self.selector_cache, self.allocator,
                                  revision=self._revision,
+                                 proxy_port_for=self._proxy_port_for,
                                  named_ports=named_ports,
                                  peer_named_ports=peer_np)
             self._cache[key] = pol
             return pol
+
+    def _proxy_port_for(self, key: str) -> int:
+        """The redirect listener port of ``key`` (called by
+        ``resolve_policy`` under the lock)."""
+        port = self._proxy_ports.get(key)
+        if port is None:
+            if len(self._proxy_ports) >= 10000:
+                raise RuntimeError("proxy port range exhausted")
+            port = PROXY_PORT_BASE + len(self._proxy_ports)
+            self._proxy_ports[key] = port
+        return port

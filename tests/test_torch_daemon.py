@@ -408,22 +408,17 @@ def test_unported_config_raises_naming_its_roadmap_item(knob, value, item):
 
 def test_unported_calls_raise_naming_their_roadmap_item():
     td = Daemon(DaemonConfig(ct_capacity=CT), device="cpu")
-    l7 = [{"endpointSelector": {"matchLabels": {"app": "db"}},
-           "ingress": [{"toPorts": [{"ports": [{"port": "80"}],
-                                     "rules": {"http": [{}]}}]}]}]
     auth = [{"endpointSelector": {"matchLabels": {"app": "db"}},
              "ingress": [{"fromEndpoints": [{}],
                           "authentication": {"mode": "required"}}]}]
-    cases = [(lambda: td.policy_import(l7), "A9"),
-             (lambda: td.policy_import(auth), "A5"),
+    cases = [(lambda: td.policy_import(auth), "A5"),
              (lambda: td.start_serving(mesh=8), "A10"),
              (lambda: td.start_serving(span_sample=4), "A14"),
-             (lambda: td.set_bandwidth(1, 1000), "A8"),
-             (lambda: td.handle_l7("http", 10000, []), "A9")]
+             (lambda: td.set_bandwidth(1, 1000), "A8")]
     for call, item in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()
-    assert td.repo.revision == 1  # neither rule set was imported
+    assert td.repo.revision == 1  # the rule set was not imported
     assert td._serving is None
     td.shutdown()
 
@@ -457,5 +452,5 @@ def test_controllers_sweep_and_sample_in_the_background():
         time.sleep(0.01)
     assert td.pressure.samples >= 3
     st = td.controllers.statuses()
-    assert set(st) == {"ct-gc", "map-pressure"}
+    assert set(st) == {"ct-gc", "map-pressure", "fqdn-gc"}
     td.shutdown()

@@ -184,3 +184,87 @@ def test_superbatch_and_daemon_on_the_card_match_the_cpu():
     (ek, lk, mk, nk), (ep_, lp, mp, np_) = results
     assert (ek, lk, nk) == (ep_, lp, np_) and ek > 0 and lk == 0
     np.testing.assert_array_equal(mk, mp)
+
+
+def _l7_world(rng, n, n_rules, k):
+    """Rules and requests drawn from small value pools (every field
+    both matches and misses), prefix rules with both flags, and
+    rolling prefix hashes that hit some prefix rules."""
+    from cilium_tpu_torch.proxy.l7policy import KIND_HTTP_PREFIX
+
+    hashes = np.array([[0, 0], [1, 0x80000000], [0xDEADBEEF, 7],
+                       [0xFFFFFFFF, 0xFFFFFFFF]], np.uint32)
+    lens = np.sort(rng.choice(np.arange(1, 49), k, replace=False))
+    rules = np.zeros((n_rules, 7), np.uint32)
+    rules[:, 0] = rng.choice(np.array([10000, 10001], np.uint32), n_rules)
+    rules[:, 1] = rng.choice(np.array([0, 1, 2, 3, 16], np.uint32), n_rules)
+    rules[:, 2] = rng.choice(np.array([0, 1, 2], np.uint32), n_rules)
+    pre = rules[:, 1] == KIND_HTTP_PREFIX
+    plen = rng.choice(np.concatenate([lens, lens - 1]), n_rules)
+    rules[pre, 2] |= ((plen[pre].astype(np.uint32) << 8)
+                      | (rng.integers(0, 2, int(pre.sum())).astype(np.uint32)
+                         << 16))
+    rules[:, 3:5] = hashes[rng.integers(0, 4, n_rules)]
+    rules[:, 5:7] = hashes[rng.integers(0, 4, n_rules)]
+    rows = np.zeros((n, 8), np.uint32)
+    rows[:, 0] = rng.choice(np.array([10000, 10001], np.uint32), n)
+    rows[:, 1] = rng.choice(np.array([0, 1, 2, 16], np.uint32), n)
+    rows[:, 2] = rng.choice(np.array([0, 1, 2], np.uint32), n)
+    rows[:, 3:5] = hashes[rng.integers(0, 4, n)]
+    rows[:, 5:7] = hashes[rng.integers(0, 4, n)]
+    pref = hashes[rng.integers(0, 4, (n, k))]
+    pref[rng.random((n, k)) < 0.3] = 0
+    return rules, rows, pref, lens.astype(np.int32)
+
+
+@pytest.mark.gpu
+def test_l7_verdict_kernel_and_proxy_match_plain_on_the_card():
+    """K9 against l7_verdict_plain on CUDA tensors (one tile and three,
+    with and without a prefix tensor, no rules), and L7Proxy on the
+    card against L7Proxy on the CPU."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.policy.api import L7Rules
+    from cilium_tpu_torch.proxy import L7Proxy
+    from cilium_tpu_torch.proxy.l7policy import l7_verdict, l7_verdict_plain
+
+    rng = np.random.default_rng(9)
+    reset_launch_counts()
+    for n, n_rules, k in ((1000, 40, 6), (333, 700, 3)):
+        rules, rows, pref, lens = _l7_world(rng, n, n_rules, k)
+        if n_rules > 512:  # no request's port: hits only past tile 2
+            rules[:512, 0] = 10002
+        t = [u32.from_numpy(a, "cuda") for a in (rules, rows, pref)]
+        tl = torch.from_numpy(lens).cuda()
+        for p, pl in ((t[2], tl), (t[2], None), (None, None)):
+            got = l7_verdict(t[0], t[1], p, pl)
+            want = l7_verdict_plain(t[0], t[1], p, pl)
+            assert torch.equal(got, want)
+            assert 0 < int(want.sum()) < n
+    assert not l7_verdict(t[0][:0], t[1]).any()
+    assert KERNELS["l7_verdict"].launches == 6
+
+    http = [{"method": ("GET", "POST")[i % 2], "path": f"/api/r{i}"}
+            for i in range(200)] + [
+        {"method": "GET", "path": f"/static/{i}/.*"} for i in range(8)] + [
+        {"method": "GET", "path": "/legacy/[a-z]+"}]
+    pol = type("P", (), {"redirects": [(10000, "r", L7Rules.from_dict(
+        {"http": http}))]})()
+    reqs = []
+    for i in range(2048):
+        j = int(rng.integers(0, 220))
+        reqs.append({"method": "GET" if j % 2 == 0 else "POST",
+                     "path": (f"/api/r{j}" if j < 200 else
+                              f"/static/{j % 9}/x.js" if j < 215 else
+                              "/legacy/abc"), "host": "db.svc"})
+    proxies = [L7Proxy(), L7Proxy(device="cpu")]
+    for p in proxies:
+        p.update([pol])
+    reset_launch_counts()
+    got, want = (p.handle_http(10000, reqs) for p in proxies)
+    np.testing.assert_array_equal(got, want)
+    assert KERNELS["l7_verdict"].launches == 1
+    for c in ("requests_total", "requests_denied", "host_fallback_checked",
+              "host_fallback_allowed"):
+        assert getattr(proxies[0], c) == getattr(proxies[1], c), c
