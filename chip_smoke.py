@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's serving step, serving daemon and L7 proxy
-plane on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's serving step, serving daemon, L7 proxy
+plane and live table churn on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -16,7 +16,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    window contention, counters near 2^32), ring_append with overflow,
    the CT aging sweep and occupancy count on a half-full 2^20 table
    whose expiries straddle 2^31 and ``now``, ring_gather on lapped
-   and unlapped 2^18 rings at several rungs, and the L7 verdict at
+   and unlapped 2^18 rings at several rungs, the in-place table
+   update ``dus`` at config #3's table shapes (a verdict row, an auth
+   column, l1/l2/l3 payloads, starts the start rule moves), and the
+   L7 verdict at
    BASELINE.md config #4 (192 literal and 16 prefix HTTP rules, 4096
    requests a batch; ``bench.py`` ``bench_l7``'s world), where
    ``L7Proxy.handle_http`` on the card must also equal the same call on
@@ -56,12 +59,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ``toFQDNs`` egress (``tests/test_l7plane.py`` ``RULES_DNS``), served
    through ``submit``: probes to an unresolved IP drop, a DNS batch is
    allowed by the L7 workers, the resolver's answer mints an FQDN
-   identity (a full regeneration of the 10k-identity world, timed),
-   and the next probes are allowed.
+   identity (in-place table patches, timed from the DNS batch to the
+   flip; no attach, no regeneration), and the next probes are allowed;
+10. identity and ipcache churn: config #3's daemon serves phase 7's
+   traffic (a warm-up, then base / churn / churn / base sessions)
+   while a churn thread runs ``IdentityChurnScenario`` at 200 ops/s
+   through the patch paths: SYNs from the churn slots, a 64th of the
+   rows, never see a slot's old and new verdicts in one batch and,
+   without churn, see its published one; the ledgers stay exact, no
+   attach and no regeneration happen, and afterwards the patched
+   tables equal a full attach of the same world.
 
 The kernel launch counts are read per path (the slice of phase 4, the
-daemon of phase 7, the L7 paths of phases 3, 8 and 9), each zeroed
-just before its path runs.  The line
+daemon of phase 7, the L7 paths of phases 3, 8 and 9, the churn of
+phase 10), each zeroed just before its path runs.  The line
 before the last is one JSON object describing every kernel of the main
 paths; the last line is the device record.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -441,6 +452,60 @@ def phase_maint(torch, rng, kernels):
         bytes=CT_CAPACITY * 4 + 4, ops=CT_CAPACITY * 2)
 
 
+def phase_dus(torch, rng, world, kernels):
+    """K10 ``dus`` against its plain version at config #3's table shapes
+    (a loader attached to the 10k-identity world): an identity's
+    verdict rows and auth column, an l1 cell, l2 and l3 block rows, and
+    starts past the edge or negative, which the start rule moves."""
+    import numpy as np
+    from cilium_tpu_torch.datapath.loader import (TorchLoader, _dus,
+                                                  _dus_plain, _dus_starts)
+
+    kl = TorchLoader(ct_capacity=1 << 4, device="cuda")
+    kl.attach(world.policies, world.ipcache, {0: 0}, world.row_map)
+    pol, lpm = kl.state.policy, kl.state.ipcache
+    n_pol, _, n_rows, n_local = pol.verdict.shape
+
+    def rand(*shape):
+        return torch.from_numpy(rng.integers(
+            -2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).cuda()
+
+    row = n_rows // 4 + 1
+    cases = [
+        ("verdict row", pol.verdict, rand(n_pol, 2, 1, n_local),
+         (0, 0, row, 0)),
+        ("auth column", pol.auth, rand(n_pol, 1), (0, row)),
+        ("l1 cell", lpm.l1, rand(1), (0x0A09,)),
+        ("l2 row", lpm.l2, rand(1, 256), (lpm.l2.shape[0] - 1, 0)),
+        ("l3 row", lpm.l3, rand(1, 256), (lpm.l3.shape[0] // 2, 0)),
+        ("verdict row, starts past the edge", pol.verdict,
+         rand(n_pol, 2, 1, n_local), (3, 9, n_rows + 100, 7)),
+        ("l3 rows, negative starts", lpm.l3, rand(2, 256), (-1, -300)),
+    ]
+    err = 0
+    for what, dst, upd, starts in cases:
+        got, want = dst.clone(), dst.clone()
+        _dus(got, upd, starts)
+        _dus_plain(want, upd, starts)
+        err = max(err, max_abs_err(got, want, f"dus {what}"))
+    print(f"parity dus: {len(cases)} updates into config #3's tables "
+          f"(verdict {tuple(pol.verdict.shape)}, auth "
+          f"{tuple(pol.auth.shape)}, l2 {tuple(lpm.l2.shape)}, l3 "
+          f"{tuple(lpm.l3.shape)}), bit-exact")
+    # timed at the verdict row, the patch paths' largest update
+    _, dst, upd, starts = cases[0]
+    dst = dst.clone()
+    idx = tuple(slice(a, a + u) for a, u in zip(
+        _dus_starts(dst.shape, upd.shape, starts), upd.shape))
+    kernels["dus"].update(
+        max_abs_err=err,
+        ms=device_ms(lambda: _dus(dst, upd, starts), 20),
+        plain_ms=device_ms(lambda: _dus_plain(dst, upd, starts), 20),
+        library_ms=device_ms(lambda: dst[idx].copy_(upd), 20),
+        # the update read once and written once; no arithmetic on it
+        bytes=2 * upd.numel() * 4, ops=0)
+
+
 def random_ring_words(rng, n, empty_frac=0.03):
     """Event-ring words: real event rows with some EMPTY slots."""
     import numpy as np
@@ -785,27 +850,26 @@ class StageClock:
         return out
 
 
-def phase_daemon(torch, rng, world, report):
-    """BASELINE.md config #3 through the daemon's own API, served
-    through its ingress front end; returns (launches, rung)."""
-    import threading
+DB_IP = "10.0.0.5"
 
+
+def config3_daemon(world, rng):
+    """BASELINE.md config #3 through the daemon's own API (phase 7's
+    world: the remote identities and their /32s, the world's rules with
+    its L7 HTTP rule, the ``db`` endpoint) and 2^21 rows of steady
+    traffic into db: a pool of SYNs, then 7 steady draws from it.
+    Returns (daemon, db endpoint, rows)."""
     import numpy as np
     from cilium_tpu_torch.agent import Daemon, DaemonConfig
     from cilium_tpu_torch.core.packets import (COL_DST_IP3, COL_EP,
-                                               ip_to_words, pack_rows)
-    from cilium_tpu_torch.datapath.loader import TorchLoader
-    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+                                               ip_to_words)
     from cilium_tpu_torch.labels import LabelSet
-    from cilium_tpu_torch.monitor.ring import EventRing, _gather_rung
     from cilium_tpu_torch.testing import fixtures as fx
 
-    db_ip = "10.0.0.5"
     cfg = DaemonConfig(ct_capacity=CT_CAPACITY, serving_packed_ingest=True,
                        serving_superbatch_k=4,
                        serving_queue_depth=1 << 19, ct_gc_interval=0.5,
                        map_pressure_interval=0.5)
-    t0 = time.monotonic()
     d = Daemon(cfg)
     # the remote identities and their /32s, all before start() and
     # before any endpoint: the allocator hook only clears the cache
@@ -814,55 +878,77 @@ def phase_daemon(torch, rng, world, report):
             LabelSet.parse(f"k8s:app=svc{i}", "k8s:ns=default"))
         d.ipcache.upsert(ip + "/32", ident.numeric_id, source="k8s")
     d.policy_import(fx.world_rules(len(world.pod_ips), 64))
-    db = d.add_endpoint("db", (db_ip,), ["k8s:app=db"])
-    t_build = time.monotonic() - t0
-    print(f"daemon: {len(world.pod_ips)} identities, "
-          f"{d.endpoints.regenerations} regenerations, built through the "
-          f"API in {t_build:.1f} s")
-
-    bucket = d.config.serving_bucket_ladder[-1]
-    per = (1 << 21) // 8  # a pool of SYNs, then 7 steady draws from it
+    db = d.add_endpoint("db", (DB_IP,), ["k8s:app=db"])
+    per = (1 << 21) // 8
     pool = fx.steady_flow_pool(world, per, rng)
     rows = np.concatenate([pool] + [fx.steady_traffic(pool, per, rng)
                                     for _ in range(7)])
     rows[:, COL_EP] = db.id
-    rows[:, COL_DST_IP3] = ip_to_words(db_ip)[3]
-    chunk = 4 * bucket
+    rows[:, COL_DST_IP3] = ip_to_words(DB_IP)[3]
+    return d, db, rows
+
+
+def serve_session(d, rows, clock=None, during=None):
+    """One serving session of ``d`` (ingress, packed, K = 4): a producer
+    thread submits ``rows`` in chunks of four top buckets, holding back
+    while the rows admitted but not yet verdicted would leave no room
+    for a chunk (a closed loop: nothing sheds), then stop_serving().  A
+    :class:`StageClock` times the stages on the daemon's threads;
+    ``during`` is entered around the producer (the churn thread).
+    Returns (stop_serving's result, seconds from the first submit)."""
+    import contextlib
+    import threading
+
+    chunk = 4 * d.config.serving_bucket_ladder[-1]
     depth = d.config.serving_queue_depth
+    if clock is not None:
+        clock.before_start(d)
+    d.start_serving(ring_capacity=RING_CAPACITY, ingress=True,
+                    packed=True, superbatch_k=4)
+    if clock is not None:
+        clock.after_start(d)
 
-    def serve(rows, clock=None):
-        """One serving session: a producer thread submits ``rows`` in
-        chunks of four top buckets, holding back while the rows
-        admitted but not yet verdicted would leave no room for a chunk
-        (a closed loop: nothing sheds), then stop_serving().  A
-        :class:`StageClock` times the stages on the daemon's threads.
-        Returns (stop_serving's result, seconds from the first
-        submit)."""
-        if clock is not None:
-            clock.before_start(d)
-        d.start_serving(ring_capacity=RING_CAPACITY, ingress=True,
-                        packed=True, superbatch_k=4)
-        if clock is not None:
-            clock.after_start(d)
+    def produce():
+        off = 0
+        while off < len(rows):
+            st = d.serving_stats()
+            if st["admitted"] - st["verdicts"] > depth - chunk:
+                time.sleep(0.0002)
+                continue
+            off += d.submit(rows[off:off + chunk])
 
-        def produce():
-            off = 0
-            while off < len(rows):
-                st = d.serving_stats()
-                if st["admitted"] - st["verdicts"] > depth - chunk:
-                    time.sleep(0.0002)
-                    continue
-                off += d.submit(rows[off:off + chunk])
-
+    with during if during is not None else contextlib.nullcontext():
         t0 = time.monotonic()
         producer = threading.Thread(target=produce, name="smoke-producer")
         producer.start()
         producer.join(timeout=600)
         check(not producer.is_alive(), "daemon: the producer did not finish")
-        out = d.stop_serving()
-        if clock is not None:
-            clock.unwrap(d)
-        return out, time.monotonic() - t0
+    out = d.stop_serving()
+    if clock is not None:
+        clock.unwrap(d)
+    return out, time.monotonic() - t0
+
+
+def phase_daemon(torch, rng, world, report):
+    """BASELINE.md config #3 through the daemon's own API, served
+    through its ingress front end; returns (launches, rung)."""
+    import numpy as np
+    from cilium_tpu_torch.core.packets import pack_rows
+    from cilium_tpu_torch.datapath.loader import TorchLoader
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.labels import LabelSet
+    from cilium_tpu_torch.monitor.ring import EventRing, _gather_rung
+
+    t0 = time.monotonic()
+    d, db, rows = config3_daemon(world, rng)
+    t_build = time.monotonic() - t0
+    print(f"daemon: {len(world.pod_ips)} identities, "
+          f"{d.endpoints.regenerations} regenerations, built through the "
+          f"API in {t_build:.1f} s")
+    per = len(rows) // 8
+
+    def serve(rows, clock=None):
+        return serve_session(d, rows, clock)
 
     reset_launch_counts()
     d.start()
@@ -1135,8 +1221,9 @@ RULES_DNS = [{
 def phase_fqdn(torch, world, report):
     """The DNS-answer -> FQDN identity loop on the card, in the config
     #3 world: probes drop, a DNS batch is allowed, its answer mints an
-    identity (a full regeneration, timed), the next probes are allowed.
-    Returns the launch counts of the session."""
+    identity (in-place patches, timed to the flip; no attach, no
+    regeneration), the next probes are allowed.  Returns the launch
+    counts of the session."""
     import numpy as np
 
     from cilium_tpu_torch.agent import Daemon, DaemonConfig
@@ -1192,12 +1279,19 @@ def phase_fqdn(torch, world, report):
     check(VERDICT_ALLOW not in pre, f"fqdn: probes allowed before the "
           f"mint: {pre}")
     attaches, n_regen = d.loader.attach_count, len(regen)
+    tables0 = d.loader.table_stats()
     t0 = time.perf_counter()
     d.submit(syn_rows(client_ip, "8.8.8.8", 20000, n, 53, client.id, 1,
                       proto=17))
-    wait_for(lambda: d.loader.attach_count > attaches
-             and d._l7plane.pool.pending == 0, "the mint's regeneration")
+    # the mint publishes two patches: its verdict row, then its /32
+    wait_for(lambda: d.loader.table_stats()["patches"]
+             >= tables0["patches"] + 2 and d._l7plane.pool.pending == 0,
+             "the mint's patches")
     t_flip = time.perf_counter() - t0
+    tables1 = d.loader.table_stats()
+    check(d.loader.attach_count == attaches and len(regen) == n_regen,
+          f"fqdn: the mint re-attached ({d.loader.attach_count - attaches}"
+          f" attaches, {len(regen) - n_regen} regenerations)")
     d.submit(syn_rows(client_ip, answer_ip, 50000, n, 443, client.id, 1))
     wait_for(lambda: len(probe_verdicts(50000, n)) == n, "the second probes")
     post = set(probe_verdicts(50000, n).values())
@@ -1210,14 +1304,269 @@ def phase_fqdn(torch, world, report):
     check(l7["ledger-exact"] and l7["l7-allowed"] == n
           and l7["dns-answers"] >= 1 and [e["ip"] for e in entries]
           == [answer_ip], f"fqdn: L7 ledger {l7}, fqdn entries {entries}")
-    mint_regen = regen[n_regen:]
+    check(launches["dus"] > 0, "fqdn: the mint never launched dus")
+    n_patches = tables1["patches"] - tables0["patches"]
     print(f"fqdn flip: probes {sorted(pre)} before the mint, {sorted(post)} "
-          f"after; the DNS batch to the flipped tables took {t_flip:.3f} s "
-          f"(host clock), of which {len(mint_regen)} full regeneration(s) "
-          f"of the 10k-identity world: "
-          f"{', '.join(f'{x:.3f}' for x in mint_regen)} s")
-    report["fqdn"] = {"regeneration_s": mint_regen, "dns_to_flip_s": t_flip,
-                      "l7": l7, "launches": launches}
+          f"after; mint to flip {t_flip:.4f} s (host clock, DNS batch "
+          f"submit to the patched tables), {n_patches} patches (generation "
+          f"{tables0['generation']} -> {tables1['generation']}), "
+          f"{launches['dus']} dus launches, no attach, no regeneration")
+    report["fqdn"] = {"dns_to_flip_s": t_flip, "tables_before": tables0,
+                      "tables_after": tables1, "l7": l7,
+                      "launches": launches}
+    return launches
+
+
+def churn_tables(loader):
+    """A loader's published tables on the host: verdict, auth, the LPM
+    and its entry mirror."""
+    p, l = loader.state.policy, loader.state.ipcache
+    return {k: t.cpu() for k, t in (("verdict", p.verdict), ("auth", p.auth),
+                                    ("l1", l.l1), ("l2", l.l2),
+                                    ("l3", l.l3))}
+
+
+def phase_churn(torch, rng, world, report):
+    """Identity and ipcache churn at full width: config #3's daemon
+    serves the phase 7 traffic in a warm-up session, then four sessions,
+    base / churn / churn / base; in the churn sessions a churn thread runs
+    ``IdentityChurnScenario`` at 200 ops/s (a mint is patch_identity +
+    patch_ipcache, a withdraw delete_ipcache + patch_identity), every
+    op on the patch path.  A 64th of the steady rows are fresh SYNs from
+    the churn slots to db:5432, which the world's ns=default rule admits
+    from a live slot's identity and which drop from a dead slot's
+    address, so their verdicts follow the patches in serve order: every
+    such row yields one event, no batch mixes a slot's allowed and
+    dropped rows, and in the sessions without churn each slot's rows
+    all carry the verdict (and identity) of its published state.  The
+    ledgers stay exact, no attach and no regeneration happen, and
+    afterwards the patched tables equal a full attach of the same world
+    (verdict and auth bit for bit, the LPM by lookups over every
+    programmed prefix and its neighbours).  Returns the launch counts
+    of the churn sessions."""
+    import contextlib
+    import threading
+
+    import numpy as np
+    from cilium_tpu_torch.convert import lpm_probe_ips
+    from cilium_tpu_torch.core import packets as pk
+    from cilium_tpu_torch.datapath.conntrack import CT_NEW
+    from cilium_tpu_torch.datapath.loader import TorchLoader
+    from cilium_tpu_torch.datapath.lpm import lookup_v4
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.labels import LabelSet
+    from cilium_tpu_torch.monitor.api import MSG_DROP
+    from cilium_tpu_torch.serving.stats import LatencyHistogram
+    from cilium_tpu_torch.testing.workloads import IdentityChurnScenario
+
+    t0 = time.monotonic()
+    d, db, rows = config3_daemon(world, rng)
+    d.start()
+    print(f"churn: config #3 daemon built in {time.monotonic() - t0:.1f} s")
+    sc = IdentityChurnScenario(seed=20261017, n_slots=16, rate_hz=200.0)
+    ops, live, op_s = iter(sc.iter_ops()), {}, []
+
+    # the slot probes: a 64th of the steady rows (after the SYN pool)
+    # become SYNs from the churn slots to db:5432; each session gives
+    # them fresh sports so that policy, not CT, decides every one
+    n_probe = len(rows) // 64
+    at = np.sort(rng.choice(np.arange(len(rows) // 8, len(rows)), n_probe,
+                            replace=False))
+    slot_of = rng.integers(0, sc.n_slots, n_probe)
+    slot_words = np.array([pk.ip_to_words(sc.slot_ip(s))[3]
+                           for s in range(sc.n_slots)], np.uint32)
+    rank = np.zeros(n_probe, np.int64)
+    for s in range(sc.n_slots):
+        rank[slot_of == s] = np.arange(int((slot_of == s).sum()))
+    span = int(rank.max()) + 1
+    check(1024 + 5 * span <= 1 << 16, f"churn: {span} sports a slot")
+    rows[at] = 0
+    rows[at, pk.COL_SRC_IP3] = slot_words[slot_of]
+    rows[at, pk.COL_DST_IP3] = pk.ip_to_words(DB_IP)[3]
+    rows[at, pk.COL_DPORT] = 5432
+    rows[at, pk.COL_PROTO] = 6
+    rows[at, pk.COL_FLAGS] = pk.TCP_SYN
+    rows[at, pk.COL_LEN] = 64
+    rows[at, pk.COL_FAMILY] = 4
+    rows[at, pk.COL_EP] = db.id
+    probes = []  # (src word, dropped, identity, ct state, batch) per leg
+    mixed = []  # (leg, slot word) of a batch with both verdicts
+
+    def watch(batch):
+        """Monitor consumer (the event worker): the slot probes' events
+        of one device batch."""
+        h = batch.hdr
+        m = (np.isin(h[:, pk.COL_SRC_IP3], slot_words)
+             & (h[:, pk.COL_FAMILY] == 4) & (h[:, pk.COL_DPORT] == 5432))
+        if not m.any():
+            return
+        src, drop = h[m, pk.COL_SRC_IP3], batch.msg_type[m] == MSG_DROP
+        for w in np.unique(src):
+            k = drop[src == w]
+            if k.any() and not k.all():
+                mixed.append((len(probes), int(w)))
+        probes[-1].append((src, drop, batch.identity[m], batch.ct_state[m]))
+
+    def check_probes(leg, churned):
+        """Every probe of the session gave one event of a new flow; in a
+        session without churn each slot's rows carry its published
+        verdict: allowed with the live identity, or dropped."""
+        got = probes[-1]
+        src, drop, ident, ct = (np.concatenate([g[i] for g in got])
+                                if got else np.zeros(0, np.uint32)
+                                for i in range(4))
+        check(len(src) == n_probe and (ct == CT_NEW).all(),
+              f"churn: the {leg} session gave {len(src)} probe events of "
+              f"{n_probe}, {int((ct != CT_NEW).sum())} not new")
+        check(not mixed, f"churn: a batch mixed a slot's verdicts: {mixed}")
+        if not churned:
+            for s in range(sc.n_slots):
+                k = src == slot_words[s]
+                if s in live:
+                    ok = ((~drop[k]).all()
+                          and (ident[k] == live[s].numeric_id).all())
+                else:
+                    ok = drop[k].all()
+                check(ok,f"churn: the {leg} session served slot {s} "
+                      f"({'live' if s in live else 'dead'}) "
+                      f"{int(drop[k].sum())} drops of {int(k.sum())}")
+        return int((~drop).sum()), int(drop.sum())
+
+    d.monitor.register("smoke-churn", watch)
+
+    @contextlib.contextmanager
+    def churning():
+        """The churn thread, on the scenario's clock, for as long as the
+        producer runs; each op timed from its start to its last
+        publish (op to visible)."""
+        stop = threading.Event()
+        errors = []
+
+        def drive():
+            try:
+                t_next = time.monotonic()
+                while not stop.is_set():
+                    op = next(ops)
+                    t = time.perf_counter()
+                    sc.apply(d, op, live)
+                    op_s.append(time.perf_counter() - t)
+                    t_next += sc.interval_s
+                    time.sleep(max(0.0, t_next - time.monotonic()))
+            except Exception as e:  # noqa: BLE001 -- reported below
+                errors.append(e)
+
+        churner = threading.Thread(target=drive, name="smoke-churn")
+        churner.start()
+        try:
+            yield
+        finally:
+            stop.set()
+            churner.join(timeout=120)
+        check(not churner.is_alive() and not errors,
+              f"churn: the churn thread failed: {errors}")
+
+    attaches, regens = d.loader.attach_count, d.endpoints.regenerations
+    tables0 = d.loader.table_stats()
+    stall0 = list(d.loader.tables.swap_stall.buckets)
+    visible0 = list(d.loader.tables.update_visible.buckets)
+    rates, launches, churn_s = {"warm-up": [], "base": [], "churn": []}, \
+        None, 0.0
+    # a warm-up session first: the SYN pool's flows then stand in CT,
+    # so the four sessions compared serve the same steady traffic
+    probe_counts = {"warm-up": [], "base": [], "churn": []}
+    for i, leg in enumerate(("warm-up", "base", "churn", "churn", "base")):
+        rows[at, pk.COL_SPORT] = 1024 + i * span + rank
+        probes.append([])
+        if leg == "churn" and launches is None:
+            reset_launch_counts()
+        out, t = serve_session(d, rows, during=(
+            churning() if leg == "churn" else None))
+        if leg == "churn" and launches is None:
+            launches = {k: v.launches for k, v in KERNELS.items()}
+        fe, ft = out["front-end"], out["front-end"]["fault-tolerance"]
+        check(fe["submitted"] == fe["verdicts"] + fe["shed"]
+              + ft["recovery-dropped"] and fe["verdicts"] == len(rows)
+              and out["lost"] == 0 and out["l7"]["ledger-exact"],
+              f"churn: the {leg} session's ledgers: {fe}, lost "
+              f"{out['lost']}, l7 {out['l7']}")
+        rates[leg].append(len(rows) / t)
+        probe_counts[leg].append(check_probes(leg, leg == "churn"))
+        if leg == "churn":
+            churn_s += t
+    check(probe_counts["warm-up"] == [(0, n_probe)]
+          and all(a > 0 and b > 0 for a, b in probe_counts["churn"]),
+          f"churn: probes (allowed, dropped) a session {probe_counts}")
+    tables1 = d.loader.table_stats()
+    check(d.loader.attach_count == attaches
+          and d.endpoints.regenerations == regens,
+          f"churn: {d.loader.attach_count - attaches} attaches and "
+          f"{d.endpoints.regenerations - regens} regenerations under churn")
+    n_ops = len(op_s)
+    check(n_ops > 0 and tables1["patches"] > tables0["patches"]
+          and launches["dus"] > 0,
+          f"churn: {n_ops} ops, {tables1['patches']} patches, launches "
+          f"{launches}")
+
+    def delta(hist, before):
+        h = LatencyHistogram()
+        h.buckets = [a - b for a, b in zip(hist.buckets, before)]
+        h.count, h.max_us = sum(h.buckets), hist.max_us
+        return h.snapshot()
+
+    stall = delta(d.loader.tables.swap_stall, stall0)
+    visible = delta(d.loader.tables.update_visible, visible0)
+    op_ms = np.percentile(np.array(op_s) * 1e3, [50, 99])
+    # the patched tables against a full attach of the same world: the
+    # db policy resolved afresh, the daemon's ipcache and row map
+    d.repo.invalidate_cache()
+    fl = TorchLoader(ct_capacity=1 << 4, device=d.loader.device)
+    fl.attach([d.repo.resolve(LabelSet.parse("k8s:app=db"))],
+              d.ipcache.to_identity_map(), {db.id: 0}, d.endpoints.row_map)
+    got, want = churn_tables(d.loader), churn_tables(fl)
+    for k in ("verdict", "auth"):
+        check(torch.equal(got[k], want[k]),
+              f"churn: the patched {k} differs from a full attach")
+    check(d.loader._lpm_entries == fl._lpm_entries,
+          "churn: the ipcache mirror differs from a full attach")
+    ips = torch.from_numpy(lpm_probe_ips(fl._lpm_entries).view(np.int32))
+    hits = [lookup_v4(t["l1"], t["l2"], t["l3"], ips) for t in (got, want)]
+    check(torch.equal(hits[0], hits[1]),
+          f"churn: LPM lookups differ from a full attach at "
+          f"{int((hits[0] != hits[1]).sum())} of {len(ips)} probes")
+    d.shutdown()
+    base, churn = (float(np.median(rates[k])) for k in ("base", "churn"))
+    print(f"churn: {n_ops} ops ({n_ops / churn_s:.1f}/s of the "
+          f"{sc.rate_hz:.0f}/s asked) over {sc.n_slots} "
+          f"slots during 2 sessions of {len(rows)} packets; "
+          f"{tables1['patches'] - tables0['patches']} patches, generation "
+          f"{tables0['generation']} -> {tables1['generation']}, "
+          f"{launches['dus']} dus launches; no attach, no regeneration")
+    print(f"churn: op to visible p50 {op_ms[0]:.3f} ms, p99 "
+          f"{op_ms[1]:.3f} ms (host clock); per publish update-visible "
+          f"p50 {visible['p50']:.1f} us, p99 {visible['p99']:.1f} us, "
+          f"swap stall p99 {stall['p99']:.1f} us")
+    print(f"churn: daemon verdicts/s without churn "
+          f"{', '.join(f'{x:.0f}' for x in rates['base'])}, with churn "
+          f"{', '.join(f'{x:.0f}' for x in rates['churn'])} (sessions "
+          f"base, churn, churn, base); churn/base medians "
+          f"{churn / base:.4f}")
+    print(f"churn: {n_probe} slot probes a session, (allowed, dropped) "
+          f"{probe_counts}; no batch mixed a slot's verdicts, and "
+          f"without churn every slot served its published verdict")
+    print(f"churn: the patched tables equal a full attach of the same "
+          f"world (verdict {tuple(got['verdict'].shape)} and auth bit for "
+          f"bit, LPM over {len(ips)} probes, "
+          f"{len(fl._lpm_entries)} prefixes)")
+    report["churn"] = {
+        "ops": n_ops, "rate_hz": sc.rate_hz, "ops_per_s": n_ops / churn_s,
+        "slots": sc.n_slots,
+        "packets": len(rows), "verdicts_per_s": rates,
+        "churn_over_base": churn / base,
+        "op_to_visible_ms": {"p50": op_ms[0], "p99": op_ms[1]},
+        "update_visible_us": visible, "swap_stall_us": stall,
+        "tables_before": tables0, "tables_after": tables1,
+        "probes": {"per_session": n_probe, "allowed_dropped": probe_counts},
+        "launches": launches}
     return launches
 
 
@@ -1637,6 +1986,7 @@ def main() -> int:
         phase_ring(torch, rng, kernels)
         phase_maint(torch, rng, kernels)
         phase_gather(torch, rng, kernels)
+        phase_dus(torch, rng, world, kernels)
         l7_launches = phase_l7(torch, rng, kernels, report)
 
         # -- 4. the slice at full size ------------------------------------
@@ -1662,6 +2012,9 @@ def main() -> int:
 
         # -- 9. the FQDN flip -------------------------------------------------
         by_path["fqdn"] = phase_fqdn(torch, world, report)
+
+        # -- 10. identity and ipcache churn ------------------------------------
+        by_path["churn"] = phase_churn(torch, rng, world, report)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1670,9 +2023,11 @@ def main() -> int:
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"))
         # launches: the daemon path's count where the kernel runs there,
-        # else the slice path's (each path's counts zeroed before it ran)
+        # else the slice path's, else the churn path's (each path's
+        # counts zeroed before it ran)
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
-        k["launches"] = by_path["daemon"][name] or by_path["slice"][name]
+        k["launches"] = (by_path["daemon"][name] or by_path["slice"][name]
+                         or by_path["churn"][name])
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
         print(f"kernel {name}: {k['launches']} launches on the main path "

@@ -304,6 +304,9 @@ class Daemon:
             if not (kind == "add" and cidr_labels
                     and self.endpoints.list()):
                 return
+        # the fast path: patch the identity's verdict row and its LPM
+        # slots in place (no re-resolve, no compile, no attach); a full
+        # regeneration when the loader cannot express the patch
         if self.endpoints.patch_identity(kind, ident):
             ok = all(self.endpoints.patch_ipcache(c, ident.numeric_id)
                      for c in cidr_labels)
@@ -389,9 +392,8 @@ class Daemon:
 
     def upsert_ipcache(self, cidr: str, numeric_id: int,
                        source: str = "k8s") -> None:
-        """Map a prefix to an identity.  The port's loader has no
-        in-place patch yet (ROADMAP B11), so this regenerates, which
-        computes the same tables."""
+        """Map a prefix to an identity; patches the device LPM in
+        place when possible, else falls back to regeneration."""
         self.ipcache.upsert(cidr, numeric_id, source=source)
         if self.endpoints.patch_ipcache(cidr, numeric_id):
             return
@@ -791,7 +793,7 @@ class Daemon:
 
     def serving_stats(self) -> dict:
         """Front-end telemetry, ring-drain counters, the event plane,
-        the ladder and the map-pressure block."""
+        the ladder, the map-pressure and table-generation blocks."""
         s = self._serving
         if s is None:
             return {"active": False}
@@ -802,7 +804,10 @@ class Daemon:
                "event-plane": s["eventplane"].stats(),
                "pressure": self.pressure.stats(),
                "mode": s["ladder"].rung,
-               "ladder": s["ladder"].to_dict()}
+               "ladder": s["ladder"].to_dict(),
+               # the live-churn plane (datapath/tables.py): published
+               # generation, swap/update latency, attach/patch counts
+               "tables": self.loader.table_stats()}
         runtime = s.get("runtime")
         if runtime is not None:
             out.update(runtime.snapshot())

@@ -321,12 +321,22 @@ class EndpointManager:
 
     # -- incremental identity churn (SURVEY.md §7 hard part #3) -------
     def patch_identity(self, kind: str, ident) -> bool:
-        """Apply one identity add/remove as an in-place tensor patch.
-        Returns False when the caller must fall back to full
-        regeneration, which computes the same tables: always, until
-        the incremental peer-set update (ROADMAP A2) and the loader's
-        patch paths (ROADMAP B11) are ported."""
-        return False
+        """Apply one identity add/remove as an in-place tensor patch
+        (no re-resolve, no recompile, no re-attach).  Returns False
+        when the caller must fall back to full regeneration."""
+        from ..policy.incremental import update_contributions
+
+        with self._lock:
+            policies = self._attached_policies
+        if not policies:
+            return False
+        # peer sets first (keeps the MapState view and any later full
+        # recompile consistent with the patched tensors) ...
+        update_contributions(policies, kind, ident.numeric_id,
+                             ident.labels)
+        # ... then the device row
+        return self.loader.patch_identity(kind, ident.numeric_id,
+                                          policies)
 
     def patch_ipcache(self, cidr: str, numeric_id: int) -> bool:
         return self.loader.patch_ipcache(cidr, numeric_id)

@@ -18,7 +18,8 @@ sees a JAX object.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ipaddress
+from typing import Dict, Iterable, Tuple
 
 import numpy as np
 
@@ -39,23 +40,45 @@ def _field_names(cls) -> Tuple[str, ...]:
     return tuple(n for n in cls.__dataclass_fields__ if n != "claim")
 
 
+def _group_from_numpy(group: str, arrays: Dict, device) -> object:
+    cls = _GROUPS[group]
+    return cls(**{name: (int(arrays[name]) if name == "default"
+                         else from_numpy(arrays[name], device))
+                  for name in _field_names(cls)})
+
+
 def datapath_state_from_numpy(arrays: Dict, device=None) -> DatapathState:
     """Nested dict of numpy arrays (layout in the module doc) -> a
     :class:`DatapathState` on ``device`` (None: the card)."""
     device = resolve_device(device)
-    def leaf(a):
-        return from_numpy(a, device)
+    parts = {g: _group_from_numpy(g, arrays[g], device) for g in _GROUPS}
+    return DatapathState(metrics=from_numpy(arrays["metrics"], device),
+                         **parts)
 
-    parts = {}
-    for group, cls in _GROUPS.items():
-        fields = {}
-        for name in _field_names(cls):
-            if name == "default":
-                fields[name] = int(arrays[group][name])
-            else:
-                fields[name] = leaf(arrays[group][name])
-        parts[group] = cls(**fields)
-    return DatapathState(metrics=leaf(arrays["metrics"]), **parts)
+
+def ipcache_from_numpy(arrays: Dict, device=None) -> DeviceLPM:
+    """The ``"ipcache"`` group alone -> a :class:`DeviceLPM` (to look
+    addresses up in a JAX loader's LPM after churn)."""
+    return _group_from_numpy("ipcache", arrays, resolve_device(device))
+
+
+def lpm_probe_ips(cidrs: Iterable[str]) -> np.ndarray:
+    """u32 IPv4 addresses that tell two LPM tables apart by lookups:
+    for every v4 prefix, its first, middle and last address and the
+    neighbours just outside it, plus 0 and 255.255.255.255.  Two tables
+    built differently (``lpm_upsert`` places blocks where a fresh
+    ``compile_lpm`` would not) agree on these iff they agree on the
+    prefixes they were programmed with."""
+    out = [0, 0xFFFFFFFF]
+    for cidr in cidrs:
+        net = ipaddress.ip_network(cidr, strict=False)
+        if net.version != 4:
+            continue
+        lo = int(net.network_address)
+        hi = lo + net.num_addresses - 1
+        out += [lo, hi, (lo + hi) // 2, max(lo - 1, 0),
+                min(hi + 1, 0xFFFFFFFF)]
+    return np.unique(np.asarray(out, dtype=np.uint32))
 
 
 def datapath_state_to_numpy(state: DatapathState) -> Dict:

@@ -114,6 +114,19 @@ struct L7IO {
   int32_t pad;
 };
 
+// One in-place update of a contiguous int32 tensor (datapath/loader.py
+// _dus): ``upd`` written into ``dst`` at ``starts``, rank 1-4 with the
+// shapes padded by leading 1s to rank 4.
+struct DusIO {
+  int32_t* dst;            // [dst_shape], written in place
+  const int32_t* upd;      // [upd_shape], upd_shape[d] <= dst_shape[d]
+  int64_t dst_shape[4];
+  int64_t upd_shape[4];
+  int64_t starts[4];       // as given: negative counts from the end
+                           // once, then clamped into [0, dst - upd]
+  int64_t n;               // update elements
+};
+
 // The XLA gather index rule: a negative index counts from the end once,
 // then the index clamps into [0, n).  Gathers in the JAX reference
 // follow it, so forged ids read the same cells on both sides.

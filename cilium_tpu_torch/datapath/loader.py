@@ -10,14 +10,30 @@ Policy/ipcache updates swap tensors while KEEPING the live conntrack
 table and metric counters — the analogue of cilium replacing pinned
 BPF programs while maps persist in bpffs.
 
+TABLE GENERATIONS (``datapath/tables.py``): every table mutation —
+``attach``, ``patch_identity``, ``patch_ipcache``, ``delete_ipcache``
+— is a BUILDER.  It compiles and uploads holding only the builder lock
+and publishes through ``_publish_tables``, which takes the dispatch
+lock for the generation flip (and, for a patch, the ``dus`` launches).
+The host mirrors (``tensors``, ``_lpm_tensors``, ``_lpm_entries``,
+``_policies``, ``_epp``) are painted after the flip, so a build that
+dies before it leaves the published tables and the mirrors as they
+were.
+
 Stream ordering replaces JAX's donation: every step updates CT, ring
-and metrics in place on the current CUDA stream, and ``attach`` builds
-the new policy/ipcache tensors off the lock and swaps the references
-under it.  A step enqueued before the swap keeps reading the tensors it
-was handed: the caching allocator reuses their memory only after the
-stream has passed that step, so the swap needs no device sync.  A
-step on ANOTHER stream would break that ordering; the loader launches
-everything on the current stream.
+and metrics in place on the current CUDA stream, which on every thread
+of the daemon is the device's default stream.  ``attach`` builds the
+new tensors off the lock and swaps the references under it; a step
+enqueued before the swap keeps reading the tensors it was handed (the
+caching allocator reuses their memory only after the stream has passed
+that step).  A patch writes the live tensors IN PLACE (``_dus``, kernel
+K10), so it must land in the stream's order: the loader enters its own
+stream (``_stream``, the default stream) for every upload and launch of
+a builder, whatever thread calls it — an FQDN mint runs on an L7 worker
+inside the proxy's stream.  A patch launched under the dispatch lock
+then runs after every step enqueued before it and before every step
+enqueued after it, so no batch (and no superbatch, whose K steps share
+one lock window) sees a half-patched table.
 
 Staging: a batch given as a C-contiguous u32 (or bool) numpy array goes
 to the card as ONE ``non_blocking`` copy straight from its memory.  The
@@ -31,7 +47,10 @@ returns, as CUDA stages pageable memory itself.
 from __future__ import annotations
 
 import abc
+import contextlib
+import ipaddress
 import threading
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -42,9 +61,45 @@ from ..policy.compiler import IdentityRowMap, compile_policy
 from ..policy.resolve import EndpointPolicy
 from ..u32 import from_numpy, narrow, to_numpy, widen
 from .conntrack import CTTable, ct_gc, ct_rows_from_table
-from .lpm import DeviceLPM, compile_lpm
+from .lpm import DeviceLPM, LPMEntries, LPMUndo, compile_lpm, lpm_upsert
+from .tables import TableVersioner
 from .verdict import (MAX_ENDPOINTS, DatapathState, DevicePolicy,
                       datapath_step)
+
+
+def _dus_starts(dst_shape, upd_shape, starts) -> list:
+    """``jax.lax.dynamic_update_slice``'s start rule: a negative start
+    counts from the end once (``allow_negative_indices``), then XLA
+    clamps it into [0, dst - upd], so the update always fits."""
+    return [min(max(int(s) + d if int(s) < 0 else int(s), 0), d - u)
+            for s, d, u in zip(starts, dst_shape, upd_shape)]
+
+
+def _dus_plain(dst: torch.Tensor, upd: torch.Tensor,
+               starts) -> torch.Tensor:
+    """``upd`` written into ``dst`` in place at ``starts``, taken as
+    :func:`_dus_starts` takes them (plain version: a slice ``copy_``)."""
+    if dst.dim() != upd.dim() or len(starts) != dst.dim():
+        raise ValueError(f"dus: ranks dst {dst.dim()}, upd {upd.dim()}, "
+                         f"starts {len(starts)}")
+    idx = tuple(slice(s, s + u) for s, u in zip(
+        _dus_starts(dst.shape, upd.shape, starts), upd.shape))
+    dst[idx].copy_(upd)
+    return dst
+
+
+def _dus(dst: torch.Tensor, upd: torch.Tensor, starts) -> torch.Tensor:
+    """The table patches' in-place ``dynamic_update_slice``: O(update),
+    never a copy of the table.  CUDA tensors launch the ``dus`` kernel
+    (K10) on the current stream; CPU tensors take :func:`_dus_plain`."""
+    if dst.is_cuda:
+        from ..kernels import launch_dus
+
+        launch_dus(dst, upd, starts)
+        return dst
+    if dst.device.type != "cpu":
+        raise ValueError(f"_dus: no kernel for {dst.device}")
+    return _dus_plain(dst, upd, starts)
 
 
 def _ct_occupied_plain(fp: torch.Tensor) -> torch.Tensor:
@@ -166,15 +221,17 @@ class Loader(abc.ABC):
 
 
 class TorchLoader(Loader):
-    """The datapath on torch tensors: the verdict step and the event
-    ring run in the hand-written kernels on the card (``device`` None
-    or "cuda"), or in their plain versions on the CPU (``device="cpu"``).
+    """The datapath on torch tensors: the verdict step, the event ring
+    and the table patches run in the hand-written kernels on the card
+    (``device`` None or "cuda"), or in their plain versions on the CPU
+    (``device="cpu"``).
 
-    Ported: full ``attach``, ``step``, ``serve``, ``serve_packed``,
+    Ported: ``attach`` (always a full compile; delta attach is ROADMAP
+    A2), the in-place patches ``patch_identity``, ``patch_ipcache`` and
+    ``delete_ipcache``, ``step``, ``serve``, ``serve_packed``,
     ``serve_superbatch``, ``gc``, ``map_pressure``, ``add_host_drops``,
-    ``metrics`` and ``ct_snapshot``.  The in-place patches answer False
-    (a full attach is required), as the Loader contract allows.  The
-    rest raises NotImplementedError naming its ROADMAP item."""
+    ``metrics``, ``ct_snapshot`` and ``table_stats``.  The rest raises
+    NotImplementedError naming its ROADMAP item."""
 
     def __init__(self, ct_capacity: int = 1 << 20, device=None):
         self.device = resolve_device(device)
@@ -182,12 +239,25 @@ class TorchLoader(Loader):
         self.state: Optional[DatapathState] = None
         self.row_map: Optional[IdentityRowMap] = None
         self.attach_count = 0
-        # programmed ipcache prefixes (the map-pressure sample's LPM
-        # entry count), set by attach
-        self._lpm_entries = 0
         # the lock covers the step enqueue + state swap only; host
         # compile and h2d staging happen before it is taken
         self._lock = threading.Lock()
+        # the stream of the serve steps: every builder upload and patch
+        # launch runs on it (module doc)
+        self._stream = (torch.cuda.default_stream(self.device)
+                        if self.device.type == "cuda" else None)
+        # the published generation + the builder lock (lock order:
+        # table-builder BEFORE the dispatch lock)
+        self.tables = TableVersioner()
+        # set while a publish is inside the dispatch lock: a builder
+        # that dies there re-uploads from the mirrors (_building)
+        self._swap_incomplete = False
+        # host mirrors of the published tables, painted after each flip
+        self.tensors = None  # PolicyTensors
+        self._lpm_tensors = None  # LPMTensors
+        self._lpm_entries = LPMEntries()  # cidr -> numeric
+        self._policies = None
+        self._epp = None  # endpoint -> policy row
         # host-side drop counts waiting for a free lock (add_host_drops)
         self._host_drops: Dict[int, int] = {}
         self._host_drops_lock = threading.Lock()
@@ -212,41 +282,188 @@ class TorchLoader(Loader):
             return t.clone()
         return t.to(self.device, non_blocking=True)
 
-    def attach(self, policies, ipcache, ep_policy, row_map) -> None:
-        """Full (re)compile + swap: new tensors are built and uploaded
-        off the lock, and only the reference swap takes it.  Live CT
-        and metrics carry over."""
-        policies = list(policies)
-        # -1 = lxcmap-miss sentinel: a packet with an unregistered
-        # endpoint id DROPS (REASON_NO_ENDPOINT)
-        epp = np.full(MAX_ENDPOINTS, -1, dtype=np.int32)
-        for ep_id, pol_row in ep_policy.items():
-            if not 0 <= ep_id < MAX_ENDPOINTS:
-                raise ValueError(
-                    f"endpoint id {ep_id} out of range "
-                    f"[0, {MAX_ENDPOINTS})")
-            epp[ep_id] = pol_row
-        tensors = compile_policy(policies, row_map)
-        # no grants yet: the authmap plane is a later slice
-        auth = np.zeros((len(policies), tensors.verdict.shape[2]),
-                        dtype=np.uint32)
-        policy = DevicePolicy.from_tensors(tensors, epp, auth,
-                                           device=self.device)
-        lpm = compile_lpm({c: row_map.row(i) for c, i in ipcache.items()})
-        ipc = DeviceLPM.from_tensors(lpm, self.device)
-        ct = None
-        if self.state is None:
-            ct = CTTable.create(self.ct_capacity, device=self.device)
+    # -- table generations (datapath/tables.py) -------------------------
+    def _on_stream(self):
+        """Enter the loader's stream (module doc); nothing on the CPU."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _stage(self, a: np.ndarray) -> torch.Tensor:
+        """A patch payload (int32 or u32 words) on the loader's device,
+        uploaded off the dispatch lock on the loader's stream, so the
+        ``dus`` launch that reads it comes after the copy.  From pinned
+        memory and asynchronous: the caching host allocator keeps the
+        pinned block until the copy has run."""
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+        if self._stream is None:
+            return t.clone()
+        with self._on_stream():
+            return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _preload_dus(self) -> None:
+        """Build and load K10 before the dispatch lock is taken: a first
+        launch must never run ``nvcc`` inside the publish window."""
+        if self._stream is not None:
+            from ..kernels import preload
+
+            preload("dus")
+
+    @contextlib.contextmanager
+    def _building(self):
+        """``tables.building()`` plus recovery: a builder that dies
+        INSIDE the locked publish window (after some ``dus`` launches
+        wrote the live tables, or after the swap but before the flip)
+        re-uploads the published content from the host mirrors, which
+        the builder's own rollback has just restored."""
+        with self.tables.building() as b:
+            try:
+                yield b
+            except BaseException:
+                self._heal_incomplete_swap()
+                raise
+
+    def _project_auth(self, n_pol: int, n_rows: int) -> np.ndarray:
+        """The auth grants projected onto the device [n_pol, n_rows]
+        table, one definition for the attach and the recovery.  There
+        are no grants until the authmap plane is ported (ROADMAP A5),
+        so the projection is all zeros."""
+        return np.zeros((n_pol, n_rows), dtype=np.uint32)
+
+    def _project_auth_column(self, kind: str, numeric_id: int,
+                             n_pol: int) -> np.ndarray:
+        """One identity's auth column [n_pol]: a recycled row must not
+        hand its previous occupant's grants to the newcomer, so a patch
+        rewrites the column from the grants (zeros on remove, and
+        zeros for every identity until ROADMAP A5)."""
+        return np.zeros(n_pol, dtype=np.uint32)
+
+    def _heal_incomplete_swap(self) -> None:
+        """No-op unless a publish died inside the dispatch lock (the
+        ``_swap_incomplete`` flag).  Uploads the device tables afresh
+        from the host mirrors — pre-patch by the rollback contract — so
+        the datapath serves exactly the published generation again,
+        whatever a partial chain of ``dus`` launches left behind."""
+        if not self._swap_incomplete:
+            return
+        if self.tensors is None or self._published_state() is None:
+            self._swap_incomplete = False
+            return
+        t = self.tensors
+        with self._on_stream():
+            policy = DevicePolicy.from_tensors(
+                t, self._epp,
+                self._project_auth(t.verdict.shape[0], t.verdict.shape[2]),
+                device=self.device)
+            lpm = DeviceLPM.from_tensors(self._lpm_tensors, self.device)
         with self._lock:
-            if self.state is None:
-                self.state = DatapathState.create(policy, ipc, ct)
+            self.state = DatapathState(
+                policy=policy, ipcache=lpm, ct=self.state.ct,
+                metrics=self.state.metrics)
+            self._swap_incomplete = False
+
+    def _published_state(self) -> Optional[DatapathState]:
+        """Locked point read of the published state (builders read the
+        active tables through it; they stay put until the builder
+        itself publishes, as every publisher holds the build lock)."""
+        with self._lock:
+            return self.state
+
+    def _publish_tables(self, build, policy=None, lpm=None,
+                        device_patch=None, row_map=None, mirrors=None,
+                        attach: bool = False) -> int:
+        """THE swap: the only place a new table generation becomes
+        visible to dispatches.  Under the dispatch lock: the
+        ``churn.swap`` fault site, the in-place ``device_patch``
+        launches on the loader's stream (microseconds of enqueue), the
+        state swap and the generation flip.  The mirrors are painted
+        after it (build lock still held).  Callers are inside
+        ``_building()``."""
+        from ..infra import faults
+
+        with self._lock:
+            # the mid-swap crash site: a raise here publishes nothing
+            faults.check(faults.SITE_CHURN_SWAP)
+            t_lock = time.monotonic()
+            if row_map is not None:
+                self.row_map = row_map
+            # from here to the flip a failure may leave the live tables
+            # half patched: _building heals them from the mirrors
+            self._swap_incomplete = True
+            if device_patch is not None:
+                with self._on_stream():
+                    device_patch(self.state)
+            if policy is None:
+                policy = self.state.policy
+            if lpm is None:
+                lpm = self.state.ipcache
+            if self.state is None:  # keep live CT + counters otherwise
+                with self._on_stream():
+                    ct = CTTable.create(self.ct_capacity,
+                                        device=self.device)
+                self.state = DatapathState.create(policy, lpm, ct)
             else:
                 self.state = DatapathState(
-                    policy=policy, ipcache=ipc, ct=self.state.ct,
+                    policy=policy, ipcache=lpm, ct=self.state.ct,
                     metrics=self.state.metrics)
-            self.row_map = row_map
-            self._lpm_entries = len(ipcache)
-            self.attach_count += 1
+            if attach:
+                self.attach_count += 1
+            gen = self.tables.flip(build, t_lock)
+            self._swap_incomplete = False
+        if mirrors is not None:
+            mirrors()
+        return gen
+
+    def table_stats(self) -> dict:
+        """The ``tables`` stats block: generation, swap and
+        update-visible latency, attach and patch counts."""
+        return self.tables.snapshot()
+
+    def attach(self, policies, ipcache, ep_policy, row_map) -> None:
+        """Full (re)compile + swap: new tensors are built and uploaded
+        off the dispatch lock and published through
+        ``_publish_tables``.  Live CT and metrics carry over."""
+        from ..infra import faults
+
+        with self._building() as build:
+            policies = list(policies)
+            # -1 = lxcmap-miss sentinel: a packet with an unregistered
+            # endpoint id DROPS (REASON_NO_ENDPOINT)
+            epp = np.full(MAX_ENDPOINTS, -1, dtype=np.int32)
+            for ep_id, pol_row in ep_policy.items():
+                if not 0 <= ep_id < MAX_ENDPOINTS:
+                    raise ValueError(
+                        f"endpoint id {ep_id} out of range "
+                        f"[0, {MAX_ENDPOINTS})")
+                epp[ep_id] = pol_row
+            # compile first: it may GROW the row map's capacity, which
+            # sizes the auth projection
+            tensors = compile_policy(policies, row_map)
+            auth = self._project_auth(len(policies),
+                                      tensors.verdict.shape[2])
+            lpm = compile_lpm({c: row_map.row(i)
+                               for c, i in ipcache.items()})
+            entries = LPMEntries(ipcache)  # cidr -> numeric
+            with self._on_stream():
+                policy = DevicePolicy.from_tensors(tensors, epp, auth,
+                                                   device=self.device)
+                device_lpm = DeviceLPM.from_tensors(lpm, self.device)
+            faults.check(faults.SITE_CHURN_BUILD)
+
+            def mirrors():
+                self._epp = epp
+                self._policies = policies
+                self._lpm_entries = entries
+                self._lpm_tensors = lpm
+                self.tensors = tensors
+
+            self._publish_tables(build, policy=policy, lpm=device_lpm,
+                                 row_map=row_map, mirrors=mirrors,
+                                 attach=True)
+            # counted only after the publish: a fault-aborted attach is
+            # a failed build
+            self.tables.full_attaches += 1
+            self.tables.policies_recompiled += len(policies)
 
     def step(self, hdr, now: int, pre_drop=None, pre_drop_reason=None,
              lb_drop=None, audit=False):
@@ -410,7 +627,8 @@ class TorchLoader(Loader):
             ct = self.state.ct
             occupied = _ct_occupied(ct.fp)
             drops = ct.dropped.clone()
-            lpm_entries = self._lpm_entries
+            # host mirrors only from here down
+            lpm_entries = len(self._lpm_entries)
             rows, rows_cap = (self.row_map.row_occupancy()
                               if self.row_map is not None else (0, 0))
         occupied = int(occupied.sum())
@@ -451,9 +669,203 @@ class TorchLoader(Loader):
             "the authmap plane is not ported yet (ROADMAP A5: auth "
             "grants)")
 
-    # patch_identity / patch_ipcache / delete_ipcache: the Loader
-    # defaults answer False ("a full attach is required"), and callers
-    # regenerate; the in-place patches are ROADMAP B11.
+    # -- in-place patches (identity and ipcache churn) ----------------
+    def patch_identity(self, kind: str, numeric_id: int,
+                       policies) -> bool:
+        """Patch one identity's verdict rows and auth column in place:
+        the row is composed on the host (``compose_row``, from peer
+        sets ``update_contributions`` already updated), uploaded off the
+        lock and written by two ``dus`` launches under it.  The mirror
+        row is painted only after the flip, and a freshly allocated row
+        is recycled if the build fails."""
+        with self._building() as build:
+            if self._published_state() is None or self.row_map is None:
+                return False
+            if len(policies) != self.tensors.verdict.shape[0]:
+                return False  # policy list changed shape: full attach
+            if kind == "remove" and self.row_map.row(numeric_id) == 0:
+                return True  # identity never had a row; nothing to patch
+            fresh_row = self.row_map.row(numeric_id) == 0
+            row = self.row_map.add(numeric_id)
+            if row >= self.tensors.verdict.shape[2]:
+                if fresh_row:
+                    self.row_map.remove(numeric_id)
+                return False  # row capacity grew past the tensor
+            try:
+                return self._patch_identity_build(build, kind, numeric_id,
+                                                  policies, row)
+            except BaseException:
+                # a failed build must not leak a row per aborted op
+                if fresh_row:
+                    self.row_map.remove(numeric_id)
+                raise
+
+    def _patch_identity_build(self, build, kind, numeric_id, policies,
+                              row) -> bool:
+        """patch_identity's builder body (split out so the row-map
+        rollback wraps it)."""
+        from ..infra import faults
+        from ..policy.incremental import compose_row
+
+        vals = compose_row(policies, numeric_id, self.tensors)
+        # staged as the [n_pol, 2, 1, n_cls] row slice one launch writes
+        vals_dev = self._stage(vals[:, :, None, :])
+        auth_dev = self._stage(self._project_auth_column(
+            kind, numeric_id, len(policies))[:, None])
+        self._preload_dus()
+        faults.check(faults.SITE_CHURN_BUILD)
+
+        def device_patch(state):
+            _dus(state.policy.verdict, vals_dev, (0, 0, row, 0))
+            _dus(state.policy.auth, auth_dev, (0, row))
+
+        def mirrors():
+            self.tensors.verdict[:, :, row, :] = vals
+            self._policies = list(policies)
+            if (kind == "remove"
+                    and numeric_id not in self._lpm_entries.values()):
+                # the row is back to defaults and nothing maps to it:
+                # recycle (unbounded churn must not grow rows)
+                self.row_map.remove(numeric_id)
+
+        self._publish_tables(build, device_patch=device_patch,
+                             mirrors=mirrors)
+        self.tables.patches += 1
+        return True
+
+    def patch_ipcache(self, cidr: str, numeric_id: int) -> bool:
+        """Map one prefix to an identity.  A /32 patches the LPM in
+        place (``lpm_upsert``: up to an l3 row, an l2 row and an l1
+        cell, children first, one ``dus`` launch each); anything else,
+        or a full block padding, recompiles the LPM alone (never the
+        policy).  The /32 path paints the host mirror before the
+        publish, so a failed build rolls it back (``LPMUndo``)."""
+        from ..infra import faults
+
+        with self._building() as build:
+            if self._published_state() is None or self.row_map is None:
+                return False
+            fresh_row = self.row_map.row(numeric_id) == 0
+            row = self.row_map.add(numeric_id)
+            if row >= self.tensors.verdict.shape[2]:
+                if fresh_row:
+                    self.row_map.remove(numeric_id)
+                return False
+            undo = LPMUndo(self._lpm_tensors, cidr)
+            had_entry = cidr in self._lpm_entries
+            prev_entry = self._lpm_entries.get(cidr)
+            self._lpm_entries[cidr] = numeric_id
+            try:
+                patches = lpm_upsert(self._lpm_tensors, cidr, row)
+                staged_t = new_lpm = device_patch = None
+                if patches is None:
+                    staged_t = compile_lpm(
+                        {c: self.row_map.row(i)
+                         for c, i in self._lpm_entries.items()})
+                    with self._on_stream():
+                        new_lpm = DeviceLPM.from_tensors(staged_t,
+                                                         self.device)
+                else:
+                    staged = [(f, i, self._stage(
+                        np.atleast_1d(p) if f == "l1"
+                        else np.atleast_1d(p)[None]))
+                        for f, i, p in patches]
+                    self._preload_dus()
+
+                    def device_patch(state):
+                        for field, idx, payload in staged:
+                            _dus(getattr(state.ipcache, field), payload,
+                                 (idx,) if field == "l1" else (idx, 0))
+                faults.check(faults.SITE_CHURN_BUILD)
+
+                def mirrors():
+                    if staged_t is not None:
+                        self._lpm_tensors = staged_t
+
+                self._publish_tables(build, lpm=new_lpm,
+                                     device_patch=device_patch,
+                                     mirrors=mirrors)
+            except BaseException:
+                # the flip never happened: the mirror rolls back to
+                # exactly the published state
+                if had_entry:
+                    self._lpm_entries[cidr] = prev_entry
+                else:
+                    self._lpm_entries.pop(cidr, None)
+                undo.restore(self._lpm_tensors)
+                if fresh_row:
+                    self.row_map.remove(numeric_id)
+                raise
+            self.tables.patches += 1
+        return True
+
+    def delete_ipcache(self, cidr: str) -> bool:
+        """Remove one prefix (fqdn TTL expiry).  A /32 that owns an l3
+        slot is patched in place — the slot reverts to the longest
+        remaining covering prefix's value, from the host entry mirror;
+        anything else recompiles the LPM (never the policy)."""
+        from ..infra import faults
+
+        with self._building() as build:
+            if self._published_state() is None or self.row_map is None:
+                return False
+            if cidr not in self._lpm_entries:
+                return True  # unknown entry: nothing to do
+            prev_entry = self._lpm_entries.pop(cidr)
+            net = ipaddress.ip_network(cidr, strict=False)
+            saved_row = None  # (blk3, row copy) for rollback
+            try:
+                in_place = net.version == 4 and net.prefixlen == 32
+                if in_place:
+                    addr = int(net.network_address)
+                    t = self._lpm_tensors
+                    hi16, mid8, lo8 = (addr >> 16, (addr >> 8) & 0xFF,
+                                       addr & 0xFF)
+                    cur1 = int(t.l1[hi16])
+                    cur2 = (int(t.l2[-cur1 - 1, mid8]) if cur1 < 0
+                            else 0)
+                    if cur1 >= 0 or cur2 >= 0:
+                        # the /32 was never expanded into an l3 slot
+                        # (merged by a full compile, or shadowed): too
+                        # ambiguous to patch, rebuild
+                        in_place = False
+                staged_t = new_lpm = device_patch = None
+                if in_place:
+                    # longest remaining covering v4 prefix -> value
+                    best_num = self._lpm_entries.longest_v4_cover(addr)
+                    value = (t.default if best_num is None
+                             else self.row_map.row(best_num))
+                    blk3 = -cur2 - 1
+                    saved_row = (blk3, t.l3[blk3].copy())
+                    t.l3[blk3, lo8] = value
+                    row_dev = self._stage(t.l3[blk3][None])
+                    self._preload_dus()
+
+                    def device_patch(state):
+                        _dus(state.ipcache.l3, row_dev, (blk3, 0))
+                else:
+                    staged_t = compile_lpm(
+                        {c: self.row_map.row(i)
+                         for c, i in self._lpm_entries.items()})
+                    with self._on_stream():
+                        new_lpm = DeviceLPM.from_tensors(staged_t,
+                                                         self.device)
+                faults.check(faults.SITE_CHURN_BUILD)
+
+                def mirrors():
+                    if staged_t is not None:
+                        self._lpm_tensors = staged_t
+
+                self._publish_tables(build, lpm=new_lpm,
+                                     device_patch=device_patch,
+                                     mirrors=mirrors)
+            except BaseException:
+                self._lpm_entries[cidr] = prev_entry
+                if saved_row is not None:
+                    self._lpm_tensors.l3[saved_row[0]] = saved_row[1]
+                raise
+            self.tables.patches += 1
+        return True
 
     def masquerade(self, nat, hdr, now: int):
         raise NotImplementedError(

@@ -14,15 +14,18 @@ Non-negative entries are values (identity rows); negative entries are
 ``-(block+1)`` pointers into the next level.  IPv6 uses a masked-compare
 TCAM over the (typically small) v6 prefix set.
 
-The host compiler (:func:`compile_lpm`, :func:`lpm_upsert`) is a copy
-of the JAX package's.  On the card the lookup is ``lpm_v4`` /
-``lpm_v6`` in ``csrc/lpm.cuh``: the datapath kernel calls them inline,
-and :func:`lpm_lookup` launches them alone (``csrc/lpm.cu``).
+The host compiler (:func:`compile_lpm`, :func:`lpm_upsert`,
+:class:`LPMUndo`) is a copy of the JAX package's; :class:`LPMEntries`
+indexes the loader's entry mirror.  On the card the
+lookup is ``lpm_v4`` / ``lpm_v6`` in ``csrc/lpm.cuh``: the datapath
+kernel calls them inline, and :func:`lpm_lookup` launches them alone
+(``csrc/lpm.cu``).
 """
 
 from __future__ import annotations
 
 import ipaddress
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -221,6 +224,106 @@ def lpm_upsert(t: LPMTensors, cidr: str,
     return patches
 
 
+class LPMEntries(Mapping):
+    """The programmed ipcache prefixes, cidr -> value (the loader's host
+    mirror), with the IPv4 ones indexed by (prefix length, network) so
+    that the longest prefix covering an address is 33 lookups rather
+    than a parse of every entry (``delete_ipcache`` asks on every /32
+    withdraw, and parsing 10k cidrs holds the interpreter lock for as
+    long as it takes).
+
+    A read-only mapping whose only mutators are ``__setitem__`` and
+    ``pop``, both of which keep the index in step.
+
+    Among equal prefixes spelled differently, the first in insertion
+    order wins, as a scan of ``items()`` would find it."""
+
+    def __init__(self, entries=()):
+        self._entries: Dict[str, int] = {}
+        # (length, network) -> {cidr: None}, in insertion order
+        self._v4: Dict[Tuple[int, int], Dict[str, None]] = {}
+        for cidr, value in dict(entries).items():
+            self[cidr] = value
+
+    @staticmethod
+    def _key(cidr: str) -> Optional[Tuple[int, int]]:
+        net = ipaddress.ip_network(cidr, strict=False)
+        if net.version != 4:
+            return None
+        return net.prefixlen, int(net.network_address)
+
+    def __getitem__(self, cidr: str) -> int:
+        return self._entries[cidr]
+
+    def __iter__(self):
+        return iter(self._entries)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __setitem__(self, cidr: str, value: int) -> None:
+        if cidr not in self._entries:
+            key = self._key(cidr)
+            if key is not None:
+                self._v4.setdefault(key, {})[cidr] = None
+        self._entries[cidr] = value
+
+    def pop(self, cidr: str, *default):
+        if cidr in self._entries:
+            key = self._key(cidr)
+            if key is not None:
+                spellings = self._v4[key]
+                del spellings[cidr]
+                if not spellings:
+                    del self._v4[key]
+        return self._entries.pop(cidr, *default)
+
+    def longest_v4_cover(self, addr: int) -> Optional[int]:
+        """The value of the longest IPv4 prefix covering ``addr``, or
+        None when none does."""
+        for plen in range(32, -1, -1):
+            net = addr & (0xFFFFFFFF ^ ((1 << (32 - plen)) - 1))
+            spellings = self._v4.get((plen, net))
+            if spellings:
+                return self[next(iter(spellings))]
+        return None
+
+
+class LPMUndo:
+    """Rollback snapshot for ONE :func:`lpm_upsert` against the host
+    mirror: a build that fails AFTER the mirror upsert but BEFORE the
+    generation flip (the ``churn.*`` fault sites) must leave the mirror
+    exactly as published, or the next rebuild would resurrect an entry
+    the datapath never served.
+
+    Snapshots the same (l1 slot, l2 block, l3 block) the upsert's plan
+    derives — the derivation here MUST mirror ``lpm_upsert``'s; both
+    live in this file so they cannot drift apart silently."""
+
+    def __init__(self, t: LPMTensors, cidr: str):
+        self.cells: List[tuple] = []  # ("l1"|"l2"|"l3", idx, payload)
+        net = ipaddress.ip_network(cidr, strict=False)
+        if net.version != 4 or net.prefixlen != 32:
+            return  # rebuild path: the mirror object is REPLACED,
+            # not mutated — nothing to snapshot
+        addr = int(net.network_address)
+        n_l2, n_l3 = lpm_used_blocks(t)
+        hi16, mid8 = addr >> 16, (addr >> 8) & 0xFF
+        cur1 = int(t.l1[hi16])
+        blk2 = n_l2 if cur1 >= 0 else -cur1 - 1
+        cur2 = cur1 if cur1 >= 0 else int(t.l2[blk2, mid8])
+        blk3 = n_l3 if cur2 >= 0 else -cur2 - 1
+        self.cells.append(("l1", hi16, np.int32(cur1)))
+        if blk2 < t.l2.shape[0]:
+            self.cells.append(("l2", blk2, t.l2[blk2].copy()))
+        if blk3 < t.l3.shape[0]:
+            self.cells.append(("l3", blk3, t.l3[blk3].copy()))
+
+    def restore(self, t: LPMTensors) -> None:
+        for field, idx, payload in self.cells:
+            getattr(t, field)[idx] = payload
+
+
 def lookup_v4(t_l1: torch.Tensor, t_l2: torch.Tensor, t_l3: torch.Tensor,
               ip: torch.Tensor) -> torch.Tensor:
     """Batched IPv4 LPM: [N] u32 -> [N] int32 values.  Three gathers
@@ -298,8 +401,11 @@ class DeviceLPM:
         device = resolve_device(device)
 
         def i32(a):
+            # a copy on every device, the CPU too: the host arrays stay
+            # the loader's mirrors, never the published tables
             return torch.from_numpy(
-                np.ascontiguousarray(a, dtype=np.int32)).to(device)
+                np.ascontiguousarray(a, dtype=np.int32)).to(device,
+                                                            copy=True)
 
         return DeviceLPM(
             l1=i32(t.l1), l2=i32(t.l2), l3=i32(t.l3),

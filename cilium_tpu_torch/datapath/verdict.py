@@ -121,8 +121,11 @@ class DevicePolicy:
                             dtype=np.uint32)
 
         def i32(a):
+            # a copy on every device, the CPU too: the host arrays stay
+            # the loader's mirrors, never the published tables
             return torch.from_numpy(
-                np.ascontiguousarray(a, dtype=np.int32)).to(device)
+                np.ascontiguousarray(a, dtype=np.int32)).to(device,
+                                                            copy=True)
 
         return DevicePolicy(
             proto_table=i32(t.proto_table), port_class=i32(t.port_class),

@@ -3,10 +3,10 @@
 Reference: upstream cilium ``pkg/fqdn`` — the DNS proxy snoops
 responses, the NameManager maps name->IPs with TTLs, IPs get
 CIDR-derived identities carrying fqdn metadata, the ipcache learns the
-mapping, and ``toFQDNs`` selectors start matching.  The reference
-package patches one verdict row and one /32 LPM slot per answer; the
-port has no incremental patch path yet (ROADMAP A2/A3), so each minted
-identity costs a full regeneration, which computes the same tables.
+mapping, and ``toFQDNs`` selectors start matching.  Each minted
+identity patches one verdict row and one /32 LPM slot in place
+(``TorchLoader.patch_identity`` / ``patch_ipcache``), with no
+regeneration, as in the reference.
 
 Identity shape: one identity per IP, labeled with EVERY name observed
 for that IP (``fqdn:<name>``), ``cidr:<ip>/32``, and

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of the serving path and the L7 proxy:
-their registry, launch counts and launchers.
+"""The hand-written CUDA kernels of the serving path, the L7 proxy and
+the table patches: their registry, launch counts and launchers.
 
 Each launcher checks the device, dtype, shape, contiguity and alignment
 of every tensor, allocates outputs and scratch with ``torch.empty`` on
@@ -68,6 +68,8 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "cilium_tpu/datapath/conntrack.py:288"),
     Kernel("l7_verdict", "l7", "l7_verdict_launch",
            "cilium_tpu/proxy/l7policy.py:325"),
+    Kernel("dus", "tables", "dus_launch",
+           "cilium_tpu/datapath/loader.py:56"),
 )}
 
 
@@ -78,6 +80,13 @@ def reset_launch_counts() -> None:
 
 _READY: set = set()
 _READY_LOCK = threading.Lock()
+
+
+def preload(name: str) -> None:
+    """Build and load kernel ``name``'s library now, so that its first
+    launch does not pay ``nvcc`` (the table builders call this before
+    they take the dispatch lock)."""
+    _library(KERNELS[name].source)
 
 
 def _library(source: str) -> ctypes.CDLL:
@@ -381,3 +390,28 @@ def launch_l7_verdict(rules: torch.Tensor, rows: torch.Tensor,
         out=out.data_ptr(), n=n, n_rules=n_rules, k=k)
     KERNELS["l7_verdict"].launch(ctypes.addressof(io), _stream(dev))
     return out
+
+
+def launch_dus(dst: torch.Tensor, upd: torch.Tensor, starts) -> None:
+    """K10: ``upd`` written into ``dst`` in place at ``starts``, taken
+    as ``jax.lax.dynamic_update_slice`` takes them (a negative start
+    counts from the end once, then XLA's clamp).  Both int32,
+    contiguous, of one rank from 1 to 4, ``upd`` no larger than ``dst``
+    in any dimension."""
+    dev, rank = dst.device, dst.dim()
+    if not 1 <= rank <= 4 or upd.dim() != rank or len(starts) != rank:
+        raise ValueError(f"dus: ranks dst {rank}, upd {upd.dim()}, starts "
+                         f"{len(starts)}; the kernel takes one rank of 1-4")
+    if any(u > d for u, d in zip(upd.shape, dst.shape)):
+        raise ValueError(f"dus: update {tuple(upd.shape)} larger than "
+                         f"{tuple(dst.shape)}")
+    pad = (1,) * (4 - rank)
+    io = abi.DusIO(
+        dst=_ptr(dst, I32, dev, name="dst"),
+        upd=_ptr(upd, I32, dev, name="upd"),
+        dst_shape=(ctypes.c_int64 * 4)(*(pad + tuple(dst.shape))),
+        upd_shape=(ctypes.c_int64 * 4)(*(pad + tuple(upd.shape))),
+        starts=(ctypes.c_int64 * 4)(*((0,) * (4 - rank)
+                                      + tuple(int(x) for x in starts))),
+        n=upd.numel())
+    KERNELS["dus"].launch(ctypes.addressof(io), _stream(dev))

@@ -72,6 +72,14 @@ class L7IO(ctypes.Structure):
                 ("pad", I32)]
 
 
+I64 = ctypes.c_int64
+
+
+class DusIO(ctypes.Structure):
+    _fields_ = [("dst", P), ("upd", P), ("dst_shape", I64 * 4),
+                ("upd_shape", I64 * 4), ("starts", I64 * 4), ("n", I64)]
+
+
 # per library: (symbol reporting sizeof, [structs in its index order])
 ABI = {
     "verdict": ("verdict_abi_size", [LpmView, PolicyView, CtView,
@@ -80,6 +88,7 @@ ABI = {
     "lpm": ("lpm_abi_size", [LpmView]),
     "ring": ("ring_abi_size", [RingIO, GatherIO]),
     "l7": ("l7_abi_size", [L7IO]),
+    "tables": ("tables_abi_size", [DusIO]),
 }
 
 # per library: {symbol: argtypes}; every launcher returns cudaError_t
@@ -92,4 +101,5 @@ SIGNATURES = {
     "lpm": {"lpm_lookup_launch": [P, P, P, P, I32, P]},
     "ring": {"ring_append_launch": [P, P], "ring_gather_launch": [P, P]},
     "l7": {"l7_verdict_launch": [P, P]},
+    "tables": {"dus_launch": [P, P]},
 }

@@ -23,9 +23,9 @@ Lifecycle of one redirected row::
                             latency into the registry histograms]
         -> allowed DNS queries resolve (dns_resolver hook) and feed
            proxy.observe_answer -> fqdn.NameManager.observe -> a LIVE
-           identity mint -> a full regeneration (the port has no
-           incremental patch path yet, ROADMAP A2/A3) -> the NEXT
-           device batch's verdict flips, mid-serving.
+           identity mint -> in-place table patches (patch_identity +
+           patch_ipcache, the ``dus`` kernel) -> the NEXT device
+           batch's verdict flips, mid-serving.
 
 Rows are the ledger unit; the pool's no-silent-loss contract
 (``redirected == l7_allowed + l7_denied + l7_shed + l7_failed``)
@@ -95,7 +95,7 @@ class L7Plane:
         self.request_source = request_source or _default_request_source
         # dns_resolver(qname) -> (ips, ttl) | None: the answer leg for
         # ALLOWED dns queries; answers feed proxy.observe_answer ->
-        # fqdn identity mints (a full regeneration each, until A2/A3)
+        # fqdn identity mints (in-place table patches)
         self.dns_resolver = dns_resolver
         self.pool = L7WorkerPool(
             self._handle, workers=workers, queue_depth=queue_depth,

@@ -1,0 +1,272 @@
+"""Seeded control-plane workloads: the identity churn scenario.
+
+A copy of the JAX package's ``testing/workloads.py``, cut to the
+:class:`Scenario` contract and ``identity_churn`` (the other scenarios
+drive planes the port does not have yet).  Host-only: a scenario is a
+deterministic generator of traffic batches and control-plane ops,
+applied to a ``Daemon`` through its own API, so the churn tests and
+``chip_smoke.py`` replay the same schedule for the same seed.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import itertools
+from dataclasses import dataclass
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from ..core.packets import (
+    COL_DPORT,
+    COL_DST_IP3,
+    COL_EP,
+    COL_FAMILY,
+    COL_FLAGS,
+    COL_LEN,
+    COL_PROTO,
+    COL_SPORT,
+    COL_SRC_IP3,
+    N_COLS,
+    TCP_ACK,
+)
+
+
+def _ip(s: str) -> int:
+    import ipaddress
+
+    return int(ipaddress.IPv4Address(s))
+
+
+def _rows(n: int) -> np.ndarray:
+    out = np.zeros((n, N_COLS), dtype=np.uint32)
+    out[:, COL_FAMILY] = 4
+    out[:, COL_PROTO] = 6
+    return out
+
+
+def _zipf_weights(n: int, a: float) -> np.ndarray:
+    """Rank -> probability ~ 1/rank^a (normalized); rank 0 is the
+    elephant.  ONE definition for every Zipf-weighted scenario."""
+    w = 1.0 / np.power(np.arange(1, n + 1), a)
+    return w / w.sum()
+
+
+class Scenario:
+    """The scenario contract: a docstring saying what hostile shape it
+    reproduces, a ``name``, declared pass ``criteria`` and a ``seed``
+    (same name and seed, byte-identical streams: :meth:`signature`).
+
+    A scenario owns two deterministic streams — ``iter_batches(ep)``
+    (wide ``[N, N_COLS]`` uint32 header tensors) and ``ops(n)``
+    (control-plane events applied via :meth:`apply`) — plus
+    ``setup(target)``, which registers whatever endpoints/policy the
+    streams assume (``target`` exposes ``add_endpoint`` /
+    ``policy_import``, as a ``Daemon`` does).  ``path`` names the
+    serving leg it runs on (``serving``: admission queue -> drain
+    loop), and
+    ``daemon_overrides`` the DaemonConfig knobs its pressure shape
+    needs.
+    """
+
+    name: str = ""
+    criteria: Dict[str, object] = {}
+    path: str = "serving"
+    daemon_overrides: Dict[str, object] = {}
+    interval_s: float = 0.0  # op spacing; 0 = no op stream
+
+    def setup(self, target) -> dict:
+        """Register the scenario's world; returns the run's context
+        (at least ``{"ep": <endpoint id>}`` for traffic scenarios)."""
+        return {"ep": 0}
+
+    def iter_batches(self, ep: int) -> Iterator[np.ndarray]:
+        return iter(())
+
+    def ops(self, n: Optional[int] = None) -> List:
+        return []
+
+    def apply(self, daemon, op, live: Dict) -> None:
+        raise NotImplementedError
+
+    def drain(self, daemon, live: Dict) -> None:
+        """Unwind every surviving op (teardown; default no-op)."""
+
+    # -- the determinism contract --------------------------------------
+    def signature(self, ep: int = 7, n_batches: int = 3,
+                  n_ops: int = 64) -> str:
+        """Digest of the scenario's first ``n_batches`` batches and
+        ``n_ops`` ops — two fresh instances with the same constructor
+        args must agree byte for byte (the contract test's surface)."""
+        h = hashlib.sha256()
+        for b in itertools.islice(self.iter_batches(ep), n_batches):
+            h.update(np.ascontiguousarray(b).tobytes())
+        for op in self.ops(n_ops):
+            h.update(repr(op).encode())
+        return h.hexdigest()
+
+
+@dataclass(frozen=True)
+class ChurnOp:
+    """One scenario event: mint or withdraw slot ``slot``'s identity.
+
+    ``cidr`` is the slot's /32.  Minting allocates an identity for
+    the slot's labels (see :meth:`IdentityChurnScenario.slot_labels`
+    — rules select them via the ``k8s:churn=yes`` convention) and
+    upserts the /32; withdrawing deletes the ipcache entry and
+    releases the identity.  ``t_s`` is the op's offset from the
+    scenario start at the configured rate."""
+
+    kind: str  # "mint" | "withdraw"
+    slot: int
+    cidr: str
+    t_s: float
+
+
+class IdentityChurnScenario(Scenario):
+    """Mint/withdraw CIDR identities at ``rate_hz``, Zipf-weighted
+    over ``n_slots`` peer slots.
+
+    Each slot alternates mint -> withdraw -> mint ... (an op on a
+    live slot withdraws it, on a dead slot mints it), so the op
+    stream is valid by construction and the live set follows the
+    Zipf weights.  Deterministic per (seed, n_slots, zipf_a,
+    rate_hz): the churn tests and ``chip_smoke.py`` replay the same
+    schedule.
+    """
+
+    name = "identity_churn"
+    criteria = {"ledger_exact": True, "max_shed_frac": 0.95}
+    path = "serving"
+    daemon_overrides = {"serving_bucket_ladder": (64,),
+                        "serving_max_wait_us": 500.0}
+
+    def __init__(self, seed: int = 0, n_slots: int = 16,
+                 zipf_a: float = 1.3, rate_hz: float = 200.0,
+                 subnet: Tuple[int, int] = (10, 9),
+                 n_batches: int = 48):
+        if n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        if zipf_a <= 1.0:
+            raise ValueError("zipf_a must be > 1 (Zipf exponent)")
+        if rate_hz <= 0:
+            raise ValueError("rate_hz must be > 0")
+        self.seed = int(seed)
+        self.n_batches = int(n_batches)
+        self.n_slots = int(n_slots)
+        self.zipf_a = float(zipf_a)
+        self.rate_hz = float(rate_hz)
+        self.interval_s = 1.0 / self.rate_hz
+        if self.n_slots > 65534:
+            raise ValueError("n_slots must fit the /16 slot space")
+        a, b = subnet
+        # host s+1 within the /16 (skips .0.0; (s+1) & 0xFF may be 0
+        # — x.y.z.0/32 is a valid host route)
+        self._cidrs = [f"{a}.{b}.{(s + 1) >> 8}.{(s + 1) & 0xFF}/32"
+                       for s in range(self.n_slots)]
+        # slot 0 is the elephant peer
+        self._weights = _zipf_weights(self.n_slots, self.zipf_a)
+
+    def slot_cidr(self, slot: int) -> str:
+        return self._cidrs[slot]
+
+    def slot_ip(self, slot: int) -> str:
+        return self._cidrs[slot].rsplit("/", 1)[0]
+
+    def slot_labels(self, slot: int) -> List[str]:
+        """The slot identity's labels.  ``k8s:churn=yes`` is the
+        selection convention: a rule with ``fromEndpoints``
+        ``matchLabels {"churn": "yes"}`` admits exactly the LIVE
+        slots (a dead slot's /32 resolves to identity 0 and
+        default-denies) — deliberately NOT a ``fromCIDR`` rule,
+        whose covering-prefix identity would admit the whole subnet
+        regardless of slot liveness."""
+        return [f"k8s:app=churn{slot}", "k8s:churn=yes",
+                "k8s:ns=default"]
+
+    def setup(self, target) -> dict:
+        target.add_endpoint("churn-web", ("10.9.255.1",),
+                            ["k8s:app=churn-web"])
+        ep = target.add_endpoint("churn-db", ("10.9.255.2",),
+                                 ["k8s:app=churn-db"])
+        target.policy_import([{
+            "endpointSelector": {"matchLabels": {"app": "churn-db"}},
+            "ingress": [
+                {"fromEndpoints": [
+                    {"matchLabels": {"app": "churn-web"}}],
+                 "toPorts": [{"ports": [{"port": "5432",
+                                         "protocol": "TCP"}]}]},
+                {"fromEndpoints": [{"matchLabels": {"churn": "yes"}}],
+                 "toPorts": [{"ports": [{"port": "5432",
+                                         "protocol": "TCP"}]}]},
+            ],
+        }])
+        return {"ep": ep.id}
+
+    def iter_batches(self, ep: int) -> Iterator[np.ndarray]:
+        """A light stable-allowed stream (churn-web -> :5432) so the
+        serving plane has traffic while the op stream churns —
+        ``n_batches`` of 64 rows."""
+        rng = np.random.default_rng(self.seed + 1)
+        for _ in range(self.n_batches):
+            out = _rows(64)
+            out[:, COL_SRC_IP3] = _ip("10.9.255.1")
+            out[:, COL_DST_IP3] = _ip("10.9.255.2")
+            out[:, COL_SPORT] = rng.integers(1024, 60000, 64)
+            out[:, COL_DPORT] = 5432
+            out[:, COL_FLAGS] = TCP_ACK
+            out[:, COL_LEN] = 512
+            out[:, COL_EP] = ep
+            yield out
+
+    def ops(self, n: Optional[int] = None) -> List[ChurnOp]:
+        """The first ``n`` ops of the schedule (deterministic)."""
+        return list(self.iter_ops(n if n is not None else 256))
+
+    def iter_ops(self, n: Optional[int] = None) -> Iterator[ChurnOp]:
+        rng = np.random.default_rng(self.seed)
+        live = [False] * self.n_slots
+        i = 0
+        while n is None or i < n:
+            slot = int(rng.choice(self.n_slots, p=self._weights))
+            kind = "withdraw" if live[slot] else "mint"
+            live[slot] = not live[slot]
+            yield ChurnOp(kind=kind, slot=slot,
+                          cidr=self._cidrs[slot],
+                          t_s=i * self.interval_s)
+            i += 1
+
+    # -- applying ops to a daemon -----------------------------------------
+    def apply(self, daemon, op: ChurnOp, live: Dict[int, object]
+              ) -> None:
+        """Apply one op against a live daemon.  ``live`` is the
+        caller's slot -> Identity map (the scenario owns the
+        schedule, the caller owns the handles).
+
+        Mint allocates the slot's labeled identity — the allocator
+        observer chain applies it to the selecting contributions and
+        patches its verdict row in place (``patch_identity``) — then
+        upserts the slot's /32 (``patch_ipcache``).  Withdraw
+        deletes the ipcache entry FIRST (no LPM entry may reference
+        the row when it recycles), then releases the identity."""
+        from ..labels import LabelSet
+
+        if op.kind == "mint":
+            ident = daemon.allocator.allocate(
+                LabelSet.parse(*self.slot_labels(op.slot)))
+            daemon.upsert_ipcache(op.cidr, ident.numeric_id,
+                                  source="generated")
+            live[op.slot] = ident
+        else:
+            ident = live.pop(op.slot, None)
+            if ident is not None:
+                daemon.delete_ipcache(op.cidr)
+                daemon.allocator.release(ident)
+
+    def drain(self, daemon, live: Dict[int, object]) -> None:
+        """Withdraw every surviving slot (teardown), so op semantics
+        (field order, withdraw steps) live only here."""
+        for slot in list(live):
+            self.apply(daemon, ChurnOp("withdraw", slot,
+                                       self.slot_cidr(slot), 0.0),
+                       live)

@@ -5,9 +5,9 @@ ipcache entries, rules and rows go through ``serve_batch`` and
 ``serve_superbatch`` at a fixed clock: the monitor events (wall-clock
 timestamps aside), metrics and CT rows are bit-exact.  Then the ingress
 front end (``submit`` -> ``stop_serving``): its ledger is exact and its
-metrics equal the JAX daemon's for forward-only traffic; the
-``upsert_ipcache`` fallback verdicts as the JAX daemon's patch path
-does; and every unported feature raises NotImplementedError naming its
+metrics equal the JAX daemon's for forward-only traffic;
+``upsert_ipcache`` patches in place as the JAX daemon's does; and
+every unported feature raises NotImplementedError naming its
 ROADMAP item."""
 
 import threading
@@ -216,17 +216,34 @@ def test_ingress_ledger_and_metrics_match_jax():
                      ring_capacity=1 << 12)
     ev = _collect(td)
 
+    # the drain loop is held at its first assemble until one chunk of
+    # four top buckets is queued: it then finds them all pending and
+    # dispatches a superbatch, however the threads are scheduled.  The
+    # test stops serving only after that assemble (a stop before it
+    # would drain the queue one batch at a time on this thread)
+    queued, taken = threading.Event(), threading.Event()
+    batcher = td._serving["runtime"].batcher
+    assemble_super = batcher.assemble_super
+
+    def held(queue, k_max):
+        assert queued.wait(timeout=60)
+        try:
+            return assemble_super(queue, k_max)
+        finally:
+            taken.set()
+
+    batcher.assemble_super = held
+
     def produce():
-        # one chunk of four top buckets first: the drain loop then finds
-        # at least two full buckets pending and dispatches a superbatch
         td.submit(rows[:4096])
+        queued.set()
         for i in range(4096, len(rows), 700):
             td.submit(rows[i:i + 700])
 
     t = threading.Thread(target=produce)
     t.start()
     t.join(timeout=60)
-    assert not t.is_alive()
+    assert not t.is_alive() and taken.wait(timeout=60)
     out = td.stop_serving()
     fe = out["front-end"]
     _assert_ledger(fe)
@@ -269,22 +286,25 @@ def test_ingress_overflow_sheds_counted():
 
 
 def test_upsert_ipcache_falls_back_to_regeneration_like_jax_patch():
-    """The port's loader answers False to every in-place patch (a full
-    attach is required); upsert_ipcache then regenerates, and the
-    verdicts equal the JAX daemon's, which patches in place."""
+    """``upsert_ipcache`` takes the patch path, as the JAX daemon does
+    (the name is from when the port regenerated instead): a /16 to an
+    existing identity is one LPM-only publish on both daemons, with no
+    attach and no regeneration, and the served events, metrics and
+    tables counters equal the JAX daemon's."""
     jd, td, (_web, db) = _daemons()
-    assert td.loader.patch_ipcache("10.9.0.0/16", 1) is False
-    assert td.loader.delete_ipcache("10.9.0.0/16") is False
-    assert td.loader.patch_identity("add", 1, []) is False
     svc3 = [d.allocator.lookup_by_labels(ls.parse("k8s:app=svc3",
                                                   "k8s:ns=default"))
             for d, ls in ((jd, JLabelSet), (td, LabelSet))]
     assert svc3[0].numeric_id == svc3[1].numeric_id
-    before = td.loader.attach_count
+    before = [(d.loader.attach_count, d.endpoints.regenerations,
+               d.loader.table_stats()["patches"]) for d in (jd, td)]
     for d in (jd, td):
         d.start()
         d.upsert_ipcache("10.9.0.0/16", svc3[0].numeric_id)
-    assert td.loader.attach_count == before + 1
+    for d, (attaches, regens, patches) in zip((jd, td), before):
+        assert d.loader.attach_count == attaches
+        assert d.endpoints.regenerations == regens
+        assert d.loader.table_stats()["patches"] == patches + 1
     rows = _ingress_rows(np.random.default_rng(4), 256, db)
     rows[::2, COL_SRC_IP3] = ip_to_words("10.9.4.4")[3]
     rows[:, COL_DPORT] = np.where(np.arange(256) % 4 < 2, 8050, 8000)
@@ -299,6 +319,9 @@ def test_upsert_ipcache_falls_back_to_regeneration_like_jax_patch():
     from_patch = got["hdr"][:, COL_SRC_IP3] == ip_to_words("10.9.4.4")[3]
     assert (got["identity"][from_patch] == svc3[0].numeric_id).all()
     np.testing.assert_array_equal(td.loader.metrics(), jd.loader.metrics())
+    js, ts = jd.loader.table_stats(), td.loader.table_stats()
+    assert ts["generation"] - ts["full-attaches"] == \
+        js["generation"] - js["full-attaches"] - js["delta-attaches"]
     for d in (jd, td):
         d.shutdown()
 

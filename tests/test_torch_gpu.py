@@ -268,3 +268,94 @@ def test_l7_verdict_kernel_and_proxy_match_plain_on_the_card():
     for c in ("requests_total", "requests_denied", "host_fallback_checked",
               "host_fallback_allowed"):
         assert getattr(proxies[0], c) == getattr(proxies[1], c), c
+
+
+# K10's shapes on the patch paths (config #3 widths cut to 2 policies and
+# 1024 rows) and the start rule's edges
+DUS_CASES = {
+    "verdict-row": ((2, 2, 1024, 256), (2, 2, 1, 256), (0, 0, 517, 0)),
+    "auth-column": ((2, 1024), (2, 1), (0, 1023)),
+    "l1-cell": ((1 << 16,), (1,), (40961,)),
+    "l3-row": ((40, 256), (1, 256), (39, 0)),
+    "clamp-past-edge": ((2, 2, 1024, 256), (2, 2, 1, 256), (5, 9, 4096, 3)),
+    "clamp-negative": ((40, 256), (3, 256), (-2, -300)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(DUS_CASES))
+def test_dus_kernel_matches_its_plain_version(case):
+    """K10 against ``_dus_plain`` on the same CUDA tensors, bit-exact,
+    in place, one launch each."""
+    _need_card()
+    from cilium_tpu_torch.datapath.loader import _dus, _dus_plain
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    dst_shape, upd_shape, starts = DUS_CASES[case]
+    g = torch.Generator(device="cuda").manual_seed(len(case))
+    dst = torch.randint(-2**31, 2**31 - 1, dst_shape, dtype=torch.int32,
+                        device="cuda", generator=g)
+    upd = torch.randint(-2**31, 2**31 - 1, upd_shape, dtype=torch.int32,
+                        device="cuda", generator=g)
+    want = _dus_plain(dst.clone(), upd, starts)
+    reset_launch_counts()
+    got = dst.clone()
+    assert _dus(got, upd, starts) is got
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert KERNELS["dus"].launches == 1
+
+
+@pytest.mark.gpu
+def test_a_patch_from_another_stream_lands_in_serve_order():
+    """An FQDN mint patches from an L7 worker that runs inside the
+    proxy's stream.  Here a thread inside a side stream patches a /32
+    between two ``serve_packed`` batches that wait behind a spin on the
+    serving stream: the patch must land after the first batch and
+    before the second, so the card's rings equal the CPU's, and differ
+    from a run without the patch."""
+    _need_card()
+    import contextlib
+    import threading
+
+    from cilium_tpu_torch.core.packets import COL_SRC_IP3, ip_to_words
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    w = tfix.build_world(256, 8, ct_capacity=1 << 12, n_v6=16,
+                         device="cpu")
+    rng = np.random.default_rng(6)
+    hdr = tfix.bench_traffic(w, 512, rng)
+    hdr[:, COL_SRC_IP3] = ip_to_words(w.pod_ips[0])[3]
+    packed = pack_rows(hdr)
+    target = w.ipcache[w.pod_ips[1] + "/32"]
+    drained = []
+    for dev, patch in (("cuda", True), ("cpu", True), ("cpu", False)):
+        loader = TorchLoader(ct_capacity=1 << 12, device=dev)
+        loader.attach(w.policies, dict(w.ipcache), {0: 0}, w.row_map)
+        ring = tring.EventRing.create(1 << 12, device=loader.device)
+        rows = torch.from_numpy(packed.view(np.int32)).to(dev)
+        side = torch.cuda.Stream() if dev == "cuda" else None
+        reset_launch_counts()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda._sleep(200_000_000)  # the serving stream is busy
+        ring, _ = loader.serve_packed(ring, rows, 100, 0, 0, 0,
+                                      trace_sample=1)
+
+        def do_patch():
+            with (torch.cuda.stream(side) if side is not None
+                  else contextlib.nullcontext()):
+                assert loader.patch_ipcache(w.pod_ips[0] + "/32", target)
+
+        if patch:
+            t = threading.Thread(target=do_patch)
+            t.start()
+            t.join(timeout=60)
+            assert not t.is_alive()
+        ring, _ = loader.serve_packed(ring, rows, 101, 1, 0, 0,
+                                      trace_sample=1)
+        drained.append(tring.ring_drain(ring)[0])
+        if dev == "cuda":
+            assert KERNELS["dus"].launches >= 1
+    np.testing.assert_array_equal(drained[0], drained[1])
+    assert not np.array_equal(drained[1], drained[2])

@@ -428,10 +428,9 @@ def _dns_daemon():
 def test_fqdn_mint_flips_verdicts_under_serving():
     """Probes to the unresolved IP drop; a DNS batch redirects, the L7
     workers allow example.com, the answer mints an FQDN identity, and
-    the next probes are allowed, mid-serving.  The port has no
-    incremental patch path yet (ROADMAP A2/A3): the mint pays a full
-    regeneration (attach_count moves), where the reference patches
-    in place without recompiling."""
+    the next probes are allowed, mid-serving.  The mint takes the
+    patch path, as in the reference: the tables' generation moves by
+    in-place patches, with no attach and no regeneration."""
     d, ep, got = _dns_daemon()
     d.start_serving(trace_sample=0, ingress=True, drain_every=1)
     try:
@@ -440,12 +439,19 @@ def test_fqdn_mint_flips_verdicts_under_serving():
                                                  443)) == 64)
         pre = _probe_verdicts(got, 50000, 50064, 443)
         assert all(v != VERDICT_ALLOW for v in pre.values()), pre
-        attaches = d.loader.attach_count
+        attaches, regens = (d.loader.attach_count,
+                            d.endpoints.regenerations)
+        tables = d.loader.table_stats()
         for r in range(2):
             d.submit(_dns_rows(ep.id, base=20000 + r * 100))
         assert _wait(lambda: len(d.fqdn.entries()) >= 1)
         assert _wait(lambda: d._l7plane.pool.pending == 0)
-        assert d.loader.attach_count > attaches  # a full regeneration
+        # patched in place: no attach, no regeneration
+        assert d.loader.attach_count == attaches
+        assert d.endpoints.regenerations == regens
+        now = d.loader.table_stats()
+        assert now["patches"] >= tables["patches"] + 2
+        assert now["generation"] > tables["generation"]
         d.submit(_probe_rows(ep.id, EXAMPLE_IP, base=51000))
         assert _wait(lambda: len(_probe_verdicts(got, 51000, 51064,
                                                  443)) == 64)
@@ -464,9 +470,10 @@ def test_fqdn_mint_flips_verdicts_under_serving():
 
 def test_mint_racing_the_drain_thread_matches_a_serial_run():
     """A producer keeps probe batches flowing while an L7 worker mints
-    the identity and regenerates.  The loader swaps tables under the
-    lock its serve calls take, so every probe batch sees one table
-    generation (all its rows drop, or all are allowed, never a mix),
+    the identity and patches the tables in place.  The loader publishes
+    each patch under the lock its serve calls take, so every probe
+    batch sees one table generation (all its rows drop, or all are
+    allowed, never a mix),
     once allowed they stay allowed, and afterwards the raced daemon
     verdicts a fresh batch exactly as a daemon that observed the same
     answer serially."""

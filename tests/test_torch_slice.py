@@ -159,7 +159,10 @@ def test_port_import_leaves_jax_unloaded():
             "cilium_tpu_torch.monitor.api, cilium_tpu_torch.monitor.agent, "
             "cilium_tpu_torch.datapath.pressure, cilium_tpu_torch.infra, "
             "cilium_tpu_torch.ipcache, cilium_tpu_torch.proxy, "
-            "cilium_tpu_torch.serving.l7plane, cilium_tpu_torch.fqdn\n"
+            "cilium_tpu_torch.serving.l7plane, cilium_tpu_torch.fqdn, "
+            "cilium_tpu_torch.datapath.tables, "
+            "cilium_tpu_torch.policy.incremental, "
+            "cilium_tpu_torch.testing.workloads\n"
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cilium_tpu')]\n"
             "assert not bad, bad\n")
