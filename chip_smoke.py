@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's serving step, serving daemon, L7 proxy
-plane and live table churn on one NVIDIA GPU.
+plane, live table churn and offline egress path on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -68,13 +68,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    rows, never see a slot's old and new verdicts in one batch and,
    without churn, see its published one; the ledgers stay exact, no
    attach and no regeneration happen, and afterwards the patched
-   tables equal a full attach of the same world.
+   tables equal a full attach of the same world;
+11. the offline egress path: config #3's world with masquerade to a
+   node IP (the default 2^14-port pool, non-masquerade 10.0.0.0/8), 128
+   client pods, an egress-gateway policy on one namespace and egress
+   limits on the other's 64 pods, driven through
+   ``Daemon.process_batch`` (SNAT K11 -> bandwidth K13 -> K1/K4 ->
+   reverse NAT K12) in 8 batches of 2^16 rows 60 s apart: fresh TCP and
+   UDP flows to the world, repeats of live flows, replies to the
+   allocated node and gateway ports, cluster-internal rows.  Every
+   reply translates back to its pod tuple, no two flows share a node
+   port, the pool's failures equal the NAT_EXHAUSTED rows, each limited
+   pod's bucket ledger holds, UDP mappings expire; then a short
+   exhaustion leg at ``NatExhaustionScenario``'s shape.  Phase 3 holds
+   K11-K14 against their plain versions at these shapes (collision
+   windows, duplicates, a pool run dry, a clock crossing 2^32).
 
 The kernel launch counts are read per path (the slice of phase 4, the
 daemon of phase 7, the L7 paths of phases 3, 8 and 9, the churn of
-phase 10), each zeroed just before its path runs.  The line
-before the last is one JSON object describing every kernel of the main
-paths; the last line is the device record.  Details go to
+phase 10, the egress path of phase 11), each zeroed just before its path
+runs.  The line before the last is one JSON object describing every
+kernel (the standalone launchers with 0 launches and ``"standalone":
+true``); the last line is the device record.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -506,6 +521,221 @@ def phase_dus(torch, rng, world, kernels):
         bytes=2 * upd.numel() * 4, ops=0)
 
 
+# -- the egress stages (K11-K14) ---------------------------------------
+
+EGRESS_N = 1 << 16  # phase 11's process_batch rows
+NAT_POOL = 1 << 14  # the default pool (NAT_DEFAULT_CAPACITY)
+
+
+def nat_case(torch, rng, now, n_inbound=8192):
+    """Full-size NAT inputs on the card: a pool of NAT_POOL slots, a 2^20
+    CT table holding ``n_inbound`` live inbound connections, the
+    gateway rule table phase 11's policy compiles to (one rule for each
+    of 64 pods, with overlapping rules ahead and behind:
+    ``gateway_rules``), and EGRESS_N rows (a crafted collision window,
+    the pods' replies to the inbound connections, mixed traffic with
+    repeats)."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+
+    pods = eg.pod_ips(256)
+    inbound, replies = eg.inbound_pairs(rng, n_inbound, pods)
+    table, fp = eg.inbound_ct(inbound, now, CT_CAPACITY)
+    cti = ct.CTTable(table=u32.from_numpy(table, "cuda"),
+                     fp=u32.from_numpy(fp, "cuda"),
+                     dropped=torch.zeros((), dtype=torch.int32,
+                                         device="cuda"))
+    t = nat.NATConfig(node_ip=eg.NODE_IP, egress_rules=eg.gateway_rules(
+        pods)).compile("cuda")
+    home = int(rng.integers(0, NAT_POOL))
+    n_rep = EGRESS_N // 16
+    rows = np.concatenate([
+        eg.colliding_rows(12, NAT_POOL, home), replies[:n_rep],
+        eg.egress_rows(rng, EGRESS_N - n_rep - 12, pods, sports=16384)])
+    return t, cti, rows, pods
+
+
+CT_PROBE_OPS = 100  # reverse key, its hash, 16 fingerprint compares
+
+
+def egress_counts(rows, t, found, k11):
+    """The least bytes and integer operations K11 (``k11``) or K14 must
+    move and do for ``rows``: every row read and written (64 B each)
+    and its mask byte, 40 ops; for each masquerade candidate the
+    reverse-CT probe, its fingerprint window (64 B) and CT_PROBE_OPS,
+    and the CT key (40 B) of each of the ``found`` candidates whose
+    reverse entry is live.  K11 also reads the gateway rule table once
+    (16 B a rule) and tries, for each egress v4 row, the rules up to its
+    first match (3 ops a rule); it hashes each candidate (8 ops) and,
+    for each port-bearing one, scans its 8-slot NAT window (192 B, 40
+    ops) and writes one slot (24 B, 20 ops)."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import (COL_DIR, COL_DST_IP3,
+                                               COL_FAMILY, COL_PROTO,
+                                               COL_SRC_IP3)
+
+    src, dst = rows[:, COL_SRC_IP3], rows[:, COL_DST_IP3]
+    out4 = (rows[:, COL_DIR] == 1) & (rows[:, COL_FAMILY] == 4)
+    internal = ((dst[:, None] & u32.to_numpy(t.mask))
+                == u32.to_numpy(t.net)).any(1)
+    nb, ops = len(rows) * 129 + found * 40, len(rows) * 40
+    if not k11:
+        n_cand = int((out4 & ~internal).sum())
+        return nb + n_cand * 64, ops + n_cand * CT_PROBE_OPS
+    hit = ((src[:, None] == u32.to_numpy(t.egw_src))
+           & ((dst[:, None] & u32.to_numpy(t.egw_mask))
+              == u32.to_numpy(t.egw_net)))
+    g = hit.shape[1]
+    tried = np.where(hit.any(1), hit.argmax(1) + 1, g)
+    cand = out4 & (hit.any(1) | ~internal)
+    need = cand & np.isin(rows[:, COL_PROTO], [6, 17, 132])
+    n_cand, n_need = int(cand.sum()), int(need.sum())
+    return (nb + g * 16 + n_cand * 64 + n_need * (192 + 24),
+            ops + 3 * int(tried[out4].sum())
+            + n_cand * (CT_PROBE_OPS + 8) + n_need * 60)
+
+
+def phase_egress_kernels(torch, rng, kernels):
+    """K11-K14 against their plain versions at phase 11's shapes (2^16
+    rows, a 2^14-slot pool, a 2^20 CT): crafted collision windows,
+    repeats of one flow in a batch, a pool run dry by one batch, replies
+    (some to the wrong IP or with a forged protocol word), a clock
+    crossing 2^32; each kernel and its plain version fed clones of the
+    same state."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import bandwidth as bw
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+
+    def clone(tbl):
+        return nat.NATTable(tbl.table.clone(), tbl.failed.clone())
+
+    errs = {k: 0 for k in ("snat_egress", "snat_reverse", "bw_stage",
+                           "masq_rewrite")}
+    timed = None
+    for now in (1000, (1 << 32) - 150):
+        t, cti, rows, pods = nat_case(torch, rng, now)
+        tabs = [nat.NATTable.create(NAT_POOL, "cuda") for _ in range(2)]
+        for step in range(3):
+            t_now = (now + 90 * step) & 0xFFFFFFFF
+            hdr = u32.from_numpy(rows, "cuda")
+            before = clone(tabs[0])
+            got = nat.snat_egress(tabs[0], t, cti, hdr, t_now)
+            want = nat.snat_egress_plain(tabs[1], t, cti, hdr, t_now)
+            e = max(max_abs_err(got[0], want[0], "snat_egress rows"),
+                    max_abs_err(got[2], want[2], "snat_egress drop"),
+                    max_abs_err(tabs[0].table, tabs[1].table,
+                                "snat_egress table"),
+                    max_abs_err(tabs[0].failed, tabs[1].failed,
+                                "snat_egress failed"))
+            errs["snat_egress"] = max(errs["snat_egress"], e)
+            if step == 1 and timed is None:
+                # timed on a table the first batch filled
+                timed = (before, t, cti, hdr, t_now, rows)
+            out = u32.to_numpy(got[0])
+            rep = u32.from_numpy(eg.reply_rows(rng, out, EGRESS_N), "cuda")
+            g = nat.snat_reverse(tabs[0], t, rep, t_now + 1)
+            w = nat.snat_reverse_plain(tabs[1], t, rep, t_now + 1)
+            errs["snat_reverse"] = max(
+                errs["snat_reverse"],
+                max_abs_err(g[0], w[0], "snat_reverse rows"),
+                max_abs_err(tabs[0].table, tabs[1].table,
+                            "snat_reverse table"))
+            restored = int((g[0][:, 7] != rep[:, 7]).sum())
+            print(f"parity snat_egress/snat_reverse: now={t_now}, "
+                  f"{len(rows)} rows, {int(got[2].sum())} dropped (failed "
+                  f"{int(tabs[0].failed) & 0xFFFFFFFF}), "
+                  f"{nat.nat_live_count(tabs[0], t_now)} of {NAT_POOL} "
+                  f"slots live, {restored} replies restored, bit-exact")
+            rows = np.concatenate([rows[::2], eg.egress_rows(
+                rng, len(rows) - len(rows[::2]), pods, sports=16384)])
+        for ct_arg in (cti, None):
+            g = nat.masq_rewrite(t, hdr, ct_arg, t_now)
+            w = nat.masq_rewrite_plain(t, hdr, ct_arg, t_now)
+            errs["masq_rewrite"] = max(
+                errs["masq_rewrite"],
+                max_abs_err(g[0], w[0], "masq_rewrite rows"),
+                max_abs_err(g[1], w[1], "masq_rewrite mask"))
+
+    # K13 over the 4096 buckets: 64 limited endpoints among 256
+    eps = list(range(1, 257)) + [5000]
+    limits = {e: int(x) for e, x in zip(
+        range(1, 65), rng.integers(100_000, 2_000_000, 64))}
+    limits[2] = 0x7FFFFFFF
+    rates = u32.from_numpy(bw.rates_array(limits), "cuda")
+    states = [bw.BandwidthState.create("cuda") for _ in range(2)]
+    policed = 0
+    for now in (10, 10, 11, 4000, (1 << 32) - 1, 3):
+        hdr_bw = u32.from_numpy(eg.bw_rows(rng, EGRESS_N, eps), "cuda")
+        g = bw.bw_stage(states[0], hdr_bw, now, rates)
+        w = bw.bw_stage_plain(states[1], hdr_bw, now, rates)
+        policed += int((g != 0).sum())
+        errs["bw_stage"] = max(
+            errs["bw_stage"], max_abs_err(g, w, "bw_stage reasons"),
+            max_abs_err(states[0].tokens, states[1].tokens,
+                        "bw_stage tokens"),
+            max_abs_err(states[0].last, states[1].last, "bw_stage last"))
+    print(f"parity bw_stage: {EGRESS_N} rows of {len(eps)} endpoints, "
+          f"{len(limits)} limited, clocks 10..2^32-1..3, {policed} rows "
+          f"dropped in 6 batches, bit-exact")
+
+    # times at phase 11's shapes, each call on a clone of the state
+    before, t, cti, hdr, t_now, rows = timed
+    # the candidates whose reverse CT entry is live: masqueraded without
+    # the probe, kept with it
+    found = int((nat.masq_rewrite_plain(t, hdr, None, t_now)[1]
+                 & ~nat.masq_rewrite_plain(t, hdr, cti, t_now)[1]).sum())
+    nb, ops = egress_counts(rows, t, found, k11=True)
+    kernels["snat_egress"].update(
+        max_abs_err=errs["snat_egress"],
+        ms=device_ms(lambda tb: nat.snat_egress(tb, t, cti, hdr, t_now),
+                     20, lambda: clone(before)),
+        plain_ms=device_ms(lambda tb: nat.snat_egress_plain(
+            tb, t, cti, hdr, t_now), 3, lambda: clone(before)),
+        bytes=nb, ops=ops)
+    out = u32.to_numpy(nat.snat_egress(clone(before), t, cti, hdr,
+                                       t_now)[0])
+    rep = u32.from_numpy(eg.reply_rows(rng, out, EGRESS_N), "cuda")
+    after = clone(before)
+    nat.snat_egress(after, t, cti, hdr, t_now)
+    kernels["snat_reverse"].update(
+        max_abs_err=errs["snat_reverse"],
+        ms=device_ms(lambda tb: nat.snat_reverse(tb, t, rep, t_now), 20,
+                     lambda: clone(after)),
+        plain_ms=device_ms(lambda tb: nat.snat_reverse_plain(
+            tb, t, rep, t_now), 3, lambda: clone(after)),
+        # rows read and written, one 24 B slot gathered a row, an expiry
+        # written a hit
+        bytes=EGRESS_N * (128 + 24 + 4), ops=EGRESS_N * 40)
+    nb, ops = egress_counts(rows, t, found, k11=False)
+    kernels["masq_rewrite"].update(
+        max_abs_err=errs["masq_rewrite"],
+        ms=device_ms(lambda: nat.masq_rewrite(t, hdr, cti, t_now), 20),
+        plain_ms=device_ms(lambda: nat.masq_rewrite_plain(
+            t, hdr, cti, t_now), 3),
+        bytes=nb, ops=ops)
+
+    def fresh_bw():
+        return bw.BandwidthState(states[0].tokens.clone(),
+                                 states[0].last.clone())
+
+    kernels["bw_stage"].update(
+        max_abs_err=errs["bw_stage"],
+        ms=device_ms(lambda s: bw.bw_stage(s, hdr_bw, 5, rates), 20,
+                     fresh_bw),
+        plain_ms=device_ms(lambda s: bw.bw_stage_plain(s, hdr_bw, 5, rates),
+                           3, fresh_bw),
+        # the five words a row needs (20 B) and its reason (4 B); rates,
+        # tokens read and written for every bucket
+        bytes=EGRESS_N * 24 + 4096 * 12 + 8,
+        ops=EGRESS_N * 30 + 4096 * 20)
+
+
 def random_ring_words(rng, n, empty_frac=0.03):
     """Event-ring words: real event rows with some EMPTY slots."""
     import numpy as np
@@ -769,10 +999,13 @@ class StageClock:
                "event join: L7Plane.ingest": "worker",
                "l7 task: request source + parse + K9 + fallback": "l7"}
 
-    def __init__(self):
+    def __init__(self, threads=None):
+        """``threads``: stage -> thread for another set of stages than
+        the serving session's (THREADS)."""
         import threading
 
-        self.times = {name: [] for name in self.THREADS}
+        self.threads = threads or self.THREADS
+        self.times = {name: [] for name in self.threads}
         self._depth = threading.local()
 
     def wrap(self, owner, attr, name, skip_none=False):
@@ -843,7 +1076,7 @@ class StageClock:
     def summary(self, seconds):
         out = {}
         for name, v in self.times.items():
-            out[name] = {"thread": self.THREADS[name], "calls": len(v),
+            out[name] = {"thread": self.threads[name], "calls": len(v),
                          "median_ms": statistics.median(v) if v else None,
                          "total_ms": sum(v),
                          "share": sum(v) / 1e3 / seconds}
@@ -851,6 +1084,25 @@ class StageClock:
 
 
 DB_IP = "10.0.0.5"
+
+
+def config3_world(d, world, extra_rules=()):
+    """BASELINE.md config #3 into daemon ``d`` through its own API: the
+    remote identities and their /32s, the world's rules (with its L7
+    HTTP rule) and ``extra_rules`` in one import, the ``db`` endpoint.
+    Returns the db endpoint."""
+    from cilium_tpu_torch.labels import LabelSet
+    from cilium_tpu_torch.testing import fixtures as fx
+
+    # the remote identities and their /32s, all before start() and
+    # before any endpoint: the allocator hook only clears the cache
+    for i, ip in enumerate(world.pod_ips):
+        ident = d.allocator.allocate(
+            LabelSet.parse(f"k8s:app=svc{i}", "k8s:ns=default"))
+        d.ipcache.upsert(ip + "/32", ident.numeric_id, source="k8s")
+    d.policy_import(fx.world_rules(len(world.pod_ips), 64)
+                    + list(extra_rules))
+    return d.add_endpoint("db", (DB_IP,), ["k8s:app=db"])
 
 
 def config3_daemon(world, rng):
@@ -863,7 +1115,6 @@ def config3_daemon(world, rng):
     from cilium_tpu_torch.agent import Daemon, DaemonConfig
     from cilium_tpu_torch.core.packets import (COL_DST_IP3, COL_EP,
                                                ip_to_words)
-    from cilium_tpu_torch.labels import LabelSet
     from cilium_tpu_torch.testing import fixtures as fx
 
     cfg = DaemonConfig(ct_capacity=CT_CAPACITY, serving_packed_ingest=True,
@@ -871,14 +1122,7 @@ def config3_daemon(world, rng):
                        serving_queue_depth=1 << 19, ct_gc_interval=0.5,
                        map_pressure_interval=0.5)
     d = Daemon(cfg)
-    # the remote identities and their /32s, all before start() and
-    # before any endpoint: the allocator hook only clears the cache
-    for i, ip in enumerate(world.pod_ips):
-        ident = d.allocator.allocate(
-            LabelSet.parse(f"k8s:app=svc{i}", "k8s:ns=default"))
-        d.ipcache.upsert(ip + "/32", ident.numeric_id, source="k8s")
-    d.policy_import(fx.world_rules(len(world.pod_ips), 64))
-    db = d.add_endpoint("db", (DB_IP,), ["k8s:app=db"])
+    db = config3_world(d, world)
     per = (1 << 21) // 8
     pool = fx.steady_flow_pool(world, per, rng)
     rows = np.concatenate([pool] + [fx.steady_traffic(pool, per, rng)
@@ -1570,6 +1814,326 @@ def phase_churn(torch, rng, world, report):
     return launches
 
 
+N_CLIENTS = 128  # client pods, two namespaces of 64
+EGRESS_BATCHES = 8
+FRESH = 1280  # new flows a batch
+CLIENT_RULE = {"endpointSelector": {"matchLabels": {"app": "client"}},
+               "egress": [{"toEntities": ["world"]},
+                          {"toEndpoints": [{}]}]}
+
+
+def egress_daemon(world, rng):
+    """Config #3's world (config3_world) with masquerade to a node IP,
+    the default pool and the default non-masquerade 10.0.0.0/8, plus 128
+    client pods (team-a and team-b, 64 each) whose rule lets them reach
+    the world and the cluster; an egress-gateway policy on team-b toward
+    93.184.0.0/16, and per-pod egress limits on team-a's 64.  Returns
+    (daemon, clients, rates)."""
+    from cilium_tpu_torch.agent import Daemon, DaemonConfig
+    from cilium_tpu_torch.labels import LabelSet
+    from cilium_tpu_torch.testing import egress as eg
+
+    d = Daemon(DaemonConfig(ct_capacity=CT_CAPACITY, masquerade=True,
+                            node_ip=eg.NODE_IP))
+    config3_world(d, world, extra_rules=[CLIENT_RULE])
+    clients = [d.endpoints.add(
+        f"client{i}", (f"10.250.{i // 200}.{i % 200 + 1}",),
+        LabelSet.parse("k8s:app=client",
+                       f"k8s:ns={'team-a' if i < 64 else 'team-b'}"),
+        defer_regen=True) for i in range(N_CLIENTS)]
+    d.endpoints.regenerate()
+    d.add_egress_gateway("team-b", {"matchLabels": {"ns": "team-b"}},
+                         ["93.184.0.0/16"], eg.EGRESS_IP)
+    # a team-a pod sends ~6 B a batch row (~400 KB a 2^16-row batch):
+    # limits of 1.5-3 B a row keep about half of it
+    rates = {}
+    for ep in clients[:64]:
+        rates[ep.id] = int(rng.integers(EGRESS_N * 3 // 2, EGRESS_N * 3))
+        d.set_bandwidth(ep.id, rates[ep.id])
+    return d, clients, rates
+
+
+def egress_batch(rng, clients, flows, b, prev):
+    """One 2^16-row batch of phase 11 and the new flows it opens:
+    FRESH new TCP/UDP flows from the clients to the world; repeats of
+    the flows opened in this batch or the one before (so a flow lives
+    two batches, and its UDP mapping then expires); replies to the node
+    and gateway ports the previous batch allocated; the rest
+    cluster-internal, client to client.  ``flows`` is [F, N_COLS]
+    (pre-NAT rows); ``prev`` (rows, events) of the previous batch."""
+    import numpy as np
+    from cilium_tpu_torch.core.packets import (COL_DIR, COL_DPORT,
+                                               COL_DST_IP3, COL_EP,
+                                               COL_FAMILY, COL_FLAGS,
+                                               COL_LEN, COL_PROTO,
+                                               COL_SPORT, COL_SRC_IP3,
+                                               N_COLS, TCP_ACK, TCP_SYN)
+    from cilium_tpu_torch.service.nat import NAT_PORT_MIN
+    from cilium_tpu_torch.testing import egress as eg
+
+    ids = np.array([c.id for c in clients], np.uint32)
+    ips = np.array([eg.ip(c.ips[0]) for c in clients], np.uint32)
+    pick = rng.integers(0, len(clients), FRESH)
+    new = np.zeros((FRESH, N_COLS), np.uint32)
+    new[:, COL_SRC_IP3], new[:, COL_EP] = ips[pick], ids[pick]
+    # team-b's flows toward 93.184/16 take the gateway
+    new[:, COL_DST_IP3] = np.where(
+        rng.random(FRESH) < 0.5, eg.ip("93.184.0.0") + rng.integers(
+            1, 1 << 16, FRESH), eg.ip("151.101.0.0") + rng.integers(
+            1, 1 << 16, FRESH))
+    new[:, COL_SPORT] = 20000 + (b * FRESH + np.arange(FRESH)) % 40000
+    new[:, COL_DPORT] = rng.choice(np.array([443, 53, 123], np.uint32),
+                                   FRESH)
+    new[:, COL_PROTO] = np.where(rng.random(FRESH) < 0.6, 6, 17)
+    new[:, COL_FLAGS] = TCP_SYN
+    new[:, COL_LEN] = rng.integers(60, 1500, FRESH)
+    new[:, COL_FAMILY], new[:, COL_DIR] = 4, 1
+    live = np.concatenate([flows, new])
+    n_rep, n_reply = EGRESS_N // 2, EGRESS_N // 4
+    rep = live[rng.integers(0, len(live), n_rep)].copy()
+    rep[:, COL_FLAGS] = TCP_ACK
+    rep[:, COL_LEN] = rng.integers(60, 1500, n_rep)
+    parts = [new, rep]
+    if prev is not None:
+        rows_p, ev = prev
+        ok = np.flatnonzero((rows_p[:, COL_DIR] == 1) & (ev.reason == 0)
+                            & (ev.hdr[:, COL_SRC_IP3]
+                               != rows_p[:, COL_SRC_IP3])
+                            & (ev.hdr[:, COL_SPORT] >= NAT_PORT_MIN)
+                            & np.isin(rows_p[:, COL_PROTO], [6, 17]))
+        sel = rng.choice(ok, n_reply)
+        out = ev.hdr[sel]
+        reply = out.copy()
+        reply[:, COL_SRC_IP3], reply[:, COL_DST_IP3] = (out[:, COL_DST_IP3],
+                                                        out[:, COL_SRC_IP3])
+        reply[:, COL_SPORT], reply[:, COL_DPORT] = (out[:, COL_DPORT],
+                                                    out[:, COL_SPORT])
+        reply[:, COL_FLAGS], reply[:, COL_DIR] = TCP_ACK, 0
+        parts.append(reply)
+        want = (rows_p[sel, COL_SRC_IP3], rows_p[sel, COL_SPORT])
+    else:
+        want = None
+    n_int = EGRESS_N - sum(len(p) for p in parts)
+    a, c = rng.integers(0, len(clients), n_int), rng.integers(
+        0, len(clients), n_int)
+    internal = np.zeros((n_int, N_COLS), np.uint32)
+    internal[:, COL_SRC_IP3], internal[:, COL_EP] = ips[a], ids[a]
+    internal[:, COL_DST_IP3] = ips[c]
+    internal[:, COL_SPORT] = rng.integers(1024, 65535, n_int)
+    internal[:, COL_DPORT], internal[:, COL_PROTO] = 8080, 6
+    internal[:, COL_FLAGS] = TCP_SYN
+    internal[:, COL_LEN] = rng.integers(60, 1500, n_int)
+    internal[:, COL_FAMILY], internal[:, COL_DIR] = 4, 1
+    parts.append(internal)
+    rows = np.concatenate(parts)
+    return rows, new, want
+
+
+def phase_egress(torch, rng, world, report):
+    """The offline egress path at full width: config #3's world with
+    masquerade, an egress gateway and bandwidth limits
+    (``egress_daemon``), driven through ``Daemon.process_batch`` in
+    EGRESS_BATCHES batches of 2^16 rows 60 s apart (``egress_batch``),
+    then a short exhaustion leg at ``NatExhaustionScenario``'s shape.
+    Returns the main leg's launch counts."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.agent import Daemon, DaemonConfig
+    from cilium_tpu_torch.core.packets import (COL_DIR, COL_DPORT,
+                                               COL_DST_IP3, COL_EP, COL_LEN,
+                                               COL_PROTO, COL_SPORT,
+                                               COL_SRC_IP3, N_COLS)
+    from cilium_tpu_torch.datapath.verdict import (REASON_BANDWIDTH,
+                                                   REASON_NAT_EXHAUSTED)
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+    from cilium_tpu_torch.testing.workloads import (NatExhaustionScenario,
+                                                    run_scenario)
+
+    t0 = time.monotonic()
+    d, clients, rates = egress_daemon(world, rng)
+    t_build = time.monotonic() - t0
+    print(f"egress: config #3 ({len(world.pod_ips)} identities) with "
+          f"{len(clients)} client pods, masquerade to {eg.NODE_IP}, "
+          f"gateway {eg.EGRESS_IP} for team-b, {len(rates)} limited pods; "
+          f"{d.endpoints.regenerations} regenerations, built in "
+          f"{t_build:.1f} s")
+    stages = ((d.loader, "masquerade", "snat (K11)"),
+              (d, "_bw_police", "bandwidth (K13)"),
+              (d.loader, "step", "datapath step (K1, K4)"),
+              (d.loader, "reverse_nat", "reverse NAT (K12)"),
+              (d, "_finish_batch", "decode + publish"))
+    clock = StageClock({name: "caller" for _o, _a, name in stages})
+    for obj, attr, name in stages:
+        clock.wrap(obj, attr, name)
+    flows = np.zeros((0, N_COLS), np.uint32)
+    prev, nat_drops, pb_s = None, 0, 0.0
+    kept, avail = {e: 0 for e in rates}, {e: 0 for e in rates}
+    n_replies = n_restored = 0
+    now = 100
+    reset_launch_counts()
+    for b in range(EGRESS_BATCHES):
+        rows, new, want = egress_batch(rng, clients, flows, b, prev)
+        tokens = u32.to_numpy(d._bw.tokens).astype(np.int64)
+        last = int(u32.to_numpy(d._bw.last))
+        t1 = time.perf_counter()
+        ev = d.process_batch(rows, now=now)
+        pb_s += time.perf_counter() - t1
+        check(len(ev) == len(rows), f"egress: {len(ev)} events for "
+              f"{len(rows)} rows")
+        nat_drops += int((ev.reason == REASON_NAT_EXHAUSTED).sum())
+        # every reply to an allocated port gets its pod tuple back
+        if want is not None:
+            sl = slice(FRESH + EGRESS_N // 2, FRESH + 3 * EGRESS_N // 4)
+            got = ev.hdr[sl]
+            ok = (got[:, COL_DST_IP3] == want[0]) & (got[:, COL_DPORT]
+                                                      == want[1])
+            n_replies += len(got)
+            n_restored += int(ok.sum())
+            check(bool(ok.all()), f"egress: {int((~ok).sum())} replies of "
+                  f"{len(got)} not translated back in batch {b}")
+        # distinct pre-NAT flows never share a (rewrite IP, node port)
+        alloc = ((rows[:, COL_DIR] == 1) & (ev.reason == 0)
+                 & (ev.hdr[:, COL_SRC_IP3] != rows[:, COL_SRC_IP3])
+                 & (ev.hdr[:, COL_SPORT] >= nat.NAT_PORT_MIN))
+        post = ev.hdr[alloc][:, [COL_SRC_IP3, COL_SPORT]]
+        pre = rows[alloc][:, [COL_SRC_IP3, COL_SPORT, COL_DST_IP3,
+                              COL_DPORT, COL_PROTO]]
+        pairs = np.unique(np.concatenate([post, pre], axis=1), axis=0)
+        check(len(np.unique(pairs[:, :2], axis=0)) == len(pairs),
+              f"egress: two flows share a node port in batch {b}")
+        # the bucket ledger of every limited pod: exact where no row of
+        # the pod dropped for NAT exhaustion, bounded where one did
+        dt = min((now - last) & 0xFFFFFFFF, 1)
+        after = u32.to_numpy(d._bw.tokens).astype(np.int64)
+        eg_rows = rows[:, COL_DIR] == 1
+        for e, r in rates.items():
+            mine = eg_rows & (rows[:, COL_EP] == e)
+            av = min(int(tokens[e]) + r * dt, r)
+            fwd = int(rows[mine & (ev.reason == 0), COL_LEN].sum())
+            lost = int(rows[mine & (ev.reason == REASON_NAT_EXHAUSTED),
+                            COL_LEN].sum())
+            lo, hi = max(av - fwd - lost, 0), max(av - fwd, 0)
+            check(lo <= int(after[e]) <= hi,
+                  f"egress: bucket of pod {e} holds {int(after[e])}, "
+                  f"available {av}, forwarded {fwd}, NAT-dropped {lost}")
+            kept[e] += fwd
+            avail[e] += av
+        flows = new
+        prev = (rows, ev)
+        now += 60
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    for name in ("snat_egress", "snat_reverse", "bw_stage", "datapath_wide",
+                 "ct_update"):
+        check(launches[name] > 0, f"egress: {name} never launched")
+    end = now - 60
+    st = d.status()["nat"]
+    table = d.loader.nat_snapshot()
+    exp = table[:, nat.NV_EXPIRES]
+    live = exp >= end
+    expired = int(((exp > 0) & ~live).sum())
+    keys = table[live][:, :nat.NV_EXPIRES]
+    check(len(np.unique(keys, axis=0)) == int(live.sum()),
+          "egress: two live slots hold one flow")
+    check(st["alloc-failed"] == nat_drops,
+          f"egress: failed {st['alloc-failed']} but {nat_drops} rows "
+          f"dropped NAT_EXHAUSTED")
+    check(expired > 0, "egress: no UDP mapping expired in the run")
+    occupancy = st["live"] / st["capacity"]
+    sum_kept, sum_avail = sum(kept.values()), sum(avail.values())
+    # proportional policing keeps each batch's bytes near the budget (a
+    # per-flow hash, not a byte-exact cut): over 64 pods and 8 batches
+    # the kept bytes stay within 10% above the tokens available
+    check(sum_kept <= 1.10 * sum_avail,
+          f"egress: limited pods forwarded {sum_kept} bytes of "
+          f"{sum_avail} available")
+    m = d.loader.metrics()
+    check(int(m[REASON_BANDWIDTH].sum()) > 0, "egress: nothing was policed")
+    rows_total = EGRESS_BATCHES * EGRESS_N
+    check(int(m.sum()) == rows_total, f"egress: metrics count {m.sum()} "
+          f"of {rows_total} rows")
+    stages_s = {k: sum(v) / 1e3 for k, v in clock.times.items()}
+    # the rest: the rows' copy to the card and back, Python between
+    stages_s["other"] = pb_s - sum(stages_s.values())
+    print(f"egress: {EGRESS_BATCHES} batches of {EGRESS_N} rows through "
+          f"process_batch in {pb_s:.3f} s ({rows_total / pb_s:.0f} rows/s, "
+          f"host clock); stages (host s, share): " + ", ".join(
+              f"{k} {v:.4f} {v / pb_s:.1%}" for k, v in stages_s.items()))
+    print(f"egress: pool {st['live']} of {st['capacity']} live "
+          f"({occupancy:.1%}), {expired} expired mappings, "
+          f"{st['alloc-failed']} failures = {nat_drops} NAT_EXHAUSTED rows")
+    print(f"egress: {n_restored} of {n_replies} replies translated back; "
+          f"limited pods forwarded {sum_kept} of {sum_avail} bytes "
+          f"available ({sum_kept / sum_avail:.3f}); "
+          f"{int(m[REASON_BANDWIDTH].sum())} rows dropped BANDWIDTH")
+    print(f"egress launches: {json.dumps(launches)}")
+    # K11 at the main path's own inputs: the next batch against the
+    # pool as the run left it, the CT as the loader published it and
+    # the daemon's compiled gateway table, kernel and plain version each
+    # on a clone of the pool (after the launch counts were read)
+    rows, _new, _want = egress_batch(rng, clients, flows, EGRESS_BATCHES,
+                                     prev)
+    hdr = u32.from_numpy(rows, "cuda")
+    live_ct = d.loader.state.ct
+
+    def pool():
+        base = d.loader.nat_state
+        return nat.NATTable(base.table.clone(), base.failed.clone())
+
+    tabs = [pool(), pool()]
+    got = nat.snat_egress(tabs[0], d.nat, live_ct, hdr, now)
+    want = nat.snat_egress_plain(tabs[1], d.nat, live_ct, hdr, now)
+    for g, w, what in ((got[0], want[0], "rows"), (got[2], want[2], "drop"),
+                       (tabs[0].table, tabs[1].table, "table"),
+                       (tabs[0].failed, tabs[1].failed, "failed")):
+        max_abs_err(g, w, f"egress: snat_egress {what} on the main "
+                    f"path's inputs")
+    n_rules = int(d.nat.egw_src.shape[0])
+    k11_ms = device_ms(lambda tb: nat.snat_egress(
+        tb, d.nat, live_ct, hdr, now), 20, pool)
+    print(f"egress: K11 on the main path's inputs ({EGRESS_N} rows, "
+          f"{n_rules} gateway rules, the live pool and CT): bit-exact "
+          f"with its plain version, {k11_ms:.4f} ms")
+    # that batch under the profiler (device activity only): how busy
+    # the card is while process_batch runs
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        d.process_batch(rows, now=now)
+        t_prof = time.perf_counter() - t1
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("Activity Buffer"))
+    print(f"egress profiled batch: {EGRESS_N} rows in {t_prof * 1e3:.3f} "
+          f"ms, device busy {busy_us / 1e3:.3f} ms "
+          f"({busy_us / 1e6 / t_prof:.1%}), idle "
+          f"{1 - busy_us / 1e6 / t_prof:.1%}")
+    d.shutdown()
+
+    # the exhaustion leg: NatExhaustionScenario's shape on the card
+    sc = NatExhaustionScenario(seed=3)
+    dx = Daemon(DaemonConfig(**sc.daemon_overrides))
+    res = run_scenario(dx, sc)
+    check(res["passed"], f"egress: nat_exhaustion failed: {res}")
+    print(f"egress exhaustion leg: {res['metrics']['submitted']} rows, "
+          f"{res['metrics']['nat_failures']} NAT failures, drops by reason "
+          f"{res['metrics']['drops_by_reason']}, ledger exact "
+          f"{res['metrics']['ledger_exact']}")
+    dx.shutdown()
+    report["egress"] = {
+        "build_s": t_build, "batches": EGRESS_BATCHES, "rows": rows_total,
+        "process_batch_s": pb_s, "rows_per_s": rows_total / pb_s,
+        "stages_s": stages_s, "nat": st, "occupancy": occupancy,
+        "expired": expired, "replies": n_replies,
+        "bandwidth": {"kept": sum_kept, "available": sum_avail},
+        "launches": launches, "exhaustion": res["metrics"],
+        "k11_main_path": {"gateway_rules": n_rules, "ms": k11_ms},
+        "profiled": {"seconds": t_prof, "device_busy_ms": busy_us / 1e3}}
+    return launches
+
+
 def plain_serve(state, ring, rows, now, batch_id, ep=None, dirn=None,
                 proxy_ports=None, trace_sample=1024, valid=None):
     """One serving step through the plain versions only (the yardstick
@@ -1987,6 +2551,7 @@ def main() -> int:
         phase_maint(torch, rng, kernels)
         phase_gather(torch, rng, kernels)
         phase_dus(torch, rng, world, kernels)
+        phase_egress_kernels(torch, rng, kernels)
         l7_launches = phase_l7(torch, rng, kernels, report)
 
         # -- 4. the slice at full size ------------------------------------
@@ -2015,6 +2580,9 @@ def main() -> int:
 
         # -- 10. identity and ipcache churn ------------------------------------
         by_path["churn"] = phase_churn(torch, rng, world, report)
+
+        # -- 11. the offline egress path --------------------------------------
+        by_path["egress"] = phase_egress(torch, rng, world, report)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2023,11 +2591,11 @@ def main() -> int:
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"))
         # launches: the daemon path's count where the kernel runs there,
-        # else the slice path's, else the churn path's (each path's
-        # counts zeroed before it ran)
+        # else the slice path's, else the churn path's, else the egress
+        # path's (each path's counts zeroed before it ran)
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         k["launches"] = (by_path["daemon"][name] or by_path["slice"][name]
-                         or by_path["churn"][name])
+                         or by_path["churn"][name] or by_path["egress"][name])
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
         print(f"kernel {name}: {k['launches']} launches on the main path "
@@ -2037,11 +2605,15 @@ def main() -> int:
         (on_path if k["launches"] else launchers).append(k)
     report["kernels"] = on_path
     report["standalone_launchers"] = launchers
+    # the line lists every kernel; the standalone launchers (K2, K3 and
+    # K14, held against their plain versions in phase 3) with 0 launches
+    for k in launchers:
+        k["standalone"] = True
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(smi)
-    print(json.dumps({"kernels": on_path}))
+    print(json.dumps({"kernels": on_path + launchers}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

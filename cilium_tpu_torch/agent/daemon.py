@@ -7,18 +7,20 @@ and the serving front end -- admission queue, adaptive batcher, drain
 runtime, K-batch superbatch dispatch, the occupancy-bounded ring drain
 and the event-join worker, and the L7 proxy plane (the proxy, its
 worker pool fed by the event join's REDIRECT rows, and the DNS-answer
--> FQDN identity loop).  The datapath is :class:`TorchLoader` on
-``device`` (None: the card; the tests pass ``device="cpu"``), and the
-proxy runs its L7 verdicts on the same device.
+-> FQDN identity loop), and the offline path ``process_batch``
+(egress SNAT with port allocation and the egress gateway, bandwidth
+policing, the datapath step, reverse NAT, the monitor).  The datapath
+is :class:`TorchLoader` on ``device`` (None: the card; the tests pass
+``device="cpu"``), and the proxy runs its L7 verdicts on the same
+device.
 
 Ported members keep the reference's names and semantics.  What the
 reference wires in besides, and the port does not have yet, raises
 NotImplementedError naming its ROADMAP item, at construction (a config
 knob turned on) or at the call: a multi-card mesh, span tracing and the
 profiler window, mutual auth, encryption, the SLO plane and metric
-history, the flight recorder, flow analytics, Hubble, NAT and
-masquerade, the bandwidth manager, policy audit mode and monitor trace
-aggregation.  The proxy's socket listeners, the DNS proxy and the xDS
+history, the flight recorder, flow analytics, Hubble, the service load
+balancer, policy audit mode and monitor trace aggregation.  The proxy's socket listeners, the DNS proxy and the xDS
 surface are not ported (ROADMAP A17): L7 requests arrive through the
 ``handle_l7*`` calls and the serving plane's request source.
 """
@@ -100,6 +102,13 @@ class DaemonConfig:
     ct_gc_relax_after: float = 300.0
     ct_gc_relax_factor: float = 2.0
     ct_gc_relax_max: float = 4.0
+    # -- egress masquerade (service/nat.py): node_ip is required with it
+    masquerade: bool = False
+    node_ip: Optional[str] = None
+    non_masquerade_cidrs: Tuple[str, ...] = ("10.0.0.0/8",)
+    # SNAT port-pool size: a power of two, the pool inside the port
+    # space above NAT_PORT_MIN; None: NAT_DEFAULT_CAPACITY (1 << 14)
+    nat_pool_capacity: Optional[int] = None
     # -- unported planes: on raises NotImplementedError
     serving_trace_sample: int = 0  # span tracing (ROADMAP A14)
     profile_dir: Optional[str] = None  # profiler window (ROADMAP A14)
@@ -109,7 +118,6 @@ class DaemonConfig:
     history_interval: float = 0.0  # SLO plane + history (ROADMAP A14)
     mesh_auth: bool = False  # mutual auth (ROADMAP A5)
     enable_encryption: bool = False  # encryption (ROADMAP A15)
-    masquerade: bool = False  # NAT and masquerade (ROADMAP A8, B12)
     policy_audit_mode: bool = False  # audit mode (ROADMAP A16)
     monitor_aggregation: str = "none"  # trace aggregation (ROADMAP A16)
 
@@ -125,7 +133,6 @@ _UNPORTED_KNOBS = {
                          "obs/history.py)", "A14"),
     "mesh_auth": ("mutual authentication (agent/auth.py)", "A5"),
     "enable_encryption": ("transparent encryption (encryption/)", "A15"),
-    "masquerade": ("NAT and masquerade (service/nat.py)", "A8, B12"),
     "policy_audit_mode": ("policy audit mode", "A16"),
     "monitor_aggregation": ("monitor trace aggregation", "A16"),
 }
@@ -194,10 +201,28 @@ class Daemon:
          cfg.ct_gc_relax_max) = validate_relax_config(
             cfg.ct_gc_relax_after, cfg.ct_gc_relax_factor,
             cfg.ct_gc_relax_max)
+        if cfg.nat_pool_capacity is not None:
+            # the failure names the knob, not a first masquerade deep in
+            # process_batch
+            from ..service.nat import NAT_PORT_MIN
+
+            cap = int(cfg.nat_pool_capacity)
+            if cap < 8 or cap & (cap - 1) or NAT_PORT_MIN + cap > 65536:
+                raise ValueError(
+                    f"nat_pool_capacity must be a power of two with "
+                    f"NAT_PORT_MIN + capacity <= 65536 (the pool is "
+                    f"[{NAT_PORT_MIN}, {NAT_PORT_MIN} + capacity) node "
+                    f"ports)")
+            cfg.nat_pool_capacity = cap
+        if cfg.masquerade and not cfg.node_ip:
+            # running WITHOUT masquerade when the operator asked for it
+            # would leak pod source IPs
+            raise ValueError("masquerade=True requires node_ip to be set")
         self.allocator = CachingIdentityAllocator()
         self.repo = PolicyRepository(self.allocator)
         self.ipcache = IPCache()
-        self.loader = TorchLoader(cfg.ct_capacity, device=device)
+        self.loader = TorchLoader(cfg.ct_capacity, device=device,
+                                  nat_capacity=cfg.nat_pool_capacity)
         self.endpoints = EndpointManager(self.repo, self.ipcache,
                                          self.loader)
         # L7 proxy plane: listeners follow the resolved redirects
@@ -248,6 +273,27 @@ class Daemon:
         # regeneration
         self.repo.on_change(lambda rev: self.endpoints.regenerate())
         self.allocator.observe(self._on_identity_change)
+        # bandwidth manager (pkg/bandwidth analogue): per-endpoint egress
+        # rates; None until some endpoint is limited
+        self._bw = None
+        self._bw_rates = None
+        self._bw_limits: Dict[int, int] = {}
+        # egress masquerade and egress-gateway policies (name -> spec);
+        # endpoint churn re-expands the pod selectors over the local
+        # endpoints
+        self._egress_policies: Dict[str, dict] = {}
+        self._egress_rules_cache = None  # the last expanded rule tuple
+        self.endpoints.on_attach(
+            lambda _pols: (self._recompile_nat()
+                           if self._egress_policies else None))
+        self.nat = None
+        if cfg.masquerade:
+            from ..service.nat import NATConfig
+
+            self.nat = NATConfig(
+                node_ip=cfg.node_ip,
+                non_masquerade_cidrs=cfg.non_masquerade_cidrs,
+            ).compile(self.loader.device)
         # initial empty attach so the datapath is live pre-endpoints
         self.endpoints.regenerate()
         # deterministic fault injection, armed last so a construction
@@ -405,9 +451,191 @@ class Daemon:
             return
         self.endpoints.regenerate()
 
-    def set_bandwidth(self, ep_id: int, bytes_per_s) -> None:
-        raise _not_ported("the bandwidth manager (datapath/bandwidth.py)",
-                          "A8, B14")
+    # -- egress gateway (CiliumEgressGatewayPolicy analogue) -----------
+    def add_egress_gateway(self, name: str, selector: dict,
+                           dest_cidrs, egress_ip: str) -> None:
+        """Pods matching ``selector`` (a k8s LabelSelector dict, or a
+        list of them) SNAT via ``egress_ip`` toward ``dest_cidrs``
+        (single-node scope: the gateway is this node).  Validates
+        before storing: a malformed policy raises here and never
+        poisons a later recompile."""
+        import ipaddress
+
+        from ..policy.api import EndpointSelector
+
+        eip = ipaddress.IPv4Address(egress_ip)  # raises on v6/garbage
+        cidrs = []
+        for c in dest_cidrs:
+            net = ipaddress.ip_network(c, strict=False)
+            if net.version != 4:
+                raise ValueError(
+                    f"egress gateway destinationCIDR {c!r}: the SNAT "
+                    "path is v4-only")
+            cidrs.append(str(net))
+        if not cidrs:
+            raise ValueError("egress gateway needs destinationCIDRs")
+        selectors = (selector if isinstance(selector, (list, tuple))
+                     else (selector,))
+        if not selectors:
+            raise ValueError("egress gateway needs a selector")
+        for sel in selectors:
+            EndpointSelector.from_dict(sel)  # raises on bad operators
+        self._egress_policies[name] = {
+            "selectors": tuple(selectors),
+            "dest_cidrs": tuple(cidrs),
+            "egress_ip": str(eip),
+        }
+        self._recompile_nat()
+
+    def remove_egress_gateway(self, name: str) -> bool:
+        if self._egress_policies.pop(name, None) is None:
+            return False
+        self._recompile_nat()
+        return True
+
+    def _egress_rules(self):
+        """The policies expanded over the CURRENT local endpoints:
+        (pod IP, destination CIDR, egress IP) triples."""
+        from ..policy.api import EndpointSelector
+
+        rules = []
+        for pol in self._egress_policies.values():
+            sels = [EndpointSelector.from_dict(s) for s in pol["selectors"]]
+            for ep in self.endpoints.list():
+                if not any(s.matches(ep.labels) for s in sels):
+                    continue
+                for ip in ep.ips:
+                    if ":" in ip:
+                        continue  # v4-only SNAT path
+                    for cidr in pol["dest_cidrs"]:
+                        rules.append((ip, cidr, pol["egress_ip"]))
+        return tuple(rules)
+
+    def _recompile_nat(self) -> None:
+        """Rebuild the NAT tensors from the masquerade config and the
+        egress policies (endpoint attaches re-expand the selectors);
+        skipped when the expanded rule set is unchanged."""
+        from ..service.nat import NATConfig
+
+        rules = self._egress_rules()
+        if rules == self._egress_rules_cache:
+            return
+        self._egress_rules_cache = rules
+        if self.config.masquerade:
+            self.nat = NATConfig(
+                node_ip=self.config.node_ip,
+                non_masquerade_cidrs=self.config.non_masquerade_cidrs,
+                egress_rules=rules,
+            ).compile(self.loader.device)
+        elif rules:
+            # egress gateway without masquerade: the exemption list
+            # covers everything, so ONLY policy-matched rows SNAT
+            self.nat = NATConfig(
+                node_ip=self.config.node_ip or "0.0.0.0",
+                non_masquerade_cidrs=("0.0.0.0/0",),
+                egress_rules=rules,
+            ).compile(self.loader.device)
+        else:
+            self.nat = None
+
+    # -- bandwidth manager (pkg/bandwidth / EDT analogue) --------------
+    def set_bandwidth(self, ep_id: int,
+                      bytes_per_sec: Optional[int]) -> None:
+        """Set (or clear with None/0) an endpoint's egress rate limit in
+        bytes/s (the kubernetes.io/egress-bandwidth annotation)."""
+        from ..datapath.bandwidth import BandwidthState, rates_array
+
+        if bytes_per_sec:
+            if self._bw_limits.get(int(ep_id)) == int(bytes_per_sec):
+                return  # unchanged: skip the tensor rebuild
+            self._bw_limits[int(ep_id)] = int(bytes_per_sec)
+        elif self._bw_limits.pop(int(ep_id), None) is None:
+            return  # nothing was limited: nothing to rebuild
+        if self._bw_limits:
+            dev = self.loader.device
+            self._bw_rates = u32.from_numpy(rates_array(self._bw_limits),
+                                            dev)
+            if self._bw is None:
+                self._bw = BandwidthState.create(dev)
+        else:
+            self._bw_rates = None
+            self._bw = None
+
+    def _bw_police(self, hdr, now: int):
+        """-> per-row REASON codes for the datapath's
+        ``pre_drop_reason`` (None when no endpoint is limited)."""
+        if self._bw_rates is None:
+            return None
+        from ..datapath.bandwidth import bw_stage
+
+        return bw_stage(self._bw, hdr, now, self._bw_rates)
+
+    # -- the offline path ----------------------------------------------
+    def process_batch(self, hdr: np.ndarray,
+                      now: Optional[int] = None) -> EventBatch:
+        # thread-affinity: offline, api, cli
+        """One batch of wide header rows through egress SNAT ->
+        bandwidth policing -> the datapath step -> reverse NAT -> the
+        monitor.  The rows stay on the device across the stages; the
+        one fetch feeds the event decode, which needs the rewritten
+        rows.  The service LB stage that precedes SNAT on the reference
+        is not ported (ROADMAP A8b): the port has no service table."""
+        if now is None:
+            now = self._now()
+        if self.nat is None and self._bw_rates is None:
+            out, row_map = self.loader.step(hdr, now)
+            return self._finish_batch(out, hdr, row_map, now)
+        hdr_dev = self.loader._to_device(hdr)
+        nat_drop = None
+        if self.nat is not None:
+            # CT-aware: replies to inbound connections keep their
+            # source; pool exhaustion marks the row for a
+            # REASON_NAT_EXHAUSTED drop in the step
+            hdr_dev, nat_drop = self.loader.masquerade(self.nat, hdr_dev,
+                                                       now)
+        bw_reasons = self._bw_police(hdr_dev, now)
+        out, row_map = self.loader.step(hdr_dev, now, pre_drop=nat_drop,
+                                        pre_drop_reason=bw_reasons)
+        if self.nat is not None:
+            # reverse translation AFTER the verdict: CT and policy see
+            # the wire tuple, delivery and events the pod destination
+            hdr_dev = self.loader.reverse_nat(self.nat, hdr_dev, now)
+        return self._finish_batch(out, u32.to_numpy(hdr_dev), row_map, now)
+
+    def _finish_batch(self, out, hdr: np.ndarray, row_map,
+                      now: int) -> EventBatch:
+        # thread-affinity: offline, api, cli
+        """The process_batch tail: decode, then monitor publish.  The
+        reference's auth observer and flow analytics are not ported
+        (ROADMAP A5, A14)."""
+        from ..monitor.api import decode_out
+
+        batch = decode_out(out, hdr, row_map.numeric_array(),
+                           timestamp=time.time())
+        self.monitor.publish(self._filter_events(batch))
+        return batch
+
+    def status(self) -> dict:
+        """The agent's status, cut to the ported planes; the ``nat``
+        block appears once the SNAT pool is in use."""
+        m = self.loader.metrics()
+        out = {
+            "endpoints": {"total": len(self.endpoints.list())},
+            "identities": len(self.allocator.all_identities()),
+            "ipcache-entries": len(self.ipcache.entries()),
+            "fqdn-entries": len(self.fqdn.entries()),
+            "l7-requests": self.proxy.requests_total,
+            "regenerations": self.endpoints.regenerations,
+            "forwarded": int(m[0].sum()),
+            "dropped": int(m[1:].sum()),
+            "monitor-events": self.monitor.published,
+            "map-pressure": self.pressure.stats(),
+        }
+        nat = (self.loader.nat_status(self._now())
+               if self.nat is not None else None)
+        if nat:
+            out["nat"] = nat
+        return out
 
     # -- L7 proxy API (the listener-facing entry) ----------------------
     def _src_row(self, src_identity: int) -> int:

@@ -10,6 +10,11 @@ dataclass field names both packages share::
      "ct":      {"table", "fp", "dropped"},
      "metrics": array}
 
+The egress stages' state travels the same way: a ``NATTable``'s
+``table``/``failed`` and a ``BandwidthState``'s ``tokens``/``last``
+(``nat_*`` and ``bandwidth_*`` below); a ``NATTensors``' arrays come
+across by ``NATTensors.from_numpy``.
+
 Each array keeps the JAX package's dtype (int32 or uint32); here every
 word lands in an int32 tensor as its bit pattern.  A caller holding a
 JAX state flattens it with ``np.asarray`` per leaf; this module never
@@ -27,7 +32,9 @@ from .datapath.conntrack import CTTable
 from .datapath.lpm import DeviceLPM
 from .datapath.verdict import DatapathState, DevicePolicy
 from .device import resolve_device
+from .datapath.bandwidth import BandwidthState
 from .monitor.ring import EventRing
+from .service.nat import NATTable
 from .u32 import from_numpy, to_numpy
 
 # the JAX package's dtype of every leaf (the rest are int32)
@@ -112,3 +119,31 @@ def event_ring_to_numpy(ring: EventRing) -> Tuple[np.ndarray, np.ndarray]:
     """-> (buf [cap, 2] u32, cursor [2] u32)."""
     return to_numpy(ring.buf), to_numpy(ring.cursor)
 
+
+
+def nat_table_from_numpy(table: np.ndarray, failed, device=None) -> NATTable:
+    """JAX ``NATTable`` leaves (u32 ``table`` [P, 6], ``failed``) -> a
+    :class:`NATTable` on ``device`` (None: the card)."""
+    device = resolve_device(device)
+    return NATTable(table=from_numpy(table, device),
+                    failed=from_numpy(np.uint32(failed), device).reshape(()))
+
+
+def nat_table_to_numpy(tbl: NATTable) -> Tuple[np.ndarray, int]:
+    """-> (table [P, 6] u32, failed)."""
+    return to_numpy(tbl.table), int(to_numpy(tbl.failed))
+
+
+def bandwidth_state_from_numpy(tokens: np.ndarray, last,
+                               device=None) -> BandwidthState:
+    """JAX ``BandwidthState`` leaves (u32 ``tokens`` [MAX_ENDPOINTS],
+    ``last``) -> a :class:`BandwidthState` on ``device``."""
+    device = resolve_device(device)
+    return BandwidthState(tokens=from_numpy(tokens, device),
+                          last=from_numpy(np.uint32(last), device).reshape(()))
+
+
+def bandwidth_state_to_numpy(state: BandwidthState
+                             ) -> Tuple[np.ndarray, int]:
+    """-> (tokens [MAX_ENDPOINTS] u32, last)."""
+    return to_numpy(state.tokens), int(to_numpy(state.last))

@@ -127,6 +127,82 @@ struct DusIO {
   int64_t n;               // update elements
 };
 
+// The NAT configuration (service/nat.py NATTensors): the non-masquerade
+// networks and the egress-gateway rules, each padded to at least one
+// unsatisfiable row.
+struct NatView {
+  const uint32_t* net;       // [k]
+  const uint32_t* mask;      // [k]
+  const uint32_t* egw_src;   // [g]
+  const uint32_t* egw_net;   // [g]
+  const uint32_t* egw_mask;  // [g]
+  const uint32_t* egw_ip;    // [g]
+  int32_t k;
+  int32_t g;
+  uint32_t node_ip;
+  int32_t pad;
+};
+
+// One batch of snat_egress (service/nat.py): the rows, the NAT table
+// updated in place, the outputs and the per-row scratch.
+struct SnatIO {
+  const uint32_t* rows;  // [n, 16], 16-byte aligned
+  uint32_t* out;         // [n, 16] rewritten rows
+  bool* drop;            // [n] pool exhausted
+  uint32_t* table;       // [capacity, 6]
+  uint32_t* failed;      // [1] allocation failures, added to
+  int32_t* claim;        // [capacity] claim words, CLAIM_FREE at each call
+  // scratch, allocated by the wrapper
+  uint32_t* key;  // [n, 4] src, sport, dst, dport << 8 | proto
+  uint32_t* aux;  // [n, 4] hash, rewrite IP, expiry, flags
+  int32_t* slot;  // [n] the mapping's slot
+  int32_t n;
+  int32_t capacity;  // 2^k
+  uint32_t now;
+  int32_t pad;
+};
+
+// One batch of snat_reverse (service/nat.py).
+struct SnatRevIO {
+  const uint32_t* rows;  // [n, 16], 16-byte aligned
+  uint32_t* out;         // [n, 16] restored rows
+  uint32_t* table;       // [capacity, 6], expiries refreshed in place
+  int32_t* claim;        // [capacity] claim words, CLAIM_FREE at each call
+  int32_t* hit_slot;     // [n] scratch: the slot a reply hit, -1 none
+  int32_t n;
+  int32_t capacity;
+  uint32_t now;
+  int32_t pad;
+};
+
+// One batch of the stateless masquerade (datapath/verdict.py
+// apply_masquerade with the CT probe, service/nat.py snat_stage
+// without).
+struct MasqIO {
+  const uint32_t* rows;  // [n, 16], 16-byte aligned
+  uint32_t* out;         // [n, 16]
+  bool* masq;            // [n]
+  int32_t n;
+  uint32_t now;
+  int32_t probe;  // 1: rows whose reverse CT entry is live keep their source
+  int32_t pad;
+};
+
+// One batch through the bandwidth policer (datapath/bandwidth.py).
+struct BwIO {
+  const uint32_t* rows;   // [n, 16], 16-byte aligned
+  const uint32_t* rates;  // [MAX_ENDPOINTS] bytes/s, 0 = unlimited
+  uint32_t* tokens;       // [MAX_ENDPOINTS] updated in place
+  uint32_t* last;         // [1] updated in place
+  uint32_t* reasons;      // [n] out
+  // scratch, allocated by the wrapper
+  uint32_t* batch_bytes;  // [MAX_ENDPOINTS], zeroed
+  uint32_t* consumed;     // [MAX_ENDPOINTS], zeroed
+  float* frac;            // [MAX_ENDPOINTS]
+  int32_t n;
+  uint32_t now;
+};
+
 // The XLA gather index rule: a negative index counts from the end once,
 // then the index clamps into [0, n).  Gathers in the JAX reference
 // follow it, so forged ids read the same cells on both sides.

@@ -230,12 +230,20 @@ class TorchLoader(Loader):
     A2), the in-place patches ``patch_identity``, ``patch_ipcache`` and
     ``delete_ipcache``, ``step``, ``serve``, ``serve_packed``,
     ``serve_superbatch``, ``gc``, ``map_pressure``, ``add_host_drops``,
-    ``metrics``, ``ct_snapshot`` and ``table_stats``.  The rest raises
-    NotImplementedError naming its ROADMAP item."""
+    ``metrics``, ``ct_snapshot``, ``table_stats`` and the NAT pool's
+    ``masquerade``, ``reverse_nat``, ``nat_status`` and
+    ``nat_snapshot``.  The rest raises NotImplementedError naming its
+    ROADMAP item."""
 
-    def __init__(self, ct_capacity: int = 1 << 20, device=None):
+    def __init__(self, ct_capacity: int = 1 << 20, device=None,
+                 nat_capacity: Optional[int] = None):
         self.device = resolve_device(device)
         self.ct_capacity = ct_capacity
+        # SNAT port-pool size (service/nat.py NATTable); None: the
+        # NAT_DEFAULT_CAPACITY.  The table lives with the loader like
+        # the CT does, made on the first masquerade
+        self.nat_capacity = nat_capacity
+        self.nat_state = None
         self.state: Optional[DatapathState] = None
         self.row_map: Optional[IdentityRowMap] = None
         self.attach_count = 0
@@ -618,15 +626,16 @@ class TorchLoader(Loader):
         # never the drain thread (reading the counts waits on the card)
         """The map-pressure sample (datapath/pressure.py): occupied CT
         slots from the fingerprints, cumulative insert drops, LPM
-        prefixes and policy-table rows.  The device reads are enqueued
-        under the dispatch lock and read after it.  NAT is not ported
-        (ROADMAP B12): its pool reads as absent."""
+        prefixes, policy-table rows and SNAT pool failures.  The device
+        reads are enqueued under the dispatch lock and read after it."""
         from .lpm import LPM_NOMINAL_CAPACITY
 
         with self._lock:
             ct = self.state.ct
             occupied = _ct_occupied(ct.fp)
             drops = ct.dropped.clone()
+            nat = self.nat_state
+            nat_failed = nat.failed.clone() if nat is not None else None
             # host mirrors only from here down
             lpm_entries = len(self._lpm_entries)
             rows, rows_cap = (self.row_map.row_occupancy()
@@ -638,7 +647,9 @@ class TorchLoader(Loader):
                    "occupied": occupied,
                    "occupancy": round(occupied / self.ct_capacity, 4),
                    "insert-drops": drops},
-            "nat": {"capacity": None, "failures": 0},
+            "nat": {"capacity": nat.capacity if nat is not None else None,
+                    "failures": (int(nat_failed) & 0xFFFFFFFF
+                                 if nat is not None else 0)},
             "lpm": {"capacity": LPM_NOMINAL_CAPACITY,
                     "entries": lpm_entries,
                     "occupancy": round(
@@ -867,7 +878,64 @@ class TorchLoader(Loader):
             self.tables.patches += 1
         return True
 
+    # -- the SNAT port pool (pkg/maps/nat analogue) -----------------------
+    def _nat_table(self):
+        # called under the dispatch lock
+        from ..service.nat import NAT_DEFAULT_CAPACITY, NATTable
+
+        if self.nat_state is None:
+            self.nat_state = NATTable.create(
+                self.nat_capacity or NAT_DEFAULT_CAPACITY, self.device)
+        return self.nat_state
+
     def masquerade(self, nat, hdr, now: int):
+        """CT-aware egress SNAT with port allocation (service/nat.py
+        ``snat_egress``, K11 on the card): returns (rewritten rows on
+        the device, [N] bool exhaustion drop mask); the mask feeds
+        ``step(pre_drop=...)``.  Enqueued under the dispatch lock, so
+        the CT it probes is the one the last step left, before this
+        batch's update."""
+        from ..service.nat import snat_egress
+
+        hdr = self._to_device(hdr)
+        with self._lock:
+            hdr, _tbl, dropped = snat_egress(self._nat_table(), nat,
+                                             self.state.ct, hdr, now)
+        return hdr, dropped
+
+    def reverse_nat(self, nat, hdr, now: int):
+        """Ingress reverse translation after the verdict (service/nat.py
+        ``snat_reverse``, K12 on the card): replies to allocated node
+        ports get their pod destination back."""
+        from ..service.nat import snat_reverse
+
+        hdr = self._to_device(hdr)
+        with self._lock:
+            hdr, _tbl = snat_reverse(self._nat_table(), nat, hdr, now)
+        return hdr
+
+    def nat_snapshot(self) -> Optional[np.ndarray]:
+        """The NAT table as u32 [P, 6] (None before the first use)."""
+        with self._lock:
+            if self.nat_state is None:
+                return None
+            return to_numpy(self.nat_state.table).copy()
+
+    def nat_restore(self, table: np.ndarray) -> None:
         raise NotImplementedError(
-            "masquerade and NAT are not ported yet (ROADMAP B12)")
+            "NAT restore is not ported yet (ROADMAP A4: it comes with the "
+            "CT snapshot restore)")
+
+    def nat_status(self, now: int) -> Optional[dict]:
+        from ..service.nat import NAT_PORT_MIN, nat_live_count
+
+        with self._lock:
+            if self.nat_state is None:
+                return None
+            return {
+                "capacity": self.nat_state.capacity,
+                "port-min": NAT_PORT_MIN,
+                "live": nat_live_count(self.nat_state, now),
+                "alloc-failed": int(self.nat_state.failed) & 0xFFFFFFFF,
+            }
 

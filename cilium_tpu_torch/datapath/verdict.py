@@ -400,6 +400,22 @@ def datapath_step_packed(state: DatapathState, packed: torch.Tensor,
                  None, None, audit)
 
 
+def apply_masquerade(ct: CTTable, nat, hdr: torch.Tensor,
+                     now: int) -> torch.Tensor:
+    """CONNTRACK-AWARE egress masquerade: egress-to-world sources
+    rewrite to the node IP UNLESS the row's reverse CT entry is live --
+    that row replies to a connection a remote opened INTO the node and
+    keeps its source.  Runs as its own stage before the datapath step,
+    so the CT entry of a masqueraded flow carries the post-NAT tuple.
+    CUDA tensors launch K14 ``masq_rewrite`` with its CT probe
+    (``csrc/nat.cu``)."""
+    from ..service.nat import masq_rewrite
+
+    if not nat.enabled:
+        return hdr
+    return masq_rewrite(nat, hdr, ct, now)[0]
+
+
 def build_state(policy_tensors: PolicyTensors, lpm_tensors: LPMTensors,
                 ep_policy: np.ndarray = None,
                 ct_capacity: int = 1 << 20,

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of the serving path, the L7 proxy and
-the table patches: their registry, launch counts and launchers.
+"""The hand-written CUDA kernels of the serving path, the L7 proxy, the
+table patches and the egress stages (NAT and bandwidth policing): their registry, launch counts and launchers.
 
 Each launcher checks the device, dtype, shape, contiguity and alignment
 of every tensor, allocates outputs and scratch with ``torch.empty`` on
@@ -20,6 +20,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..core.packets import N_COLS
 from . import abi
 
 MASK = 0xFFFFFFFF
@@ -70,6 +71,14 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "cilium_tpu/proxy/l7policy.py:325"),
     Kernel("dus", "tables", "dus_launch",
            "cilium_tpu/datapath/loader.py:56"),
+    Kernel("snat_egress", "nat", "snat_egress_launch",
+           "cilium_tpu/service/nat.py:225"),
+    Kernel("snat_reverse", "nat", "snat_reverse_launch",
+           "cilium_tpu/service/nat.py:356"),
+    Kernel("bw_stage", "bandwidth", "bw_stage_launch",
+           "cilium_tpu/datapath/bandwidth.py:60"),
+    Kernel("masq_rewrite", "nat", "masq_rewrite_launch",
+           "cilium_tpu/datapath/verdict.py:374"),
 )}
 
 
@@ -415,3 +424,115 @@ def launch_dus(dst: torch.Tensor, upd: torch.Tensor, starts) -> None:
                                       + tuple(int(x) for x in starts))),
         n=upd.numel())
     KERNELS["dus"].launch(ctypes.addressof(io), _stream(dev))
+
+
+
+def nat_view(t, device) -> abi.NatView:
+    k, g = t.net.shape[0], t.egw_src.shape[0]
+    return abi.NatView(
+        net=_ptr(t.net, I32, device, (k,), name="nat.net"),
+        mask=_ptr(t.mask, I32, device, (k,), name="nat.mask"),
+        egw_src=_ptr(t.egw_src, I32, device, (g,), name="nat.egw_src"),
+        egw_net=_ptr(t.egw_net, I32, device, (g,), name="nat.egw_net"),
+        egw_mask=_ptr(t.egw_mask, I32, device, (g,), name="nat.egw_mask"),
+        egw_ip=_ptr(t.egw_ip, I32, device, (g,), name="nat.egw_ip"),
+        k=k, g=g, node_ip=int(t.node_ip) & MASK)
+
+
+def _nat_table(tbl, device):
+    """The NAT table's pointers: (table, claim words, capacity).  The
+    claim words are made CLAIM_FREE for each call, and the returned
+    tensor must outlive the launch."""
+    from ..service.nat import CLAIM_FREE, NAT_ROW_WORDS
+
+    p = tbl.table.shape[0]
+    if p & (p - 1):
+        raise ValueError(f"NAT capacity must be 2^k, got {p}")
+    claim = torch.full((p,), CLAIM_FREE, dtype=I32, device=device)
+    return (_ptr(tbl.table, I32, device, (p, NAT_ROW_WORDS),
+                 name="nat.table"), claim, p)
+
+
+def launch_snat_egress(tbl, t, ct, hdr: torch.Tensor, now: int):
+    """K11: egress SNAT with port allocation over wide [N, 16] rows;
+    updates ``tbl`` in place, reading ``ct``.  Returns (rows, tbl,
+    [N] bool drop mask)."""
+    dev, n = hdr.device, hdr.shape[0]
+    table, claim, p = _nat_table(tbl, dev)
+
+    def empty(*shape, dtype=I32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out, drop = empty(n, N_COLS), empty(n, dtype=BOOL)
+    key, aux, slot = empty(n, 4), empty(n, 4), empty(n)
+    io = abi.SnatIO(
+        rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
+        out=out.data_ptr(), drop=drop.data_ptr(), table=table,
+        failed=_ptr(tbl.failed, I32, dev, (), name="nat.failed"),
+        claim=claim.data_ptr(), key=key.data_ptr(), aux=aux.data_ptr(),
+        slot=slot.data_ptr(), n=n, capacity=p, now=int(now) & MASK)
+    view, ctv = nat_view(t, dev), ct_view(ct, dev)
+    KERNELS["snat_egress"].launch(ctypes.addressof(io),
+                                  ctypes.addressof(view),
+                                  ctypes.addressof(ctv), _stream(dev))
+    return out, tbl, drop
+
+
+def launch_snat_reverse(tbl, t, hdr: torch.Tensor, now: int):
+    """K12: reverse translation of replies to allocated node ports over
+    wide [N, 16] rows; refreshes ``tbl`` in place.  Returns (rows,
+    tbl)."""
+    dev, n = hdr.device, hdr.shape[0]
+    table, claim, p = _nat_table(tbl, dev)
+    out = torch.empty((n, N_COLS), dtype=I32, device=dev)
+    hit_slot = torch.empty(n, dtype=I32, device=dev)
+    io = abi.SnatRevIO(
+        rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
+        out=out.data_ptr(), table=table, claim=claim.data_ptr(),
+        hit_slot=hit_slot.data_ptr(), n=n, capacity=p,
+        now=int(now) & MASK)
+    view = nat_view(t, dev)
+    KERNELS["snat_reverse"].launch(ctypes.addressof(io),
+                                   ctypes.addressof(view), _stream(dev))
+    return out, tbl
+
+
+def launch_masq_rewrite(t, hdr: torch.Tensor, ct, now: int):
+    """K14: the stateless masquerade over wide [N, 16] rows, with the
+    reverse-CT probe when ``ct`` is given.  Returns (rows, [N] bool)."""
+    dev, n = hdr.device, hdr.shape[0]
+    out = torch.empty((n, N_COLS), dtype=I32, device=dev)
+    masq = torch.empty(n, dtype=BOOL, device=dev)
+    io = abi.MasqIO(
+        rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
+        out=out.data_ptr(), masq=masq.data_ptr(), n=n,
+        now=int(now) & MASK, probe=int(ct is not None))
+    view = nat_view(t, dev)
+    ctv = ct_view(ct, dev) if ct is not None else None
+    KERNELS["masq_rewrite"].launch(
+        ctypes.addressof(io), ctypes.addressof(view),
+        ctypes.addressof(ctv) if ctv is not None else None, _stream(dev))
+    return out, masq
+
+
+def launch_bw_stage(state, hdr: torch.Tensor, now: int,
+                    rates: torch.Tensor) -> torch.Tensor:
+    """K13: police one batch of wide [N, 16] rows against the
+    per-endpoint buckets, updated in place; returns [N] int32 reasons."""
+    from ..datapath.verdict import MAX_ENDPOINTS
+
+    dev, n = hdr.device, hdr.shape[0]
+    reasons = torch.empty(n, dtype=I32, device=dev)
+    sums = torch.zeros((2, MAX_ENDPOINTS), dtype=I32, device=dev)
+    frac = torch.empty(MAX_ENDPOINTS, dtype=torch.float32, device=dev)
+    io = abi.BwIO(
+        rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
+        rates=_ptr(rates, I32, dev, (MAX_ENDPOINTS,), name="rates"),
+        tokens=_ptr(state.tokens, I32, dev, (MAX_ENDPOINTS,),
+                    name="bw.tokens"),
+        last=_ptr(state.last, I32, dev, (), name="bw.last"),
+        reasons=reasons.data_ptr(), batch_bytes=sums[0].data_ptr(),
+        consumed=sums[1].data_ptr(), frac=frac.data_ptr(), n=n,
+        now=int(now) & MASK)
+    KERNELS["bw_stage"].launch(ctypes.addressof(io), _stream(dev))
+    return reasons

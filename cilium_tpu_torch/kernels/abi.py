@@ -80,6 +80,36 @@ class DusIO(ctypes.Structure):
                 ("upd_shape", I64 * 4), ("starts", I64 * 4), ("n", I64)]
 
 
+class NatView(ctypes.Structure):
+    _fields_ = [("net", P), ("mask", P), ("egw_src", P), ("egw_net", P),
+                ("egw_mask", P), ("egw_ip", P), ("k", I32), ("g", I32),
+                ("node_ip", U32), ("pad", I32)]
+
+
+class SnatIO(ctypes.Structure):
+    _fields_ = [("rows", P), ("out", P), ("drop", P), ("table", P),
+                ("failed", P), ("claim", P), ("key", P), ("aux", P),
+                ("slot", P), ("n", I32), ("capacity", I32), ("now", U32),
+                ("pad", I32)]
+
+
+class SnatRevIO(ctypes.Structure):
+    _fields_ = [("rows", P), ("out", P), ("table", P), ("claim", P),
+                ("hit_slot", P), ("n", I32), ("capacity", I32),
+                ("now", U32), ("pad", I32)]
+
+
+class MasqIO(ctypes.Structure):
+    _fields_ = [("rows", P), ("out", P), ("masq", P), ("n", I32),
+                ("now", U32), ("probe", I32), ("pad", I32)]
+
+
+class BwIO(ctypes.Structure):
+    _fields_ = [("rows", P), ("rates", P), ("tokens", P), ("last", P),
+                ("reasons", P), ("batch_bytes", P), ("consumed", P),
+                ("frac", P), ("n", I32), ("now", U32)]
+
+
 # per library: (symbol reporting sizeof, [structs in its index order])
 ABI = {
     "verdict": ("verdict_abi_size", [LpmView, PolicyView, CtView,
@@ -89,6 +119,8 @@ ABI = {
     "ring": ("ring_abi_size", [RingIO, GatherIO]),
     "l7": ("l7_abi_size", [L7IO]),
     "tables": ("tables_abi_size", [DusIO]),
+    "nat": ("nat_abi_size", [NatView, CtView, SnatIO, SnatRevIO, MasqIO]),
+    "bandwidth": ("bandwidth_abi_size", [BwIO]),
 }
 
 # per library: {symbol: argtypes}; every launcher returns cudaError_t
@@ -102,4 +134,8 @@ SIGNATURES = {
     "ring": {"ring_append_launch": [P, P], "ring_gather_launch": [P, P]},
     "l7": {"l7_verdict_launch": [P, P]},
     "tables": {"dus_launch": [P, P]},
+    "nat": {"snat_egress_launch": [P, P, P, P],
+            "snat_reverse_launch": [P, P, P],
+            "masq_rewrite_launch": [P, P, P, P]},
+    "bandwidth": {"bw_stage_launch": [P, P]},
 }

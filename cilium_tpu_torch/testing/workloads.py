@@ -1,8 +1,9 @@
-"""Seeded control-plane workloads: the identity churn scenario.
+"""Seeded workloads: the identity churn and NAT exhaustion scenarios.
 
 A copy of the JAX package's ``testing/workloads.py``, cut to the
-:class:`Scenario` contract and ``identity_churn`` (the other scenarios
-drive planes the port does not have yet).  Host-only: a scenario is a
+:class:`Scenario` contract, ``identity_churn``, ``nat_exhaustion`` and
+the offline leg of :func:`run_scenario` (the other scenarios drive
+planes the port does not have yet).  Host-only: a scenario is a
 deterministic generator of traffic batches and control-plane ops,
 applied to a ``Daemon`` through its own API, so the churn tests and
 ``chip_smoke.py`` replay the same schedule for the same seed.
@@ -18,6 +19,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..core.packets import (
+    COL_DIR,
     COL_DPORT,
     COL_DST_IP3,
     COL_EP,
@@ -29,6 +31,7 @@ from ..core.packets import (
     COL_SRC_IP3,
     N_COLS,
     TCP_ACK,
+    TCP_SYN,
 )
 
 
@@ -270,3 +273,116 @@ class IdentityChurnScenario(Scenario):
             self.apply(daemon, ChurnOp("withdraw", slot,
                                        self.slot_cidr(slot), 0.0),
                        live)
+
+
+class NatExhaustionScenario(Scenario):
+    """An egress ramp of unique pod -> world flows sized past the SNAT
+    port pool: once every probe-window slot is live, allocation fails
+    and the row drops as ``REASON_NAT_EXHAUSTED`` (DROP_NAT_NO_MAPPING),
+    counted in ``NATTable.failed`` (the NAT pool-pressure signal).
+    Runs on the OFFLINE path: masquerade rides ``process_batch``."""
+
+    name = "nat_exhaustion"
+    criteria = {"ledger_exact": True, "min_nat_failures": 1}
+    path = "offline"
+    # a 256-port pool against a 1k-flow ramp: exhaustion by design
+    daemon_overrides = {"masquerade": True, "node_ip": "192.168.0.1",
+                        "nat_pool_capacity": 256,
+                        "ct_capacity": 1 << 12}
+
+    def __init__(self, seed: int = 0, n_flows: int = 1024,
+                 batch: int = 256):
+        if n_flows < 1 or batch < 1:
+            raise ValueError("n_flows and batch must be >= 1")
+        self.seed = int(seed)
+        self.n_flows = int(n_flows)
+        self.batch = int(batch)
+
+    def setup(self, target) -> dict:
+        ep = target.add_endpoint("nat-client", ("10.0.45.1",),
+                                 ["k8s:app=nat-client"])
+        target.policy_import([{
+            "endpointSelector": {"matchLabels": {"app": "nat-client"}},
+            "egress": [{"toEntities": ["world"]}],
+        }])
+        return {"ep": ep.id}
+
+    def iter_batches(self, ep: int) -> Iterator[np.ndarray]:
+        rng = np.random.default_rng(self.seed)
+        src = _ip("10.0.45.1")
+        dst_base = _ip("93.184.0.1")
+        flow = 0
+        while flow < self.n_flows:
+            n = min(self.batch, self.n_flows - flow)
+            i = np.arange(flow, flow + n, dtype=np.uint32)
+            out = _rows(n)
+            out[:, COL_SRC_IP3] = src
+            out[:, COL_SPORT] = 1024 + (i % 60000)
+            out[:, COL_DST_IP3] = dst_base + (i % 512)
+            out[:, COL_DPORT] = 443
+            out[:, COL_FLAGS] = TCP_SYN
+            out[:, COL_LEN] = rng.integers(60, 120, n)
+            out[:, COL_EP] = ep
+            out[:, COL_DIR] = 1  # egress: the masquerade hook
+            yield out
+            flow += n
+
+
+def evaluate_criteria(criteria: Dict[str, object],
+                      metrics: Dict[str, object]) -> Dict[str, bool]:
+    """Declared criteria -> {criterion: passed}, for the criteria of the
+    offline path.  Unknown keys evaluate False (a typo'd criterion must
+    fail loudly, not pass vacuously)."""
+    checks: Dict[str, bool] = {}
+    for key, want in criteria.items():
+        if key == "ledger_exact":
+            checks[key] = bool(metrics.get("ledger_exact")) == bool(want)
+        elif key == "min_nat_failures":
+            checks[key] = metrics.get("nat_failures", 0) >= int(want)
+        else:
+            checks[key] = False
+    return checks
+
+
+def run_scenario(daemon, scenario, *, ctx: Optional[dict] = None) -> dict:
+    """Replay an offline-path scenario's batch stream through
+    ``daemon.process_batch`` and evaluate its declared criteria.
+
+    Returns ``{"name", "seed", "criteria", "metrics", "checks",
+    "passed"}``; ``metrics`` carries ``submitted``, ``verdicts``,
+    ``ledger_exact`` (every row came back as an event),
+    ``nat_failures`` and ``drop_frac``, and ``drops_by_reason``.
+    Serving-path scenarios run through the serving front end
+    (``chip_smoke.py`` ``serve_session``), not here."""
+    if scenario.path != "offline":
+        raise ValueError(f"scenario {scenario.name!r} runs the "
+                         f"{scenario.path} path; run_scenario drives the "
+                         f"offline one")
+    if ctx is None:
+        ctx = scenario.setup(daemon)
+    ep = ctx.get("ep", 0)
+    pressure0 = daemon.loader.map_pressure(daemon._now())
+    metrics0 = np.array(daemon.loader.metrics(), dtype=np.int64)
+    submitted = events = 0
+    for b in scenario.iter_batches(ep):
+        events += len(daemon.process_batch(b))
+        submitted += len(b)
+    pressure1 = daemon.loader.map_pressure(daemon._now())
+    reason_delta = (np.array(daemon.loader.metrics(), dtype=np.int64)
+                    - metrics0).sum(axis=1)
+    dropped = int(reason_delta[1:].sum())  # reason 0 = forwarded
+    metrics = {
+        "submitted": int(submitted),
+        "verdicts": int(events),
+        "ledger_exact": events == submitted,
+        "nat_failures": (pressure1["nat"]["failures"]
+                         - pressure0["nat"]["failures"]),
+        "drop_frac": (round(dropped / submitted, 4)
+                      if submitted else None),
+        "drops_by_reason": {int(r): int(n)
+                            for r, n in enumerate(reason_delta) if r and n},
+    }
+    checks = evaluate_criteria(scenario.criteria, metrics)
+    return {"name": scenario.name, "seed": scenario.seed,
+            "criteria": dict(scenario.criteria), "metrics": metrics,
+            "checks": checks, "passed": all(checks.values())}

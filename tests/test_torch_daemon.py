@@ -421,7 +421,7 @@ def test_dead_dispatch_restarts_and_accounts_the_batch():
     ("enable_hubble", True, "A13"), ("flow_agg_enabled", True, "A14"),
     ("sysdump_dir", "/nonexistent", "A14"),
     ("history_interval", 10.0, "A14"), ("mesh_auth", True, "A5"),
-    ("enable_encryption", True, "A15"), ("masquerade", True, "A8"),
+    ("enable_encryption", True, "A15"),
     ("policy_audit_mode", True, "A16"),
     ("monitor_aggregation", "medium", "A16")])
 def test_unported_config_raises_naming_its_roadmap_item(knob, value, item):
@@ -436,8 +436,7 @@ def test_unported_calls_raise_naming_their_roadmap_item():
                           "authentication": {"mode": "required"}}]}]
     cases = [(lambda: td.policy_import(auth), "A5"),
              (lambda: td.start_serving(mesh=8), "A10"),
-             (lambda: td.start_serving(span_sample=4), "A14"),
-             (lambda: td.set_bandwidth(1, 1000), "A8")]
+             (lambda: td.start_serving(span_sample=4), "A14")]
     for call, item in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             call()

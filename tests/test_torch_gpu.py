@@ -359,3 +359,105 @@ def test_a_patch_from_another_stream_lands_in_serve_order():
             assert KERNELS["dus"].launches >= 1
     np.testing.assert_array_equal(drained[0], drained[1])
     assert not np.array_equal(drained[1], drained[2])
+
+
+def _nat_inputs(rng, cap, now, n=4096, ct_cap=1 << 14):
+    """Egress rows over one pool: mixed traffic, a crafted collision
+    window, duplicates, pods' replies to live inbound connections (whose
+    CT entries the returned table holds)."""
+    from cilium_tpu_torch.testing import egress as eg
+
+    pods = eg.pod_ips(64)
+    inbound, replies = eg.inbound_pairs(rng, 256, pods)
+    rows = np.concatenate([eg.colliding_rows(12, cap, 5),
+                           replies, eg.egress_rows(rng, n - 268, pods)])
+    return rows, eg.inbound_ct(inbound, now, ct_cap)
+
+
+def _card_nat(rng, cap, now, rules=()):
+    """(kernel table, plain table, NAT tensors, CT) on the card."""
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+
+    rows, (table, fp) = _nat_inputs(rng, cap, now)
+    cfg = nat.NATConfig(node_ip=eg.NODE_IP, egress_rules=rules)
+    cttab = ct.CTTable(table=u32.from_numpy(table, "cuda"),
+                       fp=u32.from_numpy(fp, "cuda"),
+                       dropped=torch.zeros((), dtype=torch.int32,
+                                           device="cuda"))
+    return ([nat.NATTable.create(cap, "cuda") for _ in range(2)],
+            cfg.compile("cuda"), cttab, rows)
+
+
+def _same_nat(tabs):
+    assert torch.equal(tabs[0].table, tabs[1].table)
+    assert torch.equal(tabs[0].failed, tabs[1].failed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["snat_egress", "snat_reverse", "bw_stage",
+                                  "masq_rewrite"])
+def test_egress_kernels_match_their_plain_versions(case):
+    """K11-K14 on the card against their plain versions on the same CUDA
+    tensors (state fed as clones), over successive calls: crafted
+    collision windows, duplicates, an exhausted 2^8 pool, replies to
+    live inbound connections, forged protocol words, and clocks near
+    2^32."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import bandwidth as bw
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+
+    rng = np.random.default_rng(21)
+    reset_launch_counts()
+    # the rule table phase 11's gateway compiles to: one rule per pod,
+    # with overlapping rules ahead and behind (first match wins)
+    rules = eg.gateway_rules(eg.pod_ips(64))
+    if case in ("snat_egress", "snat_reverse"):
+        for cap, now in ((1 << 8, 100), (1 << 12, (1 << 32) - 90)):
+            tabs, t, cttab, rows = _card_nat(rng, cap, now, rules)
+            for step in range(3):
+                hdr = u32.from_numpy(rows, "cuda")
+                t_now = (now + 100 * step) & 0xFFFFFFFF
+                got = nat.snat_egress(tabs[0], t, cttab, hdr, t_now)
+                want = nat.snat_egress_plain(tabs[1], t, cttab, hdr, t_now)
+                assert torch.equal(got[0], want[0])
+                assert torch.equal(got[2], want[2])
+                _same_nat(tabs)
+                if case == "snat_reverse":
+                    rep = u32.from_numpy(eg.reply_rows(
+                        rng, u32.to_numpy(got[0]), 4096), "cuda")
+                    g = nat.snat_reverse(tabs[0], t, rep, t_now + 1)
+                    w = nat.snat_reverse_plain(tabs[1], t, rep, t_now + 1)
+                    assert torch.equal(g[0], w[0])
+                    _same_nat(tabs)
+                rows = np.concatenate([rows[::3], eg.egress_rows(
+                    rng, len(rows) - len(rows[::3]), eg.pod_ips(64))])
+            if cap == 1 << 8:
+                assert int(tabs[0].failed) > 0  # the pool ran dry
+    elif case == "bw_stage":
+        limits = {1: 16_000, 2: 0x7FFFFFFF, 7: 90_000, 4095: 1_000}
+        rates = u32.from_numpy(bw.rates_array(limits), "cuda")
+        states = [bw.BandwidthState.create("cuda") for _ in range(2)]
+        for now in (10, 10, 11, 5000, (1 << 32) - 1, 2):
+            hdr = u32.from_numpy(eg.bw_rows(rng, 4096, [1, 2, 3, 7, 4095,
+                                                        9000]), "cuda")
+            got = bw.bw_stage(states[0], hdr, now, rates)
+            want = bw.bw_stage_plain(states[1], hdr, now, rates)
+            assert torch.equal(got, want)
+            assert torch.equal(states[0].tokens, states[1].tokens)
+            assert torch.equal(states[0].last, states[1].last)
+    else:
+        _tabs, t, cttab, rows = _card_nat(rng, 1 << 8, 100)
+        hdr = u32.from_numpy(rows, "cuda")
+        for ct_arg in (cttab, None):
+            got = nat.masq_rewrite(t, hdr, ct_arg, 100)
+            want = nat.masq_rewrite_plain(t, hdr, ct_arg, 100)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert KERNELS[case].launches > 0

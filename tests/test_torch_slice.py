@@ -162,7 +162,11 @@ def test_port_import_leaves_jax_unloaded():
             "cilium_tpu_torch.serving.l7plane, cilium_tpu_torch.fqdn, "
             "cilium_tpu_torch.datapath.tables, "
             "cilium_tpu_torch.policy.incremental, "
-            "cilium_tpu_torch.testing.workloads\n"
+            "cilium_tpu_torch.testing.workloads, "
+            "cilium_tpu_torch.service.nat, "
+            "cilium_tpu_torch.datapath.bandwidth, "
+            "cilium_tpu_torch.testing.oracle, "
+            "cilium_tpu_torch.testing.egress\n"
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cilium_tpu')]\n"
             "assert not bad, bad\n")
