@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's serving step, serving daemon, L7 proxy
-plane, live table churn and offline egress path on one NVIDIA GPU.
+plane, live table churn, offline egress path and service load balancer
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -82,12 +83,31 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    pod's bucket ledger holds, UDP mappings expire; then a short
    exhaustion leg at ``NatExhaustionScenario``'s shape.  Phase 3 holds
    K11-K14 against their plain versions at these shapes (collision
-   windows, duplicates, a pool run dry, a clock crossing 2^32).
+   windows, duplicates, a pool run dry, a clock crossing 2^32);
+12. the service path: phase 11's daemon with 4096 ClusterIP services (2
+   backends each among the world's pods, Maglev tables of 16381 slots,
+   256 dual-stack over its v6 pods, a 16th with ClientIP affinity, 16
+   with no backend) installed through ``ServiceWatcher``, and a pod
+   whose policy denies all but port 9, driven through
+   ``Daemon.process_batch`` (socket-LB K17 and the v6 pass K16 ahead of
+   phase 11's stages): a warm-up, 8 batches of 2^16 rows 10 s apart
+   (4096 new flows each, the rest repeats), a backend leaving every
+   other service after the fourth, then a burst of 12288 new flows.
+   Every service row lands on a backend of its own service, cached
+   flows keep theirs across the change, new ones follow the new Maglev
+   tables, pins to the backend that left are pruned, NO_SERVICE drops
+   equal the rows to frontends with no backend (the denied pod's too),
+   the burst caches nothing, and K17 equals its plain version on the
+   main path's own inputs.  Phase 3 holds K15-K17 against their plain
+   versions at full width (2^16 rows, 4096 frontends; K17 over a
+   threaded sequence on 2^16 and 2^20 caches: connect batches, a
+   steady batch, a burst, a forced fingerprint overflow, a backend
+   change, affinity expiry, clocks across 2^32).
 
 The kernel launch counts are read per path (the slice of phase 4, the
 daemon of phase 7, the L7 paths of phases 3, 8 and 9, the churn of
-phase 10, the egress path of phase 11), each zeroed just before its path
-runs.  The line before the last is one JSON object describing every
+phase 10, the egress path of phase 11, the service path of phase 12),
+each zeroed just before its path runs.  The line before the last is one JSON object describing every
 kernel (the standalone launchers with 0 launches and ``"standalone":
 true``); the last line is the device record.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -95,6 +115,7 @@ true``); the last line is the device record.  Details go to
 
 from __future__ import annotations
 
+import ipaddress
 import json
 import statistics
 import subprocess
@@ -736,6 +757,263 @@ def phase_egress_kernels(torch, rng, kernels):
         ops=EGRESS_N * 30 + 4096 * 20)
 
 
+# -- the service LB stages (K15-K17) -------------------------------------
+
+N_SERVICES = 4096  # bench.py bench_socket_lb_scaling's top point
+N_V6_SERVICES = 256  # dual-stack frontends over the world's v6 pods
+LB_N = 1 << 16  # rows a batch (phase 12's process_batch batch)
+N_LB_CLIENTS = 128
+
+
+def service_world(world):
+    """The service world of phases 3 and 12 as k8s objects
+    (``testing/services.py``): N_SERVICES ClusterIP services with 2
+    backends each among the world's pod IPs, the first N_V6_SERVICES
+    dual-stack over its v6 pods, a 16th with ClientIP affinity, the last
+    16 with no backend."""
+    from cilium_tpu_torch.testing import services as sv
+
+    return sv.k8s_objects(world.pod_ips, world.pod_ips6, n=N_SERVICES,
+                          n_v6=N_V6_SERVICES)
+
+
+def lb_hits(rows, t, v6):
+    """The rows of ``rows`` (of the family ``v6`` names) that match a
+    frontend of ``t`` (host copies of its frontends)."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import (COL_DPORT, COL_DST_IP0,
+                                               COL_FAMILY, COL_PROTO)
+
+    ip = u32.to_numpy(t.svc_ip).reshape(len(u32.to_numpy(t.svc_port)), -1)
+    fe = np.concatenate([ip, u32.to_numpy(t.svc_port)[:, None],
+                         u32.to_numpy(t.svc_proto)[:, None]], 1)
+    cols = list(range(COL_DST_IP0 + (0 if v6 else 3), COL_DST_IP0 + 4))
+    key = rows[:, cols + [COL_DPORT, COL_PROTO]]
+    known = set(map(bytes, np.ascontiguousarray(fe)))
+    fam = rows[:, COL_FAMILY] == (6 if v6 else 4)
+    hit = np.array([bytes(k) in known for k in np.ascontiguousarray(key)])
+    return int((hit & fam).sum())
+
+
+def socklb_live(tbl, rows, now):
+    """[N] bool: the flow of each of ``rows`` has a live entry in the
+    socket-LB cache ``tbl`` at ``now``."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import (COL_DPORT, COL_DST_IP3,
+                                               COL_PROTO, COL_SPORT,
+                                               COL_SRC_IP3)
+    from cilium_tpu_torch.service.socklb import SK_EXPIRES
+
+    table = u32.to_numpy(tbl.table)
+    live = table[table[:, SK_EXPIRES] >= now][:, :4]
+    known = {bytes(k) for k in np.ascontiguousarray(live)}
+    key = np.stack([rows[:, COL_SRC_IP3], rows[:, COL_SPORT],
+                    rows[:, COL_DST_IP3],
+                    (rows[:, COL_DPORT] << 8) | rows[:, COL_PROTO]], 1)
+    return np.array([bytes(k) in known for k in np.ascontiguousarray(key)],
+                    bool)
+
+
+def socklb_misses(tbl, rows, now):
+    """v4 rows of ``rows`` whose flow has no live entry in ``tbl`` at
+    ``now`` (the connect path's rows)."""
+    from cilium_tpu_torch.core.packets import COL_FAMILY
+
+    return int(((rows[:, COL_FAMILY] == 4) & ~socklb_live(tbl, rows,
+                                                           now)).sum())
+
+
+def socklb_counts(rows, n_miss, n_frontends):
+    """The least bytes and integer operations K17 must move and do for
+    ``rows`` with ``n_miss`` connect-path rows against ``n_frontends``
+    v4 frontends: every row read and written (128 B) and its two masks,
+    40 ops (key, FNV hash, fingerprint); for each v4 row its 8-word
+    fingerprint window (32 B) and one 32 B table row with 8 compares,
+    and an expiry written; the frontends read once (12 B, 3 ops each,
+    to index them); for each miss one probe of that index, the Maglev
+    and backend gathers (12 B) and a 32 B flow row written."""
+    from cilium_tpu_torch.core.packets import COL_FAMILY
+
+    v4 = int((rows[:, COL_FAMILY] == 4).sum())
+    return (len(rows) * 130 + v4 * 68 + n_frontends * 12
+            + n_miss * (12 + 32 + 4),
+            len(rows) * 40 + v4 * 16 + 3 * n_frontends + n_miss * 44)
+
+
+def phase_lb_kernels(torch, rng, world, kernels, report):
+    """K15-K17 against their plain versions at full width: the service
+    world of ``service_world`` (4096 v4 frontends, Maglev tables of
+    16381 slots: [4096, 16381] int32, 268 MB), LB_N rows with half to
+    VIPs; K16 over the 256 v6 frontends; K17 over ``socklb_steps``'s
+    threaded sequence on the daemon's default 2^16-slot cache and on
+    bench_socket_lb's 2^20, the flow table, fingerprints and pins
+    compared word for word after every batch.  Returns the
+    ServiceManager, for phase 12 to take over with its filled Maglev
+    rows."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import COL_FAMILY
+    from cilium_tpu_torch.k8s.watchers import ServiceWatcher
+    from cilium_tpu_torch.service import (ServiceManager, lb6_stage,
+                                          lb6_stage_plain, lb_stage,
+                                          lb_stage_plain)
+    from cilium_tpu_torch.service import socklb as sl
+    from cilium_tpu_torch.testing import services as sv
+
+    t0 = time.monotonic()
+    mgr = ServiceManager(device="cuda")
+    objs = service_world(world)
+    sv.install(ServiceWatcher(mgr), objs)
+    t_watch = time.monotonic() - t0
+    t, t6 = mgr.tensors(), mgr.tensors6()
+    torch.cuda.synchronize()
+    t_compile = time.monotonic() - t0 - t_watch
+    # the filled Maglev rows the manager keeps on the host for the next
+    # compile
+    kept = sum(v.nbytes for v in mgr._maglev.values())
+    print(f"lb world: {len(mgr)} frontends ({N_SERVICES} v4, "
+          f"{t6.svc_ip.shape[0]} v6) through ServiceWatcher in "
+          f"{t_watch:.1f} s, Maglev [{t.maglev.shape[0]}, {t.m}] compiled "
+          f"and uploaded in {t_compile:.1f} s (host); "
+          f"{len(mgr._maglev)} filled rows kept, {kept / 2**20:.1f} MiB "
+          f"of host memory")
+    clients = (0x0A000000 + rng.choice(1 << 16, N_LB_CLIENTS,
+                                       replace=False)).astype(np.uint32)
+    others = np.array([int(ipaddress.IPv4Address(ip))
+                       for ip in world.pod_ips[:2048]], np.uint32)
+
+    def clone(tbl):
+        return sl.SockLBTable(tbl.table.clone(), tbl.fp.clone(),
+                              tbl.aff.clone())
+
+    # K15, K16: the per-packet stages
+    for name, kern, plain, tt, v6 in (
+            ("lb_stage", lb_stage, lb_stage_plain, t, False),
+            ("lb6_stage", lb6_stage, lb6_stage_plain, t6, True)):
+        rows = sv.rows(rng, LB_N, N_SERVICES, clients, others,
+                       vip_frac=0.0 if v6 else 0.5,
+                       v6_frac=0.5 if v6 else 0.0,
+                       n_v6=N_V6_SERVICES if v6 else 0)
+        rows[::5, 3] |= 0x80000000  # sources above 2^31
+        hdr = u32.from_numpy(rows, "cuda")
+        err = max(max_abs_err(g, w, f"{name} {what}") for g, w, what in zip(
+            kern(tt, hdr), plain(tt, hdr), ("rows", "have", "no_backend")))
+        hits = lb_hits(rows, tt, v6)
+        s = tt.svc_port.shape[0]
+        per = 24 if v6 else 12
+        kernels[name].update(
+            max_abs_err=err, ms=device_ms(lambda: kern(tt, hdr), 20),
+            plain_ms=device_ms(lambda: plain(tt, hdr), 3),
+            # rows read and written, two masks; the frontends read once;
+            # a Maglev entry and a backend read for each hit
+            bytes=LB_N * 130 + (s + hits) * per,
+            # the frontends indexed in one pass (a compare a word), one
+            # probe of that index a row; the hash, select and rewrite
+            ops=(per // 4) * s + 24 * LB_N)
+        print(f"parity {name}: {LB_N} rows against {s} frontends, "
+              f"{hits} hits, bit-exact")
+
+    # K17: the threaded sequence on two cache sizes
+    errs, timed, seq = 0, {}, {}
+    for cap in (1 << 16, 1 << 20):
+        tabs = [sl.SockLBTable.create(cap, device="cuda")]
+        tabs.append(clone(tabs[0]))
+        steps = sv.socklb_steps(rng, N_SERVICES, clients, others, LB_N,
+                                connect=sl.CONNECT_CAP, n_connect=4,
+                                n_v6=N_V6_SERVICES)
+        for label, rows, now, ovf in steps:
+            if label == "backend-change":
+                # a backend leaves 64 services; pins to it are pruned
+                for i in range(0, 128, 2):
+                    s = mgr.get(f"default/svc{i}:{sv.port_proto(i)[0]}")
+                    mgr.upsert(s.name, f"{s.frontend_ip}:{s.frontend_port}",
+                               [b.key for b in s.backends[1:]],
+                               protocol=s.protocol,
+                               affinity_timeout=s.affinity_timeout)
+                for tb in tabs:
+                    tb.prune_affinity(mgr.backend_set())
+            if ovf >= 0:
+                fp = sv.force_overflow(u32.to_numpy(tabs[0].fp), rows[ovf])
+                for tb in tabs:
+                    tb.fp.copy_(u32.from_numpy(fp, "cuda"))
+            hdr = u32.from_numpy(rows, "cuda")
+            tt = mgr.tensors()
+            if cap == 1 << 16 and label in ("connect", "steady"):
+                timed[label] = (clone(tabs[0]), tt, hdr, now, rows)
+            before = clone(tabs[0])
+            got = sl.socklb_stage(tabs[0], tt, hdr, now)
+            want = sl.socklb_stage_plain(tabs[1], tt, hdr, now)
+            for g, w, what in zip(got[:3] + (tabs[0].table, tabs[0].fp,
+                                             tabs[0].aff),
+                                  want[:3] + (tabs[1].table, tabs[1].fp,
+                                              tabs[1].aff),
+                                  ("rows", "svc_hit", "no_backend", "table",
+                                   "fp", "aff")):
+                errs = max(errs, max_abs_err(g, w, f"socklb_stage {label} "
+                                             f"(2^{cap.bit_length() - 1}) "
+                                             f"{what}"))
+            n_miss = socklb_misses(before, rows, now)
+            seq[f"{label}/{cap}"] = {
+                "rows": len(rows), "misses": n_miss,
+                "svc_hit": int(got[1].sum()),
+                "no_backend": int(got[2].sum()),
+                "occupied": int((tabs[0].fp != 0).sum()),
+                "pins_live": int((u32.widen(tabs[0].aff[:, sl.AF_EXPIRES])
+                                  >= now).sum())}
+            print(f"parity socklb_stage 2^{cap.bit_length() - 1}: {label} "
+                  f"now={now}, {len(rows)} rows, {n_miss} misses, "
+                  f"{seq[f'{label}/{cap}']['svc_hit']} service hits, "
+                  f"{seq[f'{label}/{cap}']['occupied']} slots occupied, "
+                  f"bit-exact")
+    # times on the steady batch of the 2^16 cache, each call on a clone
+    base, tt, hdr, now, rows = timed["steady"]
+    missed = (rows[:, COL_FAMILY] == 4) & ~socklb_live(base, rows, now)
+    n_miss = int(missed.sum())
+    nb, ops = socklb_counts(rows, n_miss, tt.svc_port.shape[0])
+    kernels["socklb_stage"].update(
+        max_abs_err=errs,
+        ms=device_ms(lambda tb: sl.socklb_stage(tb, tt, hdr, now), 20,
+                     lambda: clone(base)),
+        plain_ms=device_ms(lambda tb: sl.socklb_stage_plain(
+            tb, tt, hdr, now), 3, lambda: clone(base)),
+        bytes=nb, ops=ops)
+    # where K17's time goes: its launches' device times on the steady
+    # batch and on the last connect batch (8192 new flows)
+    from torch.profiler import ProfilerActivity, profile
+
+    split = {}
+    for label, (b0, tt, hdr, now, rows) in timed.items():
+        sl.socklb_stage(clone(b0), tt, hdr, now)
+        tb = clone(b0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sl.socklb_stage(tb, tt, hdr, now)
+            torch.cuda.synchronize()
+        split[label] = {}
+        for e in prof.key_averages():
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.self_device_time_total <= 0):
+                continue
+            key = e.key.replace("(anonymous namespace)::", "")
+            key = ("claim-word fills" if "Fill" in key else
+                   key.split("(")[0].split("<")[0].split("::")[-1].strip())
+            split[label][key] = (split[label].get(key, 0.0)
+                                 + e.self_device_time_total)
+        print(f"socklb_stage {label} batch ({len(rows)} rows, "
+              f"{socklb_misses(b0, rows, now)} misses), device us by "
+              f"launch: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in split[label].items()))
+    report["lb_kernels"] = {"watch_s": t_watch, "compile_s": t_compile,
+                            "kept_maglev_bytes": kept,
+                            "socklb_sequence": seq,
+                            "steady_misses": n_miss,
+                            "socklb_device_us": split}
+    del t, t6, timed, base
+    return mgr
+
+
 def random_ring_words(rng, n, empty_frac=0.03):
     """Event-ring words: real event rows with some EMPTY slots."""
     import numpy as np
@@ -1351,9 +1629,13 @@ def syn_rows(src, dst, sport0, n, dport, ep, dirn, proto=6):
 
 
 def wait_for(pred, what, timeout=120.0):
+    """Poll ``pred`` until it holds; past ``timeout`` fail, naming
+    ``what`` (a string, or a callable that describes the state then)."""
     t0 = time.monotonic()
     while not pred():
-        check(time.monotonic() - t0 < timeout, f"timed out waiting for {what}")
+        if time.monotonic() - t0 >= timeout:
+            raise SmokeFailure(f"timed out waiting for "
+                               f"{what() if callable(what) else what}")
         time.sleep(0.002)
 
 
@@ -1413,7 +1695,10 @@ def phase_l7_redirect(torch, report):
             # handled by the pool
             want, pool = sent[key] - batch, d._l7plane.pool
             wait_for(lambda: pool.stats()["redirected"] >= want
-                     and pool.pending == 0, "the redirect leg's pool")
+                     and pool.pending == 0,
+                     lambda: f"the redirect leg's pool ({want} rows "
+                     f"sent before the last batch; the plane's stats "
+                     f"{d._l7plane.stats()})")
         return batch * iters / (time.perf_counter() - t0)
 
     reset_launch_counts()
@@ -2134,6 +2419,333 @@ def phase_egress(torch, rng, world, report):
     return launches
 
 
+SVC_BATCHES = 8
+SVC_FRESH = 4096  # new flows a batch
+SVC_BURST = 12288  # new flows of the burst batch: over CONNECT_CAP
+SVC_CHANGE_AFTER = 4  # a backend leaves half the services after batch 4
+LOCKED_RULE = {"endpointSelector": {"matchLabels": {"app": "locked"}},
+               "egress": [{"toPorts": [{"ports": [{"port": "9",
+                                                   "protocol": "TCP"}]}]}]}
+
+
+def phase_service(torch, rng, world, mgr, report):
+    """The service path at full width: phase 11's daemon (config #3 with
+    masquerade, 128 client pods, a gateway and limits) with the service
+    world of ``service_world`` installed through ``ServiceWatcher``,
+    and a ``locked`` pod whose policy denies all but port 9.  A warm-up
+    batch of SVC_FRESH new flows, then SVC_BATCHES batches of LB_N rows
+    10 s apart through ``Daemon.process_batch``: SVC_FRESH new flows
+    (half to VIPs, a tenth v6, the rest to pods) and 64 of the locked
+    pod's, the rest repeating established flows; after batch
+    SVC_CHANGE_AFTER a backend leaves every other service; then a burst
+    batch of SVC_BURST new flows.  The daemon takes phase 3's
+    ServiceManager ``mgr`` of the same world, whose filled Maglev rows
+    spare a second fill; the watcher installs the world into it anew
+    (which also undoes phase 3's backend change).  Returns the launch
+    counts."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import (COL_DPORT, COL_DST_IP0,
+                                               COL_DST_IP3, COL_EP,
+                                               COL_FAMILY, COL_PROTO,
+                                               COL_SPORT, COL_SRC_IP3,
+                                               ip_to_words)
+    from cilium_tpu_torch.datapath.verdict import REASON_NO_SERVICE
+    from cilium_tpu_torch.k8s.watchers import ServiceWatcher
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.service import socklb as sl
+    from cilium_tpu_torch.testing import egress as eg
+    from cilium_tpu_torch.testing import services as sv
+
+    t0 = time.monotonic()
+    d, clients, _rates = egress_daemon(world, rng)
+    d.policy_import([LOCKED_RULE])
+    locked = d.add_endpoint("locked", ("10.250.9.1",), ["k8s:app=locked"])
+    d.services = mgr
+    objs = service_world(world)
+    watcher = ServiceWatcher(d.services, node_ip=eg.NODE_IP)
+    sv.install(watcher, objs)
+    t_watch = time.monotonic() - t0
+    d.services.tensors()
+    d.services.tensors6()
+    t_build = time.monotonic() - t0
+    print(f"service: phase 11's daemon with {len(d.services)} frontends "
+          f"through ServiceWatcher (daemon and watcher {t_watch:.1f} s, "
+          f"Maglev compile over phase 3's kept rows "
+          f"{t_build - t_watch:.1f} s, host)")
+
+    # per service: its two v4 backends, its v6 backend, live or not
+    n = N_SERVICES
+    be = np.zeros((n, 2), np.uint32)
+    be6 = np.zeros(n, np.uint32)
+    for i, (_svc, eps) in enumerate(objs):
+        addrs = [a["ip"] for a in eps["subsets"][0]["addresses"]]
+        v4 = [int(ipaddress.IPv4Address(a)) for a in addrs if ":" not in a]
+        if v4:
+            be[i] = v4
+        v6 = [a for a in addrs if ":" in a]
+        if v6:
+            be6[i] = int(ipaddress.IPv6Address(v6[0])) & 0xFFFFFFFF
+    empty = be[:, 0] == 0
+    changed = (np.arange(n) % 2 == 0) & ~empty
+    client_ips = np.array([eg.ip(c.ips[0]) for c in clients], np.uint32)
+    client_ids = np.array([c.id for c in clients], np.uint32)
+    others = np.array([eg.ip(p) for p in world.pod_ips[:4096]], np.uint32)
+    state = {"sport": 0}
+
+    def fresh(k, ep_ids=client_ids, ips=client_ips, vip_frac=0.5,
+              v6_frac=0.1, live_only=False):
+        rows = sv.rows(rng, k, n, ips, others, vip_frac=vip_frac,
+                       v6_frac=v6_frac, n_v6=N_V6_SERVICES, dup_frac=0.0,
+                       ep_ids=ep_ids)
+        # one sport a new flow: no two flows of the run share a tuple
+        rows[:, COL_SPORT] = 1024 + (state["sport"] + np.arange(k)) % 64000
+        state["sport"] += k
+        return rows
+
+    def svc_of(rows):
+        """-> (v4 service index or -1, v6 service index or -1)."""
+        port, proto = sv.ports_protos(np.arange(n))
+        i4 = rows[:, COL_DST_IP3].astype(np.int64) - sv.VIP4
+        ok4 = (rows[:, COL_FAMILY] == 4) & (i4 >= 0) & (i4 < n)
+        j4 = np.where(ok4, i4, 0)
+        ok4 &= (rows[:, COL_DPORT] == port[j4]) & (rows[:, COL_PROTO]
+                                                   == proto[j4])
+        w6 = np.asarray(ip_to_words(sv.vip6(0)), np.int64)
+        i6 = rows[:, COL_DST_IP3].astype(np.int64) - w6[3]
+        ok6 = ((rows[:, COL_FAMILY] == 6) & (i6 >= 0)
+               & (i6 < N_V6_SERVICES)
+               & (rows[:, COL_DST_IP0:COL_DST_IP0 + 3] == w6[:3]).all(1))
+        j6 = np.where(ok6, i6, 0)
+        ok6 &= (rows[:, COL_DPORT] == port[j6]) & (rows[:, COL_PROTO]
+                                                   == proto[j6])
+        return np.where(ok4, i4, -1), np.where(ok6, i6, -1)
+
+    pool = np.zeros((0, 16), np.uint32)  # established flows
+    pool_be = np.zeros((0, 2), np.uint32)  # their dst ip, port after LB
+    pool_when = np.zeros(0, np.int64)  # the batch that opened them
+    # cached (or v6, selected per packet by a one-backend table): such a
+    # flow keeps its backend; one the full cache could not take is
+    # resolved again on each packet
+    pool_kept = np.zeros(0, bool)
+    stages = ((d, "_service_lb", "service LB (K17, K16)"),
+              (d.services, "_compile", "Maglev compile (host)"),
+              (d.loader, "masquerade", "snat (K11)"),
+              (d, "_bw_police", "bandwidth (K13)"),
+              (d.loader, "step", "datapath step (K1, K4)"),
+              (d.loader, "reverse_nat", "reverse NAT (K12)"),
+              (d, "_finish_batch", "decode + publish"))
+    clock = StageClock({name: "caller" for _o, _a, name in stages})
+    for obj, attr, name in stages:
+        clock.wrap(obj, attr, name)
+    totals = {"rows": 0, "no_service": 0, "locked_no_service": 0,
+              "checked": 0, "kept": 0, "seconds": 0.0, "batch_s": []}
+
+    def drive(b, rows, idx, now, n_new):
+        """One batch: process_batch, then the checks.  ``idx`` gives the
+        pool index of each repeated row (-1 for a new flow)."""
+        nonlocal pool, pool_be, pool_when, pool_kept
+        t1 = time.perf_counter()
+        ev = d.process_batch(rows, now=now)
+        dt = time.perf_counter() - t1
+        totals["batch_s"].append(dt)
+        check(len(ev) == len(rows), f"service: {len(ev)} events for "
+              f"{len(rows)} rows")
+        s4, s6 = svc_of(rows)
+        got = ev.hdr[:, [COL_DST_IP3, COL_DPORT]]
+        live4 = (s4 >= 0) & ~empty[np.maximum(s4, 0)]
+        j = np.maximum(s4, 0)
+        # the first backend stays valid for unchanged services, before
+        # the change, and for flows established before it
+        rep = idx >= 0
+        first_ok = ~changed[j] | (b < SVC_CHANGE_AFTER)
+        first_ok[rep] |= pool_when[idx[rep]] < SVC_CHANGE_AFTER
+        in_set = ((got[:, 0] == be[j, 1])
+                  | ((got[:, 0] == be[j, 0]) & first_ok))
+        bad = live4 & ~(in_set & (got[:, 1] == sv.BACKEND_PORT))
+        check(not bad.any(), f"service: batch {b}: {int(bad.sum())} v4 "
+              f"service rows not on a backend of their own service")
+        j6 = np.maximum(s6, 0)
+        bad6 = (s6 >= 0) & ~((got[:, 0] == be6[j6])
+                             & (got[:, 1] == sv.BACKEND_PORT))
+        check(not bad6.any(), f"service: batch {b}: {int(bad6.sum())} v6 "
+              f"service rows not on their backend")
+        plain_rows = (s4 < 0) & (s6 < 0)
+        check((got[plain_rows] == rows[plain_rows][:, [COL_DST_IP3,
+                                                        COL_DPORT]]).all(),
+              f"service: batch {b}: a non-service row was rewritten")
+        # established flows keep their backend (the backend change
+        # included); a flow with no backend is never established
+        rep[rep] = pool_kept[idx[rep]]
+        same = (got[rep] == pool_be[idx[rep]]).all(1)
+        check(bool(same.all()), f"service: batch {b}: "
+              f"{int((~same).sum())} established flows changed backend")
+        nos = ev.reason == REASON_NO_SERVICE
+        want = (s4 >= 0) & empty[j]
+        check(bool((nos == want).all()), f"service: batch {b}: NO_SERVICE "
+              f"on {int(nos.sum())} rows, {int(want.sum())} rows hit a "
+              f"frontend with no backend")
+        lk = rows[:, COL_EP] == locked.id
+        check(bool((ev.reason[lk & live4] != 0).all()
+                   & (ev.reason[lk & live4] != REASON_NO_SERVICE).all()),
+              f"service: batch {b}: the locked pod reached a service")
+        totals["rows"] += len(rows)
+        totals["no_service"] += int(nos.sum())
+        totals["locked_no_service"] += int((nos & lk).sum())
+        totals["checked"] += int(live4.sum() + (s6 >= 0).sum())
+        totals["kept"] += int(rep.sum())
+        new = np.flatnonzero(idx < 0)[:n_new]
+        keep = new[~(want[new] | lk[new])]
+        pool = np.concatenate([pool, rows[keep]])
+        pool_be = np.concatenate([pool_be, got[keep]])
+        pool_when = np.concatenate([pool_when, np.full(len(keep), b)])
+        pool_kept = np.concatenate([pool_kept,
+                                    socklb_live(d._socklb, rows[keep], now)
+                                    | (rows[keep, COL_FAMILY] == 6)])
+        return ev, dt
+
+    empty_idx = np.flatnonzero(empty)
+    e_port, e_proto = sv.ports_protos(empty_idx)
+
+    def batch(k_new, n_rows=LB_N):
+        lk = fresh(64, ep_ids=[locked.id],
+                   ips=np.array([eg.ip("10.250.9.1")], np.uint32),
+                   vip_frac=1.0, v6_frac=0.0)
+        # half of the locked pod's rows to frontends with no backend
+        pick = rng.integers(0, len(empty_idx), 32)
+        lk[:32, COL_DST_IP3] = sv.VIP4 + empty_idx[pick]
+        lk[:32, COL_DPORT], lk[:32, COL_PROTO] = e_port[pick], e_proto[pick]
+        new = np.concatenate([fresh(k_new), lk])
+        k = n_rows - len(new)
+        idx = np.concatenate([np.full(len(new), -1),
+                              rng.integers(0, len(pool), k)])
+        rows = np.concatenate([new, pool[idx[len(new):]]])
+        perm = rng.permutation(len(rows))
+        return rows[perm], idx[perm], len(new)
+
+    reset_launch_counts()
+    now = 1000
+    warm = fresh(SVC_FRESH)
+    drive(-1, warm, np.full(len(warm), -1), now, len(warm))
+    for b in range(SVC_BATCHES):
+        if b == SVC_CHANGE_AFTER:
+            # a backend leaves every other service (the first of its
+            # two): the Endpoints objects change, the watcher upserts
+            t1 = time.monotonic()
+            for i in np.flatnonzero(changed):
+                svc, eps = objs[i]
+                addrs = eps["subsets"][0]["addresses"][1:]
+                watcher.on_endpoints_update({
+                    "metadata": eps["metadata"],
+                    "subsets": [{**eps["subsets"][0], "addresses": addrs}]})
+            print(f"service: a backend left {int(changed.sum())} services "
+                  f"({time.monotonic() - t1:.2f} s through the watcher)")
+        now += 10
+        rows, idx, k = batch(SVC_FRESH)
+        _ev, dt = drive(b, rows, idx, now, k)
+        totals["seconds"] += dt
+        if b == SVC_CHANGE_AFTER:
+            aff = u32.to_numpy(d._socklb.aff)
+            alive = aff[:, sl.AF_EXPIRES] >= now
+            valid = d.services.backend_set()
+            dead = [(int(r[sl.AF_BE_IP]), int(r[sl.AF_BE_PORT]))
+                    not in valid for r in aff[alive]]
+            check(not any(dead), f"service: {sum(dead)} live affinity pins "
+                  f"to a backend that left")
+            print(f"service: {int(alive.sum())} live affinity pins after "
+                  f"the change, none to a backend that left")
+    occupied = int((d._socklb.fp != 0).sum())
+    # the burst: more new flows than the connect path caches
+    now += 10
+    rows, idx, k = batch(SVC_BURST)
+    drive(SVC_BATCHES, rows, idx, now, 0)
+    after_burst = int((d._socklb.fp != 0).sum())
+    check(after_burst == occupied, f"service: the burst cached flows "
+          f"({occupied} -> {after_burst} slots)")
+    launches = {k2: v.launches for k2, v in KERNELS.items()}
+    for name in ("socklb_stage", "lb6_stage", "snat_egress", "bw_stage",
+                 "datapath_wide", "ct_update"):
+        check(launches[name] > 0, f"service: {name} never launched")
+    rows_main = SVC_BATCHES * LB_N
+    main_s = totals["batch_s"][1:SVC_BATCHES + 1]
+    # the batch after the backend change also recompiles the Maglev
+    # tables on the host
+    steady_s = sum(main_s) - main_s[SVC_CHANGE_AFTER]
+    stages_s = {k2: sum(v) / 1e3 for k2, v in clock.times.items()}
+    stages_med = {k2: statistics.median(v) for k2, v in clock.times.items()
+                  if v}
+    print(f"service: {SVC_BATCHES} batches of {LB_N} rows through "
+          f"process_batch in {totals['seconds']:.3f} s "
+          f"({rows_main / totals['seconds']:.0f} rows/s, host clock), "
+          f"{(SVC_BATCHES - 1) * LB_N / steady_s:.0f} rows/s without the "
+          f"batch that recompiled the Maglev tables "
+          f"({main_s[SVC_CHANGE_AFTER] * 1e3:.1f} ms); host stages over "
+          f"the warm-up, the batches and the burst (median ms a call, "
+          f"share of their {sum(totals['batch_s']):.3f} s): " + ", ".join(
+              f"{k2} {stages_med[k2]:.3f} "
+              f"{stages_s[k2] / sum(totals['batch_s']):.1%}"
+              for k2 in stages_med))
+    print(f"service: {totals['checked']} service rows on their own "
+          f"service's backends, {totals['kept']} repeats kept their "
+          f"backend across the change, NO_SERVICE {totals['no_service']} "
+          f"= rows to frontends with no backend ({totals['locked_no_service']}"
+          f" of them the locked pod's, over its policy's deny); cache "
+          f"{occupied} of {d._socklb.capacity} slots, the burst cached none")
+    print(f"service launches: {json.dumps(launches)}")
+    # K17 on the main path's own inputs: the next batch against clones
+    # of the live cache and the daemon's compiled frontends
+    now += 10
+    rows, _idx, _k = batch(SVC_FRESH)
+    hdr = u32.from_numpy(rows, "cuda")
+    t = d.services.tensors()
+
+    def cache():
+        c = d._socklb
+        return sl.SockLBTable(c.table.clone(), c.fp.clone(), c.aff.clone())
+
+    tabs = [cache(), cache()]
+    got = sl.socklb_stage(tabs[0], t, hdr, now)
+    want = sl.socklb_stage_plain(tabs[1], t, hdr, now)
+    for g, w, what in zip(got[:3] + (tabs[0].table, tabs[0].fp, tabs[0].aff),
+                          want[:3] + (tabs[1].table, tabs[1].fp, tabs[1].aff),
+                          ("rows", "svc_hit", "no_backend", "table", "fp",
+                           "aff")):
+        max_abs_err(g, w, f"service: socklb_stage {what} on the main "
+                    f"path's inputs")
+    k17_ms = device_ms(lambda tb: sl.socklb_stage(tb, t, hdr, now), 20, cache)
+    n_miss = socklb_misses(d._socklb, rows, now)
+    print(f"service: K17 on the main path's inputs ({LB_N} rows, {n_miss} "
+          f"misses, the live cache): bit-exact with its plain version, "
+          f"{k17_ms:.4f} ms")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        d.process_batch(rows, now=now)
+        t_prof = time.perf_counter() - t1
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("Activity Buffer"))
+    print(f"service profiled batch: {LB_N} rows in {t_prof * 1e3:.3f} ms, "
+          f"device busy {busy_us / 1e3:.3f} ms "
+          f"({busy_us / 1e6 / t_prof:.1%}), idle "
+          f"{1 - busy_us / 1e6 / t_prof:.1%}")
+    d.shutdown()
+    report["service"] = {
+        "build_s": t_build, "batches": SVC_BATCHES, "rows": rows_main,
+        "process_batch_s": totals["seconds"],
+        "rows_per_s": rows_main / totals["seconds"],
+        "rows_per_s_without_recompile": (SVC_BATCHES - 1) * LB_N / steady_s,
+        "stages_median_ms": stages_med,
+        "batch_ms": [x * 1e3 for x in totals["batch_s"]],
+        "stages_s": stages_s, "checked": totals["checked"],
+        "kept": totals["kept"], "no_service": totals["no_service"],
+        "occupied": occupied, "launches": launches,
+        "k17_main_path": {"ms": k17_ms, "misses": n_miss},
+        "profiled": {"seconds": t_prof, "device_busy_ms": busy_us / 1e3}}
+    return launches
+
+
 def plain_serve(state, ring, rows, now, batch_id, ep=None, dirn=None,
                 proxy_ports=None, trace_sample=1024, valid=None):
     """One serving step through the plain versions only (the yardstick
@@ -2504,6 +3116,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     report = {}
+    t_smoke = time.monotonic()
     try:
         # -- 1. device ----------------------------------------------------
         smi = subprocess.run(
@@ -2552,6 +3165,7 @@ def main() -> int:
         phase_gather(torch, rng, kernels)
         phase_dus(torch, rng, world, kernels)
         phase_egress_kernels(torch, rng, kernels)
+        svc_mgr = phase_lb_kernels(torch, rng, world, kernels, report)
         l7_launches = phase_l7(torch, rng, kernels, report)
 
         # -- 4. the slice at full size ------------------------------------
@@ -2583,6 +3197,10 @@ def main() -> int:
 
         # -- 11. the offline egress path --------------------------------------
         by_path["egress"] = phase_egress(torch, rng, world, report)
+
+        # -- 12. the service path -------------------------------------------
+        by_path["service"] = phase_service(torch, rng, world, svc_mgr,
+                                           report)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2591,11 +3209,12 @@ def main() -> int:
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"))
         # launches: the daemon path's count where the kernel runs there,
-        # else the slice path's, else the churn path's, else the egress
-        # path's (each path's counts zeroed before it ran)
+        # else the slice path's, the churn path's, the egress path's or
+        # the service path's (each path's counts zeroed before it ran)
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         k["launches"] = (by_path["daemon"][name] or by_path["slice"][name]
-                         or by_path["churn"][name] or by_path["egress"][name])
+                         or by_path["churn"][name] or by_path["egress"][name]
+                         or by_path["service"][name])
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
         print(f"kernel {name}: {k['launches']} launches on the main path "
@@ -2605,10 +3224,14 @@ def main() -> int:
         (on_path if k["launches"] else launchers).append(k)
     report["kernels"] = on_path
     report["standalone_launchers"] = launchers
-    # the line lists every kernel; the standalone launchers (K2, K3 and
-    # K14, held against their plain versions in phase 3) with 0 launches
+    # the line lists every kernel; the standalone launchers (K2, K3, K14
+    # and K15, held against their plain versions in phase 3) with 0
+    # launches
     for k in launchers:
         k["standalone"] = True
+    report["wall_s"] = time.monotonic() - t_smoke
+    print(f"smoke: {report['wall_s']:.1f} s from the device check to "
+          f"the kernels line (build included)")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

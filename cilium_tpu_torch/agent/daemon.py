@@ -7,9 +7,10 @@ and the serving front end -- admission queue, adaptive batcher, drain
 runtime, K-batch superbatch dispatch, the occupancy-bounded ring drain
 and the event-join worker, and the L7 proxy plane (the proxy, its
 worker pool fed by the event join's REDIRECT rows, and the DNS-answer
--> FQDN identity loop), and the offline path ``process_batch``
-(egress SNAT with port allocation and the egress gateway, bandwidth
-policing, the datapath step, reverse NAT, the monitor).  The datapath
+-> FQDN identity loop), and the offline path ``process_batch`` (the
+service load balancer with its socket-LB flow cache, egress SNAT with
+port allocation and the egress gateway, bandwidth policing, the
+datapath step, reverse NAT, the monitor).  The datapath
 is :class:`TorchLoader` on ``device`` (None: the card; the tests pass
 ``device="cpu"``), and the proxy runs its L7 verdicts on the same
 device.
@@ -19,10 +20,11 @@ reference wires in besides, and the port does not have yet, raises
 NotImplementedError naming its ROADMAP item, at construction (a config
 knob turned on) or at the call: a multi-card mesh, span tracing and the
 profiler window, mutual auth, encryption, the SLO plane and metric
-history, the flight recorder, flow analytics, Hubble, the service load
-balancer, policy audit mode and monitor trace aggregation.  The proxy's socket listeners, the DNS proxy and the xDS
-surface are not ported (ROADMAP A17): L7 requests arrive through the
-``handle_l7*`` calls and the serving plane's request source.
+history, the flight recorder, flow analytics, Hubble, policy audit
+mode and monitor trace aggregation.  The proxy's socket listeners, the
+DNS proxy and the xDS surface are not ported (ROADMAP A17): L7
+requests arrive through the ``handle_l7*`` calls and the serving
+plane's request source.
 """
 
 from __future__ import annotations
@@ -294,6 +296,14 @@ class Daemon:
                 node_ip=cfg.node_ip,
                 non_masquerade_cidrs=cfg.non_masquerade_cidrs,
             ).compile(self.loader.device)
+        # the service LB (service/__init__.py): VIP -> Maglev backend,
+        # applied before the policy pipeline; the connect-time flow
+        # cache (service/socklb.py) is created on first service traffic
+        from ..service import ServiceManager
+
+        self.services = ServiceManager(device=self.loader.device)
+        self._socklb = None
+        self._svc_version_seen = None  # affinity prune bookkeeping
         # initial empty attach so the datapath is live pre-endpoints
         self.endpoints.regenerate()
         # deterministic fault injection, armed last so a construction
@@ -571,21 +581,55 @@ class Daemon:
         return bw_stage(self._bw, hdr, now, self._bw_rates)
 
     # -- the offline path ----------------------------------------------
+    def _service_lb(self, hdr, now: int):
+        """The service LB stage of ``process_batch`` on device rows:
+        connect-time translation with a per-flow cache on v4 rows
+        (``socklb_stage``, K17 on the card: established flows ride a
+        window probe, only new flows pay the frontend compare and
+        Maglev), then the per-packet v6 pass (``lb6_stage``, K16) when
+        a service has a v6 frontend.  A service-set change first expires
+        the ClientIP affinity pins whose backend is gone (a host sweep,
+        only when some service pins affinity).  Returns (rows, [N] bool
+        NO_SERVICE mask)."""
+        from ..service import lb6_stage
+        from ..service.socklb import SockLBTable, socklb_stage
+
+        if self._socklb is None:
+            self._socklb = SockLBTable.create(device=self.loader.device)
+        svc_ver = self.services.version
+        if self._svc_version_seen != svc_ver:
+            if self.services.any_affinity:
+                self._socklb.prune_affinity(self.services.backend_set())
+            self._svc_version_seen = svc_ver
+        hdr, _hits, nobe, _tbl = socklb_stage(
+            self._socklb, self.services.tensors(), hdr, now)
+        t6 = self.services.tensors6()
+        if t6 is not None:
+            hdr, _hits6, nobe6 = lb6_stage(t6, hdr)
+            nobe = nobe | nobe6
+        return hdr, nobe
+
     def process_batch(self, hdr: np.ndarray,
                       now: Optional[int] = None) -> EventBatch:
         # thread-affinity: offline, api, cli
-        """One batch of wide header rows through egress SNAT ->
-        bandwidth policing -> the datapath step -> reverse NAT -> the
-        monitor.  The rows stay on the device across the stages; the
-        one fetch feeds the event decode, which needs the rewritten
-        rows.  The service LB stage that precedes SNAT on the reference
-        is not ported (ROADMAP A8b): the port has no service table."""
+        """One batch of wide header rows through the service LB ->
+        egress SNAT -> bandwidth policing -> the datapath step ->
+        reverse NAT -> the monitor.  The rows stay on the device across
+        the stages; the one fetch feeds the event decode, which needs
+        the rewritten rows.  Rows whose frontend selects no backend
+        drop NO_SERVICE through the step's ``lb_drop`` channel, ahead
+        of policy (upstream's LB lookup runs before the endpoint
+        program)."""
         if now is None:
             now = self._now()
-        if self.nat is None and self._bw_rates is None:
+        if not (len(self.services) or self.nat is not None
+                or self._bw_rates is not None):
             out, row_map = self.loader.step(hdr, now)
             return self._finish_batch(out, hdr, row_map, now)
         hdr_dev = self.loader._to_device(hdr)
+        svc_nobe = None
+        if len(self.services):
+            hdr_dev, svc_nobe = self._service_lb(hdr_dev, now)
         nat_drop = None
         if self.nat is not None:
             # CT-aware: replies to inbound connections keep their
@@ -595,12 +639,24 @@ class Daemon:
                                                        now)
         bw_reasons = self._bw_police(hdr_dev, now)
         out, row_map = self.loader.step(hdr_dev, now, pre_drop=nat_drop,
-                                        pre_drop_reason=bw_reasons)
+                                        pre_drop_reason=bw_reasons,
+                                        lb_drop=svc_nobe)
         if self.nat is not None:
             # reverse translation AFTER the verdict: CT and policy see
             # the wire tuple, delivery and events the pod destination
             hdr_dev = self.loader.reverse_nat(self.nat, hdr_dev, now)
         return self._finish_batch(out, u32.to_numpy(hdr_dev), row_map, now)
+
+    def socklb_entries(self, limit: int = 1000) -> list:
+        """Decode the socket-LB flow cache (``cilium bpf lb list``):
+        live slots with their backend, negative entries with None."""
+        from ..service.socklb import socklb_entries_from_snapshot
+
+        tbl = self._socklb
+        if tbl is None:
+            return []
+        return socklb_entries_from_snapshot(u32.to_numpy(tbl.table),
+                                            self._now(), limit)
 
     def _finish_batch(self, out, hdr: np.ndarray, row_map,
                       now: int) -> EventBatch:

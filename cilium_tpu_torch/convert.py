@@ -13,7 +13,10 @@ dataclass field names both packages share::
 The egress stages' state travels the same way: a ``NATTable``'s
 ``table``/``failed`` and a ``BandwidthState``'s ``tokens``/``last``
 (``nat_*`` and ``bandwidth_*`` below); a ``NATTensors``' arrays come
-across by ``NATTensors.from_numpy``.
+across by ``NATTensors.from_numpy``.  So does the service LB's: a
+compiled ``LBTensors``/``LBTensors6`` as a dict of its leaves by field
+name plus ``m``, and a ``SockLBTable``'s ``table``/``fp``/``aff``
+(``lb_*`` and ``socklb_*`` below).
 
 Each array keeps the JAX package's dtype (int32 or uint32); here every
 word lands in an int32 tensor as its bit pattern.  A caller holding a
@@ -34,7 +37,9 @@ from .datapath.verdict import DatapathState, DevicePolicy
 from .device import resolve_device
 from .datapath.bandwidth import BandwidthState
 from .monitor.ring import EventRing
+from .service import LBTensors, LBTensors6
 from .service.nat import NATTable
+from .service.socklb import SockLBTable
 from .u32 import from_numpy, to_numpy
 
 # the JAX package's dtype of every leaf (the rest are int32)
@@ -147,3 +152,36 @@ def bandwidth_state_to_numpy(state: BandwidthState
                              ) -> Tuple[np.ndarray, int]:
     """-> (tokens [MAX_ENDPOINTS] u32, last)."""
     return to_numpy(state.tokens), int(to_numpy(state.last))
+
+
+_LB_FIELDS = ("svc_ip", "svc_port", "svc_proto", "maglev", "backend_ip",
+              "backend_port")
+
+
+def lb_tensors_from_numpy(arrays: Dict, device=None) -> LBTensors:
+    """A JAX ``LBTensors``' leaves by field name, with ``m`` -> an
+    :class:`LBTensors` on ``device`` (None: the card)."""
+    return LBTensors.from_numpy(
+        *(arrays[k] for k in _LB_FIELDS + ("svc_aff",)), m=arrays["m"],
+        device=device)
+
+
+def lb6_tensors_from_numpy(arrays: Dict, device=None) -> LBTensors6:
+    """The same for a JAX ``LBTensors6``."""
+    return LBTensors6.from_numpy(*(arrays[k] for k in _LB_FIELDS),
+                                 m=arrays["m"], device=device)
+
+
+def socklb_table_from_numpy(table: np.ndarray, fp: np.ndarray,
+                            aff: np.ndarray, device=None) -> SockLBTable:
+    """JAX ``SockLBTable`` leaves (u32 ``table`` [P, 8], ``fp`` [P],
+    ``aff`` [A, 8]) -> a :class:`SockLBTable` on ``device``."""
+    device = resolve_device(device)
+    return SockLBTable(table=from_numpy(table, device),
+                       fp=from_numpy(fp, device), aff=from_numpy(aff, device))
+
+
+def socklb_table_to_numpy(tbl: SockLBTable
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """-> (table [P, 8], fp [P], aff [A, 8]), u32."""
+    return to_numpy(tbl.table), to_numpy(tbl.fp), to_numpy(tbl.aff)

@@ -203,6 +203,69 @@ struct BwIO {
   uint32_t now;
 };
 
+// The compiled v4 frontends (service/__init__.py LBTensors).
+struct LbView {
+  const uint32_t* svc_ip;        // [s]
+  const uint32_t* svc_port;      // [s]
+  const uint32_t* svc_proto;     // [s]
+  const int32_t* maglev;         // [s, m] backend row, -1 none
+  const uint32_t* backend_ip;    // [b]
+  const uint32_t* backend_port;  // [b]
+  const uint32_t* svc_aff;       // [s] ClientIP affinity TTL, 0 off
+  int32_t s;
+  int32_t b;
+  int32_t m;
+  int32_t pad;
+};
+
+// The compiled v6 frontends (service/__init__.py LBTensors6).
+struct Lb6View {
+  const uint32_t* svc_ip;        // [s, 4]
+  const uint32_t* svc_port;      // [s]
+  const uint32_t* svc_proto;     // [s]
+  const int32_t* maglev;         // [s, m]
+  const uint32_t* backend_ip;    // [b, 4]
+  const uint32_t* backend_port;  // [b]
+  int32_t s;
+  int32_t b;
+  int32_t m;
+  int32_t pad;
+};
+
+// One batch through lb_stage or lb6_stage.
+struct LbIO {
+  const uint32_t* rows;  // [n, 16], 16-byte aligned
+  uint32_t* out;         // [n, 16] rewritten rows
+  bool* have_backend;    // [n]
+  bool* no_backend;      // [n]
+  int32_t n;
+  int32_t pad;
+};
+
+// One batch through socklb_stage (service/socklb.py): the rows, the
+// flow cache and its affinity pins updated in place, the outputs and the
+// per-row scratch.
+struct SockIO {
+  const uint32_t* rows;  // [n, 16], 16-byte aligned
+  uint32_t* out;         // [n, 16] rewritten rows
+  bool* svc_hit;         // [n]
+  bool* no_backend;      // [n]
+  uint32_t* table;       // [capacity, 8]
+  uint32_t* fp;          // [capacity]
+  uint32_t* aff;         // [aff_capacity, 8]
+  int32_t* claim;        // [capacity] claim words, CLAIM_FREE at each call
+  int32_t* aclaim;       // [aff_capacity] the same for the pins
+  // scratch, allocated by the wrapper
+  uint32_t* key;   // [n, 4] src, sport, vip, dport << 8 | proto
+  uint32_t* aux;   // [n, 8] see socklb.cu
+  int32_t* list;   // [n] the batch rows that missed, in no order
+  int32_t* meta;   // [2] overflow flag, miss count; zero at each call
+  int32_t n;
+  int32_t capacity;      // 2^k
+  int32_t aff_capacity;  // 2^k
+  uint32_t now;
+};
+
 // The XLA gather index rule: a negative index counts from the end once,
 // then the index clamps into [0, n).  Gathers in the JAX reference
 // follow it, so forged ids read the same cells on both sides.

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels of the serving path, the L7 proxy, the
-table patches and the egress stages (NAT and bandwidth policing): their registry, launch counts and launchers.
+table patches, the service load balancer and the egress stages (NAT
+and bandwidth policing): their registry, launch counts and launchers.
 
 Each launcher checks the device, dtype, shape, contiguity and alignment
 of every tensor, allocates outputs and scratch with ``torch.empty`` on
@@ -79,6 +80,12 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "cilium_tpu/datapath/bandwidth.py:60"),
     Kernel("masq_rewrite", "nat", "masq_rewrite_launch",
            "cilium_tpu/datapath/verdict.py:374"),
+    Kernel("lb_stage", "lb", "lb_stage_launch",
+           "cilium_tpu/service/__init__.py:391"),
+    Kernel("lb6_stage", "lb", "lb6_stage_launch",
+           "cilium_tpu/service/__init__.py:435"),
+    Kernel("socklb_stage", "socklb", "socklb_stage_launch",
+           "cilium_tpu/service/socklb.py:228"),
 )}
 
 
@@ -536,3 +543,102 @@ def launch_bw_stage(state, hdr: torch.Tensor, now: int,
         now=int(now) & MASK)
     KERNELS["bw_stage"].launch(ctypes.addressof(io), _stream(dev))
     return reasons
+
+
+def lb_view(t, device) -> abi.LbView:
+    s, m = t.maglev.shape
+    b = t.backend_ip.shape[0]
+    if m != t.m:
+        raise ValueError(f"maglev table has {m} slots, LBTensors.m is {t.m}")
+    return abi.LbView(
+        svc_ip=_ptr(t.svc_ip, I32, device, (s,), name="lb.svc_ip"),
+        svc_port=_ptr(t.svc_port, I32, device, (s,), name="lb.svc_port"),
+        svc_proto=_ptr(t.svc_proto, I32, device, (s,), name="lb.svc_proto"),
+        maglev=_ptr(t.maglev, I32, device, (s, m), name="lb.maglev"),
+        backend_ip=_ptr(t.backend_ip, I32, device, (b,),
+                        name="lb.backend_ip"),
+        backend_port=_ptr(t.backend_port, I32, device, (b,),
+                          name="lb.backend_port"),
+        svc_aff=_ptr(t.svc_aff, I32, device, (s,), name="lb.svc_aff"),
+        s=s, b=b, m=m)
+
+
+def lb6_view(t, device) -> abi.Lb6View:
+    s, m = t.maglev.shape
+    b = t.backend_ip.shape[0]
+    if m != t.m:
+        raise ValueError(f"maglev table has {m} slots, LBTensors6.m is {t.m}")
+    return abi.Lb6View(
+        svc_ip=_ptr(t.svc_ip, I32, device, (s, 4), name="lb6.svc_ip"),
+        svc_port=_ptr(t.svc_port, I32, device, (s,), name="lb6.svc_port"),
+        svc_proto=_ptr(t.svc_proto, I32, device, (s,),
+                       name="lb6.svc_proto"),
+        maglev=_ptr(t.maglev, I32, device, (s, m), name="lb6.maglev"),
+        backend_ip=_ptr(t.backend_ip, I32, device, (b, 4),
+                        name="lb6.backend_ip"),
+        backend_port=_ptr(t.backend_port, I32, device, (b,),
+                          name="lb6.backend_port"),
+        s=s, b=b, m=m)
+
+
+def _launch_lb(name: str, view, hdr: torch.Tensor):
+    dev, n = hdr.device, hdr.shape[0]
+    out = torch.empty((n, N_COLS), dtype=I32, device=dev)
+    have = torch.empty(n, dtype=BOOL, device=dev)
+    no_be = torch.empty(n, dtype=BOOL, device=dev)
+    io = abi.LbIO(
+        rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
+        out=out.data_ptr(), have_backend=have.data_ptr(),
+        no_backend=no_be.data_ptr(), n=n)
+    KERNELS[name].launch(ctypes.addressof(io), ctypes.addressof(view),
+                         _stream(dev))
+    return out, have, no_be
+
+
+def launch_lb_stage(t, hdr: torch.Tensor):
+    """K15: the v4 frontend match, Maglev pick and DNAT over wide
+    [N, 16] rows.  Returns (rows, [N] have_backend, [N] no_backend)."""
+    return _launch_lb("lb_stage", lb_view(t, hdr.device), hdr)
+
+
+def launch_lb6_stage(t, hdr: torch.Tensor):
+    """K16: the same over the v6 frontends."""
+    return _launch_lb("lb6_stage", lb6_view(t, hdr.device), hdr)
+
+
+def launch_socklb_stage(tbl, t, hdr: torch.Tensor, now: int):
+    """K17: the flow-cached LB over wide [N, 16] rows; updates ``tbl``
+    (flow rows, fingerprints, affinity pins) in place.  Returns (rows,
+    [N] svc_hit, [N] no_backend, tbl)."""
+    from ..service.nat import CLAIM_FREE
+
+    dev, n = hdr.device, hdr.shape[0]
+    p, a = tbl.table.shape[0], tbl.aff.shape[0]
+    if p & (p - 1) or a & (a - 1):
+        raise ValueError(f"socklb capacities must be 2^k, got {p}, {a}")
+
+    def empty(*shape, dtype=I32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out, hit, no_be = empty(n, N_COLS), empty(n, dtype=BOOL), empty(
+        n, dtype=BOOL)
+    claim = torch.full((p,), CLAIM_FREE, dtype=I32, device=dev)
+    aclaim = torch.full((a,), CLAIM_FREE, dtype=I32, device=dev)
+    key, aux, rows_missed = empty(n, 4), empty(n, 8), empty(max(n, 1))
+    meta = torch.zeros(2, dtype=I32, device=dev)
+    io = abi.SockIO(
+        rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
+        out=out.data_ptr(), svc_hit=hit.data_ptr(),
+        no_backend=no_be.data_ptr(),
+        table=_ptr(tbl.table, I32, dev, (p, 8), align=16,
+                   name="socklb.table"),
+        fp=_ptr(tbl.fp, I32, dev, (p,), name="socklb.fp"),
+        aff=_ptr(tbl.aff, I32, dev, (a, 8), align=16, name="socklb.aff"),
+        claim=claim.data_ptr(), aclaim=aclaim.data_ptr(),
+        key=key.data_ptr(), aux=aux.data_ptr(),
+        list=rows_missed.data_ptr(), meta=meta.data_ptr(), n=n,
+        capacity=p, aff_capacity=a, now=int(now) & MASK)
+    view = lb_view(t, dev)
+    KERNELS["socklb_stage"].launch(ctypes.addressof(io),
+                                   ctypes.addressof(view), _stream(dev))
+    return out, hit, no_be, tbl

@@ -110,6 +110,32 @@ class BwIO(ctypes.Structure):
                 ("frac", P), ("n", I32), ("now", U32)]
 
 
+class LbView(ctypes.Structure):
+    _fields_ = [("svc_ip", P), ("svc_port", P), ("svc_proto", P),
+                ("maglev", P), ("backend_ip", P), ("backend_port", P),
+                ("svc_aff", P), ("s", I32), ("b", I32), ("m", I32),
+                ("pad", I32)]
+
+
+class Lb6View(ctypes.Structure):
+    _fields_ = [("svc_ip", P), ("svc_port", P), ("svc_proto", P),
+                ("maglev", P), ("backend_ip", P), ("backend_port", P),
+                ("s", I32), ("b", I32), ("m", I32), ("pad", I32)]
+
+
+class LbIO(ctypes.Structure):
+    _fields_ = [("rows", P), ("out", P), ("have_backend", P),
+                ("no_backend", P), ("n", I32), ("pad", I32)]
+
+
+class SockIO(ctypes.Structure):
+    _fields_ = [("rows", P), ("out", P), ("svc_hit", P), ("no_backend", P),
+                ("table", P), ("fp", P), ("aff", P), ("claim", P),
+                ("aclaim", P), ("key", P), ("aux", P), ("list", P),
+                ("meta", P), ("n", I32), ("capacity", I32),
+                ("aff_capacity", I32), ("now", U32)]
+
+
 # per library: (symbol reporting sizeof, [structs in its index order])
 ABI = {
     "verdict": ("verdict_abi_size", [LpmView, PolicyView, CtView,
@@ -121,6 +147,8 @@ ABI = {
     "tables": ("tables_abi_size", [DusIO]),
     "nat": ("nat_abi_size", [NatView, CtView, SnatIO, SnatRevIO, MasqIO]),
     "bandwidth": ("bandwidth_abi_size", [BwIO]),
+    "lb": ("lb_abi_size", [LbView, Lb6View, LbIO]),
+    "socklb": ("socklb_abi_size", [LbView, SockIO]),
 }
 
 # per library: {symbol: argtypes}; every launcher returns cudaError_t
@@ -138,4 +166,6 @@ SIGNATURES = {
             "snat_reverse_launch": [P, P, P],
             "masq_rewrite_launch": [P, P, P, P]},
     "bandwidth": {"bw_stage_launch": [P, P]},
+    "lb": {"lb_stage_launch": [P, P, P], "lb6_stage_launch": [P, P, P]},
+    "socklb": {"socklb_stage_launch": [P, P, P]},
 }

@@ -1,8 +1,8 @@
 """The port's kernels against their plain versions on the card, at a
 small size: the slice through CUDA kernels must equal the slice through
-the plain PyTorch versions, the maintenance and gather kernels their
-plain versions, the superbatch its sequential steps, and the daemon on
-the card the daemon on the CPU.  Needs a CUDA device (marker ``gpu``) and
+the plain PyTorch versions, the maintenance, gather, L7, table-update,
+egress and service-LB kernels their plain versions, the superbatch its
+sequential steps, and the daemon on the card the daemon on the CPU.  Needs a CUDA device (marker ``gpu``) and
 skips without one.  It imports nothing of JAX, so it runs on the card's
 machine, which has no JAX:
 
@@ -459,5 +459,98 @@ def test_egress_kernels_match_their_plain_versions(case):
             want = nat.masq_rewrite_plain(t, hdr, ct_arg, 100)
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert KERNELS[case].launches > 0
+
+
+def _lb_world(n=512, n_v6=64, m=4093):
+    """A mid-size service world on the card, through ServiceWatcher: 512
+    services (a 16th with ClientIP affinity, 8 with no backend, the
+    first 64 dual-stack), Maglev tables of 4093 slots."""
+    from cilium_tpu_torch.k8s.watchers import ServiceWatcher
+    from cilium_tpu_torch.service import ServiceManager
+    from cilium_tpu_torch.testing import services as sv
+
+    pods = [f"10.1.{i // 250}.{i % 250 + 1}" for i in range(700)]
+    pods6 = [f"2001:db8::{i + 1:x}" for i in range(n_v6)]
+    mgr = ServiceManager(m=m, device="cuda")
+    sv.install(ServiceWatcher(mgr), sv.k8s_objects(
+        pods, pods6, n=n, n_v6=n_v6, n_empty=8))
+    clients = (0x0A000000 + np.arange(1, 97)).astype(np.uint32)
+    others = np.array([0x0A010001 + i for i in range(600)], np.uint32)
+    return mgr, clients, others
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["lb_stage", "lb6_stage", "socklb_stage"])
+def test_lb_kernels_match_their_plain_versions(case):
+    """K15-K17 on the card against their plain versions on the same CUDA
+    tensors: duplicate frontends, wrong ports and protocols, empty
+    backend sets, v4 and v6 rows mixed; for K17 a threaded sequence
+    (connect batches, a steady batch, a burst over CONNECT_CAP, a
+    forced fingerprint overflow, a backend change, affinity pins and
+    their expiry, clocks across 2^32) and a full table, the flow table,
+    fingerprints and pins compared word for word after every batch."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.service import (lb6_stage, lb6_stage_plain,
+                                          lb_stage, lb_stage_plain)
+    from cilium_tpu_torch.service import socklb as sl
+    from cilium_tpu_torch.testing import services as sv
+
+    rng = np.random.default_rng(23)
+    mgr, clients, others = _lb_world()
+    reset_launch_counts()
+    if case in ("lb_stage", "lb6_stage"):
+        # a second name on an existing VIP:port: the lower name wins
+        mgr.upsert("a-dup", f"{sv.vip4(3)}:443", ["10.9.9.9:1"])
+        kernel, plain, t = ((lb_stage, lb_stage_plain, mgr.tensors())
+                            if case == "lb_stage" else
+                            (lb6_stage, lb6_stage_plain, mgr.tensors6()))
+        for n in (1, 300, 8192):
+            rows = sv.rows(rng, n, 512, clients, others, v6_frac=0.3,
+                           n_v6=64)
+            rows[: n // 8, 3] |= 0x80000000  # sources above 2^31
+            hdr = u32.from_numpy(rows, "cuda")
+            for got, want in zip(kernel(t, hdr), plain(t, hdr)):
+                assert torch.equal(got, want)
+    else:
+        def clone(tbl):
+            return sl.SockLBTable(tbl.table.clone(), tbl.fp.clone(),
+                                  tbl.aff.clone())
+
+        for cap, aff_cap, n in ((1 << 14, 1 << 12, sl.CONNECT_CAP + 512),
+                                (1 << 6, 1 << 4, 512)):
+            tabs = [sl.SockLBTable.create(cap, aff_cap, device="cuda")]
+            tabs.append(clone(tabs[0]))
+            steps = sv.socklb_steps(rng, 512, clients, others, n,
+                                    connect=min(4096, n), n_connect=2,
+                                    n_v6=64)
+            for label, rows, now, ovf in steps:
+                if label == "backend-change":
+                    for i in range(0, 512, 2):
+                        svc = mgr.get(f"default/svc{i}:{sv.port_proto(i)[0]}")
+                        if svc is not None and len(svc.backends) > 1:
+                            mgr.upsert(svc.name, f"{svc.frontend_ip}:"
+                                       f"{svc.frontend_port}",
+                                       [b.key for b in svc.backends[1:]],
+                                       protocol=svc.protocol,
+                                       affinity_timeout=svc.affinity_timeout)
+                    for tb in tabs:
+                        tb.prune_affinity(mgr.backend_set())
+                if ovf >= 0:
+                    fp = sv.force_overflow(u32.to_numpy(tabs[0].fp), rows[ovf])
+                    for tb in tabs:
+                        tb.fp.copy_(u32.from_numpy(fp, "cuda"))
+                hdr = u32.from_numpy(rows, "cuda")
+                t = mgr.tensors()
+                got = sl.socklb_stage(tabs[0], t, hdr, now)
+                want = sl.socklb_stage_plain(tabs[1], t, hdr, now)
+                for g, w in zip(got[:3], want[:3]):
+                    assert torch.equal(g, w), label
+                for f in ("table", "fp", "aff"):
+                    assert torch.equal(getattr(tabs[0], f),
+                                       getattr(tabs[1], f)), (label, f)
     torch.cuda.synchronize()
     assert KERNELS[case].launches > 0

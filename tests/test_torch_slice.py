@@ -166,7 +166,10 @@ def test_port_import_leaves_jax_unloaded():
             "cilium_tpu_torch.service.nat, "
             "cilium_tpu_torch.datapath.bandwidth, "
             "cilium_tpu_torch.testing.oracle, "
-            "cilium_tpu_torch.testing.egress\n"
+            "cilium_tpu_torch.testing.egress, "
+            "cilium_tpu_torch.service, cilium_tpu_torch.service.socklb, "
+            "cilium_tpu_torch.k8s.watchers, "
+            "cilium_tpu_torch.testing.services\n"
             "bad = [m for m in set(sys.modules) - before "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'cilium_tpu')]\n"
             "assert not bad, bad\n")
@@ -181,6 +184,8 @@ def _default_device_constructors():
     from cilium_tpu_torch.datapath.verdict import DevicePolicy, build_state
     from cilium_tpu_torch.policy.compiler import (IdentityRowMap,
                                                   compile_policy)
+    from cilium_tpu_torch.service import ServiceManager
+    from cilium_tpu_torch.service.socklb import SockLBTable
 
     rm = IdentityRowMap(capacity=4)
     pt, lt = compile_policy([], rm), compile_lpm({"10.0.0.0/8": 0})
@@ -194,6 +199,11 @@ def _default_device_constructors():
         "build_state": lambda: build_state(pt, lt, ct_capacity=1 << 4),
         "event_ring_from_numpy":
             lambda: convert.event_ring_from_numpy(buf, cursor),
+        "ServiceManager.tensors": lambda: ServiceManager(m=7).tensors(),
+        "SockLBTable.create": lambda: SockLBTable.create(1 << 4),
+        "socklb_table_from_numpy": lambda: convert.socklb_table_from_numpy(
+            np.zeros((4, 8), np.uint32), np.zeros(4, np.uint32),
+            np.zeros((4, 8), np.uint32)),
         "datapath_state_from_numpy":
             lambda: convert.datapath_state_from_numpy(
                 convert.datapath_state_to_numpy(
