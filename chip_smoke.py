@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's serving step, serving daemon, L7 proxy
-plane, live table churn, offline egress path and service load balancer
-on one NVIDIA GPU.
+plane, live table churn, offline egress path, service load balancer and
+anomaly scorer on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -55,7 +55,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 8. the redirect overhead (``bench.py`` ``bench_l7_redirect``'s shape):
    two daemons on the card, an L4 allow on port 80 and the same port
    with an HTTP GET rule, fresh-sport SYN batches of 1024, six a leg,
-   legs paired three times in alternating order;
+   legs paired three times in alternating order; each leg ends with a
+   drain tick, so the redirect leg waits only on windows already handed
+   to the event plane, whose queue holds a whole leg
+   (``scripts/chip_redirect_repeat.py`` runs this phase N times);
 9. the FQDN flip: the config #3 world plus a DNS L7 rule and
    ``toFQDNs`` egress (``tests/test_l7plane.py`` ``RULES_DNS``), served
    through ``submit``: probes to an unresolved IP drop, a DNS batch is
@@ -102,12 +105,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    versions at full width (2^16 rows, 4096 frontends; K17 over a
    threaded sequence on 2^16 and 2^20 caches: connect batches, a
    steady batch, a burst, a forced fingerprint overflow, a backend
-   change, affinity expiry, clocks across 2^32).
+   change, affinity expiry, clocks across 2^32);
+13. the anomaly scorer: (a) ``fit_novelty_from_world`` on the card over
+   config #3's tables and ``save_model`` to ``chiprun_out/``; (b)
+   ``score_capture`` over 2^18 rows of ``synth_labeled_traffic``, 4096
+   a batch, against the same replay through the plain versions on a
+   copy of the state: out rows, CT table and metrics bit-exact, scores
+   within tolerance (the AUC is printed as information: the supervised
+   half is untrained); (c) config #3's daemon armed with that checkpoint
+   (``DaemonConfig.anomaly_model_path``) serving 2^20 packets, one in 16
+   from ``PortScanScenario``, through ``submit``: the ledger exact, no
+   event lost, ``lost["anomaly"]`` 0, every published event scored, and
+   a captured batch scored the same by the plain versions; (d) steady
+   sessions without and with the scorer in turns: the scoring tax, the
+   scorer's ms a window and its share of the event-join worker.
+   Phase 3 holds K18 ``flow_features`` and K19 ``anomaly_score`` against
+   their plain versions at full width (2^18 rows served through K1/K4,
+   V = 16384, D = 32, H = 64, the novelty fitted, id_row past V).
 
 The kernel launch counts are read per path (the slice of phase 4, the
 daemon of phase 7, the L7 paths of phases 3, 8 and 9, the churn of
-phase 10, the egress path of phase 11, the service path of phase 12),
-each zeroed just before its path runs.  The line before the last is one JSON object describing every
+phase 10, the egress path of phase 11, the service path of phase 12,
+the armed daemon's first session in phase 13), each zeroed just before
+its path runs.  The line before the last is one JSON object describing every
 kernel (the standalone launchers with 0 launches and ``"standalone":
 true``); the last line is the device record.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -132,6 +152,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 # the guide's 67 TFLOP/s float32 is 132 SMs x 128 lanes x 2 (FMA) x
 # 1.98 GHz; Hopper has 64 INT32 lanes per SM, so integer work peaks at
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor cores, published
+F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, published
 
 
 class SmokeFailure(Exception):
@@ -208,11 +230,13 @@ def device_ms(fn, reps, fresh=None) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved, int_ops):
-    """Least time the card could take: bytes over HBM rate or integer
-    operations over the INT32 rate, whichever is larger."""
+def bound(bytes_moved, int_ops, flop_ms=0.0):
+    """Least time the card could take: bytes over HBM rate or the
+    operations (integer operations over the INT32 rate, plus
+    ``flop_ms`` of float operations at their type's peak), whichever is
+    larger."""
     tb = bytes_moved / HBM_BYTES_PER_S * 1e3
-    to = int_ops / INT32_OPS_PER_S * 1e3
+    to = int_ops / INT32_OPS_PER_S * 1e3 + flop_ms
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -1383,12 +1407,13 @@ def config3_world(d, world, extra_rules=()):
     return d.add_endpoint("db", (DB_IP,), ["k8s:app=db"])
 
 
-def config3_daemon(world, rng):
+def config3_daemon(world, rng, **config):
     """BASELINE.md config #3 through the daemon's own API (phase 7's
     world: the remote identities and their /32s, the world's rules with
     its L7 HTTP rule, the ``db`` endpoint) and 2^21 rows of steady
     traffic into db: a pool of SYNs, then 7 steady draws from it.
-    Returns (daemon, db endpoint, rows)."""
+    ``config`` adds DaemonConfig knobs.  Returns (daemon, db endpoint,
+    rows)."""
     import numpy as np
     from cilium_tpu_torch.agent import Daemon, DaemonConfig
     from cilium_tpu_torch.core.packets import (COL_DST_IP3, COL_EP,
@@ -1398,7 +1423,7 @@ def config3_daemon(world, rng):
     cfg = DaemonConfig(ct_capacity=CT_CAPACITY, serving_packed_ingest=True,
                        serving_superbatch_k=4,
                        serving_queue_depth=1 << 19, ct_gc_interval=0.5,
-                       map_pressure_interval=0.5)
+                       map_pressure_interval=0.5, **config)
     d = Daemon(cfg)
     db = config3_world(d, world)
     per = (1 << 21) // 8
@@ -1653,9 +1678,14 @@ def phase_l7_redirect(torch, report):
     batch, iters, reps = 1024, 6, 3
 
     def build(with_l7):
+        # a leg dispatches its batches back to back with no runtime to
+        # pace it: the event plane's window queue holds a whole leg's
+        # windows (the default 4 dropped one when the join worker
+        # lagged, ROADMAP C5)
         d = Daemon(DaemonConfig(ct_capacity=1 << 16,
                                 serving_bucket_ladder=(batch,),
-                                serving_queue_depth=1 << 14))
+                                serving_queue_depth=1 << 14,
+                                serving_window_queue_depth=iters + 2))
         d.add_endpoint("web", ("10.0.1.1",), ["k8s:app=web"])
         db = d.add_endpoint("db", ("10.0.2.1",), ["k8s:app=db"])
         tp = {"ports": [{"port": "80", "protocol": "TCP"}]}
@@ -1688,21 +1718,37 @@ def phase_l7_redirect(torch, report):
         t0 = time.perf_counter()
         for _ in range(iters):
             d.serve_batch(rows_for(key))
+        # serve_batch hands a window to the event plane only at the
+        # next dispatch: tick now, so every row sent is submitted (no
+        # runtime runs here, so no idle tick comes by itself).  Both
+        # legs pay the tick
+        s = d._serving
+        handover.append((key, s["seq"] - s["last_tick"],
+                         s["eventplane"].stats()["windows-pending"]))
+        d._serving_event_idle_tick()
         if key == "redir":
-            # the candidate pays its detour in full: every redirect the
-            # drain ticks have handed over (all but the last batch's,
-            # whose tick comes with the next dispatch) ingested and
-            # handled by the pool
-            want, pool = sent[key] - batch, d._l7plane.pool
-            wait_for(lambda: pool.stats()["redirected"] >= want
-                     and pool.pending == 0,
+            # the candidate pays its detour in full: every redirect
+            # ingested and handled by the pool.  The wait depends only
+            # on windows already submitted; a window the event plane
+            # dropped fails here, not at the timeout
+            want, pool = sent[key], d._l7plane.pool
+            ep = s["eventplane"]
+            wait_for(lambda: (pool.stats()["redirected"] >= want
+                              and pool.pending == 0)
+                     or ep.stats()["windows-dropped"] > 0,
                      lambda: f"the redirect leg's pool ({want} rows "
-                     f"sent before the last batch; the plane's stats "
-                     f"{d._l7plane.stats()})")
+                     f"sent; the plane's stats {d._l7plane.stats()}; "
+                     f"the event plane's {ep.stats()})")
+            check(ep.stats()["windows-dropped"] == 0,
+                  f"redirect phase: the event plane dropped a window: "
+                  f"{ep.stats()}")
         return batch * iters / (time.perf_counter() - t0)
 
     reset_launch_counts()
     pairs, best = [], {"base": 0.0, "redir": 0.0}
+    # per leg: batches not yet handed to the event plane, and windows
+    # still queued or joining, when the leg's last dispatch returned
+    handover = []
     for rep in range(reps):
         order = ["base", "redir"] if rep % 2 == 0 else ["redir", "base"]
         res = {k: leg(k) for k in order}
@@ -1725,9 +1771,17 @@ def phase_l7_redirect(torch, report):
           f"{best['redir']:.0f} packets/s ({iters} x {batch} a leg); "
           f"plane: {l7['l7-allowed']} allowed, {l7['l7-shed']} shed of "
           f"{l7['redirected']} redirected")
+    evp = {k: {f: outs[k]["event-plane"][f]
+               for f in ("windows-submitted", "windows-dropped",
+                         "queue-overflows", "join-lag-us")}
+           for k in legs}
+    print(f"l7 redirect hand-over at each leg's end (leg, batches not "
+          f"yet submitted, windows pending): {handover}; event planes "
+          f"{evp}")
     report["l7_redirect"] = {"pairs": pairs, "ratio_median":
                              st.median(pairs), "best_pps": best,
-                             "batch": batch, "iters": iters, "l7": l7}
+                             "batch": batch, "iters": iters, "l7": l7,
+                             "handover": handover, "event_planes": evp}
     return launches
 
 
@@ -2746,6 +2800,460 @@ def phase_service(torch, rng, world, mgr, report):
     return launches
 
 
+ML_N = 1 << 18  # K18/K19 parity rows: a serving batch
+ML_BATCH = 4096  # score_capture's batch
+ANOMALY_SERVE = 1 << 20  # phase 13's served packets
+SCAN_SHARE = 16  # one packet in 16 from PortScanScenario
+LOG1P_COLS = (3, 4, 6, 19, 24)
+SCORE_TOL = 2e-3  # |score| on the card against the plain version
+LOGIT_TOL = 1e-2
+SCANNER = "172.20.0.7"  # PortScanScenario's source
+
+
+def card_state(world):
+    """A fresh datapath state for ``world``'s tables on the card (CT
+    2^20)."""
+    from cilium_tpu_torch.datapath.verdict import build_state
+
+    return build_state(world.tensors, world.lpm, world.ep_policy,
+                       ct_capacity=CT_CAPACITY, device="cuda")
+
+
+def clone_state(state):
+    """A copy of ``state`` whose CT table and metrics can diverge; the
+    policy and LPM tables (read-only here) are shared."""
+    import copy
+
+    from cilium_tpu_torch.datapath.conntrack import CTTable
+
+    s = copy.copy(state)
+    s.ct = CTTable(state.ct.table.clone(), state.ct.fp.clone(),
+                   state.ct.dropped.clone())
+    s.metrics = state.metrics.clone()
+    return s
+
+
+def card_model(torch, world):
+    """The anomaly model at config #3's width: ``init_params`` with the
+    world's labels in the embedding, V = the row map's 16384 rows, D =
+    32, H = 64 (the reference defaults), on the card; novelty unfitted."""
+    from cilium_tpu_torch.ml import init_params
+
+    labels_by_row = {world.row_map.row(i.numeric_id):
+                     tuple(str(l) for l in i.labels)
+                     for i in world.alloc.all_identities()}
+    return init_params(torch.Generator().manual_seed(20261017),
+                       world.row_map.capacity, labels_by_row=labels_by_row,
+                       device="cuda")
+
+
+def feature_err(torch, got, want, what):
+    """K18's outputs against the plain version's: id_row and every
+    column but the log1p ones bit-exact, the log1p columns within 1
+    float32 ulp; returns the max abs error over the features."""
+    (gid, gf), (wid, wf) = got, want
+    max_abs_err(gid, wid, f"{what}: id_row")
+    check(gf.shape == wf.shape, f"{what}: feats {tuple(gf.shape)}")
+    exact = [c for c in range(gf.shape[1]) if c not in LOG1P_COLS]
+    n_diff = int((gf[:, exact] != wf[:, exact]).sum())
+    check(n_diff == 0, f"{what}: {n_diff} cells of the exact columns differ")
+    # float32 >= 0: the bit patterns' distance is the distance in ulps
+    ulps = (gf[:, list(LOG1P_COLS)].view(torch.int32).to(torch.int64)
+            - wf[:, list(LOG1P_COLS)].view(torch.int32).to(torch.int64)
+            ).abs().max().item()
+    check(ulps <= 1, f"{what}: log1p columns {ulps} ulps apart")
+    return float((gf - wf).abs().max().item())
+
+
+def score_err(torch, got, want, what, near=0.0):
+    """Scores against the plain version's: within SCORE_TOL, and at
+    least 99.9% of them within ``near`` (0: bit-identical, K19 on the
+    same inputs; 1e-5 end to end, where K18's log1p columns may sit an
+    ulp from the plain version's and d2 carries that into the novelty
+    score); returns (max abs error, identical share)."""
+    if not got.numel():
+        return 0.0, 1.0
+    diff = (got - want).abs()
+    err = float(diff.max().item())
+    same = float((diff == 0).float().mean().item())
+    close = float((diff <= near).float().mean().item())
+    check(err <= SCORE_TOL and close >= 0.999,
+          f"{what}: scores max abs err {err}, {same:.5f} identical, "
+          f"{close:.5f} within {near}")
+    return err, same
+
+
+def phase_ml_kernels(torch, rng, world, kernels, report):
+    """K18 and K19 against their plain versions at full width: 2^18
+    rows of ``synth_labeled_traffic`` (attack_frac 0.25) served through
+    K1/K4 on config #3's tables, the model at V = 16384, D = 32, H = 64
+    with its novelty fitted on the batch's benign rows (both branches
+    of the max live), and a batch whose id_row runs past V."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath.verdict import datapath_step
+    from cilium_tpu_torch.kernels import launch_anomaly_score
+    from cilium_tpu_torch.ml import fit_novelty, synth_labeled_traffic
+    from cilium_tpu_torch.ml.features import (flow_features,
+                                              flow_features_plain)
+    from cilium_tpu_torch.ml.model import (forward_plain, novelty_d2_plain,
+                                           score_packets_plain)
+
+    t0 = time.monotonic()
+    hdr_np, labels = synth_labeled_traffic(world, ML_N, rng,
+                                           attack_frac=0.25)
+    t_synth = time.monotonic() - t0
+    hdr = u32.from_numpy(hdr_np, "cuda")
+    out, _ = datapath_step(card_state(world), hdr, 50_000)
+    want_f = flow_features_plain(hdr, out)
+    model = fit_novelty(card_model(torch, world),
+                        want_f[1][torch.from_numpy(labels < 0.5).cuda()]
+                        .cpu().numpy())
+    got_f = flow_features(hdr, out)
+    f_err = feature_err(torch, got_f, want_f, "flow_features")
+    # the largest service bucket's count (column 19 is log1p(n) / 12)
+    hot = round(float(torch.expm1(want_f[1][:, 19].max() * 12)))
+
+    rows, feats = want_f
+    v = model.embed.shape[0]
+    far = rows.clone()
+    far[: ML_N // 16] = v + torch.arange(ML_N // 16, device="cuda",
+                                         dtype=torch.int32)
+    far[ML_N // 16: ML_N // 8] = -1 - torch.arange(
+        ML_N // 16, device="cuda", dtype=torch.int32) % v
+    s_errs, same, l_err = [], [], 0.0
+    for ids, what in ((rows, "anomaly_score"),
+                      (far, "anomaly_score, id_row past V")):
+        got = launch_anomaly_score(model, ids, feats,
+                                   outputs=("logit", "d2"))
+        torch.cuda.synchronize()
+        e, sm = score_err(torch, got["score"],
+                          score_packets_plain(model, ids, feats), what)
+        s_errs.append(e)
+        same.append(sm)
+        l_err = max(l_err, float((got["logit"] - forward_plain(
+            model, ids, feats)).abs().max().item()))
+        d2_want = novelty_d2_plain(model, feats)
+        d2_same = float((got["d2"] == d2_want).float().mean().item())
+        check(l_err <= LOGIT_TOL, f"{what}: logits max abs err {l_err}")
+        check(bool(torch.allclose(got["d2"], d2_want, rtol=1e-5,
+                                  atol=1e-5)),
+              f"{what}: d2 differs ({d2_same:.5f} identical)")
+    p = torch.sigmoid(forward_plain(model, rows, feats))
+    novel = float((score_packets_plain(model, rows, feats) > p).float()
+                  .mean().item())
+    check(0 < novel < 1, f"anomaly_score: novelty branch share {novel}")
+
+    kernels["flow_features"].update(
+        max_abs_err=f_err,
+        ms=device_ms(lambda: flow_features(hdr, out), 20),
+        plain_ms=device_ms(lambda: flow_features_plain(hdr, out), 3),
+        # the 8 header and 4 out words each row reads, its id_row and 27
+        # feature columns written; ~40 integer operations a key and an
+        # atomic a counter set, ~60 for the columns
+        bytes=ML_N * (8 * 4 + 4 * 4 + 4 + 27 * 4),
+        ops=ML_N * (5 * 40 + 8 + 60))
+    mlp = 2 * (59 * 64 + 64 * 64 + 64)
+    kernels["anomaly_score"].update(
+        max_abs_err=max(s_errs),
+        ms=device_ms(lambda: launch_anomaly_score(model, rows, feats), 20),
+        plain_ms=device_ms(lambda: score_packets_plain(model, rows,
+                                                       feats), 3),
+        # id_row, feats, the embedding row and the score a row; the
+        # weights once
+        bytes=ML_N * (4 + 27 * 4 + 32 * 4 + 4) + 4 * (
+            59 * 64 + 64 * 64 + 3 * 64 + 1 + 27 + 27 * 27 + 1),
+        ops=0,
+        # the three products on bf16 tensor cores, d . P . d in float32
+        flop_ms=(ML_N * mlp / BF16_FLOPS_PER_S
+                 + ML_N * 2 * (27 * 27 + 27) / F32_FLOPS_PER_S) * 1e3)
+    print(f"parity flow_features: {ML_N} rows of synth_labeled_traffic "
+          f"(attack_frac 0.25, made in {t_synth:.1f} s) served through "
+          f"K1/K4; id_row and 22 columns bit-exact, log1p columns within "
+          f"1 ulp (max abs err {f_err:.3g}); the busiest service bucket "
+          f"holds {hot} rows")
+    print(f"parity anomaly_score: V {v} x D 32, H 64, novelty fitted "
+          f"(threshold {model.nov_thresh.item():.4g}; the novelty branch "
+          f"gives {novel:.1%} of the scores): scores max abs err "
+          f"{max(s_errs):.3g} ({same[0]:.5f} / {same[1]:.5f} identical; "
+          f"the second batch's id_row past V or negative), logits max "
+          f"abs err {l_err:.3g}")
+    report["ml_kernels"] = {"rows": ML_N, "v": v, "feature_err": f_err,
+                            "score_err": s_errs, "score_identical": same,
+                            "logit_err": l_err, "novel_share": novel,
+                            "hot_bucket_rows": hot}
+
+
+def replay(torch, state, model, hdr_np, plain, now=50_000):
+    """``score_capture``'s loop over ``state``: the datapath step, then
+    the features and scores, 4096 rows a batch, the last padded.
+    Through the kernels, or (``plain``) the plain versions on the same
+    card.  Returns (out rows, scores), both on the card."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath.verdict import datapath_step
+    from cilium_tpu_torch.ml.features import (flow_features,
+                                              flow_features_plain)
+    from cilium_tpu_torch.ml.model import (score_packets,
+                                           score_packets_plain)
+
+    n = len(hdr_np)
+    pad = (-n) % ML_BATCH
+    hdr_np = np.concatenate([hdr_np, np.repeat(hdr_np[-1:], pad, axis=0)])
+    valid = torch.arange(len(hdr_np), device="cuda") < n
+    outs, scores = [], []
+    for i in range(0, len(hdr_np), ML_BATCH):
+        hb = u32.from_numpy(hdr_np[i:i + ML_BATCH], "cuda")
+        vb = valid[i:i + ML_BATCH]
+        if plain:
+            out = plain_serve(state, None, hb, now + i, 0, valid=vb)
+            scores.append(score_packets_plain(
+                model, *flow_features_plain(hb, out)))
+        else:
+            out, state = datapath_step(state, hb, now + i, vb)
+            scores.append(score_packets(model, *flow_features(hb, out)))
+        outs.append(out)
+    return torch.cat(outs)[:n], torch.cat(scores)[:n]
+
+
+def print_stages(label, stages):
+    """One line a timed stage: thread, calls, median ms, total ms, share
+    of the session."""
+    print(f"{label}: stages (calls, median ms, total ms, share):")
+    for name, v in stages.items():
+        med = "-" if v["median_ms"] is None else f"{v['median_ms']:.3f}"
+        print(f"  [{v['thread']}] {name}: {v['calls']}, {med}, "
+              f"{v['total_ms']:.3f}, {v['share']:.1%}")
+
+
+def scan_mix(rows, db_id, seed=7):
+    """``rows`` with one packet in SCAN_SHARE replaced, in place order,
+    by ``PortScanScenario``'s sweep aimed at the db endpoint."""
+    import numpy as np
+    from cilium_tpu_torch.core.packets import (COL_DST_IP3, COL_EP,
+                                               ip_to_words)
+    from cilium_tpu_torch.testing.workloads import make_scenario
+
+    n_scan = len(rows) // SCAN_SHARE
+    sc = make_scenario("port_scan", seed=seed, n_packets=n_scan,
+                       batch=4096)
+    scan = np.concatenate(list(sc.iter_batches(db_id)))
+    scan[:, COL_DST_IP3] = ip_to_words(DB_IP)[3]
+    base = rows[: len(rows) - n_scan].reshape(n_scan, SCAN_SHARE - 1, -1)
+    return np.concatenate([base, scan[:, None, :]], axis=1).reshape(
+        len(rows), -1)
+
+
+def phase_anomaly(torch, rng, world, report):
+    """Phase 13, the anomaly scorer: (a) fit_novelty_from_world and
+    save_model on the card; (b) score_capture over 2^18 rows against
+    the same replay through the plain versions; (c) config #3's daemon
+    armed with the checkpoint, serving 2^20 packets (one in 16 from the
+    port scan) through submit; (d) the scoring tax and the scorer's
+    share of the event-join worker.  Returns the launch counts of the
+    armed daemon's first session."""
+    import copy
+
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import COL_SRC_IP3, ip_to_words
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.ml import (auc, fit_novelty_from_world,
+                                     load_model, save_model, score_capture,
+                                     synth_labeled_traffic)
+    from cilium_tpu_torch.ml.features import flow_features_plain
+    from cilium_tpu_torch.ml.model import score_packets_plain
+
+    # (a) the novelty fit on the card, saved in the reference's format
+    w = copy.copy(world)
+    w.state = card_state(world)
+    reset_launch_counts()
+    t0 = time.monotonic()
+    model = fit_novelty_from_world(card_model(torch, world), w)
+    t_fit = time.monotonic() - t0
+    fit_launches = {k: v.launches for k, v in KERNELS.items()}
+    check(fit_launches["flow_features"] == 8,
+          f"anomaly: fit_novelty_from_world launched K18 "
+          f"{fit_launches['flow_features']} times for 8 batches")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = str(out_dir / "anomaly_model.npz")
+    save_model(path, model)
+    back = load_model(path, "cuda")
+    check(all(torch.equal(getattr(back, f), getattr(model, f))
+              for f in ("embed", "w1", "feat_prec", "nov_thresh")),
+          "anomaly: the saved model does not load back")
+    print(f"anomaly (a): fit_novelty_from_world on the card in {t_fit:.2f} "
+          f"s (8 x 4096 benign rows), threshold "
+          f"{model.nov_thresh.item():.4g}; saved to {path}")
+
+    # (b) score_capture on the card against the plain replay
+    hdr_np, labels = synth_labeled_traffic(w, ML_N, rng, attack_frac=0.25)
+    n = ML_N - 1000  # a padded last batch
+    hdr_np, labels = hdr_np[:n], labels[:n]
+    start = clone_state(w.state)
+    states = [clone_state(start), clone_state(start)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    scores = score_capture(model, w, hdr_np)
+    t_cap = time.monotonic() - t0
+    cap_launches = {k: v.launches for k, v in KERNELS.items()}
+    check(cap_launches["anomaly_score"] == -(-n // ML_BATCH),
+          f"anomaly: score_capture launched K19 "
+          f"{cap_launches['anomaly_score']} times")
+    out_k, s_k = replay(torch, states[0], model, hdr_np, plain=False)
+    out_p, s_p = replay(torch, states[1], model, hdr_np, plain=True)
+    max_abs_err(out_k, out_p, "anomaly replay: out rows")
+    max_abs_err(w.state.ct.table, states[1].ct.table,
+                "anomaly replay: CT table")
+    max_abs_err(w.state.metrics, states[1].metrics,
+                "anomaly replay: metrics")
+    check(np.array_equal(scores, s_k.cpu().numpy()),
+          "anomaly: score_capture differs from its own kernel replay")
+    err, same = score_err(torch, s_k, s_p, "anomaly replay", near=1e-5)
+    a_card, a_plain = auc(scores, labels), auc(s_p.cpu().numpy(), labels)
+    print(f"anomaly (b): score_capture over {n} rows (4096 a batch, the "
+          f"last padded) in {t_cap:.3f} s on the card; out rows, CT table "
+          f"and metrics equal the plain replay's, scores max abs err "
+          f"{err:.3g} ({same:.5f} identical); AUC {a_card:.4f} (plain "
+          f"{a_plain:.4f}; information only: the supervised half is "
+          f"untrained)")
+
+    # (c) the armed daemon, served through submit
+    d, db, rows = config3_daemon(world, rng, anomaly_model_path=path)
+    rows = scan_mix(rows[:ANOMALY_SERVE], db.id)
+    scanner = ip_to_words(SCANNER)[3]
+    captured = []
+
+    def capture(batch):
+        # one batch with scan rows, for the plain scorer's comparison
+        if not captured and (batch.hdr[:, COL_SRC_IP3] == scanner).any():
+            captured.append(batch)
+
+    d.monitor.register("capture", capture)
+    d.start()
+    threads = dict(StageClock.THREADS)
+    threads["event join: anomaly scorer"] = "worker"
+
+    def timed_scorer():
+        clock = StageClock(threads)
+        clock.wrap(d.anomaly, "consume", "event join: anomaly scorer")
+        d.monitor.register("anomaly", d.anomaly.consume)
+        return clock
+
+    def untime_scorer():
+        del d.anomaly.consume
+        d.monitor.register("anomaly", d.anomaly.consume)
+
+    pub0 = d.monitor.published
+    clock = timed_scorer()
+    reset_launch_counts()
+    out, t_serve = serve_session(d, rows, clock)
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    untime_scorer()
+    first_stages = clock.summary(t_serve)
+    fe, ft = out["front-end"], out["front-end"]["fault-tolerance"]
+    check(fe["submitted"] == fe["verdicts"] + fe["shed"]
+          + ft["recovery-dropped"] and fe["verdicts"] == len(rows),
+          f"anomaly: ledger broken: {fe}")
+    check(out["lost"] == 0 and out["events"] > 0,
+          f"anomaly: {out['events']} events, {out['lost']} lost")
+    st = d.anomaly.stats()
+    published = d.monitor.published - pub0
+    check(d.monitor.lost_count("anomaly") == 0,
+          f"anomaly: the monitor lost {d.monitor.lost_count('anomaly')} "
+          f"events of the scorer")
+    check(st["scored"] == published > 0,
+          f"anomaly: scored {st['scored']} of {published} published")
+    for name in ("flow_features", "anomaly_score", "datapath_packed"):
+        check(launches[name] > 0, f"anomaly: {name} never launched")
+    print(f"anomaly (c): config #3 armed with the checkpoint, {len(rows)} "
+          f"packets ({len(rows) // SCAN_SHARE} from the port scan) "
+          f"submit -> stop_serving in {t_serve:.3f} s "
+          f"({len(rows) / t_serve:.0f} verdicts/s); ledger exact, "
+          f"{out['events']} events, lost {out['lost']}; scored "
+          f"{st['scored']} = published {published}, flagged "
+          f"{st['flagged']} at {st['threshold']}, lost['anomaly'] 0; "
+          f"K18 {launches['flow_features']}, K19 "
+          f"{launches['anomaly_score']} launches")
+    print_stages("anomaly (c) session", first_stages)
+    check(bool(captured), "anomaly: no published batch held scan rows")
+    batch = captured[0]
+    hdr_in, out_in = d.anomaly.inputs(batch)
+    got = torch.from_numpy(d.anomaly.scores(hdr_in, out_in)).cuda()
+    want = score_packets_plain(
+        d.anomaly.params,
+        *flow_features_plain(u32.from_numpy(hdr_in, "cuda"),
+                             u32.from_numpy(out_in, "cuda")))
+    b_err, b_same = score_err(torch, got, want, "anomaly: captured batch",
+                              near=1e-5)
+    n_scan = int((batch.hdr[:, COL_SRC_IP3] == scanner).sum())
+    print(f"anomaly (c): a captured batch of {len(batch)} events "
+          f"({n_scan} from the scanner) scores the same through the plain "
+          f"versions: max abs err {b_err:.3g}, {b_same:.5f} identical")
+
+    # (d) the scoring tax: steady sessions with the scorer unregistered
+    # and registered, in turns; the scorer timed on the event worker
+    rates = {"off": [], "on": []}
+    shares = []
+    for mode in ("off", "on", "on", "off"):
+        if mode == "off":
+            d.monitor.unregister("anomaly")
+            clock = None
+        else:
+            clock = timed_scorer()
+        pub0, sc0 = d.monitor.published, d.anomaly.stats()["scored"]
+        o, t = serve_session(d, rows, clock)
+        check(o["lost"] == 0 and o["front-end"]["verdicts"] == len(rows),
+              f"anomaly: the {mode} session lost rows or events")
+        rates[mode].append(len(rows) / t)
+        if clock is not None:
+            untime_scorer()
+            check(d.anomaly.stats()["scored"] - sc0
+                  == d.monitor.published - pub0,
+                  "anomaly: a timed session scored another count than "
+                  "the monitor published")
+            shares.append(clock.summary(t))
+            print_stages(f"anomaly (d) session {len(shares)} with the "
+                         f"scorer ({len(rows) / t:.0f} verdicts/s)",
+                         shares[-1])
+    d.monitor.unregister("capture")
+    d.shutdown()
+    tax = statistics.median(rates["on"]) / statistics.median(rates["off"])
+    sc_ms = [v["event join: anomaly scorer"] for v in shares]
+    join = [v["event join, all"] for v in shares]
+    share = (sum(v["total_ms"] for v in sc_ms)
+             / max(sum(v["total_ms"] for v in join), 1e-9))
+    med = statistics.median(
+        [x for v in sc_ms for x in [v["median_ms"]] if x is not None]
+        or [0.0])
+    per_window = (sum(v["total_ms"] for v in sc_ms)
+                  / max(sum(v["calls"] for v in join), 1))
+    p7 = report.get("daemon", {}).get("verdicts_per_s")
+    p7_txt = f"{p7:.0f}" if p7 else "not run"
+    print(f"anomaly (d): verdicts/s with the scorer "
+          f"{[round(x) for x in rates['on']]}, without "
+          f"{[round(x) for x in rates['off']]} (phase 7: {p7_txt}); "
+          f"scoring tax {tax:.4f}; the scorer {per_window:.3f} ms a "
+          f"window ({med:.3f} ms a call, median), {share:.1%} of the "
+          f"event-join worker's time")
+    report["anomaly"] = {
+        "fit_s": t_fit, "capture_s": t_cap, "capture_rows": n,
+        "capture_err": err, "capture_identical": same, "auc": a_card,
+        "auc_plain": a_plain, "serve_s": t_serve, "packets": len(rows),
+        "front_end": fe, "events": out["events"], "scorer": st,
+        "published": published, "captured_err": b_err,
+        "captured_identical": b_same, "rates": rates, "tax": tax,
+        "phase7_verdicts_per_s": p7, "scorer_median_ms": med,
+        "scorer_ms_per_window": per_window,
+        "scorer_share_of_join": share, "stages": shares,
+        "first_stages": first_stages,
+        "launches": launches, "fit_launches": fit_launches,
+        "capture_launches": cap_launches}
+    return launches
+
+
 def plain_serve(state, ring, rows, now, batch_id, ep=None, dirn=None,
                 proxy_ports=None, trace_sample=1024, valid=None):
     """One serving step through the plain versions only (the yardstick
@@ -3166,6 +3674,7 @@ def main() -> int:
         phase_dus(torch, rng, world, kernels)
         phase_egress_kernels(torch, rng, kernels)
         svc_mgr = phase_lb_kernels(torch, rng, world, kernels, report)
+        phase_ml_kernels(torch, rng, world, kernels, report)
         l7_launches = phase_l7(torch, rng, kernels, report)
 
         # -- 4. the slice at full size ------------------------------------
@@ -3201,20 +3710,26 @@ def main() -> int:
         # -- 12. the service path -------------------------------------------
         by_path["service"] = phase_service(torch, rng, world, svc_mgr,
                                            report)
+
+        # -- 13. the anomaly scorer -------------------------------------------
+        by_path["anomaly"] = phase_anomaly(torch, rng, world, report)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     on_path, launchers = [], []
     for name, k in kernels.items():
-        k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"))
+        k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"),
+                                             k.pop("flop_ms", 0.0))
         # launches: the daemon path's count where the kernel runs there,
-        # else the slice path's, the churn path's, the egress path's or
-        # the service path's (each path's counts zeroed before it ran)
+        # else the slice path's, the churn path's, the egress path's,
+        # the service path's or the anomaly path's (each path's counts
+        # zeroed before it ran)
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         k["launches"] = (by_path["daemon"][name] or by_path["slice"][name]
                          or by_path["churn"][name] or by_path["egress"][name]
-                         or by_path["service"][name])
+                         or by_path["service"][name]
+                         or by_path["anomaly"][name])
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
         print(f"kernel {name}: {k['launches']} launches on the main path "

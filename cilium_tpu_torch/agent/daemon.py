@@ -13,7 +13,9 @@ port allocation and the egress gateway, bandwidth policing, the
 datapath step, reverse NAT, the monitor).  The datapath
 is :class:`TorchLoader` on ``device`` (None: the card; the tests pass
 ``device="cpu"``), and the proxy runs its L7 verdicts on the same
-device.
+device.  With ``anomaly_model_path`` set, an :class:`ml.AnomalyScorer`
+on the same device scores every event the monitor publishes (advisory:
+no verdict changes).
 
 Ported members keep the reference's names and semantics.  What the
 reference wires in besides, and the port does not have yet, raises
@@ -111,6 +113,10 @@ class DaemonConfig:
     # SNAT port-pool size: a power of two, the pool inside the port
     # space above NAT_PORT_MIN; None: NAT_DEFAULT_CAPACITY (1 << 14)
     nat_pool_capacity: Optional[int] = None
+    # -- the anomaly scorer (ml/): a checkpoint of either package arms
+    # it on the monitor stream; flagged at score >= the threshold
+    anomaly_model_path: Optional[str] = None
+    anomaly_threshold: float = 0.8
     # -- unported planes: on raises NotImplementedError
     serving_trace_sample: int = 0  # span tracing (ROADMAP A14)
     profile_dir: Optional[str] = None  # profiler window (ROADMAP A14)
@@ -306,6 +312,16 @@ class Daemon:
         self._svc_version_seen = None  # affinity prune bookkeeping
         # initial empty attach so the datapath is live pre-endpoints
         self.endpoints.regenerate()
+        # learned path: advisory anomaly scores on the monitor stream
+        self.anomaly = None
+        if cfg.anomaly_model_path:
+            from ..ml import AnomalyScorer, load_model
+
+            self.anomaly = AnomalyScorer(
+                load_model(cfg.anomaly_model_path, self.loader.device),
+                self._rows_of_identity, threshold=cfg.anomaly_threshold,
+                device=self.loader.device)
+            self.monitor.register("anomaly", self.anomaly.consume)
         # deterministic fault injection, armed last so a construction
         # that fails leaves nothing armed; shutdown() disarms it
         self._fault_injector = None
@@ -692,6 +708,14 @@ class Daemon:
         if nat:
             out["nat"] = nat
         return out
+
+    def _rows_of_identity(self, numerics: np.ndarray) -> np.ndarray:
+        # thread-affinity: any
+        """Numeric identities -> the live row map's rows (0: unknown)."""
+        row_map = self.loader.row_map
+        if row_map is None:
+            return np.zeros(len(numerics), dtype=np.int64)
+        return row_map.rows_of(numerics)
 
     # -- L7 proxy API (the listener-facing entry) ----------------------
     def _src_row(self, src_identity: int) -> int:

@@ -16,7 +16,10 @@ The egress stages' state travels the same way: a ``NATTable``'s
 across by ``NATTensors.from_numpy``.  So does the service LB's: a
 compiled ``LBTensors``/``LBTensors6`` as a dict of its leaves by field
 name plus ``m``, and a ``SockLBTable``'s ``table``/``fp``/``aff``
-(``lb_*`` and ``socklb_*`` below).
+(``lb_*`` and ``socklb_*`` below).  The anomaly model travels as a
+flat dict of float32 arrays by its field names (``embed``, ``w1`` ...
+``nov_thresh``), the reference's ``AnomalyModel`` leaves and checkpoint
+keys (``anomaly_model_*`` below).
 
 Each array keeps the JAX package's dtype (int32 or uint32); here every
 word lands in an int32 tensor as its bit pattern.  A caller holding a
@@ -36,6 +39,7 @@ from .datapath.lpm import DeviceLPM
 from .datapath.verdict import DatapathState, DevicePolicy
 from .device import resolve_device
 from .datapath.bandwidth import BandwidthState
+from .ml.model import _FIELDS as _ANOMALY_FIELDS, AnomalyModel
 from .monitor.ring import EventRing
 from .service import LBTensors, LBTensors6
 from .service.nat import NATTable
@@ -185,3 +189,21 @@ def socklb_table_to_numpy(tbl: SockLBTable
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """-> (table [P, 8], fp [P], aff [A, 8]), u32."""
     return to_numpy(tbl.table), to_numpy(tbl.fp), to_numpy(tbl.aff)
+
+
+def anomaly_model_from_numpy(arrays: Dict, device=None) -> AnomalyModel:
+    """A JAX ``AnomalyModel``'s leaves (or a checkpoint's arrays) by
+    field name -> an :class:`AnomalyModel` of float32 buffers on
+    ``device`` (None: the card)."""
+    import torch
+
+    device = resolve_device(device)
+    return AnomalyModel(**{
+        k: torch.from_numpy(np.array(arrays[k], dtype=np.float32)).to(device)
+        for k in _ANOMALY_FIELDS})
+
+
+def anomaly_model_to_numpy(model: AnomalyModel) -> Dict[str, np.ndarray]:
+    """-> {field: float32 array}, the reference's leaves and shapes."""
+    return {k: getattr(model, k).detach().to("cpu").numpy().copy()
+            for k in _ANOMALY_FIELDS}

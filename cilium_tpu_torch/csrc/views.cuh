@@ -266,6 +266,39 @@ struct SockIO {
   uint32_t now;
 };
 
+// K18: one batch's flow features (ml/features.py flow_features).
+struct FeatIO {
+  const uint32_t* hdr;  // [n, 16] header rows
+  const uint32_t* out;  // [n, 6] the datapath step's out rows
+  int32_t* id_row;      // [n]
+  float* feats;         // [n, 27]
+  uint32_t* counts;     // [8, 4096] scratch, zeroed by the launcher
+  int32_t n;
+  int32_t pad;
+};
+
+// K19: one batch's anomaly scores (ml/model.py score_packets); the model
+// is float32, D = 32, H = 64.
+struct ScoreIO {
+  const int32_t* id_row;    // [n]
+  const float* feats;       // [n, 27]
+  const float* embed;       // [v, 32]
+  const float* w1;          // [59, 64]
+  const float* b1;          // [64]
+  const float* w2;          // [64, 64]
+  const float* b2;          // [64]
+  const float* w3;          // [64, 1]
+  const float* b3;          // [1]
+  const float* feat_mean;   // [27]
+  const float* feat_prec;   // [27, 27]
+  const float* nov_thresh;  // [] on the card: no host sync
+  float* score;             // [n]
+  float* logit;             // [n] or null
+  float* d2;                // [n] or null
+  int32_t n;
+  int32_t v;
+};
+
 // The XLA gather index rule: a negative index counts from the end once,
 // then the index clamps into [0, n).  Gathers in the JAX reference
 // follow it, so forged ids read the same cells on both sides.

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels of the serving path, the L7 proxy, the
-table patches, the service load balancer and the egress stages (NAT
-and bandwidth policing): their registry, launch counts and launchers.
+table patches, the service load balancer, the egress stages (NAT
+and bandwidth policing) and the anomaly scorer: their registry, launch
+counts and launchers.
 
 Each launcher checks the device, dtype, shape, contiguity and alignment
 of every tensor, allocates outputs and scratch with ``torch.empty`` on
@@ -86,6 +87,10 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "cilium_tpu/service/__init__.py:435"),
     Kernel("socklb_stage", "socklb", "socklb_stage_launch",
            "cilium_tpu/service/socklb.py:228"),
+    Kernel("flow_features", "ml", "flow_features_launch",
+           "cilium_tpu/ml/features.py:66"),
+    Kernel("anomaly_score", "ml", "anomaly_score_launch",
+           "cilium_tpu/ml/model.py:141"),
 )}
 
 
@@ -642,3 +647,65 @@ def launch_socklb_stage(tbl, t, hdr: torch.Tensor, now: int):
     KERNELS["socklb_stage"].launch(ctypes.addressof(io),
                                    ctypes.addressof(view), _stream(dev))
     return out, hit, no_be, tbl
+
+
+def launch_flow_features(hdr: torch.Tensor, out: torch.Tensor):
+    """K18: [N, 16] header rows and [N, 6] out rows -> (id_row [N]
+    int32, feats [N, 27] float32)."""
+    from ..ml.features import _N_BUCKETS, FEAT_DIM
+
+    dev, n = hdr.device, hdr.shape[0]
+    id_row = torch.empty(n, dtype=I32, device=dev)
+    feats = torch.empty((n, FEAT_DIM), dtype=torch.float32, device=dev)
+    counts = torch.empty((8, _N_BUCKETS), dtype=I32, device=dev)
+    io = abi.FeatIO(
+        hdr=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="hdr"),
+        out=_ptr(out, I32, dev, (n, 6), name="out"),
+        id_row=id_row.data_ptr(), feats=feats.data_ptr(),
+        counts=counts.data_ptr(), n=n)
+    KERNELS["flow_features"].launch(ctypes.addressof(io), _stream(dev))
+    return id_row, feats
+
+
+# the shapes K19 is compiled for: the reference's defaults
+SCORE_DIM, SCORE_HIDDEN = 32, 64
+
+
+def launch_anomaly_score(model, id_row: torch.Tensor, feats: torch.Tensor,
+                         outputs=("score",)) -> Dict[str, torch.Tensor]:
+    """K19: the anomaly scores of [N] embedding rows and [N, 27]
+    features under ``model`` (float32 buffers, D = 32, H = 64, on the
+    same card); ``outputs`` names what to return among ``"score"``,
+    ``"logit"`` and ``"d2"`` (the score is always computed)."""
+    from ..ml.features import FEAT_DIM
+
+    dev, n = feats.device, feats.shape[0]
+    f32 = torch.float32
+    v, d = model.embed.shape
+    h = model.w1.shape[1]
+    if (d, h) != (SCORE_DIM, SCORE_HIDDEN) or v < 1:
+        raise ValueError(f"anomaly_score: V = {v}, D = {d}, H = {h}; the "
+                         f"kernel takes V >= 1, D = {SCORE_DIM}, H = "
+                         f"{SCORE_HIDDEN}")
+    res = {"score": torch.empty(n, dtype=f32, device=dev)}
+    for name in outputs:
+        res.setdefault(name, torch.empty(n, dtype=f32, device=dev))
+    fin = d + FEAT_DIM
+
+    def w(name, shape, align=4):
+        return _ptr(getattr(model, name), f32, dev, shape, align=align,
+                    name=name)
+
+    io = abi.ScoreIO(
+        id_row=_ptr(id_row, I32, dev, (n,), name="id_row"),
+        feats=_ptr(feats, f32, dev, (n, FEAT_DIM), name="feats"),
+        embed=w("embed", (v, d), 16), w1=w("w1", (fin, h)), b1=w("b1", (h,)),
+        w2=w("w2", (h, h)), b2=w("b2", (h,)), w3=w("w3", (h, 1)),
+        b3=w("b3", (1,)), feat_mean=w("feat_mean", (FEAT_DIM,)),
+        feat_prec=w("feat_prec", (FEAT_DIM, FEAT_DIM)),
+        nov_thresh=w("nov_thresh", ()),
+        score=res["score"].data_ptr(),
+        logit=res["logit"].data_ptr() if "logit" in res else None,
+        d2=res["d2"].data_ptr() if "d2" in res else None, n=n, v=v)
+    KERNELS["anomaly_score"].launch(ctypes.addressof(io), _stream(dev))
+    return res

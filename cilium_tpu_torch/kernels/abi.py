@@ -136,6 +136,19 @@ class SockIO(ctypes.Structure):
                 ("aff_capacity", I32), ("now", U32)]
 
 
+class FeatIO(ctypes.Structure):
+    _fields_ = [("hdr", P), ("out", P), ("id_row", P), ("feats", P),
+                ("counts", P), ("n", I32), ("pad", I32)]
+
+
+class ScoreIO(ctypes.Structure):
+    _fields_ = [("id_row", P), ("feats", P), ("embed", P), ("w1", P),
+                ("b1", P), ("w2", P), ("b2", P), ("w3", P), ("b3", P),
+                ("feat_mean", P), ("feat_prec", P), ("nov_thresh", P),
+                ("score", P), ("logit", P), ("d2", P), ("n", I32),
+                ("v", I32)]
+
+
 # per library: (symbol reporting sizeof, [structs in its index order])
 ABI = {
     "verdict": ("verdict_abi_size", [LpmView, PolicyView, CtView,
@@ -149,6 +162,7 @@ ABI = {
     "bandwidth": ("bandwidth_abi_size", [BwIO]),
     "lb": ("lb_abi_size", [LbView, Lb6View, LbIO]),
     "socklb": ("socklb_abi_size", [LbView, SockIO]),
+    "ml": ("ml_abi_size", [FeatIO, ScoreIO]),
 }
 
 # per library: {symbol: argtypes}; every launcher returns cudaError_t
@@ -168,4 +182,6 @@ SIGNATURES = {
     "bandwidth": {"bw_stage_launch": [P, P]},
     "lb": {"lb_stage_launch": [P, P, P], "lb6_stage_launch": [P, P, P]},
     "socklb": {"socklb_stage_launch": [P, P, P]},
+    "ml": {"flow_features_launch": [P, P],
+           "anomaly_score_launch": [P, P]},
 }

@@ -1,0 +1,277 @@
+"""The anomaly model: identity embedding + MLP head + benign novelty.
+
+A port of the JAX package's ``ml/model.py``.  The embedding table's
+rows start from each identity's label set (feature-hashed multi-hot
+projected to the embedding dim), so label-similar workloads start near
+each other before any gradient step.
+
+:func:`score_packets` (and :func:`forward`, :func:`novelty_d2`) send
+CUDA tensors to K19 ``anomaly_score`` (``csrc/ml.cu``) and CPU tensors
+to the plain versions beside it.  Both round where the reference does:
+the inputs and weights to bfloat16, each product (accumulated in
+float32) to bfloat16, ``+ b`` in bfloat16, ReLU; the logit to float32,
+then the sigmoids and the Mahalanobis distance in float32.
+
+Checkpoints are the reference's ``.npz`` format, field for field, so a
+model saved by either package loads in the other.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..u32 import as_index
+from .features import FEAT_DIM
+
+_FIELDS = ("embed", "w1", "b1", "w2", "b2", "w3", "b3",
+           "feat_mean", "feat_prec", "nov_thresh")
+
+# sentinel threshold meaning "novelty stats not fitted": the novelty
+# branch then contributes exactly 0 and scoring is purely supervised
+NOV_DISABLED = 1e9
+
+
+class AnomalyModel(nn.Module):
+    """Supervised head + benign-novelty detector, as buffers.
+
+    embed [V, D]; w1 [D + FEAT_DIM, H], b1 [H]; w2 [H, H], b2 [H];
+    w3 [H, 1], b3 [1]; feat_mean [FEAT_DIM]; feat_prec [FEAT_DIM,
+    FEAT_DIM]; nov_thresh [] (all float32)."""
+
+    def __init__(self, **fields: torch.Tensor):
+        super().__init__()
+        for name in _FIELDS:
+            self.register_buffer(name, fields[name])
+
+    def replace(self, **fields: torch.Tensor) -> "AnomalyModel":
+        """A new model with ``fields`` swapped in; the others shared."""
+        kw = {name: getattr(self, name) for name in _FIELDS}
+        kw.update(fields)
+        return AnomalyModel(**kw)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def label_embedding_init(labels_by_row: Dict[int, Tuple[str, ...]],
+                         n_rows: int, dim: int,
+                         seed: int = 7) -> np.ndarray:
+    """Identity labels -> embedding rows by feature hashing.
+
+    Each label string hashes to ``dim`` signed buckets; a row is the
+    normalized sum over its labels, so identities sharing labels get
+    correlated rows (the SelectorCache compilation)."""
+    table = np.zeros((n_rows, dim), dtype=np.float32)
+    for row, labels in labels_by_row.items():
+        if row >= n_rows:
+            continue
+        v = np.zeros(dim, dtype=np.float32)
+        for lab in labels:
+            h = hashlib.blake2b(f"{seed}:{lab}".encode(),
+                                digest_size=8).digest()
+            idx = int.from_bytes(h[:4], "little") % dim
+            sign = 1.0 if h[4] & 1 else -1.0
+            v[idx] += sign
+        norm = np.linalg.norm(v)
+        if norm > 0:
+            table[row] = v / norm
+    return table
+
+
+def init_params(generator: torch.Generator, n_rows: int, dim: int = 32,
+                hidden: int = 64,
+                labels_by_row: Optional[Dict[int, Tuple[str, ...]]] = None,
+                device=None) -> AnomalyModel:
+    """He-scaled random weights from ``generator`` (a CPU generator), the
+    embedding from the labels when given; the novelty stats unfitted.
+    The reference draws from ``jax.random``, so the two packages' inits
+    differ for one seed; carry weights over with
+    ``convert.anomaly_model_from_numpy``."""
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, dtype=torch.float32)
+
+    if labels_by_row is not None:
+        embed = torch.from_numpy(label_embedding_init(labels_by_row,
+                                                      n_rows, dim))
+    else:
+        embed = normal(n_rows, dim) * 0.05
+    fan_in = dim + FEAT_DIM
+    m = AnomalyModel(
+        embed=embed,
+        w1=normal(fan_in, hidden) * (2.0 / fan_in) ** 0.5,
+        b1=torch.zeros(hidden),
+        w2=normal(hidden, hidden) * (2.0 / hidden) ** 0.5,
+        b2=torch.zeros(hidden),
+        w3=normal(hidden, 1) * (2.0 / hidden) ** 0.5,
+        b3=torch.zeros(1),
+        feat_mean=torch.zeros(FEAT_DIM),
+        feat_prec=torch.zeros((FEAT_DIM, FEAT_DIM)),
+        nov_thresh=torch.tensor(NOV_DISABLED, dtype=torch.float32))
+    return m.to(resolve_device(device))
+
+
+def _bf16_layer(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """bf16(x @ bf16(w)) for bf16 ``x``, accumulated in float32, then
+    ``+ bf16(b)`` in bfloat16.  The sum runs over the inputs in order,
+    one float32 add a term: a product of two bf16 values is exact in
+    float32, so this equals K19's FMA chain bit for bit (a library
+    product sums in another order and moves a bf16 rounding now and
+    then)."""
+    bf = torch.bfloat16
+    x, w = x.float(), w.to(bf).float()
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for k in range(w.shape[0]):
+        acc = acc + x[:, k:k + 1] * w[k]
+    return acc.to(bf) + b.to(bf)
+
+
+def forward_plain(model: AnomalyModel, id_row: torch.Tensor,
+                  feats: torch.Tensor) -> torch.Tensor:
+    """-> anomaly logits [N] float32 (plain version).  An ``id_row``
+    past the table clamps to its last row, as the reference's gather
+    does."""
+    e = model.embed[as_index(id_row, model.embed.shape[0])]
+    x = torch.cat([e, feats], dim=1).to(torch.bfloat16)
+    h = torch.relu(_bf16_layer(x, model.w1, model.b1))
+    h = torch.relu(_bf16_layer(h, model.w2, model.b2))
+    return _bf16_layer(h, model.w3, model.b3)[:, 0].float()
+
+
+def novelty_d2_plain(model: AnomalyModel,
+                     feats: torch.Tensor) -> torch.Tensor:
+    """Mahalanobis distance^2 of each row from the benign manifold, d . P
+    . d with d = feats - feat_mean.  The sums run in a fixed order, a
+    float32 product and a float32 add a term (K19 computes the same
+    terms in the same order, so the two agree bit for bit: d2's terms
+    cancel, and another order moves its last bits)."""
+    d = feats - model.feat_mean
+    prec = model.feat_prec
+    t = torch.zeros_like(d)
+    for f in range(d.shape[1]):  # t = d @ P
+        t = t + d[:, f:f + 1] * prec[f]
+    d2 = torch.zeros_like(d[:, 0])
+    for g in range(d.shape[1]):
+        d2 = d2 + t[:, g] * d[:, g]
+    return d2
+
+
+def score_packets_plain(model: AnomalyModel, id_row: torch.Tensor,
+                        feats: torch.Tensor) -> torch.Tensor:
+    """Per-packet anomaly score in [0, 1]: the max of the supervised
+    probability and the benign-novelty score (plain version)."""
+    p = torch.sigmoid(forward_plain(model, id_row, feats))
+    d2 = novelty_d2_plain(model, feats)
+    t = model.nov_thresh
+    nov = torch.sigmoid((d2 - t) / (t * 0.25 + 1e-6))
+    # unfitted stats: the novelty branch contributes EXACTLY zero, or
+    # max() floors every low supervised score at sigmoid(-4)
+    nov = torch.where(t >= NOV_DISABLED, torch.zeros_like(nov), nov)
+    return torch.maximum(p, nov)
+
+
+def _on_card(model: AnomalyModel, feats: torch.Tensor) -> bool:
+    if feats.is_cuda:
+        return True
+    from ..datapath.conntrack import _require_cpu
+
+    _require_cpu(feats, "anomaly_score")
+    return False
+
+
+def forward(model: AnomalyModel, id_row: torch.Tensor,
+            feats: torch.Tensor) -> torch.Tensor:
+    """-> anomaly logits [N]: see :func:`forward_plain`.  CUDA tensors
+    launch K19 ``anomaly_score`` (``csrc/ml.cu``) for its logits."""
+    if _on_card(model, feats):
+        from ..kernels import launch_anomaly_score
+
+        return launch_anomaly_score(model, id_row, feats,
+                                    outputs=("logit",))["logit"]
+    return forward_plain(model, id_row, feats)
+
+
+def novelty_d2(model: AnomalyModel, feats: torch.Tensor) -> torch.Tensor:
+    """See :func:`novelty_d2_plain`.  CUDA tensors launch K19 for its
+    distances."""
+    if _on_card(model, feats):
+        from ..kernels import launch_anomaly_score
+
+        rows = torch.zeros(feats.shape[0], dtype=torch.int32,
+                           device=feats.device)
+        return launch_anomaly_score(model, rows, feats,
+                                    outputs=("d2",))["d2"]
+    return novelty_d2_plain(model, feats)
+
+
+def score_packets(model: AnomalyModel, id_row: torch.Tensor,
+                  feats: torch.Tensor) -> torch.Tensor:
+    """See :func:`score_packets_plain`.  CUDA tensors launch K19
+    ``anomaly_score`` (``csrc/ml.cu``)."""
+    if _on_card(model, feats):
+        from ..kernels import launch_anomaly_score
+
+        return launch_anomaly_score(model, id_row, feats)["score"]
+    return score_packets_plain(model, id_row, feats)
+
+
+def fit_novelty(model: AnomalyModel, feats: np.ndarray,
+                ridge: float = 1e-3,
+                quantile: float = 0.995) -> AnomalyModel:
+    """Fit the benign novelty stats from a benign feature sample
+    (labels never consulted): mean + ridge-regularized precision + the
+    d2 threshold at the given benign quantile, in float64 on the host.
+    Returns a new model on ``model``'s device."""
+    x = np.asarray(feats, dtype=np.float64)
+    mu = x.mean(axis=0)
+    xc = x - mu
+    cov = xc.T @ xc / max(len(x) - 1, 1)
+    cov += ridge * np.eye(cov.shape[0])
+    prec = np.linalg.inv(cov)
+    d2 = np.einsum("nf,fg,ng->n", xc, prec, xc)
+    thresh = float(np.quantile(d2, quantile))
+    dev = model.device
+    return model.replace(
+        feat_mean=torch.tensor(mu, dtype=torch.float32, device=dev),
+        feat_prec=torch.tensor(prec, dtype=torch.float32, device=dev),
+        nov_thresh=torch.tensor(max(thresh, 1e-3), dtype=torch.float32,
+                                device=dev))
+
+
+def save_model(path: str, model: AnomalyModel) -> None:
+    """Persist to the reference's .npz (its fields plus ``feat_dim``, so
+    a checkpoint from before a FEAT_DIM bump fails loudly at load)."""
+    from ..convert import anomaly_model_to_numpy
+
+    np.savez_compressed(path, feat_dim=np.asarray(FEAT_DIM, dtype=np.int32),
+                        **anomaly_model_to_numpy(model))
+
+
+def load_model(path: str, device=None) -> AnomalyModel:
+    """A checkpoint of either package onto ``device`` (None: the card)."""
+    from ..convert import anomaly_model_from_numpy
+
+    z = np.load(path)
+    # checkpoints before feat_dim stamping: infer from w1's fan-in
+    saved_dim = (int(z["feat_dim"]) if "feat_dim" in z.files
+                 else int(z["w1"].shape[0] - z["embed"].shape[1]))
+    if saved_dim != FEAT_DIM:
+        raise ValueError(
+            f"anomaly model {path!r} was trained with FEAT_DIM="
+            f"{saved_dim}, but this build uses FEAT_DIM={FEAT_DIM}; "
+            "retrain required")
+    kw = {k: z[k] for k in _FIELDS if k in z.files}
+    # pre-novelty checkpoints: supervised-only scoring
+    kw.setdefault("feat_mean", np.zeros(FEAT_DIM, np.float32))
+    kw.setdefault("feat_prec", np.zeros((FEAT_DIM, FEAT_DIM), np.float32))
+    kw.setdefault("nov_thresh", np.asarray(NOV_DISABLED, np.float32))
+    return anomaly_model_from_numpy(kw, device)

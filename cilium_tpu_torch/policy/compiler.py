@@ -129,6 +129,8 @@ class IdentityRowMap:
         # (row/numeric lookups) stay lock-free: CPython dict/array
         # point reads are GIL-atomic against these locked mutations
         self._mut = threading.Lock()
+        # rows_of's sorted (version, keys, rows), rebuilt on a new version
+        self._index = None
 
     def row_occupancy(self) -> Tuple[int, int]:
         # thread-affinity: any
@@ -180,6 +182,27 @@ class IdentityRowMap:
 
     def row(self, numeric_id: int) -> int:
         return self._num_to_row.get(numeric_id, 0)
+
+    def rows_of(self, numerics) -> np.ndarray:
+        # thread-affinity: any
+        """:meth:`row` over an array: numeric identities [N] -> rows [N]
+        int64, 0 for an unknown identity.  One sorted-key search a call
+        (the sorted keys rebuilt once per mapping version), for the
+        per-event consumers (the anomaly scorer)."""
+        index = self._index
+        if index is None or index[0] != self.version:
+            with self._mut:
+                keys = np.fromiter(self._num_to_row, np.int64,
+                                   len(self._num_to_row))
+                rows = np.fromiter(self._num_to_row.values(), np.int64,
+                                   len(keys))
+                order = np.argsort(keys)
+                index = (self.version, keys[order], rows[order])
+            self._index = index
+        _, keys, rows = index
+        nums = np.asarray(numerics, dtype=np.int64)
+        pos = np.minimum(np.searchsorted(keys, nums), len(keys) - 1)
+        return np.where(keys[pos] == nums, rows[pos], 0)
 
     def numeric(self, row: int) -> int:
         return int(self._row_to_num[row]) if 0 <= row < self.capacity else 0

@@ -1,9 +1,11 @@
-"""Seeded workloads: the identity churn and NAT exhaustion scenarios.
+"""Seeded workloads: the identity churn, SYN flood, port scan and NAT
+exhaustion scenarios.
 
 A copy of the JAX package's ``testing/workloads.py``, cut to the
-:class:`Scenario` contract, ``identity_churn``, ``nat_exhaustion`` and
-the offline leg of :func:`run_scenario` (the other scenarios drive
-planes the port does not have yet).  Host-only: a scenario is a
+:class:`Scenario` contract, ``identity_churn``, ``syn_flood``,
+``port_scan``, ``nat_exhaustion``, :func:`make_scenario`,
+:func:`scenario_daemon` and the offline leg of :func:`run_scenario` (the
+other scenarios drive planes the port does not have yet).  Host-only: a scenario is a
 deterministic generator of traffic batches and control-plane ops,
 applied to a ``Daemon`` through its own API, so the churn tests and
 ``chip_smoke.py`` replay the same schedule for the same seed.
@@ -275,6 +277,129 @@ class IdentityChurnScenario(Scenario):
                        live)
 
 
+class SynFloodScenario(Scenario):
+    """A new-flow SYN storm: ``n_flows`` unique (src, sport) tuples,
+    each one SYN at the victim's allowed port — every packet is a CT
+    insert, so a storm sized past the CT map fills it and drives
+    insert-drop pressure (``CTTable.dropped``, the ctmap map-pressure
+    analogue) plus the fingerprint-overflow full-window-probe rerun
+    at high occupancy.  The flood is ALLOWED traffic by design
+    (``fromEntities: [world]`` to the flood port): only the allow
+    path creates CT entries, and surviving a flood of wanted-looking
+    connections is exactly the ctmap GC story."""
+
+    name = "syn_flood"
+    criteria = {"ledger_exact": True, "max_shed_frac": 0.95,
+                "min_ct_insert_drops": 1, "p99_ms": 120000.0}
+    path = "serving"
+    # the storm must outsize the CT map: 4096 unique flows against a
+    # 1k-entry table (bench + tests build the daemon from these)
+    daemon_overrides = {"ct_capacity": 1 << 10,
+                        "serving_bucket_ladder": (512,),
+                        "serving_queue_depth": 1 << 14}
+
+    def __init__(self, seed: int = 0, n_flows: int = 4096,
+                 batch: int = 512, dport: int = 80):
+        if n_flows < 1 or batch < 1:
+            raise ValueError("n_flows and batch must be >= 1")
+        self.seed = int(seed)
+        self.n_flows = int(n_flows)
+        self.batch = int(batch)
+        self.dport = int(dport)
+
+    def setup(self, target) -> dict:
+        ep = target.add_endpoint("sf-victim", ("10.0.40.1",),
+                                 ["k8s:app=sf-victim"])
+        target.policy_import([{
+            "endpointSelector": {"matchLabels":
+                                 {"app": "sf-victim"}},
+            "ingress": [{"fromEntities": ["world"],
+                         "toPorts": [{"ports": [
+                             {"port": str(self.dport),
+                              "protocol": "TCP"}]}]}],
+        }])
+        return {"ep": ep.id}
+
+    def iter_batches(self, ep: int) -> Iterator[np.ndarray]:
+        rng = np.random.default_rng(self.seed)
+        base = _ip("172.16.0.1")
+        dst = _ip("10.0.40.1")
+        flow = 0
+        while flow < self.n_flows:
+            n = min(self.batch, self.n_flows - flow)
+            i = np.arange(flow, flow + n, dtype=np.uint32)
+            out = _rows(n)
+            # unique tuple per flow: 1024 sources x rotating sports
+            out[:, COL_SRC_IP3] = base + (i % 1024)
+            out[:, COL_SPORT] = 1024 + (i // 1024) * 1024 \
+                + rng.integers(0, 1024, n).astype(np.uint32)
+            out[:, COL_DST_IP3] = dst
+            out[:, COL_DPORT] = self.dport
+            out[:, COL_FLAGS] = TCP_SYN
+            out[:, COL_LEN] = rng.integers(40, 60, n)
+            out[:, COL_EP] = ep
+            yield out
+            flow += n
+
+
+class PortScanScenario(Scenario):
+    """One source sweeping the destination port space with tiny SYNs
+    (the classic recon shape): all but the victim's one allowed port
+    default-deny, so the stream feeds the drop-spike detector, the
+    per-identity-pair aggregates, and the anomaly models a clean
+    synthetic attack (the r05 evaluation's ``portscan`` kind,
+    replayed through the REAL serving/offline pipeline)."""
+
+    name = "port_scan"
+    criteria = {"ledger_exact": True, "max_shed_frac": 0.95,
+                "min_drop_frac": 0.5}
+    path = "serving"
+    # the reference adds spike_min_drops: 64 for its drop-spike
+    # detector, which is flow analytics (ROADMAP A14)
+    daemon_overrides = {"serving_bucket_ladder": (512,),
+                        "serving_queue_depth": 1 << 14}
+
+    def __init__(self, seed: int = 0, n_packets: int = 4096,
+                 batch: int = 512, open_port: int = 5432):
+        if n_packets < 1 or batch < 1:
+            raise ValueError("n_packets and batch must be >= 1")
+        self.seed = int(seed)
+        self.n_packets = int(n_packets)
+        self.batch = int(batch)
+        self.open_port = int(open_port)
+
+    def setup(self, target) -> dict:
+        ep = target.add_endpoint("ps-victim", ("10.0.41.1",),
+                                 ["k8s:app=ps-victim"])
+        target.policy_import([{
+            "endpointSelector": {"matchLabels":
+                                 {"app": "ps-victim"}},
+            "ingress": [{"fromEntities": ["world"],
+                         "toPorts": [{"ports": [
+                             {"port": str(self.open_port),
+                              "protocol": "TCP"}]}]}],
+        }])
+        return {"ep": ep.id}
+
+    def iter_batches(self, ep: int) -> Iterator[np.ndarray]:
+        rng = np.random.default_rng(self.seed)
+        src = _ip("172.20.0.7")
+        dst = _ip("10.0.41.1")
+        sent = 0
+        while sent < self.n_packets:
+            n = min(self.batch, self.n_packets - sent)
+            out = _rows(n)
+            out[:, COL_SRC_IP3] = src
+            out[:, COL_SPORT] = rng.integers(1024, 65535, n)
+            out[:, COL_DST_IP3] = dst
+            out[:, COL_DPORT] = rng.integers(1, 65535, n)
+            out[:, COL_FLAGS] = TCP_SYN
+            out[:, COL_LEN] = rng.integers(40, 60, n)
+            out[:, COL_EP] = ep
+            yield out
+            sent += n
+
+
 class NatExhaustionScenario(Scenario):
     """An egress ramp of unique pod -> world flows sized past the SNAT
     port pool: once every probe-window slot is live, allocation fails
@@ -326,6 +451,37 @@ class NatExhaustionScenario(Scenario):
             out[:, COL_DIR] = 1  # egress: the masquerade hook
             yield out
             flow += n
+
+
+# name -> scenario class: the scenarios the port has, by name
+SCENARIOS = {
+    IdentityChurnScenario.name: IdentityChurnScenario,
+    SynFloodScenario.name: SynFloodScenario,
+    PortScanScenario.name: PortScanScenario,
+    NatExhaustionScenario.name: NatExhaustionScenario,
+}
+
+
+def make_scenario(name: str, seed: int = 0, **kw):
+    """Instantiate a named scenario; unknown names list the registry."""
+    cls = SCENARIOS.get(name)
+    if cls is None:
+        raise ValueError(
+            f"unknown scenario {name!r}; registered: "
+            f"{', '.join(sorted(SCENARIOS))}")
+    return cls(seed=seed, **kw)
+
+
+def scenario_daemon(scenario, device=None, **overrides):
+    """Build a Daemon shaped for ``scenario`` (its ``daemon_overrides``
+    under the caller's ``overrides``) on ``device`` (None: the card), so
+    the pressure shape a scenario declares is the shape it runs against.
+    The reference's ``backend`` and Hubble-ring keys have no knob here."""
+    from ..agent.daemon import Daemon, DaemonConfig
+
+    cfg = dict(scenario.daemon_overrides)
+    cfg.update(overrides)
+    return Daemon(DaemonConfig(**cfg), device=device)
 
 
 def evaluate_criteria(criteria: Dict[str, object],

@@ -1,7 +1,7 @@
 """The port's kernels against their plain versions on the card, at a
 small size: the slice through CUDA kernels must equal the slice through
 the plain PyTorch versions, the maintenance, gather, L7, table-update,
-egress and service-LB kernels their plain versions, the superbatch its
+egress, service-LB and anomaly kernels their plain versions, the superbatch its
 sequential steps, and the daemon on the card the daemon on the CPU.  Needs a CUDA device (marker ``gpu``) and
 skips without one.  It imports nothing of JAX, so it runs on the card's
 machine, which has no JAX:
@@ -552,5 +552,93 @@ def test_lb_kernels_match_their_plain_versions(case):
                 for f in ("table", "fp", "aff"):
                     assert torch.equal(getattr(tabs[0], f),
                                        getattr(tabs[1], f)), (label, f)
+    torch.cuda.synchronize()
+    assert KERNELS[case].launches > 0
+
+
+def _ml_batch(rng, n):
+    """A small world's rows of ``synth_labeled_traffic`` (every attack
+    kind) served on the CPU, and a model from ``init_params`` with the
+    world's labels, its novelty fitted on the benign rows."""
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath.verdict import datapath_step
+    from cilium_tpu_torch.ml import (fit_novelty, init_params,
+                                     synth_labeled_traffic)
+    from cilium_tpu_torch.ml.features import flow_features_plain
+
+    w = tfix.build_world(256, 8, ct_capacity=1 << 12, device="cpu")
+    hdr, labels = synth_labeled_traffic(w, n, rng)
+    hdr_t = u32.from_numpy(hdr, "cpu")
+    out, _ = datapath_step(w.state, hdr_t, 100)
+    feats = flow_features_plain(hdr_t, out)[1]
+    labels_by_row = {w.row_map.row(i.numeric_id):
+                     tuple(str(l) for l in i.labels)
+                     for i in w.alloc.all_identities()}
+    model = init_params(torch.Generator().manual_seed(1),
+                        w.row_map.capacity, labels_by_row=labels_by_row,
+                        device="cpu")
+    model = fit_novelty(model, feats[torch.from_numpy(labels < 0.5)].numpy())
+    return hdr_t, out, model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flow_features", "anomaly_score"])
+def test_ml_kernels_match_their_plain_versions(case):
+    """K18 and K19 on the card against their plain versions on the same
+    CUDA tensors.  K18: id_row and all but the log1p columns bit-exact,
+    those within 1 ulp, on a ragged batch, a one-service batch (every
+    row in one bucket) and words at the top of the u32 range.  K19:
+    scores within 2e-3 and 99.9% bit-identical, logits within 1e-2, d2
+    bit-exact, with id_row past the table and negative, and with the
+    novelty unfitted (exactly the supervised score)."""
+    _need_card()
+    from cilium_tpu_torch.kernels import (KERNELS, launch_anomaly_score,
+                                          reset_launch_counts)
+    from cilium_tpu_torch.ml.features import (flow_features,
+                                              flow_features_plain)
+    from cilium_tpu_torch.ml.model import (NOV_DISABLED, forward_plain,
+                                           novelty_d2_plain,
+                                           score_packets_plain)
+
+    rng = np.random.default_rng(31)
+    hdr, out, model = _ml_batch(rng, 5000)
+    hdr, out, model = hdr.cuda(), out.cuda(), model.to("cuda")
+    reset_launch_counts()
+    if case == "flow_features":
+        one_svc = hdr.clone()
+        one_svc[:, 7], one_svc[:, 9], one_svc[:, 10] = 7, 5432, 6
+        top = torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, (777, 16), dtype=np.int64).astype(
+                np.int32)).cuda()
+        for h, o in ((hdr, out), (one_svc, out), (hdr[:1], out[:1]),
+                     (top, out[:777])):
+            (gid, gf), (wid, wf) = flow_features(h, o), \
+                flow_features_plain(h, o)
+            assert torch.equal(gid, wid)
+            exact = [c for c in range(27) if c not in (3, 4, 6, 19, 24)]
+            assert torch.equal(gf[:, exact], wf[:, exact])
+            ulps = (gf.view(torch.int32).long()
+                    - wf.view(torch.int32).long()).abs().max().item()
+            assert ulps <= 1
+    else:
+        rows, feats = flow_features_plain(hdr, out)
+        v = model.embed.shape[0]
+        far = rows.clone()
+        far[:300] = v + torch.arange(300, device="cuda", dtype=torch.int32)
+        far[300:310] = -1 - torch.arange(10, device="cuda",
+                                         dtype=torch.int32)
+        unfit = model.replace(
+            feat_mean=torch.zeros_like(model.feat_mean),
+            feat_prec=torch.zeros_like(model.feat_prec),
+            nov_thresh=torch.full_like(model.nov_thresh, NOV_DISABLED))
+        for m, ids in ((model, rows), (model, far), (unfit, rows)):
+            got = launch_anomaly_score(m, ids, feats,
+                                       outputs=("logit", "d2"))
+            want = score_packets_plain(m, ids, feats)
+            assert (got["score"] - want).abs().max().item() <= 2e-3
+            assert (got["score"] == want).float().mean().item() >= 0.999
+            assert (got["logit"] - forward_plain(m, ids, feats)).abs() \
+                .max().item() <= 1e-2
+            assert torch.equal(got["d2"], novelty_d2_plain(m, feats))
     torch.cuda.synchronize()
     assert KERNELS[case].launches > 0
