@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's serving step, serving daemon, L7 proxy
-plane, live table churn, offline egress path, service load balancer and
-anomaly scorer on one NVIDIA GPU.
+plane, live table churn, offline egress path, service load balancer,
+anomaly scorer and its trainer on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -121,13 +121,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    scorer's ms a window and its share of the event-join worker.
    Phase 3 holds K18 ``flow_features`` and K19 ``anomaly_score`` against
    their plain versions at full width (2^18 rows served through K1/K4,
-   V = 16384, D = 32, H = 64, the novelty fitted, id_row past V).
+   V = 16384, D = 32, H = 64, the novelty fitted, id_row past V);
+14. the trainer: (a) ``train`` at config #3 from label-initialised
+   params at the reference's defaults (200 steps of 4096, lr 3e-3): the
+   loss falls below 0.6x its first value, nothing non-finite, the first
+   8 steps equal an earlier run's to the bit and a replay through the
+   plain versions within tolerance, the held-out AUC above 0.9, steps/s,
+   the host stages of a step and a profiled window's device share;
+   (b) ``evaluate_real_dataset`` on ``tests/data/golden_cic.{pcap,csv}``
+   at the reference test's arguments (AUC above 0.85); (c)
+   ``train_and_evaluate`` at its defaults (1024 identities, 150 steps
+   of 4096, exfil held out), the checkpoint saved to ``chiprun_out/``,
+   reloaded and re-scored through K19.  Phase 3 holds K20
+   ``anomaly_train_fwd``, K21 ``anomaly_train_bwd`` and K22
+   ``adam_update`` against their plain versions at B = 4096, V = 16384
+   (one identity on half the rows, id_row past V and negative; adam
+   from a mid-training state).
 
 The kernel launch counts are read per path (the slice of phase 4, the
 daemon of phase 7, the L7 paths of phases 3, 8 and 9, the churn of
 phase 10, the egress path of phase 11, the service path of phase 12,
-the armed daemon's first session in phase 13), each zeroed just before
-its path runs.  The line before the last is one JSON object describing every
+the armed daemon's first session in phase 13, the 200-step ``train``
+of phase 14), each zeroed just before its path runs.  The line before the last is one JSON object describing every
 kernel (the standalone launchers with 0 launches and ``"standalone":
 true``); the last line is the device record.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -3254,6 +3269,455 @@ def phase_anomaly(torch, rng, world, report):
     return launches
 
 
+TRAIN_N = 4096  # the trainer's batch (train's default)
+TRAIN_LR = 3e-3  # train's default
+TRAIN_STEPS = 200  # train's default
+REPLAY_STEPS = 8  # phase 14's steps replayed through the plain versions
+LOSS_RTOL = 2e-6  # K20's loss against the plain version's: the sum order
+# d_embed against index_add_ (atomics on the card): a float32 sum of up
+# to 2048 terms in another order, against the table's largest entry
+EMBED_TOL = 1e-5
+# phase 14's replay: the kernels' losses and params against the plain
+# versions' over 8 steps.  The two differ only in the order of float32
+# sums (K20's loss mean; the plain d_embed's index_add_ in atomic order);
+# one adam step moves a parameter by ~lr, so a wrong sign, a swapped
+# leaf or a wrong moment is off by thousands of times REPLAY_PARAM_TOL
+REPLAY_LOSS_RTOL = 1e-5
+REPLAY_PARAM_TOL = 1e-6
+GOLDEN = ("tests/data/golden_cic.pcap", "tests/data/golden_cic.csv")
+
+
+def train_inputs(torch, rng, world, n=TRAIN_N):
+    """A train batch at config #3: ``n`` rows of synth_labeled_traffic
+    served through K1/K4 and K18, then one identity given half the rows,
+    a 128th of them past V, a 128th negative within one wrap and a few
+    below it (dropped by the scatter).  -> (id_row, feats, labels)."""
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath.verdict import datapath_step
+    from cilium_tpu_torch.ml import flow_features, synth_labeled_traffic
+
+    hdr_np, labels = synth_labeled_traffic(world, n, rng)
+    hdr = u32.from_numpy(hdr_np, "cuda")
+    out, _ = datapath_step(card_state(world), hdr, 50_000)
+    ids, feats = flow_features(hdr, out)
+    v = world.row_map.capacity
+    ids = ids.clone()
+    ids[: n // 2] = ids[n - 1].item()
+    k = n // 128
+    ar = torch.arange(k, device="cuda", dtype=torch.int32)
+    ids[n // 2: n // 2 + k] = v + ar
+    ids[n // 2 + k: n // 2 + 2 * k] = -1 - ar % v
+    ids[n // 2 + 2 * k: n // 2 + 2 * k + 8] = -v - 1 - ar[:8]
+    perm = torch.from_numpy(rng.permutation(n)).cuda()
+    return (ids[perm].contiguous(), feats.contiguous(),
+            torch.from_numpy(labels).cuda())
+
+
+def train_model(torch, world):
+    """card_model with small random biases, so that every bias gradient
+    path carries values."""
+    model = card_model(torch, world)
+    gen = torch.Generator().manual_seed(7)
+    return model.replace(**{
+        b: (torch.randn(tuple(getattr(model, b).shape), generator=gen)
+            * 0.1).cuda() for b in ("b1", "b2", "b3")})
+
+
+def phase_train_kernels(torch, rng, world, kernels, report):
+    """K20-K22 against their plain versions at the trainer's shapes: B =
+    4096 rows at config #3 (V = 16384), one identity on half the rows,
+    id_row past V and negative.  K20's logits and saved activations and
+    K21's weight and bias gradients bit-exact, K20's loss within
+    LOSS_RTOL, d_embed within EMBED_TOL of the largest entry (the plain
+    version's index_add_ sums in atomic order); K21 twice gives the same
+    bits; K22 one step from a mid-training state (count 3), bit-exact."""
+    from cilium_tpu_torch.kernels import (launch_adam_update,
+                                          launch_anomaly_train_bwd,
+                                          launch_anomaly_train_fwd)
+    from cilium_tpu_torch.ml.model import (TRAINABLE, train_backward_plain,
+                                           train_forward_plain)
+    from cilium_tpu_torch.ml.train import adam_update_plain
+
+    ids, feats, labels = train_inputs(torch, rng, world)
+    leaves = train_model(torch, world).leaves()
+    n, v = ids.shape[0], leaves[0].shape[0]
+    loss_k, saved = launch_anomaly_train_fwd(leaves, ids, feats, labels)
+    loss_p, plain_saved = train_forward_plain(leaves, ids, feats, labels)
+    torch.cuda.synchronize()
+    x, h1, h2, logit = plain_saved
+    for got, want, what in ((saved["logit"], logit, "logit"),
+                            (saved["xT"], x.t(), "x"),
+                            (saved["h1T"], h1.t(), "h1"),
+                            (saved["h2T"], h2.t(), "h2")):
+        check(torch.equal(got, want),
+              f"anomaly_train_fwd: {what} differs from the plain version "
+              f"({int((got != want).sum())} cells)")
+    loss_err = abs(loss_k.item() - loss_p.item())
+    check(loss_err <= LOSS_RTOL * abs(loss_p.item()),
+          f"anomaly_train_fwd: loss {loss_k.item()} vs {loss_p.item()}")
+
+    gloss = torch.ones(1, device="cuda")
+    got = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss)
+    again = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss)
+    want = train_backward_plain(leaves, plain_saved, ids, labels, gloss)
+    torch.cuda.synchronize()
+    g_err, e_same = 0.0, 1.0
+    for name, a, b, c in zip(TRAINABLE, got, again, want):
+        check(torch.equal(a, b), f"anomaly_train_bwd: d{name} differs "
+              f"between two runs on the same inputs")
+        err = float((a - c).abs().max().item())
+        g_err = max(g_err, err)
+        if name == "embed":
+            scale = float(c.abs().max().item())
+            e_same = float((a == c).float().mean().item())
+            check(err <= EMBED_TOL * scale,
+                  f"anomaly_train_bwd: d_embed max abs err {err} "
+                  f"(largest entry {scale})")
+        else:
+            check(err == 0, f"anomaly_train_bwd: d{name} differs from the "
+                  f"plain version (max abs err {err})")
+    hot = int((ids == ids.mode().values).sum().item())
+    check(float(got[0].abs().sum().item()) > 0 and all(
+        float(g.abs().max().item()) > 0 for g in got),
+        "anomaly_train_bwd: a zero gradient leaf")
+
+    # K22 from a mid-training state: three plain steps, then one step
+    # each way on clones
+    params = [t.clone() for t in leaves]
+    mu = [torch.zeros_like(t) for t in leaves]
+    nu = [torch.zeros_like(t) for t in leaves]
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        adam_update_plain(params, want, mu, nu, count, TRAIN_LR)
+
+    def clone_all():
+        return ([t.clone() for t in params], [t.clone() for t in mu],
+                [t.clone() for t in nu], count.clone())
+
+    ka, pa = clone_all(), clone_all()
+    launch_adam_update(ka[0], got, ka[1], ka[2], ka[3], TRAIN_LR)
+    adam_update_plain(pa[0], got, pa[1], pa[2], pa[3], TRAIN_LR)
+    torch.cuda.synchronize()
+    for name, i in (("param", 0), ("mu", 1), ("nu", 2)):
+        for leaf, a, b in zip(TRAINABLE, ka[i], pa[i]):
+            check(torch.equal(a, b), f"adam_update: {name} of {leaf} "
+                  f"differs from the plain version")
+    check(int(ka[3].item()) == int(pa[3].item()) == 4,
+          f"adam_update: count {int(ka[3].item())}")
+    p_total = sum(t.numel() for t in leaves)
+
+    # times: each on its own clones (K22 updates in place)
+    tk = clone_all()
+    lib = [torch.nn.Parameter(t.clone()) for t in params]
+    for prm, g in zip(lib, got):
+        prm.grad = g.clone()
+    fused = torch.optim.Adam(lib, lr=TRAIN_LR, fused=True)
+    mlp = 59 * 64 + 64 * 64 + 64
+    w_bytes = 4 * (mlp + 3 * 64 + 1)
+    kernels["anomaly_train_fwd"].update(
+        max_abs_err=loss_err,
+        ms=device_ms(lambda: launch_anomaly_train_fwd(leaves, ids, feats,
+                                                      labels), 20),
+        plain_ms=device_ms(lambda: train_forward_plain(leaves, ids, feats,
+                                                       labels), 3),
+        # id_row, feats, label and the embedding row read; x, h1, h2
+        # (bf16) and the logit written; the weights once
+        bytes=n * (4 + 27 * 4 + 4 + 32 * 4 + (59 + 64 + 64) * 2 + 4)
+        + w_bytes + 4,
+        ops=0, flop_ms=n * 2 * mlp / BF16_FLOPS_PER_S * 1e3)
+    kernels["anomaly_train_bwd"].update(
+        max_abs_err=g_err,
+        ms=device_ms(lambda: launch_anomaly_train_bwd(leaves, saved, ids,
+                                                      labels, gloss), 20),
+        plain_ms=device_ms(lambda: train_backward_plain(
+            leaves, plain_saved, ids, labels, gloss), 3),
+        # id_row, label, logit and the saved x, h1, h2 read, the weights
+        # once; every gradient written, d_embed [V, 32] in full
+        bytes=n * (4 + 4 + 4 + (59 + 64 + 64) * 2) + w_bytes
+        + 4 * (mlp + 3 * 64 + 1) + v * 32 * 4,
+        ops=0,
+        # dh1, dx[:, :32] and the three weight gradients, on bf16 cores
+        flop_ms=n * 2 * (64 * 64 + 64 * 32 + mlp) / BF16_FLOPS_PER_S * 1e3)
+    kernels["adam_update"].update(
+        max_abs_err=0.0,
+        ms=device_ms(lambda: launch_adam_update(
+            tk[0], got, tk[1], tk[2], tk[3], TRAIN_LR), 20),
+        plain_ms=device_ms(lambda: adam_update_plain(
+            tk[0], got, tk[1], tk[2], tk[3], TRAIN_LR), 3),
+        library_ms=device_ms(fused.step, 20),
+        # p, g, mu, nu read; p, mu, nu written
+        bytes=28 * p_total, ops=0,
+        flop_ms=p_total * 16 / F32_FLOPS_PER_S * 1e3)
+    print(f"parity anomaly_train_fwd: B {n}, V {v} (one identity on {hot} "
+          f"rows, id_row past V and negative): logits, x, h1, h2 "
+          f"bit-exact; loss {loss_k.item():.6f} (abs err {loss_err:.3g})")
+    print(f"parity anomaly_train_bwd: weight and bias gradients bit-exact, "
+          f"d_embed max abs err {g_err:.3g} ({e_same:.5f} identical with "
+          f"index_add_); two runs bit-identical")
+    print(f"parity adam_update: {p_total} parameters, one step from count "
+          f"3: params, mu, nu bit-exact, count 4")
+    report["train_kernels"] = {"rows": n, "v": v, "hot_rows": hot,
+                               "loss_err": loss_err, "grad_err": g_err,
+                               "embed_identical": e_same,
+                               "parameters": p_total}
+
+
+TRAIN_STAGES = {"synth_labeled_traffic (host)": "main",
+                "u32.from_numpy (upload)": "main",
+                "datapath_step (K1 + K4 enqueued)": "main",
+                "flow_features (K18 enqueued)": "main",
+                "value_and_grad (K20 + K21 enqueued)": "main",
+                "Adam.apply_ (K22 enqueued)": "main"}
+
+
+def timed_train(clock):
+    """Wrap train's stages (the module's own names, so train looks them
+    up through the wrappers); -> a function that undoes it."""
+    import importlib
+
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.ml.train import Adam
+
+    tm = importlib.import_module("cilium_tpu_torch.ml.train")
+    spots = [(tm, "synth_labeled_traffic", "synth_labeled_traffic (host)"),
+             (u32, "from_numpy", "u32.from_numpy (upload)"),
+             (tm, "datapath_step", "datapath_step (K1 + K4 enqueued)"),
+             (tm, "flow_features", "flow_features (K18 enqueued)"),
+             (tm, "value_and_grad", "value_and_grad (K20 + K21 enqueued)"),
+             (Adam, "apply_", "Adam.apply_ (K22 enqueued)")]
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in spots]
+    for owner, attr, name in spots:
+        clock.wrap(owner, attr, name)
+
+    def undo():
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+    return undo
+
+
+def plain_train(torch, world, state, model, steps, seed=0, now=1000):
+    """``train``'s loop through the plain versions on the card (the
+    datapath step, K18's, K20-K22's), on ``state``, from the same rng
+    stream; -> (leaves, losses)."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.ml.features import flow_features_plain
+    from cilium_tpu_torch.ml.model import (train_backward_plain,
+                                           train_forward_plain)
+    from cilium_tpu_torch.ml.train import (adam_update_plain,
+                                           synth_labeled_traffic)
+
+    rng = np.random.default_rng(seed)
+    params = [t.clone() for t in model.leaves()]
+    mu = [torch.zeros_like(t) for t in params]
+    nu = [torch.zeros_like(t) for t in params]
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    gloss = torch.ones(1, device="cuda")
+    losses = []
+    for s in range(steps):
+        hdr_np, labels = synth_labeled_traffic(world, TRAIN_N, rng)
+        hb = u32.from_numpy(hdr_np, "cuda")
+        out = plain_serve(state, None, hb, now + s, 0)
+        ids, feats = flow_features_plain(hb, out)
+        lab = torch.from_numpy(labels).cuda()
+        loss, saved = train_forward_plain(params, ids, feats, lab)
+        grads = train_backward_plain(params, saved, ids, lab, gloss)
+        adam_update_plain(params, grads, mu, nu, count, TRAIN_LR)
+        losses.append(loss)
+    return params, torch.stack(losses).cpu().tolist()
+
+
+def profiled_steps(torch, fn):
+    """Device kernel time and wall time of ``fn()`` under torch.profiler;
+    -> (busy ms, wall ms, {kernel name: device ms})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    # device-side events only, as phase_breakdown reads them
+    by_name = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")
+               and e.self_device_time_total > 0}
+    return sum(by_name.values()), wall, by_name
+
+
+def phase_train(torch, rng, world, report):
+    """Phase 14, the trainer on the card: (a) ``train`` at config #3 from
+    label-initialised params at the reference's defaults (200 steps of
+    4096, lr 3e-3), its first 8 steps replayed through the plain
+    versions, the held-out AUC, steps/s and the per-step host/device
+    split; (b) ``evaluate_real_dataset`` on the golden CIC capture at the
+    reference test's arguments; (c) ``train_and_evaluate`` at its
+    defaults, the checkpoint saved, reloaded and re-scored.  Returns the
+    launch counts of (a)'s 200-step run."""
+    import copy
+
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath.verdict import datapath_step
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.ml import (auc, evaluate_capture,
+                                     evaluate_real_dataset, flow_features,
+                                     forward, load_model,
+                                     synth_labeled_traffic,
+                                     train_and_evaluate)
+    from cilium_tpu_torch.ml.model import TRAINABLE
+    from cilium_tpu_torch.ml.train import train
+    from cilium_tpu_torch.testing.fixtures import build_world
+
+    t_phase = time.monotonic()
+    model0 = card_model(torch, world)
+    start = card_state(world)
+
+    # the first 8 steps, through the kernels and through the plain
+    # versions, each on its own copy of the start state
+    wk = copy.copy(world)
+    wk.state = clone_state(start)
+    mk, lk = train(model0, wk, steps=REPLAY_STEPS)
+    pp, lp = plain_train(torch, world, clone_state(start), model0,
+                         REPLAY_STEPS)
+    l_err = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    p_err = max(float((a - b).abs().max().item())
+                for a, b in zip(mk.leaves(), pp))
+    check(l_err <= REPLAY_LOSS_RTOL, f"train: the plain replay's losses "
+          f"differ by {l_err:.3g} relative ({lk} vs {lp})")
+    check(p_err <= REPLAY_PARAM_TOL,
+          f"train: the plain replay's params differ by {p_err}")
+
+    # (a) the counted run, its stages timed on the host clock
+    w = copy.copy(world)
+    w.state = start
+    clock = StageClock(TRAIN_STAGES)
+    undo = timed_train(clock)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        model, losses = train(model0, w, steps=TRAIN_STEPS)
+    finally:
+        undo()
+    t_train = time.monotonic() - t0  # train's one fetch synced the card
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    stages = clock.summary(t_train)
+    for name in ("anomaly_train_fwd", "anomaly_train_bwd", "adam_update",
+                 "flow_features", "datapath_wide"):
+        check(launches[name] == TRAIN_STEPS,
+              f"train: {name} launched {launches[name]} times in "
+              f"{TRAIN_STEPS} steps")
+    check(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS,
+          "train: a non-finite loss")
+    check(losses[:REPLAY_STEPS] == lk,
+          f"train: the first {REPLAY_STEPS} losses differ from the same "
+          f"steps' earlier run ({losses[:REPLAY_STEPS]} vs {lk})")
+    check(losses[-1] < 0.6 * losses[0],
+          f"train: the loss fell from {losses[0]} to {losses[-1]} only")
+    check(all(bool(torch.isfinite(getattr(model, k)).all())
+              for k in TRAINABLE), "train: a non-finite parameter")
+    hdr_np, labels = synth_labeled_traffic(w, TRAIN_N,
+                                           np.random.default_rng(999))
+    hb = u32.from_numpy(hdr_np, "cuda")
+    out, w.state = datapath_step(w.state, hb, 50_000)
+    a_held = auc(forward(model, *flow_features(hb, out)).cpu().numpy(),
+                 labels)
+    check(a_held > 0.9, f"train: held-out AUC {a_held}")
+    busy, wall, by_name = profiled_steps(
+        torch, lambda: train(model, w, steps=REPLAY_STEPS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    per_step = t_train / TRAIN_STEPS * 1e3
+    print(f"train (a): {TRAIN_STEPS} steps of {TRAIN_N} at config #3 (V "
+          f"{model.embed.shape[0]}) in {t_train:.3f} s, "
+          f"{TRAIN_STEPS / t_train:.1f} steps/s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; held-out AUC {a_held:.4f}; the first "
+          f"{REPLAY_STEPS} steps through the plain versions: losses within "
+          f"{l_err:.3g} relative, params max abs err {p_err:.3g}; "
+          f"K20/K21/K22 "
+          f"{launches['anomaly_train_fwd']}/{launches['anomaly_train_bwd']}"
+          f"/{launches['adam_update']} launches")
+    print(f"train (a): a step {per_step:.3f} ms on the host clock; profiled "
+          f"{REPLAY_STEPS} steps: device busy {busy / REPLAY_STEPS:.3f} ms a "
+          f"step of {wall / REPLAY_STEPS:.3f} ({busy / wall:.1%}, idle "
+          f"{1 - busy / wall:.1%}); device ms a step by kernel: "
+          + ", ".join(f"{k[:40]} {v / REPLAY_STEPS:.4f}" for k, v in top))
+    print_stages("train (a) host stages", stages)
+
+    # (b) the golden CIC capture
+    t0 = time.monotonic()
+    reset_launch_counts()
+    r = evaluate_real_dataset(str(ROOT / GOLDEN[0]), str(ROOT / GOLDEN[1]),
+                              n_identities=64, epochs=2, batch=1024,
+                              train_frac=0.7)
+    t_real = time.monotonic() - t0
+    real_launches = KERNELS["anomaly_train_bwd"].launches
+    check(r["packets"] == 6144 and r["train_packets"] == 4300
+          and r["eval_packets"] == 1844 and r["eval_attack_packets"] > 100,
+          f"train (b): {r}")
+    check(r["anomaly_auc"] > 0.85, f"train (b): golden AUC {r}")
+    check(real_launches == 2 * (4300 // 1024),
+          f"train (b): K21 launched {real_launches} times")
+    print(f"train (b): evaluate_real_dataset on the golden CIC capture "
+          f"(6144 packets, 4300 to train, 2 epochs of 1024) in "
+          f"{t_real:.3f} s: AUC {r['anomaly_auc']} on {r['eval_packets']} "
+          f"held-out packets ({r['eval_attack_packets']} attacks), final "
+          f"loss {r['final_loss']:.4f}")
+
+    # (c) the config #5 pipeline at its defaults
+    out_dir = ROOT / "chiprun_out"
+    work = out_dir / "train_eval"
+    work.mkdir(parents=True, exist_ok=True)
+    path = str(out_dir / "trained_model.npz")
+    t0 = time.monotonic()
+    res = train_and_evaluate(model_out=path, workdir=str(work))
+    t_eval = time.monotonic() - t0
+    check(res["auc_heldout_kind"] > 0.9,
+          f"train (c): held-out kind AUC {res['auc_by_kind']}")
+    check(all(res["auc_by_kind"][k] > 0.95 for k in res["train_kinds"]),
+          f"train (c): trained kinds' AUC {res['auc_by_kind']}")
+    back = load_model(path, "cuda")
+    fresh = build_world(n_identities=1024, n_rules=16, ct_capacity=1 << 18,
+                        device="cuda")
+    reset_launch_counts()
+    again = evaluate_capture(back, fresh, res["eval_pcap"],
+                             res["eval_pcap"].replace(".pcap", ".npz"))
+    check(KERNELS["anomaly_score"].launches > 0,
+          "train (c): the re-score did not launch K19")
+    check(abs(again["anomaly_auc"] - res["auc_heldout_kind"]) <= 0.01,
+          f"train (c): re-scored AUC {again['anomaly_auc']} vs "
+          f"{res['auc_heldout_kind']}")
+    for f in work.iterdir():
+        f.unlink()
+    work.rmdir()
+    print(f"train (c): train_and_evaluate at its defaults (1024 "
+          f"identities, 150 steps of 4096, {res['packets']} mixed eval "
+          f"packets, {res['holdout_kind']} held out) in {t_eval:.3f} s: "
+          f"AUC by kind {res['auc_by_kind']}, same-mix smoke "
+          f"{res['auc_same_mix_smoke']}, final loss {res['final_loss']}; "
+          f"saved to {path}, reloaded and re-scored on a fresh world: AUC "
+          f"{again['anomaly_auc']}")
+    t_phase = time.monotonic() - t_phase
+    print(f"train: phase 14 in {t_phase:.1f} s")
+    report["train"] = {
+        "steps": TRAIN_STEPS, "batch": TRAIN_N, "train_s": t_train,
+        "steps_per_s": TRAIN_STEPS / t_train, "losses": losses,
+        "heldout_auc": a_held, "replay_loss_err": l_err,
+        "replay_param_err": p_err,
+        "device_busy_ms_per_step": busy / REPLAY_STEPS,
+        "device_ms_by_name": by_name,
+        "wall_ms_per_step_profiled": wall / REPLAY_STEPS,
+        "host_ms_per_step": per_step, "stages": stages,
+        "golden": r, "golden_s": t_real, "train_and_evaluate": res,
+        "train_and_evaluate_s": t_eval, "rescored_auc":
+        again["anomaly_auc"], "phase_s": t_phase, "launches": launches}
+    return launches
+
+
 def plain_serve(state, ring, rows, now, batch_id, ep=None, dirn=None,
                 proxy_ports=None, trace_sample=1024, valid=None):
     """One serving step through the plain versions only (the yardstick
@@ -3675,6 +4139,7 @@ def main() -> int:
         phase_egress_kernels(torch, rng, kernels)
         svc_mgr = phase_lb_kernels(torch, rng, world, kernels, report)
         phase_ml_kernels(torch, rng, world, kernels, report)
+        phase_train_kernels(torch, rng, world, kernels, report)
         l7_launches = phase_l7(torch, rng, kernels, report)
 
         # -- 4. the slice at full size ------------------------------------
@@ -3713,6 +4178,9 @@ def main() -> int:
 
         # -- 13. the anomaly scorer -------------------------------------------
         by_path["anomaly"] = phase_anomaly(torch, rng, world, report)
+
+        # -- 14. the trainer ------------------------------------------------
+        by_path["train"] = phase_train(torch, rng, world, report)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3723,13 +4191,14 @@ def main() -> int:
                                              k.pop("flop_ms", 0.0))
         # launches: the daemon path's count where the kernel runs there,
         # else the slice path's, the churn path's, the egress path's,
-        # the service path's or the anomaly path's (each path's counts
-        # zeroed before it ran)
+        # the service path's, the anomaly path's or the trainer's (each
+        # path's counts zeroed before it ran)
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         k["launches"] = (by_path["daemon"][name] or by_path["slice"][name]
                          or by_path["churn"][name] or by_path["egress"][name]
                          or by_path["service"][name]
-                         or by_path["anomaly"][name])
+                         or by_path["anomaly"][name]
+                         or by_path["train"][name])
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
         print(f"kernel {name}: {k['launches']} launches on the main path "

@@ -19,7 +19,9 @@ name plus ``m``, and a ``SockLBTable``'s ``table``/``fp``/``aff``
 (``lb_*`` and ``socklb_*`` below).  The anomaly model travels as a
 flat dict of float32 arrays by its field names (``embed``, ``w1`` ...
 ``nov_thresh``), the reference's ``AnomalyModel`` leaves and checkpoint
-keys (``anomaly_model_*`` below).
+keys (``anomaly_model_*`` below); an ``optax.adam`` state (its
+``ScaleByAdamState``) as ``{"count": int, "mu": {field: array}, "nu":
+{field: array}}`` over the same fields (``adam_state_*`` below).
 
 Each array keeps the JAX package's dtype (int32 or uint32); here every
 word lands in an int32 tensor as its bit pattern.  A caller holding a
@@ -39,7 +41,8 @@ from .datapath.lpm import DeviceLPM
 from .datapath.verdict import DatapathState, DevicePolicy
 from .device import resolve_device
 from .datapath.bandwidth import BandwidthState
-from .ml.model import _FIELDS as _ANOMALY_FIELDS, AnomalyModel
+from .ml.model import _FIELDS as _ANOMALY_FIELDS, TRAINABLE, AnomalyModel
+from .ml.train import AdamState
 from .monitor.ring import EventRing
 from .service import LBTensors, LBTensors6
 from .service.nat import NATTable
@@ -207,3 +210,41 @@ def anomaly_model_to_numpy(model: AnomalyModel) -> Dict[str, np.ndarray]:
     """-> {field: float32 array}, the reference's leaves and shapes."""
     return {k: getattr(model, k).detach().to("cpu").numpy().copy()
             for k in _ANOMALY_FIELDS}
+
+
+def adam_state_from_numpy(arrays: Dict, device=None) -> AdamState:
+    """An ``optax.adam`` state's ``count`` and per-field ``mu``/``nu``
+    (the reference's ``ScaleByAdamState`` leaves) -> an
+    :class:`AdamState` on ``device`` (None: the card).  The novelty
+    fields' moments, zero in any state the reference trains (their
+    gradients are zero), are not carried."""
+    import torch
+
+    device = resolve_device(device)
+
+    def moments(group):
+        return {k: torch.from_numpy(np.array(arrays[group][k],
+                                             dtype=np.float32)).to(device)
+                for k in TRAINABLE}
+
+    return AdamState(
+        count=torch.tensor(int(np.asarray(arrays["count"])),
+                           dtype=torch.int32, device=device),
+        mu=moments("mu"), nu=moments("nu"))
+
+
+def adam_state_to_numpy(state: AdamState, model: AnomalyModel) -> Dict:
+    """-> {"count": int32 array, "mu": {field: float32 array}, "nu":
+    ...} over every field of ``model`` (the novelty fields' moments
+    zero), the leaves of the reference's ``ScaleByAdamState``."""
+    def moments(got):
+        out = {}
+        for k in _ANOMALY_FIELDS:
+            t = got.get(k)
+            out[k] = (t.detach().to("cpu").numpy().copy() if t is not None
+                      else np.zeros(tuple(getattr(model, k).shape),
+                                    np.float32))
+        return out
+
+    return {"count": np.asarray(int(state.count.item()), dtype=np.int32),
+            "mu": moments(state.mu), "nu": moments(state.nu)}

@@ -28,6 +28,7 @@ col   name        contents
 from __future__ import annotations
 
 import ipaddress
+from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -237,3 +238,54 @@ def words_to_ip(words: Sequence[int], family: int = 4) -> str:
     n = (int(words[0]) << 96) | (int(words[1]) << 64) | \
         (int(words[2]) << 32) | int(words[3])
     return str(ipaddress.IPv6Address(n))
+
+
+@dataclass
+class HeaderBatch:
+    """A batch of parsed packet headers (the host-side view of the
+    header tensor): what ``core/pcap.py`` reads and writes."""
+
+    data: np.ndarray  # [N, N_COLS] uint32
+
+    def __post_init__(self):
+        assert self.data.ndim == 2 and self.data.shape[1] == N_COLS
+        self.data = np.ascontiguousarray(self.data, dtype=np.uint32)
+
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+    def col(self, c: int) -> np.ndarray:
+        return self.data[:, c]
+
+    def describe(self, i: int) -> str:
+        r = self.data[i]
+        fam = int(r[COL_FAMILY])
+        return (f"{words_to_ip(r[COL_SRC_IP0:COL_SRC_IP3 + 1], fam)}:"
+                f"{r[COL_SPORT]} -> "
+                f"{words_to_ip(r[COL_DST_IP0:COL_DST_IP3 + 1], fam)}:"
+                f"{r[COL_DPORT]} proto={r[COL_PROTO]} "
+                f"flags={r[COL_FLAGS]:#x} len={r[COL_LEN]} "
+                f"ep={r[COL_EP]} dir={'egress' if r[COL_DIR] else 'ingress'}")
+
+
+def make_batch(rows: Sequence[dict]) -> HeaderBatch:
+    """Build a HeaderBatch from dicts: {src, dst, sport, dport, proto,
+    flags, length, ep, dir}.  ``src``/``dst`` accept any IP form."""
+    out = np.zeros((len(rows), N_COLS), dtype=np.uint32)
+    for i, r in enumerate(rows):
+        sw = ip_to_words(r.get("src", 0))
+        dw = ip_to_words(r.get("dst", 0))
+        fam = 6 if (sw[:3] != (0, 0, 0) or dw[:3] != (0, 0, 0)
+                    or r.get("family") == 6) else 4
+        out[i, COL_SRC_IP0:COL_SRC_IP3 + 1] = sw
+        out[i, COL_DST_IP0:COL_DST_IP3 + 1] = dw
+        out[i, COL_SPORT] = r.get("sport", 0)
+        out[i, COL_DPORT] = r.get("dport", 0)
+        out[i, COL_PROTO] = r.get("proto", 6)
+        out[i, COL_FLAGS] = r.get("flags", TCP_SYN if r.get("proto", 6) == 6
+                                  else 0)
+        out[i, COL_LEN] = r.get("length", 64)
+        out[i, COL_FAMILY] = r.get("family", fam)
+        out[i, COL_EP] = r.get("ep", 0)
+        out[i, COL_DIR] = r.get("dir", 0)
+    return HeaderBatch(out)

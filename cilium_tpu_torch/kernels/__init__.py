@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels of the serving path, the L7 proxy, the
 table patches, the service load balancer, the egress stages (NAT
-and bandwidth policing) and the anomaly scorer: their registry, launch
-counts and launchers.
+and bandwidth policing), the anomaly scorer and its trainer: their
+registry, launch counts and launchers.
 
 Each launcher checks the device, dtype, shape, contiguity and alignment
 of every tensor, allocates outputs and scratch with ``torch.empty`` on
@@ -91,6 +91,12 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "cilium_tpu/ml/features.py:66"),
     Kernel("anomaly_score", "ml", "anomaly_score_launch",
            "cilium_tpu/ml/model.py:141"),
+    Kernel("anomaly_train_fwd", "mltrain", "anomaly_train_fwd_launch",
+           "cilium_tpu/ml/model.py:127"),
+    Kernel("anomaly_train_bwd", "mltrain", "anomaly_train_bwd_launch",
+           "cilium_tpu/ml/train.py:124"),
+    Kernel("adam_update", "mltrain", "adam_update_launch",
+           "cilium_tpu/ml/train.py:119"),
 )}
 
 
@@ -709,3 +715,141 @@ def launch_anomaly_score(model, id_row: torch.Tensor, feats: torch.Tensor,
         d2=res["d2"].data_ptr() if "d2" in res else None, n=n, v=v)
     KERNELS["anomaly_score"].launch(ctypes.addressof(io), _stream(dev))
     return res
+
+
+# the trainer's kernels (csrc/mltrain.cu): rows a block of the row passes,
+# rows a slice of K21's one-block sort, rows a warp of the embedding
+# scatter (the weight-gradient chunk is ml/model.py's WGRAD_CHUNK, which
+# the plain version sums by)
+TRAIN_TB = 64
+MAX_SORT_ROWS = 1 << 14
+SCATTER_PIECE = 32
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _train_shapes(name, leaves, n):
+    """Check the seven trainable leaves (float32, D = 32, H = 64, on
+    one card) and the batch size; -> (device, V, the leaves' device
+    addresses)."""
+    from ..ml.features import FEAT_DIM
+
+    embed = leaves[0]
+    v, d = embed.shape
+    h = leaves[1].shape[1]
+    if (d, h) != (SCORE_DIM, SCORE_HIDDEN) or v < 1:
+        raise ValueError(f"{name}: V = {v}, D = {d}, H = {h}; the kernel "
+                         f"takes V >= 1, D = {SCORE_DIM}, H = "
+                         f"{SCORE_HIDDEN}")
+    if not 1 <= n < 1 << 31:
+        raise ValueError(f"{name}: a batch of {n} rows; the kernel takes "
+                         f"1 to 2^31 - 1")
+    dev = embed.device
+    fin = d + FEAT_DIM
+    shapes = ((v, d), (fin, h), (h,), (h, h), (h,), (h, 1), (1,))
+    ptrs = [_ptr(t, F32, dev, shp, align=16 if i == 0 else 4,
+                 name=nm)
+            for i, (t, shp, nm) in enumerate(zip(
+                leaves, shapes, ("embed", "w1", "b1", "w2", "b2", "w3",
+                                 "b3")))]
+    return dev, v, ptrs
+
+
+def launch_anomaly_train_fwd(leaves, id_row: torch.Tensor,
+                             feats: torch.Tensor, labels: torch.Tensor):
+    """K20: the loss of [N] rows, [N, 27] features and [N] labels under
+    the trainable ``leaves`` (embed, w1, b1, w2, b2, w3, b3); -> (loss
+    [] float32, the activations K21 takes: ``xT`` [59, N], ``h1T``,
+    ``h2T`` [64, N] bf16 and ``logit`` [N] float32)."""
+    from ..ml.features import FEAT_DIM
+
+    n = feats.shape[0]
+    dev, v, w = _train_shapes("anomaly_train_fwd", leaves, n)
+    fin = SCORE_DIM + FEAT_DIM
+    saved = {"xT": torch.empty((fin, n), dtype=BF16, device=dev),
+             "h1T": torch.empty((SCORE_HIDDEN, n), dtype=BF16, device=dev),
+             "h2T": torch.empty((SCORE_HIDDEN, n), dtype=BF16, device=dev),
+             "logit": torch.empty(n, dtype=F32, device=dev)}
+    partial = torch.empty(-(-n // TRAIN_TB), dtype=F32, device=dev)
+    loss = torch.empty(1, dtype=F32, device=dev)
+    io = abi.TrainFwdIO(
+        id_row=_ptr(id_row, I32, dev, (n,), name="id_row"),
+        feats=_ptr(feats, F32, dev, (n, FEAT_DIM), name="feats"),
+        labels=_ptr(labels, F32, dev, (n,), name="labels"),
+        embed=w[0], w1=w[1], b1=w[2], w2=w[3], b2=w[4], w3=w[5], b3=w[6],
+        xT=saved["xT"].data_ptr(), h1T=saved["h1T"].data_ptr(),
+        h2T=saved["h2T"].data_ptr(), logit=saved["logit"].data_ptr(),
+        partial=partial.data_ptr(), loss=loss.data_ptr(), n=n, v=v)
+    KERNELS["anomaly_train_fwd"].launch(ctypes.addressof(io), _stream(dev))
+    return loss.reshape(()), saved
+
+
+def launch_anomaly_train_bwd(leaves, saved, id_row: torch.Tensor,
+                             labels: torch.Tensor, gloss: torch.Tensor):
+    """K21: the gradients of K20's loss times ``gloss`` ([1] float32 on
+    the card) in each trainable leaf, from K20's ``saved`` activations;
+    -> (d_embed [V, 32], dW1, db1, dW2, db2, dW3, db3), float32."""
+    from ..ml.features import FEAT_DIM
+    from ..ml.model import WGRAD_CHUNK
+
+    n = saved["logit"].shape[0]
+    dev, v, w = _train_shapes("anomaly_train_bwd", leaves, n)
+    fin, h = SCORE_DIM + FEAT_DIM, SCORE_HIDDEN
+    grads = [torch.empty(tuple(t.shape), dtype=F32, device=dev)
+             for t in leaves]
+    chunks = -(-n // WGRAD_CHUNK)
+    sort_rows = min(n, MAX_SORT_ROWS)  # a slice of the embedding scatter
+    pieces = -(-sort_rows // SCATTER_PIECE)
+
+    def empty(*shape, dtype=F32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    # the scratch lives until the launch is enqueued (the allocator then
+    # reuses it in stream order)
+    tmp = dict(dz1T=empty(h, n, dtype=BF16), dz2T=empty(h, n, dtype=BF16),
+               dz3=empty(n, dtype=BF16), de=empty(n, SCORE_DIM),
+               wpart=empty(3, chunks, (h + 1) * h),
+               sorted_key=empty(sort_rows, dtype=I32),
+               sorted_row=empty(sort_rows, dtype=I32),
+               nvalid=empty(1, dtype=I32), head=empty(pieces, SCORE_DIM),
+               tail=empty(pieces, SCORE_DIM))
+    io = abi.TrainBwdIO(
+        id_row=_ptr(id_row, I32, dev, (n,), name="id_row"),
+        labels=_ptr(labels, F32, dev, (n,), name="labels"),
+        gloss=_ptr(gloss, F32, dev, (1,), name="gloss"),
+        logit=_ptr(saved["logit"], F32, dev, (n,), name="logit"),
+        xT=_ptr(saved["xT"], BF16, dev, (fin, n), name="xT"),
+        h1T=_ptr(saved["h1T"], BF16, dev, (h, n), name="h1T"),
+        h2T=_ptr(saved["h2T"], BF16, dev, (h, n), name="h2T"),
+        w1=w[1], w2=w[3], w3=w[5],
+        **{k: t.data_ptr() for k, t in tmp.items()},
+        dw1=grads[1].data_ptr(), db1=grads[2].data_ptr(),
+        dw2=grads[3].data_ptr(), db2=grads[4].data_ptr(),
+        dw3=grads[5].data_ptr(), db3=grads[6].data_ptr(),
+        d_embed=grads[0].data_ptr(), n=n, v=v)
+    KERNELS["anomaly_train_bwd"].launch(ctypes.addressof(io), _stream(dev))
+    return tuple(grads)
+
+
+def launch_adam_update(params, grads, mu, nu, count: torch.Tensor,
+                       lr: float) -> None:
+    """K22: one ``optax.adam(lr)`` step over every leaf in place: ``params``,
+    ``mu`` and ``nu`` updated, ``count`` ([] int32 on the card)
+    incremented, all on the card without a host sync."""
+    dev = params[0].device
+    if not 1 <= len(params) <= abi.ADAM_MAX_LEAVES:
+        raise ValueError(f"adam_update: {len(params)} leaves, the kernel "
+                         f"takes 1 to {abi.ADAM_MAX_LEAVES}")
+    io = abi.AdamIO(
+        count=_ptr(count, I32, dev, (), name="count"), n_leaves=len(params),
+        neg_lr=-lr)
+    blocks = 0
+    for i, (p, g, m, v) in enumerate(zip(params, grads, mu, nu)):
+        shape = tuple(p.shape)
+        io.leaf[i] = abi.AdamLeaf(
+            p=_ptr(p, F32, dev, shape, name=f"param {i}"),
+            g=_ptr(g, F32, dev, shape, name=f"grad {i}"),
+            mu=_ptr(m, F32, dev, shape, name=f"mu {i}"),
+            nu=_ptr(v, F32, dev, shape, name=f"nu {i}"),
+            n=p.numel(), block0=blocks)
+        blocks += -(-p.numel() // 256)
+    KERNELS["adam_update"].launch(ctypes.addressof(io), blocks, _stream(dev))

@@ -9,6 +9,7 @@ import ctypes
 P = ctypes.c_void_p
 I32 = ctypes.c_int32
 U32 = ctypes.c_uint32
+F32 = ctypes.c_float
 
 
 class LpmView(ctypes.Structure):
@@ -149,6 +150,36 @@ class ScoreIO(ctypes.Structure):
                 ("v", I32)]
 
 
+class TrainFwdIO(ctypes.Structure):
+    _fields_ = [("id_row", P), ("feats", P), ("labels", P), ("embed", P),
+                ("w1", P), ("b1", P), ("w2", P), ("b2", P), ("w3", P),
+                ("b3", P), ("xT", P), ("h1T", P), ("h2T", P), ("logit", P),
+                ("partial", P), ("loss", P), ("n", I32), ("v", I32)]
+
+
+class TrainBwdIO(ctypes.Structure):
+    _fields_ = [("id_row", P), ("labels", P), ("gloss", P), ("logit", P),
+                ("xT", P), ("h1T", P), ("h2T", P), ("w1", P), ("w2", P),
+                ("w3", P), ("dz1T", P), ("dz2T", P), ("dz3", P), ("de", P),
+                ("wpart", P), ("sorted_key", P), ("sorted_row", P),
+                ("nvalid", P), ("head", P), ("tail", P), ("dw1", P),
+                ("db1", P), ("dw2", P), ("db2", P), ("dw3", P), ("db3", P),
+                ("d_embed", P), ("n", I32), ("v", I32)]
+
+
+class AdamLeaf(ctypes.Structure):
+    _fields_ = [("p", P), ("g", P), ("mu", P), ("nu", P),
+                ("n", ctypes.c_int64), ("block0", ctypes.c_int64)]
+
+
+ADAM_MAX_LEAVES = 8
+
+
+class AdamIO(ctypes.Structure):
+    _fields_ = [("leaf", AdamLeaf * ADAM_MAX_LEAVES), ("count", P),
+                ("n_leaves", I32), ("neg_lr", F32)]
+
+
 # per library: (symbol reporting sizeof, [structs in its index order])
 ABI = {
     "verdict": ("verdict_abi_size", [LpmView, PolicyView, CtView,
@@ -163,6 +194,7 @@ ABI = {
     "lb": ("lb_abi_size", [LbView, Lb6View, LbIO]),
     "socklb": ("socklb_abi_size", [LbView, SockIO]),
     "ml": ("ml_abi_size", [FeatIO, ScoreIO]),
+    "mltrain": ("mltrain_abi_size", [TrainFwdIO, TrainBwdIO, AdamIO]),
 }
 
 # per library: {symbol: argtypes}; every launcher returns cudaError_t
@@ -184,4 +216,7 @@ SIGNATURES = {
     "socklb": {"socklb_stage_launch": [P, P, P]},
     "ml": {"flow_features_launch": [P, P],
            "anomaly_score_launch": [P, P]},
+    "mltrain": {"anomaly_train_fwd_launch": [P, P],
+                "anomaly_train_bwd_launch": [P, P],
+                "adam_update_launch": [P, ctypes.c_int, P]},
 }

@@ -1,24 +1,38 @@
 """Learned flow classification: the anomaly side of the datapath.
 
-A port of the JAX package's ``ml/``, its inference half: flow features
-(K18 ``flow_features``), the identity-embedding + MLP + benign-novelty
-scorer (K19 ``anomaly_score``), the checkpoint format shared with the
-reference, the monitor-plane ``AnomalyScorer`` and the replay helpers.
-The score is advisory and never changes a verdict.
+A port of the JAX package's ``ml/``: flow features (K18
+``flow_features``), the identity-embedding + MLP + benign-novelty
+scorer (K19 ``anomaly_score``), its training (``bce_loss`` with K20
+``anomaly_train_fwd`` and K21 ``anomaly_train_bwd``, ``optax.adam`` as
+:class:`Adam` with K22 ``adam_update``, ``make_train_step``, ``train``),
+the checkpoint format shared with the reference, the monitor-plane
+``AnomalyScorer`` and the config #5 evaluation (``evaluate``: captures
+through ``core/pcap.py``, ``train_on_capture``,
+``evaluate_real_dataset``, ``train_and_evaluate``).  The score is
+advisory and never changes a verdict.
 
-Not ported yet: ``bce_loss``, ``make_train_step`` and ``train`` (the
-training slice, with backward kernels: ROADMAP A11b and B16b).
+Not ported yet: the data-parallel train step over a mesh
+(``make_train_step(mesh=...)`` raises; ROADMAP A10, B17).
 """
 
 from .evaluate import (  # noqa: F401
+    evaluate_capture,
+    evaluate_real_dataset,
     fit_novelty_from_world,
+    load_labels,
+    round_robin_holdouts,
     score_capture,
     score_scenario,
+    synth_labeled_capture,
+    train_and_evaluate,
+    train_on_capture,
 )
 from .features import FEAT_DIM, flow_features  # noqa: F401
 from .model import (  # noqa: F401
     NOV_DISABLED,
+    TRAINABLE,
     AnomalyModel,
+    bce_loss,
     fit_novelty,
     forward,
     init_params,
@@ -27,6 +41,15 @@ from .model import (  # noqa: F401
     novelty_d2,
     save_model,
     score_packets,
+    value_and_grad,
 )
 from .scorer import AnomalyScorer  # noqa: F401
-from .train import ATTACK_KINDS, auc, synth_labeled_traffic  # noqa: F401
+from .train import (  # noqa: F401
+    ATTACK_KINDS,
+    Adam,
+    AdamState,
+    auc,
+    make_train_step,
+    synth_labeled_traffic,
+    train,
+)

@@ -12,6 +12,16 @@ the inputs and weights to bfloat16, each product (accumulated in
 float32) to bfloat16, ``+ b`` in bfloat16, ReLU; the logit to float32,
 then the sigmoids and the Mahalanobis distance in float32.
 
+Training (:func:`bce_loss`, :func:`value_and_grad`) goes through one
+``torch.autograd.Function``: its forward is K20 ``anomaly_train_fwd``
+and its backward K21 ``anomaly_train_bwd`` (``csrc/mltrain.cu``) for
+CUDA tensors, the plain versions beside them for CPU tensors.  The
+backward's dtypes are those ``jax.grad`` gives the reference: the
+cotangents are bfloat16 wherever the forward cast to bfloat16, each
+weight gradient a float32 sum over the batch rounded to bfloat16 once,
+and the embedding's gradient the float32 sum of each row's bfloat16
+``dx[:, :32]``.
+
 Checkpoints are the reference's ``.npz`` format, field for field, so a
 model saved by either package loads in the other.
 """
@@ -31,6 +41,8 @@ from .features import FEAT_DIM
 
 _FIELDS = ("embed", "w1", "b1", "w2", "b2", "w3", "b3",
            "feat_mean", "feat_prec", "nov_thresh")
+# the leaves training updates; the novelty fields get zero gradients
+TRAINABLE = _FIELDS[:7]
 
 # sentinel threshold meaning "novelty stats not fitted": the novelty
 # branch then contributes exactly 0 and scoring is purely supervised
@@ -58,6 +70,18 @@ class AnomalyModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        """The seven trainable leaves, in ``TRAINABLE`` order."""
+        return tuple(getattr(self, name) for name in TRAINABLE)
+
+    def trainable(self) -> Dict[str, torch.Tensor]:
+        """The trainable leaves by name as tensors that carry gradients
+        (each shares its storage with the model's buffer):
+        ``bce_loss(model.replace(**leaves), ...)`` is differentiable in
+        them."""
+        return {name: t.detach().requires_grad_()
+                for name, t in zip(TRAINABLE, self.leaves())}
 
 
 def label_embedding_init(labels_by_row: Dict[int, Tuple[str, ...]],
@@ -118,21 +142,26 @@ def init_params(generator: torch.Generator, n_rows: int, dim: int = 32,
     return m.to(resolve_device(device))
 
 
-def _bf16_layer(x: torch.Tensor, w: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
-    """bf16(x @ bf16(w)) for bf16 ``x``, accumulated in float32, then
-    ``+ bf16(b)`` in bfloat16.  The sum runs over the inputs in order,
-    one float32 add a term: a product of two bf16 values is exact in
-    float32, so this equals K19's FMA chain bit for bit (a library
-    product sums in another order and moves a bf16 rounding now and
-    then)."""
-    bf = torch.bfloat16
-    x, w = x.float(), w.to(bf).float()
+def _ordered_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in float32 for bf16-valued ``x`` [N, K] and ``w`` [K, M],
+    the sum over k in order, one float32 add a term: a product of two
+    bf16 values is exact in float32, so this equals the kernels' FMA
+    chains bit for bit (a library product sums in another order and
+    moves a bf16 rounding now and then)."""
+    x, w = x.float(), w.float()
     acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
                       device=x.device)
     for k in range(w.shape[0]):
         acc = acc + x[:, k:k + 1] * w[k]
-    return acc.to(bf) + b.to(bf)
+    return acc
+
+
+def _bf16_layer(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """bf16(x @ bf16(w)) for bf16 ``x``, accumulated in float32 in
+    order (``_ordered_dot``), then ``+ bf16(b)`` in bfloat16."""
+    bf = torch.bfloat16
+    return _ordered_dot(x, w.to(bf)).to(bf) + b.to(bf)
 
 
 def forward_plain(model: AnomalyModel, id_row: torch.Tensor,
@@ -179,12 +208,13 @@ def score_packets_plain(model: AnomalyModel, id_row: torch.Tensor,
     return torch.maximum(p, nov)
 
 
-def _on_card(model: AnomalyModel, feats: torch.Tensor) -> bool:
+def _on_card(model: Optional[AnomalyModel], feats: torch.Tensor,
+             what: str = "anomaly_score") -> bool:
     if feats.is_cuda:
         return True
     from ..datapath.conntrack import _require_cpu
 
-    _require_cpu(feats, "anomaly_score")
+    _require_cpu(feats, what)
     return False
 
 
@@ -222,6 +252,162 @@ def score_packets(model: AnomalyModel, id_row: torch.Tensor,
 
         return launch_anomaly_score(model, id_row, feats)["score"]
     return score_packets_plain(model, id_row, feats)
+
+
+# ---- training: K20 forward, K21 backward ---------------------------------
+
+WGRAD_CHUNK = 64  # batch rows a block of K21's weight-gradient pass sums
+
+
+def train_forward_plain(leaves, id_row: torch.Tensor, feats: torch.Tensor,
+                        labels: torch.Tensor):
+    """The reference's ``bce_loss`` forward (plain version of K20): ->
+    (loss [] float32, saved) where ``saved`` = (x [N, 59], h1 [N, 64],
+    h2 [N, 64] bfloat16, logit [N] float32) for the backward.  The
+    layers are :func:`forward_plain`'s; the loss is the mean of
+    ``max(l, 0) - l * y + log1p(exp(-|l|))``."""
+    embed, w1, b1, w2, b2, w3, b3 = leaves
+    e = embed[as_index(id_row, embed.shape[0])]
+    x = torch.cat([e, feats], dim=1).to(torch.bfloat16)
+    h1 = torch.relu(_bf16_layer(x, w1, b1))
+    h2 = torch.relu(_bf16_layer(h1, w2, b2))
+    logit = _bf16_layer(h2, w3, b3)[:, 0].float()
+    term = (torch.clamp_min(logit, 0) - logit * labels) + torch.log1p(
+        torch.exp(-logit.abs()))
+    n = torch.tensor(float(logit.shape[0]), device=logit.device)
+    return term.sum() / n, (x, h1, h2, logit)
+
+
+def _dlogit_plain(logit: torch.Tensor, labels: torch.Tensor,
+                 gloss: torch.Tensor) -> torch.Tensor:
+    """The loss's cotangent at each logit, as ``jax.grad`` derives it
+    from ``bce_loss``: with g = gloss / N and t = exp(-|l|),
+    ``(-+ g / (1 + t) * t  - g * y) + g * [l > 0, 1/2 at l == 0]`` (the
+    ``abs`` rule takes the + branch at 0, ``maximum`` splits its tie)."""
+    n = torch.tensor(float(logit.shape[0]), device=logit.device)
+    g = gloss.reshape(()).float() / n
+    t = torch.exp(-logit.abs())
+    ct = (g / (t + 1.0)) * t
+    cz = torch.where(logit >= 0, -ct, ct)
+    one, half, zero = (torch.tensor(v, device=logit.device)
+                       for v in (1.0, 0.5, 0.0))
+    cf = torch.where(logit > 0, one, torch.where(logit == 0, half, zero))
+    return (cz + (-g) * labels) + g * cf
+
+
+def _wgrad_plain(a: torch.Tensor, d: torch.Tensor):
+    """(a^T d, column sums of d) for bf16 ``a`` [N, K], ``d`` [N, M], each
+    a float32 sum rounded to bf16 once, then float32: K21's order (rows
+    in chunks of WGRAD_CHUNK, each chunk's sum in row order, the
+    chunks' sums in chunk order)."""
+    n, k = a.shape
+    c = -(-n // WGRAD_CHUNK)
+    pad = c * WGRAD_CHUNK - n
+    ones = torch.ones((n, 1), dtype=torch.float32, device=a.device)
+    aa = torch.nn.functional.pad(torch.cat([a.float(), ones], 1),
+                                 (0, 0, 0, pad))
+    dd = torch.nn.functional.pad(d.float(), (0, 0, 0, pad))
+    aa = aa.view(c, WGRAD_CHUNK, k + 1)
+    dd = dd.view(c, WGRAD_CHUNK, d.shape[1])
+    acc = torch.zeros((c, k + 1, d.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for r in range(WGRAD_CHUNK):
+        acc = acc + aa[:, r, :, None] * dd[:, r, None, :]
+    s = torch.zeros_like(acc[0])
+    for i in range(c):
+        s = s + acc[i]
+    s = s.to(torch.bfloat16).float()
+    return s[:k], s[k]
+
+
+def train_backward_plain(leaves, saved, id_row: torch.Tensor,
+                         labels: torch.Tensor, gloss: torch.Tensor):
+    """The gradient of :func:`train_forward_plain`'s loss times
+    ``gloss`` in each trainable leaf (plain version of K21), -> (d_embed
+    [V, 32], dW1, db1, dW2, db2, dW3, db3), float32.  ``dlogit`` is
+    rounded to bf16 where it crosses the logit's cast; each layer's
+    cotangent is a bf16 product (float32 sums in K21's order); the ReLU
+    passes the gradient where its input was > 0 (0 at exactly 0); an
+    embedding row's gradient is the float32 sum of its rows' bf16 ``dx[:,
+    :32]``.  An ``id_row`` negative after one wrap, or past the table,
+    contributes nothing: the reference's gather clamps it, but the
+    scatter-add that is its transpose drops it."""
+    bf = torch.bfloat16
+    embed, w1, _, w2, _, w3, _ = leaves
+    x, h1, h2, logit = saved
+    zero = torch.zeros((), dtype=bf, device=logit.device)
+    dz3 = _dlogit_plain(logit, labels, gloss).to(bf)
+    dz2 = torch.where(h2 > 0, (dz3.float()[:, None]
+                               * w3[:, 0].to(bf).float()).to(bf), zero)
+    dz1 = torch.where(h1 > 0, _ordered_dot(dz2, w2.to(bf).t()).to(bf),
+                      zero)
+    d = embed.shape[1]
+    de = _ordered_dot(dz1, w1[:d].to(bf).t()).to(bf).float()
+    dw1, db1 = _wgrad_plain(x, dz1)
+    dw2, db2 = _wgrad_plain(h1, dz2)
+    dw3, db3 = _wgrad_plain(h2, dz3[:, None])
+    v = embed.shape[0]
+    key = id_row.to(torch.int64)
+    key = torch.where(key < 0, key + v, key)
+    keep = (key >= 0) & (key < v)
+    d_embed = torch.zeros_like(embed).index_add_(
+        0, torch.where(keep, key, 0),
+        torch.where(keep[:, None], de, torch.zeros_like(de)))
+    return d_embed, dw1, db1, dw2, db2, dw3, db3
+
+
+class _BCELoss(torch.autograd.Function):
+    """The reference's ``bce_loss`` as one autograd node over the seven
+    trainable leaves: K20 forward and K21 backward for CUDA tensors, the
+    plain versions for CPU tensors (any other device raises)."""
+
+    @staticmethod
+    def forward(ctx, id_row, feats, labels, *leaves):
+        if _on_card(None, feats, "anomaly_train_fwd"):
+            from ..kernels import launch_anomaly_train_fwd
+
+            loss, saved = launch_anomaly_train_fwd(leaves, id_row, feats,
+                                                   labels)
+        else:
+            loss, saved = train_forward_plain(leaves, id_row, feats, labels)
+        ctx.saved = saved
+        ctx.save_for_backward(id_row, labels, *leaves)
+        return loss
+
+    @staticmethod
+    def backward(ctx, gloss):
+        id_row, labels, *leaves = ctx.saved_tensors
+        gloss = gloss.reshape(1).float().contiguous()
+        if gloss.is_cuda:
+            from ..kernels import launch_anomaly_train_bwd
+
+            grads = launch_anomaly_train_bwd(leaves, ctx.saved, id_row,
+                                             labels, gloss)
+        else:
+            grads = train_backward_plain(leaves, ctx.saved, id_row, labels,
+                                         gloss)
+        ctx.saved = None
+        return (None, None, None, *grads)
+
+
+def bce_loss(model: AnomalyModel, id_row: torch.Tensor,
+             feats: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The mean binary cross-entropy of the model's logits against
+    ``labels`` ([] float32), differentiable in the leaves of a model
+    built from :meth:`AnomalyModel.trainable`."""
+    return _BCELoss.apply(id_row, feats, labels, *model.leaves())
+
+
+def value_and_grad(model: AnomalyModel, id_row: torch.Tensor,
+                   feats: torch.Tensor, labels: torch.Tensor):
+    """-> (loss [] float32, the gradients in ``TRAINABLE`` order), as
+    ``jax.value_and_grad(bce_loss)`` gives the reference's (on the card:
+    K20 then K21, no host sync)."""
+    leaves = list(model.trainable().values())
+    with torch.enable_grad():
+        loss = _BCELoss.apply(id_row, feats, labels, *leaves)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads
 
 
 def fit_novelty(model: AnomalyModel, feats: np.ndarray,

@@ -1,18 +1,32 @@
-"""Training data: synthetic labeled traffic and the AUC.
+"""Training: synthetic labeled traffic, the adam optimizer, the train
+step and the training loop.
 
-The host half of the JAX package's ``ml/train.py``: the attack
-taxonomy, ``synth_labeled_traffic`` (port scans, volumetric floods and
-exfiltration against the benign steady-state mix of
-``testing.fixtures.bench_traffic``, with hard negatives) and ``auc``.
-The training step (``bce_loss``, ``make_train_step``, ``train``) needs
-backward kernels and comes with the training slice (ROADMAP A11b, B16b).
+A port of the JAX package's ``ml/train.py``.  ``synth_labeled_traffic``
+makes port scans, volumetric floods and exfiltration against the benign
+steady-state mix of ``testing.fixtures.bench_traffic``, with hard
+negatives.  :class:`Adam` is ``optax.adam``: dense over every trainable
+leaf (every row of the embedding table decays its moments every step),
+K22 ``adam_update`` (``csrc/mltrain.cu``) on the card, the plain version
+on the CPU.  :func:`make_train_step` takes one step (the loss and its
+gradients through K20/K21, then adam) and :func:`train` runs the
+reference's loop: traffic, the datapath step (K1 + K4), the flow
+features (K18), the train step, with the losses kept on the device
+until one fetch at the end.
+
+The step updates the model's trainable leaves and the optimizer's
+moments in place (the reference's are immutable); :func:`train` works
+on its own copy of the leaves, so the caller's model is left as it was.
+The data-parallel step over a mesh (``make_train_step(mesh=...)``, its
+``pmean``) comes with sharded serving (ROADMAP A10, B17).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..core.packets import (
     COL_DIR,
@@ -25,8 +39,15 @@ from ..core.packets import (
     TCP_ACK,
     TCP_SYN,
 )
+from .. import u32
+from ..datapath.verdict import datapath_step
+from .features import flow_features
+from .model import TRAINABLE, AnomalyModel, _on_card, value_and_grad
 
 ATTACK_KINDS = {0: "portscan", 1: "flood", 2: "exfil"}
+# optax.adam's defaults (eps_root 0), which every caller of the
+# reference takes; K22 (csrc/mltrain.cu) holds the same constants
+B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 def synth_labeled_traffic(world, n: int, rng: np.random.Generator,
@@ -95,6 +116,133 @@ def synth_labeled_traffic(world, n: int, rng: np.random.Generator,
         hdr[bulk, COL_FLAGS] = TCP_ACK | 0x08
         hdr[bulk, COL_LEN] = rng.integers(1400, 1500, len(bulk))
     return hdr, labels
+
+
+@dataclass
+class AdamState:
+    """optax's ``ScaleByAdamState`` over the trainable leaves: ``count``
+    ([] int32, on the leaves' device, so no step reads it on the host)
+    and the first and second moments by leaf name."""
+
+    count: torch.Tensor
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+def adam_update_plain(params: Sequence[torch.Tensor],
+                      grads: Sequence[torch.Tensor],
+                      mu: Sequence[torch.Tensor], nu: Sequence[torch.Tensor],
+                      count: torch.Tensor, lr: float) -> None:
+    """One ``optax.adam(lr)`` step in place (plain version of K22),
+    float32: ``mu = (1 - B1) g + B1 mu``, ``nu = (1 - B2) g^2 + B2 nu``;
+    ``count`` incremented (saturating) before the bias corrections
+    ``1 - B**count``; ``p += -lr * mu_hat / (sqrt(nu_hat) + EPS)``."""
+    dev = count.device
+    c = torch.where(count < torch.iinfo(torch.int32).max, count + 1, count)
+    cf = c.float()
+    bc1 = 1.0 - torch.pow(torch.tensor(B1, device=dev), cf)
+    bc2 = 1.0 - torch.pow(torch.tensor(B2, device=dev), cf)
+    for p, g, m, v in zip(params, grads, mu, nu):
+        m_new = (1.0 - B1) * g + B1 * m
+        v_new = (1.0 - B2) * (g * g) + B2 * v
+        u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + EPS)
+        p.add_(-lr * u)
+        m.copy_(m_new)
+        v.copy_(v_new)
+    count.copy_(c)
+
+
+class Adam:
+    """``optax.adam(lr)``: :meth:`init` zeroes the moments, :meth:`apply_`
+    takes one step over every trainable leaf, densely, in place (K22
+    ``adam_update`` for CUDA tensors)."""
+
+    def __init__(self, lr: float):
+        self.lr = float(lr)
+
+    def init(self, model: AnomalyModel) -> AdamState:
+        return AdamState(
+            count=torch.zeros((), dtype=torch.int32, device=model.device),
+            mu={k: torch.zeros_like(t)
+                for k, t in zip(TRAINABLE, model.leaves())},
+            nu={k: torch.zeros_like(t)
+                for k, t in zip(TRAINABLE, model.leaves())})
+
+    def apply_(self, model: AnomalyModel, grads: Sequence[torch.Tensor],
+               state: AdamState) -> None:
+        """One step: the model's leaves, ``state``'s moments and count
+        are updated in place; the novelty fields are not touched (their
+        gradients are zero, so the reference leaves them bit for bit)."""
+        params = list(model.leaves())
+        mu = [state.mu[k] for k in TRAINABLE]
+        nu = [state.nu[k] for k in TRAINABLE]
+        if _on_card(model, params[0], "adam_update"):
+            from ..kernels import launch_adam_update
+
+            launch_adam_update(params, list(grads), mu, nu, state.count,
+                               self.lr)
+        else:
+            adam_update_plain(params, grads, mu, nu, state.count, self.lr)
+
+
+def make_train_step(optimizer, mesh=None) -> Callable:
+    """The train step ``step(model, opt_state, id_row, feats, labels) ->
+    (model, opt_state, loss)``: the loss and its gradients (K20, K21),
+    then one adam step (K22), in place.  ``optimizer`` is an
+    :class:`Adam` or a learning rate."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_train_step(mesh=...): the data-parallel train step and "
+            "its pmean come with sharded serving (ROADMAP A10, B17)")
+    opt = optimizer if isinstance(optimizer, Adam) else Adam(optimizer)
+
+    def step(model: AnomalyModel, opt_state: AdamState,
+             id_row: torch.Tensor, feats: torch.Tensor,
+             labels: torch.Tensor):
+        loss, grads = value_and_grad(model, id_row, feats, labels)
+        opt.apply_(model, grads, opt_state)
+        return model, opt_state, loss
+
+    return step
+
+
+def train(model: AnomalyModel, world, steps: int = 200, batch: int = 4096,
+          lr: float = 3e-3, mesh=None, seed: int = 0, now: int = 1000,
+          kinds: Tuple[int, ...] = (0, 1, 2)
+          ) -> Tuple[AnomalyModel, List[float]]:
+    """Train on synthetic labeled traffic run through the real datapath
+    (``world.state`` updated in place; features include CT state, so the
+    model sees what the device sees), on the device that holds the
+    world's state; ``kinds`` restricts the attack kinds seen.  Returns
+    (a trained copy of ``model``, the per-step losses)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "train(mesh=...): the data-parallel train step comes with "
+            "sharded serving (ROADMAP A10, B17)")
+    dev = world.state.metrics.device
+    if model.device != dev:
+        raise ValueError(f"the model is on {model.device}, the world's "
+                         f"state on {dev}")
+    model = model.replace(**{k: t.clone() for k, t in zip(
+        TRAINABLE, model.leaves())})
+    rng = np.random.default_rng(seed)
+    optimizer = Adam(lr)
+    opt_state = optimizer.init(model)
+    step_fn = make_train_step(optimizer)
+    state = world.state
+    losses = []
+    for s in range(steps):
+        hdr, labels = synth_labeled_traffic(world, batch, rng, kinds=kinds)
+        jhdr = u32.from_numpy(hdr, dev)
+        out, state = datapath_step(state, jhdr, now + s)
+        id_row, feats = flow_features(jhdr, out)
+        model, opt_state, loss = step_fn(model, opt_state, id_row, feats,
+                                         torch.from_numpy(labels).to(dev))
+        losses.append(loss)  # stays on the device: no sync a step
+    world.state = state
+    if losses:
+        losses = torch.stack(losses).cpu().tolist()  # the one fetch
+    return model, losses
 
 
 def auc(scores: np.ndarray, labels: np.ndarray) -> float:

@@ -1,7 +1,7 @@
 """The port's kernels against their plain versions on the card, at a
 small size: the slice through CUDA kernels must equal the slice through
 the plain PyTorch versions, the maintenance, gather, L7, table-update,
-egress, service-LB and anomaly kernels their plain versions, the superbatch its
+egress, service-LB, anomaly and trainer kernels their plain versions, the superbatch its
 sequential steps, and the daemon on the card the daemon on the CPU.  Needs a CUDA device (marker ``gpu``) and
 skips without one.  It imports nothing of JAX, so it runs on the card's
 machine, which has no JAX:
@@ -640,5 +640,99 @@ def test_ml_kernels_match_their_plain_versions(case):
             assert (got["logit"] - forward_plain(m, ids, feats)).abs() \
                 .max().item() <= 1e-2
             assert torch.equal(got["d2"], novelty_d2_plain(m, feats))
+    torch.cuda.synchronize()
+    assert KERNELS[case].launches > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["anomaly_train_fwd", "anomaly_train_bwd",
+                                  "adam_update"])
+def test_train_kernels_match_their_plain_versions(case):
+    """K20-K22 on the card against their plain versions on the same CUDA
+    tensors, 3000 rows with one identity on half of them and ids past
+    the table and negative.  K20: logits and saved activations
+    bit-exact, the loss within 2e-6 relative; K21: weight and bias
+    gradients bit-exact, d_embed within 1e-5 of its largest entry (the
+    plain version's index_add_ sums in atomic order), two runs
+    bit-identical, and the same on a 20000-row batch (the scatter in two
+    sort slices); K22: one step from count 3 bit-exact."""
+    _need_card()
+    from cilium_tpu_torch.kernels import (KERNELS, launch_adam_update,
+                                          launch_anomaly_train_bwd,
+                                          launch_anomaly_train_fwd,
+                                          reset_launch_counts)
+    from cilium_tpu_torch.ml.model import (train_backward_plain,
+                                           train_forward_plain)
+    from cilium_tpu_torch.ml.train import adam_update_plain
+
+    rng = np.random.default_rng(41)
+    hdr, out, model = _ml_batch(rng, 3000)
+    from cilium_tpu_torch.ml.features import flow_features_plain
+
+    ids, feats = flow_features_plain(hdr, out)
+    v = model.embed.shape[0]
+    ids = ids.clone()
+    ids[:1500] = 3
+    ids[1500:1530] = v + torch.arange(30, dtype=torch.int32)
+    ids[1530:1540] = -1 - torch.arange(10, dtype=torch.int32)
+    ids[1540:1545] = -v - 2
+    ids = ids[torch.from_numpy(rng.permutation(3000))].contiguous().cuda()
+    feats = feats.cuda()
+    labels = torch.from_numpy((rng.random(3000) < 0.3).astype(
+        np.float32)).cuda()
+    gen = torch.Generator().manual_seed(3)
+    model = model.replace(**{b: torch.randn(tuple(getattr(model, b).shape),
+                                            generator=gen) * 0.1
+                             for b in ("b1", "b2", "b3")}).to("cuda")
+    leaves = model.leaves()
+    reset_launch_counts()
+    loss, saved = launch_anomaly_train_fwd(leaves, ids, feats, labels)
+    ploss, psaved = train_forward_plain(leaves, ids, feats, labels)
+    gloss = torch.ones(1, device="cuda")
+    if case == "anomaly_train_fwd":
+        x, h1, h2, logit = psaved
+        assert torch.equal(saved["logit"], logit)
+        assert torch.equal(saved["xT"], x.t())
+        assert torch.equal(saved["h1T"], h1.t())
+        assert torch.equal(saved["h2T"], h2.t())
+        assert abs(loss.item() - ploss.item()) <= 2e-6 * abs(ploss.item())
+    grads = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss)
+    if case == "anomaly_train_bwd":
+        again = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss)
+        want = train_backward_plain(leaves, psaved, ids, labels, gloss)
+        # a batch over K21's 16384-row sort slice: the scatter in two
+        # slices, one after the other
+        big = [t.repeat(*([7] + [1] * (t.dim() - 1)))[:20000].contiguous()
+               for t in (ids, feats, labels)]
+        bsaved = launch_anomaly_train_fwd(leaves, *big)[1]
+        bgot = launch_anomaly_train_bwd(leaves, bsaved, big[0], big[2],
+                                        gloss)
+        bwant = train_backward_plain(
+            leaves, train_forward_plain(leaves, *big)[1], big[0], big[2],
+            gloss)
+        for got_, again_, want_ in ((grads, again, want),
+                                    (bgot, bgot, bwant)):
+            for i, (a, b, c) in enumerate(zip(got_, again_, want_)):
+                assert torch.equal(a, b)
+                if i == 0:
+                    err = (a - c).abs().max().item()
+                    assert err <= 1e-5 * c.abs().max().item()
+                    assert a[3].abs().max().item() > 0
+                else:
+                    assert torch.equal(a, c)
+    if case == "adam_update":
+        params = [t.clone() for t in leaves]
+        mu = [torch.zeros_like(t) for t in leaves]
+        nu = [torch.zeros_like(t) for t in leaves]
+        count = torch.zeros((), dtype=torch.int32, device="cuda")
+        for _ in range(3):
+            adam_update_plain(params, grads, mu, nu, count, 3e-3)
+        k = ([t.clone() for t in params], [t.clone() for t in mu],
+             [t.clone() for t in nu], count.clone())
+        launch_adam_update(k[0], grads, k[1], k[2], k[3], 3e-3)
+        adam_update_plain(params, grads, mu, nu, count, 3e-3)
+        for a, b in zip(k[0] + k[1] + k[2], params + mu + nu):
+            assert torch.equal(a, b)
+        assert int(k[3].item()) == int(count.item()) == 4
     torch.cuda.synchronize()
     assert KERNELS[case].launches > 0
