@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's serving step, serving daemon, L7 proxy
 plane, live table churn, offline egress path, service load balancer,
-anomaly scorer and its trainer on one NVIDIA GPU.
+anomaly scorer, its trainer and sharded serving on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -136,13 +136,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ``anomaly_train_fwd``, K21 ``anomaly_train_bwd`` and K22
    ``adam_update`` against their plain versions at B = 4096, V = 16384
    (one identity on half the rows, id_row past V and negative; adam
-   from a mid-training state).
+   from a mid-training state);
+15. sharded serving over 8 shards on the card: (a) the sharded verdict,
+   CT-update and ring-append kernels (K1s/K4s/K5s: one launch sequence
+   for all shards) against the plain per-shard loop on the card, packed
+   and wide, at 2^19 routed rows (8 blocks of 2^16 from a 2^18 bucket)
+   on a half-full 2^20 CT, one batch skewed so that one shard overflows
+   on the host: out rows, CT, metrics, ring and cursors bit-exact, and
+   one sharded sequence equal to 8 unsharded K1/K4/K5 calls on the
+   shards' slices; then each timed beside its plain version and bound;
+   (b) phase 7's daemon with ``start_serving(mesh=8)`` serving 2^21
+   packets of phase 7's traffic, then 2^16 wide rows: ledgers exact, no
+   event lost, the route overflow equal to its metric and to its DROP
+   events, the metrics equal to the fixed-batch run, the host stages
+   and the card's idle share; (c) the sharded demotion under injected
+   faults: the replies of flows established sharded forward after it.
 
 The kernel launch counts are read per path (the slice of phase 4, the
 daemon of phase 7, the L7 paths of phases 3, 8 and 9, the churn of
 phase 10, the egress path of phase 11, the service path of phase 12,
 the armed daemon's first session in phase 13, the 200-step ``train``
-of phase 14), each zeroed just before its path runs.  The line before the last is one JSON object describing every
+of phase 14, the sharded daemon's two sessions of phase 15), each
+zeroed just before its path runs.  The line before the last is one JSON object describing every
 kernel (the standalone launchers with 0 launches and ``"standalone":
 true``); the last line is the device record.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -1450,13 +1465,35 @@ def config3_daemon(world, rng, **config):
     return d, db, rows
 
 
-def serve_session(d, rows, clock=None, during=None):
+def fixed_batch_metrics(d, db, rows):
+    """The per-reason metrics of ``rows`` (db's steady traffic) through
+    ``TorchLoader.serve_packed`` in 8 fixed batches on the tables daemon
+    ``d`` compiled: the daemon's yardstick for forward-only traffic,
+    whose per-reason counts do not depend on batch boundaries."""
+    from cilium_tpu_torch.core.packets import pack_rows
+    from cilium_tpu_torch.datapath.loader import TorchLoader
+    from cilium_tpu_torch.labels import LabelSet
+    from cilium_tpu_torch.monitor.ring import EventRing
+
+    per = len(rows) // 8
+    fl = TorchLoader(ct_capacity=CT_CAPACITY)
+    fl.attach([d.repo.resolve(LabelSet.parse("k8s:app=db"))],
+              d.ipcache.to_identity_map(), {db.id: 0}, d.endpoints.row_map)
+    fring = EventRing.create(RING_CAPACITY)
+    for b in range(0, len(rows), per):
+        fring, _ = fl.serve_packed(fring, pack_rows(rows[b:b + per]), 1,
+                                   b // per, db.id, 0)
+    return fl.metrics()
+
+
+def serve_session(d, rows, clock=None, during=None, mesh=None):
     """One serving session of ``d`` (ingress, packed, K = 4): a producer
     thread submits ``rows`` in chunks of four top buckets, holding back
     while the rows admitted but not yet verdicted would leave no room
     for a chunk (a closed loop: nothing sheds), then stop_serving().  A
     :class:`StageClock` times the stages on the daemon's threads;
-    ``during`` is entered around the producer (the churn thread).
+    ``during`` is entered around the producer (the churn thread);
+    ``mesh`` serves sharded over that many shards (phase 15).
     Returns (stop_serving's result, seconds from the first submit)."""
     import contextlib
     import threading
@@ -1466,7 +1503,7 @@ def serve_session(d, rows, clock=None, during=None):
     if clock is not None:
         clock.before_start(d)
     d.start_serving(ring_capacity=RING_CAPACITY, ingress=True,
-                    packed=True, superbatch_k=4)
+                    packed=True, superbatch_k=4, mesh=mesh)
     if clock is not None:
         clock.after_start(d)
 
@@ -1495,11 +1532,8 @@ def phase_daemon(torch, rng, world, report):
     """BASELINE.md config #3 through the daemon's own API, served
     through its ingress front end; returns (launches, rung)."""
     import numpy as np
-    from cilium_tpu_torch.core.packets import pack_rows
-    from cilium_tpu_torch.datapath.loader import TorchLoader
     from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
-    from cilium_tpu_torch.labels import LabelSet
-    from cilium_tpu_torch.monitor.ring import EventRing, _gather_rung
+    from cilium_tpu_torch.monitor.ring import _gather_rung
 
     t0 = time.monotonic()
     d, db, rows = config3_daemon(world, rng)
@@ -1566,14 +1600,7 @@ def phase_daemon(torch, rng, world, report):
     # on the tables the daemon compiled (forward-only traffic: the
     # per-reason counts do not depend on batch boundaries)
     m_daemon = d.loader.metrics()
-    fl = TorchLoader(ct_capacity=CT_CAPACITY)
-    fl.attach([d.repo.resolve(LabelSet.parse("k8s:app=db"))],
-              d.ipcache.to_identity_map(), {db.id: 0}, d.endpoints.row_map)
-    fring = EventRing.create(RING_CAPACITY)
-    for b in range(0, len(rows), per):
-        fring, _ = fl.serve_packed(fring, pack_rows(rows[b:b + per]), 1,
-                                   b // per, db.id, 0)
-    m_fixed = fl.metrics()
+    m_fixed = fixed_batch_metrics(d, db, rows)
     check(np.array_equal(m_daemon, m_fixed),
           f"daemon: metrics {m_daemon.tolist()} differ from the fixed-batch "
           f"run {m_fixed.tolist()}")
@@ -4075,6 +4102,504 @@ def phase_breakdown(torch, kl, packed_batches, now, report):
         "device_time_ms_by_name": {k: v / 1e3 for k, v in device.items()}}
 
 
+SHARDS = 8  # K6's maximum, and the reference test's mesh
+SHARD_HEADROOM = 2  # start_serving's default
+SHARD_BLOCK = SHARD_HEADROOM * N // SHARDS  # 2^16 routed rows a shard
+SHARD_ROWS = SHARDS * SHARD_BLOCK  # 2^19 routed rows a batch
+SKEW_ROWS = 80_000  # batch 5: one flow on these rows overflows its shard
+SHARD_STAGES = {"submit: queue copy in": "producer",
+                "batcher: dequeue + assemble": "drain",
+                "dispatch: serve_batch, all": "drain",
+                "sharded leg: route + re-pack + serve_sharded":
+                    "drain",
+                "route: route_by_flow": "drain",
+                "re-pack: pack_rows": "drain",
+                "loader: staging copy + K1s/K4s/K5s enqueued": "drain",
+                "drain tick: cursor read (waits for the card), K6 "
+                "gather, copy start": "drain",
+                "event join, all": "worker"}
+
+
+def shard_batches(torch, rng, world):
+    """Phase 15's routed batches on the card: 8 packed from a 2^18
+    bucket (a pool of SYNs, then steady draws; batch 5 skewed: one flow
+    on SKEW_ROWS rows overflows its shard on the host) and 2 wide (IPv6,
+    ICMP errors), each flow-routed into 8 blocks of 2^16 (headroom 2).
+    Returns [(kind, rows, valid, stream scalars, overflow)]."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import pack_eligibility, pack_rows
+    from cilium_tpu_torch.parallel import route_by_flow
+    from cilium_tpu_torch.testing import fixtures as fx
+
+    pool = fx.steady_flow_pool(world, N, rng)
+    wpool = fx.wide_flow_pool(world, 1 << 16, rng)
+    hdrs = [("packed", pool)] + [("packed", fx.steady_traffic(pool, N, rng))
+                                 for _ in range(7)]
+    hdrs[5][1][:SKEW_ROWS] = hdrs[5][1][0]
+    hdrs += [("wide", fx.wide_traffic(wpool, N, rng)) for _ in range(2)]
+    out = []
+    for kind, hdr in hdrs:
+        routed, valid, _orig, ovf = route_by_flow(hdr, SHARDS, SHARD_BLOCK)
+        meta = {}
+        if kind == "packed":
+            ok, ep, dirn = pack_eligibility(hdr)
+            check(ok, "sharded: a steady batch is not packed-eligible")
+            routed, meta = pack_rows(routed), dict(ep=ep, dirn=dirn)
+        out.append((kind, u32.from_numpy(routed, "cuda"),
+                    torch.from_numpy(valid).cuda(), meta, ovf))
+    return out
+
+
+def phase_sharded_kernels(torch, rng, world, kernels, report):
+    """Phase 15 (a): K1s/K4s/K5s against the plain per-shard loop on the
+    card, at config #3 with a half-full 2^20 CT over 8 shards and 2^19
+    routed rows a batch; one batch also against 8 unsharded K1/K4/K5
+    calls, each on its shard's slice as a table of its own; then each
+    sharded kernel timed beside its plain version and its bound."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.datapath.verdict import (DatapathState,
+                                                   verdict_stage)
+    from cilium_tpu_torch.kernels import (launch_ct_update,
+                                          launch_datapath,
+                                          launch_ring_append)
+    from cilium_tpu_torch.monitor import ring as rg
+    from cilium_tpu_torch.parallel import mesh as pm
+
+    import copy
+
+    t0 = time.monotonic()
+    now = 10_000
+    table, fp, _rows = half_full_table(rng, now)
+    base = card_state(world)
+    base.ct.table.copy_(u32.from_numpy(table, "cuda"))
+    base.ct.fp.copy_(u32.from_numpy(fp, "cuda"))
+    batches = shard_batches(torch, rng, world)
+    mesh = pm.make_mesh(SHARDS)
+    pp = u32.from_numpy(np.array([10000], np.uint32), "cuda")
+    states = [clone_state(base), clone_state(base)]
+    rings = [pm.make_sharded_ring(mesh, RING_CAPACITY) for _ in range(2)]
+    errs = {"packed": 0, "wide": 0}
+    for b, (kind, rows, valid, meta, ovf) in enumerate(batches):
+        outs = [f(st, r, rows, now + b, b, SHARDS, valid=valid,
+                  proxy_ports=pp, **meta)
+                for f, st, r in ((pm.sharded_serve_launch, states[0],
+                                  rings[0]),
+                                 (pm.sharded_serve_plain, states[1],
+                                  rings[1]))]
+        errs[kind] = max(errs[kind], max_abs_err(
+            outs[0], outs[1], f"sharded out rows, batch {b} ({kind})"))
+    ks, ps = states
+    e1 = max(max_abs_err(ks.metrics, ps.metrics, "sharded metrics"),
+             errs["packed"])
+    e4 = max(max_abs_err(ks.ct.table, ps.ct.table, "sharded CT table"),
+             max_abs_err(ks.ct.fp, ps.ct.fp, "sharded CT fp"),
+             max_abs_err(ks.ct.dropped, ps.ct.dropped, "sharded dropped"))
+    e5 = max(max_abs_err(rings[0].buf, rings[1].buf, "sharded ring"),
+             max_abs_err(rings[0].cursor, rings[1].cursor,
+                         "sharded cursors"))
+    check(bool((ks.ct.claim == -1).all()),
+          "sharded ct_update left claim words set")
+    kernels["datapath_packed_sharded"]["max_abs_err"] = e1
+    kernels["datapath_wide_sharded"]["max_abs_err"] = max(errs["wide"], e1)
+    kernels["ct_update_sharded"]["max_abs_err"] = e4
+    kernels["ring_append_sharded"]["max_abs_err"] = e5
+    ovf = [x[4] for x in batches]
+    check(ovf[5] > 0 and sum(ovf) == ovf[5],
+          f"sharded: the skewed batch alone must overflow: {ovf}")
+    totals = rg._cursor_totals(u32.to_numpy(rings[0].cursor))
+    live = int((ks.ct.table[:, ct.V_STATE] != 0).sum())
+    print(f"parity sharded: {len(batches)} batches of {SHARD_ROWS} routed "
+          f"rows ({SHARDS} shards of {SHARD_BLOCK}, 8 packed + 2 wide), "
+          f"host overflow {ovf[5]} in batch 5; out rows, metrics, CT "
+          f"({live} live, dropped {int(ks.ct.dropped)}), ring ({totals.tolist()}"
+          f" events a shard) and cursors bit-exact")
+
+    # one launch sequence == 8 unsharded K1/K4/K5 calls, each on its
+    # shard's CT slice and ring as a table and ring of its own
+    kind, rows, valid, meta, _ovf = batches[1]
+    a, u = clone_state(base), clone_state(base)
+    ra, ru = (pm.make_sharded_ring(mesh, RING_CAPACITY) for _ in range(2))
+    out_a = pm.sharded_serve_launch(a, ra, rows, now, 1, SHARDS,
+                                    valid=valid, proxy_ports=pp, **meta)
+    cs, blk = CT_CAPACITY // SHARDS, SHARD_BLOCK
+    outs, m_parts, d_parts = [], [], []
+    for s in range(SHARDS):
+        r = slice(s * blk, (s + 1) * blk)
+        part = DatapathState(
+            policy=u.policy, ipcache=u.ipcache,
+            ct=ct.CTTable(u.ct.table[s * cs:(s + 1) * cs],
+                          u.ct.fp[s * cs:(s + 1) * cs],
+                          torch.zeros_like(u.ct.dropped)),
+            metrics=torch.zeros_like(u.metrics))
+        out, c = verdict_stage(part, rows[r], now, valid=valid[r], **meta)
+        ct.ct_update(part.ct, c.l4, c.fwd, c.result, c.slot, c.is_reply,
+                     c.do_create, c.proxy_port, now, valid=valid[r])
+        rg.ring_append(rg.EventRing(ru.buf[s * RING_CAPACITY:
+                                           (s + 1) * RING_CAPACITY],
+                                    ru.cursor[s]),
+                       out, 1, 1024, valid[r], pp)
+        outs.append(out)
+        m_parts.append(part.metrics)
+        d_parts.append(part.ct.dropped)
+    for total, parts in ((u.metrics, m_parts), (u.ct.dropped, d_parts)):
+        total.copy_(u32.narrow(u32.widen(total)
+                               + sum(u32.widen(p) for p in parts)))
+    for g, w, what in ((out_a, torch.cat(outs), "out rows"),
+                       (a.metrics, u.metrics, "metrics"),
+                       (a.ct.table, u.ct.table, "CT table"),
+                       (a.ct.fp, u.ct.fp, "CT fp"),
+                       (a.ct.dropped, u.ct.dropped, "dropped"),
+                       (ra.buf, ru.buf, "ring"),
+                       (ra.cursor, ru.cursor, "cursors")):
+        max_abs_err(g, w, f"sharded vs {SHARDS} unsharded calls: {what}")
+    print(f"parity sharded: one K1s/K4s/K5s sequence equals {SHARDS} "
+          f"unsharded K1/K4/K5 calls on the shards' slices, bit-exact")
+
+    # timings at the main path's shapes: 2^19 routed rows a batch
+    def fork(state):  # the verdict stage reads the CT, adds to metrics
+        s2 = copy.copy(state)
+        s2.metrics = state.metrics.clone()
+        return s2
+
+    ms = {}
+    for name, (kind, rows, valid, meta, _ovf) in (
+            ("datapath_packed_sharded", batches[1]),
+            ("datapath_wide_sharded", batches[8])):
+        s_t = fork(ks)
+        ep, dirn = meta.get("ep"), meta.get("dirn")
+        kernels[name]["ms"] = device_ms(
+            lambda: launch_datapath(s_t, rows, now, ep, dirn, valid, None,
+                                    None, None, False, n_shards=SHARDS), 20)
+        kernels[name]["plain_ms"] = device_ms(
+            lambda: pm.sharded_verdict_plain(s_t, rows, now, SHARDS, valid,
+                                             ep, dirn), 3)
+        out_k, c = launch_datapath(fork(ks), rows, now, ep, dirn, valid,
+                                   None, None, None, False,
+                                   n_shards=SHARDS)
+        hits = int(((out_k[:, 2] != 0) & valid).sum())
+        n_valid = int(valid.sum())
+        hdr_w = rows if not meta else None
+        n_v6 = (0 if meta else int(((hdr_w[:, 13] != 4) & valid).sum()))
+        row_b = 16 if meta else 64
+        kernels[name]["bytes"] = (
+            SHARD_ROWS * (row_b + 24 + 1) + n_valid * (2 * 64 + 8 * 4)
+            + hits * 68 + ks.ipcache.v6_net.numel() * 9)
+        kernels[name]["ops"] = (
+            n_valid * (2 * (10 * 4 + 12 + 16 * 3) + 120)
+            + n_v6 * ks.ipcache.v6_net.shape[0] * 14)
+        ms[name] = (out_k, c, valid)
+    out_k, c, valid = ms["datapath_packed_sharded"]
+
+    def fresh_ct():
+        return ct.CTTable(ks.ct.table.clone(), ks.ct.fp.clone(),
+                          ks.ct.dropped.clone(), torch.full_like(ks.ct.claim,
+                                                                 -1))
+
+    args = (c.l4, c.fwd, c.result, c.slot, c.is_reply, c.do_create,
+            c.proxy_port, now)
+    kernels["ct_update_sharded"]["ms"] = device_ms(
+        lambda w: launch_ct_update(w, *args, valid, n_shards=SHARDS), 20,
+        fresh_ct)
+    kernels["ct_update_sharded"]["plain_ms"] = device_ms(
+        lambda w: pm.sharded_ct_update_plain(w, c, now, SHARDS, valid), 3,
+        fresh_ct)
+    work = fresh_ct()
+    pm.sharded_ct_update_plain(work, c, now, SHARDS, valid)
+    hit = (c.result != 0) & valid
+    # global slots of the hits: shard base + the local slot
+    shard = torch.arange(SHARD_ROWS, device="cuda") // SHARD_BLOCK
+    gslot = shard * (CT_CAPACITY // SHARDS) + c.slot.to(torch.int64)
+    hs = torch.unique(gslot[hit])
+    sectors = torch.unique(torch.cat([(hs * 68 + 40) // 32,
+                                      (hs * 68 + 63) // 32])).numel()
+    inserted = int(((work.table[:, 10] != 0)
+                    & (ks.ct.table[:, 10] == 0)).sum())
+    pend = int((c.do_create & (c.result == 0) & valid).sum())
+    kernels["ct_update_sharded"]["bytes"] = (
+        SHARD_ROWS * (4 + 1 + 1) + int(hit.sum()) * (4 + 1 + 12)
+        + sectors * 32 * 2 + pend * (40 + 8 + 4 + 64) + inserted * (68 + 4)
+        + 4)
+    kernels["ct_update_sharded"]["ops"] = (SHARD_ROWS * 40
+                                           + pend * (10 * 4 + 20 * 30))
+    kernels["ring_append_sharded"]["ms"] = device_ms(
+        lambda r: launch_ring_append(r, out_k, 7, 1024, valid, pp,
+                                     n_shards=SHARDS), 20,
+        lambda: pm.make_sharded_ring(mesh, RING_CAPACITY))
+    kernels["ring_append_sharded"]["plain_ms"] = device_ms(
+        lambda r: pm.sharded_ring_append_plain(r, out_k, 7, SHARDS, 1024,
+                                               valid, pp), 3,
+        lambda: pm.make_sharded_ring(mesh, RING_CAPACITY))
+    local = torch.arange(SHARD_ROWS, device="cuda") % SHARD_BLOCK
+    kept = int((((out_k[:, 5] != 0) | (local % 1024 == 0)) & valid).sum())
+    kernels["ring_append_sharded"]["bytes"] = (SHARD_ROWS * (24 + 1)
+                                               + kept * 8 + 16 * SHARDS)
+    kernels["ring_append_sharded"]["ops"] = SHARD_ROWS * 30
+    k = {n: kernels[n]["ms"] for n in ("datapath_packed_sharded",
+                                       "ct_update_sharded",
+                                       "ring_append_sharded")}
+    unsharded = sum(kernels[n]["ms"] for n in ("datapath_packed",
+                                               "ct_update", "ring_append"))
+    bounds = sum(bound(kernels[n]["bytes"], kernels[n]["ops"])[0]
+                 for n in k)
+    print(f"sharded kernels at {SHARD_ROWS} routed rows: K1s "
+          f"{k['datapath_packed_sharded']:.4f} ms (wide "
+          f"{kernels['datapath_wide_sharded']['ms']:.4f}), K4s "
+          f"{k['ct_update_sharded']:.4f}, K5s "
+          f"{k['ring_append_sharded']:.4f}; sum {sum(k.values()):.4f} ms "
+          f"against 2 x (K1 + K4 + K5) at {N} rows = {2 * unsharded:.4f} "
+          f"ms; bound {bounds:.4f} ms")
+    report["sharded_kernels"] = {
+        "seconds": time.monotonic() - t0, "overflow": ovf,
+        "events_per_shard": totals.tolist(), "ct_live": live,
+        "sum_ms": sum(k.values()), "unsharded_x2_ms": 2 * unsharded,
+        "bound_ms": bounds}
+
+
+def phase_sharded_daemon(torch, rng, world, report):
+    """Phase 15 (b): config #3's daemon serving sharded over 8 shards on
+    the card: 2^21 packets of phase 7's steady traffic (ledger exact, no
+    event lost, route overflow equal to its metric and its DROP events,
+    per-reason metrics equal to the fixed-batch run when nothing
+    overflowed or dropped), then 2^16 wide rows (IPv6, ICMP errors) so
+    the wide sharded kernel runs too; a timed session (StageClock) and a
+    profiled one.  Returns the launches of the first two sessions."""
+    import numpy as np
+    from cilium_tpu_torch import parallel
+    from cilium_tpu_torch.core import packets
+    from cilium_tpu_torch.core.packets import COL_EP
+    from cilium_tpu_torch.datapath.verdict import REASON_ROUTE_OVERFLOW
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.monitor.api import MSG_DROP
+    from cilium_tpu_torch.testing import fixtures as fx
+
+    t0 = time.monotonic()
+    d, db, rows = config3_daemon(world, rng)
+    ovf_events = [0]
+
+    def count_overflow(batch):
+        ovf_events[0] += int(((batch.msg_type == MSG_DROP)
+                              & (batch.reason == REASON_ROUTE_OVERFLOW))
+                             .sum())
+
+    d.monitor.register("smoke-route-overflow", count_overflow)
+    reset_launch_counts()
+    d.start()
+    out, t_serve = serve_session(d, rows, mesh=SHARDS)
+    m_daemon = d.loader.metrics()
+    dropped = int(d.loader.state.ct.dropped) & 0xFFFFFFFF
+    wide = fx.wide_traffic(fx.wide_flow_pool(world, 1 << 14, rng), 1 << 16,
+                           rng)
+    wide[:, COL_EP] = db.id
+    out_w, _t = serve_session(d, wide, mesh=SHARDS)
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    for o, n in ((out, len(rows)), (out_w, len(wide))):
+        fe, ft = o["front-end"], o["front-end"]["fault-tolerance"]
+        check(fe["submitted"] == fe["verdicts"] + fe["shed"]
+              + ft["recovery-dropped"], f"sharded daemon: ledger {fe}")
+        check(fe["verdicts"] == n and ft["recovery-dropped"] == 0
+              and o["lost"] == 0 and o["events"] > 0
+              and o["shards"] == SHARDS,
+              f"sharded daemon: {fe['verdicts']} verdicts of {n}, "
+              f"{o['events']} events, {o['lost']} lost")
+    ovf = out["route-overflow"] + out_w["route-overflow"]
+    m_all = d.loader.metrics()
+    check(ovf == int(m_all[REASON_ROUTE_OVERFLOW, 0]) == ovf_events[0],
+          f"sharded daemon: route overflow {ovf}, metric "
+          f"{int(m_all[REASON_ROUTE_OVERFLOW, 0])}, events {ovf_events[0]}")
+    for name in ("datapath_packed_sharded", "datapath_wide_sharded",
+                 "ct_update_sharded", "ring_append_sharded", "ring_gather"):
+        check(launches[name] > 0, f"sharded daemon: {name} never launched")
+    for name in ("datapath_packed", "datapath_wide", "ct_update",
+                 "ring_append"):
+        check(launches[name] == 0,
+              f"sharded daemon: the single-shard {name} ran")
+    if out["route-overflow"] == 0 and dropped == 0:
+        m_fixed = fixed_batch_metrics(d, db, rows)
+        check(np.array_equal(m_daemon, m_fixed),
+              f"sharded daemon: metrics {m_daemon.tolist()} differ from "
+              f"the fixed-batch run {m_fixed.tolist()}")
+        same = "equal the fixed-batch serve_packed run"
+    else:
+        same = (f"not compared (overflow {out['route-overflow']}, CT drops "
+                f"{dropped})")
+    fe = out["front-end"]
+    print(f"sharded daemon: {len(rows)} packets over {SHARDS} shards in "
+          f"{t_serve:.3f} s ({len(rows) / t_serve:.0f} verdicts/s, host "
+          f"clock), {out['windows']} windows, {out['events']} events, "
+          f"lost 0, {fe['batches']} batches; route overflow {ovf}; "
+          f"metrics {same}; then {len(wide)} wide rows")
+    print(f"sharded daemon launches: {json.dumps(launches)}")
+
+    # a timed session: the host stages on the daemon's threads
+    clock = StageClock(SHARD_STAGES)
+    originals = [(parallel, "route_by_flow", parallel.route_by_flow),
+                 (packets, "pack_rows", packets.pack_rows)]
+    clock.wrap(d, "submit", "submit: queue copy in")
+    clock.wrap(d, "serve_batch", "dispatch: serve_batch, all")
+    clock.wrap(d, "_serve_batch_sharded",
+               "sharded leg: route + re-pack + serve_sharded")
+    clock.wrap(d.loader, "serve_sharded",
+               "loader: staging copy + K1s/K4s/K5s enqueued")
+    clock.wrap(d, "_event_join", "event join, all")
+    clock.wrap(parallel, "route_by_flow", "route: route_by_flow")
+    clock.wrap(packets, "pack_rows", "re-pack: pack_rows")
+    per = len(rows) // 8
+
+    class _After:
+        def after_start(self, dd):
+            s = dd._serving
+            for attr in ("assemble_super", "assemble"):
+                clock.wrap(s["runtime"].batcher, attr,
+                           "batcher: dequeue + assemble", skip_none=True)
+            clock.wrap(s["drainer"], "swap_window",
+                       "drain tick: cursor read (waits for the card), K6 "
+                       "gather, copy start")
+
+        def before_start(self, dd):
+            pass
+
+        def unwrap(self, dd):
+            pass
+
+    out_st, t_st = serve_session(d, rows[per:], _After(), mesh=SHARDS)
+    for owner, attr in ((d, "submit"), (d, "serve_batch"),
+                        (d, "_serve_batch_sharded"), (d, "_event_join"),
+                        (d.loader, "serve_sharded")):
+        delattr(owner, attr)
+    for owner, attr, fn in originals:
+        setattr(owner, attr, fn)
+    stages = clock.summary(t_st)
+    check(out_st["front-end"]["verdicts"] == len(rows) - per
+          and out_st["lost"] == 0, "sharded daemon: the timed session "
+          "lost rows or events")
+    print(f"sharded daemon timed session: {len(rows) - per} packets in "
+          f"{t_st:.3f} s ({(len(rows) - per) / t_st:.0f} verdicts/s); "
+          f"stages (calls, median ms, total ms, share of the session):")
+    for name, v in stages.items():
+        med = "-" if v["median_ms"] is None else f"{v['median_ms']:.3f}"
+        print(f"  [{v['thread']}] {name}: {v['calls']}, {med}, "
+              f"{v['total_ms']:.3f}, {v['share']:.1%}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out2, t_prof = serve_session(d, rows[per:], mesh=SHARDS)
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("Activity Buffer"))
+    by_name = {e.key: e.self_device_time_total / 1e3
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0}
+    print(f"sharded daemon profiled session: {len(rows) - per} packets in "
+          f"{t_prof:.3f} s ({(len(rows) - per) / t_prof:.0f} verdicts/s "
+          f"under the tracer); device busy {busy_us / 1e3:.3f} ms "
+          f"({busy_us / 1e6 / t_prof:.1%}), idle "
+          f"{1 - busy_us / 1e6 / t_prof:.1%}")
+    d.shutdown()
+    report["sharded_daemon"] = {
+        "seconds": time.monotonic() - t0, "serve_s": t_serve,
+        "packets": len(rows), "verdicts_per_s": len(rows) / t_serve,
+        "front_end": fe, "windows": out["windows"], "events": out["events"],
+        "route_overflow": ovf, "ct_dropped": dropped,
+        "metrics": m_daemon.tolist(), "launches": launches,
+        "stages": {"seconds": t_st, "by_stage": stages},
+        "profiled": {"seconds": t_prof, "device_busy_ms": busy_us / 1e3,
+                     "front_end": out2["front-end"],
+                     "device_ms_by_name": by_name}}
+    return launches
+
+
+RULES_EGRESS_ENFORCED = [{
+    "endpointSelector": {"matchLabels": {"app": "db"}},
+    "ingress": [{"fromEndpoints": [{"matchLabels": {"app": "web"}}],
+                 "toPorts": [{"ports": [{"port": "5432",
+                                         "protocol": "TCP"}]}]}],
+    "egress": [{"toEndpoints": [{"matchLabels": {"app": "db"}}],
+                "toPorts": [{"ports": [{"port": "1", "protocol": "TCP"}]}]}],
+}]
+
+
+def phase_sharded_demotion(torch, report):
+    """Phase 15 (c): the sharded rung's demotion on the card, under
+    db's egress-enforced rules (``tests/test_serving_faults.py``'s
+    shape, 8 shards): 64 flows established sharded, two injected
+    sharded-dispatch faults (``loader.serve_sharded=1x2@1``) demote the
+    session, and the flows' replies must all forward through the CT the
+    demotion carried across."""
+    from cilium_tpu_torch.agent import Daemon, DaemonConfig
+    from cilium_tpu_torch.core.packets import (COL_DIR, TCP_ACK, TCP_SYN,
+                                               make_batch)
+    from cilium_tpu_torch.monitor.api import MSG_DROP
+
+    t0 = time.monotonic()
+    d = Daemon(DaemonConfig(
+        ct_capacity=1 << 16, serving_queue_depth=4096,
+        serving_bucket_ladder=(64,), serving_max_wait_us=500.0,
+        serving_dispatch_deadline_ms=2000.0, serving_restart_budget=4,
+        serving_restart_backoff_ms=1.0, serving_demote_threshold=2,
+        serving_promote_after=1000, serving_promote_cooldown_s=0.05,
+        fault_injection="loader.serve_sharded=1x2@1", fault_seed=1))
+    d.add_endpoint("web", ("10.0.1.1",), ["k8s:app=web"])
+    db = d.add_endpoint("db", ("10.0.2.1",), ["k8s:app=db"])
+    d.policy_import(RULES_EGRESS_ENFORCED)
+    got = []
+    d.monitor.register("smoke-demotion", got.append)
+
+    def syns(base):
+        return make_batch([dict(src="10.0.1.1", dst="10.0.2.1",
+                                sport=base + i, dport=5432, proto=6,
+                                flags=TCP_SYN, ep=db.id, dir=0)
+                           for i in range(64)]).data
+
+    d.start_serving(ring_capacity=1 << 10, trace_sample=1, ingress=True,
+                    packed=True, drain_every=2, mesh=SHARDS)
+    rt = d._serving["runtime"]
+    d.submit(syns(20000))
+    wait_for(lambda: rt.stats.verdicts >= 64, "the sharded warm batch")
+    check(d.serving_stats()["mode"] == "sharded",
+          "demotion: not serving sharded")
+    d.submit(syns(40000))
+    wait_for(lambda: rt.stats.recovery_dropped >= 64, "the first fault")
+    d.submit(syns(41000))
+    wait_for(lambda: rt.stats.verdicts >= 128, "the demoted retry")
+    st = d.serving_stats()
+    check(st["mode"] in ("single", "wide")
+          and st["ladder"]["demotions"] == 1
+          and st["ct-snapshot"]["trigger"] == "demotion"
+          and st["ct-snapshot"]["entries"] >= 64,
+          f"demotion: mode {st['mode']}, ladder {st['ladder']}, "
+          f"snapshot {st.get('ct-snapshot')}")
+    got.clear()
+    d.submit(make_batch([dict(src="10.0.2.1", dst="10.0.1.1", sport=5432,
+                              dport=20000 + i, proto=6, flags=TCP_ACK,
+                              ep=db.id, dir=1)
+                         for i in range(64)]).data)
+    wait_for(lambda: rt.stats.verdicts >= 192, "the replies")
+    fe = d.stop_serving()["front-end"]
+    ft = fe["fault-tolerance"]
+    check(fe["submitted"] == fe["verdicts"] + fe["shed"]
+          + ft["recovery-dropped"], f"demotion: ledger {fe}")
+    fwd = drop = 0
+    for b in got:
+        m = b.hdr[:, COL_DIR] == 1
+        fwd += int((b.msg_type[m] != MSG_DROP).sum())
+        drop += int((b.msg_type[m] == MSG_DROP).sum())
+    check(fwd == 64 and drop == 0,
+          f"demotion: CT not carried ({drop} replies dropped, {fwd} "
+          f"forwarded)")
+    d.shutdown()
+    print(f"sharded demotion: {st['mode']} after 2 injected faults, the "
+          f"snapshot ({st['ct-snapshot']['entries']} entries) restored, "
+          f"all 64 replies of the sharded flows forwarded "
+          f"({time.monotonic() - t0:.1f} s)")
+    report["sharded_demotion"] = {"mode": st["mode"],
+                                  "snapshot": st["ct-snapshot"],
+                                  "replies_forwarded": fwd}
+
+
 def main() -> int:
     if not (ROOT / "cilium_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout (cilium_tpu_torch/ is "
@@ -4181,6 +4706,14 @@ def main() -> int:
 
         # -- 14. the trainer ------------------------------------------------
         by_path["train"] = phase_train(torch, rng, world, report)
+
+        # -- 15. sharded serving ------------------------------------------
+        t15 = time.monotonic()
+        phase_sharded_kernels(torch, rng, world, kernels, report)
+        by_path["sharded"] = phase_sharded_daemon(torch, rng, world, report)
+        phase_sharded_demotion(torch, report)
+        report["sharded_s"] = time.monotonic() - t15
+        print(f"sharded serving: {report['sharded_s']:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4191,14 +4724,15 @@ def main() -> int:
                                              k.pop("flop_ms", 0.0))
         # launches: the daemon path's count where the kernel runs there,
         # else the slice path's, the churn path's, the egress path's,
-        # the service path's, the anomaly path's or the trainer's (each
-        # path's counts zeroed before it ran)
+        # the service path's, the anomaly path's, the trainer's or the
+        # sharded daemon's (each path's counts zeroed before it ran)
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         k["launches"] = (by_path["daemon"][name] or by_path["slice"][name]
                          or by_path["churn"][name] or by_path["egress"][name]
                          or by_path["service"][name]
                          or by_path["anomaly"][name]
-                         or by_path["train"][name])
+                         or by_path["train"][name]
+                         or by_path["sharded"][name])
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
         print(f"kernel {name}: {k['launches']} launches on the main path "

@@ -10,7 +10,10 @@ worker pool fed by the event join's REDIRECT rows, and the DNS-answer
 -> FQDN identity loop), and the offline path ``process_batch`` (the
 service load balancer with its socket-LB flow cache, egress SNAT with
 port allocation and the egress gateway, bandwidth policing, the
-datapath step, reverse NAT, the monitor).  The datapath
+datapath step, reverse NAT, the monitor), and sharded serving over S
+flow-routed shards on the one card (``start_serving(mesh=S)``, with its
+rung of the degraded-mode ladder and the CT carried across its
+demotion), CT snapshots and checkpoint/restore.  The datapath
 is :class:`TorchLoader` on ``device`` (None: the card; the tests pass
 ``device="cpu"``), and the proxy runs its L7 verdicts on the same
 device.  With ``anomaly_model_path`` set, an :class:`ml.AnomalyScorer`
@@ -20,8 +23,7 @@ no verdict changes).
 Ported members keep the reference's names and semantics.  What the
 reference wires in besides, and the port does not have yet, raises
 NotImplementedError naming its ROADMAP item, at construction (a config
-knob turned on) or at the call: a multi-card mesh, span tracing and the
-profiler window, mutual auth, encryption, the SLO plane and metric
+knob turned on) or at the call: span tracing and the profiler window, mutual auth, encryption, the SLO plane and metric
 history, the flight recorder, flow analytics, Hubble, policy audit
 mode and monitor trace aggregation.  The proxy's socket listeners, the
 DNS proxy and the xDS surface are not ported (ROADMAP A17): L7
@@ -32,7 +34,9 @@ plane's request source.
 from __future__ import annotations
 
 import collections
+import json
 import logging
+import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -57,6 +61,8 @@ from .endpointmanager import EndpointManager
 # incidents kept in memory (the flight recorder that captures bundles
 # for them is not ported: ROADMAP A14)
 MAX_INCIDENTS = 256
+# the checkpoint's format version (the reference's VERSION)
+VERSION = "0.1.0"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -65,13 +71,50 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclass
 class DaemonConfig:
-    """The reference's DaemonConfig, cut to the knobs of the ported
-    path.  Knobs of unported planes default to off and raise
-    NotImplementedError at construction when turned on."""
+    """The reference's DaemonConfig, field for field and at its
+    defaults, so any config of the reference constructs here.
 
+    Knobs of unported planes raise NotImplementedError naming their
+    ROADMAP item at construction when set off their default
+    (``_UNPORTED_KNOBS``).  Four defaults differ from the reference on
+    purpose, because their planes are not ported: ``enable_hubble``,
+    ``flow_agg_enabled`` and ``mesh_auth`` are False and
+    ``history_interval`` 0.0; ``policy_delta_compile`` is False because
+    the port always compiles in full (delta attach is ROADMAP A2).
+    ``backend`` ("tpu" | "interpreter") picks the reference's loader;
+    the port has one loader on ``Daemon(device=...)`` and ignores it.
+    ``flow_ring_capacity`` sizes the Hubble flow ring, which comes with
+    the observer (ROADMAP A13): it must be a positive power of two, as
+    the reference's Observer asserts, and has no effect until then."""
+
+    node_name: str = "node0"  # A20 (the node registry)
+    backend: str = "tpu"  # accepted and ignored (docstring)
     ct_capacity: int = 1 << 20
     ct_gc_interval: float = 30.0
+    flow_ring_capacity: int = 4096  # the Hubble flow ring (A13)
+    export_path: Optional[str] = None  # A13
+    # checkpoint directory: shutdown() checkpoints into it
+    state_dir: Optional[str] = None
+    enable_hubble: bool = False  # the reference's True: A13
+    anomaly_model_path: Optional[str] = None  # trained AnomalyModel .npz
+    anomaly_threshold: float = 0.8
     fqdn_gc_interval: float = 15.0  # pkg/fqdn TTL sweep cadence
+    hubble_listen: Optional[str] = None  # A13
+    api_socket_path: Optional[str] = None  # A19
+    health_probe_interval: float = 10.0  # A20
+    mesh_auth: bool = False  # the reference's True: A5
+    auth_ttl: int = 3600  # A5
+    auth_gc_interval: float = 30.0  # A5
+    enable_encryption: bool = False  # A15
+    encryption_key_path: Optional[str] = None  # A15
+    # -- egress masquerade (service/nat.py): node_ip is required with it
+    masquerade: bool = False
+    node_ip: Optional[str] = None
+    nodeport_addresses: Tuple[str, ...] = ()  # A20
+    non_masquerade_cidrs: Tuple[str, ...] = ("10.0.0.0/8",)
+    identity_lease_ttl: Optional[float] = None  # A20
+    policy_audit_mode: bool = False  # A16
+    monitor_aggregation: str = "none"  # A16
     # -- serving front end (serving/): see the reference for each knob
     serving_queue_depth: int = 1 << 16
     serving_bucket_ladder: Tuple[int, ...] = (1024, 4096, 16384, 65536)
@@ -80,7 +123,6 @@ class DaemonConfig:
     serving_packed_ingest: bool = False
     serving_superbatch_k: int = 1
     serving_window_queue_depth: int = 4
-    serving_event_gather: bool = True
     # -- the L7 proxy plane (serving/l7plane.py + proxy/worker.py):
     # redirected rows fan out of the event-join worker into a bounded
     # pool of L7 workers.  Worker count and task-queue depth; overflow
@@ -88,6 +130,7 @@ class DaemonConfig:
     # The pool shares serving_restart_budget for its restart budget
     l7_workers: int = 2
     l7_queue_depth: int = 128
+    serving_event_gather: bool = True
     # -- serving fault tolerance (watchdog + degraded-mode ladder)
     serving_dispatch_deadline_ms: float = 1000.0
     serving_restart_budget: int = 8
@@ -95,55 +138,135 @@ class DaemonConfig:
     serving_demote_threshold: int = 3
     serving_promote_after: int = 64
     serving_promote_cooldown_s: float = 5.0
+    # periodic CT snapshot cadence in seconds (0: only on demotion and
+    # checkpoint); the last snapshot rides the recovery paths
+    ct_snapshot_interval: float = 0.0
     # deterministic fault injection (infra/faults.py spec string)
     fault_injection: Optional[str] = None
     fault_seed: int = 0
+    # -- observability (ROADMAP A14)
+    serving_trace_sample: int = 0  # span tracing
+    profile_dir: Optional[str] = None  # the profiler window
+    profile_batches: int = 16
+    flow_agg_enabled: bool = False  # the reference's True: A14
+    flow_agg_window_s: float = 1.0
+    flow_agg_windows: int = 8
+    flow_agg_topk: int = 32
+    flow_agg_queue_depth: int = 16
+    flow_agg_max_duty: float = 0.1
+    spike_factor: float = 4.0
+    spike_min_drops: int = 64
+    spike_baseline_windows: int = 4
+    sysdump_dir: Optional[str] = None  # the flight recorder
+    sysdump_retention: int = 8
+    sysdump_max_bytes: int = 1 << 20
+    sysdump_min_interval_s: float = 1.0
+    sysdump_flows: int = 128
+    # -- the process-mode cluster (ROADMAP A21)
+    cluster_forward_depth: int = 1 << 15
+    cluster_probe_interval_s: float = 0.5
+    cluster_death_threshold: int = 2
+    cluster_convergence_deadline_s: float = 5.0
+    cluster_kvstore: str = "remote"
+    cluster_mode: str = "thread"
+    cluster_slot_factor: int = 16
+    cluster_obs_interval_s: float = 1.0
+    cluster_obs_stale_after_s: float = 30.0
+    cluster_trace_sample: int = 0
+    cluster_forward_window: int = 8
+    cluster_ack_every: int = 4
+    cluster_ack_flush_ms: float = 2.0
+    cluster_encrypt: bool = False
+    cluster_epoch_grace_s: float = 2.0
+    cluster_autoscale: bool = False
+    cluster_autoscale_max_nodes: int = 8
+    cluster_autoscale_high_frac: float = 0.5
+    cluster_autoscale_ticks: int = 3
+    cluster_autoscale_interval_s: float = 0.5
+    cluster_autoscale_min_nodes: int = 1
+    cluster_autoscale_low_frac: float = 0.0
+    # -- delta attach (ROADMAP A2); the reference's default is True
+    policy_delta_compile: bool = False
+    policy_swap_warn_ms: float = 0.0
     # -- map pressure (datapath/pressure.py); 0 disables the sampler
     map_pressure_interval: float = 5.0
     ct_pressure_threshold: float = 0.85
     ct_pressure_clear: float = 0.70
     ct_gc_pressure_interval: float = 1.0
-    ct_gc_relax_after: float = 300.0
-    ct_gc_relax_factor: float = 2.0
-    ct_gc_relax_max: float = 4.0
-    # -- egress masquerade (service/nat.py): node_ip is required with it
-    masquerade: bool = False
-    node_ip: Optional[str] = None
-    non_masquerade_cidrs: Tuple[str, ...] = ("10.0.0.0/8",)
     # SNAT port-pool size: a power of two, the pool inside the port
     # space above NAT_PORT_MIN; None: NAT_DEFAULT_CAPACITY (1 << 14)
     nat_pool_capacity: Optional[int] = None
-    # -- the anomaly scorer (ml/): a checkpoint of either package arms
-    # it on the monitor stream; flagged at score >= the threshold
-    anomaly_model_path: Optional[str] = None
-    anomaly_threshold: float = 0.8
-    # -- unported planes: on raises NotImplementedError
-    serving_trace_sample: int = 0  # span tracing (ROADMAP A14)
-    profile_dir: Optional[str] = None  # profiler window (ROADMAP A14)
-    enable_hubble: bool = False  # Hubble observer (ROADMAP A13)
-    flow_agg_enabled: bool = False  # flow analytics (ROADMAP A14)
-    sysdump_dir: Optional[str] = None  # flight recorder (ROADMAP A14)
-    history_interval: float = 0.0  # SLO plane + history (ROADMAP A14)
-    mesh_auth: bool = False  # mutual auth (ROADMAP A5)
-    enable_encryption: bool = False  # encryption (ROADMAP A15)
-    policy_audit_mode: bool = False  # audit mode (ROADMAP A16)
-    monitor_aggregation: str = "none"  # trace aggregation (ROADMAP A16)
+    ct_gc_relax_after: float = 300.0
+    ct_gc_relax_factor: float = 2.0
+    ct_gc_relax_max: float = 4.0
+    # -- the SLO plane and metric history (ROADMAP A14)
+    history_interval: float = 0.0  # the reference's 10.0
+    history_slots: int = 360
+    history_slow_every: int = 30
+    history_slow_slots: int = 288
+    slo_fast_window: float = 60.0
+    slo_slow_window: float = 600.0
+    slo_page_burn: float = 10.0
+    slo_warn_burn: float = 2.0
+    slo_clear_ticks: int = 3
+    slo_max_duty: float = 0.05
 
 
 # config knob -> (what it turns on, the ROADMAP item that ports it)
 _UNPORTED_KNOBS = {
+    "node_name": ("the node registry and health plane", "A20"),
+    "export_path": ("the Hubble flow exporter (flow/)", "A13"),
+    "hubble_listen": ("the Hubble gRPC server (flow/)", "A13"),
+    "api_socket_path": ("the agent's API server (api/)", "A19"),
+    "health_probe_interval": ("the health plane (health/)", "A20"),
+    "auth_ttl": ("mutual authentication (agent/auth.py)", "A5"),
+    "auth_gc_interval": ("mutual authentication (agent/auth.py)", "A5"),
+    "encryption_key_path": ("transparent encryption (encryption/)",
+                            "A15"),
+    "nodeport_addresses": ("the nodePort frontends of the k8s "
+                           "watchers", "A20"),
+    "identity_lease_ttl": ("leased identities (kvstore/)", "A20"),
     "serving_trace_sample": ("span tracing (obs/trace.py)", "A14"),
     "profile_dir": ("the serving profiler window", "A14"),
+    "profile_batches": ("the serving profiler window", "A14"),
     "enable_hubble": ("the Hubble observer (flow/)", "A13"),
-    "flow_agg_enabled": ("flow analytics (obs/analytics.py)", "A14"),
     "sysdump_dir": ("the flight recorder (obs/flightrec.py)", "A14"),
-    "history_interval": ("the SLO plane and metric history (obs/slo.py, "
-                         "obs/history.py)", "A14"),
     "mesh_auth": ("mutual authentication (agent/auth.py)", "A5"),
     "enable_encryption": ("transparent encryption (encryption/)", "A15"),
     "policy_audit_mode": ("policy audit mode", "A16"),
     "monitor_aggregation": ("monitor trace aggregation", "A16"),
+    "policy_delta_compile": ("delta attach (policy/incremental.py "
+                             "delta_compile)", "A2"),
+    "policy_swap_warn_ms": ("delta attach's slow-swap warning", "A2"),
 }
+for _knob in ("flow_agg_enabled", "flow_agg_window_s", "flow_agg_windows",
+              "flow_agg_topk", "flow_agg_queue_depth", "flow_agg_max_duty",
+              "spike_factor", "spike_min_drops", "spike_baseline_windows"):
+    _UNPORTED_KNOBS[_knob] = ("flow analytics (obs/analytics.py)", "A14")
+for _knob in ("sysdump_retention", "sysdump_max_bytes",
+              "sysdump_min_interval_s", "sysdump_flows"):
+    _UNPORTED_KNOBS[_knob] = ("the flight recorder (obs/flightrec.py)",
+                              "A14")
+for _knob in ("history_interval", "history_slots", "history_slow_every",
+              "history_slow_slots", "slo_fast_window", "slo_slow_window",
+              "slo_page_burn", "slo_warn_burn", "slo_clear_ticks",
+              "slo_max_duty"):
+    _UNPORTED_KNOBS[_knob] = ("the SLO plane and metric history "
+                              "(obs/slo.py, obs/history.py)", "A14")
+for _knob in ("cluster_forward_depth", "cluster_probe_interval_s",
+              "cluster_death_threshold", "cluster_convergence_deadline_s",
+              "cluster_kvstore", "cluster_mode", "cluster_slot_factor",
+              "cluster_obs_interval_s", "cluster_obs_stale_after_s",
+              "cluster_trace_sample", "cluster_forward_window",
+              "cluster_ack_every", "cluster_ack_flush_ms",
+              "cluster_encrypt", "cluster_epoch_grace_s",
+              "cluster_autoscale", "cluster_autoscale_max_nodes",
+              "cluster_autoscale_high_frac", "cluster_autoscale_ticks",
+              "cluster_autoscale_interval_s",
+              "cluster_autoscale_min_nodes", "cluster_autoscale_low_frac"):
+    _UNPORTED_KNOBS[_knob] = ("the process-mode cluster (cluster/)",
+                              "A21")
+BACKENDS = ("tpu", "interpreter")  # the reference's; the port ignores it
 
 
 def _requires_auth(rules) -> bool:
@@ -170,6 +293,15 @@ class Daemon:
         for knob, (what, item) in _UNPORTED_KNOBS.items():
             if getattr(cfg, knob) != getattr(defaults, knob):
                 raise _not_ported(f"{what} ({knob})", item)
+        if cfg.backend not in BACKENDS:
+            raise ValueError(
+                f"backend must be one of {BACKENDS}, got {cfg.backend!r} "
+                f"(the port ignores it: its loader runs on the Daemon's "
+                f"device)")
+        ring_cap = cfg.flow_ring_capacity
+        if ring_cap < 1 or ring_cap & (ring_cap - 1):
+            raise ValueError(f"flow_ring_capacity must be a positive power "
+                             f"of two, got {ring_cap}")
         # serving knobs fail at CONSTRUCTION, normalized values written
         # back (the reference's contract)
         (cfg.serving_queue_depth, cfg.serving_bucket_ladder,
@@ -255,6 +387,8 @@ class Daemon:
         self._boot_time = time.time()
         self._started = False
         self._serving = None  # start_serving() installs the ring path
+        # the retained CT snapshot (periodic, on demotion, on checkpoint)
+        self._ct_snap: Optional[dict] = None
         self.ct_gc_evicted = 0  # CT entries the aging sweeps evicted
         self.pressure = MapPressureMonitor(
             sample_fn=lambda: self.loader.map_pressure(self._now()),
@@ -433,10 +567,19 @@ class Daemon:
                 self.config.map_pressure_interval)
         self.controllers.update(
             "fqdn-gc", self.fqdn.gc, self.config.fqdn_gc_interval)
+        if self.config.ct_snapshot_interval > 0:
+            # periodic CT snapshots: a recovery path whose live CT is
+            # unreadable restores established flows from the last one
+            self.controllers.update(
+                "ct-snapshot",
+                lambda: self.ct_snapshot_now(trigger="interval"),
+                self.config.ct_snapshot_interval)
 
     def shutdown(self) -> None:
         self.controllers.stop_all()
         self.stop_serving()  # no-op when idle; drains in-flight work
+        if self.config.state_dir:
+            self.checkpoint(self.config.state_dir)
         self.allocator.close()
         if self._fault_injector is not None:
             from ..infra import faults
@@ -709,6 +852,159 @@ class Daemon:
             out["nat"] = nat
         return out
 
+    # -- CT snapshots (periodic, on demotion, on demand) ---------------
+    def ct_snapshot_now(self, trigger: str = "manual") -> dict:
+        """Take and retain a CT snapshot (dense portable rows).  The
+        retained copy rides the recovery paths: a demotion whose live
+        CT is unreadable restores from it instead of dropping every
+        established flow."""
+        rows = self.loader.ct_snapshot()
+        return self._store_ct_snapshot(rows, trigger)
+
+    def _store_ct_snapshot(self, rows: np.ndarray, trigger: str) -> dict:
+        s = self._serving
+        lad = s.get("ladder") if s is not None else None
+        self._ct_snap = {
+            "rows": np.array(rows, copy=True),
+            "taken-at": time.time(),
+            "trigger": trigger,
+            "mode": lad.rung if lad is not None else "offline",
+            "revision": self.repo.revision,
+        }
+        return self.ct_snapshot_info()
+
+    def ct_snapshot_info(self) -> Optional[dict]:
+        """Metadata of the retained CT snapshot (None before the first
+        one): how stale a recovery restore would be."""
+        snap = self._ct_snap
+        if snap is None:
+            return None
+        return {
+            "age-seconds": round(time.time() - snap["taken-at"], 3),
+            "entries": int(len(snap["rows"])),
+            "trigger": snap["trigger"],
+            "mode": snap["mode"],
+            "revision": snap["revision"],
+        }
+
+    def restore_ct_snapshot(self) -> bool:
+        """Restore the retained snapshot into the live loader; False
+        when no snapshot has been taken."""
+        if self._ct_snap is None:
+            return False
+        self.loader.ct_restore(self._ct_snap["rows"])
+        return True
+
+    # -- checkpoint / restore -------------------------------------------
+    def checkpoint(self, state_dir: str) -> None:
+        """Persist the control-plane state and the CT (and NAT)
+        snapshot (reference: /var/run/cilium/state + pinned maps)."""
+        from ..policy.api import rule_to_dict
+
+        os.makedirs(state_dir, exist_ok=True)
+        ids = [{"id": i.numeric_id,
+                "labels": [str(l) for l in i.labels]}
+               for i in self.allocator.all_identities()]
+        meta = {
+            "version": VERSION,
+            "node": self.config.node_name,
+            "revision": self.repo.revision,
+            "identities": ids,
+            "endpoints": [ep.to_dict() for ep in self.endpoints.list()],
+            "ipcache": [
+                {"cidr": e.cidr, "identity": e.identity,
+                 "source": e.source}
+                for e in self.ipcache.entries()
+                if e.source not in ("endpoint", "generated")],
+            "rules": [rule_to_dict(r) for r in self.repo.rules()],
+            # limits and egress policies survive a restart: the restored
+            # NAT snapshot's mappings carry their egress IPs
+            "bandwidth": {str(k): v for k, v in self._bw_limits.items()},
+            "egress-gateways": {
+                name: {"selectors": list(p["selectors"]),
+                       "dest_cidrs": list(p["dest_cidrs"]),
+                       "egress_ip": p["egress_ip"]}
+                for name, p in self._egress_policies.items()},
+        }
+        # ct.npz first, state.json LAST: state.json is the commit point,
+        # so a crash between the two renames never pairs new state with
+        # a stale CT; the CT carries the policy revision it was taken
+        # under, and restore skips a snapshot whose revision differs
+        ct = self.loader.ct_snapshot()
+        self._store_ct_snapshot(ct, trigger="checkpoint")
+        extra = {}
+        nat = self.loader.nat_snapshot()
+        if nat is not None:
+            extra["nat"] = nat  # NAT pairs with CT: one file, atomic
+        ct_tmp = os.path.join(state_dir, "ct.npz.tmp")
+        with open(ct_tmp, "wb") as f:
+            np.savez_compressed(f, table=ct,
+                                revision=np.int64(self.repo.revision),
+                                **extra)
+        os.replace(ct_tmp, os.path.join(state_dir, "ct.npz"))
+        tmp = os.path.join(state_dir, "state.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(meta, f, indent=1)
+        os.replace(tmp, os.path.join(state_dir, "state.json"))
+
+    def restore(self, state_dir: str) -> bool:
+        """Reload a checkpoint (the agent-restart path: datapath state
+        survives; endpoints re-register and regenerate).  False when
+        the directory holds no checkpoint."""
+        path = os.path.join(state_dir, "state.json")
+        if not os.path.exists(path):
+            return False
+        with open(path) as f:
+            meta = json.load(f)
+        for rec in meta["identities"]:
+            self.allocator.restore_identity(
+                rec["id"], LabelSet.parse(*rec["labels"]))
+        for rec in meta["ipcache"]:
+            self.ipcache.upsert(rec["cidr"], rec["identity"],
+                                rec["source"])
+        if meta["rules"]:
+            self.repo.add_obj(meta["rules"])
+        for rec in meta["endpoints"]:
+            # RESTORING until the batched regeneration below realizes
+            # their policy; enforcement mode and options round-trip
+            self.endpoints.add(rec["name"], tuple(rec["ips"]),
+                               LabelSet.parse(*rec["labels"]),
+                               ep_id=rec["id"],
+                               named_ports=rec.get("named-ports"),
+                               restoring=True, defer_regen=True,
+                               enforcement=rec.get("policy-enforcement",
+                                                   "default"),
+                               options=rec.get("options"))
+        self.endpoints.regenerate()
+        for ep_id, bps in (meta.get("bandwidth") or {}).items():
+            self.set_bandwidth(int(ep_id), int(bps))
+        for name, p in (meta.get("egress-gateways") or {}).items():
+            self.add_egress_gateway(name, p["selectors"],
+                                    p["dest_cidrs"], p["egress_ip"])
+        ct_path = os.path.join(state_dir, "ct.npz")
+        if os.path.exists(ct_path):
+            try:
+                snap = np.load(ct_path)
+                snap_rev = (int(snap["revision"])
+                            if "revision" in snap.files else None)
+                if snap_rev is not None and snap_rev != meta["revision"]:
+                    # the torn-checkpoint case: never resurrect flows
+                    # admitted under policy absent from the restored set
+                    logging.getLogger(__name__).warning(
+                        "CT snapshot revision %s != checkpoint revision "
+                        "%s (torn checkpoint); skipping connection "
+                        "state", snap_rev, meta["revision"])
+                else:
+                    self.loader.ct_restore(snap["table"])
+                    if "nat" in snap.files:
+                        self.loader.nat_restore(snap["nat"])
+            except Exception as e:  # noqa: BLE001 — a corrupt snapshot
+                # costs the live connections, not the restored planes
+                logging.getLogger(__name__).warning(
+                    "CT snapshot restore failed (%s); continuing "
+                    "without connection state", e)
+        return True
+
     def _rows_of_identity(self, numerics: np.ndarray) -> np.ndarray:
         # thread-affinity: any
         """Numeric identities -> the live row map's rows (0: unknown)."""
@@ -773,6 +1069,7 @@ class Daemon:
                       ingress: bool = False,
                       packed: Optional[bool] = None,
                       mesh=None,
+                      shard_headroom: int = 2,
                       span_sample: Optional[int] = None,
                       window_queue_depth: Optional[int] = None,
                       event_gather: Optional[bool] = None,
@@ -789,18 +1086,24 @@ class Daemon:
         :meth:`submit` then feeds a packet stream.  ``packed``,
         ``window_queue_depth``, ``event_gather`` and ``superbatch_k``
         default to their ``serving_*`` config knobs, as on the
-        reference.  ``mesh`` and ``span_sample`` raise
-        NotImplementedError (ROADMAP A10 and A14)."""
-        from ..monitor.ring import AsyncRingDrainer
-        from ..serving import (ServingAlreadyActiveError,
+        reference.  ``span_sample`` raises NotImplementedError (ROADMAP
+        A14).
+
+        ``mesh`` (an int S or a :class:`~..parallel.ShardMesh`) serves
+        sharded on the one card: each bucket is flow-routed into S
+        blocks of ``shard_headroom * bucket / S`` rows, each shard owns a
+        CT slice and a private ring, and the sharded kernels serve all S
+        in one launch sequence.  The batcher never packs under a mesh
+        (routing needs wide rows; routed batches re-pack); the ladder
+        pins K = 1 on the sharded rung, and demotion carries the CT to
+        the single-shard rungs."""
+        from ..monitor.ring import AsyncRingDrainer, ShardedAsyncRingDrainer
+        from ..serving import (BucketArena, ServingAlreadyActiveError,
                                validate_superbatch_config)
         from ..serving.eventplane import EventJoinWorker
-        from ..serving.ladder import (FallbackLadder, RUNG_SINGLE,
-                                      RUNG_WIDE)
+        from ..serving.ladder import (FallbackLadder, RUNG_SHARDED,
+                                      RUNG_SINGLE, RUNG_WIDE)
 
-        if mesh is not None:
-            raise _not_ported("multi-card serving (start_serving(mesh=)"
-                              ", parallel/mesh.py)", "A10, B17")
         if span_sample:
             raise _not_ported("span tracing (obs/trace.py)", "A14")
         if self._serving is not None:
@@ -827,9 +1130,31 @@ class Daemon:
         table = np.asarray(sorted(self.proxy.ports)[:MAX_PROXY_PORTS],
                            dtype=np.uint32)
         dev = self.loader.device
-        drainer = AsyncRingDrainer(ring_capacity, proxy_ports=table,
-                                   gather=event_gather, device=dev)
-        rungs = ([RUNG_SINGLE] if packed else []) + [RUNG_WIDE]
+        n_shards = 0
+        if mesh is not None:
+            from ..parallel import make_mesh, make_sharded_ring
+
+            if isinstance(mesh, int):
+                mesh = make_mesh(mesh, dev)
+            n_shards = int(mesh.n_shards)
+            ladder = cfg.serving_bucket_ladder
+            if ladder[0] % n_shards:
+                raise ValueError(
+                    f"sharded serving needs every ladder bucket "
+                    f"divisible by the {n_shards}-shard mesh; smallest "
+                    f"bucket is {ladder[0]}")
+            if shard_headroom < 1:
+                raise ValueError("shard_headroom must be >= 1")
+            self.loader.serving_shard(mesh)
+            drainer = ShardedAsyncRingDrainer(
+                ring_capacity, n_shards,
+                fresh_fn=lambda: make_sharded_ring(mesh, ring_capacity),
+                proxy_ports=table, gather=event_gather, device=dev)
+        else:
+            drainer = AsyncRingDrainer(ring_capacity, proxy_ports=table,
+                                       gather=event_gather, device=dev)
+        rungs = (([RUNG_SHARDED] if mesh is not None else [])
+                 + ([RUNG_SINGLE] if packed else []) + [RUNG_WIDE])
         # arena recycling horizon (serving/batcher.py): a header slot
         # must outlive the batches filling the next window plus every
         # window in flight on the worker; the worker refuses joins
@@ -863,6 +1188,18 @@ class Daemon:
             "seq": 0,
             "packed": bool(packed),
             "packed_pref": bool(packed),  # survives wide demotion
+            "mesh": mesh,
+            "mesh_pref": mesh,  # survives sharded demotion
+            "n_shards": n_shards,
+            "headroom": int(shard_headroom),
+            "route_overflow": 0,
+            # the sharded leg's routed (and re-packed) batches and their
+            # valid masks: the batcher arena's recycling horizon, in
+            # pinned memory on the card; the orig indices stay on the
+            # host
+            "route_arena": BucketArena(arena_depth,
+                                       pin=dev.type == "cuda"),
+            "route_orig": BucketArena(arena_depth),
             "ladder": FallbackLadder(
                 rungs, demote_threshold=cfg.serving_demote_threshold,
                 promote_after=cfg.serving_promote_after,
@@ -899,7 +1236,10 @@ class Daemon:
                 max_wait_us=cfg.serving_max_wait_us,
                 overflow_policy=cfg.serving_overflow_policy,
                 expected_cols=N_COLS,
-                pack=bool(packed),
+                # sharded dispatch flow-routes WIDE rows and re-packs
+                # after routing: the batcher packs only for the
+                # single-shard device leg
+                pack=bool(packed) and mesh is None,
                 arena_depth=arena_depth,
                 dispatch_deadline_s=deadline_s,
                 restart_budget=cfg.serving_restart_budget,
@@ -1015,8 +1355,11 @@ class Daemon:
 
     def _serving_demote(self, cause: str) -> None:
         # thread-affinity: drain, api
-        """One rung down: shrink K first; single -> wide stops
-        packing (the batcher and the per-batch path)."""
+        """One rung down: shrink K first.  sharded -> single: drain the
+        per-shard rings, snapshot the CT, leave the mesh and restore the
+        snapshot into the single-shard placement, so established flows
+        survive.  single -> wide stops packing (the batcher and the
+        per-batch path)."""
         s = self._serving
         lad = s["ladder"]
         old, old_k = lad.rung, lad.k
@@ -1029,18 +1372,71 @@ class Daemon:
         self.record_incident("ladder-demotion",
                              {"from": f"{old}@k{old_k}",
                               "to": f"{new}@k{lad.k}", "cause": cause})
+        if old == "sharded" and new != old:
+            self._serving_leave_mesh(s)
         s["packed"] = (new == "single") and s["packed_pref"]
         runtime = s.get("runtime")
         if runtime is not None:
-            runtime.batcher.pack = s["packed"]
+            # single-shard rungs pack in the batcher; wide never does
+            runtime.batcher.pack = s["packed"] and s["mesh"] is None
             runtime.superbatch_k = lad.k
             # the demoted shape's first dispatch is not a hang
             runtime.reset_warm_shapes()
 
+    def _serving_leave_mesh(self, s) -> None:
+        # thread-affinity: drain, api
+        """The sharded demotion's CT carry: flush what the per-shard
+        rings hold onto the event plane (best effort: the ledger counts
+        what a wedged swap abandons), snapshot the CT (falling back to
+        the last periodic snapshot when the live one is unreadable),
+        leave the mesh, restore, and swap to a single ring."""
+        from ..monitor.ring import AsyncRingDrainer
+
+        try:
+            self._serving_drain_tick(s)
+        except Exception:  # noqa: BLE001
+            # hot-path-ok: demotion failure path only
+            logging.getLogger(__name__).warning(
+                "sharded ring drain failed during demotion; in-flight "
+                "window events lost (counted)")
+        ct, fresh = None, False
+        try:
+            ct = self.loader.ct_snapshot()
+            fresh = True
+        except Exception:  # noqa: BLE001
+            if self._ct_snap is not None:
+                ct = self._ct_snap["rows"]
+                # hot-path-ok: demotion failure path only
+                logging.getLogger(__name__).warning(
+                    "live CT unreadable during demotion; restoring the "
+                    "%.1fs-old periodic snapshot",
+                    time.time() - self._ct_snap["taken-at"])
+        self.loader.serving_unshard()
+        if ct is not None:
+            if fresh:
+                # a stale fallback keeps its own taken-at
+                self._store_ct_snapshot(ct, trigger="demotion")
+            self.loader.ct_restore(ct)
+        s["mesh"] = None
+        s["n_shards"] = 0
+        d = AsyncRingDrainer(s["ring_capacity"],
+                             proxy_ports=s["proxy_table"],
+                             gather=s["gather"], device=self.loader.device)
+        s["drainer"] = d
+        s["ring"] = d.fresh()
+        s["window"].clear()
+
     def _serving_promote(self) -> None:
         # thread-affinity: drain, api
         """One rung back up after sustained health and the cooldown:
-        grow K, or wide -> single re-enables packing."""
+        grow K; wide -> single re-enables packing; single -> sharded
+        re-enters the mesh with per-shard rings.  Re-sharding keeps CT
+        rows where they are: a flow whose entry lies outside its shard's
+        slice re-establishes as NEW on its next packet (never dropped);
+        demotion is the direction that must be lossless, and is."""
+        from ..monitor.ring import ShardedAsyncRingDrainer
+        from ..parallel import make_sharded_ring
+
         s = self._serving
         lad = s["ladder"]
         old, old_k = lad.rung, lad.k
@@ -1049,11 +1445,32 @@ class Daemon:
         logging.getLogger(__name__).info(
             "serving ladder promotes %s@k%d -> %s@k%d", old, old_k, new,
             lad.k)
-        if new != old:
+        if new == "sharded" and new != old:
+            mesh = s["mesh_pref"]
+            try:
+                self._serving_drain_tick(s)
+            except Exception:  # noqa: BLE001
+                # hot-path-ok: promotion failure path only
+                logging.getLogger(__name__).warning(
+                    "ring drain failed during promotion; in-flight "
+                    "window events lost (counted)")
+            self.loader.serving_shard(mesh)
+            s["mesh"] = mesh
+            s["n_shards"] = int(mesh.n_shards)
+            cap = s["ring_capacity"]
+            s["drainer"] = ShardedAsyncRingDrainer(
+                cap, s["n_shards"],
+                fresh_fn=lambda: make_sharded_ring(mesh, cap),
+                proxy_ports=s["proxy_table"], gather=s["gather"],
+                device=self.loader.device)
+            s["ring"] = s["drainer"].fresh()
+            s["window"].clear()
+            s["packed"] = False
+        elif new != old:
             s["packed"] = s["packed_pref"]
         runtime = s.get("runtime")
         if runtime is not None:
-            runtime.batcher.pack = s["packed"]
+            runtime.batcher.pack = s["packed"] and s["mesh"] is None
             runtime.superbatch_k = lad.k
             if new != old:
                 runtime.reset_warm_shapes()
@@ -1116,9 +1533,15 @@ class Daemon:
                # the live-churn plane (datapath/tables.py): published
                # generation, swap/update latency, attach/patch counts
                "tables": self.loader.table_stats()}
+        if s["n_shards"]:
+            out["shards"] = s["n_shards"]
+            out["route-overflow"] = s["route_overflow"]
         runtime = s.get("runtime")
         if runtime is not None:
             out.update(runtime.snapshot())
+        snap = self.ct_snapshot_info()
+        if snap is not None:
+            out["ct-snapshot"] = snap
         l7 = self._l7plane
         if l7 is not None:
             out["l7"] = l7.stats()
@@ -1146,7 +1569,13 @@ class Daemon:
         if s["seq"] - s["last_tick"] >= s["drain_every"]:
             self._serving_drain_tick(s)
         bid = s["seq"] & 0x1FFF  # ring batch field width
-        if packed_meta is not None:
+        if s["mesh"] is not None:
+            if packed_meta is not None:
+                raise ValueError(
+                    "sharded serving routes wide rows (packing happens "
+                    "after flow routing); submit wide batches")
+            info = self._serve_batch_sharded(s, hdr, now, bid, valid)
+        elif packed_meta is not None:
             ep, dirn = packed_meta
             s["ring"], row_map = self.loader.serve_packed(
                 s["ring"], hdr, now, bid, ep, dirn,
@@ -1197,6 +1626,13 @@ class Daemon:
         s = self._serving
         if s is None:
             raise ServingNotStartedError("call start_serving() first")
+        if s["mesh"] is not None:
+            # the ladder pins K = 1 on the sharded rung, so the drain
+            # loop never gets here; this guards direct callers
+            raise ValueError(
+                "superbatch dispatch is a single-shard shape; sharded "
+                "serving flow-routes per batch (the ladder pins K=1 on "
+                "the sharded rung)")
         if now is None:
             now = self._now()
         if s["seq"] - s["last_tick"] >= s["drain_every"]:
@@ -1219,6 +1655,66 @@ class Daemon:
         s["seq"] += sb.k
         return {"h2d_bytes": sb.hdr.nbytes, "mode": f"super-{kind}",
                 "batch_id0": bid0, "bids": bids, "k": sb.k}
+
+    def _serve_batch_sharded(self, s, hdr: np.ndarray, now: int,
+                             bid: int, valid) -> dict:
+        # thread-affinity: drain, api
+        """The sharded leg: flow-route the bucket into per-shard blocks
+        (the RSS analogue), account router overflow as
+        REASON_ROUTE_OVERFLOW (metricsmap + synthesized DROP events),
+        re-pack eligible routed batches to 16 B/packet, and dispatch
+        the sharded serve step (a CT slice and a ring per shard)."""
+        from ..core.packets import (N_COLS, PACKED_COLS,
+                                    pack_eligibility, pack_rows)
+        from ..datapath.verdict import REASON_ROUTE_OVERFLOW
+        from ..monitor.api import synth_drop_batch
+        from ..parallel import route_by_flow
+
+        S = s["n_shards"]
+        hdr = np.asarray(hdr)
+        if valid is None:
+            rows = hdr
+        else:
+            n_valid = int(valid.sum())
+            # the batcher's buckets are prefix-valid (a view); a direct
+            # caller's holes are honored (a copy)
+            rows = (hdr[:n_valid] if valid[:n_valid].all()
+                    else hdr[valid])
+        bucket = max(len(hdr), S)
+        # ONE routed shape per ladder rung: block is fixed at
+        # headroom * bucket / S; the headroom absorbs flow skew
+        block = s["headroom"] * bucket // S
+        arena = s["route_arena"]
+        out = (arena.slot(S * block, N_COLS),
+               arena.slot(S * block, 0, dtype=bool),
+               s["route_orig"].slot(S * block, 0, dtype=np.int64))
+        routed, rvalid, orig, n_ovf = route_by_flow(rows, S, block,
+                                                    out=out)
+        if n_ovf:
+            # a shard's block overflowed (flow skew): counted in the
+            # metricsmap AND surfaced as DROP events, like admission
+            # sheds
+            s["route_overflow"] += n_ovf
+            self.loader.add_route_overflow(n_ovf)
+            dropped = np.ones(len(rows), dtype=bool)
+            dropped[orig[orig >= 0]] = False
+            batch = synth_drop_batch(rows[dropped], REASON_ROUTE_OVERFLOW,
+                                     time.time())
+            self.monitor.publish(self._filter_events(batch))
+        ship, meta, kind = routed, None, "wide"
+        if s["packed"]:
+            ok, ep, dirn = pack_eligibility(rows)
+            if ok:
+                ship = pack_rows(routed, out=arena.slot(len(routed),
+                                                        PACKED_COLS))
+                meta, kind = (ep, dirn), "packed"
+        s["ring"], row_map = self.loader.serve_sharded(
+            s["ring"], ship, now, bid, trace_sample=s["trace_sample"],
+            proxy_ports=s["table_dev"], valid=rvalid, packed_meta=meta)
+        self._serving_snapshot_numerics(s, row_map)
+        s["window"][bid] = (kind, ship, meta, s["numerics"], time.time())
+        return {"h2d_bytes": ship.nbytes, "mode": f"sharded-{kind}",
+                "batch_id": bid}
 
     def _serving_drain_tick(self, s) -> None:
         # thread-affinity: drain, api
@@ -1271,7 +1767,8 @@ class Daemon:
             # the fetch can stall: re-check the recycling horizon
             # before publishing anything
             self._event_check_horizon(dw, self._serving)
-            self._emit_ring_rows(rows, dw.records)
+            self._emit_ring_rows(rows, shards, dw.records,
+                                 dw.ring.n_shards)
         except Exception:
             # the monitor got nothing and the worker counts the window
             # dropped: roll back fetch()'s credit so the ring ledger
@@ -1321,9 +1818,15 @@ class Daemon:
             l7 = self._l7plane.stop(drain=True)
             self._l7_last = l7
             self._l7plane = None
+        if s["mesh"] is not None:
+            # the single-shard steps serve step() / process_batch again
+            self.loader.serving_unshard()
         self._serving = None
         out = {"windows": d.windows, "events": d.events,
                "lost": d.lost, "event-plane": ev}
+        if s["n_shards"]:
+            out["shards"] = s["n_shards"]
+            out["route-overflow"] = s["route_overflow"]
         lad = s["ladder"]
         if lad.demotions or lad.promotions:
             out["ladder"] = lad.to_dict()
@@ -1333,11 +1836,15 @@ class Daemon:
             out["l7"] = l7
         return out
 
-    def _emit_ring_rows(self, rows: np.ndarray, records: dict) -> None:
+    def _emit_ring_rows(self, rows: np.ndarray,
+                        shards: Optional[np.ndarray], records: dict,
+                        n_shards: int) -> None:
         # thread-affinity: event-worker
         """Join decoded ring rows back to their retained batch records
         and publish (``records`` is the window's swap-time snapshot,
-        so this never touches ``self._serving``)."""
+        so this never touches ``self._serving``).  A sharded window's
+        rows carry shard-local packet indices: the retained record is
+        the ROUTED batch, shard s owning rows [s*block, (s+1)*block)."""
         from ..core.packets import unpack_rows_np
         from ..monitor.api import decode_ring_rows
         from ..monitor.ring import COL_BATCH, COL_PKT_IDX
@@ -1349,8 +1856,12 @@ class Daemon:
             if rec is None:
                 continue  # header window expired (overrun drain lag)
             kind, hdr, meta, numerics, ts = rec
-            rows_b = rows[rows[:, COL_BATCH] == b]
-            sel = hdr[rows_b[:, COL_PKT_IDX].astype(np.int64)]
+            m = rows[:, COL_BATCH] == b
+            rows_b = rows[m]
+            pkt = rows_b[:, COL_PKT_IDX].astype(np.int64)
+            if shards is not None:
+                pkt = shards[m] * (len(hdr) // n_shards) + pkt
+            sel = hdr[pkt]
             if kind == "packed":
                 # wide columns only for the rows the ring kept
                 sel = unpack_rows_np(sel, *meta)

@@ -82,44 +82,75 @@ extern "C" int ct_lookup_launch(const CtView* ct, const uint32_t* fwd,
 
 // --- refresh -----------------------------------------------------------
 
-__device__ __forceinline__ bool ct_hit(const CtView& ct,
+// Sharded serving (P16a, cilium_tpu/parallel/mesh.py:259): every row
+// works in its shard's CT slice (conntrack.cuh ct_shard).  Its slot,
+// candidates and tried slot are local to the slice; a claim word is
+// indexed by the global slot (base + local), so one [2, C] claim array
+// and one pending list serve the whole routed batch: flows never cross
+// shards and the slices are disjoint.  Row order within a shard is the
+// same locally and globally, so "the highest row wins" is unchanged, and
+// ct.dropped stays one counter, the sum of the per-shard deltas.
+__device__ __forceinline__ CtView row_shard(const CtView& ct,
+                                            const CtUpdateIO& io, int32_t i,
+                                            int32_t* base) {
+  return ct_shard(ct, io.n_shards, io.block, i, base);
+}
+
+__device__ __forceinline__ bool ct_hit(const CtView& sv,
                                        const CtUpdateIO& io, int32_t i) {
   int32_t s = io.slot[i];
   return io.result[i] != CT_NEW && (!io.valid || io.valid[i]) && s >= 0 &&
-         s < ct.capacity;
+         s < sv.capacity;
 }
 
 __global__ void ct_refresh_state(CtView ct, CtUpdateIO io) {
   int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n || !ct_hit(ct, io, i)) return;
+  if (i >= io.n) return;
+  int32_t base;
+  const CtView sv = row_shard(ct, io, i, &base);
+  if (!ct_hit(sv, io, i)) return;
   uint32_t proto = io.l4[(size_t)i * 3], flags = io.l4[(size_t)i * 3 + 1];
   bool closing = proto == 6 && (flags & (TCP_FIN | TCP_RST)) != 0;
-  uint32_t st = ct.table[(size_t)io.slot[i] * ROW_WORDS + V_STATE];
+  uint32_t st = sv.table[(size_t)io.slot[i] * ROW_WORDS + V_STATE];
   if (io.is_reply[i] && st == ST_SYN_SENT) st = ST_ESTABLISHED;
   io.new_state[i] = closing ? ST_CLOSING : st;
+}
+
+// a claim word of round parity `parity` for the slice slot `s`
+__device__ __forceinline__ int32_t* claim_word(const CtView& ct,
+                                               const CtUpdateIO& io,
+                                               int parity, int32_t base,
+                                               int32_t s) {
+  return &io.claim[(size_t)parity * ct.capacity + base + s];
 }
 
 // the refresh uses the parity-1 claim words; ct_insert_prep clears them
 // before the insert rounds reach parity 1
 __device__ __forceinline__ int32_t* refresh_claim(const CtView& ct,
                                                   const CtUpdateIO& io,
-                                                  int32_t i) {
-  return &io.claim[(size_t)ct.capacity + io.slot[i]];
+                                                  int32_t base, int32_t i) {
+  return claim_word(ct, io, 1, base, io.slot[i]);
 }
 
 __global__ void ct_refresh_max(CtView ct, CtUpdateIO io) {
   int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n || !ct_hit(ct, io, i)) return;
-  atomicMax(&ct.table[(size_t)io.slot[i] * ROW_WORDS + V_STATE],
+  if (i >= io.n) return;
+  int32_t base;
+  const CtView sv = row_shard(ct, io, i, &base);
+  if (!ct_hit(sv, io, i)) return;
+  atomicMax(&sv.table[(size_t)io.slot[i] * ROW_WORDS + V_STATE],
             io.new_state[i]);
-  atomicMax(refresh_claim(ct, io, i), i);
+  atomicMax(refresh_claim(ct, io, base, i), i);
 }
 
 __global__ void ct_refresh_rest(CtView ct, CtUpdateIO io) {
   int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n || !ct_hit(ct, io, i)) return;
-  uint32_t* row = ct.table + (size_t)io.slot[i] * ROW_WORDS;
-  if (*refresh_claim(ct, io, i) == i) {
+  if (i >= io.n) return;
+  int32_t base;
+  const CtView sv = row_shard(ct, io, i, &base);
+  if (!ct_hit(sv, io, i)) return;
+  uint32_t* row = sv.table + (size_t)io.slot[i] * ROW_WORDS;
+  if (*refresh_claim(ct, io, base, i) == i) {
     bool is_tcp = io.l4[(size_t)i * 3] == 6;
     uint32_t st = row[V_STATE];
     uint32_t life = st == ST_CLOSING
@@ -139,7 +170,9 @@ __global__ void ct_refresh_rest(CtView ct, CtUpdateIO io) {
 __global__ void ct_insert_prep(CtView ct, CtUpdateIO io) {
   int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= io.n) return;
-  if (ct_hit(ct, io, i)) *refresh_claim(ct, io, i) = -1;
+  int32_t base;
+  const CtView sv = row_shard(ct, io, i, &base);
+  if (ct_hit(sv, io, i)) *refresh_claim(ct, io, base, i) = -1;
   bool pend = io.do_create[i] && io.result[i] == CT_NEW &&
               (!io.valid || io.valid[i]);
   io.pending[i] = pend;
@@ -153,11 +186,11 @@ __global__ void ct_insert_prep(CtView ct, CtUpdateIO io) {
   io.key_fp[i] = kfp;
   // candidates: the first N_CAND_INS free (fp 0) or same-fingerprint
   // slots of the window, in window order
-  uint32_t mask = (uint32_t)ct.capacity - 1u;
+  uint32_t mask = (uint32_t)sv.capacity - 1u;
   int c = 0;
   for (int step = 0; step < N_PROBE && c < N_CAND_INS; ++step) {
     uint32_t s = (h + (uint32_t)step) & mask;
-    uint32_t f = ct.fp[s];
+    uint32_t f = sv.fp[s];
     if (f == 0 || f == kfp) io.cand[(size_t)i * N_CAND_INS + c++] = (int32_t)s;
   }
   for (; c < N_CAND_INS; ++c) io.cand[(size_t)i * N_CAND_INS + c] = -1;
@@ -178,18 +211,20 @@ __device__ __forceinline__ bool key_eq(const uint32_t* row,
 __global__ void ct_claim_verify_try(CtView ct, CtUpdateIO io, int rv,
                                     int rt) {
   int32_t np = *io.npend;
-  uint32_t mask = (uint32_t)ct.capacity - 1u;
   for (int32_t j = blockIdx.x * blockDim.x + threadIdx.x; j < np;
        j += gridDim.x * blockDim.x) {
     int32_t i = io.plist[j];
     if (!io.pending[i]) continue;
+    int32_t base;
+    const CtView sv = row_shard(ct, io, i, &base);
+    uint32_t mask = (uint32_t)sv.capacity - 1u;
     const uint32_t* k = io.fwd + (size_t)i * KEY_WORDS;
     if (rv >= 0) {
       int32_t s = io.try_slot[i];
       if (s >= 0) {
-        io.claim[(size_t)(rv & 1) * ct.capacity + s] = -1;
-        if (key_eq(ct.table + (size_t)s * ROW_WORDS, k)) {
-          ct.fp[s] = io.key_fp[i];
+        *claim_word(ct, io, rv & 1, base, s) = -1;
+        if (key_eq(sv.table + (size_t)s * ROW_WORDS, k)) {
+          sv.fp[s] = io.key_fp[i];
           io.pending[i] = 0;
           continue;
         }
@@ -205,11 +240,11 @@ __global__ void ct_claim_verify_try(CtView ct, CtUpdateIO io, int rv,
                                 mask);
     int32_t tried = -1;
     if (s >= 0) {
-      const uint32_t* row = ct.table + (size_t)s * ROW_WORDS;
+      const uint32_t* row = sv.table + (size_t)s * ROW_WORDS;
       if (row[V_STATE] == ST_FREE || row[V_EXPIRES] < io.now ||
           key_eq(row, k)) {
         tried = s;
-        atomicMax(&io.claim[(size_t)(rt & 1) * ct.capacity + s], i);
+        atomicMax(claim_word(ct, io, rt & 1, base, s), i);
       }
     }
     io.try_slot[i] = tried;
@@ -223,10 +258,11 @@ __global__ void ct_claim_write(CtView ct, CtUpdateIO io, int r) {
        j += gridDim.x * blockDim.x) {
     int32_t i = io.plist[j];
     int32_t s = io.try_slot[i];
-    if (!io.pending[i] || s < 0 ||
-        io.claim[(size_t)(r & 1) * ct.capacity + s] != i)
-      continue;
-    uint32_t* row = ct.table + (size_t)s * ROW_WORDS;
+    if (!io.pending[i] || s < 0) continue;
+    int32_t base;
+    const CtView sv = row_shard(ct, io, i, &base);
+    if (*claim_word(ct, io, r & 1, base, s) != i) continue;
+    uint32_t* row = sv.table + (size_t)s * ROW_WORDS;
 #pragma unroll
     for (int w = 0; w < KEY_WORDS; ++w)
       row[w] = io.fwd[(size_t)i * KEY_WORDS + w];

@@ -48,6 +48,29 @@ constexpr uint32_t FLAG_RELATED = 0x100;
 constexpr uint32_t TCP_FIN = 0x01;
 constexpr uint32_t TCP_RST = 0x04;
 
+// The CT slice batch row i works in.  Under sharded serving (P16a,
+// cilium_tpu/parallel/mesh.py) the [C, ROW_WORDS] table is S private
+// slices: shard s = i / block owns slots [s*C/S, (s+1)*C/S) and treats
+// them as a table of its own (capacity C/S, its own probe mask), as each
+// chip's CT shard does under the reference's shard_map.  *base is the
+// slice's first global slot.  One shard: the whole table, base 0.
+__device__ __forceinline__ CtView ct_shard(const CtView& ct,
+                                           int32_t n_shards,
+                                           int32_t block, int32_t i,
+                                           int32_t* base) {
+  CtView v = ct;
+  *base = 0;
+  if (n_shards > 1) {
+    int32_t cs = ct.capacity / n_shards;
+    int32_t s = i / block;
+    *base = s * cs;
+    v.table += (size_t)s * cs * ROW_WORDS;
+    v.fp += (size_t)s * cs;
+    v.capacity = cs;
+  }
+  return v;
+}
+
 // FNV-1a over the key words + murmur3 finalizer (u32 wrapping).
 __device__ __forceinline__ uint32_t ct_hash(const uint32_t k[KEY_WORDS]) {
   uint32_t h = 0x811C9DC5u;

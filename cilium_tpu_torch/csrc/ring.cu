@@ -13,6 +13,15 @@
 // than the ring holds: only the last `capacity` kept rows write, so no
 // two rows share a slot.  The proxy port's listener index is the first
 // match in the table, like the reference's argmax.
+// Sharded serving (P16a: cilium_tpu/parallel/mesh.py:234, 259): the
+// batch is S flow-routed blocks of `block` rows and the ring S private
+// rings of `capacity` slots in one [S * capacity, 2] buffer with an
+// [S, 2] cursor (make_sharded_ring's layout).  The grid's y dimension is
+// the shard in all three passes: each shard counts, scans and writes
+// its own block into its own ring at its own cursor, with its own
+// newest-wins overflow, and the packet index and the trace sample are
+// shard-local (i - s * block), as the reference's ring_append sees them
+// inside shard_map.  One shard: block == n, today's single ring.
 //
 // K6: ring_gather, the occupancy-bounded drain.
 //
@@ -32,25 +41,30 @@ constexpr int OUT_VERDICT = 0, OUT_PROXY = 1, OUT_CT = 2, OUT_ID_ROW = 3,
 constexpr uint32_t EV_TRACE = 0;
 
 struct RingIO {
-  const uint32_t* out;          // [n, 6]
+  const uint32_t* out;          // [n, 6], n = n_shards * block
   const bool* valid;            // [n] or null
   const uint32_t* proxy_ports;  // [n_proxy] or null
-  uint32_t* buf;                // [capacity, 2]
-  uint32_t* cursor;             // [2] lo, hi
-  uint32_t* block_counts;       // [n_blocks] scratch
-  uint32_t* meta;               // [2] scratch: base lo, kept count
+  uint32_t* buf;                // [n_shards * capacity, 2]
+  uint32_t* cursor;             // [n_shards, 2] lo, hi
+  uint32_t* block_counts;       // [n_shards, n_blocks] scratch
+  uint32_t* meta;               // [n_shards, 2] scratch: base lo, kept
   int32_t n;
   int32_t n_proxy;
-  int32_t capacity;
+  int32_t capacity;  // slots per shard
   uint32_t trace_sample;
   uint32_t batch_id;
+  int32_t n_shards;
+  int32_t block;  // rows per shard
   int32_t pad;
 };
 
-__device__ __forceinline__ bool ring_keep(const RingIO& io, int32_t i) {
-  if (i >= io.n) return false;
-  bool keep = io.out[(size_t)i * N_OUT + OUT_EVENT] != EV_TRACE;
-  if (io.trace_sample) keep |= ((uint32_t)i % io.trace_sample) == 0;
+// Whether shard s keeps its local row li (li = i - s * block).
+__device__ __forceinline__ bool ring_keep(const RingIO& io, int32_t s,
+                                          int32_t li) {
+  if (li >= io.block) return false;
+  size_t i = (size_t)s * io.block + li;
+  bool keep = io.out[i * N_OUT + OUT_EVENT] != EV_TRACE;
+  if (io.trace_sample) keep |= ((uint32_t)li % io.trace_sample) == 0;
   if (io.valid) keep &= io.valid[i];
   return keep;
 }
@@ -85,44 +99,53 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v,
   return before + x - v;
 }
 
+// grid (n_blocks, n_shards): block x of shard y counts its kept rows
 __global__ void __launch_bounds__(RING_TPB) ring_count(RingIO io) {
-  int32_t i = blockIdx.x * RING_TPB + threadIdx.x;
+  int32_t s = blockIdx.y;
+  int32_t li = blockIdx.x * RING_TPB + threadIdx.x;
   uint32_t total;
-  block_exclusive_scan(ring_keep(io, i) ? 1u : 0u, &total);
-  if (threadIdx.x == 0) io.block_counts[blockIdx.x] = total;
+  block_exclusive_scan(ring_keep(io, s, li) ? 1u : 0u, &total);
+  if (threadIdx.x == 0)
+    io.block_counts[(size_t)s * gridDim.x + blockIdx.x] = total;
 }
 
+// grid (1, n_shards): each shard scans its block counts into offsets
+// and moves its own cursor
 __global__ void __launch_bounds__(RING_TPB) ring_scan_blocks(RingIO io,
                                                              int32_t n_blocks) {
+  int32_t s = blockIdx.y;
+  uint32_t* counts = io.block_counts + (size_t)s * n_blocks;
   uint32_t running = 0;
   for (int32_t base = 0; base < n_blocks; base += RING_TPB) {
     int32_t b = base + threadIdx.x;
-    uint32_t v = b < n_blocks ? io.block_counts[b] : 0u, total;
+    uint32_t v = b < n_blocks ? counts[b] : 0u, total;
     uint32_t pre = block_exclusive_scan(v, &total);
-    if (b < n_blocks) io.block_counts[b] = running + pre;  // now offsets
+    if (b < n_blocks) counts[b] = running + pre;  // now offsets
     running += total;
   }
   if (threadIdx.x == 0) {
-    uint32_t lo = io.cursor[0], hi = io.cursor[1];
+    uint32_t* cur = io.cursor + 2 * s;
+    uint32_t lo = cur[0], hi = cur[1];
     uint32_t new_lo = lo + running;
-    io.meta[0] = lo;
-    io.meta[1] = running;
-    io.cursor[0] = new_lo;
-    io.cursor[1] = hi + (new_lo < lo ? 1u : 0u);  // carry
+    io.meta[2 * s] = lo;
+    io.meta[2 * s + 1] = running;
+    cur[0] = new_lo;
+    cur[1] = hi + (new_lo < lo ? 1u : 0u);  // carry
   }
 }
 
 __global__ void __launch_bounds__(RING_TPB) ring_write(RingIO io) {
-  int32_t i = blockIdx.x * RING_TPB + threadIdx.x;
-  bool keep = ring_keep(io, i);
+  int32_t s = blockIdx.y;
+  int32_t li = blockIdx.x * RING_TPB + threadIdx.x;
+  bool keep = ring_keep(io, s, li);
   uint32_t total;
   uint32_t rank = block_exclusive_scan(keep ? 1u : 0u, &total);
   if (!keep) return;
-  uint32_t pos = io.block_counts[blockIdx.x] + rank;
-  uint32_t lo = io.meta[0], count = io.meta[1];
+  uint32_t pos = io.block_counts[(size_t)s * gridDim.x + blockIdx.x] + rank;
+  uint32_t lo = io.meta[2 * s], count = io.meta[2 * s + 1];
   uint32_t cap = (uint32_t)io.capacity;
   if (pos + cap < count) return;  // older than the newest `capacity`
-  const uint32_t* o = io.out + (size_t)i * N_OUT;
+  const uint32_t* o = io.out + ((size_t)s * io.block + li) * N_OUT;
   uint32_t port = o[OUT_PROXY], pidx = 0;
   if (port != 0) {
     for (int32_t k = 0; k < io.n_proxy; ++k) {
@@ -135,22 +158,24 @@ __global__ void __launch_bounds__(RING_TPB) ring_write(RingIO io) {
   uint32_t w0 = (o[OUT_VERDICT] & 0x7) | ((o[OUT_EVENT] & 0x3) << 3) |
                 ((o[OUT_REASON] & 0xF) << 5) | ((o[OUT_CT] & 0x7) << 9) |
                 (pidx << 12) | ((o[OUT_ID_ROW] & 0xFFFF) << 16);
-  uint32_t w1 = (uint32_t)i | ((io.batch_id & 0x1FFF) << 19);
-  uint32_t slot = (lo + pos) & (cap - 1);
-  io.buf[(size_t)slot * 2] = w0;
-  io.buf[(size_t)slot * 2 + 1] = w1;
+  uint32_t w1 = (uint32_t)li | ((io.batch_id & 0x1FFF) << 19);
+  size_t slot = (size_t)s * cap + ((lo + pos) & (cap - 1));
+  io.buf[slot * 2] = w0;
+  io.buf[slot * 2 + 1] = w1;
 }
 
 extern "C" int ring_append_launch(const RingIO* iop, cudaStream_t stream) {
   const RingIO io = *iop;
-  int32_t n_blocks = (io.n + RING_TPB - 1) / RING_TPB;
+  if (io.n_shards < 1) return (int)cudaErrorInvalidValue;
+  int32_t n_blocks = (io.block + RING_TPB - 1) / RING_TPB;
   if (n_blocks > 0) {
-    ring_count<<<n_blocks, RING_TPB, 0, stream>>>(io);
+    ring_count<<<dim3(n_blocks, io.n_shards), RING_TPB, 0, stream>>>(io);
   }
   // the cursor carry runs even for an empty batch, like the reference
-  ring_scan_blocks<<<1, RING_TPB, 0, stream>>>(io, n_blocks);
+  ring_scan_blocks<<<dim3(1, io.n_shards), RING_TPB, 0, stream>>>(io,
+                                                                 n_blocks);
   if (n_blocks > 0) {
-    ring_write<<<n_blocks, RING_TPB, 0, stream>>>(io);
+    ring_write<<<dim3(n_blocks, io.n_shards), RING_TPB, 0, stream>>>(io);
   }
   return (int)cudaGetLastError();
 }

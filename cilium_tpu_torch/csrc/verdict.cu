@@ -19,6 +19,13 @@
 // the metrics scatter drops rows whose reason or direction falls
 // outside the table, like XLA's mode="drop".  u32 atomicAdd commutes,
 // so the counts are bit-exact whatever the order.
+//
+// Sharded serving (P16a: cilium_tpu/parallel/mesh.py:259, 336, the
+// shard_map of datapath_step over S flow-routed blocks) is the same
+// launch with n_shards > 1: row i probes the CT slice of shard i / block
+// (conntrack.cuh ct_shard), and the slot it hands ct_update is local to
+// that slice.  The metrics stay one global [13, 2] table: the reference
+// psums the per-shard deltas, and u32 atomicAdd gives that sum.
 #include "conntrack.cuh"
 #include "lpm.cuh"
 
@@ -89,9 +96,10 @@ __global__ void __launch_bounds__(256)
   // P3: conntrack
   uint32_t fwd[KEY_WORDS], rev[KEY_WORDS];
   ct_keys(src, dst, sport, dport, proto, flags, dirn, fwd, rev);
-  int32_t ct_res, slot;
+  int32_t ct_res, slot, base;
   bool is_reply;
-  ct_lookup_row(ct, fwd, rev, io.now, &ct_res, &slot, &is_reply);
+  const CtView sct = ct_shard(ct, io.n_shards, io.block, i, &base);
+  ct_lookup_row(sct, fwd, rev, io.now, &ct_res, &slot, &is_reply);
   bool related_hint = (flags & FLAG_RELATED) != 0;
   bool is_related = related_hint && ct_res != CT_NEW;
 
@@ -115,7 +123,7 @@ __global__ void __launch_bounds__(256)
 
   // the select chain (verdict.py datapath_step step 4, same order)
   bool is_new = ct_res == CT_NEW;
-  int32_t ct_proxy = (int32_t)ct.table[(size_t)slot * ROW_WORDS + V_PROXY];
+  int32_t ct_proxy = (int32_t)sct.table[(size_t)slot * ROW_WORDS + V_PROXY];
   bool allowed_new = p_verdict == VERDICT_ALLOW || p_verdict == VERDICT_REDIRECT;
   bool allowed = (!is_new || allowed_new) && !no_ep;
   uint32_t auth_exp = __ldg(&pol.auth[prow * pol.n_rows + idrow]);

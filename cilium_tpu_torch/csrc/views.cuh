@@ -72,6 +72,10 @@ struct DatapathIO {
   uint32_t ep;    // packed rows only: stream endpoint
   uint32_t dirn;  // packed rows only: stream direction
   int32_t audit;
+  // sharded serving: row i belongs to shard i / block and probes that
+  // shard's CT slice (conntrack.cuh ct_shard); 1 shard: block == n
+  int32_t n_shards;
+  int32_t block;
   int32_t pad;
 };
 
@@ -98,6 +102,10 @@ struct CtUpdateIO {
   uint8_t* pending;     // [n]
   int32_t n;
   uint32_t now;
+  // sharded serving, as in DatapathIO: slot, cand and try_slot hold
+  // slots local to the row's CT slice; claim words are indexed globally
+  int32_t n_shards;
+  int32_t block;
 };
 
 // One batch of L7 requests against a listener table (proxy/l7policy.py

@@ -229,11 +229,13 @@ class TorchLoader(Loader):
     Ported: ``attach`` (always a full compile; delta attach is ROADMAP
     A2), the in-place patches ``patch_identity``, ``patch_ipcache`` and
     ``delete_ipcache``, ``step``, ``serve``, ``serve_packed``,
-    ``serve_superbatch``, ``gc``, ``map_pressure``, ``add_host_drops``,
-    ``metrics``, ``ct_snapshot``, ``table_stats`` and the NAT pool's
-    ``masquerade``, ``reverse_nat``, ``nat_status`` and
-    ``nat_snapshot``.  The rest raises NotImplementedError naming its
-    ROADMAP item."""
+    ``serve_superbatch``, sharded serving (``serving_shard``,
+    ``serve_sharded``, ``serving_unshard``, ``add_route_overflow``),
+    ``gc``, ``map_pressure``, ``add_host_drops``, ``metrics``,
+    ``ct_snapshot``, ``ct_restore``, ``table_stats`` and the NAT pool's
+    ``masquerade``, ``reverse_nat``, ``nat_status``, ``nat_snapshot``
+    and ``nat_restore``.  The authmap plane raises NotImplementedError
+    naming its ROADMAP item."""
 
     def __init__(self, ct_capacity: int = 1 << 20, device=None,
                  nat_capacity: Optional[int] = None):
@@ -269,6 +271,9 @@ class TorchLoader(Loader):
         # host-side drop counts waiting for a free lock (add_host_drops)
         self._host_drops: Dict[int, int] = {}
         self._host_drops_lock = threading.Lock()
+        # sharded serving (parallel/mesh.py): the mesh while serve_sharded
+        # dispatches
+        self._serving_mesh = None
 
     def _to_device(self, a) -> Optional[torch.Tensor]:
         """A host batch on the loader's device: one copy from the
@@ -569,6 +574,74 @@ class TorchLoader(Loader):
             row_map = self.row_map
         return ring, row_map
 
+    # -- sharded serving (parallel/mesh.py) ------------------------------
+    def serving_shard(self, mesh) -> None:
+        # thread-affinity: drain, api
+        """Enter sharded serving: later :meth:`serve_sharded` dispatches
+        run the sharded step over ``mesh``'s S shards, each with its
+        CT slice.  Nothing moves on the card (the slices are row ranges
+        of the one table); ``attach``, ``gc`` and ``ct_restore`` keep
+        working on the whole table until :meth:`serving_unshard`."""
+        from ..parallel.mesh import shard_state
+
+        if mesh.device != self.device:
+            raise ValueError(f"mesh on {mesh.device}, loader on "
+                             f"{self.device}")
+        with self._lock:
+            shard_state(self.state, mesh)
+            self._serving_mesh = mesh
+
+    def serving_unshard(self) -> None:
+        # thread-affinity: drain, api
+        """Leave sharded serving (the single-shard steps serve again).
+        CT entries keep their positions, as the reference's gather back
+        to one device keeps them."""
+        with self._lock:
+            self._serving_mesh = None
+
+    def serve_sharded(self, ring, hdr, now: int, batch_id: int,
+                      trace_sample: int = 1024, proxy_ports=None,
+                      audit: bool = False, valid=None,
+                      packed_meta=None):
+        # thread-affinity: drain, api
+        """One flow-routed batch through the sharded serve step.
+
+        ``hdr`` is the ``route_by_flow`` output — wide [S*block,
+        N_COLS], or packed [S*block, 4] with ``packed_meta=(ep, dirn)``
+        — and ``ring`` a :func:`parallel.mesh.make_sharded_ring` ring.
+        Each shard runs datapath + ring append on its own block and CT
+        slice; the counters take the sum of the per-shard deltas.
+        Returns (ring, row_map); the ring is updated in place."""
+        from ..infra import faults
+        from ..parallel.mesh import sharded_serve
+
+        # the shard-unavailable failure mode: the sharded dispatch
+        # raising is where the degraded-mode ladder catches it
+        faults.check(faults.SITE_LOADER_SERVE_SHARDED)
+        mesh = self._serving_mesh
+        if mesh is None:
+            raise RuntimeError("serving_shard(mesh) first")
+        hdr = self._to_device(hdr)
+        valid = self._to_device(valid)
+        proxy_ports = self._to_device(proxy_ports)
+        ep = dirn = None
+        if packed_meta is not None:
+            ep, dirn = map(int, packed_meta)
+        with self._lock:
+            sharded_serve(self.state, ring, hdr, now, batch_id,
+                          mesh.n_shards, valid, proxy_ports, trace_sample,
+                          ep, dirn, audit)
+            row_map = self.row_map
+        return ring, row_map
+
+    def add_route_overflow(self, n: int) -> None:
+        # thread-affinity: any
+        """Account host-side flow-router overflow in the metricsmap
+        (REASON_ROUTE_OVERFLOW), the RSS-queue-overflow counter."""
+        from .verdict import REASON_ROUTE_OVERFLOW
+
+        self.add_host_drops(REASON_ROUTE_OVERFLOW, n)
+
     def add_host_drops(self, reason: int, n: int) -> None:
         # thread-affinity: any
         """Account host-side drops (recovery drops, dispatch timeouts)
@@ -660,9 +733,32 @@ class TorchLoader(Loader):
         }
 
     def ct_restore(self, table: np.ndarray) -> None:
-        raise NotImplementedError(
-            "CT restore is not ported yet (ROADMAP A4: CT snapshot and "
-            "restore)")
+        # thread-affinity: drain, api, offline
+        """Reload a CT snapshot: dense rows or a full hashed table (the
+        live rows are taken either way), re-placed with the device hash
+        at this loader's capacity; rows that find no slot in their probe
+        window are dropped and counted in ``ct.dropped``.  Under sharded
+        serving the restored entries keep their global positions: a flow
+        whose entry lands outside its shard's slice re-establishes as
+        NEW, as on the reference."""
+        from .conntrack import (ROW_WORDS, ct_fp_from_table,
+                                ct_table_from_rows)
+
+        table = np.asarray(table)
+        if table.ndim != 2 or table.shape[1] != ROW_WORDS:
+            raise ValueError(f"want CT rows [n, {ROW_WORDS}], got "
+                             f"{table.shape}")
+        table, n_dropped = ct_table_from_rows(ct_rows_from_table(table),
+                                              self.ct_capacity)
+        fp = ct_fp_from_table(table)
+        with self._lock, self._on_stream():
+            ct = CTTable.create(self.ct_capacity, device=self.device)
+            ct.table.copy_(from_numpy(table, self.device))
+            ct.fp.copy_(from_numpy(fp, self.device))
+            ct.dropped.copy_(narrow(torch.tensor(n_dropped)))
+            self.state = DatapathState(
+                policy=self.state.policy, ipcache=self.state.ipcache,
+                ct=ct, metrics=self.state.metrics)
 
     def auth_upsert(self, ep_id: int, remote_id: int,
                     expires: int) -> bool:
@@ -922,9 +1018,17 @@ class TorchLoader(Loader):
             return to_numpy(self.nat_state.table).copy()
 
     def nat_restore(self, table: np.ndarray) -> None:
-        raise NotImplementedError(
-            "NAT restore is not ported yet (ROADMAP A4: it comes with the "
-            "CT snapshot restore)")
+        """Reload a NAT snapshot (``nat_snapshot``'s [P, 6] u32 table):
+        replies to allocated node ports keep reverse-translating across
+        a restart.  The failure count starts again at 0."""
+        from ..service.nat import NATTable
+
+        table = np.ascontiguousarray(table, dtype=np.uint32)
+        with self._lock, self._on_stream():
+            self.nat_state = NATTable(
+                table=from_numpy(table, self.device),
+                failed=torch.zeros((), dtype=torch.int32,
+                                   device=self.device))
 
     def nat_status(self, now: int) -> Optional[dict]:
         from ..service.nat import NAT_PORT_MIN, nat_live_count

@@ -97,6 +97,17 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "cilium_tpu/ml/train.py:124"),
     Kernel("adam_update", "mltrain", "adam_update_launch",
            "cilium_tpu/ml/train.py:119"),
+    # K1s/K4s/K5s: the same launches with the shard as a grid dimension
+    # (sharded serving, parallel/mesh.py), counted apart from the
+    # single-shard path
+    Kernel("datapath_packed_sharded", "verdict", "datapath_launch",
+           "cilium_tpu/parallel/mesh.py:259"),
+    Kernel("datapath_wide_sharded", "verdict", "datapath_launch",
+           "cilium_tpu/parallel/mesh.py:336"),
+    Kernel("ct_update_sharded", "conntrack", "ct_update_launch",
+           "cilium_tpu/parallel/mesh.py:259"),
+    Kernel("ring_append_sharded", "ring", "ring_append_launch",
+           "cilium_tpu/parallel/mesh.py:234"),
 )}
 
 
@@ -241,11 +252,34 @@ def launch_ct_lookup(ct, fwd: torch.Tensor, rev: torch.Tensor, now: int):
     return result, slot, is_reply
 
 
+def shard_block(n: int, n_shards: Optional[int], what: str,
+                capacity: Optional[int] = None) -> int:
+    """Rows per shard of an ``n``-row routed batch over ``n_shards``
+    (None: the single-shard path, one block of ``n``); checks that the
+    batch and the CT ``capacity`` split evenly and that each CT slice is
+    2^k slots."""
+    if n_shards is None:
+        return n
+    if n_shards < 1 or n % n_shards:
+        raise ValueError(f"{what}: {n} rows do not split into {n_shards} "
+                         f"shard blocks")
+    if capacity is not None:
+        cs = capacity // n_shards
+        if capacity % n_shards or cs & (cs - 1):
+            raise ValueError(f"{what}: CT capacity {capacity} does not "
+                             f"split into {n_shards} slices of 2^k slots")
+    return n // n_shards
+
+
 def launch_ct_update(ct, l4, fwd, result, slot, is_reply, do_create,
-                     proxy_port, now: int, valid=None):
-    """K4: the ``ct_update`` launch sequence; updates ``ct`` in place."""
+                     proxy_port, now: int, valid=None,
+                     n_shards: Optional[int] = None):
+    """K4: the ``ct_update`` launch sequence; updates ``ct`` in place.
+    ``n_shards`` (K4s): a routed batch of that many shard blocks, each
+    row working in its shard's CT slice (``slot`` local to it)."""
     dev, n = fwd.device, fwd.shape[0]
     c = ct.table.shape[0]
+    block = shard_block(n, n_shards, "ct_update", c)
 
     def scratch(*shape, dtype=I32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -264,24 +298,28 @@ def launch_ct_update(ct, l4, fwd, result, slot, is_reply, do_create,
         do_create=_ptr(do_create, BOOL, dev, (n,), name="do_create"),
         proxy_port=_ptr(proxy_port, I32, dev, (n,), name="proxy_port"),
         valid=_ptr(valid, BOOL, dev, (n,), name="valid"),
-        n=n, now=int(now) & MASK,
+        n=n, now=int(now) & MASK, n_shards=n_shards or 1, block=block,
         claim=_ptr(ct.claim, I32, dev, (2, c), name="ct.claim"),
         **{k: v.data_ptr() for k, v in s.items()})
     view = ct_view(ct, dev)
-    KERNELS["ct_update"].launch(ctypes.addressof(view),
-                                ctypes.addressof(io), _stream(dev))
+    KERNELS["ct_update" if n_shards is None else "ct_update_sharded"].launch(
+        ctypes.addressof(view), ctypes.addressof(io), _stream(dev))
     return ct
 
 
 def launch_datapath(state, rows: torch.Tensor, now: int, ep, dirn, valid,
-                    pre_drop, pre_drop_reason, lb_drop, audit):
+                    pre_drop, pre_drop_reason, lb_drop, audit,
+                    n_shards: Optional[int] = None):
     """K1: the verdict stage over packed [N, 4] rows (``ep`` given) or
     wide [N, 16] rows.  Returns (out, CTUpdateInput) and adds the
-    batch's metrics to ``state.metrics``."""
+    batch's metrics to ``state.metrics``.  ``n_shards`` (K1s): the rows
+    are that many flow-routed shard blocks, each probing its shard's CT
+    slice; the slots handed to ``ct_update`` are local to the slice."""
     from ..datapath.verdict import CTUpdateInput
 
     packed = ep is not None
     dev, n = rows.device, rows.shape[0]
+    block = shard_block(n, n_shards, "datapath", state.ct.table.shape[0])
 
     def empty(*shape, dtype=I32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -307,11 +345,12 @@ def launch_datapath(state, rows: torch.Tensor, now: int, ep, dirn, valid,
         n=n, now=int(now) & MASK,
         ep=int(ep) & MASK if packed else 0,
         dirn=int(dirn) & MASK if packed else 0,
-        audit=int(bool(audit)))
+        audit=int(bool(audit)), n_shards=n_shards or 1, block=block)
     pol = policy_view(state.policy, dev)
     lpm = lpm_view(state.ipcache, dev)
     ct = ct_view(state.ct, dev)
-    kernel = KERNELS["datapath_packed" if packed else "datapath_wide"]
+    name = "datapath_packed" if packed else "datapath_wide"
+    kernel = KERNELS[name if n_shards is None else name + "_sharded"]
     kernel.launch(ctypes.addressof(io), ctypes.addressof(pol),
                   ctypes.addressof(lpm), ctypes.addressof(ct),
                   int(packed), _stream(dev))
@@ -319,32 +358,44 @@ def launch_datapath(state, rows: torch.Tensor, now: int, ep, dirn, valid,
 
 
 def launch_ring_append(ring, out: torch.Tensor, batch_id: int,
-                       trace_sample: int, valid, proxy_ports):
-    """K5: compact one batch's events into ``ring`` in place."""
+                       trace_sample: int, valid, proxy_ports,
+                       n_shards: Optional[int] = None):
+    """K5: compact one batch's events into ``ring`` in place.
+    ``n_shards`` (K5s): ``out`` is that many shard blocks and ``ring``
+    a sharded ring ([S * cap, 2] buffer, [S, 2] cursor); each block
+    appends to its own shard's ring with shard-local packet indices."""
     dev, n = out.device, out.shape[0]
-    if n > MAX_RING_BATCH:
-        raise ValueError(f"ring_append: {n} rows, pkt_idx packs 19 bits")
+    block = shard_block(n, n_shards, "ring_append")
+    s = n_shards or 1
+    if block > MAX_RING_BATCH:
+        raise ValueError(f"ring_append: {block} rows a shard, pkt_idx "
+                         f"packs 19 bits")
     n_proxy = 0 if proxy_ports is None else proxy_ports.shape[0]
     if n_proxy > MAX_PROXY_PORTS:
         raise ValueError("listener index packs into 4 bits")
-    cap = ring.buf.shape[0]
-    if cap & (cap - 1):
-        raise ValueError(f"ring capacity must be 2^k, got {cap}")
-    n_blocks = (n + 1023) // 1024
-    block_counts = torch.empty(max(n_blocks, 1), dtype=I32, device=dev)
-    meta = torch.empty(2, dtype=I32, device=dev)
+    cap = ring.buf.shape[0] // s
+    if cap & (cap - 1) or cap * s != ring.buf.shape[0]:
+        raise ValueError(f"ring capacity must be 2^k a shard, got "
+                         f"{ring.buf.shape[0]} rows for {s} shards")
+    n_blocks = (block + 1023) // 1024
+    block_counts = torch.empty(max(s * n_blocks, 1), dtype=I32, device=dev)
+    meta = torch.empty(2 * s, dtype=I32, device=dev)
     io = abi.RingIO(
         out=_ptr(out, I32, dev, (n, 6), name="out"),
         valid=_ptr(valid, BOOL, dev, (n,), name="valid"),
         proxy_ports=(_ptr(proxy_ports, I32, dev, (n_proxy,),
                           name="proxy_ports") if n_proxy else None),
-        buf=_ptr(ring.buf, I32, dev, (cap, 2), name="ring.buf"),
-        cursor=_ptr(ring.cursor, I32, dev, (2,), name="ring.cursor"),
+        buf=_ptr(ring.buf, I32, dev, (s * cap, 2), name="ring.buf"),
+        cursor=_ptr(ring.cursor, I32, dev,
+                    (2,) if n_shards is None else (s, 2),
+                    name="ring.cursor"),
         block_counts=block_counts.data_ptr(), meta=meta.data_ptr(),
         n=n, n_proxy=n_proxy, capacity=cap,
         trace_sample=int(trace_sample) & MASK,
-        batch_id=int(batch_id) & MASK)
-    KERNELS["ring_append"].launch(ctypes.addressof(io), _stream(dev))
+        batch_id=int(batch_id) & MASK, n_shards=s, block=block)
+    KERNELS["ring_append" if n_shards is None
+            else "ring_append_sharded"].launch(ctypes.addressof(io),
+                                               _stream(dev))
     return ring
 
 

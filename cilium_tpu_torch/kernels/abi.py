@@ -38,7 +38,8 @@ class DatapathIO(ctypes.Structure):
                 ("is_reply", P), ("do_create", P), ("proxy", P),
                 ("l4", P), ("metrics", P),
                 ("n", I32), ("now", U32), ("ep", U32), ("dirn", U32),
-                ("audit", I32), ("pad", I32)]
+                ("audit", I32), ("n_shards", I32), ("block", I32),
+                ("pad", I32)]
 
 
 class CtUpdateIO(ctypes.Structure):
@@ -48,14 +49,15 @@ class CtUpdateIO(ctypes.Structure):
                 ("new_state", P), ("hash", P), ("key_fp", P), ("cand", P),
                 ("try_slot", P), ("plist", P), ("npend", P), ("claim", P),
                 ("pending", P),
-                ("n", I32), ("now", U32)]
+                ("n", I32), ("now", U32), ("n_shards", I32), ("block", I32)]
 
 
 class RingIO(ctypes.Structure):
     _fields_ = [("out", P), ("valid", P), ("proxy_ports", P), ("buf", P),
                 ("cursor", P), ("block_counts", P), ("meta", P),
                 ("n", I32), ("n_proxy", I32), ("capacity", I32),
-                ("trace_sample", U32), ("batch_id", U32), ("pad", I32)]
+                ("trace_sample", U32), ("batch_id", U32), ("n_shards", I32),
+                ("block", I32), ("pad", I32)]
 
 
 MAX_GATHER_SHARDS = 8

@@ -12,7 +12,7 @@ through ``core/pcap.py``, ``train_on_capture``,
 advisory and never changes a verdict.
 
 Not ported yet: the data-parallel train step over a mesh
-(``make_train_step(mesh=...)`` raises; ROADMAP A10, B17).
+(``make_train_step(mesh=...)`` raises; ROADMAP A10b, B17b).
 """
 
 from .evaluate import (  # noqa: F401

@@ -17,7 +17,8 @@ The step updates the model's trainable leaves and the optimizer's
 moments in place (the reference's are immutable); :func:`train` works
 on its own copy of the leaves, so the caller's model is left as it was.
 The data-parallel step over a mesh (``make_train_step(mesh=...)``, its
-``pmean``) comes with sharded serving (ROADMAP A10, B17).
+``pmean``) is the next slice (ROADMAP A10b, B17b); sharded serving
+landed without it.
 """
 
 from __future__ import annotations
@@ -193,7 +194,7 @@ def make_train_step(optimizer, mesh=None) -> Callable:
     if mesh is not None:
         raise NotImplementedError(
             "make_train_step(mesh=...): the data-parallel train step and "
-            "its pmean come with sharded serving (ROADMAP A10, B17)")
+            "its pmean are not ported yet (ROADMAP A10b, B17b)")
     opt = optimizer if isinstance(optimizer, Adam) else Adam(optimizer)
 
     def step(model: AnomalyModel, opt_state: AdamState,
@@ -217,8 +218,8 @@ def train(model: AnomalyModel, world, steps: int = 200, batch: int = 4096,
     (a trained copy of ``model``, the per-step losses)."""
     if mesh is not None:
         raise NotImplementedError(
-            "train(mesh=...): the data-parallel train step comes with "
-            "sharded serving (ROADMAP A10, B17)")
+            "train(mesh=...): the data-parallel train step is not "
+            "ported yet (ROADMAP A10b, B17b)")
     dev = world.state.metrics.device
     if model.device != dev:
         raise ValueError(f"the model is on {model.device}, the world's "

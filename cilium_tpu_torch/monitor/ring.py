@@ -317,9 +317,10 @@ class RingWindow:
     :meth:`fetch` exactly once."""
 
     buf: Optional[object]  # host rows: pinned tensor, or numpy (CPU)
-    cursor: np.ndarray  # host copy, [1, 2] u32
-    capacity: int
-    appended: int  # events appended this window
+    cursor: np.ndarray  # host copy, [n_shards (or 1), 2] u32
+    capacity: int  # slots per shard
+    n_shards: int  # 0 = single-card ring
+    appended: int  # events appended across shards this window
     lost: int  # lap loss (appended - capacity when the host lagged)
     d2h_bytes: int  # bytes this window put on the device-to-host link
     gathered: bool  # buf is a rung gather, already in append order
@@ -334,23 +335,33 @@ class RingWindow:
         # thread-affinity: event-worker, api, offline -- the blocking
         # wait for the copy lives here; the drain thread only swaps
         """Wait for the copy, decode, and give the host buffer back to
-        the drainer's pool.  Returns ``(rows, None, appended, lost)``
-        (the None stands for the shard ids of a sharded window) and
-        updates the drainer's windows/events/lost counters."""
+        the drainer's pool.  Returns ``(rows, shard_ids, appended,
+        lost)``: a sharded window decodes its shards round-robin, shard
+        0 first, with shard-LOCAL packet indices, and ``shard_ids``
+        gives each row's shard (None for a single-card window).
+        Updates the drainer's windows/events/lost counters."""
         d = self.drainer
         if self.buf is None:
             if d is not None:
                 d.windows += 1
-            return np.zeros((0, RING_COLS), dtype=np.uint32), None, 0, 0
+            shards = np.zeros(0, dtype=np.int64) if self.n_shards else None
+            return (np.zeros((0, RING_COLS), dtype=np.uint32), shards, 0,
+                    0)
         host, self.buf = self.buf, None
         if self.done is not None:
             self.done.synchronize()
         words = (host.numpy().view(np.uint32)
                  if isinstance(host, torch.Tensor) else host)
-        total = int(_cursor_totals(self.cursor)[0])
-        rows, _total, _lost = _decode_fetched(
-            words, total, self.capacity, self.proxy_ports,
-            gathered=self.gathered)
+        totals = _cursor_totals(self.cursor)
+        shards = None
+        if self.n_shards:
+            rows, shards, _total, _lost = _decode_sharded(
+                words, totals, self.capacity, self.proxy_ports,
+                gathered=self.gathered)
+        else:
+            rows, _total, _lost = _decode_fetched(
+                words, int(totals[0]), self.capacity, self.proxy_ports,
+                gathered=self.gathered)
         self.device_refs = ()
         if d is not None:
             if isinstance(host, torch.Tensor):
@@ -358,11 +369,11 @@ class RingWindow:
             d.windows += 1
             d.events += self.appended - self.lost
             d.lost += self.lost
-        return rows, None, self.appended, self.lost
+        return rows, shards, self.appended, self.lost
 
 
-def _start_window(ring: EventRing, capacity: int, proxy_ports, drainer,
-                  gather: bool) -> RingWindow:
+def _start_window(ring: EventRing, capacity: int, n_shards: int,
+                  proxy_ports, drainer, gather: bool) -> RingWindow:
     # thread-affinity: drain, api, offline
     """The swap leg: read the cursor (which retires every queued
     dispatch), do the occupancy math on the host, start the
@@ -378,10 +389,13 @@ def _start_window(ring: EventRing, capacity: int, proxy_ports, drainer,
     lost = int(np.maximum(totals - capacity, 0).sum())
     if appended == 0:
         return RingWindow(buf=None, cursor=cur, capacity=capacity,
-                          appended=0, lost=0, d2h_bytes=0,
+                          n_shards=n_shards, appended=0, lost=0,
+                          d2h_bytes=0,
                           gathered=False, rung=0,
                           proxy_ports=proxy_ports, drainer=drainer)
     if gather:
+        # one rung for every shard (the largest occupancy), so the
+        # fetched layout stays one block a shard
         kept = np.minimum(totals, capacity)
         rung = _gather_rung(int(kept.max()), capacity)
         # oldest surviving slot: 0 until the ring laps, then the
@@ -392,7 +406,7 @@ def _start_window(ring: EventRing, capacity: int, proxy_ports, drainer,
         rung, dev = capacity, ring.buf
     host, done = drainer._copy_to_host(dev)
     return RingWindow(buf=host, cursor=cur, capacity=capacity,
-                      appended=appended, lost=lost,
+                      n_shards=n_shards, appended=appended, lost=lost,
                       d2h_bytes=dev.numel() * 4 + cur.nbytes,
                       gathered=gather, rung=rung, proxy_ports=proxy_ports,
                       drainer=drainer, done=done, device_refs=(ring, dev))
@@ -413,6 +427,8 @@ class AsyncRingDrainer:
     Because every window starts on a fresh ring, the fetched cursor IS
     the window's append count and per-window loss is ``max(0,
     appended - capacity)`` with no cross-window bookkeeping."""
+
+    n_shards = 0  # a single-card ring
 
     def __init__(self, capacity: int = 1 << 15,
                  proxy_ports: np.ndarray = None, gather: bool = True,
@@ -465,9 +481,32 @@ class AsyncRingDrainer:
         from ..infra import faults
 
         faults.check(faults.SITE_RING_SWAP)
-        window = _start_window(ring, self.capacity, self.proxy_ports,
-                               self, self.gather)
+        window = _start_window(ring, self.capacity, self.n_shards,
+                               self.proxy_ports, self, self.gather)
         return window, self.fresh()
+
+
+class ShardedAsyncRingDrainer(AsyncRingDrainer):
+    """The :class:`AsyncRingDrainer` shape for per-shard rings: one
+    [S * capacity, RING_WORDS] buffer and [S, 2] cursor hold every
+    shard's private ring (``parallel.make_sharded_ring``).  The swap
+    reads the S cursors, gathers every shard at one common rung (K6
+    takes up to 8 shards) and the window decodes the shards
+    round-robin.  Loss is per shard per window (every window starts on
+    fresh rings), summed."""
+
+    def __init__(self, capacity: int, n_shards: int, fresh_fn,
+                 proxy_ports: np.ndarray = None, gather: bool = True,
+                 device=None):
+        # fresh_fn: () -> the sharded EventRing (parallel.mesh builds
+        # it: the layout belongs to the mesh)
+        super().__init__(capacity, proxy_ports=proxy_ports, gather=gather,
+                         device=device)
+        self.n_shards = int(n_shards)
+        self._fresh_fn = fresh_fn
+
+    def fresh(self) -> EventRing:
+        return self._fresh_fn()
 
 
 def _unpack_rows(packed: np.ndarray,
@@ -508,9 +547,10 @@ def _decode_fetched(buf: np.ndarray, total: int, cap: int,
     wrap/lost math, empty-slot filter, wire unpack.  The single
     definition of the drain rules — :func:`ring_drain` (one ring),
     :func:`sharded_ring_drain` (per-chip rings), and
-    :meth:`RingWindow.fetch` (the async event plane) all land here in
-    the JAX package, so a future wire-format change (e.g. widening the 4-bit reason
-    field) lands in one place.
+    :meth:`RingWindow.fetch` (the async event plane) all land here,
+    the sharded ones through :func:`_decode_sharded`, so a future
+    wire-format change (e.g. widening the 4-bit reason field) lands in
+    one place.
 
     ``gathered=True`` means ``buf`` is a ``ring_gather`` output:
     already rotated into append order on device (its length is the
@@ -536,6 +576,45 @@ def _drain_window(buf: np.ndarray, cursor: np.ndarray,
     :func:`_decode_fetched` over the whole fetched buffer."""
     total = int(_cursor_totals(cursor)[0])
     return _decode_fetched(buf, total, buf.shape[0], proxy_ports)
+
+
+def _decode_sharded(words: np.ndarray, totals: np.ndarray, capacity: int,
+                    proxy_ports: np.ndarray = None, gathered: bool = False
+                    ) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    # thread-affinity: event-worker, api, offline
+    """Decode a sharded window, shard 0 first: shard s's block of
+    ``words`` (its ring, or its ``ring_gather`` rung with
+    ``gathered``) through :func:`_decode_fetched` with its append total
+    ``totals[s]``.  Returns ``(rows, shard_ids, appended, lost)``, the
+    rows with shard-LOCAL packet indices."""
+    blk = words.shape[0] // len(totals)
+    parts, sids = [], []
+    appended = lost = 0
+    for s, total in enumerate(totals):
+        rows, total, lost_s = _decode_fetched(
+            words[s * blk:(s + 1) * blk], int(total), capacity,
+            proxy_ports, gathered)
+        parts.append(rows)
+        sids.append(np.full(len(rows), s, dtype=np.int64))
+        appended += total
+        lost += lost_s
+    return np.concatenate(parts), np.concatenate(sids), appended, lost
+
+
+def sharded_ring_drain(buf: np.ndarray, cursor: np.ndarray,
+                       proxy_ports: np.ndarray = None
+                       ) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """Host decode of a SHARDED ring window (per-shard private rings
+    drained round-robin, shard 0 first).
+
+    ``buf`` is the fetched [n_shards * cap, RING_WORDS] buffer (shard
+    s owns rows [s*cap, (s+1)*cap)), ``cursor`` the [n_shards, 2]
+    per-shard cursors.  Returns ``(rows, shard_ids, appended, lost)``
+    — ``rows`` decoded like :func:`ring_drain` with shard-LOCAL packet
+    indices, ``shard_ids`` aligned per row (global row = shard * block
+    + pkt_idx)."""
+    return _decode_sharded(buf, _cursor_totals(cursor),
+                           buf.shape[0] // cursor.shape[0], proxy_ports)
 
 
 def ring_drain(ring: EventRing,

@@ -435,7 +435,6 @@ def test_unported_calls_raise_naming_their_roadmap_item():
              "ingress": [{"fromEndpoints": [{}],
                           "authentication": {"mode": "required"}}]}]
     cases = [(lambda: td.policy_import(auth), "A5"),
-             (lambda: td.start_serving(mesh=8), "A10"),
              (lambda: td.start_serving(span_sample=4), "A14")]
     for call, item in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

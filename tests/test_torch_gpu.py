@@ -736,3 +736,65 @@ def test_train_kernels_match_their_plain_versions(case):
         assert int(k[3].item()) == int(count.item()) == 4
     torch.cuda.synchronize()
     assert KERNELS[case].launches > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "wide"])
+def test_sharded_kernels_match_their_plain_versions(packed):
+    """K1s/K4s/K5s (one launch sequence for 4 shards) against the plain
+    per-shard loop on the card: out rows, CT, counters, ring and cursors
+    equal over 3 routed batches with padding and one skewed shard."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (on the card: python -m pytest "
+                    "tests/test_torch_gpu.py --noconftest)")
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import pack_eligibility
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.parallel import mesh as pm
+
+    S, cap = 4, 1 << 10
+    w = tfix.build_world(256, 8, ct_capacity=1 << 12, n_v6=16,
+                         device="cpu")
+    states = [tfix.build_world(256, 8, ct_capacity=1 << 12, n_v6=16,
+                               device="cuda").state for _ in "kp"]
+    mesh = pm.make_mesh(S)
+    rings = [pm.make_sharded_ring(mesh, cap) for _ in "kp"]
+    rng = np.random.default_rng(31 + packed)
+    pool = (tfix.steady_flow_pool(w, 512, rng) if packed
+            else tfix.wide_flow_pool(w, 512, rng))
+    pp = u32.from_numpy(np.array([10000], np.uint32), "cuda")
+    reset_launch_counts()
+    for b in range(3):
+        hdr = pool if b == 0 else (
+            tfix.steady_traffic(pool, 512, rng) if packed
+            else tfix.wide_traffic(pool, 512, rng))
+        if b == 2:
+            hdr[:200] = hdr[0]  # one shard overflows on the host
+        routed, valid, _orig, _ovf = pm.route_by_flow(hdr, S, 256)
+        meta = {}
+        rows = routed
+        if packed:
+            ok, ep, dirn = pack_eligibility(hdr)
+            assert ok
+            rows, meta = pack_rows(routed), dict(ep=ep, dirn=dirn)
+        rows = u32.from_numpy(rows, "cuda")
+        v = torch.from_numpy(valid).cuda()
+        outs = [f(st, r, rows, 100 + b, 8190 + b, S, valid=v,
+                  proxy_ports=pp, trace_sample=64, **meta)
+                for f, st, r in ((pm.sharded_serve_launch, states[0],
+                                  rings[0]),
+                                 (pm.sharded_serve_plain, states[1],
+                                  rings[1]))]
+        assert torch.equal(outs[0], outs[1])
+    for a, b in ((states[0].ct.table, states[1].ct.table),
+                 (states[0].ct.fp, states[1].ct.fp),
+                 (states[0].ct.dropped, states[1].ct.dropped),
+                 (states[0].metrics, states[1].metrics),
+                 (rings[0].buf, rings[1].buf),
+                 (rings[0].cursor, rings[1].cursor)):
+        assert torch.equal(a, b)
+    assert bool((states[0].ct.claim == -1).all())
+    kind = "packed" if packed else "wide"
+    for name in (f"datapath_{kind}_sharded", "ct_update_sharded",
+                 "ring_append_sharded"):
+        assert KERNELS[name].launches == 3
