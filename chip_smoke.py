@@ -132,11 +132,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    at the reference test's arguments (AUC above 0.85); (c)
    ``train_and_evaluate`` at its defaults (1024 identities, 150 steps
    of 4096, exfil held out), the checkpoint saved to ``chiprun_out/``,
-   reloaded and re-scored through K19.  Phase 3 holds K20
-   ``anomaly_train_fwd``, K21 ``anomaly_train_bwd`` and K22
-   ``adam_update`` against their plain versions at B = 4096, V = 16384
-   (one identity on half the rows, id_row past V and negative; adam
-   from a mid-training state);
+   reloaded and re-scored through K19; (d) ``train(mesh=make_mesh(8))``,
+   the data-parallel step (K20s/K21s), from (a)'s params, start state
+   and seed: the same loss and AUC bounds, its first 8 losses within
+   tolerance of (a)'s, steps/s and a profiled window's device share.
+   Phase 3 holds K20 ``anomaly_train_fwd``, K21 ``anomaly_train_bwd``
+   and K22 ``adam_update`` against their plain versions at B = 4096, V =
+   16384 (one identity on half the rows, id_row past V and negative;
+   adam from a mid-training state), and K20s/K21s over 8 shards of that
+   batch against their plain versions and against 8 unsharded launches
+   on the blocks and their mean;
 15. sharded serving over 8 shards on the card: (a) the sharded verdict,
    CT-update and ring-append kernels (K1s/K4s/K5s: one launch sequence
    for all shards) against the plain per-shard loop on the card, packed
@@ -156,7 +161,8 @@ The kernel launch counts are read per path (the slice of phase 4, the
 daemon of phase 7, the L7 paths of phases 3, 8 and 9, the churn of
 phase 10, the egress path of phase 11, the service path of phase 12,
 the armed daemon's first session in phase 13, the 200-step ``train``
-of phase 14, the sharded daemon's two sessions of phase 15), each
+runs of phase 14 (a) and (d), the sharded daemon's two sessions of
+phase 15), each
 zeroed just before its path runs.  The line before the last is one JSON object describing every
 kernel (the standalone launchers with 0 launches and ``"standalone":
 true``); the last line is the device record.  Details go to
@@ -3311,6 +3317,12 @@ EMBED_TOL = 1e-5
 # leaf or a wrong moment is off by thousands of times REPLAY_PARAM_TOL
 REPLAY_LOSS_RTOL = 1e-5
 REPLAY_PARAM_TOL = 1e-6
+TRAIN_SHARDS = 8  # the reference test's mesh, phase 15's
+# phase 14 (d): the first losses of train(mesh=8) against (a)'s unsharded
+# run from the same params, state and seed.  Step 0's losses differ by
+# the sum order only; then each shard's bf16 rounding of a weight
+# gradient can flip adam's first steps where a gradient is near 0
+MESH_LOSS_RTOL = 1e-3
 GOLDEN = ("tests/data/golden_cic.pcap", "tests/data/golden_cic.csv")
 
 
@@ -3357,7 +3369,11 @@ def phase_train_kernels(torch, rng, world, kernels, report):
     K21's weight and bias gradients bit-exact, K20's loss within
     LOSS_RTOL, d_embed within EMBED_TOL of the largest entry (the plain
     version's index_add_ sums in atomic order); K21 twice gives the same
-    bits; K22 one step from a mid-training state (count 3), bit-exact."""
+    bits; K22 one step from a mid-training state (count 3), bit-exact.
+    K20s/K21s over TRAIN_SHARDS blocks of the same batch: the same
+    bounds against their plain versions, and bit-exact against that many
+    unsharded K20/K21 launches on the blocks followed by the shard-order
+    mean."""
     from cilium_tpu_torch.kernels import (launch_adam_update,
                                           launch_anomaly_train_bwd,
                                           launch_anomaly_train_fwd)
@@ -3483,10 +3499,116 @@ def phase_train_kernels(torch, rng, world, kernels, report):
           f"index_add_); two runs bit-identical")
     print(f"parity adam_update: {p_total} parameters, one step from count "
           f"3: params, mu, nu bit-exact, count 4")
+    s_err, s_gerr, s_same = sharded_train_kernels(
+        torch, kernels, leaves, ids, feats, labels, gloss,
+        kernels["anomaly_train_fwd"], kernels["anomaly_train_bwd"])
     report["train_kernels"] = {"rows": n, "v": v, "hot_rows": hot,
                                "loss_err": loss_err, "grad_err": g_err,
                                "embed_identical": e_same,
-                               "parameters": p_total}
+                               "parameters": p_total,
+                               "shards": TRAIN_SHARDS,
+                               "sharded_loss_err": s_err,
+                               "sharded_grad_err": s_gerr,
+                               "sharded_embed_identical": s_same}
+
+
+def shard_mean(torch, parts):
+    """The pmean in shard order: the first, then each next added, over
+    S (a tensor, as K20s/K21s and the plain versions divide)."""
+    total = parts[0]
+    for t in parts[1:]:
+        total = total + t
+    return total / torch.tensor(float(len(parts)), device=total.device)
+
+
+def sharded_train_kernels(torch, kernels, leaves, ids, feats, labels, gloss,
+                          k20, k21):
+    """K20s/K21s at phase 3's batch over TRAIN_SHARDS blocks: against
+    their plain versions (K20's and K21's bounds) and against unsharded
+    launches on the blocks and their shard-order mean (bit-exact), then
+    timed beside their plain versions, with K20's and K21's byte and
+    FLOP counts (the same rows, weights and gradients).  -> (loss err,
+    gradient err, d_embed's identical share against the plain
+    version)."""
+    from cilium_tpu_torch.kernels import (launch_anomaly_train_bwd,
+                                          launch_anomaly_train_fwd)
+    from cilium_tpu_torch.ml.model import (TRAINABLE, train_backward_plain,
+                                           train_forward_plain)
+
+    S = TRAIN_SHARDS
+    n = ids.shape[0]
+    blk = n // S
+    blocks = [slice(z * blk, (z + 1) * blk) for z in range(S)]
+    loss, saved = launch_anomaly_train_fwd(leaves, ids, feats, labels, S)
+    ploss, psaved = train_forward_plain(leaves, ids, feats, labels, S)
+    singles = [launch_anomaly_train_fwd(leaves, ids[b], feats[b], labels[b])
+               for b in blocks]
+    torch.cuda.synchronize()
+    x, h1, h2, logit = psaved
+    for got, want, what in ((saved["logit"], logit, "logit"),
+                            (saved["xT"], x.t(), "x"),
+                            (saved["h1T"], h1.t(), "h1"),
+                            (saved["h2T"], h2.t(), "h2")):
+        check(torch.equal(got, want),
+              f"anomaly_train_fwd_sharded: {what} differs from the plain "
+              f"version ({int((got != want).sum())} cells)")
+    loss_err = abs(loss.item() - ploss.item())
+    check(loss_err <= LOSS_RTOL * abs(ploss.item()),
+          f"anomaly_train_fwd_sharded: loss {loss.item()} vs {ploss.item()}")
+    check(torch.equal(loss, shard_mean(torch, [l for l, _ in singles])),
+          f"anomaly_train_fwd_sharded: loss {loss.item()} is not the mean "
+          f"of {S} unsharded launches' "
+          f"{[l.item() for l, _ in singles]}")
+    got = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss, S)
+    again = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss, S)
+    want = train_backward_plain(leaves, psaved, ids, labels, gloss, S)
+    parts = [launch_anomaly_train_bwd(leaves, sv, ids[b], labels[b], gloss)
+             for (_, sv), b in zip(singles, blocks)]
+    torch.cuda.synchronize()
+    g_err, e_same = 0.0, 1.0
+    for i, (name, a, b, c) in enumerate(zip(TRAINABLE, got, again, want)):
+        check(torch.equal(a, b), f"anomaly_train_bwd_sharded: d{name} "
+              f"differs between two runs on the same inputs")
+        mean = shard_mean(torch, [p[i] for p in parts])
+        check(torch.equal(a, mean), f"anomaly_train_bwd_sharded: d{name} "
+              f"is not the mean of {S} unsharded launches' (max abs err "
+              f"{float((a - mean).abs().max().item())})")
+        err = float((a - c).abs().max().item())
+        g_err = max(g_err, err)
+        if name == "embed":
+            scale = float(c.abs().max().item())
+            e_same = float((a == c).float().mean().item())
+            check(err <= EMBED_TOL * scale,
+                  f"anomaly_train_bwd_sharded: d_embed max abs err {err} "
+                  f"(largest entry {scale})")
+        else:
+            check(err == 0, f"anomaly_train_bwd_sharded: d{name} differs "
+                  f"from the plain version (max abs err {err})")
+    check(all(float(g.abs().max().item()) > 0 for g in got),
+          "anomaly_train_bwd_sharded: a zero gradient leaf")
+    for name, k, fn, plain, err in (
+            ("anomaly_train_fwd_sharded", k20,
+             lambda: launch_anomaly_train_fwd(leaves, ids, feats, labels, S),
+             lambda: train_forward_plain(leaves, ids, feats, labels, S),
+             loss_err),
+            ("anomaly_train_bwd_sharded", k21,
+             lambda: launch_anomaly_train_bwd(leaves, saved, ids, labels,
+                                              gloss, S),
+             lambda: train_backward_plain(leaves, psaved, ids, labels,
+                                          gloss, S), g_err)):
+        kernels[name].update(
+            max_abs_err=err, ms=device_ms(fn, 20), plain_ms=device_ms(plain, 3),
+            bytes=k["bytes"], ops=k["ops"], flop_ms=k["flop_ms"])
+    print(f"parity anomaly_train_fwd_sharded: {S} shards of {blk} rows: "
+          f"logits, x, h1, h2 bit-exact; loss {loss.item():.6f} (abs err "
+          f"{loss_err:.3g}), bit-exact with the mean of {S} unsharded "
+          f"launches")
+    print(f"parity anomaly_train_bwd_sharded: weight and bias gradients "
+          f"bit-exact, d_embed max abs err {g_err:.3g} ({e_same:.5f} "
+          f"identical with the plain version); every gradient bit-exact "
+          f"with the mean of {S} unsharded launches; two runs "
+          f"bit-identical")
+    return loss_err, g_err, e_same
 
 
 TRAIN_STAGES = {"synth_labeled_traffic (host)": "main",
@@ -3583,21 +3705,20 @@ def phase_train(torch, rng, world, report):
     versions, the held-out AUC, steps/s and the per-step host/device
     split; (b) ``evaluate_real_dataset`` on the golden CIC capture at the
     reference test's arguments; (c) ``train_and_evaluate`` at its
-    defaults, the checkpoint saved, reloaded and re-scored.  Returns the
-    launch counts of (a)'s 200-step run."""
+    defaults, the checkpoint saved, reloaded and re-scored; (d) ``train``
+    over ``make_mesh(8)`` (K20s/K21s) from (a)'s params, start state and
+    seed: its first losses against (a)'s, the held-out AUC, steps/s and
+    a profiled window's device share.  Returns the launch counts of
+    (a)'s and (d)'s 200-step runs."""
     import copy
 
     import numpy as np
-    from cilium_tpu_torch import u32
-    from cilium_tpu_torch.datapath.verdict import datapath_step
     from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
-    from cilium_tpu_torch.ml import (auc, evaluate_capture,
-                                     evaluate_real_dataset, flow_features,
-                                     forward, load_model,
-                                     synth_labeled_traffic,
-                                     train_and_evaluate)
+    from cilium_tpu_torch.ml import (evaluate_capture, evaluate_real_dataset,
+                                     load_model, train_and_evaluate)
     from cilium_tpu_torch.ml.model import TRAINABLE
     from cilium_tpu_torch.ml.train import train
+    from cilium_tpu_torch.parallel import make_mesh
     from cilium_tpu_torch.testing.fixtures import build_world
 
     t_phase = time.monotonic()
@@ -3648,12 +3769,7 @@ def phase_train(torch, rng, world, report):
           f"train: the loss fell from {losses[0]} to {losses[-1]} only")
     check(all(bool(torch.isfinite(getattr(model, k)).all())
               for k in TRAINABLE), "train: a non-finite parameter")
-    hdr_np, labels = synth_labeled_traffic(w, TRAIN_N,
-                                           np.random.default_rng(999))
-    hb = u32.from_numpy(hdr_np, "cuda")
-    out, w.state = datapath_step(w.state, hb, 50_000)
-    a_held = auc(forward(model, *flow_features(hb, out)).cpu().numpy(),
-                 labels)
+    a_held = heldout_auc(torch, w, model)
     check(a_held > 0.9, f"train: held-out AUC {a_held}")
     busy, wall, by_name = profiled_steps(
         torch, lambda: train(model, w, steps=REPLAY_STEPS))
@@ -3674,6 +3790,8 @@ def phase_train(torch, rng, world, report):
           f"{1 - busy / wall:.1%}); device ms a step by kernel: "
           + ", ".join(f"{k[:40]} {v / REPLAY_STEPS:.4f}" for k, v in top))
     print_stages("train (a) host stages", stages)
+    mesh_report, mesh_launches = train_mesh(
+        torch, world, model0, losses, make_mesh(TRAIN_SHARDS))
 
     # (b) the golden CIC capture
     t0 = time.monotonic()
@@ -3741,8 +3859,95 @@ def phase_train(torch, rng, world, report):
         "host_ms_per_step": per_step, "stages": stages,
         "golden": r, "golden_s": t_real, "train_and_evaluate": res,
         "train_and_evaluate_s": t_eval, "rescored_auc":
-        again["anomaly_auc"], "phase_s": t_phase, "launches": launches}
-    return launches
+        again["anomaly_auc"], "phase_s": t_phase, "launches": launches,
+        "mesh": mesh_report}
+    return launches, mesh_launches
+
+
+def heldout_auc(torch, w, model):
+    """The reference test's held-out AUC: 4096 fresh rows (seed 999)
+    through the datapath on ``w`` and scored by ``forward``."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath.verdict import datapath_step
+    from cilium_tpu_torch.ml import (auc, flow_features, forward,
+                                     synth_labeled_traffic)
+
+    hdr_np, labels = synth_labeled_traffic(w, TRAIN_N,
+                                           np.random.default_rng(999))
+    hb = u32.from_numpy(hdr_np, "cuda")
+    out, w.state = datapath_step(w.state, hb, 50_000)
+    return auc(forward(model, *flow_features(hb, out)).cpu().numpy(), labels)
+
+
+def train_mesh(torch, world, model0, unsharded, mesh):
+    """Phase 14 (d): ``train(mesh=...)`` at the reference's defaults from
+    (a)'s params and a fresh copy of its start state, on (a)'s seed.
+    The loss falls below 0.6x its first value, nothing is non-finite,
+    the first REPLAY_STEPS losses are within MESH_LOSS_RTOL of (a)'s
+    ``unsharded`` ones, the held-out AUC is above 0.9, and every step ran
+    K20s/K21s (no unsharded K20/K21).  -> (report, launch counts)."""
+    import copy
+
+    import numpy as np
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.ml.model import TRAINABLE
+    from cilium_tpu_torch.ml.train import train
+
+    w = copy.copy(world)
+    w.state = card_state(world)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    model, losses = train(model0, w, steps=TRAIN_STEPS, mesh=mesh)
+    t_train = time.monotonic() - t0  # train's one fetch synced the card
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    for name, want in (("anomaly_train_fwd_sharded", TRAIN_STEPS),
+                       ("anomaly_train_bwd_sharded", TRAIN_STEPS),
+                       ("adam_update", TRAIN_STEPS),
+                       ("flow_features", TRAIN_STEPS),
+                       ("datapath_wide", TRAIN_STEPS),
+                       ("anomaly_train_fwd", 0), ("anomaly_train_bwd", 0)):
+        check(launches[name] == want,
+              f"train (d): {name} launched {launches[name]} times in "
+              f"{TRAIN_STEPS} steps over {mesh.n_shards} shards")
+    check(all(np.isfinite(losses)) and len(losses) == TRAIN_STEPS,
+          "train (d): a non-finite loss")
+    check(losses[-1] < 0.6 * losses[0],
+          f"train (d): the loss fell from {losses[0]} to {losses[-1]} only")
+    check(all(bool(torch.isfinite(getattr(model, k)).all())
+              for k in TRAINABLE), "train (d): a non-finite parameter")
+    l_err = max(abs(a - b) / abs(b) for a, b in
+                zip(losses[:REPLAY_STEPS], unsharded[:REPLAY_STEPS]))
+    check(l_err <= MESH_LOSS_RTOL,
+          f"train (d): the first {REPLAY_STEPS} losses differ from the "
+          f"unsharded run's by {l_err:.3g} relative "
+          f"({losses[:REPLAY_STEPS]} vs {unsharded[:REPLAY_STEPS]})")
+    a_held = heldout_auc(torch, w, model)
+    check(a_held > 0.9, f"train (d): held-out AUC {a_held}")
+    busy, wall, by_name = profiled_steps(
+        torch, lambda: train(model, w, steps=REPLAY_STEPS, mesh=mesh))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"train (d): {TRAIN_STEPS} steps of {TRAIN_N} over "
+          f"{mesh.n_shards} shards in {t_train:.3f} s, "
+          f"{TRAIN_STEPS / t_train:.1f} steps/s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; held-out AUC {a_held:.4f}; the first "
+          f"{REPLAY_STEPS} losses within {l_err:.3g} relative of (a)'s; "
+          f"K20s/K21s/K22 "
+          f"{launches['anomaly_train_fwd_sharded']}/"
+          f"{launches['anomaly_train_bwd_sharded']}/"
+          f"{launches['adam_update']} launches")
+    print(f"train (d): profiled {REPLAY_STEPS} steps: device busy "
+          f"{busy / REPLAY_STEPS:.3f} ms a step of {wall / REPLAY_STEPS:.3f} "
+          f"({busy / wall:.1%}, idle {1 - busy / wall:.1%}); device ms a "
+          f"step by kernel: "
+          + ", ".join(f"{k[:40]} {v / REPLAY_STEPS:.4f}" for k, v in top))
+    return {"shards": mesh.n_shards, "train_s": t_train,
+            "steps_per_s": TRAIN_STEPS / t_train, "losses": losses,
+            "heldout_auc": a_held, "first_loss_err": l_err,
+            "device_busy_ms_per_step": busy / REPLAY_STEPS,
+            "wall_ms_per_step_profiled": wall / REPLAY_STEPS,
+            "device_ms_by_name": by_name, "launches": launches}, launches
 
 
 def plain_serve(state, ring, rows, now, batch_id, ep=None, dirn=None,
@@ -4705,7 +4910,8 @@ def main() -> int:
         by_path["anomaly"] = phase_anomaly(torch, rng, world, report)
 
         # -- 14. the trainer ------------------------------------------------
-        by_path["train"] = phase_train(torch, rng, world, report)
+        by_path["train"], by_path["train_mesh"] = phase_train(
+            torch, rng, world, report)
 
         # -- 15. sharded serving ------------------------------------------
         t15 = time.monotonic()
@@ -4724,14 +4930,16 @@ def main() -> int:
                                              k.pop("flop_ms", 0.0))
         # launches: the daemon path's count where the kernel runs there,
         # else the slice path's, the churn path's, the egress path's,
-        # the service path's, the anomaly path's, the trainer's or the
-        # sharded daemon's (each path's counts zeroed before it ran)
+        # the service path's, the anomaly path's, the trainer's, the
+        # trainer's over a mesh or the sharded daemon's (each path's
+        # counts zeroed before it ran)
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         k["launches"] = (by_path["daemon"][name] or by_path["slice"][name]
                          or by_path["churn"][name] or by_path["egress"][name]
                          or by_path["service"][name]
                          or by_path["anomaly"][name]
                          or by_path["train"][name]
+                         or by_path["train_mesh"][name]
                          or by_path["sharded"][name])
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")

@@ -9,6 +9,20 @@
 // cilium_tpu_torch/ml/model.py train_forward_plain / train_backward_plain
 // and ml/train.py adam_update_plain.
 //
+// K20s and K21s (the same entry points with n_shards > 1) replace the
+// mesh branch, the shard_map of _step over the batch axis (:138) and
+// its pmean of the loss and the gradients (:127-130).  The batch is S
+// contiguous blocks of B / S rows; each shard's loss and gradients are
+// what K20/K21 give on its block alone (g = gloss / (B / S), each weight
+// gradient rounded to bf16 once a shard), and the pmean is the first
+// shard's value, the others added in shard order, divided by S.  So the
+// sharded launch equals S unsharded launches on the blocks followed by
+// that mean, bit for bit, and S = 1 is the unsharded step.  (The
+// reference's mesh gradient under jax 0.9.0 is S times that mean: the
+// gradient of a replicated leaf inside shard_map comes back psum-ed, and
+// the pmean leaves the sum.  The port computes the mean its code asks
+// for; ROADMAP C4.)
+//
 // Roundings (what jax.grad gives the reference, confirmed leaf by leaf
 // by tests/test_torch_train.py): the forward is K19's (x = bf16(concat(
 // embed[id_row], feats)), each product accumulated in float32 and rounded
@@ -27,46 +41,56 @@
 // K20 (bound: bytes at the trainer's B = 4096, V = 16384, ~624 B a row:
 // id_row, feats, label, the 128 B embedding row read; x, h1, h2 in bf16
 // and the logit written; its ~15.9 kFLOP a row would take less on the
-// bf16 tensor cores).  A thread a row, 64 rows a block (64 blocks at B =
-// 4096): K19's arithmetic, the weights bf16-rounded in shared memory, x
-// and then h1 in a bf16 column a thread; x, h1 and h2 leave feature-major
+// bf16 tensor cores).  A thread a row, 64 rows a block, grid (ceil(B /
+// S / 64), S) so that no block straddles a shard (64 blocks at B = 4096):
+// K19's arithmetic, the weights bf16-rounded in shared memory, x and
+// then h1 in a bf16 column a thread; x, h1 and h2 leave feature-major
 // ([59 or 64, B] bf16, so a warp's stores coalesce) for K21.  The loss:
-// each block sums its rows' terms in a fixed tree, one thread sums the
-// blocks' partials in block order and divides by B.  No float atomics:
-// two runs give the same bits.
+// each block sums its rows' terms in a fixed tree; one thread sums each
+// shard's blocks in block order and divides by B / S, then takes the
+// shards' mean.  No float atomics: two runs give the same bits.
 //
 // K21 (bound: bytes, mostly d_embed's [V, 32] float32 written; ~2x K20's
-// FLOPs).  Six launches and a memset, in stream order:
+// FLOPs).  Seven launches and a memset, in stream order:
 //   1. d_embed zeroed (the dense gradient adam reads);
 //   2. bwd_rows, a thread a row: dlogit by the reference's autodiff
-//      rules, dz2 = relu'(h2) bf16(dz3 w3), dh1 = dz2 W2^T, dz1, dx[:, :32]
-//      = dz1 W1[:32]^T (the rows' 64 float32 sums in registers, the
-//      cotangent in a bf16 shared-memory column); dz1, dz2 feature-major,
-//      dz3, and de = bf16(dx[:, :32]) as float32 rows for the scatter;
-//   3. wgrad_partial, one block a 64-row chunk and a layer: every (input,
-//      output) pair's float32 sum over the chunk's rows in row order, the
-//      bias as the sum against an input of ones (the chunk staged in
-//      shared memory, an output's partial sum in a register);
-//   4. wgrad_reduce: a thread an output, the chunks' partials summed in
-//      chunk order, rounded to bf16, written as the leaf's float32
-//      gradient.  Fixed order, no atomics: deterministic;
-//   5. embed_sort, one block: the rows sorted by (clamped key, row) in
-//      shared memory (a bitonic sort of 64-bit keys, 16384 rows at most;
-//      a larger batch goes through steps 5-7 in slices of 16384 rows,
-//      one after the other, each adding its sums into d_embed).  The
-//      reference's gather clamps an index, but its transpose, a
-//      scatter-add, drops an index that is negative after one wrap or
-//      past the table: such rows sort last and are not summed;
-//   6. embed_piece, a warp per 32 sorted rows (a lane a column): each
-//      key's rows summed in row order; a key whose rows lie inside the
-//      piece is added to d_embed, a key that crosses a piece boundary
-//      leaves its head or tail sum;
+//      rules with g = gloss / (B / S), dz2 = relu'(h2) bf16(dz3 w3), dh1
+//      = dz2 W2^T, dz1, dx[:, :32] = dz1 W1[:32]^T (the rows' 64 float32
+//      sums in registers, the cotangent in a bf16 shared-memory column);
+//      dz1, dz2 feature-major, dz3, and de = bf16(dx[:, :32]) as float32
+//      rows for the scatter;
+//   3. wgrad_partial, one block a 64-row chunk of a shard's block and a
+//      layer (grid (chunks a shard, 3, S), a shard's last chunk short):
+//      every (input, output) pair's float32 sum over the chunk's rows in
+//      row order, the bias as the sum against an input of ones (the
+//      chunk staged in shared memory, an output's partial sum in a
+//      register);
+//   4. wgrad_reduce, the pmean: a thread an output; each shard's chunk
+//      partials summed in chunk order and rounded to bf16, the shards'
+//      values added in shard order, divided by S.  Fixed order, no
+//      atomics: deterministic;
+//   5. embed_sort, a block a list: a list is a shard's block, or a slice
+//      of 16384 rows of it when the block is larger; its rows sorted by
+//      (clamped key, row) in shared memory (a bitonic sort of 64-bit
+//      keys).  The reference's gather clamps an index, but its
+//      transpose, a scatter-add, drops an index that is negative after
+//      one wrap or past the table: such rows sort last and are not
+//      summed;
+//   6. embed_piece, a warp per 32 sorted rows of a list (a lane a
+//      column): each key's rows summed in row order; a key whose rows lie
+//      inside the piece leaves its sum at its first sorted position
+//      (seg), a key that crosses a piece boundary its head or tail sum;
 //   7. embed_join, a warp per piece where a crossing key starts: its
-//      tail plus the next pieces' heads, in order, added to d_embed.  A
-//      hot identity (half the batch on one row) costs a 32-row sum and a
-//      walk of B / 64 heads, not B serialized atomics; each key has one
-//      writer a slice and the order is fixed, so two runs give the same
-//      bits.
+//      tail plus the next pieces' heads, in order, into seg.  A hot
+//      identity (half the batch on one row) costs a 32-row sum and a
+//      walk of B / 64 heads, not B serialized atomics;
+//   8. embed_merge, the pmean: a warp per key, in the first list that
+//      holds it (binary searches of the other lists): a shard's sum is
+//      0 plus its lists' seg values in list order (what the unsharded
+//      launch's memset and slice-by-slice adds give), the shards' sums
+//      added in shard order, divided by S, written to d_embed.  One
+//      writer a key and a fixed order: two runs give the same bits, and
+//      d_embed stays sparse (no [S, V, 32] partial).
 //
 // K22 (bound: bytes, 28 B a parameter: p, g, mu, nu read, p, mu, nu
 // written; 532,353 parameters at V = 16384).  One fused pass over every
@@ -125,10 +149,12 @@ struct TrainFwdIO {
   __nv_bfloat16* h1T;     // [64, n]
   __nv_bfloat16* h2T;     // [64, n]
   float* logit;           // [n]
-  float* partial;         // [ceil(n / 64)] the blocks' loss sums
+  float* partial;         // [S * ceil(block / 64)] the blocks' loss sums
   float* loss;            // [1]
   int32_t n;
   int32_t v;
+  int32_t n_shards;  // n rows in n_shards blocks of block rows (1 and n:
+  int32_t block;     // the unsharded step)
 };
 
 // K21's arguments: the batch, K20's saved activations, the weights, the
@@ -148,12 +174,13 @@ struct TrainBwdIO {
   __nv_bfloat16* dz2T;         // [64, n] scratch
   __nv_bfloat16* dz3;          // [n] scratch
   float* de;                   // [n, 32] scratch
-  float* wpart;                // [3, chunks, 65 * 64] scratch
-  int32_t* sorted_key;         // [min(n, 16384)] scratch
-  int32_t* sorted_row;         // [min(n, 16384)] scratch
-  int32_t* nvalid;             // [1] scratch
-  float* head;                 // [pieces, 32] scratch (a slice's pieces)
-  float* tail;                 // [pieces, 32] scratch
+  float* wpart;                // [3, S * chunks a shard, 65 * 64] scratch
+  int32_t* sorted_key;         // [n] scratch, each list at its first row
+  int32_t* sorted_row;         // [n] scratch
+  int32_t* nvalid;             // [lists] scratch
+  float* head;                 // [lists * pieces a list, 32] scratch
+  float* tail;                 // [lists * pieces a list, 32] scratch
+  float* seg;                  // [n, 32] scratch: a key's sum in a list
   float* dw1;                  // [59, 64] out
   float* db1;                  // [64]
   float* dw2;                  // [64, 64]
@@ -163,6 +190,8 @@ struct TrainBwdIO {
   float* d_embed;              // [v, 32] out
   int32_t n;
   int32_t v;
+  int32_t n_shards;  // n rows in n_shards blocks of block rows (1 and n:
+  int32_t block;     // the unsharded step)
 };
 
 // K22: one leaf of the update; its blocks start at block0.
@@ -240,9 +269,10 @@ __global__ void __launch_bounds__(TB) fwd_rows(TrainFwdIO io) {
   }
   __syncthreads();
   const int32_t n = io.n;
-  const int32_t i = blockIdx.x * TB + tid;
+  const int32_t local = blockIdx.x * TB + tid;  // row within the shard
+  const int32_t i = blockIdx.y * io.block + local;
   float term = 0.0f;
-  if (i < n) {
+  if (local < io.block) {
     __nv_bfloat16* col = s_col + tid;
     const int64_t r = xla_index(io.id_row[i], io.v);
     const float4* e = reinterpret_cast<const float4*>(io.embed + r * EMB);
@@ -293,13 +323,20 @@ __global__ void __launch_bounds__(TB) fwd_rows(TrainFwdIO io) {
     if (tid < s) s_red[tid] = __fadd_rn(s_red[tid], s_red[tid + s]);
     __syncthreads();
   }
-  if (tid == 0) io.partial[blockIdx.x] = s_red[0];
+  if (tid == 0) io.partial[blockIdx.y * gridDim.x + blockIdx.x] = s_red[0];
 }
 
+// each shard's blocks in block order over B / S, then the shards' mean
 __global__ void loss_reduce(TrainFwdIO io, int blocks) {
-  float s = 0.0f;
-  for (int b = 0; b < blocks; ++b) s = __fadd_rn(s, io.partial[b]);
-  io.loss[0] = __fdiv_rn(s, (float)io.n);
+  float total = 0.0f;
+  for (int s = 0; s < io.n_shards; ++s) {
+    float sum = 0.0f;
+    for (int b = 0; b < blocks; ++b)
+      sum = __fadd_rn(sum, io.partial[s * blocks + b]);
+    const float ls = __fdiv_rn(sum, (float)io.block);
+    total = s == 0 ? ls : __fadd_rn(total, ls);
+  }
+  io.loss[0] = __fdiv_rn(total, (float)io.n_shards);
 }
 
 // ---- K21 ---------------------------------------------------------------
@@ -319,10 +356,10 @@ __global__ void __launch_bounds__(TB) bwd_rows(TrainBwdIO io) {
   const int32_t n = io.n;
   const int32_t i = blockIdx.x * TB + tid;
   if (i >= n) return;
-  // dlogit: with g = gloss / n and t = exp(-|l|), the rules jax.grad
-  // derives from bce_loss: maximum splits its tie (1/2 at l == 0), abs
-  // takes the + branch at 0
-  const float g = __fdiv_rn(io.gloss[0], (float)n);
+  // dlogit: with g = gloss / (B / S) and t = exp(-|l|), the rules
+  // jax.grad derives from bce_loss: maximum splits its tie (1/2 at l ==
+  // 0), abs takes the + branch at 0
+  const float g = __fdiv_rn(io.gloss[0], (float)io.block);
   const float l = io.logit[i];
   const float t = expf(-fabsf(l));
   const float ct = __fmul_rn(__fdiv_rn(g, __fadd_rn(t, 1.0f)), t);
@@ -378,30 +415,34 @@ __device__ __forceinline__ WgradJob wgrad_job(const TrainBwdIO& io, int y) {
 
 constexpr int WOUT = (HID + 1) * HID;  // a job's outputs, at most
 
+// grid (chunks a shard, 3, S): chunk x of shard z's block; rows past
+// the block's end are zeros
 __global__ void __launch_bounds__(WTB) wgrad_partial(TrainBwdIO io,
                                                      int chunks) {
   __shared__ float s_a[(HID + 1) * CHUNK];  // [input][row], ones last
   __shared__ float s_d[CHUNK * (HID + 1)];  // [row][output], padded
   const WgradJob job = wgrad_job(io, blockIdx.y);
   const int32_t n = io.n;
-  const int32_t row0 = blockIdx.x * CHUNK;
+  const int32_t local0 = blockIdx.x * CHUNK;
+  const int32_t row0 = blockIdx.z * io.block + local0;
+  const int32_t end = io.block - local0;  // rows of the chunk in the block
   const int tid = threadIdx.x;
   for (int idx = tid; idx < job.ka * CHUNK; idx += WTB) {
     const int a = idx / CHUNK, r = idx % CHUNK;
-    const int32_t row = row0 + r;
-    s_a[idx] = row < n ? bf2f(job.a[(size_t)a * n + row]) : 0.0f;
+    s_a[idx] = r < end ? bf2f(job.a[(size_t)a * n + row0 + r]) : 0.0f;
   }
   for (int r = tid; r < CHUNK; r += WTB)
-    s_a[job.ka * CHUNK + r] = row0 + r < n ? 1.0f : 0.0f;
+    s_a[job.ka * CHUNK + r] = r < end ? 1.0f : 0.0f;
   for (int idx = tid; idx < job.nd * CHUNK; idx += WTB) {
     const int dd = idx / CHUNK, r = idx % CHUNK;
-    const int32_t row = row0 + r;
     s_d[r * (HID + 1) + dd] =
-        row < n ? bf2f(job.d[(size_t)dd * n + row]) : 0.0f;
+        r < end ? bf2f(job.d[(size_t)dd * n + row0 + r]) : 0.0f;
   }
   __syncthreads();
   const int outs = (job.ka + 1) * job.nd;
-  float* part = io.wpart + ((size_t)blockIdx.y * chunks + blockIdx.x) * WOUT;
+  float* part = io.wpart +
+                (((size_t)blockIdx.y * io.n_shards + blockIdx.z) * chunks +
+                 blockIdx.x) * WOUT;
   for (int o = tid; o < outs; o += WTB) {
     const int a = o / job.nd, dd = o % job.nd;
     const float* sa = s_a + a * CHUNK;
@@ -413,38 +454,66 @@ __global__ void __launch_bounds__(WTB) wgrad_partial(TrainBwdIO io,
   }
 }
 
+// the pmean: each shard's chunks in chunk order, rounded to bf16 (the
+// unsharded gradient of its block), the shards added in shard order,
+// divided by S
 __global__ void __launch_bounds__(WTB) wgrad_reduce(TrainBwdIO io,
                                                     int chunks) {
   const WgradJob job = wgrad_job(io, blockIdx.y);
   const int outs = (job.ka + 1) * job.nd;
   const int o = blockIdx.x * WTB + threadIdx.x;
   if (o >= outs) return;
-  const float* part = io.wpart + (size_t)blockIdx.y * chunks * WOUT + o;
-  float s = 0.0f;
-  for (int c = 0; c < chunks; ++c) s = __fadd_rn(s, part[(size_t)c * WOUT]);
-  const float v = bf16r(s);
+  const int n_shards = io.n_shards;
+  const float* part =
+      io.wpart + (size_t)blockIdx.y * n_shards * chunks * WOUT + o;
+  float total = 0.0f;
+  for (int z = 0; z < n_shards; ++z) {
+    float s = 0.0f;
+    for (int c = 0; c < chunks; ++c)
+      s = __fadd_rn(s, part[((size_t)z * chunks + c) * WOUT]);
+    const float g = bf16r(s);
+    total = z == 0 ? g : __fadd_rn(total, g);
+  }
+  const float v = __fdiv_rn(total, (float)n_shards);
   if (o / job.nd < job.ka)
     job.dw[o] = v;
   else
     job.db[o % job.nd] = v;
 }
 
-// one block: the slice's m rows from row0 sorted by (key, row) with key
-// the table row the scatter-add writes; rows it drops sort last (key
-// 0xFFFFFFFF)
-__global__ void __launch_bounds__(SORT_TB) embed_sort(TrainBwdIO io, int p2,
-                                                      int32_t row0,
-                                                      int32_t m) {
+// K21's lists: shard z's block split into slices of MAX_SORT rows (one
+// slice when the block is that small); list l = z * lists_a_shard + j
+struct EmbedList {
+  int32_t row0;  // its first row in the batch
+  int32_t m;     // its rows
+};
+
+__device__ __forceinline__ int lists_a_shard(const TrainBwdIO& io) {
+  return (io.block + MAX_SORT - 1) / MAX_SORT;
+}
+
+__device__ __forceinline__ EmbedList embed_list(const TrainBwdIO& io,
+                                                int l) {
+  const int per = lists_a_shard(io);
+  const int32_t j0 = (l % per) * MAX_SORT;
+  return {(l / per) * io.block + j0, min(MAX_SORT, io.block - j0)};
+}
+
+// a block a list: its m rows sorted by (key, row) with key the table row
+// the scatter-add writes; rows it drops sort last (key 0xFFFFFFFF)
+__global__ void __launch_bounds__(SORT_TB) embed_sort(TrainBwdIO io,
+                                                      int p2) {
   extern __shared__ unsigned long long s_keys[];
+  const EmbedList L = embed_list(io, blockIdx.x);
   const int tid = threadIdx.x;
   int valid = 0;
   for (int base = 0; base < p2; base += SORT_TB) {
     const int i = base + tid;
     bool ok = false;
     if (i < p2) {
-      const unsigned row = (unsigned)(row0 + i);
+      const unsigned row = (unsigned)(L.row0 + i);
       unsigned long long k = NO_KEY | row;
-      if (i < m) {
+      if (i < L.m) {
         int64_t key = io.id_row[row];
         if (key < 0) key += io.v;
         ok = key >= 0 && key < io.v;
@@ -469,78 +538,129 @@ __global__ void __launch_bounds__(SORT_TB) embed_sort(TrainBwdIO io, int p2,
       __syncthreads();
     }
   }
-  for (int i = tid; i < m; i += SORT_TB) {
-    io.sorted_key[i] = (int32_t)(s_keys[i] >> 32);
-    io.sorted_row[i] = (int32_t)(s_keys[i] & 0xFFFFFFFFull);
+  for (int i = tid; i < L.m; i += SORT_TB) {
+    io.sorted_key[L.row0 + i] = (int32_t)(s_keys[i] >> 32);
+    io.sorted_row[L.row0 + i] = (int32_t)(s_keys[i] & 0xFFFFFFFFull);
   }
-  if (tid == 0) io.nvalid[0] = valid;
+  if (tid == 0) io.nvalid[blockIdx.x] = valid;
 }
 
-// d_embed[key, lane] += acc: one writer a key within a slice, the slices
-// in stream order (the first adds to the memset's zeros, exactly)
-__device__ __forceinline__ void add_row(float* d_embed, int32_t key,
-                                        int lane, float acc) {
-  float* cell = d_embed + (size_t)key * EMB + lane;
-  *cell = __fadd_rn(*cell, acc);
-}
-
-// a warp per PIECE sorted rows, a lane per column: each key's rows
-// summed in row order; a key inside the piece is added to d_embed, one
-// that crosses the piece's start leaves its head sum, one that crosses
-// its end (and starts in it) its tail sum
-__global__ void __launch_bounds__(WTB) embed_piece(TrainBwdIO io) {
-  const int q = (blockIdx.x * WTB + threadIdx.x) >> 5;
+// grid (lists, pieces a list / warps a block): a warp per PIECE sorted
+// rows of list blockIdx.x, a lane per column; each key's rows summed in
+// row order; a key inside the piece leaves its sum in seg at its first
+// sorted position, one that crosses the piece's start its head sum, one
+// that crosses its end (and starts in it) its tail sum
+__global__ void __launch_bounds__(WTB) embed_piece(TrainBwdIO io,
+                                                   int pieces) {
+  const int q = (blockIdx.y * WTB + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  const int32_t nv = io.nvalid[0];
+  const EmbedList L = embed_list(io, blockIdx.x);
+  const int32_t nv = io.nvalid[blockIdx.x];
   const int32_t p0 = q * PIECE;
   if (p0 >= nv) return;
   const int32_t p1 = min(p0 + PIECE, nv);
-  const int32_t* sk = io.sorted_key;
-  int32_t cur = sk[p0];
+  const int32_t* sk = io.sorted_key + L.row0;
+  const int32_t* sr = io.sorted_row + L.row0;
+  const size_t hq = ((size_t)blockIdx.x * pieces + q) * EMB + lane;
+  int32_t cur = sk[p0], start = p0;
   bool from_left = p0 > 0 && sk[p0 - 1] == cur;
   float acc = 0.0f;
   for (int32_t p = p0; p < p1; ++p) {
     const int32_t k = sk[p];
     if (k != cur) {
       if (from_left)
-        io.head[(size_t)q * EMB + lane] = acc;
+        io.head[hq] = acc;
       else
-        add_row(io.d_embed, cur, lane, acc);
+        io.seg[((size_t)L.row0 + start) * EMB + lane] = acc;
       from_left = false;
       cur = k;
+      start = p;
       acc = 0.0f;
     }
-    acc = __fadd_rn(acc, io.de[(size_t)io.sorted_row[p] * EMB + lane]);
+    acc = __fadd_rn(acc, io.de[(size_t)sr[p] * EMB + lane]);
   }
   const bool to_right = p1 < nv && sk[p1] == cur;
   if (from_left)
-    io.head[(size_t)q * EMB + lane] = acc;
+    io.head[hq] = acc;
   else if (to_right)
-    io.tail[(size_t)q * EMB + lane] = acc;
+    io.tail[hq] = acc;
   else
-    add_row(io.d_embed, cur, lane, acc);
+    io.seg[((size_t)L.row0 + start) * EMB + lane] = acc;
 }
 
 // a warp per piece whose last key starts in it and crosses its end: the
-// tail plus the following pieces' heads, in order, added to d_embed
-__global__ void __launch_bounds__(WTB) embed_join(TrainBwdIO io) {
-  const int q = (blockIdx.x * WTB + threadIdx.x) >> 5;
+// tail plus the following pieces' heads, in order, into seg at the key's
+// first sorted position
+__global__ void __launch_bounds__(WTB) embed_join(TrainBwdIO io,
+                                                  int pieces) {
+  const int q = (blockIdx.y * WTB + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  const int32_t nv = io.nvalid[0];
+  const EmbedList L = embed_list(io, blockIdx.x);
+  const int32_t nv = io.nvalid[blockIdx.x];
   const int32_t p0 = q * PIECE;
   if (p0 >= nv) return;
   const int32_t p1 = min(p0 + PIECE, nv);
-  const int32_t* sk = io.sorted_key;
+  const int32_t* sk = io.sorted_key + L.row0;
   const int32_t key = sk[p1 - 1];
   if (!(p1 < nv && sk[p1] == key)) return;  // ends in this piece
   if (p0 > 0 && sk[p0 - 1] == key) return;  // starts in an earlier one
-  float acc = io.tail[(size_t)q * EMB + lane];
+  int32_t start = p1 - 1;
+  while (start > p0 && sk[start - 1] == key) --start;
+  const float* head = io.head + (size_t)blockIdx.x * pieces * EMB + lane;
+  float acc = io.tail[((size_t)blockIdx.x * pieces + q) * EMB + lane];
   for (int qq = q + 1;; ++qq) {
-    acc = __fadd_rn(acc, io.head[(size_t)qq * EMB + lane]);
+    acc = __fadd_rn(acc, head[(size_t)qq * EMB]);
     const int32_t pe = min((qq + 1) * PIECE, nv);
     if (!(pe < nv && sk[pe] == key)) break;
   }
-  add_row(io.d_embed, key, lane, acc);
+  io.seg[((size_t)L.row0 + start) * EMB + lane] = acc;
+}
+
+// key's first sorted position in list l, or -1
+__device__ __forceinline__ int32_t find_key(const TrainBwdIO& io, int l,
+                                            int32_t key) {
+  const EmbedList L = embed_list(io, l);
+  const int32_t* sk = io.sorted_key + L.row0;
+  int32_t lo = 0, hi = io.nvalid[l];
+  while (lo < hi) {
+    const int32_t mid = (lo + hi) >> 1;
+    if (sk[mid] < key)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo < io.nvalid[l] && sk[lo] == key ? lo : -1;
+}
+
+// the pmean of d_embed: grid (lists, positions a list / warps a block),
+// a warp per key at its first position in the first list that holds it
+__global__ void __launch_bounds__(WTB) embed_merge(TrainBwdIO io) {
+  const int32_t p = (blockIdx.y * WTB + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int l = blockIdx.x;
+  if (p >= io.nvalid[l]) return;
+  const int32_t* sk = io.sorted_key + embed_list(io, l).row0;
+  const int32_t key = sk[p];
+  if (p > 0 && sk[p - 1] == key) return;
+  for (int l2 = 0; l2 < l; ++l2)
+    if (find_key(io, l2, key) >= 0) return;  // an earlier list's key
+  const int per = lists_a_shard(io);
+  float total = 0.0f;
+  for (int z = 0; z < io.n_shards; ++z) {
+    // the unsharded launch on shard z's block: d_embed zeroed, then each
+    // of its lists' sums added in list order
+    float shard = 0.0f;
+    for (int l2 = z * per; l2 < (z + 1) * per; ++l2) {
+      const int32_t at = l2 == l ? p : l2 < l ? -1 : find_key(io, l2, key);
+      if (at >= 0)
+        shard = __fadd_rn(
+            shard,
+            io.seg[((size_t)embed_list(io, l2).row0 + at) * EMB + lane]);
+    }
+    total = z == 0 ? shard : __fadd_rn(total, shard);
+  }
+  io.d_embed[(size_t)key * EMB + lane] =
+      __fdiv_rn(total, (float)io.n_shards);
 }
 
 // ---- K22 ---------------------------------------------------------------
@@ -578,11 +698,12 @@ __global__ void adam_count(int32_t* count) {
 
 extern "C" int anomaly_train_fwd_launch(const TrainFwdIO* io,
                                         cudaStream_t stream) {
-  if (io->n > 0) {
-    const int blocks = (io->n + TB - 1) / TB;
-    fwd_rows<<<blocks, TB, 0, stream>>>(*io);
-    loss_reduce<<<1, 1, 0, stream>>>(*io, blocks);
-  }
+  if (io->n_shards < 1 || io->block < 1 ||
+      (int64_t)io->n_shards * io->block != io->n)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (io->block + TB - 1) / TB;  // a shard's
+  fwd_rows<<<dim3(blocks, io->n_shards), TB, 0, stream>>>(*io);
+  loss_reduce<<<1, 1, 0, stream>>>(*io, blocks);
   return (int)cudaGetLastError();
 }
 
@@ -592,28 +713,30 @@ extern "C" int anomaly_train_bwd_launch(const TrainBwdIO* io,
       embed_sort, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)(sizeof(unsigned long long) * MAX_SORT));
   if (opt_in != cudaSuccess) return (int)opt_in;
-  const int32_t n = io->n;
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const int32_t n = io->n, block = io->block, n_shards = io->n_shards;
+  if (n_shards < 1 || block < 1 || (int64_t)n_shards * block != n)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(
       io->d_embed, 0, sizeof(float) * EMB * (size_t)io->v, stream);
   if (err != cudaSuccess) return (int)err;
-  const int chunks = (n + CHUNK - 1) / CHUNK;
+  const int chunks = (block + CHUNK - 1) / CHUNK;  // a shard's
   bwd_rows<<<(n + TB - 1) / TB, TB, 0, stream>>>(*io);
-  wgrad_partial<<<dim3(chunks, 3), WTB, 0, stream>>>(*io, chunks);
+  wgrad_partial<<<dim3(chunks, 3, n_shards), WTB, 0, stream>>>(*io, chunks);
   wgrad_reduce<<<dim3((WOUT + WTB - 1) / WTB, 3), WTB, 0, stream>>>(*io,
                                                                      chunks);
-  for (int32_t row0 = 0; row0 < n; row0 += MAX_SORT) {
-    const int32_t m = min(MAX_SORT, n - row0);
-    int p2 = 2;
-    while (p2 < m) p2 <<= 1;
-    embed_sort<<<1, SORT_TB, sizeof(unsigned long long) * p2, stream>>>(
-        *io, p2, row0, m);
-    const int pieces = (m + PIECE - 1) / PIECE;
-    const int warps_per_block = WTB / 32;
-    const int pblocks = (pieces + warps_per_block - 1) / warps_per_block;
-    embed_piece<<<pblocks, WTB, 0, stream>>>(*io);
-    embed_join<<<pblocks, WTB, 0, stream>>>(*io);
-  }
+  const int lists = n_shards * ((block + MAX_SORT - 1) / MAX_SORT);
+  const int m = min(MAX_SORT, block);  // the longest list's rows
+  int p2 = 2;
+  while (p2 < m) p2 <<= 1;
+  embed_sort<<<lists, SORT_TB, sizeof(unsigned long long) * p2, stream>>>(
+      *io, p2);
+  const int warps_per_block = WTB / 32;
+  const int pieces = (m + PIECE - 1) / PIECE;  // a list's, at most
+  const dim3 pgrid(lists, (pieces + warps_per_block - 1) / warps_per_block);
+  embed_piece<<<pgrid, WTB, 0, stream>>>(*io, pieces);
+  embed_join<<<pgrid, WTB, 0, stream>>>(*io, pieces);
+  embed_merge<<<dim3(lists, (m + warps_per_block - 1) / warps_per_block),
+                WTB, 0, stream>>>(*io);
   return (int)cudaGetLastError();
 }
 

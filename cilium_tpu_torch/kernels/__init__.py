@@ -108,6 +108,13 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
            "cilium_tpu/parallel/mesh.py:259"),
     Kernel("ring_append_sharded", "ring", "ring_append_launch",
            "cilium_tpu/parallel/mesh.py:234"),
+    # K20s/K21s: K20/K21 over S batch blocks with the shard as a grid
+    # dimension and the pmean in the launch (the data-parallel train
+    # step, ml/train.py make_train_step(mesh=...))
+    Kernel("anomaly_train_fwd_sharded", "mltrain", "anomaly_train_fwd_launch",
+           "cilium_tpu/ml/train.py:138"),
+    Kernel("anomaly_train_bwd_sharded", "mltrain", "anomaly_train_bwd_launch",
+           "cilium_tpu/ml/train.py:128"),
 )}
 
 
@@ -769,7 +776,7 @@ def launch_anomaly_score(model, id_row: torch.Tensor, feats: torch.Tensor,
 
 
 # the trainer's kernels (csrc/mltrain.cu): rows a block of the row passes,
-# rows a slice of K21's one-block sort, rows a warp of the embedding
+# rows a list of K21's one-block sorts, rows a warp of the embedding
 # scatter (the weight-gradient chunk is ml/model.py's WGRAD_CHUNK, which
 # the plain version sums by)
 TRAIN_TB = 64
@@ -806,21 +813,26 @@ def _train_shapes(name, leaves, n):
 
 
 def launch_anomaly_train_fwd(leaves, id_row: torch.Tensor,
-                             feats: torch.Tensor, labels: torch.Tensor):
+                             feats: torch.Tensor, labels: torch.Tensor,
+                             n_shards: Optional[int] = None):
     """K20: the loss of [N] rows, [N, 27] features and [N] labels under
     the trainable ``leaves`` (embed, w1, b1, w2, b2, w3, b3); -> (loss
     [] float32, the activations K21 takes: ``xT`` [59, N], ``h1T``,
-    ``h2T`` [64, N] bf16 and ``logit`` [N] float32)."""
+    ``h2T`` [64, N] bf16 and ``logit`` [N] float32).  ``n_shards``
+    (K20s): the batch is that many blocks of N / S rows and the loss the
+    mean of the blocks' losses in shard order."""
     from ..ml.features import FEAT_DIM
 
     n = feats.shape[0]
     dev, v, w = _train_shapes("anomaly_train_fwd", leaves, n)
+    block = shard_block(n, n_shards, "anomaly_train_fwd")
+    s = n_shards or 1
     fin = SCORE_DIM + FEAT_DIM
     saved = {"xT": torch.empty((fin, n), dtype=BF16, device=dev),
              "h1T": torch.empty((SCORE_HIDDEN, n), dtype=BF16, device=dev),
              "h2T": torch.empty((SCORE_HIDDEN, n), dtype=BF16, device=dev),
              "logit": torch.empty(n, dtype=F32, device=dev)}
-    partial = torch.empty(-(-n // TRAIN_TB), dtype=F32, device=dev)
+    partial = torch.empty(s * -(-block // TRAIN_TB), dtype=F32, device=dev)
     loss = torch.empty(1, dtype=F32, device=dev)
     io = abi.TrainFwdIO(
         id_row=_ptr(id_row, I32, dev, (n,), name="id_row"),
@@ -829,27 +841,37 @@ def launch_anomaly_train_fwd(leaves, id_row: torch.Tensor,
         embed=w[0], w1=w[1], b1=w[2], w2=w[3], b2=w[4], w3=w[5], b3=w[6],
         xT=saved["xT"].data_ptr(), h1T=saved["h1T"].data_ptr(),
         h2T=saved["h2T"].data_ptr(), logit=saved["logit"].data_ptr(),
-        partial=partial.data_ptr(), loss=loss.data_ptr(), n=n, v=v)
-    KERNELS["anomaly_train_fwd"].launch(ctypes.addressof(io), _stream(dev))
+        partial=partial.data_ptr(), loss=loss.data_ptr(), n=n, v=v,
+        n_shards=s, block=block)
+    KERNELS["anomaly_train_fwd" if n_shards is None
+            else "anomaly_train_fwd_sharded"].launch(ctypes.addressof(io),
+                                                     _stream(dev))
     return loss.reshape(()), saved
 
 
 def launch_anomaly_train_bwd(leaves, saved, id_row: torch.Tensor,
-                             labels: torch.Tensor, gloss: torch.Tensor):
+                             labels: torch.Tensor, gloss: torch.Tensor,
+                             n_shards: Optional[int] = None):
     """K21: the gradients of K20's loss times ``gloss`` ([1] float32 on
     the card) in each trainable leaf, from K20's ``saved`` activations;
-    -> (d_embed [V, 32], dW1, db1, dW2, db2, dW3, db3), float32."""
+    -> (d_embed [V, 32], dW1, db1, dW2, db2, dW3, db3), float32.
+    ``n_shards`` (K21s): each block's gradients of its own loss, their
+    mean in shard order (the pmean), as K20s's ``saved`` came."""
     from ..ml.features import FEAT_DIM
     from ..ml.model import WGRAD_CHUNK
 
     n = saved["logit"].shape[0]
     dev, v, w = _train_shapes("anomaly_train_bwd", leaves, n)
+    block = shard_block(n, n_shards, "anomaly_train_bwd")
+    s = n_shards or 1
     fin, h = SCORE_DIM + FEAT_DIM, SCORE_HIDDEN
     grads = [torch.empty(tuple(t.shape), dtype=F32, device=dev)
              for t in leaves]
-    chunks = -(-n // WGRAD_CHUNK)
-    sort_rows = min(n, MAX_SORT_ROWS)  # a slice of the embedding scatter
-    pieces = -(-sort_rows // SCATTER_PIECE)
+    chunks = -(-block // WGRAD_CHUNK)  # a shard's
+    # the embedding scatter's lists: each shard's block in slices of
+    # MAX_SORT_ROWS rows
+    lists = s * -(-block // MAX_SORT_ROWS)
+    pieces = -(-min(block, MAX_SORT_ROWS) // SCATTER_PIECE)  # a list's
 
     def empty(*shape, dtype=F32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -858,11 +880,12 @@ def launch_anomaly_train_bwd(leaves, saved, id_row: torch.Tensor,
     # reuses it in stream order)
     tmp = dict(dz1T=empty(h, n, dtype=BF16), dz2T=empty(h, n, dtype=BF16),
                dz3=empty(n, dtype=BF16), de=empty(n, SCORE_DIM),
-               wpart=empty(3, chunks, (h + 1) * h),
-               sorted_key=empty(sort_rows, dtype=I32),
-               sorted_row=empty(sort_rows, dtype=I32),
-               nvalid=empty(1, dtype=I32), head=empty(pieces, SCORE_DIM),
-               tail=empty(pieces, SCORE_DIM))
+               wpart=empty(3, s * chunks, (h + 1) * h),
+               sorted_key=empty(n, dtype=I32), sorted_row=empty(n, dtype=I32),
+               nvalid=empty(lists, dtype=I32),
+               head=empty(lists * pieces, SCORE_DIM),
+               tail=empty(lists * pieces, SCORE_DIM),
+               seg=empty(n, SCORE_DIM))
     io = abi.TrainBwdIO(
         id_row=_ptr(id_row, I32, dev, (n,), name="id_row"),
         labels=_ptr(labels, F32, dev, (n,), name="labels"),
@@ -876,8 +899,10 @@ def launch_anomaly_train_bwd(leaves, saved, id_row: torch.Tensor,
         dw1=grads[1].data_ptr(), db1=grads[2].data_ptr(),
         dw2=grads[3].data_ptr(), db2=grads[4].data_ptr(),
         dw3=grads[5].data_ptr(), db3=grads[6].data_ptr(),
-        d_embed=grads[0].data_ptr(), n=n, v=v)
-    KERNELS["anomaly_train_bwd"].launch(ctypes.addressof(io), _stream(dev))
+        d_embed=grads[0].data_ptr(), n=n, v=v, n_shards=s, block=block)
+    KERNELS["anomaly_train_bwd" if n_shards is None
+            else "anomaly_train_bwd_sharded"].launch(ctypes.addressof(io),
+                                                     _stream(dev))
     return tuple(grads)
 
 

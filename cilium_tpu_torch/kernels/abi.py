@@ -156,7 +156,8 @@ class TrainFwdIO(ctypes.Structure):
     _fields_ = [("id_row", P), ("feats", P), ("labels", P), ("embed", P),
                 ("w1", P), ("b1", P), ("w2", P), ("b2", P), ("w3", P),
                 ("b3", P), ("xT", P), ("h1T", P), ("h2T", P), ("logit", P),
-                ("partial", P), ("loss", P), ("n", I32), ("v", I32)]
+                ("partial", P), ("loss", P), ("n", I32), ("v", I32),
+                ("n_shards", I32), ("block", I32)]
 
 
 class TrainBwdIO(ctypes.Structure):
@@ -164,9 +165,10 @@ class TrainBwdIO(ctypes.Structure):
                 ("xT", P), ("h1T", P), ("h2T", P), ("w1", P), ("w2", P),
                 ("w3", P), ("dz1T", P), ("dz2T", P), ("dz3", P), ("de", P),
                 ("wpart", P), ("sorted_key", P), ("sorted_row", P),
-                ("nvalid", P), ("head", P), ("tail", P), ("dw1", P),
-                ("db1", P), ("dw2", P), ("db2", P), ("dw3", P), ("db3", P),
-                ("d_embed", P), ("n", I32), ("v", I32)]
+                ("nvalid", P), ("head", P), ("tail", P), ("seg", P),
+                ("dw1", P), ("db1", P), ("dw2", P), ("db2", P), ("dw3", P),
+                ("db3", P), ("d_embed", P), ("n", I32), ("v", I32),
+                ("n_shards", I32), ("block", I32)]
 
 
 class AdamLeaf(ctypes.Structure):

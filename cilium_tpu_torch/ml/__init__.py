@@ -9,10 +9,9 @@ the checkpoint format shared with the reference, the monitor-plane
 ``AnomalyScorer`` and the config #5 evaluation (``evaluate``: captures
 through ``core/pcap.py``, ``train_on_capture``,
 ``evaluate_real_dataset``, ``train_and_evaluate``).  The score is
-advisory and never changes a verdict.
-
-Not ported yet: the data-parallel train step over a mesh
-(``make_train_step(mesh=...)`` raises; ROADMAP A10b, B17b).
+advisory and never changes a verdict.  ``make_train_step(mesh=...)``
+and ``train(mesh=...)`` take a ``parallel.ShardMesh``: the data-parallel
+step over its batch blocks, K20s/K21s on the card.
 """
 
 from .evaluate import (  # noqa: F401

@@ -20,7 +20,10 @@ backward's dtypes are those ``jax.grad`` gives the reference: the
 cotangents are bfloat16 wherever the forward cast to bfloat16, each
 weight gradient a float32 sum over the batch rounded to bfloat16 once,
 and the embedding's gradient the float32 sum of each row's bfloat16
-``dx[:, :32]``.
+``dx[:, :32]``.  With ``n_shards`` (the data-parallel step over a mesh)
+the batch is S blocks: the node runs K20s/K21s, or the plain versions
+block by block, and the loss and each gradient are the mean of the
+blocks' own, in shard order.
 
 Checkpoints are the reference's ``.npz`` format, field for field, so a
 model saved by either package loads in the other.
@@ -259,13 +262,37 @@ def score_packets(model: AnomalyModel, id_row: torch.Tensor,
 WGRAD_CHUNK = 64  # batch rows a block of K21's weight-gradient pass sums
 
 
+def _shard_blocks(n: int, n_shards: int, what: str):
+    from ..kernels import shard_block
+
+    block = shard_block(n, n_shards, what)
+    return [slice(z * block, (z + 1) * block) for z in range(n_shards)]
+
+
+def _shard_mean(parts):
+    """The pmean on one device: the first shard's value, the others
+    added in shard order, divided by S (a tensor, as K20s/K21s divide)."""
+    total = parts[0]
+    for t in parts[1:]:
+        total = total + t
+    return total / torch.tensor(float(len(parts)), device=total.device)
+
+
 def train_forward_plain(leaves, id_row: torch.Tensor, feats: torch.Tensor,
-                        labels: torch.Tensor):
+                        labels: torch.Tensor, n_shards: Optional[int] = None):
     """The reference's ``bce_loss`` forward (plain version of K20): ->
     (loss [] float32, saved) where ``saved`` = (x [N, 59], h1 [N, 64],
     h2 [N, 64] bfloat16, logit [N] float32) for the backward.  The
     layers are :func:`forward_plain`'s; the loss is the mean of
-    ``max(l, 0) - l * y + log1p(exp(-|l|))``."""
+    ``max(l, 0) - l * y + log1p(exp(-|l|))``.  ``n_shards`` (plain
+    version of K20s): this function on each of S blocks of N / S rows,
+    the losses' :func:`_shard_mean`, the activations concatenated."""
+    if n_shards is not None:
+        parts = [train_forward_plain(leaves, id_row[b], feats[b], labels[b])
+                 for b in _shard_blocks(feats.shape[0], n_shards,
+                                        "anomaly_train_fwd")]
+        return (_shard_mean([loss for loss, _ in parts]),
+                tuple(torch.cat(t) for t in zip(*(sv for _, sv in parts))))
     embed, w1, b1, w2, b2, w3, b3 = leaves
     e = embed[as_index(id_row, embed.shape[0])]
     x = torch.cat([e, feats], dim=1).to(torch.bfloat16)
@@ -321,7 +348,8 @@ def _wgrad_plain(a: torch.Tensor, d: torch.Tensor):
 
 
 def train_backward_plain(leaves, saved, id_row: torch.Tensor,
-                         labels: torch.Tensor, gloss: torch.Tensor):
+                         labels: torch.Tensor, gloss: torch.Tensor,
+                         n_shards: Optional[int] = None):
     """The gradient of :func:`train_forward_plain`'s loss times
     ``gloss`` in each trainable leaf (plain version of K21), -> (d_embed
     [V, 32], dW1, db1, dW2, db2, dW3, db3), float32.  ``dlogit`` is
@@ -331,7 +359,16 @@ def train_backward_plain(leaves, saved, id_row: torch.Tensor,
     embedding row's gradient is the float32 sum of its rows' bf16 ``dx[:,
     :32]``.  An ``id_row`` negative after one wrap, or past the table,
     contributes nothing: the reference's gather clamps it, but the
-    scatter-add that is its transpose drops it."""
+    scatter-add that is its transpose drops it.  ``n_shards`` (plain
+    version of K21s): this function on each of S blocks, ``gloss`` the
+    cotangent of each block's own loss, and each gradient the blocks'
+    :func:`_shard_mean` (the reference's pmean)."""
+    if n_shards is not None:
+        parts = [train_backward_plain(leaves, tuple(t[b] for t in saved),
+                                      id_row[b], labels[b], gloss)
+                 for b in _shard_blocks(id_row.shape[0], n_shards,
+                                        "anomaly_train_bwd")]
+        return tuple(_shard_mean(list(g)) for g in zip(*parts))
     bf = torch.bfloat16
     embed, w1, _, w2, _, w3, _ = leaves
     x, h1, h2, logit = saved
@@ -359,18 +396,23 @@ def train_backward_plain(leaves, saved, id_row: torch.Tensor,
 class _BCELoss(torch.autograd.Function):
     """The reference's ``bce_loss`` as one autograd node over the seven
     trainable leaves: K20 forward and K21 backward for CUDA tensors, the
-    plain versions for CPU tensors (any other device raises)."""
+    plain versions for CPU tensors (any other device raises).  With
+    ``n_shards`` (not None) the loss of the data-parallel step over that
+    many batch blocks: K20s and K21s, or the plain versions block by
+    block."""
 
     @staticmethod
-    def forward(ctx, id_row, feats, labels, *leaves):
+    def forward(ctx, n_shards, id_row, feats, labels, *leaves):
         if _on_card(None, feats, "anomaly_train_fwd"):
             from ..kernels import launch_anomaly_train_fwd
 
             loss, saved = launch_anomaly_train_fwd(leaves, id_row, feats,
-                                                   labels)
+                                                   labels, n_shards)
         else:
-            loss, saved = train_forward_plain(leaves, id_row, feats, labels)
+            loss, saved = train_forward_plain(leaves, id_row, feats, labels,
+                                              n_shards)
         ctx.saved = saved
+        ctx.n_shards = n_shards
         ctx.save_for_backward(id_row, labels, *leaves)
         return loss
 
@@ -382,12 +424,12 @@ class _BCELoss(torch.autograd.Function):
             from ..kernels import launch_anomaly_train_bwd
 
             grads = launch_anomaly_train_bwd(leaves, ctx.saved, id_row,
-                                             labels, gloss)
+                                             labels, gloss, ctx.n_shards)
         else:
             grads = train_backward_plain(leaves, ctx.saved, id_row, labels,
-                                         gloss)
+                                         gloss, ctx.n_shards)
         ctx.saved = None
-        return (None, None, None, *grads)
+        return (None, None, None, None, *grads)
 
 
 def bce_loss(model: AnomalyModel, id_row: torch.Tensor,
@@ -395,17 +437,20 @@ def bce_loss(model: AnomalyModel, id_row: torch.Tensor,
     """The mean binary cross-entropy of the model's logits against
     ``labels`` ([] float32), differentiable in the leaves of a model
     built from :meth:`AnomalyModel.trainable`."""
-    return _BCELoss.apply(id_row, feats, labels, *model.leaves())
+    return _BCELoss.apply(None, id_row, feats, labels, *model.leaves())
 
 
 def value_and_grad(model: AnomalyModel, id_row: torch.Tensor,
-                   feats: torch.Tensor, labels: torch.Tensor):
+                   feats: torch.Tensor, labels: torch.Tensor,
+                   n_shards: Optional[int] = None):
     """-> (loss [] float32, the gradients in ``TRAINABLE`` order), as
     ``jax.value_and_grad(bce_loss)`` gives the reference's (on the card:
-    K20 then K21, no host sync)."""
+    K20 then K21, no host sync).  ``n_shards``: the reference's mesh
+    step's ``value_and_grad`` and ``pmean`` over that many blocks of the
+    batch (K20s then K21s; the batch must split evenly)."""
     leaves = list(model.trainable().values())
     with torch.enable_grad():
-        loss = _BCELoss.apply(id_row, feats, labels, *leaves)
+        loss = _BCELoss.apply(n_shards, id_row, feats, labels, *leaves)
         grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), grads
 

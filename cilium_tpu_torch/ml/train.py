@@ -16,9 +16,14 @@ until one fetch at the end.
 The step updates the model's trainable leaves and the optimizer's
 moments in place (the reference's are immutable); :func:`train` works
 on its own copy of the leaves, so the caller's model is left as it was.
-The data-parallel step over a mesh (``make_train_step(mesh=...)``, its
-``pmean``) is the next slice (ROADMAP A10b, B17b); sharded serving
-landed without it.
+
+With a mesh (a ``parallel.ShardMesh`` of S shards on the model's
+device) the step is the reference's data-parallel one: the batch in S
+contiguous blocks, each block's loss and gradients as the unsharded step
+gives them, and their ``pmean`` (the mean in shard order) into one adam
+step on the one copy of the replicated leaves.  On the card that is
+K20s/K21s, one launch sequence for every shard.  The reference's own
+mesh gradient is S times the mean (ROADMAP C4); the port's is the mean.
 """
 
 from __future__ import annotations
@@ -186,21 +191,35 @@ class Adam:
             adam_update_plain(params, grads, mu, nu, state.count, self.lr)
 
 
+def _check_mesh(mesh, device: torch.device) -> None:
+    """Raise unless ``mesh`` (if any) is on ``device`` (an index-less
+    ``cuda`` is the current card)."""
+    if mesh is None:
+        return
+    want = mesh.device
+    if want.type == "cuda" and want.index is None:
+        want = torch.device("cuda", torch.cuda.current_device())
+    if device != want:
+        raise ValueError(f"the model is on {device}, the mesh on "
+                         f"{mesh.device}")
+
+
 def make_train_step(optimizer, mesh=None) -> Callable:
     """The train step ``step(model, opt_state, id_row, feats, labels) ->
     (model, opt_state, loss)``: the loss and its gradients (K20, K21),
     then one adam step (K22), in place.  ``optimizer`` is an
-    :class:`Adam` or a learning rate."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_train_step(mesh=...): the data-parallel train step and "
-            "its pmean are not ported yet (ROADMAP A10b, B17b)")
+    :class:`Adam` or a learning rate.  ``mesh`` (a ``parallel.ShardMesh``
+    on the model's device): the data-parallel step, the loss and the
+    gradients the pmean over the mesh's batch blocks (K20s, K21s); the
+    batch must split into ``mesh.n_shards`` blocks."""
     opt = optimizer if isinstance(optimizer, Adam) else Adam(optimizer)
+    n_shards = None if mesh is None else mesh.n_shards
 
     def step(model: AnomalyModel, opt_state: AdamState,
              id_row: torch.Tensor, feats: torch.Tensor,
              labels: torch.Tensor):
-        loss, grads = value_and_grad(model, id_row, feats, labels)
+        _check_mesh(mesh, model.device)
+        loss, grads = value_and_grad(model, id_row, feats, labels, n_shards)
         opt.apply_(model, grads, opt_state)
         return model, opt_state, loss
 
@@ -214,22 +233,21 @@ def train(model: AnomalyModel, world, steps: int = 200, batch: int = 4096,
     """Train on synthetic labeled traffic run through the real datapath
     (``world.state`` updated in place; features include CT state, so the
     model sees what the device sees), on the device that holds the
-    world's state; ``kinds`` restricts the attack kinds seen.  Returns
-    (a trained copy of ``model``, the per-step losses)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train(mesh=...): the data-parallel train step is not "
-            "ported yet (ROADMAP A10b, B17b)")
+    world's state; ``kinds`` restricts the attack kinds seen.  ``mesh``:
+    the data-parallel step over its shards (the datapath step and the
+    features still run on the whole batch, as the reference's do).
+    Returns (a trained copy of ``model``, the per-step losses)."""
     dev = world.state.metrics.device
     if model.device != dev:
         raise ValueError(f"the model is on {model.device}, the world's "
                          f"state on {dev}")
+    _check_mesh(mesh, model.device)
     model = model.replace(**{k: t.clone() for k, t in zip(
         TRAINABLE, model.leaves())})
     rng = np.random.default_rng(seed)
     optimizer = Adam(lr)
     opt_state = optimizer.init(model)
-    step_fn = make_train_step(optimizer)
+    step_fn = make_train_step(optimizer, mesh)
     state = world.state
     losses = []
     for s in range(steps):

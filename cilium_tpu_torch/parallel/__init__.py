@@ -6,7 +6,10 @@ table is split into private per-shard slices, and packets are routed
 to the shard that owns their flow by a symmetric flow hash (RSS-style),
 so both directions of a flow land on one shard.  Here the mesh is S
 shards on ONE device: the shard is a grid dimension of the serving
-kernels, and the tables are the reference's global arrays.
+kernels, and the tables are the reference's global arrays.  The same
+:class:`ShardMesh` drives the data-parallel train step
+(``ml.make_train_step(mesh=...)``, ``ml.train(mesh=...)``), whose batch
+blocks are a grid dimension of the trainer's kernels.
 """
 
 from .mesh import (  # noqa: F401

@@ -646,7 +646,8 @@ def test_ml_kernels_match_their_plain_versions(case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["anomaly_train_fwd", "anomaly_train_bwd",
-                                  "adam_update"])
+                                  "adam_update", "anomaly_train_fwd_sharded",
+                                  "anomaly_train_bwd_sharded"])
 def test_train_kernels_match_their_plain_versions(case):
     """K20-K22 on the card against their plain versions on the same CUDA
     tensors, 3000 rows with one identity on half of them and ids past
@@ -655,7 +656,11 @@ def test_train_kernels_match_their_plain_versions(case):
     gradients bit-exact, d_embed within 1e-5 of its largest entry (the
     plain version's index_add_ sums in atomic order), two runs
     bit-identical, and the same on a 20000-row batch (the scatter in two
-    sort slices); K22: one step from count 3 bit-exact."""
+    sort slices); K22: one step from count 3 bit-exact.  K20s and K21s
+    over 8 shards of 375 rows: the same bounds against their plain
+    versions, and bit-exact against 8 unsharded launches on the blocks
+    followed by the shard-order mean; the same over 2 shards of 20000
+    rows (each block's scatter in two sort lists)."""
     _need_card()
     from cilium_tpu_torch.kernels import (KERNELS, launch_adam_update,
                                           launch_anomaly_train_bwd,
@@ -734,8 +739,65 @@ def test_train_kernels_match_their_plain_versions(case):
         for a, b in zip(k[0] + k[1] + k[2], params + mu + nu):
             assert torch.equal(a, b)
         assert int(k[3].item()) == int(count.item()) == 4
+    if case.endswith("_sharded"):
+        _check_sharded_train_kernels(case, leaves, ids, feats, labels, gloss)
+        # 2 shards of 20000 rows: each block's scatter in two sort lists
+        big = [t.repeat(*([14] + [1] * (t.dim() - 1)))[:40000].contiguous()
+               for t in (ids, feats, labels)]
+        _check_sharded_train_kernels(case, leaves, *big, gloss, n_shards=2)
     torch.cuda.synchronize()
     assert KERNELS[case].launches > 0
+
+
+def _shard_mean(parts):
+    total = parts[0]
+    for t in parts[1:]:
+        total = total + t
+    return total / torch.tensor(float(len(parts)), device=total.device)
+
+
+def _check_sharded_train_kernels(case, leaves, ids, feats, labels, gloss,
+                                 n_shards=8):
+    """K20s/K21s against their plain versions and against n_shards
+    unsharded K20/K21 launches on the blocks and their mean."""
+    from cilium_tpu_torch.kernels import (launch_anomaly_train_bwd,
+                                          launch_anomaly_train_fwd)
+    from cilium_tpu_torch.ml.model import (train_backward_plain,
+                                           train_forward_plain)
+
+    blk = ids.shape[0] // n_shards
+    blocks = [slice(z * blk, (z + 1) * blk) for z in range(n_shards)]
+    loss, saved = launch_anomaly_train_fwd(leaves, ids, feats, labels,
+                                           n_shards)
+    ploss, psaved = train_forward_plain(leaves, ids, feats, labels, n_shards)
+    singles = [launch_anomaly_train_fwd(leaves, ids[b], feats[b], labels[b])
+               for b in blocks]
+    if case == "anomaly_train_fwd_sharded":
+        x, h1, h2, logit = psaved
+        assert torch.equal(saved["logit"], logit)
+        assert torch.equal(saved["xT"], x.t())
+        assert torch.equal(saved["h1T"], h1.t())
+        assert torch.equal(saved["h2T"], h2.t())
+        assert abs(loss.item() - ploss.item()) <= 2e-6 * abs(ploss.item())
+        assert torch.equal(loss, _shard_mean([l for l, _ in singles]))
+        return
+    grads = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss,
+                                     n_shards)
+    again = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss,
+                                     n_shards)
+    want = train_backward_plain(leaves, psaved, ids, labels, gloss,
+                                n_shards)
+    parts = [launch_anomaly_train_bwd(leaves, sv, ids[b], labels[b], gloss)
+             for (_, sv), b in zip(singles, blocks)]
+    for i, (a, b, c) in enumerate(zip(grads, again, want)):
+        assert torch.equal(a, b)
+        assert torch.equal(a, _shard_mean([p[i] for p in parts])), i
+        if i == 0:
+            err = (a - c).abs().max().item()
+            assert err <= 1e-5 * c.abs().max().item()
+            assert a[3].abs().max().item() > 0
+        else:
+            assert torch.equal(a, c)
 
 
 @pytest.mark.gpu

@@ -59,6 +59,7 @@ from cilium_tpu_torch.ml import model as tmod
 from cilium_tpu_torch.ml.train import (Adam, auc, make_train_step,
                                        synth_labeled_traffic, train)
 from cilium_tpu_torch.ml.features import flow_features
+from cilium_tpu_torch.parallel import make_mesh
 from cilium_tpu_torch.testing import fixtures as tfix
 
 torch.set_num_threads(1)
@@ -265,8 +266,15 @@ def test_one_train_step_matches_the_reference():
             assert not torch.equal(getattr(model, k), before[k]), k
         else:
             assert torch.equal(getattr(model, k), before[k]), k
-    with pytest.raises(NotImplementedError, match="A10b, B17b"):
-        make_train_step(1e-3, mesh=object())
+    # the same step over a one-shard mesh is this step, bit for bit
+    again = convert.anomaly_model_from_numpy(_arrays(params), "cpu")
+    again, again_state, again_loss = make_train_step(
+        1e-3, mesh=make_mesh(1, "cpu"))(
+        again, adam.init(again), torch.from_numpy(ids),
+        torch.from_numpy(feats), torch.from_numpy(labels))
+    assert torch.equal(again_loss, loss)
+    for k in FIELDS:
+        assert torch.equal(getattr(again, k), getattr(model, k)), k
 
 
 def test_five_train_steps_match_the_reference():
@@ -289,8 +297,12 @@ def test_five_train_steps_match_the_reference():
     # train works on a copy: the caller's model is as it was
     for k in FIELDS:
         np.testing.assert_array_equal(getattr(model, k).numpy(), arrays[k])
-    with pytest.raises(NotImplementedError, match="A10b, B17b"):
-        train(model, tw, steps=1, mesh=object())
+    # over a one-shard mesh, train takes the same steps bit for bit
+    mp, ml = train(model, tfix.build_world(**kw, device="cpu"), steps=5,
+                   batch=512, seed=7, mesh=make_mesh(1, "cpu"))
+    assert ml == tl
+    for k in FIELDS:
+        assert torch.equal(getattr(mp, k), getattr(tp, k)), k
 
 
 @pytest.fixture(scope="module")
