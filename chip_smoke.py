@@ -19,7 +19,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    whose expiries straddle 2^31 and ``now``, ring_gather on lapped
    and unlapped 2^18 rings at several rungs, the in-place table
    update ``dus`` at config #3's table shapes (a verdict row, an auth
-   column, l1/l2/l3 payloads, starts the start rule moves), and the
+   column, l1/l2/l3 payloads, starts the start rule moves; timed at
+   three of them beside a slice ``copy_``), and the
    L7 verdict at
    BASELINE.md config #4 (192 literal and 16 prefix HTTP rules, 4096
    requests a batch; ``bench.py`` ``bench_l7``'s world), where
@@ -51,7 +52,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ledger (redirected = allowed + denied + shed + failed) must be
    exact; the per-reason metrics must equal those of the same rows
    through ``TorchLoader.serve_packed`` in fixed batches; the ct-gc and
-   map-pressure controllers must have run;
+   map-pressure controllers must have run; K9's rows a launch (its row
+   counter over its launches), and K9 timed at that shape against the
+   daemon's rule table;
 8. the redirect overhead (``bench.py`` ``bench_l7_redirect``'s shape):
    two daemons on the card, an L4 allow on port 80 and the same port
    with an HTTP GET rule, fresh-sport SYN batches of 1024, six a leg,
@@ -139,9 +142,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    Phase 3 holds K20 ``anomaly_train_fwd``, K21 ``anomaly_train_bwd``
    and K22 ``adam_update`` against their plain versions at B = 4096, V =
    16384 (one identity on half the rows, id_row past V and negative;
-   adam from a mid-training state), and K20s/K21s over 8 shards of that
-   batch against their plain versions and against 8 unsharded launches
-   on the blocks and their mean;
+   adam from a mid-training state; K21's d_embed bit-exact with
+   ``embed_grad_sorted_plain``, its sort against a stable sort, its
+   kernels a call counted and split by pass), and K20s/K21s over 8
+   shards of that batch against their plain versions and against 8
+   unsharded launches on the blocks and their mean;
 15. sharded serving over 8 shards on the card: (a) the sharded verdict,
    CT-update and ring-append kernels (K1s/K4s/K5s: one launch sequence
    for all shards) against the plain per-shard loop on the card, packed
@@ -548,14 +553,17 @@ def phase_maint(torch, rng, kernels):
         bytes=CT_CAPACITY * 4 + 4, ops=CT_CAPACITY * 2)
 
 
-def phase_dus(torch, rng, world, kernels):
+def phase_dus(torch, rng, world, kernels, report):
     """K10 ``dus`` against its plain version at config #3's table shapes
     (a loader attached to the 10k-identity world): an identity's
     verdict rows and auth column, an l1 cell, l2 and l3 block rows, and
-    starts past the edge or negative, which the start rule moves."""
+    starts past the edge or negative, which the start rule moves.  Then
+    K10 timed at the verdict row, the auth column and an l3 row, each
+    beside the slice ``copy_`` of the same update, in turns."""
     import numpy as np
     from cilium_tpu_torch.datapath.loader import (TorchLoader, _dus,
-                                                  _dus_plain, _dus_starts)
+                                                  _dus_plain, _dus_runs,
+                                                  _dus_starts)
 
     kl = TorchLoader(ct_capacity=1 << 4, device="cuda")
     kl.attach(world.policies, world.ipcache, {0: 0}, world.row_map)
@@ -588,18 +596,34 @@ def phase_dus(torch, rng, world, kernels):
           f"(verdict {tuple(pol.verdict.shape)}, auth "
           f"{tuple(pol.auth.shape)}, l2 {tuple(lpm.l2.shape)}, l3 "
           f"{tuple(lpm.l3.shape)}), bit-exact")
-    # timed at the verdict row, the patch paths' largest update
-    _, dst, upd, starts = cases[0]
-    dst = dst.clone()
-    idx = tuple(slice(a, a + u) for a, u in zip(
-        _dus_starts(dst.shape, upd.shape, starts), upd.shape))
+    # timed at the patch paths' three shapes, each beside the library's
+    # slice copy_, in turns (kernel, copy_, copy_, kernel)
+    times = {}
+    for what, dst, upd, starts in (cases[0], cases[1], cases[4]):
+        dst = dst.clone()
+        idx = tuple(slice(a, a + u) for a, u in zip(
+            _dus_starts(dst.shape, upd.shape, starts), upd.shape))
+        t = [device_ms(lambda: _dus(dst, upd, starts), 20),
+             device_ms(lambda: dst[idx].copy_(upd), 20),
+             device_ms(lambda: dst[idx].copy_(upd), 20),
+             device_ms(lambda: _dus(dst, upd, starts), 20)]
+        r = _dus_runs(dst.shape, upd.shape, starts)
+        times[what] = {"update": list(upd.shape), "table": list(dst.shape),
+                       "runs": r.counts[0] * r.counts[1] * r.counts[2],
+                       "run_words": r.run, "ms": (t[0] + t[3]) / 2,
+                       "copy_ms": (t[1] + t[2]) / 2, "turns": t}
+        print(f"dus {what}: {times[what]['runs']} runs of {r.run} words; "
+              f"K10 {t[0]:.4f} / {t[3]:.4f} ms, slice copy_ {t[1]:.4f} / "
+              f"{t[2]:.4f} ms")
+    report["dus"] = times
+    v_row = cases[0][2]
+    dst, starts = cases[0][1].clone(), cases[0][3]
     kernels["dus"].update(
-        max_abs_err=err,
-        ms=device_ms(lambda: _dus(dst, upd, starts), 20),
-        plain_ms=device_ms(lambda: _dus_plain(dst, upd, starts), 20),
-        library_ms=device_ms(lambda: dst[idx].copy_(upd), 20),
+        max_abs_err=err, ms=times["verdict row"]["ms"],
+        plain_ms=device_ms(lambda: _dus_plain(dst, v_row, starts), 20),
+        library_ms=times["verdict row"]["copy_ms"],
         # the update read once and written once; no arithmetic on it
-        bytes=2 * upd.numel() * 4, ops=0)
+        bytes=2 * v_row.numel() * 4, ops=0)
 
 
 # -- the egress stages (K11-K14) ---------------------------------------
@@ -1534,6 +1558,44 @@ def serve_session(d, rows, clock=None, during=None, mesh=None):
     return out, time.monotonic() - t0
 
 
+def time_k9_at_daemon_shape(torch, d, rows, launches):
+    """K9 as the daemon's L7 plane launched it: its rows a launch (the
+    kernel's row counter over its launches), timed at that many
+    requests (GET and POST) against the daemon's own compiled rule table
+    (config #3's one HTTP rule).  -> {rows, launches, rows a launch, ms, rules}."""
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.proxy.featurize import (featurize_http,
+                                                  path_prefix_hashes)
+    from cilium_tpu_torch.proxy.l7policy import l7_verdict
+
+    per = rows / max(launches, 1)
+    n_req = max(1, round(per))
+    b = d.proxy._bundle
+    reqs = [{"method": "GET" if i % 2 else "POST", "path": f"/v{i}",
+             "host": "db"} for i in range(n_req)]
+    feat, raw = featurize_http(reqs, 80)
+    q = u32.from_numpy(feat, "cuda")
+    p = None
+    if b.tensors.n_prefix:
+        p = u32.from_numpy(path_prefix_hashes(
+            [r["path"] for r in raw], b.tensors.prefix_lengths), "cuda")
+    ms = device_ms(lambda: l7_verdict(b.rules, q, p, b.lens,
+                                      rule_cols=b.cols), 20)
+    n_rules = int(b.tensors.rules.shape[0])
+    k = len(b.tensors.prefix_lengths)
+    # phase_l7's count: each request row, its prefix hashes and verdict
+    # once, the rules and their prefix columns once
+    b_ms, b_by = bound(n_req * (32 + 8 * k + 1) + n_rules * (28 + 8),
+                       n_req * n_rules * 16)
+    print(f"daemon K9: {launches} launches took {rows} rows, {per:.2f} "
+          f"a launch; K9 at {n_req} requests x {n_rules} rule(s) "
+          f"(config #3's table): {ms:.4f} ms, bound {b_ms:.3g} ms by "
+          f"{b_by}")
+    return {"rows": rows, "launches": launches, "rows_per_launch": per,
+            "timed_rows": n_req, "rules": n_rules, "ms": ms,
+            "bound_ms": b_ms}
+
+
 def phase_daemon(torch, rng, world, report):
     """BASELINE.md config #3 through the daemon's own API, served
     through its ingress front end; returns (launches, rung)."""
@@ -1556,6 +1618,7 @@ def phase_daemon(torch, rng, world, report):
     d.start()
     out, t_serve = serve(rows)
     launches = {k: v.launches for k, v in KERNELS.items()}
+    k9_rows = KERNELS["l7_verdict"].rows
     fe = out["front-end"]
     ft = fe["fault-tolerance"]
     check(fe["submitted"] == fe["verdicts"] + fe["shed"]
@@ -1601,6 +1664,8 @@ def phase_daemon(torch, rng, world, report):
           f"{st['map-pressure'].success_count} times; "
           f"last sample ct {sample['ct']}, lpm {sample['lpm']}, policy "
           f"{sample['policy']}")
+    k9 = time_k9_at_daemon_shape(torch, d, k9_rows,
+                                 launches["l7_verdict"])
 
     # the same rows through TorchLoader.serve_packed in fixed batches,
     # on the tables the daemon compiled (forward-only traffic: the
@@ -1668,7 +1733,8 @@ def phase_daemon(torch, rng, world, report):
         "verdicts_per_s": len(rows) / t_serve, "front_end": fe,
         "windows": out["windows"], "events": out["events"],
         "lost": out["lost"], "event_plane": out["event-plane"],
-        "l7": l7, "launches": launches, "pressure_sample": sample,
+        "l7": l7, "launches": launches, "k9": k9,
+        "pressure_sample": sample,
         "evicted_at_end": evicted, "metrics": m_daemon.tolist(),
         "stages": {"seconds": t_st, "packets": len(rows) - per,
                    "front_end": fe_st, "l7": out_st["l7"],
@@ -3362,6 +3428,64 @@ def train_model(torch, world):
             * 0.1).cuda() for b in ("b1", "b2", "b3")})
 
 
+def pass_split(torch, fn, reps=20):
+    """Each kernel (and memset) that one call of ``fn`` launches: {name:
+    (device ms a call, launches a call)}, from torch.profiler over
+    ``reps`` calls after an untimed one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3 / reps, e.count / reps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("Activity Buffer")
+            and e.self_device_time_total > 0}
+
+
+def check_k21_call(torch, name, fn, v, got, want_sorted, ids, n_shards):
+    """K21 or K21s, one call: d_embed bit-exact with
+    ``embed_grad_sorted_plain``; the sort (from the launch's scratch)
+    equal to a stable sort of each shard's clamped keys, dropped rows
+    (key V) last; the launch sequence split by pass (printed), with the
+    kernels a call asserted: 5 and one radix pass per 8 bits of V, no
+    memset.  -> the split."""
+    check(torch.equal(got[0], want_sorted),
+          f"{name}: d_embed differs from embed_grad_sorted_plain (max abs "
+          f"err {float((got[0] - want_sorted).abs().max().item())})")
+    sc = {}
+    fn(sc)
+    torch.cuda.synchronize()
+    key = ids.to(torch.int64)
+    key = torch.where(key < 0, key + v, key)
+    key = torch.where((key >= 0) & (key < v), key, v)
+    blk = ids.shape[0] // n_shards
+    for z in range(n_shards):
+        b = slice(z * blk, (z + 1) * blk)
+        k, order = torch.sort(key[b], stable=True)
+        check(torch.equal(sc["sorted_key"][b].to(torch.int64), k)
+              and torch.equal(sc["sorted_row"][b].to(torch.int64),
+                              order + z * blk),
+              f"{name}: shard {z}'s sort differs from a stable sort of "
+              f"its clamped keys")
+    split = pass_split(torch, lambda: fn(None))
+    calls = sum(c for _, c in split.values())
+    want_calls = 5 + -(-v.bit_length() // 8)
+    check(calls == want_calls and not any("emset" in k for k in split),
+          f"{name}: {calls} launches a call, not {want_calls}: {split}")
+    print(f"{name} by pass ({calls:.0f} kernels a call; device ms a "
+          f"call, torch.profiler over 20): " + ", ".join(
+              f"{k.replace('(anonymous namespace)::', '').split('(')[0]} "
+              f"{ms:.4f}"
+              for k, (ms, _) in sorted(split.items(),
+                                       key=lambda kv: -kv[1][0])))
+    return {k: {"ms": ms, "calls": c} for k, (ms, c) in split.items()}
+
+
 def phase_train_kernels(torch, rng, world, kernels, report):
     """K20-K22 against their plain versions at the trainer's shapes: B =
     4096 rows at config #3 (V = 16384), one identity on half the rows,
@@ -3377,7 +3501,9 @@ def phase_train_kernels(torch, rng, world, kernels, report):
     from cilium_tpu_torch.kernels import (launch_adam_update,
                                           launch_anomaly_train_bwd,
                                           launch_anomaly_train_fwd)
-    from cilium_tpu_torch.ml.model import (TRAINABLE, train_backward_plain,
+    from cilium_tpu_torch.ml.model import (TRAINABLE,
+                                           embed_grad_sorted_plain,
+                                           train_backward_plain,
                                            train_forward_plain)
     from cilium_tpu_torch.ml.train import adam_update_plain
 
@@ -3423,6 +3549,12 @@ def phase_train_kernels(torch, rng, world, kernels, report):
     check(float(got[0].abs().sum().item()) > 0 and all(
         float(g.abs().max().item()) > 0 for g in got),
         "anomaly_train_bwd: a zero gradient leaf")
+    k21_split = check_k21_call(
+        torch, "anomaly_train_bwd",
+        lambda sc: launch_anomaly_train_bwd(leaves, saved, ids, labels,
+                                            gloss, scratch=sc),
+        v, got, embed_grad_sorted_plain(leaves, plain_saved, ids, labels,
+                                        gloss), ids, 1)
 
     # K22 from a mid-training state: three plain steps, then one step
     # each way on clones
@@ -3495,14 +3627,17 @@ def phase_train_kernels(torch, rng, world, kernels, report):
           f"rows, id_row past V and negative): logits, x, h1, h2 "
           f"bit-exact; loss {loss_k.item():.6f} (abs err {loss_err:.3g})")
     print(f"parity anomaly_train_bwd: weight and bias gradients bit-exact, "
-          f"d_embed max abs err {g_err:.3g} ({e_same:.5f} identical with "
-          f"index_add_); two runs bit-identical")
+          f"d_embed bit-exact with embed_grad_sorted_plain, max abs err "
+          f"{g_err:.3g} against index_add_ ({e_same:.5f} identical); the "
+          f"sort a stable sort; two runs bit-identical")
     print(f"parity adam_update: {p_total} parameters, one step from count "
           f"3: params, mu, nu bit-exact, count 4")
-    s_err, s_gerr, s_same = sharded_train_kernels(
+    s_err, s_gerr, s_same, s_split = sharded_train_kernels(
         torch, kernels, leaves, ids, feats, labels, gloss,
         kernels["anomaly_train_fwd"], kernels["anomaly_train_bwd"])
     report["train_kernels"] = {"rows": n, "v": v, "hot_rows": hot,
+                               "k21_split": k21_split,
+                               "k21s_split": s_split,
                                "loss_err": loss_err, "grad_err": g_err,
                                "embed_identical": e_same,
                                "parameters": p_total,
@@ -3529,10 +3664,12 @@ def sharded_train_kernels(torch, kernels, leaves, ids, feats, labels, gloss,
     timed beside their plain versions, with K20's and K21's byte and
     FLOP counts (the same rows, weights and gradients).  -> (loss err,
     gradient err, d_embed's identical share against the plain
-    version)."""
+    version, the K21s pass split)."""
     from cilium_tpu_torch.kernels import (launch_anomaly_train_bwd,
                                           launch_anomaly_train_fwd)
-    from cilium_tpu_torch.ml.model import (TRAINABLE, train_backward_plain,
+    from cilium_tpu_torch.ml.model import (TRAINABLE,
+                                           embed_grad_sorted_plain,
+                                           train_backward_plain,
                                            train_forward_plain)
 
     S = TRAIN_SHARDS
@@ -3586,6 +3723,13 @@ def sharded_train_kernels(torch, kernels, leaves, ids, feats, labels, gloss,
                   f"from the plain version (max abs err {err})")
     check(all(float(g.abs().max().item()) > 0 for g in got),
           "anomaly_train_bwd_sharded: a zero gradient leaf")
+    split = check_k21_call(
+        torch, "anomaly_train_bwd_sharded",
+        lambda sc: launch_anomaly_train_bwd(leaves, saved, ids, labels,
+                                            gloss, S, scratch=sc),
+        leaves[0].shape[0], got,
+        embed_grad_sorted_plain(leaves, psaved, ids, labels, gloss, S),
+        ids, S)
     for name, k, fn, plain, err in (
             ("anomaly_train_fwd_sharded", k20,
              lambda: launch_anomaly_train_fwd(leaves, ids, feats, labels, S),
@@ -3604,11 +3748,11 @@ def sharded_train_kernels(torch, kernels, leaves, ids, feats, labels, gloss,
           f"{loss_err:.3g}), bit-exact with the mean of {S} unsharded "
           f"launches")
     print(f"parity anomaly_train_bwd_sharded: weight and bias gradients "
-          f"bit-exact, d_embed max abs err {g_err:.3g} ({e_same:.5f} "
-          f"identical with the plain version); every gradient bit-exact "
-          f"with the mean of {S} unsharded launches; two runs "
-          f"bit-identical")
-    return loss_err, g_err, e_same
+          f"bit-exact, d_embed bit-exact with embed_grad_sorted_plain, "
+          f"max abs err {g_err:.3g} against index_add_ ({e_same:.5f} "
+          f"identical); every gradient bit-exact with the mean of {S} "
+          f"unsharded launches; two runs bit-identical")
+    return loss_err, g_err, e_same, split
 
 
 TRAIN_STAGES = {"synth_labeled_traffic (host)": "main",
@@ -4865,7 +5009,7 @@ def main() -> int:
         phase_ring(torch, rng, kernels)
         phase_maint(torch, rng, kernels)
         phase_gather(torch, rng, kernels)
-        phase_dus(torch, rng, world, kernels)
+        phase_dus(torch, rng, world, kernels, report)
         phase_egress_kernels(torch, rng, kernels)
         svc_mgr = phase_lb_kernels(torch, rng, world, kernels, report)
         phase_ml_kernels(torch, rng, world, kernels, report)

@@ -35,8 +35,9 @@
 // then-add, and the plain versions sum in the same order: on the same
 // inputs K20's logits and saved activations, K21's weight and bias
 // gradients and K22's outputs equal theirs bit for bit.  The embedding's
-// gradient (and K20's loss) sum in another grouping than the plain
-// version's index_add_ (and sum), within float32 rounding.
+// gradient sums in K21's own grouping (below), which ml/model.py
+// embed_grad_sorted_plain repeats bit for bit; it and K20's loss are
+// within float32 rounding of the plain versions' index_add_ and sum.
 //
 // K20 (bound: bytes at the trainer's B = 4096, V = 16384, ~624 B a row:
 // id_row, feats, label, the 128 B embedding row read; x, h1, h2 in bf16
@@ -51,46 +52,65 @@
 // shards' mean.  No float atomics: two runs give the same bits.
 //
 // K21 (bound: bytes, mostly d_embed's [V, 32] float32 written; ~2x K20's
-// FLOPs).  Seven launches and a memset, in stream order:
-//   1. d_embed zeroed (the dense gradient adam reads);
-//   2. bwd_rows, a thread a row: dlogit by the reference's autodiff
-//      rules with g = gloss / (B / S), dz2 = relu'(h2) bf16(dz3 w3), dh1
-//      = dz2 W2^T, dz1, dx[:, :32] = dz1 W1[:32]^T (the rows' 64 float32
-//      sums in registers, the cotangent in a bf16 shared-memory column);
-//      dz1, dz2 feature-major, dz3, and de = bf16(dx[:, :32]) as float32
-//      rows for the scatter;
-//   3. wgrad_partial, one block a 64-row chunk of a shard's block and a
+// FLOPs).  Seven launches, in stream order, no memset; each pass's own
+// bound at the trainer's B = 4096, V = 16384 is named with it:
+//   1. bwd_rows, 8 threads a row and 16 rows a block (256 blocks of 4
+//      warps at B = 4096): dlogit by the reference's autodiff rules with
+//      g = gloss / (B / S); each thread takes 8 of dz2's and dh1's 64
+//      outputs and 4 of dx[:, :32]'s, so a row's work spreads over the
+//      SMs and a thread carries 8 sums, not 96.  dz2 = relu'(h2) bf16(dz3
+//      w3), dh1 = dz2 W2^T, dz1, dx[:, :32] = dz1 W1[:32]^T: each output a
+//      float32 FMA chain in k order over a bf16 column in shared memory.
+//      W2^T and W1[:32]^T are staged bf16-rounded through a padded
+//      transpose (coalesced global reads, conflict-free shared stores),
+//      each thread reading its 8 (or 4) outputs' weights as one 16-byte
+//      (8-byte) load.  Out: dz1, dz2 feature-major, dz3, and de =
+//      bf16(dx[:, :32]) as float32 rows for the scatter.  Bound: ~650
+//      B a row moved (~0.8 us) and 6144 FMAs a row (~0.75 us at 67
+//      TFLOP/s);
+//   2. wgrad_partial, one block a 64-row chunk of a shard's block and a
 //      layer (grid (chunks a shard, 3, S), a shard's last chunk short):
 //      every (input, output) pair's float32 sum over the chunk's rows in
 //      row order, the bias as the sum against an input of ones (the
 //      chunk staged in shared memory, an output's partial sum in a
-//      register);
-//   4. wgrad_reduce, the pmean: a thread an output; each shard's chunk
+//      register).  Bound: ~8065 FMAs a row (~1 us);
+//   3. wgrad_reduce, the pmean: a thread an output; each shard's chunk
 //      partials summed in chunk order and rounded to bf16, the shards'
 //      values added in shard order, divided by S.  Fixed order, no
-//      atomics: deterministic;
-//   5. embed_sort, a block a list: a list is a shard's block, or a slice
-//      of 16384 rows of it when the block is larger; its rows sorted by
-//      (clamped key, row) in shared memory (a bitonic sort of 64-bit
-//      keys).  The reference's gather clamps an index, but its
-//      transpose, a scatter-add, drops an index that is negative after
-//      one wrap or past the table: such rows sort last and are not
-//      summed;
-//   6. embed_piece, a warp per 32 sorted rows of a list (a lane a
-//      column): each key's rows summed in row order; a key whose rows lie
-//      inside the piece leaves its sum at its first sorted position
-//      (seg), a key that crosses a piece boundary its head or tail sum;
-//   7. embed_join, a warp per piece where a crossing key starts: its
-//      tail plus the next pieces' heads, in order, into seg.  A hot
-//      identity (half the batch on one row) costs a 32-row sum and a
-//      walk of B / 64 heads, not B serialized atomics;
-//   8. embed_merge, the pmean: a warp per key, in the first list that
-//      holds it (binary searches of the other lists): a shard's sum is
-//      0 plus its lists' seg values in list order (what the unsharded
-//      launch's memset and slice-by-slice adds give), the shards' sums
-//      added in shard order, divided by S, written to d_embed.  One
-//      writer a key and a fixed order: two runs give the same bits, and
-//      d_embed stays sparse (no [S, V, 32] partial).
+//      atomics: deterministic.  Bound: the 3.2 MB of partials (~1 us);
+//   4-5. embed_radix, one pass a digit of 8 bits (the passes cover the
+//      bits of V: two at V = 16384): a stable LSD radix sort of every
+//      shard's block by its clamped key, over tiles of 256 rows (grid
+//      (tiles a shard, S); tiles grow past 16384 rows a shard so a shard
+//      has at most 64).  A block counts the digits of its shard in
+//      shared memory (warp-aggregated integer atomics: exact in any
+//      order), those of the tiles before its own apart, scans the
+//      shard's counts, and scatters its tile 256 rows at a time, a row's
+//      rank from __match_any_sync and a per-warp prefix.  The reference's
+//      gather clamps an index, but its transpose, a scatter-add, drops
+//      an index that is negative after one wrap or past the table: such
+//      rows take the key V and sort last.  The first pass also marks
+//      every (shard, key) absent.  Out: each shard's block sorted by
+//      (key, row), as a sort of the block alone orders it, over the
+//      whole card.  Bound: 16 B a row read and written (~0.02 us); a
+//      block reads its shard's keys once more for the counts, so the
+//      launch, not bytes, sets its time;
+//   6. embed_piece, a warp per 32 sorted rows of a shard's block (a lane
+//      a column): each segment's (key's) rows summed in row order; a
+//      segment's sum over its first piece lands at its first sorted
+//      position (seg), with that position in first[shard][key], and
+//      each piece a segment runs on into leaves its part in head.
+//      Bound: de's 128 B a row read, seg written (~0.3 us);
+//   7. embed_finish, the pmean and the dense write: a warp per key of
+//      [V, 32]; for each shard in order, the segment's first-piece sum
+//      plus the heads of the pieces it runs into (found 32 at a time by
+//      a ballot over the pieces' first keys, then added in order), a
+//      shard's sum being 0 plus that, the shards' sums added in shard
+//      order, divided by S; absent keys write 0.  One writer a key and
+//      a fixed order: two runs give the same bits, S = 1 is the
+//      unsharded launch, and a sharded launch equals its blocks'
+//      unsharded launches and their mean bit for bit.  Bound: d_embed's
+//      2 MB written (~0.6 us).
 //
 // K22 (bound: bytes, 28 B a parameter: p, g, mu, nu read, p, mu, nu
 // written; 532,353 parameters at V = 16384).  One fused pass over every
@@ -113,14 +133,21 @@ constexpr int EMB = 32;             // D
 constexpr int HID = 64;             // H
 constexpr int FEAT_DIM = 27;
 constexpr int IN = EMB + FEAT_DIM;  // 59
-constexpr int TB = 64;              // rows a block of the row passes
+constexpr int TB = 64;              // rows a block of K20's row pass
 constexpr int CHUNK = 64;           // rows a block of wgrad_partial (the
                                     // plain version's WGRAD_CHUNK)
-constexpr int WTB = 256;            // threads of the wgrad and adam blocks
-constexpr int SORT_TB = 1024;
-constexpr int MAX_SORT = 1 << 14;   // embed_sort's rows (128 KB of keys)
+constexpr int WTB = 256;            // threads of the wgrad, scatter, adam blocks
+constexpr int BR = 16;              // rows a block of bwd_rows
+constexpr int BG = 8;               // threads a row of bwd_rows
+constexpr int SORT_TB = 256;        // threads and rows a pass of embed_radix
+constexpr int RADIX = 256;          // 8-bit digits
+constexpr int MAX_TILES = 64;       // embed_radix's tiles a shard, at most
+constexpr int HIST_BATCH = 8;      // embed_radix's sub-tiles a load batch
 constexpr int PIECE = 32;           // sorted rows a warp of embed_piece
 constexpr int MAX_LEAVES = 8;
+static_assert(SORT_TB == RADIX, "embed_radix: a thread a digit");
+static_assert(HID / BG == 8 && EMB / BG == 4,
+              "bwd_rows: a thread's outputs are one 16-byte (8-byte) load");
 // K22: optax.adam's defaults (eps_root 0), as ml/train.py's B1, B2, EPS;
 // 1 - b is taken in double and rounded once, as the reference's is
 constexpr float ADAM_B1 = 0.9f;
@@ -128,7 +155,6 @@ constexpr float ADAM_B2 = 0.999f;
 constexpr float ADAM_OMB1 = (float)(1.0 - 0.9);
 constexpr float ADAM_OMB2 = (float)(1.0 - 0.999);
 constexpr float ADAM_EPS = 1e-8f;
-constexpr unsigned long long NO_KEY = 0xFFFFFFFFull << 32;
 
 }  // namespace
 
@@ -175,12 +201,16 @@ struct TrainBwdIO {
   __nv_bfloat16* dz3;          // [n] scratch
   float* de;                   // [n, 32] scratch
   float* wpart;                // [3, S * chunks a shard, 65 * 64] scratch
-  int32_t* sorted_key;         // [n] scratch, each list at its first row
-  int32_t* sorted_row;         // [n] scratch
-  int32_t* nvalid;             // [lists] scratch
-  float* head;                 // [lists * pieces a list, 32] scratch
-  float* tail;                 // [lists * pieces a list, 32] scratch
-  float* seg;                  // [n, 32] scratch: a key's sum in a list
+  int32_t* key_tmp;            // [n] scratch: the radix passes' ping-pong
+  int32_t* row_tmp;            // [n] scratch
+  int32_t* sorted_key;         // [n] scratch: each shard's block by (key,
+  int32_t* sorted_row;         // [n] row), dropped rows last (key v)
+  int32_t* first;              // [S, v] scratch: a segment's first sorted
+                               // position in its block, or -1
+  float* seg;                  // [n, 32] scratch: a segment's sum over its
+                               // first piece, at its first position
+  float* head;                 // [S * pieces a shard, 32] scratch: a piece's
+                               // part of a segment begun before it
   float* dw1;                  // [59, 64] out
   float* db1;                  // [64]
   float* dw2;                  // [64, 64]
@@ -341,59 +371,127 @@ __global__ void loss_reduce(TrainFwdIO io, int blocks) {
 
 // ---- K21 ---------------------------------------------------------------
 
-__global__ void __launch_bounds__(TB) bwd_rows(TrainBwdIO io) {
-  __shared__ __align__(16) float s_w2t[HID * HID];  // [j][k] = W2[k][j]
-  __shared__ __align__(16) float s_w1t[HID * EMB];  // [k][m] = W1[m][k]
+// 8 bf16 (or 4) from shared memory as floats (a bf16 is the high half
+// of its float)
+__device__ __forceinline__ void unpack_bf16x2(unsigned u, float& lo,
+                                              float& hi) {
+  lo = __uint_as_float(u << 16);
+  hi = __uint_as_float(u & 0xFFFF0000u);
+}
+
+// a block: BR rows, BG threads a row (thread t: row t % BR, group t / BR)
+__global__ void __launch_bounds__(BR * BG) bwd_rows(TrainBwdIO io) {
+  __shared__ float s_tmp[HID * (HID + 1)];  // a padded transpose
+  __shared__ __align__(16) __nv_bfloat16 s_w2t[HID * HID];  // [j][k] = W2[k][j]
+  __shared__ __align__(16) __nv_bfloat16 s_w1t[HID * EMB];  // [k][m] = W1[m][k]
   __shared__ float s_w3[HID];
-  __shared__ __align__(16) __nv_bfloat16 s_col[HID * TB];
+  __shared__ __nv_bfloat16 s_dz2[HID * BR];  // [j][row]
+  __shared__ __nv_bfloat16 s_dz1[HID * BR];  // [k][row]
   const int tid = threadIdx.x;
-  for (int j = tid; j < HID * HID; j += TB)
-    s_w2t[(j % HID) * HID + j / HID] = bf16r(io.w2[j]);
-  for (int j = tid; j < HID * EMB; j += TB)
-    s_w1t[j] = bf16r(io.w1[(j % EMB) * HID + j / EMB]);
-  for (int j = tid; j < HID; j += TB) s_w3[j] = bf16r(io.w3[j]);
+  // W2 and W1[:32] read along their rows, all loads in flight at once,
+  // then written transposed: the padded row of 65 puts a column's 32
+  // reads in 32 banks
+  constexpr int kW2 = HID * HID / (BR * BG), kW1 = EMB * HID / (BR * BG);
+  float w2r[kW2], w1r[kW1];
+#pragma unroll
+  for (int u = 0; u < kW2; ++u) w2r[u] = io.w2[tid + u * BR * BG];
+#pragma unroll
+  for (int u = 0; u < kW1; ++u) w1r[u] = io.w1[tid + u * BR * BG];
+  for (int j = tid; j < HID; j += BR * BG) s_w3[j] = bf16r(io.w3[j]);
+#pragma unroll
+  for (int u = 0; u < kW2; ++u) {
+    const int f = tid + u * BR * BG;  // W2[k][j], k = f / 64
+    s_tmp[(f >> 6) * (HID + 1) + (f & 63)] = w2r[u];
+  }
   __syncthreads();
+#pragma unroll 8
+  for (int f = tid; f < HID * HID; f += BR * BG)
+    s_w2t[f] = __float2bfloat16_rn(s_tmp[(f & 63) * (HID + 1) + (f >> 6)]);
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kW1; ++u) {
+    const int f = tid + u * BR * BG;  // W1[m][k], m = f / 64
+    s_tmp[(f >> 6) * (HID + 1) + (f & 63)] = w1r[u];
+  }
+  __syncthreads();
+#pragma unroll 8
+  for (int f = tid; f < HID * EMB; f += BR * BG)
+    s_w1t[f] = __float2bfloat16_rn(s_tmp[(f & 31) * (HID + 1) + (f >> 5)]);
+  const int r = tid % BR, g = tid / BR;
   const int32_t n = io.n;
-  const int32_t i = blockIdx.x * TB + tid;
-  if (i >= n) return;
+  const int32_t i = blockIdx.x * BR + r;
+  const bool live = i < n;
   // dlogit: with g = gloss / (B / S) and t = exp(-|l|), the rules
   // jax.grad derives from bce_loss: maximum splits its tie (1/2 at l ==
   // 0), abs takes the + branch at 0
-  const float g = __fdiv_rn(io.gloss[0], (float)io.block);
-  const float l = io.logit[i];
-  const float t = expf(-fabsf(l));
-  const float ct = __fmul_rn(__fdiv_rn(g, __fadd_rn(t, 1.0f)), t);
-  const float cz = l >= 0.0f ? -ct : ct;
-  const float cf = l > 0.0f ? 1.0f : (l == 0.0f ? 0.5f : 0.0f);
-  const float dl = __fadd_rn(__fadd_rn(cz, __fmul_rn(-g, io.labels[i])),
-                             __fmul_rn(g, cf));
-  const __nv_bfloat16 dz3 = __float2bfloat16_rn(dl);
-  io.dz3[i] = dz3;
-  __nv_bfloat16* col = s_col + tid;
+  float dz3f = 0.0f;
+  if (live) {
+    const float gl = __fdiv_rn(io.gloss[0], (float)io.block);
+    const float l = io.logit[i];
+    const float t = expf(-fabsf(l));
+    const float ct = __fmul_rn(__fdiv_rn(gl, __fadd_rn(t, 1.0f)), t);
+    const float cz = l >= 0.0f ? -ct : ct;
+    const float cf = l > 0.0f ? 1.0f : (l == 0.0f ? 0.5f : 0.0f);
+    const float dl = __fadd_rn(__fadd_rn(cz, __fmul_rn(-gl, io.labels[i])),
+                               __fmul_rn(gl, cf));
+    const __nv_bfloat16 dz3 = __float2bfloat16_rn(dl);
+    dz3f = bf2f(dz3);
+    if (g == 0) io.dz3[i] = dz3;
+  }
 #pragma unroll
+  for (int e = 0; e < HID / BG; ++e) {
+    const int j = g * (HID / BG) + e;
+    const bool on = live && bf2f(io.h2T[(size_t)j * n + i]) > 0.0f;
+    const __nv_bfloat16 d =
+        __float2bfloat16_rn(on ? __fmul_rn(dz3f, s_w3[j]) : 0.0f);
+    s_dz2[j * BR + r] = d;
+    if (live) io.dz2T[(size_t)j * n + i] = d;
+  }
+  __syncthreads();
+  // dh1[k] = sum_j dz2[j] W2[k][j], k = 8g .. 8g + 7
+  float acc[HID / BG];
+#pragma unroll
+  for (int e = 0; e < HID / BG; ++e) acc[e] = 0.0f;
+#pragma unroll 8
   for (int j = 0; j < HID; ++j) {
-    const bool on = bf2f(io.h2T[(size_t)j * n + i]) > 0.0f;
-    const __nv_bfloat16 d = __float2bfloat16_rn(
-        on ? __fmul_rn(bf2f(dz3), s_w3[j]) : 0.0f);
-    col[j * TB] = d;
-    io.dz2T[(size_t)j * n + i] = d;
-  }
-  float acc[HID];
-  layer<HID>(col, s_w2t, HID, acc);  // dh1 = dz2 W2^T
+    const float x = bf2f(s_dz2[j * BR + r]);
+    const uint4 wv =
+        *reinterpret_cast<const uint4*>(s_w2t + j * HID + g * (HID / BG));
+    float w[8];
+    unpack_bf16x2(wv.x, w[0], w[1]);
+    unpack_bf16x2(wv.y, w[2], w[3]);
+    unpack_bf16x2(wv.z, w[4], w[5]);
+    unpack_bf16x2(wv.w, w[6], w[7]);
 #pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = fmaf(x, w[e], acc[e]);
+  }
+#pragma unroll
+  for (int e = 0; e < HID / BG; ++e) {
+    const int k = g * (HID / BG) + e;
+    const bool on = live && bf2f(io.h1T[(size_t)k * n + i]) > 0.0f;
+    const __nv_bfloat16 d = __float2bfloat16_rn(on ? acc[e] : 0.0f);
+    s_dz1[k * BR + r] = d;
+    if (live) io.dz1T[(size_t)k * n + i] = d;
+  }
+  __syncthreads();
+  // dx[:, m] = sum_k dz1[k] W1[m][k], m = 4g .. 4g + 3
+  float de[EMB / BG];
+#pragma unroll
+  for (int e = 0; e < EMB / BG; ++e) de[e] = 0.0f;
+#pragma unroll 8
   for (int k = 0; k < HID; ++k) {
-    const bool on = bf2f(io.h1T[(size_t)k * n + i]) > 0.0f;
-    const __nv_bfloat16 d = __float2bfloat16_rn(on ? acc[k] : 0.0f);
-    col[k * TB] = d;
-    io.dz1T[(size_t)k * n + i] = d;
-  }
-  float de[EMB];
-  layer<EMB>(col, s_w1t, HID, de);  // dx[:, :32] = dz1 W1[:32]^T
-  float4* out = reinterpret_cast<float4*>(io.de + (size_t)i * EMB);
+    const float x = bf2f(s_dz1[k * BR + r]);
+    const uint2 wv =
+        *reinterpret_cast<const uint2*>(s_w1t + k * EMB + g * (EMB / BG));
+    float w[4];
+    unpack_bf16x2(wv.x, w[0], w[1]);
+    unpack_bf16x2(wv.y, w[2], w[3]);
 #pragma unroll
-  for (int q = 0; q < EMB / 4; ++q)
-    out[q] = make_float4(bf16r(de[4 * q]), bf16r(de[4 * q + 1]),
-                         bf16r(de[4 * q + 2]), bf16r(de[4 * q + 3]));
+    for (int e = 0; e < 4; ++e) de[e] = fmaf(x, w[e], de[e]);
+  }
+  if (live)
+    *reinterpret_cast<float4*>(io.de + (size_t)i * EMB + g * (EMB / BG)) =
+        make_float4(bf16r(de[0]), bf16r(de[1]), bf16r(de[2]), bf16r(de[3]));
 }
 
 // layer y's (inputs A, cotangents D) for the weight gradients: y = 0 is
@@ -481,183 +579,229 @@ __global__ void __launch_bounds__(WTB) wgrad_reduce(TrainBwdIO io,
     job.db[o % job.nd] = v;
 }
 
-// K21's lists: shard z's block split into slices of MAX_SORT rows (one
-// slice when the block is that small); list l = z * lists_a_shard + j
-struct EmbedList {
-  int32_t row0;  // its first row in the batch
-  int32_t m;     // its rows
-};
+// ---- K21's embedding scatter ----------------------------------------
 
-__device__ __forceinline__ int lists_a_shard(const TrainBwdIO& io) {
-  return (io.block + MAX_SORT - 1) / MAX_SORT;
+// the table row the scatter-add writes for batch row `row`, or v where
+// it drops the row
+__device__ __forceinline__ int32_t scatter_key(const TrainBwdIO& io,
+                                               int32_t row) {
+  int64_t key = io.id_row[row];
+  if (key < 0) key += io.v;
+  return key >= 0 && key < io.v ? (int32_t)key : io.v;
 }
 
-__device__ __forceinline__ EmbedList embed_list(const TrainBwdIO& io,
-                                                int l) {
-  const int per = lists_a_shard(io);
-  const int32_t j0 = (l % per) * MAX_SORT;
-  return {(l / per) * io.block + j0, min(MAX_SORT, io.block - j0)};
-}
-
-// a block a list: its m rows sorted by (key, row) with key the table row
-// the scatter-add writes; rows it drops sort last (key 0xFFFFFFFF)
-__global__ void __launch_bounds__(SORT_TB) embed_sort(TrainBwdIO io,
-                                                      int p2) {
-  extern __shared__ unsigned long long s_keys[];
-  const EmbedList L = embed_list(io, blockIdx.x);
-  const int tid = threadIdx.x;
-  int valid = 0;
-  for (int base = 0; base < p2; base += SORT_TB) {
-    const int i = base + tid;
-    bool ok = false;
-    if (i < p2) {
-      const unsigned row = (unsigned)(L.row0 + i);
-      unsigned long long k = NO_KEY | row;
-      if (i < L.m) {
-        int64_t key = io.id_row[row];
-        if (key < 0) key += io.v;
-        ok = key >= 0 && key < io.v;
-        if (ok) k = ((unsigned long long)key << 32) | row;
+// One LSD pass over digit (key >> shift) & 255: grid (tiles a shard, S),
+// a tile `subs` sub-tiles of SORT_TB rows.  in_key is null on the first
+// pass (keys from id_row, rows in batch order).  Stable: a shard's rows
+// keep their order within a digit.
+__global__ void __launch_bounds__(SORT_TB) embed_radix(
+    TrainBwdIO io, const int32_t* in_key, const int32_t* in_row,
+    int32_t* out_key, int32_t* out_row, int shift, int subs) {
+  __shared__ int32_t s_total[RADIX];   // the shard's rows a digit
+  __shared__ int32_t s_next[RADIX];    // rows before this tile, then the
+                                       // digit's next position
+  __shared__ int32_t s_warp[SORT_TB / 32][RADIX];
+  __shared__ int32_t s_wsum[SORT_TB / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int32_t block = io.block, base = blockIdx.y * block;
+  const int32_t k0 = blockIdx.x * subs;        // this tile's first sub-tile
+  const int32_t n_sub = (block + SORT_TB - 1) / SORT_TB;  // a shard's
+  const bool first_pass = in_key == nullptr;
+  if (first_pass) {
+    const int64_t all = (int64_t)io.n_shards * io.v;
+    for (int64_t x = ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) *
+                         SORT_TB + tid;
+         x < all; x += (int64_t)gridDim.x * gridDim.y * SORT_TB)
+      io.first[x] = -1;
+  }
+  s_total[tid] = 0;
+  s_next[tid] = 0;
+  __syncthreads();
+  // the shard's digits, HIST_BATCH sub-tiles' loads in flight at once
+  for (int32_t kb = 0; kb < n_sub; kb += HIST_BATCH) {
+    int d[HIST_BATCH];
+#pragma unroll
+    for (int u = 0; u < HIST_BATCH; ++u) {
+      const int32_t j = (kb + u) * SORT_TB + tid;
+      d[u] = -1;
+      if (kb + u < n_sub && j < block) {
+        const int32_t key =
+            first_pass ? scatter_key(io, base + j) : in_key[base + j];
+        d[u] = (key >> shift) & (RADIX - 1);
       }
-      s_keys[i] = k;
     }
-    valid += __syncthreads_count(ok);
-  }
-  for (int k = 2; k <= p2; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < p2; i += SORT_TB) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const unsigned long long a = s_keys[i], b = s_keys[ixj];
-          if ((a > b) == ((i & k) == 0)) {
-            s_keys[i] = b;
-            s_keys[ixj] = a;
-          }
-        }
+#pragma unroll
+    for (int u = 0; u < HIST_BATCH; ++u) {
+      const unsigned peers = __match_any_sync(0xFFFFFFFFu, d[u]);
+      if (d[u] >= 0 && lane == __ffs(peers) - 1) {
+        atomicAdd(&s_total[d[u]], __popc(peers));
+        if (kb + u < k0) atomicAdd(&s_next[d[u]], __popc(peers));
       }
-      __syncthreads();
     }
   }
-  for (int i = tid; i < L.m; i += SORT_TB) {
-    io.sorted_key[L.row0 + i] = (int32_t)(s_keys[i] >> 32);
-    io.sorted_row[L.row0 + i] = (int32_t)(s_keys[i] & 0xFFFFFFFFull);
+  __syncthreads();
+  {  // exclusive scan of the shard's counts over the digits
+    const int32_t c = s_total[tid];
+    int32_t x = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t y = __shfl_up_sync(0xFFFFFFFFu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) s_wsum[warp] = x;
+    __syncthreads();
+    int32_t below = 0;
+    for (int w = 0; w < warp; ++w) below += s_wsum[w];
+    s_next[tid] += base + below + x - c;
   }
-  if (tid == 0) io.nvalid[blockIdx.x] = valid;
+  const int32_t k_end = min(k0 + subs, n_sub);
+  for (int32_t k = k0; k < k_end; ++k) {
+    const int32_t j = k * SORT_TB + tid;
+    int d = -1;
+    int32_t key = 0, row = 0;
+    if (j < block) {
+      key = first_pass ? scatter_key(io, base + j) : in_key[base + j];
+      row = first_pass ? base + j : in_row[base + j];
+      d = (key >> shift) & (RADIX - 1);
+    }
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, d);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    for (int x = tid; x < (SORT_TB / 32) * RADIX; x += SORT_TB)
+      (&s_warp[0][0])[x] = 0;
+    __syncthreads();
+    if (d >= 0 && rank == 0) s_warp[warp][d] = __popc(peers);
+    __syncthreads();
+    {  // a thread a digit: the warps' exclusive prefix from its position
+      int32_t at = s_next[tid];
+      for (int w = 0; w < SORT_TB / 32; ++w) {
+        const int32_t c = s_warp[w][tid];
+        s_warp[w][tid] = at;
+        at += c;
+      }
+      s_next[tid] = at;
+    }
+    __syncthreads();
+    if (d >= 0) {
+      const int32_t at = s_warp[warp][d] + rank;
+      out_key[at] = key;
+      out_row[at] = row;
+    }
+    __syncthreads();
+  }
 }
 
-// grid (lists, pieces a list / warps a block): a warp per PIECE sorted
-// rows of list blockIdx.x, a lane per column; each key's rows summed in
-// row order; a key inside the piece leaves its sum in seg at its first
-// sorted position, one that crosses the piece's start its head sum, one
-// that crosses its end (and starts in it) its tail sum
+// grid (ceil(pieces / warps a block), S): a warp per PIECE sorted rows
+// of shard blockIdx.y's block, a lane per column; each segment's rows
+// summed in row order.  A segment that starts in the piece leaves its sum
+// over the piece at seg[its first position] and that position in
+// first[shard][key]; one begun in an earlier piece leaves its part in
+// head[piece].
 __global__ void __launch_bounds__(WTB) embed_piece(TrainBwdIO io,
                                                    int pieces) {
-  const int q = (blockIdx.y * WTB + threadIdx.x) >> 5;
+  const int q = blockIdx.x * (WTB / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  const EmbedList L = embed_list(io, blockIdx.x);
-  const int32_t nv = io.nvalid[blockIdx.x];
-  const int32_t p0 = q * PIECE;
-  if (p0 >= nv) return;
-  const int32_t p1 = min(p0 + PIECE, nv);
-  const int32_t* sk = io.sorted_key + L.row0;
-  const int32_t* sr = io.sorted_row + L.row0;
-  const size_t hq = ((size_t)blockIdx.x * pieces + q) * EMB + lane;
-  int32_t cur = sk[p0], start = p0;
+  if (q >= pieces) return;
+  const int z = blockIdx.y;
+  const int32_t base = z * io.block, p0 = q * PIECE;
+  const int cnt = min(PIECE, io.block - p0);
+  const int32_t* sk = io.sorted_key + base;
+  const int32_t* sr = io.sorted_row + base;
+  const int32_t my_key = lane < cnt ? sk[p0 + lane] : io.v;
+  const int32_t my_row = lane < cnt ? sr[p0 + lane] : 0;
+  float val[PIECE];
+#pragma unroll
+  for (int t = 0; t < PIECE; ++t) {
+    const int32_t rr = __shfl_sync(0xFFFFFFFFu, my_row, t);
+    val[t] = t < cnt ? io.de[(size_t)rr * EMB + lane] : 0.0f;
+  }
+  int32_t cur = __shfl_sync(0xFFFFFFFFu, my_key, 0);
+  if (cur == io.v) return;  // dropped rows from here to the block's end
   bool from_left = p0 > 0 && sk[p0 - 1] == cur;
+  int32_t start = p0;
   float acc = 0.0f;
-  for (int32_t p = p0; p < p1; ++p) {
-    const int32_t k = sk[p];
+  const size_t hq = ((size_t)z * pieces + q) * EMB + lane;
+#pragma unroll
+  for (int t = 0; t < PIECE; ++t) {
+    if (t >= cnt) break;
+    const int32_t k = __shfl_sync(0xFFFFFFFFu, my_key, t);
     if (k != cur) {
-      if (from_left)
+      if (from_left) {
         io.head[hq] = acc;
-      else
-        io.seg[((size_t)L.row0 + start) * EMB + lane] = acc;
+      } else {
+        io.seg[((size_t)base + start) * EMB + lane] = acc;
+        if (lane == 0) io.first[(size_t)z * io.v + cur] = start;
+      }
+      if (k == io.v) return;
       from_left = false;
       cur = k;
-      start = p;
+      start = p0 + t;
       acc = 0.0f;
     }
-    acc = __fadd_rn(acc, io.de[(size_t)sr[p] * EMB + lane]);
+    acc = __fadd_rn(acc, val[t]);
   }
-  const bool to_right = p1 < nv && sk[p1] == cur;
-  if (from_left)
+  if (from_left) {
     io.head[hq] = acc;
-  else if (to_right)
-    io.tail[hq] = acc;
-  else
-    io.seg[((size_t)L.row0 + start) * EMB + lane] = acc;
-}
-
-// a warp per piece whose last key starts in it and crosses its end: the
-// tail plus the following pieces' heads, in order, into seg at the key's
-// first sorted position
-__global__ void __launch_bounds__(WTB) embed_join(TrainBwdIO io,
-                                                  int pieces) {
-  const int q = (blockIdx.y * WTB + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const EmbedList L = embed_list(io, blockIdx.x);
-  const int32_t nv = io.nvalid[blockIdx.x];
-  const int32_t p0 = q * PIECE;
-  if (p0 >= nv) return;
-  const int32_t p1 = min(p0 + PIECE, nv);
-  const int32_t* sk = io.sorted_key + L.row0;
-  const int32_t key = sk[p1 - 1];
-  if (!(p1 < nv && sk[p1] == key)) return;  // ends in this piece
-  if (p0 > 0 && sk[p0 - 1] == key) return;  // starts in an earlier one
-  int32_t start = p1 - 1;
-  while (start > p0 && sk[start - 1] == key) --start;
-  const float* head = io.head + (size_t)blockIdx.x * pieces * EMB + lane;
-  float acc = io.tail[((size_t)blockIdx.x * pieces + q) * EMB + lane];
-  for (int qq = q + 1;; ++qq) {
-    acc = __fadd_rn(acc, head[(size_t)qq * EMB]);
-    const int32_t pe = min((qq + 1) * PIECE, nv);
-    if (!(pe < nv && sk[pe] == key)) break;
+  } else {
+    io.seg[((size_t)base + start) * EMB + lane] = acc;
+    if (lane == 0) io.first[(size_t)z * io.v + cur] = start;
   }
-  io.seg[((size_t)L.row0 + start) * EMB + lane] = acc;
 }
 
-// key's first sorted position in list l, or -1
-__device__ __forceinline__ int32_t find_key(const TrainBwdIO& io, int l,
-                                            int32_t key) {
-  const EmbedList L = embed_list(io, l);
-  const int32_t* sk = io.sorted_key + L.row0;
-  int32_t lo = 0, hi = io.nvalid[l];
-  while (lo < hi) {
-    const int32_t mid = (lo + hi) >> 1;
-    if (sk[mid] < key)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo < io.nvalid[l] && sk[lo] == key ? lo : -1;
-}
-
-// the pmean of d_embed: grid (lists, positions a list / warps a block),
-// a warp per key at its first position in the first list that holds it
-__global__ void __launch_bounds__(WTB) embed_merge(TrainBwdIO io) {
-  const int32_t p = (blockIdx.y * WTB + threadIdx.x) >> 5;
+// the heads of the `cnt` pieces from q on that key's segment in shard z
+// runs into, added to acc in piece order (then 32 pieces more while all
+// 32 probed continue it)
+__device__ __forceinline__ float add_heads(const TrainBwdIO& io, int pieces,
+                                           int z, int32_t key, int32_t q,
+                                           int cnt, float acc) {
   const int lane = threadIdx.x & 31;
-  const int l = blockIdx.x;
-  if (p >= io.nvalid[l]) return;
-  const int32_t* sk = io.sorted_key + embed_list(io, l).row0;
-  const int32_t key = sk[p];
-  if (p > 0 && sk[p - 1] == key) return;
-  for (int l2 = 0; l2 < l; ++l2)
-    if (find_key(io, l2, key) >= 0) return;  // an earlier list's key
-  const int per = lists_a_shard(io);
+  const int32_t base = z * io.block;
+  const float* head = io.head + (size_t)z * pieces * EMB + lane;
+  for (;;) {
+    float h[32];
+#pragma unroll
+    for (int t = 0; t < 32; ++t)
+      h[t] = t < cnt ? head[(size_t)(q + t) * EMB] : 0.0f;
+#pragma unroll
+    for (int t = 0; t < 32; ++t)
+      if (t < cnt) acc = __fadd_rn(acc, h[t]);
+    if (cnt < 32) return acc;
+    q += 32;
+    const int32_t at = (q + lane) * PIECE;
+    const int32_t next = at < io.block ? io.sorted_key[base + at] : -1;
+    cnt = __popc(__ballot_sync(0xFFFFFFFFu, next == key));
+  }
+}
+
+// a warp per key of d_embed, a lane per column: each shard's segment sum
+// (its first piece's, then the heads of the pieces it runs into, in
+// order), 0 plus that, the shards added in shard order, over S.  The
+// key's first positions in 32 shards load at once, a lane a shard; a
+// present segment's first-piece sum and its probe of the 32 pieces after
+// it load together, ahead of the ballot.
+__global__ void __launch_bounds__(WTB) embed_finish(TrainBwdIO io,
+                                                    int pieces) {
+  const int32_t key = blockIdx.x * (WTB / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (key >= io.v) return;
   float total = 0.0f;
-  for (int z = 0; z < io.n_shards; ++z) {
-    // the unsharded launch on shard z's block: d_embed zeroed, then each
-    // of its lists' sums added in list order
-    float shard = 0.0f;
-    for (int l2 = z * per; l2 < (z + 1) * per; ++l2) {
-      const int32_t at = l2 == l ? p : l2 < l ? -1 : find_key(io, l2, key);
-      if (at >= 0)
-        shard = __fadd_rn(
-            shard,
-            io.seg[((size_t)embed_list(io, l2).row0 + at) * EMB + lane]);
+  for (int z0 = 0; z0 < io.n_shards; z0 += 32) {
+    const int nz = min(32, io.n_shards - z0);
+    const int32_t my_p =
+        lane < nz ? io.first[(size_t)(z0 + lane) * io.v + key] : -1;
+    for (int u = 0; u < nz; ++u) {
+      const int z = z0 + u;
+      const int32_t p = __shfl_sync(0xFFFFFFFFu, my_p, u);
+      float shard = 0.0f;
+      if (p >= 0) {
+        const int32_t base = z * io.block, q = p / PIECE + 1;
+        const int32_t at = (q + lane) * PIECE;
+        const int32_t next = at < io.block ? io.sorted_key[base + at] : -1;
+        const float acc = io.seg[((size_t)base + p) * EMB + lane];
+        const int cnt = __popc(__ballot_sync(0xFFFFFFFFu, next == key));
+        shard = __fadd_rn(0.0f, add_heads(io, pieces, z, key, q, cnt, acc));
+      }
+      total = z == 0 ? shard : __fadd_rn(total, shard);
     }
-    total = z == 0 ? shard : __fadd_rn(total, shard);
   }
   io.d_embed[(size_t)key * EMB + lane] =
       __fdiv_rn(total, (float)io.n_shards);
@@ -709,34 +853,41 @@ extern "C" int anomaly_train_fwd_launch(const TrainFwdIO* io,
 
 extern "C" int anomaly_train_bwd_launch(const TrainBwdIO* io,
                                         cudaStream_t stream) {
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      embed_sort, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(sizeof(unsigned long long) * MAX_SORT));
-  if (opt_in != cudaSuccess) return (int)opt_in;
   const int32_t n = io->n, block = io->block, n_shards = io->n_shards;
-  if (n_shards < 1 || block < 1 || (int64_t)n_shards * block != n)
+  if (n_shards < 1 || block < 1 || (int64_t)n_shards * block != n ||
+      io->v < 1)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(
-      io->d_embed, 0, sizeof(float) * EMB * (size_t)io->v, stream);
-  if (err != cudaSuccess) return (int)err;
   const int chunks = (block + CHUNK - 1) / CHUNK;  // a shard's
-  bwd_rows<<<(n + TB - 1) / TB, TB, 0, stream>>>(*io);
+  bwd_rows<<<(n + BR - 1) / BR, BR * BG, 0, stream>>>(*io);
   wgrad_partial<<<dim3(chunks, 3, n_shards), WTB, 0, stream>>>(*io, chunks);
   wgrad_reduce<<<dim3((WOUT + WTB - 1) / WTB, 3), WTB, 0, stream>>>(*io,
                                                                      chunks);
-  const int lists = n_shards * ((block + MAX_SORT - 1) / MAX_SORT);
-  const int m = min(MAX_SORT, block);  // the longest list's rows
-  int p2 = 2;
-  while (p2 < m) p2 <<= 1;
-  embed_sort<<<lists, SORT_TB, sizeof(unsigned long long) * p2, stream>>>(
-      *io, p2);
+  // the radix passes: 8 bits a pass over the keys 0 .. v (v: dropped),
+  // the last pass into sorted_key / sorted_row
+  int bits = 0;
+  while (bits < 31 && (io->v >> bits) != 0) ++bits;
+  const int passes = (bits + 7) / 8;
+  const int n_sub = (block + SORT_TB - 1) / SORT_TB;
+  const int subs = (n_sub + MAX_TILES - 1) / MAX_TILES;  // a tile's
+  const dim3 sgrid((n_sub + subs - 1) / subs, n_shards);
+  const int32_t* in_key = nullptr;
+  const int32_t* in_row = nullptr;
+  for (int p = 0; p < passes; ++p) {
+    const bool last = (passes - 1 - p) % 2 == 0;
+    int32_t* out_key = last ? io->sorted_key : io->key_tmp;
+    int32_t* out_row = last ? io->sorted_row : io->row_tmp;
+    embed_radix<<<sgrid, SORT_TB, 0, stream>>>(*io, in_key, in_row, out_key,
+                                               out_row, 8 * p, subs);
+    in_key = out_key;
+    in_row = out_row;
+  }
   const int warps_per_block = WTB / 32;
-  const int pieces = (m + PIECE - 1) / PIECE;  // a list's, at most
-  const dim3 pgrid(lists, (pieces + warps_per_block - 1) / warps_per_block);
-  embed_piece<<<pgrid, WTB, 0, stream>>>(*io, pieces);
-  embed_join<<<pgrid, WTB, 0, stream>>>(*io, pieces);
-  embed_merge<<<dim3(lists, (m + warps_per_block - 1) / warps_per_block),
-                WTB, 0, stream>>>(*io);
+  const int pieces = (block + PIECE - 1) / PIECE;  // a shard's
+  embed_piece<<<dim3((pieces + warps_per_block - 1) / warps_per_block,
+                     n_shards),
+                WTB, 0, stream>>>(*io, pieces);
+  embed_finish<<<(io->v + warps_per_block - 1) / warps_per_block, WTB, 0,
+                 stream>>>(*io, pieces);
   return (int)cudaGetLastError();
 }
 

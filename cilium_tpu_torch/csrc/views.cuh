@@ -123,16 +123,18 @@ struct L7IO {
 };
 
 // One in-place update of a contiguous int32 tensor (datapath/loader.py
-// _dus): ``upd`` written into ``dst`` at ``starts``, rank 1-4 with the
-// shapes padded by leading 1s to rank 4.
+// _dus), as the runs of datapath/loader.py _dus_runs: c0 c1 c2 runs of
+// ``run`` words, run (q0, q1, q2) the update's ((q0 c1 + q1) c2 + q2)-th,
+// landing at base + q0 t0 + q1 t1 + q2 t2.
 struct DusIO {
-  int32_t* dst;            // [dst_shape], written in place
-  const int32_t* upd;      // [upd_shape], upd_shape[d] <= dst_shape[d]
-  int64_t dst_shape[4];
-  int64_t upd_shape[4];
-  int64_t starts[4];       // as given: negative counts from the end
-                           // once, then clamped into [0, dst - upd]
-  int64_t n;               // update elements
+  int32_t* dst;            // the table, written in place
+  const int32_t* upd;      // the update, contiguous
+  int64_t base;            // words: the first run's offset in dst
+  int64_t stride[3];       // words: dst strides of the runs' outer dims
+  int32_t count[3];        // the runs' outer dims, outermost first
+  int32_t run;             // words a run
+  int32_t vec;             // 1: run, base, strides, pointers 16-byte whole
+  int32_t pad;
 };
 
 // The NAT configuration (service/nat.py NATTensors): the non-masquerade

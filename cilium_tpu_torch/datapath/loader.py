@@ -51,7 +51,7 @@ import contextlib
 import ipaddress
 import threading
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +73,49 @@ def _dus_starts(dst_shape, upd_shape, starts) -> list:
     clamps it into [0, dst - upd], so the update always fits."""
     return [min(max(int(s) + d if int(s) < 0 else int(s), 0), d - u)
             for s, d, u in zip(starts, dst_shape, upd_shape)]
+
+
+class DusRuns(NamedTuple):
+    """An update cut into runs: ``counts[0] * counts[1] * counts[2]``
+    pieces of ``run`` words, each contiguous in the update and in the
+    table.  Run (q0, q1, q2) is the update's ((q0 c1 + q1) c2 + q2)-th
+    and lands at ``base + q0 t0 + q1 t1 + q2 t2`` (t = ``strides``), all
+    in words of the row-major table."""
+
+    run: int
+    counts: Tuple[int, int, int]
+    strides: Tuple[int, int, int]
+    base: int
+
+
+def _dus_runs(dst_shape, upd_shape, starts) -> DusRuns:
+    """The runs K10 copies for ``upd_shape`` written into ``dst_shape``
+    at ``starts`` (:func:`_dus_starts`' rule).  The update's dimensions
+    of size 1 drop out; a dimension merges into the next inner one
+    where the update spans the inner one's full width (its table stride
+    is the inner size times the inner stride); the innermost, if its
+    table stride is 1, is the run, else a run is one word.  At most
+    three dimensions are left (a rank-4 update with no dimension of 1
+    has a stride-1 innermost), padded outermost with counts of 1."""
+    strides, s = [], 1
+    for d in reversed(dst_shape):
+        strides.insert(0, s)
+        s *= int(d)
+    base = sum(a * t for a, t in zip(
+        _dus_starts(dst_shape, upd_shape, starts), strides))
+    dims = []  # (size, table stride), outermost first
+    for u, t in zip(upd_shape, strides):
+        u = int(u)
+        if u == 1:
+            continue
+        if dims and dims[-1][1] == u * t:
+            dims[-1] = (dims[-1][0] * u, t)
+        else:
+            dims.append((u, t))
+    run = dims.pop()[0] if dims and dims[-1][1] == 1 else 1
+    dims = [(1, 0)] * (3 - len(dims)) + dims
+    return DusRuns(run, tuple(u for u, _ in dims),
+                   tuple(t for _, t in dims), base)
 
 
 def _dus_plain(dst: torch.Tensor, upd: torch.Tensor,

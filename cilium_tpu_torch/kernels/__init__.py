@@ -39,8 +39,9 @@ class Kernel:
     symbol: str  # its C entry point
     replaces: str  # the JAX device program it replaces (file:line)
     launches: int = 0
+    rows: int = 0  # rows its launches took, where the launcher counts them
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, rows: int = 0) -> None:
         lib = _library(self.source)
         err = getattr(lib, self.symbol)(*args)
         if err != 0:
@@ -48,6 +49,7 @@ class Kernel:
                 f"{self.name}: CUDA error {err} "
                 f"({lib.cuda_error_name(err).decode()})")
         self.launches += 1
+        self.rows += rows
 
 
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
@@ -121,6 +123,7 @@ KERNELS: Dict[str, Kernel] = {k.name: k for k in (
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.rows = 0
 
 
 _READY: set = set()
@@ -473,7 +476,8 @@ def launch_l7_verdict(rules: torch.Tensor, rows: torch.Tensor,
         rows=_ptr(rows, I32, dev, (n, 8), align=16, name="rows"),
         pref=_ptr(pref, I32, dev, (n, k, 2), name="pref") if k else None,
         out=out.data_ptr(), n=n, n_rules=n_rules, k=k)
-    KERNELS["l7_verdict"].launch(ctypes.addressof(io), _stream(dev))
+    KERNELS["l7_verdict"].launch(ctypes.addressof(io), _stream(dev),
+                                 rows=n)
     return out
 
 
@@ -482,7 +486,12 @@ def launch_dus(dst: torch.Tensor, upd: torch.Tensor, starts) -> None:
     as ``jax.lax.dynamic_update_slice`` takes them (a negative start
     counts from the end once, then XLA's clamp).  Both int32,
     contiguous, of one rank from 1 to 4, ``upd`` no larger than ``dst``
-    in any dimension."""
+    in any dimension.  The host cuts the update into runs
+    (``datapath/loader.py`` ``_dus_runs``); the kernel copies them, 16
+    bytes a thread where every run and both pointers are 16-byte
+    whole."""
+    from ..datapath.loader import _dus_runs
+
     dev, rank = dst.device, dst.dim()
     if not 1 <= rank <= 4 or upd.dim() != rank or len(starts) != rank:
         raise ValueError(f"dus: ranks dst {rank}, upd {upd.dim()}, starts "
@@ -490,17 +499,20 @@ def launch_dus(dst: torch.Tensor, upd: torch.Tensor, starts) -> None:
     if any(u > d for u, d in zip(upd.shape, dst.shape)):
         raise ValueError(f"dus: update {tuple(upd.shape)} larger than "
                          f"{tuple(dst.shape)}")
-    pad = (1,) * (4 - rank)
-    io = abi.DusIO(
-        dst=_ptr(dst, I32, dev, name="dst"),
-        upd=_ptr(upd, I32, dev, name="upd"),
-        dst_shape=(ctypes.c_int64 * 4)(*(pad + tuple(dst.shape))),
-        upd_shape=(ctypes.c_int64 * 4)(*(pad + tuple(upd.shape))),
-        starts=(ctypes.c_int64 * 4)(*((0,) * (4 - rank)
-                                      + tuple(int(x) for x in starts))),
-        n=upd.numel())
+    if upd.numel() >= 1 << 31:
+        raise ValueError(f"dus: an update of {upd.numel()} words; the "
+                         f"kernel takes fewer than 2^31")
+    d_ptr = _ptr(dst, I32, dev, name="dst")
+    u_ptr = _ptr(upd, I32, dev, name="upd")
+    r = _dus_runs(dst.shape, upd.shape, starts)
+    vec = (r.run % 4 == 0 and r.base % 4 == 0
+           and all(t % 4 == 0 for t in r.strides)
+           and d_ptr % 16 == 0 and u_ptr % 16 == 0)
+    io = abi.DusIO(dst=d_ptr, upd=u_ptr, base=r.base,
+                   stride=(ctypes.c_int64 * 3)(*r.strides),
+                   count=(ctypes.c_int32 * 3)(*r.counts), run=r.run,
+                   vec=int(vec))
     KERNELS["dus"].launch(ctypes.addressof(io), _stream(dev))
-
 
 
 def nat_view(t, device) -> abi.NatView:
@@ -775,13 +787,10 @@ def launch_anomaly_score(model, id_row: torch.Tensor, feats: torch.Tensor,
     return res
 
 
-# the trainer's kernels (csrc/mltrain.cu): rows a block of the row passes,
-# rows a list of K21's one-block sorts, rows a warp of the embedding
-# scatter (the weight-gradient chunk is ml/model.py's WGRAD_CHUNK, which
-# the plain version sums by)
+# the trainer's kernels (csrc/mltrain.cu): rows a block of K20's row
+# pass; sorted rows a piece of K21's embedding scatter (ml/model.py's
+# EMBED_PIECE; the weight-gradient chunk is its WGRAD_CHUNK)
 TRAIN_TB = 64
-MAX_SORT_ROWS = 1 << 14
-SCATTER_PIECE = 32
 BF16, F32 = torch.bfloat16, torch.float32
 
 
@@ -851,14 +860,17 @@ def launch_anomaly_train_fwd(leaves, id_row: torch.Tensor,
 
 def launch_anomaly_train_bwd(leaves, saved, id_row: torch.Tensor,
                              labels: torch.Tensor, gloss: torch.Tensor,
-                             n_shards: Optional[int] = None):
+                             n_shards: Optional[int] = None,
+                             scratch: Optional[dict] = None):
     """K21: the gradients of K20's loss times ``gloss`` ([1] float32 on
     the card) in each trainable leaf, from K20's ``saved`` activations;
     -> (d_embed [V, 32], dW1, db1, dW2, db2, dW3, db3), float32.
     ``n_shards`` (K21s): each block's gradients of its own loss, their
-    mean in shard order (the pmean), as K20s's ``saved`` came."""
+    mean in shard order (the pmean), as K20s's ``saved`` came.
+    ``scratch``: a dict that receives the launch's scratch tensors by
+    their ``TrainBwdIO`` names (tests read the sort from it)."""
     from ..ml.features import FEAT_DIM
-    from ..ml.model import WGRAD_CHUNK
+    from ..ml.model import EMBED_PIECE, WGRAD_CHUNK
 
     n = saved["logit"].shape[0]
     dev, v, w = _train_shapes("anomaly_train_bwd", leaves, n)
@@ -868,10 +880,7 @@ def launch_anomaly_train_bwd(leaves, saved, id_row: torch.Tensor,
     grads = [torch.empty(tuple(t.shape), dtype=F32, device=dev)
              for t in leaves]
     chunks = -(-block // WGRAD_CHUNK)  # a shard's
-    # the embedding scatter's lists: each shard's block in slices of
-    # MAX_SORT_ROWS rows
-    lists = s * -(-block // MAX_SORT_ROWS)
-    pieces = -(-min(block, MAX_SORT_ROWS) // SCATTER_PIECE)  # a list's
+    pieces = -(-block // EMBED_PIECE)  # a shard's
 
     def empty(*shape, dtype=F32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -881,11 +890,10 @@ def launch_anomaly_train_bwd(leaves, saved, id_row: torch.Tensor,
     tmp = dict(dz1T=empty(h, n, dtype=BF16), dz2T=empty(h, n, dtype=BF16),
                dz3=empty(n, dtype=BF16), de=empty(n, SCORE_DIM),
                wpart=empty(3, s * chunks, (h + 1) * h),
+               key_tmp=empty(n, dtype=I32), row_tmp=empty(n, dtype=I32),
                sorted_key=empty(n, dtype=I32), sorted_row=empty(n, dtype=I32),
-               nvalid=empty(lists, dtype=I32),
-               head=empty(lists * pieces, SCORE_DIM),
-               tail=empty(lists * pieces, SCORE_DIM),
-               seg=empty(n, SCORE_DIM))
+               first=empty(s, v, dtype=I32), seg=empty(n, SCORE_DIM),
+               head=empty(s * pieces, SCORE_DIM))
     io = abi.TrainBwdIO(
         id_row=_ptr(id_row, I32, dev, (n,), name="id_row"),
         labels=_ptr(labels, F32, dev, (n,), name="labels"),
@@ -903,6 +911,8 @@ def launch_anomaly_train_bwd(leaves, saved, id_row: torch.Tensor,
     KERNELS["anomaly_train_bwd" if n_shards is None
             else "anomaly_train_bwd_sharded"].launch(ctypes.addressof(io),
                                                      _stream(dev))
+    if scratch is not None:
+        scratch.update(tmp)
     return tuple(grads)
 
 

@@ -79,8 +79,9 @@ I64 = ctypes.c_int64
 
 
 class DusIO(ctypes.Structure):
-    _fields_ = [("dst", P), ("upd", P), ("dst_shape", I64 * 4),
-                ("upd_shape", I64 * 4), ("starts", I64 * 4), ("n", I64)]
+    _fields_ = [("dst", P), ("upd", P), ("base", I64), ("stride", I64 * 3),
+                ("count", I32 * 3), ("run", I32), ("vec", I32),
+                ("pad", I32)]
 
 
 class NatView(ctypes.Structure):
@@ -164,8 +165,9 @@ class TrainBwdIO(ctypes.Structure):
     _fields_ = [("id_row", P), ("labels", P), ("gloss", P), ("logit", P),
                 ("xT", P), ("h1T", P), ("h2T", P), ("w1", P), ("w2", P),
                 ("w3", P), ("dz1T", P), ("dz2T", P), ("dz3", P), ("de", P),
-                ("wpart", P), ("sorted_key", P), ("sorted_row", P),
-                ("nvalid", P), ("head", P), ("tail", P), ("seg", P),
+                ("wpart", P), ("key_tmp", P), ("row_tmp", P),
+                ("sorted_key", P), ("sorted_row", P), ("first", P),
+                ("seg", P), ("head", P),
                 ("dw1", P), ("db1", P), ("dw2", P), ("db2", P), ("dw3", P),
                 ("db3", P), ("d_embed", P), ("n", I32), ("v", I32),
                 ("n_shards", I32), ("block", I32)]

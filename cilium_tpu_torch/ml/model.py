@@ -260,6 +260,7 @@ def score_packets(model: AnomalyModel, id_row: torch.Tensor,
 # ---- training: K20 forward, K21 backward ---------------------------------
 
 WGRAD_CHUNK = 64  # batch rows a block of K21's weight-gradient pass sums
+EMBED_PIECE = 32  # sorted rows a piece of K21's embedding scatter
 
 
 def _shard_blocks(n: int, n_shards: int, what: str):
@@ -347,6 +348,33 @@ def _wgrad_plain(a: torch.Tensor, d: torch.Tensor):
     return s[:k], s[k]
 
 
+def _scatter_keys(id_row: torch.Tensor, v: int):
+    """The table row the reference's scatter-add writes for each batch
+    row, and whether it writes one: an index negative after one wrap,
+    or past the table, is dropped (its gather clamps it)."""
+    key = id_row.to(torch.int64)
+    key = torch.where(key < 0, key + v, key)
+    return key, (key >= 0) & (key < v)
+
+
+def _backward_rows_plain(leaves, saved, labels: torch.Tensor,
+                         gloss: torch.Tensor):
+    """K21's row pass: -> (dz3 [N], dz2 [N, 64], dz1 [N, 64] bf16, de
+    [N, 32] float32, the rows' bf16 ``dx[:, :32]``)."""
+    bf = torch.bfloat16
+    embed, w1, _, w2, _, w3, _ = leaves
+    _, h1, h2, logit = saved
+    zero = torch.zeros((), dtype=bf, device=logit.device)
+    dz3 = _dlogit_plain(logit, labels, gloss).to(bf)
+    dz2 = torch.where(h2 > 0, (dz3.float()[:, None]
+                               * w3[:, 0].to(bf).float()).to(bf), zero)
+    dz1 = torch.where(h1 > 0, _ordered_dot(dz2, w2.to(bf).t()).to(bf),
+                      zero)
+    d = embed.shape[1]
+    de = _ordered_dot(dz1, w1[:d].to(bf).t()).to(bf).float()
+    return dz3, dz2, dz1, de
+
+
 def train_backward_plain(leaves, saved, id_row: torch.Tensor,
                          labels: torch.Tensor, gloss: torch.Tensor,
                          n_shards: Optional[int] = None):
@@ -357,40 +385,88 @@ def train_backward_plain(leaves, saved, id_row: torch.Tensor,
     cotangent is a bf16 product (float32 sums in K21's order); the ReLU
     passes the gradient where its input was > 0 (0 at exactly 0); an
     embedding row's gradient is the float32 sum of its rows' bf16 ``dx[:,
-    :32]``.  An ``id_row`` negative after one wrap, or past the table,
-    contributes nothing: the reference's gather clamps it, but the
-    scatter-add that is its transpose drops it.  ``n_shards`` (plain
-    version of K21s): this function on each of S blocks, ``gloss`` the
-    cotangent of each block's own loss, and each gradient the blocks'
-    :func:`_shard_mean` (the reference's pmean)."""
+    :32]`` (``index_add_``; K21 sums in the grouping of
+    :func:`embed_grad_sorted_plain`).  An ``id_row`` negative after one
+    wrap, or past the table, contributes nothing: the reference's gather
+    clamps it, but the scatter-add that is its transpose drops it.
+    ``n_shards`` (plain version of K21s): this function on each of S
+    blocks, ``gloss`` the cotangent of each block's own loss, and each
+    gradient the blocks' :func:`_shard_mean` (the reference's pmean)."""
     if n_shards is not None:
         parts = [train_backward_plain(leaves, tuple(t[b] for t in saved),
                                       id_row[b], labels[b], gloss)
                  for b in _shard_blocks(id_row.shape[0], n_shards,
                                         "anomaly_train_bwd")]
         return tuple(_shard_mean(list(g)) for g in zip(*parts))
-    bf = torch.bfloat16
-    embed, w1, _, w2, _, w3, _ = leaves
-    x, h1, h2, logit = saved
-    zero = torch.zeros((), dtype=bf, device=logit.device)
-    dz3 = _dlogit_plain(logit, labels, gloss).to(bf)
-    dz2 = torch.where(h2 > 0, (dz3.float()[:, None]
-                               * w3[:, 0].to(bf).float()).to(bf), zero)
-    dz1 = torch.where(h1 > 0, _ordered_dot(dz2, w2.to(bf).t()).to(bf),
-                      zero)
-    d = embed.shape[1]
-    de = _ordered_dot(dz1, w1[:d].to(bf).t()).to(bf).float()
+    embed = leaves[0]
+    x, h1, h2, _ = saved
+    dz3, dz2, dz1, de = _backward_rows_plain(leaves, saved, labels, gloss)
     dw1, db1 = _wgrad_plain(x, dz1)
     dw2, db2 = _wgrad_plain(h1, dz2)
     dw3, db3 = _wgrad_plain(h2, dz3[:, None])
-    v = embed.shape[0]
-    key = id_row.to(torch.int64)
-    key = torch.where(key < 0, key + v, key)
-    keep = (key >= 0) & (key < v)
+    key, keep = _scatter_keys(id_row, embed.shape[0])
     d_embed = torch.zeros_like(embed).index_add_(
         0, torch.where(keep, key, 0),
         torch.where(keep[:, None], de, torch.zeros_like(de)))
     return d_embed, dw1, db1, dw2, db2, dw3, db3
+
+
+def _sums_in_order(values: torch.Tensor, group: torch.Tensor,
+                   n_groups: int) -> torch.Tensor:
+    """Each group's float32 sum of ``values`` [M, D] from 0, its members
+    added in position order; ``group`` [M] is nondecreasing.  One step a
+    member rank, so each group's adds stay in order."""
+    pos = torch.arange(group.shape[0], device=group.device)
+    starts = torch.ones_like(group, dtype=torch.bool)
+    starts[1:] = group[1:] != group[:-1]
+    rank = pos - torch.cummax(torch.where(starts, pos, 0), 0).values
+    acc = torch.zeros((n_groups, values.shape[1]), dtype=torch.float32,
+                      device=values.device)
+    for t in range(int(rank.max().item()) + 1 if rank.numel() else 0):
+        sel = rank == t
+        acc[group[sel]] = acc[group[sel]] + values[sel]
+    return acc
+
+
+def embed_grad_sorted_plain(leaves, saved, id_row: torch.Tensor,
+                            labels: torch.Tensor, gloss: torch.Tensor,
+                            n_shards: Optional[int] = None) -> torch.Tensor:
+    """d_embed [V, 32] summed as K21 sums it (the plain version of its
+    scatter; :func:`train_backward_plain`'s ``index_add_`` is within
+    float32 rounding of it).  A block's rows that the scatter keeps are
+    sorted stably by their table row; that order is cut into pieces of
+    EMBED_PIECE positions; within a piece each key's rows are summed in
+    row order from 0; a key's piece sums are added in piece order, and
+    the block's value is 0 plus that (0 for an absent key).  With
+    ``n_shards`` each of S blocks gets its own value (``gloss`` the
+    cotangent of its own loss) and d_embed is their
+    :func:`_shard_mean`."""
+    if n_shards is not None:
+        return _shard_mean([
+            embed_grad_sorted_plain(leaves, tuple(t[b] for t in saved),
+                                    id_row[b], labels[b], gloss)
+            for b in _shard_blocks(id_row.shape[0], n_shards,
+                                   "anomaly_train_bwd")])
+    embed = leaves[0]
+    de = _backward_rows_plain(leaves, saved, labels, gloss)[3]
+    key, keep = _scatter_keys(id_row, embed.shape[0])
+    key, order = torch.sort(key[keep], stable=True)
+    de = de[keep][order]
+    out = torch.zeros_like(embed)
+    if key.numel() == 0:
+        return out
+    pos = torch.arange(key.shape[0], device=key.device)
+    cut = torch.ones_like(key, dtype=torch.bool)  # a (piece, key) starts
+    cut[1:] = (key[1:] != key[:-1]) | (pos[1:] % EMBED_PIECE == 0)
+    piece_of = torch.cumsum(cut, 0) - 1
+    pieces = _sums_in_order(de, piece_of, int(piece_of[-1].item()) + 1)
+    piece_key = key[cut]
+    new_key = torch.ones_like(piece_key, dtype=torch.bool)
+    new_key[1:] = piece_key[1:] != piece_key[:-1]
+    key_of = torch.cumsum(new_key, 0) - 1
+    sums = _sums_in_order(pieces, key_of, int(key_of[-1].item()) + 1)
+    out[piece_key[new_key]] = out[piece_key[new_key]] + sums
+    return out
 
 
 class _BCELoss(torch.autograd.Function):

@@ -206,6 +206,61 @@ def test_dus_plain_matches_jax_dynamic_update_slice(case):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# -- K10's runs (loader._dus_runs), applied with numpy ----------------
+# (dst shape, update shape, starts, (words a run, runs)) over ranks 1-4:
+# config #3's patch shapes cut small, then the start rule's edges
+DUS_RUNS_CASES = {
+    "verdict-row": ((3, 2, 40, 16), (3, 2, 1, 16), (0, 0, 17, 0), (16, 6)),
+    "auth-column": ((3, 40), (3, 1), (0, 39), (1, 3)),
+    "l1-cell": ((1024,), (1,), (1000,), (1, 1)),
+    "l2-row": ((6, 256), (1, 256), (5, 0), (256, 1)),
+    "l3-row": ((8, 256), (1, 256), (3, 0), (256, 1)),
+    "l3-rows-full-width": ((8, 256), (3, 256), (2, 0), (768, 1)),
+    "past-the-edge": ((3, 2, 40, 16), (3, 2, 1, 16), (2, 5, 99, 4),
+                      (16, 6)),
+    "negative-starts": ((8, 256), (2, 256), (-3, -1), (512, 1)),
+    "below-minus-dim": ((3, 40), (3, 1), (-7, -41), (1, 3)),
+    "rank-1-run": ((1000,), (37,), (990,), (37, 1)),
+    "rank-2-window": ((9, 11), (4, 5), (3, 2), (5, 4)),
+    "rank-3-window": ((5, 6, 7), (2, 3, 4), (1, -2, 2), (4, 6)),
+    "rank-4-window": ((4, 5, 6, 8), (2, 3, 2, 8), (1, 1, 3, 0), (16, 6)),
+    "rank-4-inner-1": ((4, 5, 6, 8), (2, 3, 4, 1), (0, 2, 1, 7), (1, 24)),
+    "rank-4-whole": ((2, 3, 4, 5), (2, 3, 4, 5), (0, 0, 0, 0), (120, 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DUS_RUNS_CASES))
+def test_dus_runs_apply_as_dynamic_update_slice(case):
+    """The runs K10 copies, applied to a flat copy of the table with
+    numpy, give what ``_dus_plain`` and ``jax.lax.dynamic_update_slice``
+    give; the verdict row is 2 n_pol runs of a row's width, the auth
+    column n_pol runs of one word, a full-width block one run."""
+    dst_shape, upd_shape, starts, (run_words, n_runs) = DUS_RUNS_CASES[case]
+    rng = np.random.default_rng(len(case) + 7)
+    dst = rng.integers(-2**31, 2**31, dst_shape, dtype=np.int64).astype(
+        np.int32)
+    upd = rng.integers(-2**31, 2**31, upd_shape, dtype=np.int64).astype(
+        np.int32)
+    r = loader_mod._dus_runs(dst_shape, upd_shape, starts)
+    c0, c1, c2 = r.counts
+    assert (r.run, c0 * c1 * c2) == (run_words, n_runs)
+    got = dst.reshape(-1).copy()
+    flat = upd.reshape(-1)
+    for q0 in range(c0):
+        for q1 in range(c1):
+            for q2 in range(c2):
+                q = (q0 * c1 + q1) * c2 + q2
+                at = (r.base + q0 * r.strides[0] + q1 * r.strides[1]
+                      + q2 * r.strides[2])
+                got[at:at + r.run] = flat[q * r.run:(q + 1) * r.run]
+    want = np.asarray(jax.lax.dynamic_update_slice(
+        jnp.asarray(dst), jnp.asarray(upd), starts))
+    plain = loader_mod._dus_plain(torch.from_numpy(dst.copy()),
+                                  torch.from_numpy(upd), starts)
+    np.testing.assert_array_equal(got.reshape(dst_shape), want)
+    np.testing.assert_array_equal(plain.numpy(), want)
+
+
 # -- datapath/tables.py ----------------------------------------------
 class TestTableVersioner:
     def test_flip_bumps_generation_and_recycles_slots(self):

@@ -279,6 +279,16 @@ DUS_CASES = {
     "l3-row": ((40, 256), (1, 256), (39, 0)),
     "clamp-past-edge": ((2, 2, 1024, 256), (2, 2, 1, 256), (5, 9, 4096, 3)),
     "clamp-negative": ((40, 256), (3, 256), (-2, -300)),
+    # the copy's paths: 16-byte vectors over one long run, a misaligned
+    # start (word by word), many runs of 1 (more than a block's rows),
+    # rank-1 tables, runs over the grid's y and z
+    "vector-run": ((40, 256), (3, 256), (4, 0)),
+    "misaligned-start": ((40, 256), (1, 100), (3, 5)),
+    "runs-of-1": ((300, 64), (300, 1), (0, 7)),
+    "rank-1-vector": ((1 << 16,), (300,), (65100,)),
+    "rank-1-words": ((1000,), (37,), (5,)),
+    "rank-4-grid-y": ((4, 5, 6, 8), (2, 3, 2, 8), (1, 1, 3, 0)),
+    "rank-4-grid-z": ((4, 5, 6, 8), (2, 3, 4, 1), (0, 2, 1, 7)),
 }
 
 
@@ -655,12 +665,12 @@ def test_train_kernels_match_their_plain_versions(case):
     bit-exact, the loss within 2e-6 relative; K21: weight and bias
     gradients bit-exact, d_embed within 1e-5 of its largest entry (the
     plain version's index_add_ sums in atomic order), two runs
-    bit-identical, and the same on a 20000-row batch (the scatter in two
-    sort slices); K22: one step from count 3 bit-exact.  K20s and K21s
+    bit-identical, and the same on a 20000-row batch (the radix sort's
+    tiles grown to 512 rows); K22: one step from count 3 bit-exact.  K20s and K21s
     over 8 shards of 375 rows: the same bounds against their plain
     versions, and bit-exact against 8 unsharded launches on the blocks
     followed by the shard-order mean; the same over 2 shards of 20000
-    rows (each block's scatter in two sort lists)."""
+    rows (each block's sort in tiles of 512 rows)."""
     _need_card()
     from cilium_tpu_torch.kernels import (KERNELS, launch_adam_update,
                                           launch_anomaly_train_bwd,
@@ -705,8 +715,7 @@ def test_train_kernels_match_their_plain_versions(case):
     if case == "anomaly_train_bwd":
         again = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss)
         want = train_backward_plain(leaves, psaved, ids, labels, gloss)
-        # a batch over K21's 16384-row sort slice: the scatter in two
-        # slices, one after the other
+        # a batch over 16384 rows: the radix sort's tiles grow to 512
         big = [t.repeat(*([7] + [1] * (t.dim() - 1)))[:20000].contiguous()
                for t in (ids, feats, labels)]
         bsaved = launch_anomaly_train_fwd(leaves, *big)[1]
@@ -741,12 +750,90 @@ def test_train_kernels_match_their_plain_versions(case):
         assert int(k[3].item()) == int(count.item()) == 4
     if case.endswith("_sharded"):
         _check_sharded_train_kernels(case, leaves, ids, feats, labels, gloss)
-        # 2 shards of 20000 rows: each block's scatter in two sort lists
+        # 2 shards of 20000 rows: each block sorted in tiles of 512 rows
         big = [t.repeat(*([14] + [1] * (t.dim() - 1)))[:40000].contiguous()
                for t in (ids, feats, labels)]
         _check_sharded_train_kernels(case, leaves, *big, gloss, n_shards=2)
     torch.cuda.synchronize()
     assert KERNELS[case].launches > 0
+
+
+# K21's scatter at the trainer's shapes and the sort's edges: (rows,
+# shards, V) -- B = 4096 unsharded and over 8 shards (phase 3's), a batch
+# that is not a multiple of the sort's 256-row tile with a V that is not
+# a power of two, blocks of 750 under a V of one radix pass, and a V of
+# three passes
+K21_SORT_CASES = {"b4096-s1": (4096, None, 16384),
+                  "b4096-s8": (4096, 8, 16384),
+                  "b3000-v1000": (3000, None, 1000),
+                  "b3000-s4-v200": (3000, 4, 200),
+                  "b2048-s2-v70000": (2048, 2, 70000)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(K21_SORT_CASES))
+def test_k21_sort_and_embedding_gradient(case):
+    """K21/K21s on the card: each shard's sorted keys and rows (the
+    launch's scratch) equal a stable sort of its clamped keys with the
+    dropped ids (key V) last; d_embed equals ``embed_grad_sorted_plain``
+    bit for bit and every other gradient ``train_backward_plain``'s;
+    two runs give the same bits.  A hot identity on half the rows, ids
+    past V and negative."""
+    _need_card()
+    from cilium_tpu_torch.kernels import (launch_anomaly_train_bwd,
+                                          launch_anomaly_train_fwd)
+    from cilium_tpu_torch.ml import init_params
+    from cilium_tpu_torch.ml.model import (embed_grad_sorted_plain,
+                                           train_backward_plain,
+                                           train_forward_plain)
+
+    n, n_shards, v = K21_SORT_CASES[case]
+    rng = np.random.default_rng(n + v)
+    ids = rng.integers(0, v, n).astype(np.int64)
+    ids[: n // 2] = v // 3
+    ids[n // 2: n // 2 + 40] = v + np.arange(40)
+    ids[n // 2 + 40: n // 2 + 60] = -1 - np.arange(20)
+    ids[n // 2 + 60: n // 2 + 64] = -v - 1
+    rng.shuffle(ids)
+    ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+    feats = torch.from_numpy(rng.random((n, 27)).astype(np.float32)).cuda()
+    labels = torch.from_numpy((rng.random(n) < 0.3).astype(
+        np.float32)).cuda()
+    gen = torch.Generator().manual_seed(5)
+    model = init_params(gen, v, device="cpu")
+    model = model.replace(
+        embed=torch.randn((v, 32), generator=gen) * 0.5,
+        **{b: torch.randn(tuple(getattr(model, b).shape), generator=gen)
+           * 0.1 for b in ("b1", "b2", "b3")}).to("cuda")
+    leaves = model.leaves()
+    gloss = torch.ones(1, device="cuda")
+    _, saved = launch_anomaly_train_fwd(leaves, ids, feats, labels, n_shards)
+    _, psaved = train_forward_plain(leaves, ids, feats, labels, n_shards)
+    sc = {}
+    got = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss,
+                                   n_shards, scratch=sc)
+    again = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss,
+                                     n_shards)
+    torch.cuda.synchronize()
+    key = ids.to(torch.int64)
+    key = torch.where(key < 0, key + v, key)
+    key = torch.where((key >= 0) & (key < v), key, v)
+    blk = n // (n_shards or 1)
+    for z in range(n_shards or 1):
+        b = slice(z * blk, (z + 1) * blk)
+        k, order = torch.sort(key[b], stable=True)
+        assert torch.equal(sc["sorted_key"][b].to(torch.int64), k), z
+        assert torch.equal(sc["sorted_row"][b].to(torch.int64),
+                           order + z * blk), z
+    want = train_backward_plain(leaves, psaved, ids, labels, gloss, n_shards)
+    assert torch.equal(got[0], embed_grad_sorted_plain(
+        leaves, psaved, ids, labels, gloss, n_shards))
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5 * float(
+        want[0].abs().max())
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+    for a, c in zip(got[1:], want[1:]):
+        assert torch.equal(a, c)
 
 
 def _shard_mean(parts):

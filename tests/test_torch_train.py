@@ -153,6 +153,102 @@ def test_gradients_match_jax_grad(case):
         assert torch.equal(a, b)
 
 
+# d_embed against the plain version's index_add_ (chip_smoke.py's bound):
+# a float32 sum of the same rows in another grouping, against the
+# table's largest entry
+EMBED_TOL = 1e-5
+
+
+def _sorted_embed_reference(de_blocks, id_blocks, v):
+    """K21's d_embed by explicit float32 loops: each block's kept rows
+    in (key, row) order, cut at every 32nd position; a cut's rows added
+    from 0, a key's cuts added in order, 0 plus that; then the blocks'
+    values added in block order and divided by their count."""
+    parts = []
+    for de, ids in zip(de_blocks, id_blocks):
+        kept = []
+        for i, k in enumerate(int(x) for x in ids):
+            k = k + v if k < 0 else k
+            if 0 <= k < v:
+                kept.append((k, i))
+        kept.sort()
+        cuts = {}  # key -> [(piece, sum)]
+        for pos, (k, i) in enumerate(kept):
+            c = cuts.setdefault(k, [])
+            if not c or c[-1][0] != pos // 32:
+                c.append((pos // 32, np.zeros(32, np.float32)))
+            c[-1] = (c[-1][0], c[-1][1] + de[i])
+        out = np.zeros((v, 32), np.float32)
+        for k, c in cuts.items():
+            total = np.zeros(32, np.float32)
+            for _, part in c:
+                total = total + part
+            out[k] = np.float32(0) + total
+        parts.append(out)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total / np.float32(len(parts))
+
+
+# (rows, shards): the reference test's batch shape; four shards; shard
+# blocks of 75 rows (not a multiple of a 32-row piece); a hot identity
+# on half of each batch and dropped ids in all
+SORTED_EMBED_CASES = {"unsharded": (512, None), "four-shards": (512, 4),
+                      "ragged-blocks": (300, 4)}
+
+
+@pytest.mark.parametrize("case", sorted(SORTED_EMBED_CASES))
+def test_embed_grad_sorted_plain_sums_in_k21s_grouping(case):
+    """``embed_grad_sorted_plain`` (K21's grouping of d_embed) equals an
+    explicit float32 loop over the sorted rows bit for bit, and is within
+    EMBED_TOL of ``train_backward_plain``'s ``index_add_`` at S = 1 and
+    S = 4; the hot row spans several 32-row pieces."""
+    n, n_shards = SORTED_EMBED_CASES[case]
+    v = 64
+    model = convert.anomaly_model_from_numpy(_params(v), "cpu")
+    ids, feats, labels = (torch.from_numpy(a) for a in _batch(v, n))
+    leaves = model.leaves()
+    gloss = torch.ones(1)
+    _, saved = tmod.train_forward_plain(leaves, ids, feats, labels,
+                                        n_shards)
+    got = tmod.embed_grad_sorted_plain(leaves, saved, ids, labels, gloss,
+                                       n_shards)
+    blk = n // (n_shards or 1)
+    blocks = [slice(z * blk, (z + 1) * blk) for z in range(n_shards or 1)]
+    de = [tmod._backward_rows_plain(leaves, tuple(t[b] for t in saved),
+                                    labels[b], gloss)[3].numpy()
+          for b in blocks]
+    want = _sorted_embed_reference(de, [ids[b].numpy() for b in blocks], v)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert max(int((ids[b] == 5).sum()) for b in blocks) > 32  # hot
+    plain = tmod.train_backward_plain(leaves, saved, ids, labels, gloss,
+                                      n_shards)[0]
+    assert float((got - plain).abs().max()) <= EMBED_TOL * float(
+        plain.abs().max())
+    assert float(got[5].abs().max()) > 0
+
+
+def test_embed_grad_sorted_plain_matches_jax_grad():
+    """At S = 1, K21's grouping of d_embed against the JAX package's
+    ``jax.grad`` embedding gradient, under the single-step test's bounds
+    for a weight gradient."""
+    v, n = 64, 512
+    arrays = _params(v)
+    ids, feats, labels = _batch(v, n)
+    jg = jax.grad(jmod.bce_loss)(_jax_model(arrays), jnp.asarray(ids),
+                                 jnp.asarray(feats), jnp.asarray(labels))
+    leaves = convert.anomaly_model_from_numpy(arrays, "cpu").leaves()
+    tb = tuple(torch.from_numpy(a) for a in (ids, feats, labels))
+    _, saved = tmod.train_forward_plain(leaves, *tb)
+    got = tmod.embed_grad_sorted_plain(leaves, saved, tb[0], tb[2],
+                                       torch.ones(1)).numpy()
+    j = np.asarray(jg.embed)
+    diff = np.abs(j - got)
+    assert (diff == 0).mean() >= 0.99, (diff == 0).mean()
+    assert (diff <= 2 ** -7 * np.abs(j)).all(), diff.max()
+
+
 def test_no_kernel_for_another_device():
     """The CPU path is the plain version for CPU tensors only."""
     model = convert.anomaly_model_from_numpy(_params(8), "cpu")

@@ -257,6 +257,46 @@ def test_mesh_gradients_are_the_shard_order_mean(ref, n_shards):
             assert torch.equal(s0.nu[k], s1.nu[k])
 
 
+@pytest.mark.parametrize("n_shards", [4, 8])
+def test_sorted_embed_grad_is_the_shard_order_mean(ref, n_shards):
+    """K21s's grouping of d_embed (``embed_grad_sorted_plain``) over S
+    blocks: bit for bit the shard-order mean of its unsharded value on
+    each block, and within 1e-5 of the largest entry of the mean of S
+    unsharded plain gradients (``index_add_``).  The reference's own
+    mesh gradient is S times that mean (C4): at the fixture's 8 shards,
+    S x it stays within (b)'s 2^-7 of the reference's largest entry."""
+    _, params, batch, (_, jg) = ref
+    leaves = _port(params).leaves()
+    ids, feats, labels = _torch(batch)
+    gloss = torch.ones(1)
+    _, saved = tmod.train_forward_plain(leaves, ids, feats, labels,
+                                        n_shards)
+    got = tmod.embed_grad_sorted_plain(leaves, saved, ids, labels, gloss,
+                                       n_shards)
+    blk = len(batch[0]) // n_shards
+    blocks = [slice(z * blk, (z + 1) * blk) for z in range(n_shards)]
+    s = torch.tensor(float(n_shards))
+    singles, plains = [], []
+    for b in blocks:
+        sv = tuple(t[b] for t in saved)
+        singles.append(tmod.embed_grad_sorted_plain(leaves, sv, ids[b],
+                                                    labels[b], gloss))
+        plains.append(tmod.train_backward_plain(leaves, sv, ids[b],
+                                                labels[b], gloss)[0])
+    mean = singles[0]
+    plain = plains[0]
+    for a, b in zip(singles[1:], plains[1:]):
+        mean, plain = mean + a, plain + b
+    assert torch.equal(got, mean / s)
+    plain = plain / s
+    assert float((got - plain).abs().max()) <= 1e-5 * float(
+        plain.abs().max())
+    if n_shards == S:
+        j = np.asarray(jg.embed)
+        diff = np.abs((got * S).numpy() - j)
+        assert diff.max() <= 2 ** -7 * np.abs(j).max(), diff.max()
+
+
 def test_five_mesh_train_steps_match_the_reference():
     """(e) ``train(mesh=make_mesh(8, "cpu"))`` for five steps of 512 rows
     against the reference's ``train(mesh=make_mesh(8))`` from the same
