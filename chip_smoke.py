@@ -38,7 +38,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    run back to back behind a spin kernel, so no host enqueue falls in
    the window) beside its plain version's and its bound; then where a
    steady ``serve_packed`` batch spends its time (torch.profiler), and
-   what staging a batch costs from pinned memory;
+   what staging a batch costs from pinned memory; then K1/K1s and
+   K4/K4s at each main path's shape (the trainer's 4096 wide rows, the
+   redirect phase's 1024 new flows, the daemon's 2^16 bucket, the
+   slice's 2^18 batch, a 2^16 and a 2^18
+   bucket routed to 8 shards; a SYN and a steady batch): one kernel a
+   call each, K4 against its plain version, the insert rounds K4 ran
+   (its pending counts, equal to the plain version's), and their times;
 6. the superbatch: one ``serve_superbatch`` of K = 4 packed steps of
    2^16 (the last all-false) against four sequential ``serve_packed``
    calls: ring rows, cursor, metrics, CT table and drop count equal;
@@ -162,7 +168,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    and the card's idle share; (c) the sharded demotion under injected
    faults: the replies of flows established sharded forward after it.
 
-The kernel launch counts are read per path (the slice of phase 4, the
+Phases 7, 14 (a) and 15 (b) print K1's and K4's rows a launch.  The
+kernel launch counts are read per path (the slice of phase 4, the
 daemon of phase 7, the L7 paths of phases 3, 8 and 9, the churn of
 phase 10, the egress path of phase 11, the service path of phase 12,
 the armed daemon's first session in phase 13, the 200-step ``train``
@@ -279,6 +286,25 @@ def bound(bytes_moved, int_ops, flop_ms=0.0):
     tb = bytes_moved / HBM_BYTES_PER_S * 1e3
     to = int_ops / INT32_OPS_PER_S * 1e3 + flop_ms
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+ROW_COUNTED = ("datapath_packed", "datapath_wide", "ct_update",
+               "datapath_packed_sharded", "datapath_wide_sharded",
+               "ct_update_sharded")
+
+
+def rows_a_launch(label, report_part):
+    """K1's and K4's rows a launch on the path just run (their launchers
+    count rows; the counts were zeroed before the path), printed and
+    kept in ``report_part``."""
+    from cilium_tpu_torch.kernels import KERNELS
+
+    got = {n: KERNELS[n].rows / KERNELS[n].launches for n in ROW_COUNTED
+           if KERNELS[n].launches}
+    print(f"{label}: rows a launch: "
+          + ", ".join(f"{n} {v:.0f}" for n, v in got.items()))
+    report_part["rows_a_launch"] = got
+    return got
 
 
 # -- inputs -----------------------------------------------------------
@@ -1619,6 +1645,8 @@ def phase_daemon(torch, rng, world, report):
     out, t_serve = serve(rows)
     launches = {k: v.launches for k, v in KERNELS.items()}
     k9_rows = KERNELS["l7_verdict"].rows
+    report["daemon_rows"] = {}
+    rows_a_launch("daemon", report["daemon_rows"])
     fe = out["front-end"]
     ft = fe["fault-tolerance"]
     check(fe["submitted"] == fe["verdicts"] + fe["shed"]
@@ -3898,6 +3926,8 @@ def phase_train(torch, rng, world, report):
         undo()
     t_train = time.monotonic() - t0  # train's one fetch synced the card
     launches = {k: v.launches for k, v in KERNELS.items()}
+    report["train_rows"] = {}
+    rows_a_launch("train (a)", report["train_rows"])
     stages = clock.summary(t_train)
     for name in ("anomaly_train_fwd", "anomaly_train_bwd", "adam_update",
                  "flow_features", "datapath_wide"):
@@ -4451,6 +4481,155 @@ def phase_breakdown(torch, kl, packed_batches, now, report):
         "device_time_ms_by_name": {k: v / 1e3 for k, v in device.items()}}
 
 
+def kernels_a_call(torch, prepare, tries=3):
+    """Device kernels (memsets and copies included) that one call of
+    ``prepare()`` launches (it returns the call, its inputs made outside
+    the window), from torch.profiler.  Now and then the profiler records
+    no device event at all in a window (seen on the H100): such a window
+    is profiled again on fresh inputs, at most ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        fn = prepare()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")}
+        if got:
+            break
+    return got
+
+
+def phase_k1_k4_shapes(torch, rng, world, report):
+    """K1/K1s and K4/K4s at the shapes the main paths launch them, each
+    on a 2^20 CT of its own: the trainer's 4096 wide rows (after 8
+    warm-up steps of ``datapath_step``), phase 8's 1024-row batches of
+    new flows (wide SYN rows, ``syn_rows``), the daemon's 2^16 packed
+    bucket,
+    the slice's 2^18 packed batch, and a 2^16 and a 2^18 bucket routed
+    to 8 shards (headroom 2), a SYN batch then a steady one.  Each K1
+    and K4 launch is one kernel (torch.profiler); K4 equals its plain
+    version (per shard for K4s), and the rounds it ran (its pending
+    counts) equal the plain version's; each timed (``device_ms``)."""
+    import copy
+    import functools
+
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import pack_eligibility, pack_rows
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.datapath.verdict import datapath_step
+    from cilium_tpu_torch.kernels import launch_ct_update, launch_datapath
+    from cilium_tpu_torch.ml import synth_labeled_traffic
+    from cilium_tpu_torch.parallel import mesh as pm
+    from cilium_tpu_torch.parallel import route_by_flow
+    from cilium_tpu_torch.testing import fixtures as fx
+
+    t0 = time.monotonic()
+    now = 60_000
+
+    def fork(state):  # the verdict stage reads the CT, adds to metrics
+        s2 = copy.copy(state)
+        s2.metrics = state.metrics.clone()
+        return s2
+
+    def fresh_ct(c):
+        return ct.CTTable(c.table.clone(), c.fp.clone(), c.dropped.clone(),
+                          torch.full((2, c.table.shape[0]), -1,
+                                     dtype=torch.int32, device="cuda"))
+
+    def packed(hdr, shards):
+        if shards == 1:
+            return u32.from_numpy(pack_rows(hdr), "cuda"), None, \
+                dict(ep=0, dirn=0)
+        n = len(hdr)
+        r, valid, _o, _ovf = route_by_flow(hdr, shards, 2 * n // shards)
+        ok, ep, dirn = pack_eligibility(hdr)
+        check(ok, "k1/k4 shapes: a batch is not packed-eligible")
+        return (u32.from_numpy(pack_rows(r), "cuda"),
+                torch.from_numpy(valid).cuda(), dict(ep=ep, dirn=dirn))
+
+    cases = []  # (name, state, [(phase, rows, valid, meta)], shards)
+    st = card_state(world)
+    for s_ in range(8):
+        hdr, _ = synth_labeled_traffic(world, TRAIN_N, rng)
+        datapath_step(st, u32.from_numpy(hdr, "cuda"), now - 8 + s_)
+    hdr, _ = synth_labeled_traffic(world, TRAIN_N, rng)
+    cases.append(("train 4096 wide", st,
+                  [("steady", u32.from_numpy(hdr, "cuda"), None, {})], 1))
+    pod = world.pod_ips
+    cases.append(("redirect 1024 wide", card_state(world), [(
+        "syn", u32.from_numpy(syn_rows(pod[1], pod[0], 1024, 1024, 80, 0, 0),
+                              "cuda"), None, {})], 1))
+    for n, tag, shards in ((1 << 16, "daemon 2^16 packed", 1),
+                           (N, "slice 2^18 packed", 1),
+                           (1 << 16, "2^16 bucket x 8 shards", SHARDS),
+                           (N, "2^18 bucket x 8 shards", SHARDS)):
+        pool = fx.steady_flow_pool(world, n, rng)
+        cases.append((tag, card_state(world),
+                      [("syn",) + packed(pool, shards),
+                       ("steady",) + packed(fx.steady_traffic(pool, n, rng),
+                                            shards)], shards))
+    out = {}
+    for name, state, phases, shards in cases:
+        sh = None if shards == 1 else shards
+        for phase, rows, valid, meta in phases:
+            ep, dirn = meta.get("ep"), meta.get("dirn")
+
+            def k1(s2=None):
+                return launch_datapath(s2 or fork(state), rows, now, ep,
+                                       dirn, valid, None, None, None, False,
+                                       n_shards=sh)
+
+            k1_kernels = kernels_a_call(
+                torch, lambda: functools.partial(k1, fork(state)))
+            s_t = fork(state)
+            k1_ms = device_ms(lambda: k1(s_t), 20)
+            _out, c = k1(state)  # the state's metrics move on
+            args = (c.l4, c.fwd, c.result, c.slot, c.is_reply, c.do_create,
+                    c.proxy_port, now)
+            kc, pc, scratch, stats = (fresh_ct(state.ct),
+                                      fresh_ct(state.ct), {}, {})
+            launch_ct_update(kc, *args, valid, n_shards=sh, scratch=scratch)
+            k4_kernels = kernels_a_call(torch, lambda: functools.partial(
+                launch_ct_update, fresh_ct(state.ct), *args, valid,
+                n_shards=sh))
+            if sh is None:
+                ct.ct_update_plain(pc, *args, valid, stats=stats)
+            else:
+                pm.sharded_ct_update_plain(pc, c, now, shards, valid)
+            for g, w_, what in ((kc.table, pc.table, "table"),
+                                (kc.fp, pc.fp, "fp"),
+                                (kc.dropped, pc.dropped, "dropped")):
+                max_abs_err(g, w_, f"{name} {phase}: ct_update {what}")
+            counts = scratch["counts"].cpu().tolist()
+            rounds = sum(1 for x in counts[:-1] if x > 0)
+            check(sh is not None or counts == stats["pending"],
+                  f"{name} {phase}: K4's pending counts {counts}, the plain "
+                  f"version's {stats.get('pending')}")
+            check(sum(k1_kernels.values()) == 1
+                  and sum(k4_kernels.values()) == 1
+                  and bool((kc.claim == -1).all()),
+                  f"{name} {phase}: kernels a call K1 {k1_kernels}, K4 "
+                  f"{k4_kernels}, or claim words left set")
+            k4_ms = device_ms(lambda w_: launch_ct_update(
+                w_, *args, valid, n_shards=sh), 20,
+                lambda: fresh_ct(state.ct))
+            launch_ct_update(state.ct, *args, valid, n_shards=sh)
+            out[f"{name} {phase}"] = dict(
+                rows=int(rows.shape[0]), k1_ms=k1_ms, k4_ms=k4_ms,
+                k4_rounds=rounds, k4_pending=counts,
+                k1_kernels=k1_kernels, k4_kernels=k4_kernels)
+            print(f"k1/k4 {name} {phase}: {rows.shape[0]} rows, K1 "
+                  f"{k1_ms:.4f} ms, K4 {k4_ms:.4f} ms, one kernel each; "
+                  f"K4 ran {rounds} rounds (pending {counts[:rounds + 1]}, "
+                  f"dropped {counts[-1]})")
+    report["k1_k4_shapes"] = out
+    print(f"k1/k4 shapes: {time.monotonic() - t0:.1f} s")
+
+
 SHARDS = 8  # K6's maximum, and the reference test's mesh
 SHARD_HEADROOM = 2  # start_serving's default
 SHARD_BLOCK = SHARD_HEADROOM * N // SHARDS  # 2^16 routed rows a shard
@@ -4744,6 +4923,8 @@ def phase_sharded_daemon(torch, rng, world, report):
     wide[:, COL_EP] = db.id
     out_w, _t = serve_session(d, wide, mesh=SHARDS)
     launches = {k: v.launches for k, v in KERNELS.items()}
+    report["sharded_daemon_rows"] = {}
+    rows_a_launch("sharded daemon", report["sharded_daemon_rows"])
     for o, n in ((out, len(rows)), (out_w, len(wide))):
         fe, ft = o["front-end"], o["front-end"]["fault-tolerance"]
         check(fe["submitted"] == fe["verdicts"] + fe["shed"]
@@ -5026,6 +5207,7 @@ def main() -> int:
                                  now, kernels)
         phase_breakdown(torch, kl, packed_all[1:5], now, report)
         del kl
+        phase_k1_k4_shapes(torch, rng, world, report)
 
         # -- 6. the superbatch ----------------------------------------------
         phase_superbatch(torch, rng, world, report)

@@ -6,12 +6,17 @@
 // 68 B rows = 68 MB, fingerprints 4 MB).  A probe reads the 64 B
 // fingerprint window (two sectors), then a full 68 B row only for the
 // few fingerprint matches.
-// Design: one thread per key, everything in registers.  The exact
-// full-window fallback runs PER ROW, for rows whose fingerprint
-// candidates overflowed; JAX's lax.cond reruns the whole batch
-// instead.  The two agree row for row: a live slot's fingerprint is a
-// function of its stored key, so for a row that did not overflow the
-// filtered and the full probe find the same first live match.
+// Design: one thread per key pair, everything in registers.  Both keys'
+// windows load whole before any compare (aligned 16-byte loads where
+// the window does not wrap), so the caller can issue its other gathers
+// between ct_probe_begin and ct_lookup_finish, and the candidate rows of
+// the two keys are fetched together (PR 14; before, each key's probe
+// waited on one fingerprint word at a time).  The exact full-window
+// fallback runs PER ROW, for rows whose fingerprint candidates
+// overflowed; JAX's lax.cond reruns the whole batch instead.  The two
+// agree row for row: a live slot's fingerprint is a function of its
+// stored key, so for a row that did not overflow the filtered and the
+// full probe find the same first live match.
 #pragma once
 
 #include "views.cuh"
@@ -21,6 +26,7 @@ constexpr int ROW_WORDS = 17;
 constexpr int N_PROBE = 16;
 constexpr int N_CAND = 4;
 constexpr int N_CAND_INS = 4;
+constexpr int N_ROUNDS = N_CAND_INS + N_PROBE;  // K4's insert rounds
 constexpr int V_STATE = 10;
 constexpr int V_EXPIRES = 11;
 constexpr int V_TX_PKTS = 12;
@@ -147,30 +153,128 @@ __device__ __forceinline__ bool ct_probe_full(const CtView& ct,
   return false;
 }
 
-// Fingerprint-filtered probe: full rows for the first N_CAND
-// fingerprint matches only.  A miss with more than N_CAND matches sets
-// *overflow (the entry could hide past the candidate budget).
-__device__ __forceinline__ bool ct_probe_fp(const CtView& ct,
-                                            const uint32_t k[KEY_WORDS],
-                                            uint32_t h, uint32_t now,
-                                            int32_t* slot, bool* overflow) {
-  uint32_t mask = (uint32_t)ct.capacity - 1u;
-  uint32_t kfp = ct_fp_mix(h);
-  int matches = 0;
-  for (int step = 0; step < N_PROBE; ++step) {
-    uint32_t s = (h + (uint32_t)step) & mask;
-    if (ct.fp[s] != kfp) continue;
-    if (matches < N_CAND &&
-        ct_live_match(ct.table + (size_t)s * ROW_WORDS, k, now)) {
-      *slot = (int32_t)s;
-      *overflow = false;
-      return true;
-    }
-    ++matches;
+// Bit j set where pred(fp[(start + j) & (capacity - 1)]) holds, for the
+// 16 fingerprints of a window.  Every load issues before any compare:
+// five aligned 16-byte loads where the window does not wrap at the
+// capacity (and fp is 16-byte aligned), 16 scalar loads where it does.
+// NC: through the read-only path (for kernels to which the CT is
+// read-only); else from L2 (ct_update writes fingerprints later in its
+// launch).
+template <bool NC, typename Pred>
+__device__ __forceinline__ uint32_t ct_fp_mask(const uint32_t* fp,
+                                               uint32_t capacity,
+                                               uint32_t start, Pred pred) {
+  const uint32_t base = start & ~3u;
+  if ((reinterpret_cast<uintptr_t>(fp) & 15u) == 0 &&
+      base + 20u <= capacity) {
+    const uint4* p = reinterpret_cast<const uint4*>(fp + base);
+    uint4 v[5];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) v[q] = NC ? __ldg(p + q) : __ldcg(p + q);
+    uint32_t m = 0;
+#pragma unroll
+    for (int q = 0; q < 5; ++q)
+      m |= ((uint32_t)pred(v[q].x) | (uint32_t)pred(v[q].y) << 1 |
+            (uint32_t)pred(v[q].z) << 2 | (uint32_t)pred(v[q].w) << 3)
+           << (4 * q);
+    return (m >> (start - base)) & 0xFFFFu;
   }
-  *slot = 0;
-  *overflow = matches > N_CAND;
-  return false;
+  uint32_t f[N_PROBE];
+#pragma unroll
+  for (int j = 0; j < N_PROBE; ++j) {
+    const uint32_t* a = &fp[(start + (uint32_t)j) & (capacity - 1u)];
+    f[j] = NC ? __ldg(a) : __ldcg(a);
+  }
+  uint32_t m = 0;
+#pragma unroll
+  for (int j = 0; j < N_PROBE; ++j) m |= (uint32_t)pred(f[j]) << j;
+  return m;
+}
+
+// One key's fingerprint-filtered probe in flight: its hash, the window
+// positions whose fingerprint matched and are not tried yet, and how
+// many matched in all.
+struct CtProbe {
+  uint32_t h;
+  uint32_t m;
+  int32_t n;
+};
+
+__device__ __forceinline__ CtProbe ct_probe_begin(
+    const CtView& ct, const uint32_t k[KEY_WORDS]) {
+  CtProbe p;
+  p.h = ct_hash(k);
+  const uint32_t kfp = ct_fp_mix(p.h);
+  p.m = ct_fp_mask<true>(ct.fp, (uint32_t)ct.capacity,
+                         p.h & ((uint32_t)ct.capacity - 1u),
+                         [kfp](uint32_t f) { return f == kfp; });
+  p.n = __popc(p.m);
+  return p;
+}
+
+// the words a live match reads (key, state, expiry) of slot s's row
+__device__ __forceinline__ void ct_row_head(const uint32_t* table, uint32_t s,
+                                            uint32_t w[V_EXPIRES + 1]) {
+  const uint32_t* row = table + (size_t)s * ROW_WORDS;
+#pragma unroll
+  for (int q = 0; q <= V_EXPIRES; ++q) w[q] = __ldg(&row[q]);
+}
+
+__device__ __forceinline__ bool ct_head_match(const uint32_t w[V_EXPIRES + 1],
+                                              const uint32_t k[KEY_WORDS],
+                                              uint32_t now) {
+  bool ok = w[V_STATE] != ST_FREE && !(w[V_EXPIRES] < now);
+#pragma unroll
+  for (int q = 0; q < KEY_WORDS; ++q) ok &= w[q] == k[q];
+  return ok;
+}
+
+// ct_lookup for one row from both keys' probes: full rows for the first
+// N_CAND fingerprint matches of each key only, the two keys' candidate
+// rows fetched together, in window order (the first live match wins).
+// A key that misses with more than N_CAND matches could hide its entry
+// past the candidate budget: then both keys rerun the exact probe.
+__device__ __forceinline__ void ct_lookup_finish(
+    const CtView& ct, CtProbe pf, CtProbe pr, const uint32_t fwd[KEY_WORDS],
+    const uint32_t rev[KEY_WORDS], uint32_t now, int32_t* result,
+    int32_t* slot, bool* is_reply) {
+  const uint32_t mask = (uint32_t)ct.capacity - 1u;
+  bool ff = false, rf = false;
+  int32_t fs = 0, rs = 0;
+#pragma unroll 1
+  for (int c = 0; c < N_CAND && (pf.m | pr.m); ++c) {
+    const uint32_t sf = (pf.h + (uint32_t)(__ffs(pf.m) - 1)) & mask;
+    const uint32_t sr = (pr.h + (uint32_t)(__ffs(pr.m) - 1)) & mask;
+    uint32_t wf[V_EXPIRES + 1], wr[V_EXPIRES + 1];
+    if (pf.m) ct_row_head(ct.table, sf, wf);
+    if (pr.m) ct_row_head(ct.table, sr, wr);
+    if (pf.m) {
+      if (ct_head_match(wf, fwd, now)) {
+        ff = true;
+        fs = (int32_t)sf;
+        pf.m = 0;
+      } else {
+        pf.m &= pf.m - 1u;
+      }
+    }
+    if (pr.m) {
+      if (ct_head_match(wr, rev, now)) {
+        rf = true;
+        rs = (int32_t)sr;
+        pr.m = 0;
+      } else {
+        pr.m &= pr.m - 1u;
+      }
+    }
+  }
+  if ((!ff && pf.n > N_CAND) || (!rf && pr.n > N_CAND)) {
+    ff = ct_probe_full(ct, fwd, pf.h, now, &fs);
+    rf = ct_probe_full(ct, rev, pr.h, now, &rs);
+  }
+  bool rep = !ff && rf;
+  *slot = ff ? fs : rs;
+  *result = ff ? CT_ESTABLISHED : (rep ? CT_REPLY : CT_NEW);
+  *is_reply = rep;
 }
 
 // ct_lookup for one row: -> result (CT_*), slot, is_reply.
@@ -180,17 +284,6 @@ __device__ __forceinline__ void ct_lookup_row(const CtView& ct,
                                               uint32_t now, int32_t* result,
                                               int32_t* slot,
                                               bool* is_reply) {
-  uint32_t hf = ct_hash(fwd), hr = ct_hash(rev);
-  int32_t fs, rs;
-  bool fo, ro;
-  bool ff = ct_probe_fp(ct, fwd, hf, now, &fs, &fo);
-  bool rf = ct_probe_fp(ct, rev, hr, now, &rs, &ro);
-  if (fo || ro) {
-    ff = ct_probe_full(ct, fwd, hf, now, &fs);
-    rf = ct_probe_full(ct, rev, hr, now, &rs);
-  }
-  bool rep = !ff && rf;
-  *slot = ff ? fs : rs;
-  *result = ff ? CT_ESTABLISHED : (rep ? CT_REPLY : CT_NEW);
-  *is_reply = rep;
+  ct_lookup_finish(ct, ct_probe_begin(ct, fwd), ct_probe_begin(ct, rev), fwd,
+                   rev, now, result, slot, is_reply);
 }

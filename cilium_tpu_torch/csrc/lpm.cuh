@@ -14,14 +14,21 @@
 
 #include "views.cuh"
 
+// One level of the v4 walk: a word >= 0 is the answer and passes on; a
+// negative word names the next level's block, whose entry for `byte`
+// is loaded (K1 issues each level beside its other gathers).
+__device__ __forceinline__ int32_t lpm_v4_step(const int32_t* level,
+                                               int32_t n_blocks, int32_t a,
+                                               uint32_t byte) {
+  return a >= 0 ? a
+                : __ldg(&level[xla_index(-(int64_t)a - 1, n_blocks) * 256 +
+                               byte]);
+}
+
 __device__ __forceinline__ int32_t lpm_v4(const LpmView& t, uint32_t ip) {
   int32_t a = __ldg(&t.l1[ip >> 16]);
-  if (a >= 0) return a;
-  int64_t blk2 = xla_index(-(int64_t)a - 1, t.n_l2);
-  int32_t b = __ldg(&t.l2[blk2 * 256 + ((ip >> 8) & 0xFF)]);
-  if (b >= 0) return b;
-  int64_t blk3 = xla_index(-(int64_t)b - 1, t.n_l3);
-  return __ldg(&t.l3[blk3 * 256 + (ip & 0xFF)]);
+  int32_t b = lpm_v4_step(t.l2, t.n_l2, a, (ip >> 8) & 0xFF);
+  return lpm_v4_step(t.l3, t.n_l3, b, ip & 0xFF);
 }
 
 __device__ __forceinline__ int32_t lpm_v6(const LpmView& t,

@@ -90,13 +90,15 @@ struct CtUpdateIO {
   const uint32_t* proxy_port;  // [n]
   const bool* valid;           // [n] or null
   // scratch, allocated by the wrapper
-  uint32_t* new_state;  // [n] refreshed state before the max
   uint32_t* hash;       // [n] key hash
   uint32_t* key_fp;     // [n] key fingerprint
   int32_t* cand;        // [n, 4] candidate slots, -1 = none
   int32_t* try_slot;    // [n] slot tried this round, -1 = none
-  int32_t* plist;       // [n] compacted pending rows
-  int32_t* npend;       // [1] their count
+  int32_t* plist;       // [2, n] the rows pending entering a round,
+                        // compacted, for two rounds at a time
+  int32_t* counts;      // [21] rows pending entering round r (r < 20;
+                        // the length of its list) and, last, the rows
+                        // dropped; zeroed by the kernel
   int32_t* claim;       // [2, capacity] per-round-parity claim words,
                         // -1 between calls (kept by the CT table)
   uint8_t* pending;     // [n]

@@ -77,6 +77,7 @@ KEY_WORDS = 10  # src[4] dst[4] ports proto
 N_PROBE = 16  # linear probe window
 N_CAND = 4  # full rows fetched per fingerprint-filtered probe
 N_CAND_INS = 4  # claim attempts against fingerprint-filtered slots
+N_ROUNDS = N_CAND_INS + N_PROBE  # ct_update's insert rounds
 
 # value columns (offsets within the combined row, after the key words)
 V_STATE = KEY_WORDS + 0
@@ -335,14 +336,18 @@ def ct_update_plain(ct: CTTable, l4: torch.Tensor, fwd: torch.Tensor,
                     result: torch.Tensor, slot: torch.Tensor,
                     is_reply: torch.Tensor, do_create: torch.Tensor,
                     proxy_port: torch.Tensor, now: int,
-                    valid: Optional[torch.Tensor] = None) -> CTTable:
+                    valid: Optional[torch.Tensor] = None,
+                    stats: Optional[dict] = None) -> CTTable:
     """Refresh hit entries, apply the TCP state machine, insert NEW
     (plain version; updates ``ct`` in place and returns it).
 
     ``l4`` is [N, 3] (proto, flags, length).  ``do_create`` marks NEW
     packets whose policy verdict allowed them (reference: ``ct_create4``
     runs on the allow path only).  ``valid`` masks out padding rows;
-    invalid rows touch nothing."""
+    invalid rows touch nothing.  A ``stats`` dict gets ``pending`` (the
+    rows pending entering each of the ``N_ROUNDS`` insert rounds, then
+    the rows dropped: the kernel's ``counts``) and ``rounds`` (the
+    rounds entered with a row pending)."""
     table, fp = ct.table, ct.fp
     n = fwd.shape[0]
     dev = fwd.device
@@ -434,14 +439,22 @@ def ct_update_plain(ct: CTTable, l4: torch.Tensor, fwd: torch.Tensor,
     cand_mask = (win_fp == 0) | (win_fp == key_fp[:, None])
     pos, cand_valid = _first_k(cand_mask, N_CAND_INS)
     cand_slots = torch.gather(slots_w, 1, pos)
+    counts = []
     for k in range(N_CAND_INS):
+        if stats is not None:
+            counts.append(int(pending.sum()))
         pending = _claim(pending, cand_slots[:, k], cand_valid[:, k])
     # exact fallback: the full window, in order (a no-op for rows no
     # longer pending, so it runs whenever any row still is)
     if bool(pending.any()):
         for step in range(N_PROBE):
+            if stats is not None:
+                counts.append(int(pending.sum()))
             pending = _claim(pending, slots_w[:, step])
     ct.dropped.copy_(narrow(widen(ct.dropped) + pending.sum()))
+    if stats is not None:
+        counts += [0] * (N_ROUNDS - len(counts)) + [int(pending.sum())]
+        stats.update(pending=counts, rounds=sum(c > 0 for c in counts[:-1]))
     return ct
 
 
@@ -451,8 +464,8 @@ def ct_update(ct: CTTable, l4: torch.Tensor, fwd: torch.Tensor,
               proxy_port: torch.Tensor, now: int,
               valid: Optional[torch.Tensor] = None) -> CTTable:
     """Refresh hits and insert allowed NEW flows, in place: see
-    :func:`ct_update_plain`.  CUDA tensors launch the ``ct_update``
-    sequence (``csrc/conntrack.cu``)."""
+    :func:`ct_update_plain`.  CUDA tensors launch the one cooperative
+    ``ct_update`` kernel (``csrc/conntrack.cu``)."""
     if fwd.is_cuda:
         from ..kernels import launch_ct_update
 

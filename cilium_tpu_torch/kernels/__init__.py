@@ -283,22 +283,28 @@ def shard_block(n: int, n_shards: Optional[int], what: str,
 
 def launch_ct_update(ct, l4, fwd, result, slot, is_reply, do_create,
                      proxy_port, now: int, valid=None,
-                     n_shards: Optional[int] = None):
-    """K4: the ``ct_update`` launch sequence; updates ``ct`` in place.
+                     n_shards: Optional[int] = None,
+                     scratch: Optional[dict] = None):
+    """K4: one cooperative ``ct_update`` launch; updates ``ct`` in place.
     ``n_shards`` (K4s): a routed batch of that many shard blocks, each
-    row working in its shard's CT slice (``slot`` local to it)."""
+    row working in its shard's CT slice (``slot`` local to it).  A
+    ``scratch`` dict gets the kernel's scratch tensors, among them
+    ``counts`` ([21]: the rows pending entering each insert round, 0
+    from the round the kernel stopped at, then the rows dropped)."""
+    from ..datapath.conntrack import N_ROUNDS
+
     dev, n = fwd.device, fwd.shape[0]
     c = ct.table.shape[0]
     block = shard_block(n, n_shards, "ct_update", c)
 
-    def scratch(*shape, dtype=I32):
+    def empty(*shape, dtype=I32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     if ct.claim is None:  # the insert rounds' claim words, -1 between calls
         ct.claim = torch.full((2, c), -1, dtype=I32, device=dev)
-    s = dict(new_state=scratch(n), hash=scratch(n), key_fp=scratch(n),
-             cand=scratch(n, 4), try_slot=scratch(n), plist=scratch(n),
-             npend=scratch(1), pending=scratch(n, dtype=torch.uint8))
+    s = dict(hash=empty(n), key_fp=empty(n),
+             cand=empty(n, 4), try_slot=empty(n), plist=empty(2, n),
+             counts=empty(N_ROUNDS + 1), pending=empty(n, dtype=torch.uint8))
     io = abi.CtUpdateIO(
         l4=_ptr(l4, I32, dev, (n, 3), name="l4"),
         fwd=_ptr(fwd, I32, dev, (n, 10), name="fwd"),
@@ -313,7 +319,9 @@ def launch_ct_update(ct, l4, fwd, result, slot, is_reply, do_create,
         **{k: v.data_ptr() for k, v in s.items()})
     view = ct_view(ct, dev)
     KERNELS["ct_update" if n_shards is None else "ct_update_sharded"].launch(
-        ctypes.addressof(view), ctypes.addressof(io), _stream(dev))
+        ctypes.addressof(view), ctypes.addressof(io), _stream(dev), rows=n)
+    if scratch is not None:
+        scratch.update(s)
     return ct
 
 
@@ -322,7 +330,9 @@ def launch_datapath(state, rows: torch.Tensor, now: int, ep, dirn, valid,
                     n_shards: Optional[int] = None):
     """K1: the verdict stage over packed [N, 4] rows (``ep`` given) or
     wide [N, 16] rows.  Returns (out, CTUpdateInput) and adds the
-    batch's metrics to ``state.metrics``.  ``n_shards`` (K1s): the rows
+    batch's metrics to ``state.metrics``.  ``out``, ``fwd`` and ``l4``
+    come from ``torch.empty``, 16-byte aligned: the kernel writes them
+    16 bytes a store.  ``n_shards`` (K1s): the rows
     are that many flow-routed shard blocks, each probing its shard's CT
     slice; the slots handed to ``ct_update`` are local to the slice."""
     from ..datapath.verdict import CTUpdateInput
@@ -363,7 +373,7 @@ def launch_datapath(state, rows: torch.Tensor, now: int, ep, dirn, valid,
     kernel = KERNELS[name if n_shards is None else name + "_sharded"]
     kernel.launch(ctypes.addressof(io), ctypes.addressof(pol),
                   ctypes.addressof(lpm), ctypes.addressof(ct),
-                  int(packed), _stream(dev))
+                  int(packed), _stream(dev), rows=n)
     return out, ctin
 
 

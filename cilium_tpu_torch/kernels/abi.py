@@ -46,8 +46,8 @@ class CtUpdateIO(ctypes.Structure):
     _fields_ = [("l4", P), ("fwd", P), ("result", P), ("slot", P),
                 ("is_reply", P), ("do_create", P), ("proxy_port", P),
                 ("valid", P),
-                ("new_state", P), ("hash", P), ("key_fp", P), ("cand", P),
-                ("try_slot", P), ("plist", P), ("npend", P), ("claim", P),
+                ("hash", P), ("key_fp", P), ("cand", P),
+                ("try_slot", P), ("plist", P), ("counts", P), ("claim", P),
                 ("pending", P),
                 ("n", I32), ("now", U32), ("n_shards", I32), ("block", I32)]
 

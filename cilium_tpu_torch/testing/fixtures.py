@@ -280,3 +280,49 @@ def bench_traffic(world: World, n: int, rng: np.random.Generator,
     out[:, COL_EP] = 0
     out[:, COL_DIR] = 0
     return out
+
+
+def ct_round_table(key: np.ndarray, settle_round: Optional[int],
+                   capacity: int, now: int, rng: np.random.Generator
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """A CT table [capacity, ROW_WORDS] and its fingerprints built around
+    one new flow's forward ``key`` (10 u32 words, not in the table), so
+    that ``ct_update`` settles its insert in insert round
+    ``settle_round``: 0-3 are its candidate rounds (the first free or
+    same-fingerprint slots of its window, in window order), 4-19 the
+    window's positions 0-15; None leaves it pending after the last round
+    (a dropped insert).  The other entries are live flows of other keys
+    (unclaimable) and, for rounds 4-19, one expired entry whose
+    fingerprint differs from the key's (claimable, never a candidate).
+    -> (table, fp), uint32."""
+    from ..datapath.conntrack import (KEY_WORDS, N_CAND_INS, N_PROBE,
+                                      ROW_WORDS, ST_ESTABLISHED, V_EXPIRES,
+                                      V_STATE, _fp_mix_np, _hash_np)
+
+    h = int(_hash_np(key[None])[0])
+    kfp = int(_fp_mix_np(np.array([h], np.uint32))[0])
+    others = rng.integers(0, 1 << 32, (1 << 14, KEY_WORDS),
+                          dtype=np.uint64).astype(np.uint32)
+    ofp = _fp_mix_np(_hash_np(others))
+    same, diff, dfp = others[ofp == kfp], others[ofp != kfp], ofp[ofp != kfp]
+    table = np.zeros((capacity, ROW_WORDS), np.uint32)
+    fp = np.zeros(capacity, np.uint32)
+
+    def put(pos, k, f, live):
+        s = (h + pos) & (capacity - 1)
+        table[s, :KEY_WORDS] = k
+        table[s, V_STATE] = ST_ESTABLISHED
+        table[s, V_EXPIRES] = now + 100 if live else now - 1
+        fp[s] = f
+
+    if settle_round is not None and settle_round < N_CAND_INS:
+        # candidates 0..r-1 hold live flows of the key's fingerprint;
+        # window position r stays free: candidate r
+        for pos in range(settle_round):
+            put(pos, same[pos], kfp, True)
+        return table, fp
+    # no candidate in the window; position r - 4 expired (claimable)
+    last = N_PROBE if settle_round is None else settle_round - N_CAND_INS
+    for pos in range(N_PROBE):
+        put(pos, diff[pos], dfp[pos], pos != last)
+    return table, fp

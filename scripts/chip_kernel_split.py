@@ -1,33 +1,62 @@
 #!/usr/bin/env python3
-"""Split K21 ``anomaly_train_bwd`` (and K21s over 8 shards) into its
-passes on the card, and time K10 ``dus`` beside a slice ``copy_``, for
-one or more checkouts of this repository.
+"""Split K4 ``ct_update`` (and K4s over 8 shards) by launch and time K1
+``datapath_kernel`` (packed and wide, and K1s) at the shapes the main
+paths launch them, for one or more checkouts of this repository.
 
-    python3 scripts/chip_kernel_split.py [TREE ...]   # default: this one
+    python3 scripts/chip_kernel_split.py [--ablate=TREE] [--variants=TREE]
+                                         [TREE ...]
 
 Each TREE is a checkout (a ``git archive`` of another commit unpacked
 in a directory that ``.gitignore`` lists will do); each runs in its own
 process, in the order given, so ``A B B A`` compares two commits in
-turns on one card.  A run builds the tree's kernels, makes phase 3's
-train batch (``chip_smoke.train_inputs``: B = 4096 rows at config #3,
-V = 16384, one identity on half the rows, ids past V and negative) and
-prints, for S = 1 and S = 8:
+turns on one card.  A run builds the tree's verdict and conntrack
+kernels, makes config #3's world (``chip_smoke``'s seed) and, on a CT
+of 2^20 slots:
 
-- the device ms a launch of each kernel (and memset) of K21, from
-  ``torch.profiler`` over 20 launches, and the kernels a launch;
-- K21's time a launch (CUDA events, ``chip_smoke.device_ms``, 20);
+- the trainer's batch: 4096 wide rows of ``synth_labeled_traffic``
+  after 8 warm-up steps of ``datapath_step``;
+- the daemon's bucket (2^16 packed rows) and the slice's batch (2^18
+  packed, and 2^18 wide rows with IPv6 and ICMP errors): a SYN batch
+  (the flow pool, every row a new flow) and a steady batch drawn from
+  the pool once the SYN batch has been served;
+- the sharded step: a 2^16 and a 2^18 bucket flow-routed into 8 shard
+  blocks (headroom 2: 2^17 and 2^19 routed rows), SYN and steady.
 
-then K10 at config #3's verdict row, auth column and an l3 row, each
-beside the slice ``copy_`` of the same update, in the same process.
-Each run writes ``chiprun_out/split/<label>.json`` and its d_embed
-(``.pt``); a later run holds its d_embed against every earlier run's,
-bit for bit, and prints the cells that differ.  The line before the
-last is the card's name and power limit (nvidia-smi); the last line
-is one JSON object with every run.  Needs a CUDA device.
+For each it times K1 (CUDA events, ``chip_smoke.device_ms``, 20 calls)
+and K4 on fresh copies of the CT (events, and ``torch.profiler`` by
+kernel name over 20 calls, with the launches a call), and records a
+digest of the K1 outputs, of K4's inputs and of the CT table, ``fp``
+and ``dropped`` after K4, so that trees are held against each other
+bit for bit.  Where the tree's plain ``ct_update_plain`` takes
+``stats`` it also records the insert rounds in which any row was still
+pending, and where its launcher hands back the kernel's round counts
+(``scratch=``), the rounds the kernel ran.
+
+``--ablate=TREE`` (a tree whose ``verdict.cu`` is the one-thread-a-row
+K1 of PRs 1-13) also builds, in TREE's first run, four throwaway
+variants of that source, outside the tree, and times each at the same
+shapes: the source as it is, without the metrics ``atomicAdd``, with the
+19 hand-off and out words replaced by one checksum word, and with the CT
+probe skipped.  Their outputs are wrong by design and are not checked.
+``--variants=TREE`` (a tree with PR 14's kernels) builds, in TREE's
+first run, throwaway variants of its ``conntrack.cu`` with other K4
+grids (at most 2 or 8 blocks of 256 an SM) or every grid barrier
+doubled (its time over the barriers a call prices one), times K4 in
+each on every case's inputs and holds its CT against the tree's own;
+and of its ``verdict.cu`` with K1 held to 8 or 6 blocks an SM, timed as
+the ablations are.
+
+Each run writes ``chiprun_out/split/<label>.json``; the main process
+prints, for every later run, the digests that differ from an earlier
+run's.  The line before the last is the card's name and power limit
+(nvidia-smi); the last line is one JSON object with every run.  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import json
 import subprocess
 import sys
@@ -38,134 +67,414 @@ ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "chiprun_out" / "split"
 REPS = 20
 SEED = 20261017  # chip_smoke's
+NOW = 50_000
+SHARDS = 8
+HEADROOM = 2
+
+# (pattern, replacement) for each throwaway variant of a source: K1's
+# ablations of the PR 1-13 verdict.cu, and K4's grid shapes of the
+# cooperative conntrack.cu (every grid barrier doubled, to price one; at
+# most 2 or 8 blocks of 256 an SM, 8 being the co-resident maximum)
+K4_GRID = {
+    "as_is": [],
+    "double_sync": [("grid.sync();", "grid.sync();\n  grid.sync();")],
+    "per_sm2": [("constexpr int K4_BLOCKS_PER_SM = 1;",
+                 "constexpr int K4_BLOCKS_PER_SM = 2;")],
+    "per_sm8": [("constexpr int K4_BLOCKS_PER_SM = 1;",
+                 "constexpr int K4_BLOCKS_PER_SM = 8;")],
+}
+K1_ABLATIONS = {
+    "as_is": [],
+    "no_metrics_atomic": [
+        ("atomicAdd(&io.metrics[reason * 2 + d], 1u);", ";")],
+    "one_store": [
+        ("#pragma unroll\n  for (int w = 0; w < KEY_WORDS; ++w) "
+         "io.fwd[(size_t)i * KEY_WORDS + w] = fwd[w];",
+         "uint32_t cs = 0;\n#pragma unroll\n  for (int w = 0; w < "
+         "KEY_WORDS; ++w) cs ^= fwd[w];"),
+        ("io.ct_result[i] = untouched ? CT_NEW : ct_res;",
+         "cs ^= untouched ? CT_NEW : ct_res;"),
+        ("io.slot[i] = slot;", "cs ^= slot;"),
+        ("io.is_reply[i] = is_reply;", "cs ^= is_reply;"),
+        ("io.do_create[i] = allowed && is_new && !related_hint;",
+         "cs ^= allowed && is_new && !related_hint;"),
+        ("io.proxy[i] = (uint32_t)proxy;", "cs ^= (uint32_t)proxy;"),
+        ("io.l4[(size_t)i * 3] = proto;", "cs ^= proto;"),
+        ("io.l4[(size_t)i * 3 + 1] = flags;", "cs ^= flags;"),
+        ("io.l4[(size_t)i * 3 + 2] = len;", "cs ^= len;"),
+        ("  uint32_t* o = io.out + (size_t)i * N_OUT;\n"
+         "  o[0] = (uint32_t)verdict;\n  o[1] = (uint32_t)proxy;\n"
+         "  o[2] = (uint32_t)(is_related ? CT_RELATED : ct_res);\n"
+         "  o[3] = (uint32_t)id_row;\n  o[4] = reason;\n  o[5] = event;",
+         "  io.out[i] = cs ^ (uint32_t)verdict ^ ((uint32_t)proxy << 3) ^ "
+         "(uint32_t)(is_related ? CT_RELATED : ct_res) ^ "
+         "((uint32_t)id_row << 7) ^ (reason << 11) ^ (event << 13);")],
+    "no_ct_probe": [
+        ("ct_lookup_row(sct, fwd, rev, io.now, &ct_res, &slot, &is_reply);",
+         "ct_res = CT_NEW; slot = 0; is_reply = false; (void)rev;")],
+}
+# K1's occupancy: the redesigned kernel held to 8 or 6 blocks of 256 an
+# SM (32 or 40 registers a thread) instead of the registers it asks for
+K1_OCCUPANCY = {
+    "as_is": [],
+    "min_blocks8": [("__global__ void __launch_bounds__(TPB)\n"
+                     "    datapath_kernel(",
+                     "__global__ void __launch_bounds__(TPB, 8)\n"
+                     "    datapath_kernel(")],
+    "min_blocks6": [("__global__ void __launch_bounds__(TPB)\n"
+                     "    datapath_kernel(",
+                     "__global__ void __launch_bounds__(TPB, 6)\n"
+                     "    datapath_kernel(")],
+}
+# variant set: (source, its variants)
+ABLATIONS = {"k1_split": ("verdict", K1_ABLATIONS),
+             "k4_grid": ("conntrack", K4_GRID),
+             "k1_occupancy": ("verdict", K1_OCCUPANCY)}
 
 
-def split_one(tree: Path, label: str) -> dict:
-    """One tree, in this process: build, split K21/K21s, time K10."""
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def build_ablations(tree: Path, which: str) -> dict:
+    """nvcc each variant of set ``which`` of ``tree``'s source at once,
+    outside the tree; -> {name: (library path, ptxas log)}."""
+    from cilium_tpu_torch.kernels import build
+
+    source, variants = ABLATIONS[which]
+    csrc = tree / "cilium_tpu_torch" / "csrc"
+    src = (csrc / f"{source}.cu").read_text()
+    work = OUT / "ablate"
+    work.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"ablation {name}: pattern not found: "
+                                   f"{old[:60]!r}")
+            text = text.replace(old, new)
+        cu = work / f"{which}_{name}.cu"
+        cu.write_text(text)
+        so = work / f"{which}_{name}.so"
+        procs[name] = (subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
+             str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT), so)
+    libs = {}
+    for name, (p, so) in procs.items():
+        log = p.communicate()[0].decode(errors="replace")
+        if p.returncode != 0:
+            raise RuntimeError(f"ablation {name}: nvcc failed\n{log}")
+        libs[name] = (so, log)
+    return libs
+
+
+def use_library(source: str, path: Path) -> None:
+    """Point the tree's launchers of ``source``.cu at another build."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.kernels import build
+
+    lib = ctypes.CDLL(str(path))
+    lib.cuda_error_name.restype = ctypes.c_char_p
+    lib.cuda_error_name.argtypes = [ctypes.c_int]
+    build._LIBS[source] = lib
+    kernels._READY.discard(source)
+
+
+def ptxas_regs(log: str) -> list:
+    """[(entry, registers, spill store bytes)] from an nvcc -Xptxas -v log."""
+    out, entry, spill = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and entry:
+            regs = int(line.split("Used")[1].split("registers")[0])
+            out.append((entry, regs, spill))
+    return out
+
+
+def split_one(tree: Path, label: str, ablate: bool, variants: bool) -> dict:
+    """One tree, in this process: build, make the cases, time K1 and K4."""
     sys.path.insert(0, str(tree))
+    import copy
+    import inspect
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
-    from cilium_tpu_torch.datapath.loader import (TorchLoader, _dus,
-                                                  _dus_starts)
-    from cilium_tpu_torch.kernels import (build, launch_anomaly_train_bwd,
-                                          launch_anomaly_train_fwd)
-    from cilium_tpu_torch.testing.fixtures import build_world
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import pack_eligibility, pack_rows
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.datapath.verdict import datapath_step
+    from cilium_tpu_torch.kernels import (build, launch_ct_update,
+                                          launch_datapath)
+    from cilium_tpu_torch.ml import synth_labeled_traffic
+    from cilium_tpu_torch.parallel import route_by_flow
+    from cilium_tpu_torch.testing import fixtures as fx
 
     t0 = time.monotonic()
-    build.build()
+    build.build(["verdict", "conntrack"])
     res = {"tree": str(tree), "label": label,
-           "build_s": time.monotonic() - t0, "k21": {}, "k10": {}}
+           "build_s": time.monotonic() - t0,
+           "ptxas": {n: ptxas_regs((build.BUILD_DIR / f"{n}.log").read_text())
+                     for n in ("verdict", "conntrack")},
+           "k1": {}, "k4": {}}
     rng = np.random.default_rng(SEED)
-    world = build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
-                        device="cpu")
-    ids, feats, labels = cs.train_inputs(torch, rng, world)
-    leaves = cs.train_model(torch, world).leaves()
-    gloss = torch.ones(1, device="cuda")
-    OUT.mkdir(parents=True, exist_ok=True)
-    for s in (None, 8):
-        _, saved = launch_anomaly_train_fwd(leaves, ids, feats, labels, s)
+    world = fx.build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
+                           device="cpu")
+    has_stats = "stats" in inspect.signature(ct.ct_update_plain).parameters
+    has_scratch = "scratch" in inspect.signature(launch_ct_update).parameters
 
-        def bwd():
-            return launch_anomaly_train_bwd(leaves, saved, ids, labels,
-                                            gloss, s)
+    def fork(state):  # the verdict stage reads the CT, adds to metrics
+        s2 = copy.copy(state)
+        s2.metrics = state.metrics.clone()
+        return s2
 
-        grads = bwd()
+    def k1(state, rows, meta, valid, shards):
+        return launch_datapath(state, rows, NOW, meta.get("ep"),
+                               meta.get("dirn"), valid, None, None, None,
+                               False, n_shards=shards)
+
+    def k4(w, c, valid, shards, scratch=None):
+        kw = {"scratch": scratch} if scratch is not None else {}
+        return launch_ct_update(w, c.l4, c.fwd, c.result, c.slot,
+                                c.is_reply, c.do_create, c.proxy_port, NOW,
+                                valid, n_shards=shards, **kw)
+
+    def run_k4(name, state, c, valid, shards):
+        base = state.ct
+
+        def fresh():
+            return ct.CTTable(base.table.clone(), base.fp.clone(),
+                              base.dropped.clone(),
+                              torch.full((2, base.table.shape[0]), -1,
+                                         dtype=torch.int32, device="cuda"))
+
+        ms = cs.device_ms(lambda w: k4(w, c, valid, shards), REPS, fresh)
+        works = [fresh() for _ in range(REPS + 1)]
+        k4(works[0], c, valid, shards)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                bwd()
+            for w in works[1:]:
+                k4(w, c, valid, shards)
             torch.cuda.synchronize()
-        passes = {e.key: {"ms": e.self_device_time_total / 1e3 / REPS,
-                          "calls": e.count / REPS}
-                  for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.startswith("Activity Buffer")
-                  and e.self_device_time_total > 0}
-        ms = cs.device_ms(bwd, REPS)
-        name = f"S{s or 1}"
-        torch.save(grads[0].cpu(), OUT / f"{label}_d_embed_{name}.pt")
-        res["k21"][name] = {"ms": ms, "passes": passes,
-                            "launches": sum(p["calls"]
-                                            for p in passes.values())}
-        print(f"[{label}] K21 {name}: {ms:.4f} ms a launch (events); "
-              f"{res['k21'][name]['launches']:.0f} kernels and memsets a "
-              f"launch; by pass (device ms a launch):")
-        for k, p in sorted(passes.items(), key=lambda kv: -kv[1]["ms"]):
-            print(f"  {k[:60]}: {p['ms']:.4f} ({p['calls']:.0f} a launch)")
-        for other in sorted(OUT.glob(f"*_d_embed_{name}.pt")):
-            if other.name.startswith(f"{label}_"):
-                continue
-            want = torch.load(other)
-            got = grads[0].cpu()
-            diff = int((got != want).sum())
-            res["k21"][name][f"differs_from_{other.name}"] = diff
-            print(f"  d_embed against {other.name}: {diff} cells differ, "
-                  f"max abs {float((got - want).abs().max()):.3g}")
+        by_launch = {e.key: {"ms": e.self_device_time_total / 1e3 / REPS,
+                             "calls": e.count / REPS}
+                     for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.key.startswith("Activity Buffer")
+                     and e.self_device_time_total > 0}
+        w = works[0]
+        rec = {"rows": int(c.fwd.shape[0]), "shards": shards or 1,
+               "ms": ms, "by_launch": by_launch,
+               "launches": sum(v["calls"] for v in by_launch.values()),
+               "inputs": digest(c.l4, c.fwd, c.result, c.slot, c.is_reply,
+                                c.do_create, c.proxy_port,
+                                *(() if valid is None else (valid,))),
+               "ct": digest(w.table, w.fp, w.dropped),
+               "claim_clear": bool((w.claim == -1).all()),
+               "pending_rows": int((c.do_create & (c.result == 0)).sum()
+                                   if valid is None else
+                                   (c.do_create & (c.result == 0)
+                                    & valid).sum())}
+        if has_stats and not shards:
+            st = {}
+            p = fresh()
+            ct.ct_update_plain(p, c.l4, c.fwd, c.result, c.slot, c.is_reply,
+                               c.do_create, c.proxy_port, NOW, valid,
+                               stats=st)
+            rec["plain_rounds"] = st["rounds"]
+            rec["plain_pending"] = st["pending"]
+            rec["plain_equal"] = digest(p.table, p.fp, p.dropped) == rec["ct"]
+        if has_scratch:
+            sc = {}
+            k4(fresh(), c, valid, shards, scratch=sc)
+            rc = sc["counts"].cpu().tolist()
+            rec["kernel_pending"] = rc
+            rec["kernel_rounds"] = sum(1 for x in rc[:-1] if x > 0)
+        res["k4"][name] = rec
+        top = sorted(by_launch.items(), key=lambda kv: -kv[1]["ms"])[:6]
+        print(f"[{label}] K4 {name}: {ms:.4f} ms (events), "
+              f"{rec['launches']:.0f} launches a call, pending rows "
+              f"{rec['pending_rows']}, rounds "
+              f"{rec.get('plain_rounds', rec.get('kernel_rounds', '?'))}; "
+              + ", ".join(f"{k[:28]} {v['ms']:.4f}x{v['calls']:.0f}"
+                          for k, v in top))
+        if variants:
+            k4_inputs.append((name, fresh(), c, valid, shards))
+        k4(state.ct, c, valid, shards)  # the state moves on
 
-    kl = TorchLoader(ct_capacity=1 << 4, device="cuda")
-    kl.attach(world.policies, world.ipcache, {0: 0}, world.row_map)
-    pol, lpm = kl.state.policy, kl.state.ipcache
-    n_pol, _, n_rows, n_local = pol.verdict.shape
-    row = n_rows // 4 + 1
+    cases = []  # (name, state, rows, meta, valid, shards) for K1
+    k4_inputs = []  # (case, CT before, inputs, valid, shards) for K4
 
-    def rand(*shape):
-        return torch.from_numpy(rng.integers(
-            -2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).cuda()
+    # the trainer's batch after 8 warm-up steps
+    st = cs.card_state(world)
+    for s in range(8):
+        hdr, _ = synth_labeled_traffic(world, 4096, rng)
+        datapath_step(st, u32.from_numpy(hdr, "cuda"), NOW - 8 + s)
+    hdr, _ = synth_labeled_traffic(world, 4096, rng)
+    train_rows = u32.from_numpy(hdr, "cuda")
+    cases.append(("train_wide_4096", st, train_rows, {}, None, None))
 
-    for what, dst, upd, starts in (
-            ("verdict row", pol.verdict, rand(n_pol, 2, 1, n_local),
-             (0, 0, row, 0)),
-            ("auth column", pol.auth, rand(n_pol, 1), (0, row)),
-            ("l3 row", lpm.l3, rand(1, 256), (lpm.l3.shape[0] // 2, 0))):
-        dst = dst.clone()
-        idx = tuple(slice(a, a + u) for a, u in zip(
-            _dus_starts(dst.shape, upd.shape, starts), upd.shape))
-        # kernel, copy_, copy_, kernel
-        t = [cs.device_ms(lambda: _dus(dst, upd, starts), REPS),
-             cs.device_ms(lambda: dst[idx].copy_(upd), REPS),
-             cs.device_ms(lambda: dst[idx].copy_(upd), REPS),
-             cs.device_ms(lambda: _dus(dst, upd, starts), REPS)]
-        res["k10"][what] = {"shape": list(upd.shape),
-                            "dst": list(dst.shape), "ms": [t[0], t[3]],
-                            "copy_ms": [t[1], t[2]]}
-        print(f"[{label}] K10 {what} {tuple(upd.shape)} into "
-              f"{tuple(dst.shape)}: {t[0]:.4f} / {t[3]:.4f} ms; slice "
-              f"copy_ {t[1]:.4f} / {t[2]:.4f} ms")
+    def packed_pair(n):
+        pool = fx.steady_flow_pool(world, n, rng)
+        return (pack_rows(pool), pack_rows(fx.steady_traffic(pool, n, rng)))
+
+    def routed(hdr, n):
+        r, valid, _o, _ovf = route_by_flow(hdr, SHARDS, HEADROOM * n // SHARDS)
+        ok, ep, dirn = pack_eligibility(hdr)
+        return (u32.from_numpy(pack_rows(r), "cuda"),
+                torch.from_numpy(valid).cuda(), dict(ep=ep, dirn=dirn))
+
+    for n, tag in ((1 << 16, "daemon"), (1 << 18, "slice")):
+        syn, steady = packed_pair(n)
+        cases.append((f"{tag}_packed_{n}", cs.card_state(world),
+                      (u32.from_numpy(syn, "cuda"),
+                       u32.from_numpy(steady, "cuda")),
+                      dict(ep=0, dirn=0), None, None))
+    wpool = fx.wide_flow_pool(world, 1 << 16, rng)
+    cases.append((f"slice_wide_{1 << 18}", cs.card_state(world),
+                  (u32.from_numpy(wpool, "cuda"),
+                   u32.from_numpy(fx.wide_traffic(wpool, 1 << 18, rng),
+                                  "cuda")), {}, None, None))
+    for n in (1 << 16, 1 << 18):
+        pool = fx.steady_flow_pool(world, n, rng)
+        syn = routed(pool, n)
+        steady = routed(fx.steady_traffic(pool, n, rng), n)
+        cases.append((f"sharded_packed_{n}x{SHARDS}", cs.card_state(world),
+                      (syn, steady), None, None, SHARDS))
+
+    for name, state, rows, meta, valid, shards in cases:
+        if name.startswith("train"):
+            phases = [("steady", rows, meta, valid)]
+        elif shards:  # rows: ((rows, valid, meta) syn, ... steady)
+            phases = [(ph, r, m, v) for ph, (r, v, m) in
+                      zip(("syn", "steady"), rows)]
+        else:
+            phases = [("syn", rows[0], meta, valid),
+                      ("steady", rows[1], meta, valid)]
+        for phase, r, m, v in phases:
+            out, c = k1(fork(state), r, m, v, shards)
+            s_t = fork(state)
+            ms = cs.device_ms(lambda: k1(s_t, r, m, v, shards), REPS)
+            m_before = state.metrics.clone()
+            k1(state, r, m, v, shards)  # metrics move on with the state
+            key = f"{name}/{phase}"
+            res["k1"][key] = {
+                "rows": int(r.shape[0]), "ms": ms,
+                "out": digest(out, c.l4, c.fwd, c.result, c.slot, c.is_reply,
+                              c.do_create, c.proxy_port,
+                              state.metrics - m_before)}
+            print(f"[{label}] K1 {key}: {ms:.4f} ms a launch (events)")
+            run_k4(key, state, c, v, shards)
+
+    if variants:
+        libs = build_ablations(tree, "k4_grid")
+        res["k4_grid"] = {}
+        for aname, (so, log) in libs.items():
+            use_library("conntrack", so)
+            rec = {"ptxas": ptxas_regs(log)}
+            for key, base, c, valid, shards in k4_inputs:
+                def fresh(base=base):
+                    return ct.CTTable(base.table.clone(), base.fp.clone(),
+                                      base.dropped.clone(),
+                                      torch.full((2, base.table.shape[0]),
+                                                 -1, dtype=torch.int32,
+                                                 device="cuda"))
+
+                w = fresh()
+                k4(w, c, valid, shards)
+                ok = digest(w.table, w.fp, w.dropped) == res["k4"][key]["ct"]
+                rec[key] = {"ms": cs.device_ms(
+                    lambda w_: k4(w_, c, valid, shards), REPS, fresh),
+                    "ct_equal": ok}
+            res["k4_grid"][aname] = rec
+            print(f"[{label}] K4 grid {aname}: "
+                  + ", ".join(f"{k} {v['ms']:.4f}"
+                              + ("" if v["ct_equal"] else " (CT DIFFERS)")
+                              for k, v in rec.items() if k != "ptxas")
+                  + f" ms; ptxas {rec['ptxas']}")
+    st_case = {c[0]: c for c in cases}
+    for which in (["k1_split"] if ablate else []) + (
+            ["k1_occupancy"] if variants else []):
+        libs = build_ablations(tree, which)
+        res[which] = {}
+        for aname, (so, log) in libs.items():
+            use_library("verdict", so)
+            rec = {"ptxas": ptxas_regs(log)}
+            for cname in ("train_wide_4096", f"daemon_packed_{1 << 16}",
+                          f"slice_packed_{1 << 18}",
+                          f"slice_wide_{1 << 18}"):
+                _n, state, rows, meta, valid, _s = st_case[cname]
+                r = rows if cname.startswith("train") else rows[1]
+                s_t = fork(state)
+                rec[cname] = cs.device_ms(
+                    lambda: k1(s_t, r, meta, valid, None), REPS)
+            res[which][aname] = rec
+            print(f"[{label}] K1 {which} {aname}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in rec.items()
+                              if k != "ptxas")
+                  + f" ms; ptxas {rec['ptxas']}")
+    OUT.mkdir(parents=True, exist_ok=True)
     (OUT / f"{label}.json").write_text(json.dumps(res, indent=1))
     return res
 
 
 def main() -> int:
-    if len(sys.argv) >= 4 and sys.argv[1] == "--one":
-        split_one(Path(sys.argv[2]).resolve(), sys.argv[3])
+    args = sys.argv[1:]
+    opts = {a.split("=")[0]: Path(a.split("=", 1)[1]).resolve()
+            for a in args if a.startswith("--") and "=" in a}
+    args = [a for a in args if not (a.startswith("--") and "=" in a)]
+    if len(args) >= 3 and args[0] == "--one":
+        split_one(Path(args[1]).resolve(), args[2], "--ablate" in opts,
+                  "--variants" in opts)
         return 0
     import torch
 
     if not torch.cuda.is_available():
         print("chip_kernel_split: no CUDA device", file=sys.stderr)
         return 1
-    trees = [Path(t).resolve() for t in sys.argv[1:]] or [ROOT]
+    trees = [Path(t).resolve() for t in args] or [ROOT]
     runs = []
     for i, tree in enumerate(trees):
         label = f"{i}_{tree.name}"
+        # each variant set once, on the first run of the tree it names
+        extra = [f"{k}={v}" for k, v in opts.items()
+                 if v == tree and tree not in trees[:i]]
         p = subprocess.run([sys.executable, __file__, "--one", str(tree),
-                            label], timeout=900)
+                            label, *extra], timeout=900)
         if p.returncode != 0:
             print(f"chip_kernel_split: {tree} failed ({p.returncode})",
                   file=sys.stderr)
             return 1
         runs.append(json.loads((OUT / f"{label}.json").read_text()))
+    for later in runs[1:]:
+        first = runs[0]
+        for kern in ("k1", "k4"):
+            for case, rec in later[kern].items():
+                want = first[kern].get(case, {})
+                for field in ("out", "inputs", "ct"):
+                    if field in rec and field in want:
+                        same = rec[field] == want[field]
+                        print(f"{later['label']} {kern} {case} {field}: "
+                              f"{'equal to' if same else 'DIFFERS from'} "
+                              f"{first['label']}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi,
-                      "runs": [{k: r[k] for k in ("label", "k21", "k10")}
-                               for r in runs]}))
+                      "runs": [{k: r[k] for k in ("label", "k1", "k4")
+                                if k in r} for r in runs]}))
     return 0
 
 

@@ -9,6 +9,8 @@ is exact equality.  Batches are padded to one size with rows that
 compiles a handful of programs for the whole file.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from cilium_tpu.core.packets import COL_FLAGS, COL_LEN, FLAG_RELATED
 from cilium_tpu.datapath import conntrack as jct
 from cilium_tpu_torch import u32
 from cilium_tpu_torch.datapath import conntrack as tct
+from cilium_tpu_torch.testing import fixtures as tfix
 
 torch.set_num_threads(1)
 
@@ -63,11 +66,13 @@ def _pad(hdr):
 
 
 def _both_step(table, fp, hdr, now, do_create=None, proxy=None,
-               valid=None, dropped=0):
+               valid=None, dropped=0, stats=None):
     """One lookup + update through both packages from the same table;
     asserts the lookups agree, returns both resulting states as numpy.
     JAX always gets a ``valid`` mask (False on the padding); the port
-    gets None where the caller gave none and nothing was padded."""
+    gets None where the caller gave none and nothing was padded.  A
+    ``stats`` dict gets the port's insert-round counts
+    (``ct_update_plain``'s ``stats``)."""
     n = len(hdr)
     assert n <= BATCH
     mask = np.zeros(BATCH, bool)
@@ -94,9 +99,11 @@ def _both_step(table, fp, hdr, now, do_create=None, proxy=None,
     np.testing.assert_array_equal(tres.numpy(), np.asarray(jres))
     np.testing.assert_array_equal(tslot.numpy(), np.asarray(jslot))
     np.testing.assert_array_equal(trep.numpy(), np.asarray(jrep))
-    tct.ct_update(tc, tct.ct_l4_from_headers(th), tf, tres, tslot, trep,
-                  _tbool(do_create), _t(proxy), now,
-                  valid=None if port_valid is None else _tbool(port_valid))
+    update = (tct.ct_update if stats is None
+              else functools.partial(tct.ct_update_plain, stats=stats))
+    update(tc, tct.ct_l4_from_headers(th), tf, tres, tslot, trep,
+           _tbool(do_create), _t(proxy), now,
+           valid=None if port_valid is None else _tbool(port_valid))
     j = (np.array(jc.table), np.array(jc.fp), int(jc.dropped))
     t = (u32.to_numpy(tc.table), u32.to_numpy(tc.fp),
          int(u32.to_numpy(tc.dropped)))
@@ -282,6 +289,68 @@ class TestUpdate:
         table, fp = _empty(1 << 9)
         table, fp, _ = _both_step(table, fp, hdr, 100)
         _both_step(table, fp, hdr, 100 + jct.LIFETIME_NONTCP - 1)
+
+
+def _apart_flows(cap, n, seed):
+    """``n`` flows whose 16-slot windows in a ``cap``-slot table are
+    pairwise 32 slots apart or more, so that each one's insert settles
+    alone."""
+    hdr = _flows(4 * n, seed=seed)
+    keys = u32.to_numpy(tct.ct_keys_from_headers(_t(hdr))[0])
+    homes = jct._hash_np(keys).astype(np.int64) % cap
+    keep = []
+    for i, h in enumerate(homes):
+        if all(min((h - homes[j]) % cap, (homes[j] - h) % cap) >= 32
+               for j in keep):
+            keep.append(i)
+    assert len(keep) >= n
+    return hdr[keep[:n]]
+
+
+# the insert round in which the batch's last pending row settles; None:
+# it is still pending after the last round (dropped)
+SETTLE = {"round0": 0, "round3": 3, "round4": 4, "round19": 19,
+          "dropped": None, "none_pending": "none"}
+
+
+@pytest.mark.parametrize("case", list(SETTLE))
+def test_insert_rounds_end_where_the_last_pending_row_settles(case):
+    """The kernel stops its insert rounds once no row is pending; these
+    batches pin, against JAX, that rounds with no pending row change
+    nothing: the last pending row settles in candidate round 0 or 3, in
+    the first full-window round (4) or the last (19), or never (a
+    dropped insert), or no row is pending at all.  The port's plain
+    version counts the rows pending entering each round."""
+    cap, now = 1 << 9, 100
+    hdr = _apart_flows(cap, 8, seed=31)
+    settle = SETTLE[case]
+    if settle == "none":
+        table, fp = _empty(cap)
+        table, fp, _ = _both_step(table, fp, hdr, now)  # all inserted
+        stats = {}
+        _both_step(table, fp, hdr, now + 1, stats=stats)  # all hits
+        assert stats["rounds"] == 0 and not any(stats["pending"])
+        return
+    key = u32.to_numpy(tct.ct_keys_from_headers(_t(hdr[:1]))[0])[0]
+    table, fp = tfix.ct_round_table(key, settle, cap, now,
+                                    np.random.default_rng(3))
+    stats = {}
+    t2, _fp2, dropped = _both_step(table, fp, hdr, now, stats=stats)
+    pend = stats["pending"]
+    assert len(pend) == tct.N_ROUNDS + 1 and pend[0] == len(hdr)
+    if settle is None:
+        assert stats["rounds"] == tct.N_ROUNDS and pend[-1] == dropped == 1
+        assert not (t2[:, :jct.KEY_WORDS] == key).all(axis=1).any()
+        return
+    assert dropped == 0 and pend[-1] == 0
+    assert stats["rounds"] == settle + 1
+    # the other rows settle in round 0, the crafted one in its round
+    assert pend[settle + 1] == 0
+    assert pend[1:settle + 1] == [1] * settle
+    h = int(jct._hash_np(key[None])[0])
+    pos = settle if settle < tct.N_CAND_INS else settle - tct.N_CAND_INS
+    np.testing.assert_array_equal(
+        t2[(h + pos) % cap, :jct.KEY_WORDS], key)
 
 
 def test_snapshot_rows_round_trip_matches_jax():

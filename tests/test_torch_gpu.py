@@ -9,6 +9,8 @@ machine, which has no JAX:
     python -m pytest tests/test_torch_gpu.py --noconftest -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -947,3 +949,238 @@ def test_sharded_kernels_match_their_plain_versions(packed):
     for name in (f"datapath_{kind}_sharded", "ct_update_sharded",
                  "ring_append_sharded"):
         assert KERNELS[name].launches == 3
+
+
+def _ct_clone(c):
+    from cilium_tpu_torch.datapath.conntrack import CTTable
+
+    return CTTable(c.table.clone(), c.fp.clone(), c.dropped.clone(),
+                   torch.full((2, c.table.shape[0]), -1, dtype=torch.int32,
+                              device=c.table.device))
+
+
+def _kernels_in(prepare, tries=3):
+    """{device kernel name: launches} of one call of ``prepare()`` (it
+    returns the call, its inputs made outside the window; memsets and
+    copies included), from torch.profiler.  A window in which the
+    profiler recorded no device event at all is profiled again on fresh
+    inputs, at most ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        fn = prepare()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")}
+        if got:
+            break
+    return got
+
+
+def _verdict_inputs(w, case, n, shards, rng):
+    """A pool of ``n`` flows (SYN rows), a batch of ``n`` wide header
+    rows for ``case`` and, for ``shards`` > 1, the batch flow-routed into
+    blocks (headroom 2): -> (pool, batch, routed rows or None, valid)."""
+    from cilium_tpu_torch.parallel import route_by_flow
+
+    pool = tfix.steady_flow_pool(w, n, rng)
+    if case in ("syn", "collision"):
+        hdr = pool
+    elif case == "hot":
+        hdr = np.repeat(pool[:1], n, axis=0)
+    else:
+        hdr = tfix.steady_traffic(pool, n, rng)
+    if shards == 1:
+        return pool, hdr, None, None
+    routed, valid, _o, _ovf = route_by_flow(hdr, shards, 2 * n // shards)
+    return pool, hdr, routed, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [1, 8])
+@pytest.mark.parametrize("case", ["syn", "steady", "collision", "nothing"])
+def test_ct_update_is_one_launch_matching_its_plain_version(case, shards):
+    """K4/K4s, one cooperative kernel a call (no memset), against the
+    plain ct_update (per shard for K4s): the CT table, fp and dropped
+    equal and every claim word back at -1, on a SYN batch, a steady
+    batch, a collision batch whose inserts run all 20 rounds and drop,
+    and a batch with nothing to insert; with one shard the kernel's
+    pending counts a round equal the plain version's."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.datapath.verdict import verdict_stage_plain
+    from cilium_tpu_torch.kernels import launch_ct_update
+    from cilium_tpu_torch.parallel import mesh as pm
+
+    cap, n = (1 << 9 if case == "collision" else 1 << 14), 2048
+    w = tfix.build_world(256, 8, ct_capacity=cap, device="cuda")
+    rng = np.random.default_rng(51)
+    pool, rows, routed, valid = _verdict_inputs(w, case, n, shards, rng)
+    rows = rows if routed is None else routed
+    st, now = w.state, 100
+    if case in ("steady", "nothing"):  # the pool's flows established
+        h = u32.from_numpy(pool, "cuda")
+        _o, c = verdict_stage_plain(st, h, now)
+        ct.ct_update_plain(st.ct, c.l4, c.fwd, c.result, c.slot,
+                           c.is_reply, c.do_create, c.proxy_port, now)
+        now += 1
+    rows = u32.from_numpy(rows, "cuda")
+    valid = None if valid is None else torch.from_numpy(valid).cuda()
+    if shards == 1:
+        _o, c = verdict_stage_plain(st, rows, now, valid=valid)
+    else:
+        _o, c = pm.sharded_verdict_plain(st, rows, now, shards, valid)
+    if case == "nothing":
+        c.do_create = torch.zeros_like(c.do_create)
+    kc, pc = _ct_clone(st.ct), _ct_clone(st.ct)
+    scratch, stats = {}, {}
+    args = (c.l4, c.fwd, c.result, c.slot, c.is_reply, c.do_create,
+            c.proxy_port, now, valid)
+    sh = None if shards == 1 else shards
+    launch_ct_update(kc, *args, n_shards=sh, scratch=scratch)
+    kernels = _kernels_in(lambda: functools.partial(
+        launch_ct_update, _ct_clone(st.ct), *args, n_shards=sh))
+    assert sum(kernels.values()) == 1, kernels
+    assert not any("emset" in k for k in kernels), kernels
+    if shards == 1:
+        ct.ct_update_plain(pc, c.l4, c.fwd, c.result, c.slot, c.is_reply,
+                           c.do_create, c.proxy_port, now, valid,
+                           stats=stats)
+        assert scratch["counts"].cpu().tolist() == stats["pending"]
+    else:
+        pm.sharded_ct_update_plain(pc, c, now, shards, valid)
+    for a, b in ((kc.table, pc.table), (kc.fp, pc.fp),
+                 (kc.dropped, pc.dropped)):
+        assert torch.equal(a, b)
+    assert bool((kc.claim == -1).all())
+    counts = scratch["counts"].cpu().tolist()
+    if case == "collision":
+        assert int(kc.dropped) > 0 and all(counts[:-1]), counts
+    if case == "nothing":
+        assert not any(counts), counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("settle", [0, 3, 4, 19, None],
+                         ids=["round0", "round3", "round4", "round19",
+                              "dropped"])
+def test_ct_update_stops_where_the_last_pending_row_settles(settle):
+    """K4 on the tables of ``testing.fixtures.ct_round_table``: the rounds
+    it runs end with the round in which its one pending row settles
+    (all 20, and the row dropped, for None), and its CT equals the plain
+    version's."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.kernels import launch_ct_update
+
+    cap, now = 1 << 9, 100
+    hdr = tfix.steady_flow_pool(
+        tfix.build_world(256, 8, ct_capacity=cap, device="cpu"), 1,
+        np.random.default_rng(5))
+    fwd, rev = ct.ct_keys_from_headers(u32.from_numpy(hdr, "cuda"))
+    table, fp = tfix.ct_round_table(u32.to_numpy(fwd)[0], settle, cap, now,
+                                    np.random.default_rng(3))
+    base = ct.CTTable(u32.from_numpy(table, "cuda"),
+                      u32.from_numpy(fp, "cuda"),
+                      torch.zeros((), dtype=torch.int32, device="cuda"))
+    res, slot, rep = ct.ct_lookup_plain(base, fwd, rev, now)
+    l4 = ct.ct_l4_from_headers(u32.from_numpy(hdr, "cuda"))
+    args = (l4, fwd, res, slot, rep, torch.ones(1, dtype=torch.bool,
+                                                device="cuda"),
+            torch.zeros(1, dtype=torch.int32, device="cuda"), now)
+    kc, pc = _ct_clone(base), _ct_clone(base)
+    scratch, stats = {}, {}
+    launch_ct_update(kc, *args, scratch=scratch)
+    ct.ct_update_plain(pc, *args, stats=stats)
+    counts = scratch["counts"].cpu().tolist()
+    assert counts == stats["pending"]
+    assert stats["rounds"] == (ct.N_ROUNDS if settle is None else settle + 1)
+    for a, b in ((kc.table, pc.table), (kc.fp, pc.fp),
+                 (kc.dropped, pc.dropped)):
+        assert torch.equal(a, b)
+    assert int(kc.dropped) == (1 if settle is None else 0)
+    assert bool((kc.claim == -1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    "packed-4096", "packed-65536", "packed-262144", "wide-4096",
+    "wide-65536", "wide-262144", "packed-hot", "wide-hot",
+    "packed-sharded", "wide-sharded"])
+def test_verdict_kernel_matches_its_plain_version(case):
+    """K1 (packed, and wide with every channel and audit) and K1s over 8
+    shards against the plain verdict stage on the card: out rows, the
+    ct_update hand-off and the metrics bit-exact, at 4096, 2^16 and
+    2^18 rows, and with every row in one hot metrics cell."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import pack_eligibility, unpack_hdr
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.datapath.verdict import (verdict_stage,
+                                                   verdict_stage_plain)
+    from cilium_tpu_torch.kernels import launch_datapath
+    from cilium_tpu_torch.parallel import mesh as pm
+
+    kind, size = case.split("-")
+    shards = 8 if size == "sharded" else 1
+    n = {"hot": 1 << 16, "sharded": 1 << 16}.get(size) or int(size)
+    w = tfix.build_world(256, 8, ct_capacity=1 << 16, n_v6=16,
+                         device="cuda")
+    rng = np.random.default_rng(61)
+    st, now = w.state, 100
+    pool, hdr, routed, valid = _verdict_inputs(
+        w, "hot" if size == "hot" else "steady", n, shards, rng)
+    # the pool's flows established, so that the batch has CT hits
+    h = u32.from_numpy(pool, "cuda")
+    _o, c = verdict_stage_plain(st, h, now)
+    ct.ct_update_plain(st.ct, c.l4, c.fwd, c.result, c.slot, c.is_reply,
+                       c.do_create, c.proxy_port, now)
+    now += 1
+    if kind == "wide" and shards == 1 and size != "hot":
+        wpool = tfix.wide_flow_pool(w, 512, rng)
+        hdr = tfix.wide_traffic(wpool, n, rng)  # IPv6, ICMP errors
+    ep = dirn = None
+    rows = hdr if routed is None else routed
+    if kind == "packed":
+        ok, ep, dirn = pack_eligibility(hdr)
+        assert ok
+        rows = pack_rows(rows)
+    rows = u32.from_numpy(rows, "cuda")
+    m = st.metrics
+    if shards == 1:
+        opts = {}
+        if kind == "wide" and size != "hot":
+            opts = dict(
+                valid=torch.from_numpy(rng.random(n) < 0.9).cuda(),
+                pre_drop=torch.from_numpy(rng.random(n) < 0.05).cuda(),
+                pre_drop_reason=u32.from_numpy(np.where(
+                    rng.random(n) < 0.05, rng.choice(np.array(
+                        [6, 13, 0xFFFFFFFF], np.uint32), n), 0), "cuda"),
+                lb_drop=torch.from_numpy(rng.random(n) < 0.02).cuda(),
+                audit=True)
+        st.metrics = m.clone()
+        got = verdict_stage(st, rows, now, ep=ep, dirn=dirn, **opts)
+        mk, st.metrics = st.metrics, m.clone()
+        hdr_t = rows if ep is None else unpack_hdr(rows, ep, dirn)
+        want = verdict_stage_plain(st, hdr_t, now, **opts)
+    else:
+        v = torch.from_numpy(valid).cuda()
+        st.metrics = m.clone()
+        got = launch_datapath(st, rows, now, ep, dirn, v, None, None, None,
+                              False, n_shards=shards)
+        mk, st.metrics = st.metrics, m.clone()
+        want = pm.sharded_verdict_plain(st, rows, now, shards, v, ep, dirn)
+    assert torch.equal(got[0], want[0])
+    for f in ("l4", "fwd", "result", "slot", "is_reply", "do_create",
+              "proxy_port"):
+        assert torch.equal(getattr(got[1], f), getattr(want[1], f)), f
+    assert torch.equal(mk, st.metrics)
+    if size == "hot":
+        added = (u32.widen(mk) - u32.widen(m)).flatten()
+        assert int((added != 0).sum()) == 1 and int(added.sum()) == n

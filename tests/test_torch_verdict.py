@@ -160,3 +160,70 @@ def test_packed_step_matches_jax(world, ep, dirn, audit):
             valid=torch.from_numpy(valid), audit=audit)
         np.testing.assert_array_equal(u32.to_numpy(tout), np.asarray(jout))
     assert_state_equal(ts, js)
+
+
+def _one_cell_or_out_of_range(w, rng, case, n=4096):
+    """``n`` wide rows: one flow repeated (every row lands in one metrics
+    cell), or steady traffic whose directions and pre-drop reasons fall
+    outside the [13, 2] table on a third of the rows (those rows are
+    dropped from the metrics, as XLA's scatter drops them)."""
+    pool = jfix.steady_flow_pool(w, 512, rng)
+    if case == "one_cell":
+        return np.repeat(pool[:1], n, axis=0), None
+    hdr = jfix.steady_traffic(pool, n, rng)
+    hdr[0::6, COL_DIR] = 2
+    hdr[1::6, COL_DIR] = 0xFFFFFFFD  # -3: -1 after the wrap, still out
+    hdr[2::6, COL_DIR] = 0xFFFFFFFF  # -1: direction 1
+    reason = np.zeros(n, np.uint32)
+    reason[3::6] = 13
+    reason[4::6] = 0xFFFFFFFF
+    return hdr, reason
+
+
+@pytest.mark.parametrize("kind", ["packed", "wide"])
+@pytest.mark.parametrize("case", ["one_cell", "out_of_range"])
+def test_metrics_at_4096_rows_match_jax(world, kind, case):
+    """The verdict kernel adds its metrics once a cell a block: at the
+    trainer's 4096 rows, every row in one cell, and rows whose reason or
+    direction falls outside the table, the counts equal JAX's (two
+    batches: the flows' first packets, then their repeats)."""
+    w, arrays = world
+    rng = np.random.default_rng(41)
+    js = jax_state(arrays)
+    ts = convert.datapath_state_from_numpy(arrays, "cpu")
+    hdr, reason = _one_cell_or_out_of_range(w, rng, case)
+    n = len(hdr)
+    m0 = np.array(js.metrics)
+    # a packed stream's direction is one scalar: out of range for the
+    # whole first batch, -1 (direction 1) for the second
+    dirns = (2, 0xFFFFFFFF) if case == "out_of_range" else (0, 0)
+    for now, dirn in zip((100, 101), dirns):
+        if kind == "packed":
+            packed = pack_rows(hdr)
+            jout, js = jv.datapath_step_packed_jit(
+                js, jnp.asarray(packed), jnp.uint32(now), jnp.uint32(0),
+                jnp.uint32(dirn), valid=jnp.ones(n, bool), audit=False)
+            tout, ts = tv.datapath_step_packed(
+                ts, u32.from_numpy(packed, "cpu"), now, 0, dirn)
+        else:
+            neutral = {"valid": np.ones(n, bool),
+                       "pre_drop": np.zeros(n, bool),
+                       "pre_drop_reason": (np.zeros(n, np.uint32)
+                                           if reason is None else reason),
+                       "lb_drop": np.zeros(n, bool)}
+            jout, js = jv.datapath_step_jit(
+                js, jnp.asarray(hdr), jnp.uint32(now), audit=False,
+                **{k: jnp.asarray(v) for k, v in neutral.items()})
+            tout, ts = tv.datapath_step(
+                ts, u32.from_numpy(hdr, "cpu"), now,
+                pre_drop_reason=(None if reason is None
+                                 else u32.from_numpy(reason, "cpu")))
+        np.testing.assert_array_equal(u32.to_numpy(tout), np.asarray(jout))
+    assert_state_equal(ts, js)
+    added = u32.to_numpy(ts.metrics).astype(np.int64) - m0
+    if case == "one_cell":
+        assert (added != 0).sum() <= 2 and added.sum() == 2 * n
+    elif kind == "packed":
+        assert added.sum() == n and added[:, 0].sum() == 0
+    else:
+        assert 0 < added.sum() < 2 * n
