@@ -3480,8 +3480,8 @@ def check_k21_call(torch, name, fn, v, got, want_sorted, ids, n_shards):
     ``embed_grad_sorted_plain``; the sort (from the launch's scratch)
     equal to a stable sort of each shard's clamped keys, dropped rows
     (key V) last; the launch sequence split by pass (printed), with the
-    kernels a call asserted: 5 and one radix pass per 8 bits of V, no
-    memset.  -> the split."""
+    kernels a call asserted (``testing.capture.ops_a_call``): 5 and one
+    radix pass per 8 bits of V, no memset or copy.  -> the split."""
     check(torch.equal(got[0], want_sorted),
           f"{name}: d_embed differs from embed_grad_sorted_plain (max abs "
           f"err {float((got[0] - want_sorted).abs().max().item())})")
@@ -3500,12 +3500,16 @@ def check_k21_call(torch, name, fn, v, got, want_sorted, ids, n_shards):
                               order + z * blk),
               f"{name}: shard {z}'s sort differs from a stable sort of "
               f"its clamped keys")
-    split = pass_split(torch, lambda: fn(None))
-    calls = sum(c for _, c in split.values())
+    from cilium_tpu_torch.testing.capture import NODE_TYPES, ops_a_call
+
+    ops = ops_a_call(lambda: lambda: fn(None))
+    calls = sum(ops.values())
     want_calls = 5 + -(-v.bit_length() // 8)
-    check(calls == want_calls and not any("emset" in k for k in split),
-          f"{name}: {calls} launches a call, not {want_calls}: {split}")
-    print(f"{name} by pass ({calls:.0f} kernels a call; device ms a "
+    check(calls == want_calls and not set(ops) & set(NODE_TYPES.values()),
+          f"{name}: {calls} operations a call, not {want_calls} kernels: "
+          f"{ops}")
+    split = pass_split(torch, lambda: fn(None))
+    print(f"{name} by pass ({calls} kernels a call; device ms a "
           f"call, torch.profiler over 20): " + ", ".join(
               f"{k.replace('(anonymous namespace)::', '').split('(')[0]} "
               f"{ms:.4f}"
@@ -3870,6 +3874,18 @@ def profiled_steps(torch, fn):
     return sum(by_name.values()), wall, by_name
 
 
+def k20_split(label, by_name):
+    """K20's one kernel (``fwd_rows``, its loss summed by the last block)
+    in a profiled window of REPLAY_STEPS steps: {name: device ms a
+    step}, printed."""
+    k20 = {k: v / REPLAY_STEPS for k, v in by_name.items()
+           if "fwd_rows" in k}
+    print(f"{label}: K20 a step on the card: "
+          + (", ".join(f"{k[:48]} {v:.4f} ms" for k, v in k20.items())
+             or "no event recorded"))
+    return k20
+
+
 def phase_train(torch, rng, world, report):
     """Phase 14, the trainer on the card: (a) ``train`` at config #3 from
     label-initialised params at the reference's defaults (200 steps of
@@ -3963,6 +3979,7 @@ def phase_train(torch, rng, world, report):
           f"step of {wall / REPLAY_STEPS:.3f} ({busy / wall:.1%}, idle "
           f"{1 - busy / wall:.1%}); device ms a step by kernel: "
           + ", ".join(f"{k[:40]} {v / REPLAY_STEPS:.4f}" for k, v in top))
+    k20_ms = k20_split("train (a)", by_name)
     print_stages("train (a) host stages", stages)
     mesh_report, mesh_launches = train_mesh(
         torch, world, model0, losses, make_mesh(TRAIN_SHARDS))
@@ -4028,7 +4045,7 @@ def phase_train(torch, rng, world, report):
         "heldout_auc": a_held, "replay_loss_err": l_err,
         "replay_param_err": p_err,
         "device_busy_ms_per_step": busy / REPLAY_STEPS,
-        "device_ms_by_name": by_name,
+        "device_ms_by_name": by_name, "k20_ms_per_step": k20_ms,
         "wall_ms_per_step_profiled": wall / REPLAY_STEPS,
         "host_ms_per_step": per_step, "stages": stages,
         "golden": r, "golden_s": t_real, "train_and_evaluate": res,
@@ -4116,12 +4133,14 @@ def train_mesh(torch, world, model0, unsharded, mesh):
           f"({busy / wall:.1%}, idle {1 - busy / wall:.1%}); device ms a "
           f"step by kernel: "
           + ", ".join(f"{k[:40]} {v / REPLAY_STEPS:.4f}" for k, v in top))
+    k20_ms = k20_split("train (d)", by_name)
     return {"shards": mesh.n_shards, "train_s": t_train,
             "steps_per_s": TRAIN_STEPS / t_train, "losses": losses,
             "heldout_auc": a_held, "first_loss_err": l_err,
             "device_busy_ms_per_step": busy / REPLAY_STEPS,
             "wall_ms_per_step_profiled": wall / REPLAY_STEPS,
-            "device_ms_by_name": by_name, "launches": launches}, launches
+            "device_ms_by_name": by_name, "k20_ms_per_step": k20_ms,
+            "launches": launches}, launches
 
 
 def plain_serve(state, ring, rows, now, batch_id, ep=None, dirn=None,
@@ -4481,28 +4500,6 @@ def phase_breakdown(torch, kl, packed_batches, now, report):
         "device_time_ms_by_name": {k: v / 1e3 for k, v in device.items()}}
 
 
-def kernels_a_call(torch, prepare, tries=3):
-    """Device kernels (memsets and copies included) that one call of
-    ``prepare()`` launches (it returns the call, its inputs made outside
-    the window), from torch.profiler.  Now and then the profiler records
-    no device event at all in a window (seen on the H100): such a window
-    is profiled again on fresh inputs, at most ``tries`` times."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(tries):
-        fn = prepare()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        got = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("Activity Buffer")}
-        if got:
-            break
-    return got
-
-
 def phase_k1_k4_shapes(torch, rng, world, report):
     """K1/K1s and K4/K4s at the shapes the main paths launch them, each
     on a 2^20 CT of its own: the trainer's 4096 wide rows (after 8
@@ -4511,7 +4508,9 @@ def phase_k1_k4_shapes(torch, rng, world, report):
     bucket,
     the slice's 2^18 packed batch, and a 2^16 and a 2^18 bucket routed
     to 8 shards (headroom 2), a SYN batch then a steady one.  Each K1
-    and K4 launch is one kernel (torch.profiler); K4 equals its plain
+    and K4 call is one kernel, ``datapath_kernel`` and
+    ``ct_update_kernel`` (``testing.capture.ops_a_call``: the call
+    captured into a CUDA graph, its nodes counted); K4 equals its plain
     version (per shard for K4s), and the rounds it ran (its pending
     counts) equal the plain version's; each timed (``device_ms``)."""
     import copy
@@ -4526,6 +4525,7 @@ def phase_k1_k4_shapes(torch, rng, world, report):
     from cilium_tpu_torch.parallel import mesh as pm
     from cilium_tpu_torch.parallel import route_by_flow
     from cilium_tpu_torch.testing import fixtures as fx
+    from cilium_tpu_torch.testing.capture import ops_a_call
 
     t0 = time.monotonic()
     now = 60_000
@@ -4583,8 +4583,8 @@ def phase_k1_k4_shapes(torch, rng, world, report):
                                        dirn, valid, None, None, None, False,
                                        n_shards=sh)
 
-            k1_kernels = kernels_a_call(
-                torch, lambda: functools.partial(k1, fork(state)))
+            k1_kernels = ops_a_call(
+                lambda: functools.partial(k1, fork(state)))
             s_t = fork(state)
             k1_ms = device_ms(lambda: k1(s_t), 20)
             _out, c = k1(state)  # the state's metrics move on
@@ -4593,9 +4593,10 @@ def phase_k1_k4_shapes(torch, rng, world, report):
             kc, pc, scratch, stats = (fresh_ct(state.ct),
                                       fresh_ct(state.ct), {}, {})
             launch_ct_update(kc, *args, valid, n_shards=sh, scratch=scratch)
-            k4_kernels = kernels_a_call(torch, lambda: functools.partial(
-                launch_ct_update, fresh_ct(state.ct), *args, valid,
-                n_shards=sh))
+            k4_kernels = ops_a_call(
+                lambda: functools.partial(
+                    launch_ct_update, fresh_ct(state.ct), *args, valid,
+                    n_shards=sh))
             if sh is None:
                 ct.ct_update_plain(pc, *args, valid, stats=stats)
             else:
@@ -4609,8 +4610,10 @@ def phase_k1_k4_shapes(torch, rng, world, report):
             check(sh is not None or counts == stats["pending"],
                   f"{name} {phase}: K4's pending counts {counts}, the plain "
                   f"version's {stats.get('pending')}")
-            check(sum(k1_kernels.values()) == 1
-                  and sum(k4_kernels.values()) == 1
+            check(list(k1_kernels.values()) == [1]
+                  and "datapath_kernel" in next(iter(k1_kernels))
+                  and list(k4_kernels.values()) == [1]
+                  and "ct_update_kernel" in next(iter(k4_kernels))
                   and bool((kc.claim == -1).all()),
                   f"{name} {phase}: kernels a call K1 {k1_kernels}, K4 "
                   f"{k4_kernels}, or claim words left set")
@@ -4623,7 +4626,9 @@ def phase_k1_k4_shapes(torch, rng, world, report):
                 k4_rounds=rounds, k4_pending=counts,
                 k1_kernels=k1_kernels, k4_kernels=k4_kernels)
             print(f"k1/k4 {name} {phase}: {rows.shape[0]} rows, K1 "
-                  f"{k1_ms:.4f} ms, K4 {k4_ms:.4f} ms, one kernel each; "
+                  f"{k1_ms:.4f} ms, K4 {k4_ms:.4f} ms, one kernel each "
+                  f"(a captured call: {next(iter(k1_kernels))[:40]}, "
+                  f"{next(iter(k4_kernels))[:40]}); "
                   f"K4 ran {rounds} rounds (pending {counts[:rounds + 1]}, "
                   f"dropped {counts[-1]})")
     report["k1_k4_shapes"] = out

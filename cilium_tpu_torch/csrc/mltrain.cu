@@ -42,14 +42,43 @@
 // K20 (bound: bytes at the trainer's B = 4096, V = 16384, ~624 B a row:
 // id_row, feats, label, the 128 B embedding row read; x, h1, h2 in bf16
 // and the logit written; its ~15.9 kFLOP a row would take less on the
-// bf16 tensor cores).  A thread a row, 64 rows a block, grid (ceil(B /
-// S / 64), S) so that no block straddles a shard (64 blocks at B = 4096):
-// K19's arithmetic, the weights bf16-rounded in shared memory, x and
-// then h1 in a bf16 column a thread; x, h1 and h2 leave feature-major
-// ([59 or 64, B] bf16, so a warp's stores coalesce) for K21.  The loss:
-// each block sums its rows' terms in a fixed tree; one thread sums each
-// shard's blocks in block order and divides by B / S, then takes the
-// shards' mean.  No float atomics: two runs give the same bits.
+// bf16 tensor cores).  What held the one-thread-a-row kernel of PRs
+// 10-14 back was latency, not bytes: 64 blocks of 2 warps on 132 SMs,
+// 64 threads staging 7,936 weights with scalar loads, and a row's whole
+// 7,936-FMA chain on one thread.  One launch, `fwd_rows`, grid (ceil(B /
+// S / FR), S) so that no block straddles a shard (128 blocks of 8 warps
+// at B = 4096):
+//   - a row spreads over FG = 8 threads, a warp each (thread t: row
+//     t % FR, warp g = t / FR), each owning 8 of h1's and of h2's 64
+//     outputs in registers.  Each output is still one float32 FMA chain
+//     in k order, so the bits are those of the thread-a-row kernel;
+//   - every thread stages the weights with 16-byte loads, all in flight
+//     at once, rounded to bf16 as they land in shared memory ([k][64]
+//     bf16, 15.5 KB for w1 and w2), so a thread reads its 8 outputs'
+//     weights of one k as one 16-byte load (a broadcast in its warp);
+//   - the block's feats slab ([FR, 27] float32) is loaded coalesced into
+//     shared memory and its embedding rows 16 bytes a thread; x, h1 and
+//     h2 sit in bf16 columns ([feature][FR]) that the row's threads read,
+//     and leave feature-major ([59 or 64, B] bf16 for K21) 16 bytes a
+//     store, whole 32-byte sectors;
+//   - the logit's 64-term chain (h2 . w3, in j order) runs on one thread
+//     a row, over the h2 column, while the other warps store.
+// The loss: each row's term lands in `partial`; the last block to finish
+// (a ticket: __threadfence, then an atomicInc that wraps the counter
+// back to 0, so no memset runs a call) sums each 64-row group in the
+// fixed tree of the thread-a-row kernel (t[i] + t[i + 32], then halving),
+// each shard's groups in order, divides by B / S and takes the shards'
+// mean.  No float atomics: two runs give the same bits.  The ticket's
+// counter belongs to the wrapper, one a (device, kind, stream): launches
+// that share one run in stream order.  On the H100 (PERF.md, P15c) a
+// launch at B = 4096 takes ~0.012 ms against the thread-a-row kernel's
+// ~0.027: ~0.003 the launch, loads and staging, ~0.005 the rows, ~0.004
+// the ticket and the last block's sums (a fence, an atomic and the L2
+// loads in series).  Weights kept as float32 in shared memory were no
+// faster, 16 rows a block slower.  Tensor cores (mma.sync / wgmma)
+// would sum each output in another order and turn the bit-exact contract
+// that K21's tests, the mesh equality and chip_smoke rest on into a
+// tolerance, for ~1 us of arithmetic that is not where the time goes.
 //
 // K21 (bound: bytes, mostly d_embed's [V, 32] float32 written; ~2x K20's
 // FLOPs).  Seven launches, in stream order, no memset; each pass's own
@@ -133,7 +162,12 @@ constexpr int EMB = 32;             // D
 constexpr int HID = 64;             // H
 constexpr int FEAT_DIM = 27;
 constexpr int IN = EMB + FEAT_DIM;  // 59
-constexpr int TB = 64;              // rows a block of K20's row pass
+constexpr int FR = 32;              // rows a block of fwd_rows
+constexpr int FG = 8;               // threads (a warp each) a row of fwd_rows
+constexpr int FT = FR * FG;         // threads of fwd_rows
+constexpr int LOSS_GROUP = 64;      // rows a partial loss sum (its tree)
+constexpr int LOSS_PASS = 64;       // loss groups summed a pass of the tail
+constexpr int W4 = (IN * HID + HID * HID) / 4;  // w1, w2 in 16-byte loads
 constexpr int CHUNK = 64;           // rows a block of wgrad_partial (the
                                     // plain version's WGRAD_CHUNK)
 constexpr int WTB = 256;            // threads of the wgrad, scatter, adam blocks
@@ -148,6 +182,17 @@ constexpr int MAX_LEAVES = 8;
 static_assert(SORT_TB == RADIX, "embed_radix: a thread a digit");
 static_assert(HID / BG == 8 && EMB / BG == 4,
               "bwd_rows: a thread's outputs are one 16-byte (8-byte) load");
+static_assert(HID / FG == 8 && FR % 8 == 0 && FR <= 32 &&
+                  (IN * HID) % 8 == 0,
+              "fwd_rows: a thread's outputs of a k are one 16-byte load, "
+              "a column's rows whole 16-byte stores");
+static_assert(FT == EMB / 4 * FR && LOSS_GROUP == 64 &&
+                  LOSS_PASS % (FT / 32) == 0,
+              "fwd_rows: an embedding float4 a thread; the loss tree "
+              "takes a group as two halves of a warp's lanes, a pass's "
+              "groups spread evenly over the warps");
+constexpr int W_PER = (W4 + FT - 1) / FT;               // weight float4s
+constexpr int F_PER = (FR * FEAT_DIM + FT - 1) / FT;    // feats a thread
 // K22: optax.adam's defaults (eps_root 0), as ml/train.py's B1, B2, EPS;
 // 1 - b is taken in double and rounded once, as the reference's is
 constexpr float ADAM_B1 = 0.9f;
@@ -175,8 +220,9 @@ struct TrainFwdIO {
   __nv_bfloat16* h1T;     // [64, n]
   __nv_bfloat16* h2T;     // [64, n]
   float* logit;           // [n]
-  float* partial;         // [S * ceil(block / 64)] the blocks' loss sums
+  float* partial;         // [n] each row's loss term
   float* loss;            // [1]
+  uint32_t* ticket;       // [1] the blocks done; 0 between launches
   int32_t n;
   int32_t v;
   int32_t n_shards;  // n rows in n_shards blocks of block rows (1 and n:
@@ -251,27 +297,12 @@ __device__ __forceinline__ float bf2f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// acc[j] = sum_k col[k] * w[k, j] for j < N, float32 FMAs in k order;
-// col is the thread's bf16 column (stride TB), w a [k_n, N] row-major
-// block in shared memory read by all lanes at once (a broadcast)
-template <int N>
-__device__ __forceinline__ void layer(const __nv_bfloat16* col,
-                                      const float* w, int k_n, float* acc) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) acc[j] = 0.0f;
-#pragma unroll 2
-  for (int k = 0; k < k_n; ++k) {
-    const float xk = bf2f(col[k * TB]);
-    const float4* wr = reinterpret_cast<const float4*>(w + k * N);
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q) {
-      const float4 u = wr[q];
-      acc[4 * q] = fmaf(xk, u.x, acc[4 * q]);
-      acc[4 * q + 1] = fmaf(xk, u.y, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(xk, u.z, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(xk, u.w, acc[4 * q + 3]);
-    }
-  }
+// 8 bf16 (or 4) from shared memory as floats (a bf16 is the high half
+// of its float)
+__device__ __forceinline__ void unpack_bf16x2(unsigned u, float& lo,
+                                              float& hi) {
+  lo = __uint_as_float(u << 16);
+  hi = __uint_as_float(u & 0xFFFF0000u);
 }
 
 // bf16(product) + bf16(b) in bf16, then ReLU (K19's rounding points)
@@ -281,103 +312,248 @@ __device__ __forceinline__ float hidden(float acc, float b) {
 
 // ---- K20 ---------------------------------------------------------------
 
-__global__ void __launch_bounds__(TB) fwd_rows(TrainFwdIO io) {
-  __shared__ __align__(16) float s_w1[IN * HID];
-  __shared__ __align__(16) float s_w2[HID * HID];
-  __shared__ float s_w3[HID];
-  __shared__ float s_b1[HID];
-  __shared__ float s_b2[HID];
-  __shared__ __align__(16) __nv_bfloat16 s_col[HID * TB];
-  __shared__ float s_red[TB];
-  const int tid = threadIdx.x;
-  for (int j = tid; j < IN * HID; j += TB) s_w1[j] = bf16r(io.w1[j]);
-  for (int j = tid; j < HID * HID; j += TB) s_w2[j] = bf16r(io.w2[j]);
-  for (int j = tid; j < HID; j += TB) {
-    s_w3[j] = bf16r(io.w3[j]);
-    s_b1[j] = bf16r(io.b1[j]);
-    s_b2[j] = bf16r(io.b2[j]);
+// acc[e] = sum_k col[k] * w[k][8g + e], float32 FMAs in k order; col is
+// the thread's row in a bf16 column of the block ([k][FR]), w a [k_n, 64]
+// bf16 block in shared memory whose 8 weights of a k are one 16-byte
+// load, the same address across the warp (a broadcast)
+__device__ __forceinline__ void layer8(const __nv_bfloat16* col,
+                                       const __nv_bfloat16* w, int k_n,
+                                       int g, float* acc) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
+#pragma unroll 4
+  for (int k = 0; k < k_n; ++k) {
+    const float xk = bf2f(col[k * FR]);
+    const uint4 wv = *reinterpret_cast<const uint4*>(w + k * HID + 8 * g);
+    float wk[8];
+    unpack_bf16x2(wv.x, wk[0], wk[1]);
+    unpack_bf16x2(wv.y, wk[2], wk[3]);
+    unpack_bf16x2(wv.z, wk[4], wk[5]);
+    unpack_bf16x2(wv.w, wk[6], wk[7]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = fmaf(xk, wk[e], acc[e]);
   }
-  __syncthreads();
-  const int32_t n = io.n;
-  const int32_t local = blockIdx.x * TB + tid;  // row within the shard
-  const int32_t i = blockIdx.y * io.block + local;
-  float term = 0.0f;
-  if (local < io.block) {
-    __nv_bfloat16* col = s_col + tid;
-    const int64_t r = xla_index(io.id_row[i], io.v);
-    const float4* e = reinterpret_cast<const float4*>(io.embed + r * EMB);
-#pragma unroll
-    for (int q = 0; q < EMB / 4; ++q) {
-      const float4 u = e[q];
-      const float c[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const __nv_bfloat16 b = __float2bfloat16_rn(c[t]);
-        col[(4 * q + t) * TB] = b;
-        io.xT[(size_t)(4 * q + t) * n + i] = b;
-      }
-    }
-    const float* fr = io.feats + (size_t)i * FEAT_DIM;
-#pragma unroll
-    for (int f = 0; f < FEAT_DIM; ++f) {
-      const __nv_bfloat16 b = __float2bfloat16_rn(fr[f]);
-      col[(EMB + f) * TB] = b;
-      io.xT[(size_t)(EMB + f) * n + i] = b;
-    }
-    float acc[HID];
-    layer<HID>(col, s_w1, IN, acc);
-#pragma unroll
-    for (int j = 0; j < HID; ++j) {
-      const __nv_bfloat16 b = __float2bfloat16_rn(hidden(acc[j], s_b1[j]));
-      col[j * TB] = b;
-      io.h1T[(size_t)j * n + i] = b;
-    }
-    layer<HID>(col, s_w2, HID, acc);
-    float lacc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < HID; ++j) {
-      const float h = hidden(acc[j], s_b2[j]);
-      io.h2T[(size_t)j * n + i] = __float2bfloat16_rn(h);
-      lacc = fmaf(h, s_w3[j], lacc);
-    }
-    const float logit = bf16r(bf16r(lacc) + bf16r(io.b3[0]));
-    io.logit[i] = logit;
-    // max(l, 0) - l * y + log1p(exp(-|l|)), the reference's order
-    term = __fadd_rn(__fsub_rn(fmaxf(logit, 0.0f),
-                               __fmul_rn(logit, io.labels[i])),
-                     log1pf(expf(-fabsf(logit))));
-  }
-  s_red[tid] = term;
-  __syncthreads();
-  for (int s = TB / 2; s > 0; s >>= 1) {
-    if (tid < s) s_red[tid] = __fadd_rn(s_red[tid], s_red[tid + s]);
-    __syncthreads();
-  }
-  if (tid == 0) io.partial[blockIdx.y * gridDim.x + blockIdx.x] = s_red[0];
 }
 
-// each shard's blocks in block order over B / S, then the shards' mean
-__global__ void loss_reduce(TrainFwdIO io, int blocks) {
-  float total = 0.0f;
-  for (int s = 0; s < io.n_shards; ++s) {
-    float sum = 0.0f;
-    for (int b = 0; b < blocks; ++b)
-      sum = __fadd_rn(sum, io.partial[s * blocks + b]);
-    const float ls = __fdiv_rn(sum, (float)io.block);
-    total = s == 0 ? ls : __fadd_rn(total, ls);
+// The last block of the grid to get here returns true, the counter then
+// back at 0.  The block's terms were written by its first FR threads
+// (its logit warp): they alone fence before the ticket, so the other
+// warps' stores of x, h1 and h2 need not land first.
+__device__ __forceinline__ bool last_block(const TrainFwdIO& io) {
+  __shared__ bool s_last;
+  if (threadIdx.x < FR) {
+    __threadfence();
+    __syncwarp(FR == 32 ? 0xFFFFFFFFu : (1u << FR) - 1u);
+    if (threadIdx.x == 0) {
+      const unsigned blocks = gridDim.x * gridDim.y;
+      s_last = atomicInc(io.ticket, blocks - 1) == blocks - 1;
+      // the other blocks' terms before this block reads them (the
+      // barrier below carries the order to its other threads, whose own
+      // stores need not land first)
+      if (s_last) __threadfence();
+    }
   }
-  io.loss[0] = __fdiv_rn(total, (float)io.n_shards);
+  __syncthreads();
+  return s_last;
+}
+
+// The loss from the row terms, by one block: each 64-row group of a
+// shard in the thread-a-row kernel's tree (t[i] + t[i + 32], then
+// halving: a warp a group), each shard's groups in order from 0, over B
+// / S, then the shards' mean.  Rows past a shard's block count 0.  The
+// groups of all shards go LOSS_PASS at a time, every term of a pass
+// loaded at once (a warp's LOSS_PASS / 8 groups in flight together).
+__device__ __forceinline__ void loss_tail(const TrainFwdIO& io) {
+  __shared__ float s_grp[LOSS_PASS];
+  constexpr int per_warp = LOSS_PASS / (FT / 32);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int32_t block = io.block;
+  const int32_t groups = (block + LOSS_GROUP - 1) / LOSS_GROUP;  // a shard's
+  const int32_t all = groups * io.n_shards;  // < 2^31: at most n / 64 + S
+  float sum = 0.0f, total = 0.0f;  // thread 0's: this shard's, the mean's
+  int32_t m_next = 0, z_next = 0;  // thread 0's: the next group's place
+  for (int32_t g0 = 0; g0 < all; g0 += LOSS_PASS) {
+    float x[per_warp];
+#pragma unroll
+    for (int u = 0; u < per_warp; ++u) {
+      const int32_t gi = g0 + warp + u * (FT / 32);
+      x[u] = 0.0f;
+      if (gi < all) {
+        const int32_t z = gi / groups, m = gi - z * groups;
+        const float* t = io.partial + (size_t)z * block;
+        const int32_t a = m * LOSS_GROUP + lane, b = a + 32;
+        x[u] = __fadd_rn(a < block ? __ldcg(t + a) : 0.0f,
+                         b < block ? __ldcg(t + b) : 0.0f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < per_warp; ++u) {
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1)
+        x[u] = __fadd_rn(x[u], __shfl_down_sync(0xFFFFFFFFu, x[u], s));
+      if (lane == 0) s_grp[warp + u * (FT / 32)] = x[u];
+    }
+    __syncthreads();
+    if (tid == 0) {
+      const int cnt = all - g0 < LOSS_PASS ? all - g0 : LOSS_PASS;
+      for (int u = 0; u < cnt;) {
+        // the pass's groups of one shard, then that shard's end
+        const int take = min(cnt - u, groups - m_next);
+#pragma unroll 8
+        for (int e = u + take; u < e; ++u) sum = __fadd_rn(sum, s_grp[u]);
+        m_next += take;
+        if (m_next == groups) {
+          const float ls = __fdiv_rn(sum, (float)block);
+          total = z_next == 0 ? ls : __fadd_rn(total, ls);
+          sum = 0.0f;
+          m_next = 0;
+          ++z_next;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) io.loss[0] = __fdiv_rn(total, (float)io.n_shards);
+}
+
+// a block: FR rows of one shard, FG threads a row (thread t: row t % FR,
+// warp t / FR)
+__global__ void __launch_bounds__(FT) fwd_rows(TrainFwdIO io) {
+  __shared__ __align__(16) __nv_bfloat16 s_w[IN * HID + HID * HID];
+  __shared__ float s_b1[HID], s_b2[HID], s_w3[HID];
+  __shared__ float s_feat[FR * FEAT_DIM];
+  __shared__ __align__(16) __nv_bfloat16 s_x[IN * FR];   // [k][row]
+  __shared__ __align__(16) __nv_bfloat16 s_h1[HID * FR];
+  __shared__ __align__(16) __nv_bfloat16 s_h2[HID * FR];
+  const int tid = threadIdx.x, r = tid % FR, g = tid / FR;
+  const int32_t n = io.n, local0 = blockIdx.x * FR;
+  const int32_t rows = min(FR, io.block - local0);  // of this block
+  const int32_t i0 = blockIdx.y * io.block + local0;
+  // every load in flight at once: the weights 16 bytes a load, the feats
+  // slab coalesced, a float4 of an embedding row a thread
+  float4 wv[W_PER];
+#pragma unroll
+  for (int u = 0; u < W_PER; ++u) {
+    const int q = tid + u * FT;
+    if (q < W4)
+      wv[u] = q < IN * HID / 4
+                  ? reinterpret_cast<const float4*>(io.w1)[q]
+                  : reinterpret_cast<const float4*>(io.w2)[q - IN * HID / 4];
+  }
+  float fv[F_PER];
+#pragma unroll
+  for (int u = 0; u < F_PER; ++u) {
+    const int q = tid + u * FT;
+    fv[u] = q < rows * FEAT_DIM ? io.feats[(size_t)i0 * FEAT_DIM + q] : 0.0f;
+  }
+  const int er = tid / (EMB / 4), eq = tid % (EMB / 4);
+  float4 ev = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (er < rows) {
+    const int64_t row = xla_index(io.id_row[i0 + er], io.v);
+    ev = reinterpret_cast<const float4*>(io.embed + row * EMB)[eq];
+  }
+  float b1 = 0.0f, b2 = 0.0f, w3 = 0.0f;
+  if (tid < HID) {
+    b1 = io.b1[tid];
+    b2 = io.b2[tid];
+    w3 = io.w3[tid];
+  }
+#pragma unroll
+  for (int u = 0; u < W_PER; ++u) {
+    const int q = tid + u * FT;
+    if (q < W4) {
+      const __nv_bfloat162 lo =
+          __float22bfloat162_rn(make_float2(wv[u].x, wv[u].y));
+      const __nv_bfloat162 hi =
+          __float22bfloat162_rn(make_float2(wv[u].z, wv[u].w));
+      uint2 p;
+      p.x = *reinterpret_cast<const unsigned*>(&lo);
+      p.y = *reinterpret_cast<const unsigned*>(&hi);
+      *reinterpret_cast<uint2*>(s_w + 4 * q) = p;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < F_PER; ++u) {
+    const int q = tid + u * FT;
+    if (q < FR * FEAT_DIM) s_feat[q] = fv[u];
+  }
+  s_x[(4 * eq) * FR + er] = __float2bfloat16_rn(ev.x);
+  s_x[(4 * eq + 1) * FR + er] = __float2bfloat16_rn(ev.y);
+  s_x[(4 * eq + 2) * FR + er] = __float2bfloat16_rn(ev.z);
+  s_x[(4 * eq + 3) * FR + er] = __float2bfloat16_rn(ev.w);
+  if (tid < HID) {
+    s_b1[tid] = bf16r(b1);
+    s_b2[tid] = bf16r(b2);
+    s_w3[tid] = bf16r(w3);
+  }
+  __syncthreads();
+  // x's feature columns from the slab (a stride of 27 words: no bank
+  // conflict); rows past the block's end are zeros
+  for (int f = g; f < FEAT_DIM; f += FG)
+    s_x[(EMB + f) * FR + r] = __float2bfloat16_rn(s_feat[r * FEAT_DIM + f]);
+  __syncthreads();
+  float acc[8];
+  layer8(s_x + r, s_w, IN, g, acc);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int j = 8 * g + e;
+    s_h1[j * FR + r] = __float2bfloat16_rn(hidden(acc[e], s_b1[j]));
+  }
+  __syncthreads();
+  layer8(s_h1 + r, s_w + IN * HID, HID, g, acc);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int j = 8 * g + e;
+    s_h2[j * FR + r] = __float2bfloat16_rn(hidden(acc[e], s_b2[j]));
+  }
+  __syncthreads();
+  if (g == 0) {
+    // the logit, one thread a row: h2 . w3 in j order (h2 is bf16 exact)
+    float lacc = 0.0f;
+#pragma unroll 16
+    for (int j = 0; j < HID; ++j)
+      lacc = fmaf(bf2f(s_h2[j * FR + r]), s_w3[j], lacc);
+    if (r < rows) {
+      const int32_t i = i0 + r;
+      const float logit = bf16r(bf16r(lacc) + bf16r(io.b3[0]));
+      io.logit[i] = logit;
+      // max(l, 0) - l * y + log1p(exp(-|l|)), the reference's order
+      io.partial[i] = __fadd_rn(__fsub_rn(fmaxf(logit, 0.0f),
+                                          __fmul_rn(logit, io.labels[i])),
+                                log1pf(expf(-fabsf(logit))));
+    }
+  } else {
+    // x, h1, h2 feature-major, 8 rows (16 bytes) a store where the batch
+    // and the block's rows allow
+    const bool vec = io.block % 8 == 0;
+    constexpr int parts = FR / 8;
+    for (int c = tid - FR; c < (IN + 2 * HID) * parts; c += FT - FR) {
+      const int f = c / parts, r0 = (c % parts) * 8;
+      const __nv_bfloat16* src;
+      __nv_bfloat16* dst;
+      if (f < IN) {
+        src = s_x + f * FR;
+        dst = io.xT + (size_t)f * n;
+      } else if (f < IN + HID) {
+        src = s_h1 + (f - IN) * FR;
+        dst = io.h1T + (size_t)(f - IN) * n;
+      } else {
+        src = s_h2 + (f - IN - HID) * FR;
+        dst = io.h2T + (size_t)(f - IN - HID) * n;
+      }
+      if (vec && r0 + 8 <= rows) {
+        *reinterpret_cast<uint4*>(dst + i0 + r0) =
+            *reinterpret_cast<const uint4*>(src + r0);
+      } else {
+        for (int u = r0; u < min(r0 + 8, rows); ++u) dst[i0 + u] = src[u];
+      }
+    }
+  }
+  if (!last_block(io)) return;
+  loss_tail(io);
 }
 
 // ---- K21 ---------------------------------------------------------------
-
-// 8 bf16 (or 4) from shared memory as floats (a bf16 is the high half
-// of its float)
-__device__ __forceinline__ void unpack_bf16x2(unsigned u, float& lo,
-                                              float& hi) {
-  lo = __uint_as_float(u << 16);
-  hi = __uint_as_float(u & 0xFFFF0000u);
-}
 
 // a block: BR rows, BG threads a row (thread t: row t % BR, group t / BR)
 __global__ void __launch_bounds__(BR * BG) bwd_rows(TrainBwdIO io) {
@@ -845,9 +1021,8 @@ extern "C" int anomaly_train_fwd_launch(const TrainFwdIO* io,
   if (io->n_shards < 1 || io->block < 1 ||
       (int64_t)io->n_shards * io->block != io->n)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (io->block + TB - 1) / TB;  // a shard's
-  fwd_rows<<<dim3(blocks, io->n_shards), TB, 0, stream>>>(*io);
-  loss_reduce<<<1, 1, 0, stream>>>(*io, blocks);
+  const dim3 grid((io->block + FR - 1) / FR, io->n_shards);
+  fwd_rows<<<grid, FT, 0, stream>>>(*io);
   return (int)cudaGetLastError();
 }
 

@@ -797,11 +797,20 @@ def launch_anomaly_score(model, id_row: torch.Tensor, feats: torch.Tensor,
     return res
 
 
-# the trainer's kernels (csrc/mltrain.cu): rows a block of K20's row
-# pass; sorted rows a piece of K21's embedding scatter (ml/model.py's
-# EMBED_PIECE; the weight-gradient chunk is its WGRAD_CHUNK)
-TRAIN_TB = 64
+# the trainer's kernels (csrc/mltrain.cu; K21's sorted rows a piece and
+# weight-gradient chunk are ml/model.py's EMBED_PIECE and WGRAD_CHUNK)
 BF16, F32 = torch.bfloat16, torch.float32
+# K20's last-block tickets, one a (device, kernel, stream): zeroed once
+# here, the last block of every launch leaves its counter at 0 again
+_TICKETS: Dict[tuple, torch.Tensor] = {}
+
+
+def _ticket(dev, name: str, stream: int) -> int:
+    key = (dev, name, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS.setdefault(key, torch.zeros(1, dtype=I32, device=dev))
+    return t.data_ptr()
 
 
 def _train_shapes(name, leaves, n):
@@ -823,7 +832,8 @@ def _train_shapes(name, leaves, n):
     dev = embed.device
     fin = d + FEAT_DIM
     shapes = ((v, d), (fin, h), (h,), (h, h), (h,), (h, 1), (1,))
-    ptrs = [_ptr(t, F32, dev, shp, align=16 if i == 0 else 4,
+    # embed, w1 and w2 are read 16 bytes a load
+    ptrs = [_ptr(t, F32, dev, shp, align=16 if i in (0, 1, 3) else 4,
                  name=nm)
             for i, (t, shp, nm) in enumerate(zip(
                 leaves, shapes, ("embed", "w1", "b1", "w2", "b2", "w3",
@@ -851,8 +861,11 @@ def launch_anomaly_train_fwd(leaves, id_row: torch.Tensor,
              "h1T": torch.empty((SCORE_HIDDEN, n), dtype=BF16, device=dev),
              "h2T": torch.empty((SCORE_HIDDEN, n), dtype=BF16, device=dev),
              "logit": torch.empty(n, dtype=F32, device=dev)}
-    partial = torch.empty(s * -(-block // TRAIN_TB), dtype=F32, device=dev)
+    partial = torch.empty(n, dtype=F32, device=dev)  # the rows' terms
     loss = torch.empty(1, dtype=F32, device=dev)
+    name = ("anomaly_train_fwd" if n_shards is None
+            else "anomaly_train_fwd_sharded")
+    stream = _stream(dev)
     io = abi.TrainFwdIO(
         id_row=_ptr(id_row, I32, dev, (n,), name="id_row"),
         feats=_ptr(feats, F32, dev, (n, FEAT_DIM), name="feats"),
@@ -860,11 +873,10 @@ def launch_anomaly_train_fwd(leaves, id_row: torch.Tensor,
         embed=w[0], w1=w[1], b1=w[2], w2=w[3], b2=w[4], w3=w[5], b3=w[6],
         xT=saved["xT"].data_ptr(), h1T=saved["h1T"].data_ptr(),
         h2T=saved["h2T"].data_ptr(), logit=saved["logit"].data_ptr(),
-        partial=partial.data_ptr(), loss=loss.data_ptr(), n=n, v=v,
-        n_shards=s, block=block)
-    KERNELS["anomaly_train_fwd" if n_shards is None
-            else "anomaly_train_fwd_sharded"].launch(ctypes.addressof(io),
-                                                     _stream(dev))
+        partial=partial.data_ptr(), loss=loss.data_ptr(),
+        ticket=_ticket(dev, name, stream), n=n, v=v, n_shards=s,
+        block=block)
+    KERNELS[name].launch(ctypes.addressof(io), stream)
     return loss.reshape(()), saved
 
 

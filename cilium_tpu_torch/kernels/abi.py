@@ -157,8 +157,8 @@ class TrainFwdIO(ctypes.Structure):
     _fields_ = [("id_row", P), ("feats", P), ("labels", P), ("embed", P),
                 ("w1", P), ("b1", P), ("w2", P), ("b2", P), ("w3", P),
                 ("b3", P), ("xT", P), ("h1T", P), ("h2T", P), ("logit", P),
-                ("partial", P), ("loss", P), ("n", I32), ("v", I32),
-                ("n_shards", I32), ("block", I32)]
+                ("partial", P), ("loss", P), ("ticket", P), ("n", I32),
+                ("v", I32), ("n_shards", I32), ("block", I32)]
 
 
 class TrainBwdIO(ctypes.Structure):

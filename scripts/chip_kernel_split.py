@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Split K4 ``ct_update`` (and K4s over 8 shards) by launch and time K1
-``datapath_kernel`` (packed and wide, and K1s) at the shapes the main
-paths launch them, for one or more checkouts of this repository.
+``datapath_kernel`` (packed and wide, and K1s), K20
+``anomaly_train_fwd`` (and K20s) and K9 ``l7_verdict`` at the shapes the
+main paths launch them, for one or more checkouts of this repository.
 
-    python3 scripts/chip_kernel_split.py [--ablate=TREE] [--variants=TREE]
-                                         [TREE ...]
+    python3 scripts/chip_kernel_split.py [--kernels=k1k4,k20,k9]
+        [--ablate=TREE] [--variants=TREE] [--ablate-k20=TREE] [TREE ...]
 
 Each TREE is a checkout (a ``git archive`` of another commit unpacked
 in a directory that ``.gitignore`` lists will do); each runs in its own
@@ -45,6 +46,25 @@ doubled (its time over the barriers a call prices one), times K4 in
 each on every case's inputs and holds its CT against the tree's own;
 and of its ``verdict.cu`` with K1 held to 8 or 6 blocks an SM, timed as
 the ablations are.
+
+``--kernels`` picks the cases (all three sets by default).  K20: the
+trainer's batch (``chip_smoke.train_inputs``: 4096 rows of
+``synth_labeled_traffic`` at config #3's V = 16384, through K1/K4 and
+K18) under ``chip_smoke.train_model``'s leaves, unsharded and over 8
+shards (K20s); K9: config #4 (4096 requests x 208 rules, K = 2), the
+same without the prefix tensor, and the daemon's shape (1 and 2
+requests against config #3's one HTTP rule).  Each case records its time
+(CUDA events over 20 calls), its ``torch.profiler`` time by kernel name,
+a digest of its outputs (K20: the loss, the logits and ``xT``, ``h1T``,
+``h2T``; K9: ``out``), whether they equal the plain version's (K20: all
+but the loss, which sums in another order) and, for K20, whether two
+calls give the same bits and K20s equals 8 unsharded launches on the
+blocks and their shard-order mean.  ``--ablate-k20=TREE`` (a tree whose
+``mltrain.cu`` is the thread-a-row K20 with ``loss_reduce``) builds, in its first
+run, throwaway variants of that source outside the tree and times K20
+and K20s in each: the source as it is, the weights staged and no row
+work, no staging (zeros in shared memory), and no ``loss_reduce``
+launch.
 
 Each run writes ``chiprun_out/split/<label>.json``; the main process
 prints, for every later run, the digests that differ from an earlier
@@ -126,16 +146,46 @@ K1_OCCUPANCY = {
                      "__global__ void __launch_bounds__(TPB, 6)\n"
                      "    datapath_kernel(")],
 }
+# the thread-a-row K20 (mltrain.cu with loss_reduce): what its time is
+# made of -- the weights staged and no row work, no staging (zeros), the
+# second launch (loss_reduce) left out
+K20_PARENT = {
+    "as_is": [],
+    "stage_only": [
+        ("  __syncthreads();\n  const int32_t n = io.n;\n",
+         "  __syncthreads();\n  if (tid == 0)\n"
+         "    io.partial[blockIdx.y * gridDim.x + blockIdx.x] =\n"
+         "        s_w1[IN * HID - 1] + s_w2[HID * HID - 1] + s_w3[0] + "
+         "s_b1[0] + s_b2[0];\n  return;\n  const int32_t n = io.n;\n")],
+    "no_staging": [
+        ("s_w1[j] = bf16r(io.w1[j]);", "s_w1[j] = 0.0f;"),
+        ("s_w2[j] = bf16r(io.w2[j]);", "s_w2[j] = 0.0f;"),
+        ("    s_w3[j] = bf16r(io.w3[j]);\n    s_b1[j] = bf16r(io.b1[j]);\n"
+         "    s_b2[j] = bf16r(io.b2[j]);",
+         "    s_w3[j] = 0.0f;\n    s_b1[j] = 0.0f;\n    s_b2[j] = 0.0f;")],
+    "one_launch": [("  loss_reduce<<<1, 1, 0, stream>>>(*io, blocks);\n", "")],
+}
 # variant set: (source, its variants)
 ABLATIONS = {"k1_split": ("verdict", K1_ABLATIONS),
              "k4_grid": ("conntrack", K4_GRID),
-             "k1_occupancy": ("verdict", K1_OCCUPANCY)}
+             "k1_occupancy": ("verdict", K1_OCCUPANCY),
+             "k20_parent": ("mltrain", K20_PARENT)}
+# the flags that name a tree, and the variant sets each runs there
+TREE_FLAGS = {"--ablate": ("k1_split",), "--variants": ("k4_grid",
+                                                         "k1_occupancy"),
+              "--ablate-k20": ("k20_parent",)}
+KERNEL_SETS = ("k1k4", "k20", "k9")
 
 
 def digest(*tensors) -> str:
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        t = t.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:  # numpy has no bf16: its bits
+            t = t.view(torch.int16)
+        h.update(t.numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -199,8 +249,173 @@ def ptxas_regs(log: str) -> list:
     return out
 
 
-def split_one(tree: Path, label: str, ablate: bool, variants: bool) -> dict:
-    """One tree, in this process: build, make the cases, time K1 and K4."""
+def restore_library(source: str) -> None:
+    """Point the launchers of ``source``.cu back at the tree's build."""
+    from cilium_tpu_torch import kernels
+    from cilium_tpu_torch.kernels import build
+
+    build._LIBS.pop(source, None)
+    kernels._READY.discard(source)
+
+
+def profiled(fn) -> dict:
+    """{kernel name: {ms, calls}} a call of ``fn`` (torch.profiler)."""
+    import chip_smoke as cs
+    import torch
+
+    return {k: {"ms": ms, "calls": calls}
+            for k, (ms, calls) in cs.pass_split(torch, fn, REPS).items()}
+
+
+def train_cases(world, rng) -> dict:
+    """K20 and K20s at the trainer's batch: {case: (call, plain call,
+    blocks or None)}."""
+    import chip_smoke as cs
+    import torch
+    from cilium_tpu_torch.kernels import launch_anomaly_train_fwd
+    from cilium_tpu_torch.ml.model import train_forward_plain
+
+    ids, feats, labels = cs.train_inputs(torch, rng, world)
+    leaves = cs.train_model(torch, world).leaves()
+    n = ids.shape[0]
+    cases = {}
+    for name, shards in (("k20_4096", None), (f"k20s_4096x{SHARDS}",
+                                               SHARDS)):
+        blocks = None
+        if shards:
+            blk = n // shards
+            blocks = [(ids[z * blk:(z + 1) * blk],
+                       feats[z * blk:(z + 1) * blk],
+                       labels[z * blk:(z + 1) * blk])
+                      for z in range(shards)]
+        cases[name] = (
+            lambda s=shards: launch_anomaly_train_fwd(leaves, ids, feats,
+                                                      labels, s),
+            lambda s=shards: train_forward_plain(leaves, ids, feats, labels,
+                                                 s),
+            None if blocks is None else
+            (lambda b=blocks: [launch_anomaly_train_fwd(leaves, *x)[0]
+                               for x in b]))
+    return cases
+
+
+def k20_digests(out) -> dict:
+    loss, saved = out
+    return {"loss": digest(loss),
+            "rest": digest(saved["logit"], saved["xT"], saved["h1T"],
+                           saved["h2T"])}
+
+
+def run_k20(label, res, cases, record_all=True) -> dict:
+    """Time each K20 case, digest its outputs and hold them against the
+    plain version, a second call and (K20s) the unsharded launches'
+    mean; -> {case: record}."""
+    import chip_smoke as cs
+    import torch
+
+    recs = {}
+    for name, (fn, plain, singles) in cases.items():
+        out = fn()
+        again = fn()
+        d, d2 = k20_digests(out), k20_digests(again)
+        rec = {"ms": cs.device_ms(fn, REPS), "out": d["loss"] + d["rest"],
+               "repeat_equal": d == d2}
+        if record_all:
+            ploss, (x, h1, h2, logit) = plain()
+            saved = out[1]
+            rec["plain_equal"] = all(
+                torch.equal(a, b) for a, b in
+                ((saved["logit"], logit), (saved["xT"], x.t()),
+                 (saved["h1T"], h1.t()), (saved["h2T"], h2.t())))
+            rec["loss_err"] = abs(out[0].item() - ploss.item())
+            if singles is not None:
+                parts = singles()
+                total = parts[0]
+                for t in parts[1:]:
+                    total = total + t
+                mean = total / torch.tensor(float(len(parts)),
+                                            device=total.device)
+                rec["shard_mean_equal"] = bool(torch.equal(out[0], mean))
+            rec["by_kernel"] = profiled(fn)
+        recs[name] = rec
+        print(f"[{label}] K20 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel")))
+        if "by_kernel" in rec:
+            print(f"[{label}]   " + ", ".join(
+                f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+                for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def l7_cases(rng) -> dict:
+    """K9 at config #4 (with and without its prefix tensor) and at the
+    daemon's shape: {case: (call, plain call)}."""
+    import chip_smoke as cs
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.policy.api import L7Rules
+    from cilium_tpu_torch.proxy.featurize import (featurize_http,
+                                                  path_prefix_hashes)
+    from cilium_tpu_torch.proxy.l7policy import (compile_l7, l7_verdict,
+                                                 l7_verdict_plain,
+                                                 prefix_columns)
+
+    def tensors(redirects, reqs, port):
+        t = compile_l7(redirects)
+        rows, raw = featurize_http(reqs, port)
+        rules_d, rows_d = (u32.from_numpy(a, "cuda") for a in (t.rules, rows))
+        if not t.n_prefix:
+            return rules_d, rows_d, None, None, None
+        pref = path_prefix_hashes([r["path"] for r in raw], t.prefix_lengths)
+        lens_d = u32.from_numpy(np.asarray(t.prefix_lengths), "cuda")
+        return (rules_d, rows_d, u32.from_numpy(pref, "cuda"), lens_d,
+                prefix_columns(rules_d, lens_d))
+
+    pol, reqs = cs.l7_world(rng)
+    r4, q4, p4, l4, c4 = tensors(pol.redirects, reqs, cs.L7_PORT)
+    cases = {
+        f"config4_{q4.shape[0]}x{r4.shape[0]}_k{p4.shape[1]}": (
+            lambda: l7_verdict(r4, q4, p4, l4, rule_cols=c4),
+            lambda: l7_verdict_plain(r4, q4, p4, l4)),
+        f"config4_{q4.shape[0]}x{r4.shape[0]}_nopref": (
+            lambda: l7_verdict(r4, q4), lambda: l7_verdict_plain(r4, q4))}
+    # config #3's one HTTP rule (GET), as the daemon's proxy holds it
+    red3 = [(80, "r", L7Rules.from_dict({"http": [{"method": "GET"}]}))]
+    for n_req in (1, 2):
+        reqs3 = [{"method": "GET" if i % 2 else "POST", "path": f"/v{i}",
+                  "host": "db"} for i in range(n_req)]
+        r3, q3, p3, l3, c3 = tensors(red3, reqs3, 80)
+        cases[f"daemon_{n_req}x{r3.shape[0]}"] = (
+            lambda r3=r3, q3=q3, p3=p3, l3=l3, c3=c3:
+                l7_verdict(r3, q3, p3, l3, rule_cols=c3),
+            lambda r3=r3, q3=q3, p3=p3, l3=l3:
+                l7_verdict_plain(r3, q3, p3, l3))
+    return cases
+
+
+def run_k9(label, cases) -> dict:
+    import chip_smoke as cs
+    import torch
+
+    recs = {}
+    for name, (fn, plain) in cases.items():
+        out = fn()
+        want = plain()
+        rec = {"rows": int(out.shape[0]), "ms": cs.device_ms(fn, REPS),
+               "out": digest(out), "plain_equal": bool(torch.equal(out, want)),
+               "admitted": int(out.sum().item()), "by_kernel": profiled(fn)}
+        recs[name] = rec
+        print(f"[{label}] K9 {name}: {rec['ms']:.4f} ms (events), "
+              f"{rec['admitted']} of {rec['rows']} admitted, plain equal "
+              f"{rec['plain_equal']}; " + ", ".join(
+                  f"{k[:30]} {v['ms']:.4f}x{v['calls']:.0f}"
+                  for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
+    """One tree, in this process: build, make the cases, time them."""
     sys.path.insert(0, str(tree))
     import copy
     import inspect
@@ -220,16 +435,40 @@ def split_one(tree: Path, label: str, ablate: bool, variants: bool) -> dict:
     from cilium_tpu_torch.parallel import route_by_flow
     from cilium_tpu_torch.testing import fixtures as fx
 
+    ablate, variants = "--ablate" in flags, "--variants" in flags
+    sources = ["verdict", "conntrack"] + (
+        ["ml", "mltrain"] if "k20" in kernels else []) + (
+        ["l7"] if "k9" in kernels else [])
     t0 = time.monotonic()
-    build.build(["verdict", "conntrack"])
+    build.build(sources)
     res = {"tree": str(tree), "label": label,
            "build_s": time.monotonic() - t0,
            "ptxas": {n: ptxas_regs((build.BUILD_DIR / f"{n}.log").read_text())
-                     for n in ("verdict", "conntrack")},
-           "k1": {}, "k4": {}}
+                     for n in sources},
+           "k1": {}, "k4": {}, "k20": {}, "k9": {}}
     rng = np.random.default_rng(SEED)
     world = fx.build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
                            device="cpu")
+    if "k20" in kernels:
+        cases20 = train_cases(world, rng)
+        res["k20"] = run_k20(label, res, cases20)
+        if "--ablate-k20" in flags:
+            res["k20_parent"] = {}
+            for aname, (so, log) in build_ablations(tree,
+                                                    "k20_parent").items():
+                use_library("mltrain", so)
+                res["k20_parent"][aname] = {
+                    "ptxas": ptxas_regs(log),
+                    **run_k20(f"{label} k20_parent {aname}", res, cases20,
+                              record_all=False)}
+            restore_library("mltrain")
+    if "k9" in kernels:
+        cases9 = l7_cases(rng)
+        res["k9"] = run_k9(label, cases9)
+    if "k1k4" not in kernels:
+        OUT.mkdir(parents=True, exist_ok=True)
+        (OUT / f"{label}.json").write_text(json.dumps(res, indent=1))
+        return res
     has_stats = "stats" in inspect.signature(ct.ct_update_plain).parameters
     has_scratch = "scratch" in inspect.signature(launch_ct_update).parameters
 
@@ -430,12 +669,24 @@ def split_one(tree: Path, label: str, ablate: bool, variants: bool) -> dict:
 
 def main() -> int:
     args = sys.argv[1:]
-    opts = {a.split("=")[0]: Path(a.split("=", 1)[1]).resolve()
-            for a in args if a.startswith("--") and "=" in a}
+    kernels = set(KERNEL_SETS)
+    opts = {}
+    for a in [a for a in args if a.startswith("--") and "=" in a]:
+        flag, val = a.split("=", 1)
+        if flag == "--kernels":
+            kernels = set(val.split(","))
+            if not kernels <= set(KERNEL_SETS):
+                print(f"chip_kernel_split: --kernels takes {KERNEL_SETS}",
+                      file=sys.stderr)
+                return 2
+        elif flag in TREE_FLAGS:
+            opts[flag] = Path(val).resolve()
+        else:
+            print(f"chip_kernel_split: unknown flag {flag}", file=sys.stderr)
+            return 2
     args = [a for a in args if not (a.startswith("--") and "=" in a)]
     if len(args) >= 3 and args[0] == "--one":
-        split_one(Path(args[1]).resolve(), args[2], "--ablate" in opts,
-                  "--variants" in opts)
+        split_one(Path(args[1]).resolve(), args[2], set(args[3:]), kernels)
         return 0
     import torch
 
@@ -447,10 +698,11 @@ def main() -> int:
     for i, tree in enumerate(trees):
         label = f"{i}_{tree.name}"
         # each variant set once, on the first run of the tree it names
-        extra = [f"{k}={v}" for k, v in opts.items()
+        extra = [k for k, v in opts.items()
                  if v == tree and tree not in trees[:i]]
-        p = subprocess.run([sys.executable, __file__, "--one", str(tree),
-                            label, *extra], timeout=900)
+        p = subprocess.run([sys.executable, __file__,
+                            f"--kernels={','.join(sorted(kernels))}",
+                            "--one", str(tree), label, *extra], timeout=900)
         if p.returncode != 0:
             print(f"chip_kernel_split: {tree} failed ({p.returncode})",
                   file=sys.stderr)
@@ -458,7 +710,7 @@ def main() -> int:
         runs.append(json.loads((OUT / f"{label}.json").read_text()))
     for later in runs[1:]:
         first = runs[0]
-        for kern in ("k1", "k4"):
+        for kern in ("k1", "k4", "k20", "k9"):
             for case, rec in later[kern].items():
                 want = first[kern].get(case, {})
                 for field in ("out", "inputs", "ct"):
@@ -473,7 +725,8 @@ def main() -> int:
     print(smi)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi,
-                      "runs": [{k: r[k] for k in ("label", "k1", "k4")
+                      "runs": [{k: r[k] for k in ("label", "k1", "k4",
+                                                  "k20", "k9")
                                 if k in r} for r in runs]}))
     return 0
 

@@ -219,11 +219,95 @@ def _l7_world(rng, n, n_rules, k):
     return rules, rows, pref, lens.astype(np.int32)
 
 
+def _l7_edge_cases(rng):
+    """K9's warp-a-request edges: {name: (rules, rows, pref, lens, the
+    admitted count)}.  A hit only at the last lane of a later 32-rule
+    pass (and of a later 256-rule tile), and at the last lane of a table
+    of one pass (read from global memory) and the first of a table of
+    two (staged); prefix and ".+" rules deciding alone, in a staged table
+    and in one of one pass; one request against one rule; request counts
+    that are not a multiple of a block's 8, and of thousands of blocks; a
+    prefix tensor too wide for 48 KB of shared memory a block."""
+    from cilium_tpu_torch.proxy.l7policy import KIND_HTTP_PREFIX
+
+    def table(n_rules, hit_at):
+        # GETs (method 1) on port 10001, but rule hit_at on port 10000: a
+        # request on 10000 hits there only, one on 10002 nowhere
+        rules = np.zeros((n_rules, 7), np.uint32)
+        rules[:, 0] = 10001
+        rules[:, 2] = 1
+        rules[hit_at, 0] = 10000
+        return rules
+
+    def requests(n, k):
+        rows = np.zeros((n, 8), np.uint32)
+        rows[:, 0] = rng.choice(np.array([10000, 10001, 10002], np.uint32),
+                                n, p=[0.6, 0.3, 0.1])
+        rows[0, 0] = 10000
+        rows[:, 2] = 1
+        rows[:, 7] = np.arange(n)
+        return rows, np.zeros((n, k, 2), np.uint32)
+
+    cases = {}
+    lens = np.array([4, 5], np.int32)
+    for name, n, n_rules, hit_at in (("last-lane-pass-3", 1003, 96, 95),
+                                     ("last-lane-tile-2", 517, 600, 319),
+                                     ("one-by-one", 1, 1, 0),
+                                     ("one-pass-last-lane", 301, 32, 31),
+                                     ("two-pass-first-rule", 299, 33, 32),
+                                     ("many-blocks", 20000, 40, 39),
+                                     ("many-blocks-tiles", 9001, 300, 290)):
+        rows, pref = requests(n, 2)
+        admitted = (rows[:, 0] == 10000).sum() + (
+            (rows[:, 0] == 10001).sum() if n_rules > 1 else 0)
+        cases[name] = (table(n_rules, hit_at), rows, pref, lens,
+                       int(admitted))
+    # prefix rules decide: literal rules that match nothing (64: a staged
+    # table; 4: one pass), then a ".+" prefix rule (length 4, hash A:
+    # needs a non-zero hash at length 5) and a plain prefix rule (length
+    # 5, hash B)
+    for name, n_lit in (("prefix-and-dot-plus", 64),
+                        ("prefix-and-dot-plus-one-pass", 4)):
+        n = 777
+        rules = np.zeros((n_lit + 2, 7), np.uint32)
+        rules[:, 0] = 10000
+        rules[:n_lit, 3:5] = [5, 5]  # a literal path no request has
+        rules[n_lit, 1] = rules[n_lit + 1, 1] = KIND_HTTP_PREFIX
+        rules[n_lit, 2] = (4 << 8) | (1 << 16)
+        rules[n_lit, 3:5] = [0xA, 0xA]
+        rules[n_lit + 1, 2] = 5 << 8
+        rules[n_lit + 1, 3:5] = [0xB, 0xB]
+        rows, pref = requests(n, 2)
+        rows[:, 0] = 10000
+        rows[:, 3:5] = [7, 7]
+        pick = rng.integers(0, 4, n)
+        pref[pick == 0, 0] = [0xA, 0xA]  # ".+" and something further: hit
+        pref[pick == 0, 1] = [3, 0]
+        pref[pick == 1, 0] = [0xA, 0xA]  # ".+" with nothing further: miss
+        pref[pick == 2, 1] = [0xB, 0xB]  # the plain prefix rule: hit
+        cases[name] = (rules, rows, pref, lens,
+                       int((pick == 0).sum() + (pick == 2).sum()))
+    # K = 800 prefix columns: 8 warps x 1600 words past 48 KB a block
+    k = 800
+    rules = np.zeros((3, 7), np.uint32)
+    rules[:, 0] = 10000
+    rules[:, 1] = KIND_HTTP_PREFIX
+    rules[:, 2] = np.array([700, 10, 255], np.uint32) << 8
+    rules[:, 3:5] = [[1, 2], [3, 4], [5, 6]]
+    rows, pref = requests(50, k)
+    rows[:, 0] = 10000
+    pref[::2, 254] = [5, 6]  # column of length 255 (lens 1 .. 800)
+    cases["wide-prefix-tensor"] = (rules, rows, pref,
+                                   np.arange(1, k + 1, dtype=np.int32), 25)
+    return cases
+
+
 @pytest.mark.gpu
 def test_l7_verdict_kernel_and_proxy_match_plain_on_the_card():
     """K9 against l7_verdict_plain on CUDA tensors (one tile and three,
-    with and without a prefix tensor, no rules), and L7Proxy on the
-    card against L7Proxy on the CPU."""
+    with and without a prefix tensor, no rules; the warp-a-request edges
+    of ``_l7_edge_cases``), and L7Proxy on the card against L7Proxy on
+    the CPU."""
     _need_card()
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
@@ -246,6 +330,16 @@ def test_l7_verdict_kernel_and_proxy_match_plain_on_the_card():
             assert 0 < int(want.sum()) < n
     assert not l7_verdict(t[0][:0], t[1]).any()
     assert KERNELS["l7_verdict"].launches == 6
+
+    edges = _l7_edge_cases(rng)
+    for name, (rules, rows, pref, lens, admitted) in edges.items():
+        t = [u32.from_numpy(a, "cuda") for a in (rules, rows, pref)]
+        tl = torch.from_numpy(lens).cuda()
+        got = l7_verdict(t[0], t[1], t[2], tl)
+        want = l7_verdict_plain(t[0], t[1], t[2], tl)
+        assert torch.equal(got, want), name
+        assert int(got.sum()) == admitted, name
+    assert KERNELS["l7_verdict"].launches == 6 + len(edges)
 
     http = [{"method": ("GET", "POST")[i % 2], "path": f"/api/r{i}"}
             for i in range(200)] + [
@@ -664,15 +758,17 @@ def test_train_kernels_match_their_plain_versions(case):
     """K20-K22 on the card against their plain versions on the same CUDA
     tensors, 3000 rows with one identity on half of them and ids past
     the table and negative.  K20: logits and saved activations
-    bit-exact, the loss within 2e-6 relative; K21: weight and bias
-    gradients bit-exact, d_embed within 1e-5 of its largest entry (the
+    bit-exact, the loss within 2e-6 relative, two launches
+    bit-identical, and the same on 1 and 1001 rows (not whole 32-row
+    blocks); K21: weight and bias gradients bit-exact, d_embed within 1e-5 of its largest entry (the
     plain version's index_add_ sums in atomic order), two runs
     bit-identical, and the same on a 20000-row batch (the radix sort's
     tiles grown to 512 rows); K22: one step from count 3 bit-exact.  K20s and K21s
     over 8 shards of 375 rows: the same bounds against their plain
     versions, and bit-exact against 8 unsharded launches on the blocks
-    followed by the shard-order mean; the same over 2 shards of 20000
-    rows (each block's sort in tiles of 512 rows)."""
+    followed by the shard-order mean (K20s: two launches bit-identical;
+    375-row blocks are not whole 32-row blocks); the same over 2 shards
+    of 20000 rows (each block's sort in tiles of 512 rows)."""
     _need_card()
     from cilium_tpu_torch.kernels import (KERNELS, launch_adam_update,
                                           launch_anomaly_train_bwd,
@@ -707,12 +803,17 @@ def test_train_kernels_match_their_plain_versions(case):
     ploss, psaved = train_forward_plain(leaves, ids, feats, labels)
     gloss = torch.ones(1, device="cuda")
     if case == "anomaly_train_fwd":
-        x, h1, h2, logit = psaved
-        assert torch.equal(saved["logit"], logit)
-        assert torch.equal(saved["xT"], x.t())
-        assert torch.equal(saved["h1T"], h1.t())
-        assert torch.equal(saved["h2T"], h2.t())
-        assert abs(loss.item() - ploss.item()) <= 2e-6 * abs(ploss.item())
+        _check_train_fwd(saved, loss, psaved, ploss)
+        # a second launch gives the same bits (the last block's ticket is
+        # back at 0); 1 row and 1001 rows (not whole 32-row blocks nor
+        # whole 16-byte stores) against the plain version
+        loss2, saved2 = launch_anomaly_train_fwd(leaves, ids, feats, labels)
+        assert torch.equal(loss2, loss)
+        assert all(torch.equal(saved2[k], saved[k]) for k in saved)
+        for m in (1, 1001):
+            part = (ids[:m], feats[:m], labels[:m])
+            _check_train_fwd(*launch_anomaly_train_fwd(leaves, *part)[::-1],
+                             *train_forward_plain(leaves, *part)[::-1])
     grads = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss)
     if case == "anomaly_train_bwd":
         again = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss)
@@ -845,6 +946,17 @@ def _shard_mean(parts):
     return total / torch.tensor(float(len(parts)), device=total.device)
 
 
+def _check_train_fwd(saved, loss, psaved, ploss):
+    """K20's logits and saved activations bit-exact with the plain
+    version's, its loss within 2e-6 relative (another sum order)."""
+    x, h1, h2, logit = psaved
+    assert torch.equal(saved["logit"], logit)
+    assert torch.equal(saved["xT"], x.t())
+    assert torch.equal(saved["h1T"], h1.t())
+    assert torch.equal(saved["h2T"], h2.t())
+    assert abs(loss.item() - ploss.item()) <= 2e-6 * abs(ploss.item())
+
+
 def _check_sharded_train_kernels(case, leaves, ids, feats, labels, gloss,
                                  n_shards=8):
     """K20s/K21s against their plain versions and against n_shards
@@ -862,13 +974,13 @@ def _check_sharded_train_kernels(case, leaves, ids, feats, labels, gloss,
     singles = [launch_anomaly_train_fwd(leaves, ids[b], feats[b], labels[b])
                for b in blocks]
     if case == "anomaly_train_fwd_sharded":
-        x, h1, h2, logit = psaved
-        assert torch.equal(saved["logit"], logit)
-        assert torch.equal(saved["xT"], x.t())
-        assert torch.equal(saved["h1T"], h1.t())
-        assert torch.equal(saved["h2T"], h2.t())
-        assert abs(loss.item() - ploss.item()) <= 2e-6 * abs(ploss.item())
+        _check_train_fwd(saved, loss, psaved, ploss)
         assert torch.equal(loss, _shard_mean([l for l, _ in singles]))
+        # a second launch gives the same bits (its own ticket, back at 0)
+        loss2, saved2 = launch_anomaly_train_fwd(leaves, ids, feats, labels,
+                                                 n_shards)
+        assert torch.equal(loss2, loss)
+        assert all(torch.equal(saved2[k], saved[k]) for k in saved)
         return
     grads = launch_anomaly_train_bwd(leaves, saved, ids, labels, gloss,
                                      n_shards)
@@ -959,28 +1071,6 @@ def _ct_clone(c):
                               device=c.table.device))
 
 
-def _kernels_in(prepare, tries=3):
-    """{device kernel name: launches} of one call of ``prepare()`` (it
-    returns the call, its inputs made outside the window; memsets and
-    copies included), from torch.profiler.  A window in which the
-    profiler recorded no device event at all is profiled again on fresh
-    inputs, at most ``tries`` times."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(tries):
-        fn = prepare()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        got = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("Activity Buffer")}
-        if got:
-            break
-    return got
-
-
 def _verdict_inputs(w, case, n, shards, rng):
     """A pool of ``n`` flows (SYN rows), a batch of ``n`` wide header
     rows for ``case`` and, for ``shards`` > 1, the batch flow-routed into
@@ -1016,6 +1106,7 @@ def test_ct_update_is_one_launch_matching_its_plain_version(case, shards):
     from cilium_tpu_torch.datapath.verdict import verdict_stage_plain
     from cilium_tpu_torch.kernels import launch_ct_update
     from cilium_tpu_torch.parallel import mesh as pm
+    from cilium_tpu_torch.testing.capture import ops_a_call
 
     cap, n = (1 << 9 if case == "collision" else 1 << 14), 2048
     w = tfix.build_world(256, 8, ct_capacity=cap, device="cuda")
@@ -1043,10 +1134,11 @@ def test_ct_update_is_one_launch_matching_its_plain_version(case, shards):
             c.proxy_port, now, valid)
     sh = None if shards == 1 else shards
     launch_ct_update(kc, *args, n_shards=sh, scratch=scratch)
-    kernels = _kernels_in(lambda: functools.partial(
+    # one call captured into a CUDA graph, not run: its nodes
+    kernels = ops_a_call(lambda: functools.partial(
         launch_ct_update, _ct_clone(st.ct), *args, n_shards=sh))
-    assert sum(kernels.values()) == 1, kernels
-    assert not any("emset" in k for k in kernels), kernels
+    assert list(kernels.values()) == [1], kernels
+    assert "ct_update_kernel" in next(iter(kernels)), kernels
     if shards == 1:
         ct.ct_update_plain(pc, c.l4, c.fwd, c.result, c.slot, c.is_reply,
                            c.do_create, c.proxy_port, now, valid,
