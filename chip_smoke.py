@@ -130,7 +130,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    scorer's ms a window and its share of the event-join worker.
    Phase 3 holds K18 ``flow_features`` and K19 ``anomaly_score`` against
    their plain versions at full width (2^18 rows served through K1/K4,
-   V = 16384, D = 32, H = 64, the novelty fitted, id_row past V);
+   V = 16384, D = 32, H = 64, the novelty fitted, id_row past V) and at
+   the trainer's 4096 rows, times and bounds both at both sizes, holds
+   K18 to one kernel a call and prints K19's identical shares;
 14. the trainer: (a) ``train`` at config #3 from label-initialised
    params at the reference's defaults (200 steps of 4096, lr 3e-3): the
    loss falls below 0.6x its first value, nothing non-finite, the first
@@ -3030,7 +3032,13 @@ def phase_ml_kernels(torch, rng, world, kernels, report):
     rows of ``synth_labeled_traffic`` (attack_frac 0.25) served through
     K1/K4 on config #3's tables, the model at V = 16384, D = 32, H = 64
     with its novelty fitted on the batch's benign rows (both branches
-    of the max live), and a batch whose id_row runs past V."""
+    of the max live), and a batch whose id_row runs past V; then the
+    trainer's and ``score_capture``'s 4096 rows.  K18 is one kernel a
+    call at either size (a CUDA-graph capture: the one-cluster kernel
+    at 4096 rows, the cooperative one at 2^18); each kernel is timed,
+    and bounded, at both sizes."""
+    import functools
+
     import numpy as np
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.datapath.verdict import datapath_step
@@ -3040,6 +3048,7 @@ def phase_ml_kernels(torch, rng, world, kernels, report):
                                               flow_features_plain)
     from cilium_tpu_torch.ml.model import (forward_plain, novelty_d2_plain,
                                            score_packets_plain)
+    from cilium_tpu_torch.testing.capture import ops_a_call
 
     t0 = time.monotonic()
     hdr_np, labels = synth_labeled_traffic(world, ML_N, rng,
@@ -3047,12 +3056,25 @@ def phase_ml_kernels(torch, rng, world, kernels, report):
     t_synth = time.monotonic() - t0
     hdr = u32.from_numpy(hdr_np, "cuda")
     out, _ = datapath_step(card_state(world), hdr, 50_000)
+    # its own stream of draws: the phases after this one see the same
+    small = u32.from_numpy(synth_labeled_traffic(
+        world, ML_BATCH, np.random.default_rng(ML_BATCH))[0], "cuda")
+    small_out, _ = datapath_step(card_state(world), small, 50_000)
     want_f = flow_features_plain(hdr, out)
+    want_s = flow_features_plain(small, small_out)
     model = fit_novelty(card_model(torch, world),
                         want_f[1][torch.from_numpy(labels < 0.5).cuda()]
                         .cpu().numpy())
-    got_f = flow_features(hdr, out)
-    f_err = feature_err(torch, got_f, want_f, "flow_features")
+    f_err = max(
+        feature_err(torch, flow_features(hdr, out), want_f, "flow_features"),
+        feature_err(torch, flow_features(small, small_out), want_s,
+                    "flow_features, 4096 rows"))
+    for h, o, n in ((hdr, out, ML_N), (small, small_out, ML_BATCH)):
+        ops = ops_a_call(lambda h=h, o=o: functools.partial(
+            flow_features, h, o))
+        check(list(ops.values()) == [1] and "flow_features_" in next(
+            iter(ops)), f"flow_features at {n} rows: {ops} a call, not "
+            f"one kernel")
     # the largest service bucket's count (column 19 is log1p(n) / 12)
     hot = round(float(torch.expm1(want_f[1][:, 19].max() * 12)))
 
@@ -3063,19 +3085,20 @@ def phase_ml_kernels(torch, rng, world, kernels, report):
                                          dtype=torch.int32)
     far[ML_N // 16: ML_N // 8] = -1 - torch.arange(
         ML_N // 16, device="cuda", dtype=torch.int32) % v
-    s_errs, same, l_err = [], [], 0.0
-    for ids, what in ((rows, "anomaly_score"),
-                      (far, "anomaly_score, id_row past V")):
-        got = launch_anomaly_score(model, ids, feats,
-                                   outputs=("logit", "d2"))
+    s_errs, same, l_err, l_same = [], [], 0.0, []
+    for ids, fs, what in ((rows, feats, "anomaly_score"),
+                          (far, feats, "anomaly_score, id_row past V"),
+                          (*want_s, "anomaly_score, 4096 rows")):
+        got = launch_anomaly_score(model, ids, fs, outputs=("logit", "d2"))
         torch.cuda.synchronize()
         e, sm = score_err(torch, got["score"],
-                          score_packets_plain(model, ids, feats), what)
+                          score_packets_plain(model, ids, fs), what)
         s_errs.append(e)
         same.append(sm)
-        l_err = max(l_err, float((got["logit"] - forward_plain(
-            model, ids, feats)).abs().max().item()))
-        d2_want = novelty_d2_plain(model, feats)
+        dl = (got["logit"] - forward_plain(model, ids, fs)).abs()
+        l_err = max(l_err, float(dl.max().item()))
+        l_same.append(float((dl == 0).float().mean().item()))
+        d2_want = novelty_d2_plain(model, fs)
         d2_same = float((got["d2"] == d2_want).float().mean().item())
         check(l_err <= LOGIT_TOL, f"{what}: logits max abs err {l_err}")
         check(bool(torch.allclose(got["d2"], d2_want, rtol=1e-5,
@@ -3086,44 +3109,70 @@ def phase_ml_kernels(torch, rng, world, kernels, report):
                   .mean().item())
     check(0 < novel < 1, f"anomaly_score: novelty branch share {novel}")
 
+    def k18_cost(n):
+        # the 8 header and 4 out words each row reads, its id_row and 27
+        # feature columns written; ~40 integer operations a key and an
+        # atomic a counter set, ~60 for the columns
+        return dict(bytes=n * (8 * 4 + 4 * 4 + 4 + 27 * 4),
+                    ops=n * (5 * 40 + 8 + 60))
+
+    mlp = 2 * (59 * 64 + 64 * 64 + 64)
+
+    def k19_cost(n):
+        # id_row, feats, the embedding row and the score a row, the
+        # weights once; the three products on bf16 tensor cores, d . P . d
+        # in float32
+        return dict(bytes=n * (4 + 27 * 4 + 32 * 4 + 4) + 4 * (
+            59 * 64 + 64 * 64 + 3 * 64 + 1 + 27 + 27 * 27 + 1), ops=0,
+            flop_ms=(n * mlp / BF16_FLOPS_PER_S
+                     + n * 2 * (27 * 27 + 27) / F32_FLOPS_PER_S) * 1e3)
+
+    def at(fn, plain, cost):
+        rec = {"rows": ML_BATCH, "ms": device_ms(fn, 20),
+               "plain_ms": device_ms(plain, 3)}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            cost["bytes"], cost["ops"], cost.get("flop_ms", 0.0))
+        return rec
+
     kernels["flow_features"].update(
         max_abs_err=f_err,
         ms=device_ms(lambda: flow_features(hdr, out), 20),
         plain_ms=device_ms(lambda: flow_features_plain(hdr, out), 3),
-        # the 8 header and 4 out words each row reads, its id_row and 27
-        # feature columns written; ~40 integer operations a key and an
-        # atomic a counter set, ~60 for the columns
-        bytes=ML_N * (8 * 4 + 4 * 4 + 4 + 27 * 4),
-        ops=ML_N * (5 * 40 + 8 + 60))
-    mlp = 2 * (59 * 64 + 64 * 64 + 64)
+        at_4096=at(lambda: flow_features(small, small_out),
+                   lambda: flow_features_plain(small, small_out),
+                   k18_cost(ML_BATCH)),
+        **k18_cost(ML_N))
     kernels["anomaly_score"].update(
         max_abs_err=max(s_errs),
         ms=device_ms(lambda: launch_anomaly_score(model, rows, feats), 20),
         plain_ms=device_ms(lambda: score_packets_plain(model, rows,
                                                        feats), 3),
-        # id_row, feats, the embedding row and the score a row; the
-        # weights once
-        bytes=ML_N * (4 + 27 * 4 + 32 * 4 + 4) + 4 * (
-            59 * 64 + 64 * 64 + 3 * 64 + 1 + 27 + 27 * 27 + 1),
-        ops=0,
-        # the three products on bf16 tensor cores, d . P . d in float32
-        flop_ms=(ML_N * mlp / BF16_FLOPS_PER_S
-                 + ML_N * 2 * (27 * 27 + 27) / F32_FLOPS_PER_S) * 1e3)
+        at_4096=at(lambda: launch_anomaly_score(model, *want_s),
+                   lambda: score_packets_plain(model, *want_s),
+                   k19_cost(ML_BATCH)),
+        **k19_cost(ML_N))
     print(f"parity flow_features: {ML_N} rows of synth_labeled_traffic "
           f"(attack_frac 0.25, made in {t_synth:.1f} s) served through "
-          f"K1/K4; id_row and 22 columns bit-exact, log1p columns within "
-          f"1 ulp (max abs err {f_err:.3g}); the busiest service bucket "
-          f"holds {hot} rows")
+          f"K1/K4, and {ML_BATCH} rows; id_row and 22 columns bit-exact, "
+          f"log1p columns within 1 ulp (max abs err {f_err:.3g}); one "
+          f"kernel a call at both sizes; the busiest service bucket holds "
+          f"{hot} rows")
     print(f"parity anomaly_score: V {v} x D 32, H 64, novelty fitted "
           f"(threshold {model.nov_thresh.item():.4g}; the novelty branch "
           f"gives {novel:.1%} of the scores): scores max abs err "
-          f"{max(s_errs):.3g} ({same[0]:.5f} / {same[1]:.5f} identical; "
-          f"the second batch's id_row past V or negative), logits max "
-          f"abs err {l_err:.3g}")
+          f"{max(s_errs):.3g}, identical {same[0]:.5f} / {same[1]:.5f} / "
+          f"{same[2]:.5f} (the batch, its id_row past V or negative, the "
+          f"{ML_BATCH} rows); logits max abs err {l_err:.3g}, identical "
+          f"{l_same[0]:.5f} / {l_same[1]:.5f} / {l_same[2]:.5f}")
+    for name in ("flow_features", "anomaly_score"):
+        r = kernels[name]["at_4096"]
+        print(f"{name} at {ML_BATCH} rows: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms by "
+              f"{r['bound_by']})")
     report["ml_kernels"] = {"rows": ML_N, "v": v, "feature_err": f_err,
                             "score_err": s_errs, "score_identical": same,
-                            "logit_err": l_err, "novel_share": novel,
-                            "hot_bucket_rows": hot}
+                            "logit_err": l_err, "logit_identical": l_same,
+                            "novel_share": novel, "hot_bucket_rows": hot}
 
 
 def replay(torch, state, model, hdr_np, plain, now=50_000):
@@ -3456,23 +3505,46 @@ def train_model(torch, world):
             * 0.1).cuda() for b in ("b1", "b2", "b3")})
 
 
-def pass_split(torch, fn, reps=20):
+# the windows torch.profiler came back short from (each measured again)
+PROFILER_SHORT = []
+
+
+def pass_split(torch, fn, per_call, reps=20):
     """Each kernel (and memset) that one call of ``fn`` launches: {name:
-    (device ms a call, launches a call)}, from torch.profiler over
-    ``reps`` calls after an untimed one."""
+    (device ms a launch, launches a call)}, from torch.profiler over
+    ``reps`` calls after an untimed one.  The window must show
+    ``per_call`` operations (a CUDA-graph capture's count of one call)
+    for each of the ``reps`` calls, or a dropped event would read as a
+    lower time; it opens and closes with a spin kernel that is not
+    counted (the profiler has dropped one event at a window's edge).  A
+    short window is measured once more; a second one fails the smoke."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _attempt in range(2):
+        fn()
         torch.cuda.synchronize()
-    return {e.key: (e.self_device_time_total / 1e3 / reps, e.count / reps)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("Activity Buffer")
-            and e.self_device_time_total > 0}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("Activity Buffer")
+                  and "spin_kernel" not in e.key]
+        seen = sum(e.count for e in events)
+        if seen == per_call * reps and all(e.count % reps == 0
+                                           for e in events):
+            return {e.key: (e.self_device_time_total / 1e3 / reps,
+                            e.count / reps) for e in events}
+        PROFILER_SHORT.append({"seen": seen, "want": per_call * reps,
+                               "by_kernel": {e.key: e.count
+                                             for e in events}})
+        print(f"profiler: {seen} device events of {per_call * reps} in a "
+              f"window of {reps} calls")
+    raise SmokeFailure(f"torch.profiler came back short twice: "
+                       f"{PROFILER_SHORT[-2:]}")
 
 
 def check_k21_call(torch, name, fn, v, got, want_sorted, ids, n_shards):
@@ -3508,7 +3580,7 @@ def check_k21_call(torch, name, fn, v, got, want_sorted, ids, n_shards):
     check(calls == want_calls and not set(ops) & set(NODE_TYPES.values()),
           f"{name}: {calls} operations a call, not {want_calls} kernels: "
           f"{ops}")
-    split = pass_split(torch, lambda: fn(None))
+    split = pass_split(torch, lambda: fn(None), calls)
     print(f"{name} by pass ({calls} kernels a call; device ms a "
           f"call, torch.profiler over 20): " + ", ".join(
               f"{k.replace('(anonymous namespace)::', '').split('(')[0]} "
@@ -3855,7 +3927,8 @@ def plain_train(torch, world, state, model, steps, seed=0, now=1000):
 
 def profiled_steps(torch, fn):
     """Device kernel time and wall time of ``fn()`` under torch.profiler;
-    -> (busy ms, wall ms, {kernel name: device ms})."""
+    -> (busy ms, wall ms, {kernel name: device ms}, {kernel name: events
+    recorded})."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -3866,22 +3939,26 @@ def profiled_steps(torch, fn):
         torch.cuda.synchronize()
         wall = (time.monotonic() - t0) * 1e3
     # device-side events only, as phase_breakdown reads them
-    by_name = {e.key: e.self_device_time_total / 1e3
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("Activity Buffer")
-               and e.self_device_time_total > 0}
-    return sum(by_name.values()), wall, by_name
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("Activity Buffer")
+              and e.self_device_time_total > 0]
+    by_name = {e.key: e.self_device_time_total / 1e3 for e in events}
+    return (sum(by_name.values()), wall, by_name,
+            {e.key: e.count for e in events})
 
 
-def k20_split(label, by_name):
-    """K20's one kernel (``fwd_rows``, its loss summed by the last block)
-    in a profiled window of REPLAY_STEPS steps: {name: device ms a
-    step}, printed."""
-    k20 = {k: v / REPLAY_STEPS for k, v in by_name.items()
-           if "fwd_rows" in k}
+def k20_split(label, by_name, counts):
+    """K20's one kernel (``fwd_rows``, its loss summed by the last block,
+    one launch a step) in a profiled window of REPLAY_STEPS steps: {name:
+    device ms a launch}, over the launches the profiler recorded (a
+    dropped event would otherwise read as a lower time), printed with
+    that count."""
+    k20 = {k: v / counts[k] for k, v in by_name.items() if "fwd_rows" in k}
     print(f"{label}: K20 a step on the card: "
-          + (", ".join(f"{k[:48]} {v:.4f} ms" for k, v in k20.items())
+          + (", ".join(f"{k[:48]} {v:.4f} ms ({counts[k]} of "
+                       f"{REPLAY_STEPS} launches recorded)"
+                       for k, v in k20.items())
              or "no event recorded"))
     return k20
 
@@ -3961,7 +4038,7 @@ def phase_train(torch, rng, world, report):
               for k in TRAINABLE), "train: a non-finite parameter")
     a_held = heldout_auc(torch, w, model)
     check(a_held > 0.9, f"train: held-out AUC {a_held}")
-    busy, wall, by_name = profiled_steps(
+    busy, wall, by_name, counts = profiled_steps(
         torch, lambda: train(model, w, steps=REPLAY_STEPS))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     per_step = t_train / TRAIN_STEPS * 1e3
@@ -3979,7 +4056,7 @@ def phase_train(torch, rng, world, report):
           f"step of {wall / REPLAY_STEPS:.3f} ({busy / wall:.1%}, idle "
           f"{1 - busy / wall:.1%}); device ms a step by kernel: "
           + ", ".join(f"{k[:40]} {v / REPLAY_STEPS:.4f}" for k, v in top))
-    k20_ms = k20_split("train (a)", by_name)
+    k20_ms = k20_split("train (a)", by_name, counts)
     print_stages("train (a) host stages", stages)
     mesh_report, mesh_launches = train_mesh(
         torch, world, model0, losses, make_mesh(TRAIN_SHARDS))
@@ -4116,7 +4193,7 @@ def train_mesh(torch, world, model0, unsharded, mesh):
           f"({losses[:REPLAY_STEPS]} vs {unsharded[:REPLAY_STEPS]})")
     a_held = heldout_auc(torch, w, model)
     check(a_held > 0.9, f"train (d): held-out AUC {a_held}")
-    busy, wall, by_name = profiled_steps(
+    busy, wall, by_name, counts = profiled_steps(
         torch, lambda: train(model, w, steps=REPLAY_STEPS, mesh=mesh))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"train (d): {TRAIN_STEPS} steps of {TRAIN_N} over "
@@ -4133,7 +4210,7 @@ def train_mesh(torch, world, model0, unsharded, mesh):
           f"({busy / wall:.1%}, idle {1 - busy / wall:.1%}); device ms a "
           f"step by kernel: "
           + ", ".join(f"{k[:40]} {v / REPLAY_STEPS:.4f}" for k, v in top))
-    k20_ms = k20_split("train (d)", by_name)
+    k20_ms = k20_split("train (d)", by_name, counts)
     return {"shards": mesh.n_shards, "train_s": t_train,
             "steps_per_s": TRAIN_STEPS / t_train, "losses": losses,
             "heldout_auc": a_held, "first_loss_err": l_err,
@@ -5289,6 +5366,7 @@ def main() -> int:
     report["wall_s"] = time.monotonic() - t_smoke
     print(f"smoke: {report['wall_s']:.1f} s from the device check to "
           f"the kernels line (build included)")
+    report["profiler_short"] = PROFILER_SHORT
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

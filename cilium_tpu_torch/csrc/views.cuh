@@ -284,9 +284,10 @@ struct FeatIO {
   const uint32_t* out;  // [n, 6] the datapath step's out rows
   int32_t* id_row;      // [n]
   float* feats;         // [n, 27]
-  uint32_t* counts;     // [8, 4096] scratch, zeroed by the launcher
+  uint32_t* counts;     // [1 + partials, 8, 4096] scratch: the counters,
+                        // then a partial table a block (big batches)
   int32_t n;
-  int32_t pad;
+  int32_t partials;     // flow_features_blocks(n)
 };
 
 // K19: one batch's anomaly scores (ml/model.py score_packets); the model

@@ -737,18 +737,23 @@ def launch_socklb_stage(tbl, t, hdr: torch.Tensor, now: int):
 
 def launch_flow_features(hdr: torch.Tensor, out: torch.Tensor):
     """K18: [N, 16] header rows and [N, 6] out rows -> (id_row [N]
-    int32, feats [N, 27] float32)."""
+    int32, feats [N, 27] float32).  One kernel: the one-cluster kernel
+    for a small batch, else the cooperative one, whose blocks each leave
+    a partial counter table in the scratch."""
     from ..ml.features import _N_BUCKETS, FEAT_DIM
 
     dev, n = hdr.device, hdr.shape[0]
     id_row = torch.empty(n, dtype=I32, device=dev)
     feats = torch.empty((n, FEAT_DIM), dtype=torch.float32, device=dev)
-    counts = torch.empty((8, _N_BUCKETS), dtype=I32, device=dev)
+    with torch.cuda.device(dev):
+        partials = _library("ml").flow_features_blocks(n)
+    counts = torch.empty((1 + partials, 8, _N_BUCKETS), dtype=I32,
+                         device=dev)
     io = abi.FeatIO(
         hdr=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="hdr"),
         out=_ptr(out, I32, dev, (n, 6), name="out"),
         id_row=id_row.data_ptr(), feats=feats.data_ptr(),
-        counts=counts.data_ptr(), n=n)
+        counts=counts.data_ptr(), n=n, partials=partials)
     KERNELS["flow_features"].launch(ctypes.addressof(io), _stream(dev))
     return id_row, feats
 

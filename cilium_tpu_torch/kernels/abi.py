@@ -142,7 +142,7 @@ class SockIO(ctypes.Structure):
 
 class FeatIO(ctypes.Structure):
     _fields_ = [("hdr", P), ("out", P), ("id_row", P), ("feats", P),
-                ("counts", P), ("n", I32), ("pad", I32)]
+                ("counts", P), ("n", I32), ("partials", I32)]
 
 
 class ScoreIO(ctypes.Structure):
@@ -221,6 +221,7 @@ SIGNATURES = {
     "lb": {"lb_stage_launch": [P, P, P], "lb6_stage_launch": [P, P, P]},
     "socklb": {"socklb_stage_launch": [P, P, P]},
     "ml": {"flow_features_launch": [P, P],
+           "flow_features_blocks": [ctypes.c_int],
            "anomaly_score_launch": [P, P]},
     "mltrain": {"anomaly_train_fwd_launch": [P, P],
                 "anomaly_train_bwd_launch": [P, P],

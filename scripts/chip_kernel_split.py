@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Split K4 ``ct_update`` (and K4s over 8 shards) by launch and time K1
 ``datapath_kernel`` (packed and wide, and K1s), K20
-``anomaly_train_fwd`` (and K20s) and K9 ``l7_verdict`` at the shapes the
-main paths launch them, for one or more checkouts of this repository.
+``anomaly_train_fwd`` (and K20s), K9 ``l7_verdict``, K18
+``flow_features`` and K19 ``anomaly_score`` at the shapes the main
+paths launch them, for one or more checkouts of this repository.
 
-    python3 scripts/chip_kernel_split.py [--kernels=k1k4,k20,k9]
-        [--ablate=TREE] [--variants=TREE] [--ablate-k20=TREE] [TREE ...]
+    python3 scripts/chip_kernel_split.py [--kernels=k1k4,k20,k9,k18,k19]
+        [--variants=TREE] [TREE ...]
 
 Each TREE is a checkout (a ``git archive`` of another commit unpacked
 in a directory that ``.gitignore`` lists will do); each runs in its own
@@ -33,38 +34,39 @@ bit for bit.  Where the tree's plain ``ct_update_plain`` takes
 pending, and where its launcher hands back the kernel's round counts
 (``scratch=``), the rounds the kernel ran.
 
-``--ablate=TREE`` (a tree whose ``verdict.cu`` is the one-thread-a-row
-K1 of PRs 1-13) also builds, in TREE's first run, four throwaway
-variants of that source, outside the tree, and times each at the same
-shapes: the source as it is, without the metrics ``atomicAdd``, with the
-19 hand-off and out words replaced by one checksum word, and with the CT
-probe skipped.  Their outputs are wrong by design and are not checked.
 ``--variants=TREE`` (a tree with PR 14's kernels) builds, in TREE's
 first run, throwaway variants of its ``conntrack.cu`` with other K4
 grids (at most 2 or 8 blocks of 256 an SM) or every grid barrier
 doubled (its time over the barriers a call prices one), times K4 in
 each on every case's inputs and holds its CT against the tree's own;
-and of its ``verdict.cu`` with K1 held to 8 or 6 blocks an SM, timed as
-the ablations are.
+and of its ``verdict.cu`` with K1 held to 8 or 6 blocks an SM.
 
-``--kernels`` picks the cases (all three sets by default).  K20: the
+``--kernels`` picks the cases (every set by default).  K20: the
 trainer's batch (``chip_smoke.train_inputs``: 4096 rows of
 ``synth_labeled_traffic`` at config #3's V = 16384, through K1/K4 and
 K18) under ``chip_smoke.train_model``'s leaves, unsharded and over 8
 shards (K20s); K9: config #4 (4096 requests x 208 rules, K = 2), the
 same without the prefix tensor, and the daemon's shape (1 and 2
-requests against config #3's one HTTP rule).  Each case records its time
-(CUDA events over 20 calls), its ``torch.profiler`` time by kernel name,
-a digest of its outputs (K20: the loss, the logits and ``xT``, ``h1T``,
-``h2T``; K9: ``out``), whether they equal the plain version's (K20: all
-but the loss, which sums in another order) and, for K20, whether two
-calls give the same bits and K20s equals 8 unsharded launches on the
-blocks and their shard-order mean.  ``--ablate-k20=TREE`` (a tree whose
-``mltrain.cu`` is the thread-a-row K20 with ``loss_reduce``) builds, in its first
-run, throwaway variants of that source outside the tree and times K20
-and K20s in each: the source as it is, the weights staged and no row
-work, no staging (zeros in shared memory), and no ``loss_reduce``
-launch.
+requests against config #3's one HTTP rule).  K18: 2^18 rows of
+``synth_labeled_traffic`` (attack_frac 0.25, chip_smoke phase 3's
+batch) served through K1/K4, the same rows with every row on one
+service (one bucket takes every row), and the trainer's 4096 rows;
+K19: ``chip_smoke.card_model`` (V = 16384) with its novelty fitted on
+the 2^18 batch's benign rows, on the plain features of the 2^18 and
+4096-row batches.  Each case records its time (CUDA events over 20
+calls), its ``torch.profiler`` time by kernel name (each kernel's
+event count checked against the launches of a captured call, measured
+again once where the profiler dropped an event, then a failure), a
+digest of its outputs (K20: the loss, the logits and ``xT``, ``h1T``,
+``h2T``; K9: ``out``; K18: ``id_row`` and the features; K19: ``d2``,
+with the scores and logits apart, since they hold to a tolerance),
+whether they equal the plain version's (K20: all but the loss, which
+sums in another order; K18: ``id_row`` and 22 columns bit-exact, the
+``log1p`` columns within 1 ulp; K19: the scores' and logits' largest
+error and identical share), the operations a call puts on the stream
+(a CUDA-graph capture, ``testing/capture.py``) and whether two calls
+give the same bits; for K20s, whether it equals 8 unsharded launches on
+the blocks and their shard-order mean.
 
 Each run writes ``chiprun_out/split/<label>.json``; the main process
 prints, for every later run, the digests that differ from an earlier
@@ -91,10 +93,10 @@ NOW = 50_000
 SHARDS = 8
 HEADROOM = 2
 
-# (pattern, replacement) for each throwaway variant of a source: K1's
-# ablations of the PR 1-13 verdict.cu, and K4's grid shapes of the
-# cooperative conntrack.cu (every grid barrier doubled, to price one; at
-# most 2 or 8 blocks of 256 an SM, 8 being the co-resident maximum)
+# (pattern, replacement) for each throwaway variant of a source: K4's
+# grid shapes of the cooperative conntrack.cu (every grid barrier doubled,
+# to price one; at most 2 or 8 blocks of 256 an SM, 8 being the
+# co-resident maximum)
 K4_GRID = {
     "as_is": [],
     "double_sync": [("grid.sync();", "grid.sync();\n  grid.sync();")],
@@ -102,36 +104,6 @@ K4_GRID = {
                  "constexpr int K4_BLOCKS_PER_SM = 2;")],
     "per_sm8": [("constexpr int K4_BLOCKS_PER_SM = 1;",
                  "constexpr int K4_BLOCKS_PER_SM = 8;")],
-}
-K1_ABLATIONS = {
-    "as_is": [],
-    "no_metrics_atomic": [
-        ("atomicAdd(&io.metrics[reason * 2 + d], 1u);", ";")],
-    "one_store": [
-        ("#pragma unroll\n  for (int w = 0; w < KEY_WORDS; ++w) "
-         "io.fwd[(size_t)i * KEY_WORDS + w] = fwd[w];",
-         "uint32_t cs = 0;\n#pragma unroll\n  for (int w = 0; w < "
-         "KEY_WORDS; ++w) cs ^= fwd[w];"),
-        ("io.ct_result[i] = untouched ? CT_NEW : ct_res;",
-         "cs ^= untouched ? CT_NEW : ct_res;"),
-        ("io.slot[i] = slot;", "cs ^= slot;"),
-        ("io.is_reply[i] = is_reply;", "cs ^= is_reply;"),
-        ("io.do_create[i] = allowed && is_new && !related_hint;",
-         "cs ^= allowed && is_new && !related_hint;"),
-        ("io.proxy[i] = (uint32_t)proxy;", "cs ^= (uint32_t)proxy;"),
-        ("io.l4[(size_t)i * 3] = proto;", "cs ^= proto;"),
-        ("io.l4[(size_t)i * 3 + 1] = flags;", "cs ^= flags;"),
-        ("io.l4[(size_t)i * 3 + 2] = len;", "cs ^= len;"),
-        ("  uint32_t* o = io.out + (size_t)i * N_OUT;\n"
-         "  o[0] = (uint32_t)verdict;\n  o[1] = (uint32_t)proxy;\n"
-         "  o[2] = (uint32_t)(is_related ? CT_RELATED : ct_res);\n"
-         "  o[3] = (uint32_t)id_row;\n  o[4] = reason;\n  o[5] = event;",
-         "  io.out[i] = cs ^ (uint32_t)verdict ^ ((uint32_t)proxy << 3) ^ "
-         "(uint32_t)(is_related ? CT_RELATED : ct_res) ^ "
-         "((uint32_t)id_row << 7) ^ (reason << 11) ^ (event << 13);")],
-    "no_ct_probe": [
-        ("ct_lookup_row(sct, fwd, rev, io.now, &ct_res, &slot, &is_reply);",
-         "ct_res = CT_NEW; slot = 0; is_reply = false; (void)rev;")],
 }
 # K1's occupancy: the redesigned kernel held to 8 or 6 blocks of 256 an
 # SM (32 or 40 registers a thread) instead of the registers it asks for
@@ -146,35 +118,12 @@ K1_OCCUPANCY = {
                      "__global__ void __launch_bounds__(TPB, 6)\n"
                      "    datapath_kernel(")],
 }
-# the thread-a-row K20 (mltrain.cu with loss_reduce): what its time is
-# made of -- the weights staged and no row work, no staging (zeros), the
-# second launch (loss_reduce) left out
-K20_PARENT = {
-    "as_is": [],
-    "stage_only": [
-        ("  __syncthreads();\n  const int32_t n = io.n;\n",
-         "  __syncthreads();\n  if (tid == 0)\n"
-         "    io.partial[blockIdx.y * gridDim.x + blockIdx.x] =\n"
-         "        s_w1[IN * HID - 1] + s_w2[HID * HID - 1] + s_w3[0] + "
-         "s_b1[0] + s_b2[0];\n  return;\n  const int32_t n = io.n;\n")],
-    "no_staging": [
-        ("s_w1[j] = bf16r(io.w1[j]);", "s_w1[j] = 0.0f;"),
-        ("s_w2[j] = bf16r(io.w2[j]);", "s_w2[j] = 0.0f;"),
-        ("    s_w3[j] = bf16r(io.w3[j]);\n    s_b1[j] = bf16r(io.b1[j]);\n"
-         "    s_b2[j] = bf16r(io.b2[j]);",
-         "    s_w3[j] = 0.0f;\n    s_b1[j] = 0.0f;\n    s_b2[j] = 0.0f;")],
-    "one_launch": [("  loss_reduce<<<1, 1, 0, stream>>>(*io, blocks);\n", "")],
-}
 # variant set: (source, its variants)
-ABLATIONS = {"k1_split": ("verdict", K1_ABLATIONS),
-             "k4_grid": ("conntrack", K4_GRID),
-             "k1_occupancy": ("verdict", K1_OCCUPANCY),
-             "k20_parent": ("mltrain", K20_PARENT)}
+ABLATIONS = {"k4_grid": ("conntrack", K4_GRID),
+             "k1_occupancy": ("verdict", K1_OCCUPANCY)}
 # the flags that name a tree, and the variant sets each runs there
-TREE_FLAGS = {"--ablate": ("k1_split",), "--variants": ("k4_grid",
-                                                         "k1_occupancy"),
-              "--ablate-k20": ("k20_parent",)}
-KERNEL_SETS = ("k1k4", "k20", "k9")
+TREE_FLAGS = {"--variants": ("k4_grid", "k1_occupancy")}
+KERNEL_SETS = ("k1k4", "k20", "k9", "k18", "k19")
 
 
 def digest(*tensors) -> str:
@@ -249,22 +198,60 @@ def ptxas_regs(log: str) -> list:
     return out
 
 
-def restore_library(source: str) -> None:
-    """Point the launchers of ``source``.cu back at the tree's build."""
-    from cilium_tpu_torch import kernels
-    from cilium_tpu_torch.kernels import build
-
-    build._LIBS.pop(source, None)
-    kernels._READY.discard(source)
+# the windows torch.profiler came back short from, each measured again
+SHORT_WINDOWS = []
 
 
-def profiled(fn) -> dict:
-    """{kernel name: {ms, calls}} a call of ``fn`` (torch.profiler)."""
-    import chip_smoke as cs
+def profiled(fn, fresh=None) -> dict:
+    """{kernel name: {ms, calls}} a call of ``fn``: torch.profiler over
+    REPS calls after an untimed one (``fresh()`` makes each call's
+    inputs before the window, for a call that changes them).  The
+    operations one call puts on the stream are counted first from a
+    CUDA-graph capture (``testing.capture.ops_a_call``, twice, the
+    second kept, so that a launcher's first-use allocation on the
+    capture stream does not count), and the window must show each of
+    them REPS times: a dropped event would read as a lower time.  The
+    window opens and closes with a spin kernel that is not counted (the
+    profiler has dropped one event at a window's edge).  A short window
+    is measured once more; a second one fails the run."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    return {k: {"ms": ms, "calls": calls}
-            for k, (ms, calls) in cs.pass_split(torch, fn, REPS).items()}
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    def call(x):
+        return fn(x) if fresh else fn()
+
+    def prepare():
+        x = fresh() if fresh else None
+        return lambda: call(x)
+
+    ops_a_call(prepare)
+    want = sum(ops_a_call(prepare).values()) * REPS
+    for _attempt in range(2):
+        inputs = [fresh() if fresh else None for _ in range(REPS + 1)]
+        call(inputs[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for x in inputs[1:]:
+                call(x)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("Activity Buffer")
+                  and "spin_kernel" not in e.key]
+        seen = sum(e.count for e in events)
+        if seen == want and all(e.count % REPS == 0 for e in events):
+            return {e.key: {"ms": e.self_device_time_total / 1e3 / REPS,
+                            "calls": e.count / REPS} for e in events}
+        SHORT_WINDOWS.append({"seen": seen, "want": want,
+                              "by_kernel": {e.key: e.count for e in events}})
+        print(f"profiler: {seen} device events of {want} in a window of "
+              f"{REPS} calls")
+    raise RuntimeError(f"torch.profiler came back short twice: "
+                       f"{SHORT_WINDOWS[-2:]}")
 
 
 def train_cases(world, rng) -> dict:
@@ -306,7 +293,7 @@ def k20_digests(out) -> dict:
                            saved["h2T"])}
 
 
-def run_k20(label, res, cases, record_all=True) -> dict:
+def run_k20(label, cases) -> dict:
     """Time each K20 case, digest its outputs and hold them against the
     plain version, a second call and (K20s) the unsharded launches'
     mean; -> {case: record}."""
@@ -320,31 +307,29 @@ def run_k20(label, res, cases, record_all=True) -> dict:
         d, d2 = k20_digests(out), k20_digests(again)
         rec = {"ms": cs.device_ms(fn, REPS), "out": d["loss"] + d["rest"],
                "repeat_equal": d == d2}
-        if record_all:
-            ploss, (x, h1, h2, logit) = plain()
-            saved = out[1]
-            rec["plain_equal"] = all(
-                torch.equal(a, b) for a, b in
-                ((saved["logit"], logit), (saved["xT"], x.t()),
-                 (saved["h1T"], h1.t()), (saved["h2T"], h2.t())))
-            rec["loss_err"] = abs(out[0].item() - ploss.item())
-            if singles is not None:
-                parts = singles()
-                total = parts[0]
-                for t in parts[1:]:
-                    total = total + t
-                mean = total / torch.tensor(float(len(parts)),
-                                            device=total.device)
-                rec["shard_mean_equal"] = bool(torch.equal(out[0], mean))
-            rec["by_kernel"] = profiled(fn)
+        ploss, (x, h1, h2, logit) = plain()
+        saved = out[1]
+        rec["plain_equal"] = all(
+            torch.equal(a, b) for a, b in
+            ((saved["logit"], logit), (saved["xT"], x.t()),
+             (saved["h1T"], h1.t()), (saved["h2T"], h2.t())))
+        rec["loss_err"] = abs(out[0].item() - ploss.item())
+        if singles is not None:
+            parts = singles()
+            total = parts[0]
+            for t in parts[1:]:
+                total = total + t
+            mean = total / torch.tensor(float(len(parts)),
+                                        device=total.device)
+            rec["shard_mean_equal"] = bool(torch.equal(out[0], mean))
+        rec["by_kernel"] = profiled(fn)
         recs[name] = rec
         print(f"[{label}] K20 {name}: {rec['ms']:.4f} ms (events); "
               + ", ".join(f"{k}={v}" for k, v in rec.items()
                           if k not in ("ms", "by_kernel")))
-        if "by_kernel" in rec:
-            print(f"[{label}]   " + ", ".join(
-                f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
-                for k, v in rec["by_kernel"].items()))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
     return recs
 
 
@@ -414,6 +399,131 @@ def run_k9(label, cases) -> dict:
     return recs
 
 
+def ml_cases(world, rng):
+    """K18's and K19's inputs at their paths' shapes: ({case: (hdr,
+    out)}, {case: (model, id_row, feats)}).  2^18 rows of
+    ``synth_labeled_traffic`` (attack_frac 0.25) through K1/K4 (phase
+    3's batch), the same rows on one service, and the trainer's 4096
+    rows; K19 takes the plain features of the 2^18 and 4096-row
+    batches, under ``card_model`` with its novelty fitted on the big
+    batch's benign rows."""
+    import chip_smoke as cs
+    import torch
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import (COL_DPORT, COL_DST_IP3,
+                                               COL_PROTO)
+    from cilium_tpu_torch.datapath.verdict import datapath_step
+    from cilium_tpu_torch.ml import fit_novelty, synth_labeled_traffic
+    from cilium_tpu_torch.ml.features import flow_features_plain
+
+    def served(n, **kw):
+        hdr_np, labels = synth_labeled_traffic(world, n, rng, **kw)
+        hdr = u32.from_numpy(hdr_np, "cuda")
+        out, _ = datapath_step(cs.card_state(world), hdr, NOW)
+        return hdr, out, labels
+
+    big, big_out, labels = served(cs.ML_N, attack_frac=0.25)
+    one = big.clone()
+    one[:, COL_DST_IP3], one[:, COL_DPORT], one[:, COL_PROTO] = 7, 5432, 6
+    small, small_out, _ = served(cs.TRAIN_N)
+    k18 = {f"k18_{cs.ML_N}": (big, big_out),
+           f"k18_{cs.ML_N}_one_service": (one, big_out),
+           f"k18_{cs.TRAIN_N}": (small, small_out)}
+    f_big = flow_features_plain(big, big_out)
+    f_small = flow_features_plain(small, small_out)
+    benign = torch.from_numpy(labels < 0.5).cuda()
+    model = fit_novelty(cs.card_model(torch, world),
+                        f_big[1][benign].cpu().numpy())
+    k19 = {f"k19_{cs.ML_N}": (model, *f_big),
+           f"k19_{cs.TRAIN_N}": (model, *f_small)}
+    return k18, k19
+
+
+def run_k18(label, cases) -> dict:
+    """Time each K18 case, digest its outputs and hold them against the
+    plain version (``chip_smoke.feature_err``) and a second call."""
+    import chip_smoke as cs
+    import torch
+    from cilium_tpu_torch.ml.features import (flow_features,
+                                              flow_features_plain)
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    recs = {}
+    for name, (hdr, out) in cases.items():
+        def fn(hdr=hdr, out=out):
+            return flow_features(hdr, out)
+
+        got, again = fn(), fn()
+        want = flow_features_plain(hdr, out)
+        rec = {"rows": int(hdr.shape[0]), "ms": cs.device_ms(fn, REPS),
+               "out": digest(*got), "repeat_equal": digest(*again) ==
+               digest(*got), "ops_a_call": ops_a_call(lambda f=fn: f),
+               "hot_bucket_rows": round(float(torch.expm1(
+                   want[1][:, 19].max() * 12))),
+               "by_kernel": profiled(fn)}
+        try:
+            rec["max_abs_err"] = cs.feature_err(torch, got, want, name)
+            rec["plain_equal"] = True
+        except cs.SmokeFailure as e:
+            rec["plain_equal"] = str(e)
+        recs[name] = rec
+        print(f"[{label}] K18 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def run_k19(label, cases) -> dict:
+    """Time each K19 case (the score alone, as the scorer asks, and with
+    the logits and d2), digest its outputs and hold them against the
+    plain versions and a second call: d2 bit-exact, the scores' and
+    logits' largest error and identical share."""
+    import chip_smoke as cs
+    import torch
+    from cilium_tpu_torch.kernels import launch_anomaly_score
+    from cilium_tpu_torch.ml.model import (forward_plain, novelty_d2_plain,
+                                           score_packets_plain)
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    recs = {}
+    for name, (model, ids, feats) in cases.items():
+        def fn(ids=ids, feats=feats):
+            return launch_anomaly_score(model, ids, feats)
+
+        def full(ids=ids, feats=feats):
+            return launch_anomaly_score(model, ids, feats,
+                                        outputs=("logit", "d2"))
+
+        got, again = full(), full()
+        ds = (got["score"] - score_packets_plain(model, ids, feats)).abs()
+        dl = (got["logit"] - forward_plain(model, ids, feats)).abs()
+        rec = {"rows": int(ids.shape[0]), "ms": cs.device_ms(fn, REPS),
+               "ms_logit_d2": cs.device_ms(full, REPS),
+               "out": digest(got["d2"]),
+               "scores": digest(got["score"], got["logit"]),
+               "repeat_equal": all(torch.equal(got[k], again[k])
+                                   for k in got),
+               "d2_plain_equal": bool(torch.equal(
+                   got["d2"], novelty_d2_plain(model, feats))),
+               "score_err": float(ds.max().item()),
+               "score_identical": float((ds == 0).float().mean().item()),
+               "logit_err": float(dl.max().item()),
+               "logit_identical": float((dl == 0).float().mean().item()),
+               "ops_a_call": ops_a_call(lambda f=fn: f),
+               "by_kernel": profiled(fn)}
+        recs[name] = rec
+        print(f"[{label}] K19 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
 def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
     """One tree, in this process: build, make the cases, time them."""
     sys.path.insert(0, str(tree))
@@ -422,8 +532,6 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
-
     import chip_smoke as cs
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.core.packets import pack_eligibility, pack_rows
@@ -435,9 +543,10 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
     from cilium_tpu_torch.parallel import route_by_flow
     from cilium_tpu_torch.testing import fixtures as fx
 
-    ablate, variants = "--ablate" in flags, "--variants" in flags
+    variants = "--variants" in flags
     sources = ["verdict", "conntrack"] + (
-        ["ml", "mltrain"] if "k20" in kernels else []) + (
+        ["ml"] if kernels & {"k18", "k19", "k20"} else []) + (
+        ["mltrain"] if "k20" in kernels else []) + (
         ["l7"] if "k9" in kernels else [])
     t0 = time.monotonic()
     build.build(sources)
@@ -445,30 +554,22 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
            "build_s": time.monotonic() - t0,
            "ptxas": {n: ptxas_regs((build.BUILD_DIR / f"{n}.log").read_text())
                      for n in sources},
-           "k1": {}, "k4": {}, "k20": {}, "k9": {}}
+           "k1": {}, "k4": {}, "k20": {}, "k9": {}, "k18": {}, "k19": {}}
     rng = np.random.default_rng(SEED)
     world = fx.build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
                            device="cpu")
     if "k20" in kernels:
-        cases20 = train_cases(world, rng)
-        res["k20"] = run_k20(label, res, cases20)
-        if "--ablate-k20" in flags:
-            res["k20_parent"] = {}
-            for aname, (so, log) in build_ablations(tree,
-                                                    "k20_parent").items():
-                use_library("mltrain", so)
-                res["k20_parent"][aname] = {
-                    "ptxas": ptxas_regs(log),
-                    **run_k20(f"{label} k20_parent {aname}", res, cases20,
-                              record_all=False)}
-            restore_library("mltrain")
+        res["k20"] = run_k20(label, train_cases(world, rng))
     if "k9" in kernels:
-        cases9 = l7_cases(rng)
-        res["k9"] = run_k9(label, cases9)
+        res["k9"] = run_k9(label, l7_cases(rng))
+    if kernels & {"k18", "k19"}:
+        k18, k19 = ml_cases(world, np.random.default_rng(SEED + 18))
+        if "k18" in kernels:
+            res["k18"] = run_k18(label, k18)
+        if "k19" in kernels:
+            res["k19"] = run_k19(label, k19)
     if "k1k4" not in kernels:
-        OUT.mkdir(parents=True, exist_ok=True)
-        (OUT / f"{label}.json").write_text(json.dumps(res, indent=1))
-        return res
+        return save(label, res)
     has_stats = "stats" in inspect.signature(ct.ct_update_plain).parameters
     has_scratch = "scratch" in inspect.signature(launch_ct_update).parameters
 
@@ -498,20 +599,9 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
                                          dtype=torch.int32, device="cuda"))
 
         ms = cs.device_ms(lambda w: k4(w, c, valid, shards), REPS, fresh)
-        works = [fresh() for _ in range(REPS + 1)]
-        k4(works[0], c, valid, shards)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for w in works[1:]:
-                k4(w, c, valid, shards)
-            torch.cuda.synchronize()
-        by_launch = {e.key: {"ms": e.self_device_time_total / 1e3 / REPS,
-                             "calls": e.count / REPS}
-                     for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and not e.key.startswith("Activity Buffer")
-                     and e.self_device_time_total > 0}
-        w = works[0]
+        by_launch = profiled(lambda w: k4(w, c, valid, shards), fresh)
+        w = fresh()
+        k4(w, c, valid, shards)
         rec = {"rows": int(c.fwd.shape[0]), "shards": shards or 1,
                "ms": ms, "by_launch": by_launch,
                "launches": sum(v["calls"] for v in by_launch.values()),
@@ -641,12 +731,11 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
                               + ("" if v["ct_equal"] else " (CT DIFFERS)")
                               for k, v in rec.items() if k != "ptxas")
                   + f" ms; ptxas {rec['ptxas']}")
-    st_case = {c[0]: c for c in cases}
-    for which in (["k1_split"] if ablate else []) + (
-            ["k1_occupancy"] if variants else []):
-        libs = build_ablations(tree, which)
-        res[which] = {}
-        for aname, (so, log) in libs.items():
+    if variants:  # K1 held to fewer registers
+        st_case = {c[0]: c for c in cases}
+        res["k1_occupancy"] = {}
+        for aname, (so, log) in build_ablations(tree,
+                                                "k1_occupancy").items():
             use_library("verdict", so)
             rec = {"ptxas": ptxas_regs(log)}
             for cname in ("train_wide_4096", f"daemon_packed_{1 << 16}",
@@ -657,11 +746,17 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
                 s_t = fork(state)
                 rec[cname] = cs.device_ms(
                     lambda: k1(s_t, r, meta, valid, None), REPS)
-            res[which][aname] = rec
-            print(f"[{label}] K1 {which} {aname}: "
+            res["k1_occupancy"][aname] = rec
+            print(f"[{label}] K1 occupancy {aname}: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in rec.items()
                               if k != "ptxas")
                   + f" ms; ptxas {rec['ptxas']}")
+    return save(label, res)
+
+
+def save(label, res) -> dict:
+    """Write one run's record, with the profiler's short windows."""
+    res["profiler_short"] = SHORT_WINDOWS
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / f"{label}.json").write_text(json.dumps(res, indent=1))
     return res
@@ -710,10 +805,10 @@ def main() -> int:
         runs.append(json.loads((OUT / f"{label}.json").read_text()))
     for later in runs[1:]:
         first = runs[0]
-        for kern in ("k1", "k4", "k20", "k9"):
+        for kern in ("k1", "k4", "k20", "k9", "k18", "k19"):
             for case, rec in later[kern].items():
                 want = first[kern].get(case, {})
-                for field in ("out", "inputs", "ct"):
+                for field in ("out", "inputs", "ct", "scores"):
                     if field in rec and field in want:
                         same = rec[field] == want[field]
                         print(f"{later['label']} {kern} {case} {field}: "
@@ -726,7 +821,8 @@ def main() -> int:
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi,
                       "runs": [{k: r[k] for k in ("label", "k1", "k4",
-                                                  "k20", "k9")
+                                                  "k20", "k9", "k18",
+                                                  "k19", "profiler_short")
                                 if k in r} for r in runs]}))
     return 0
 

@@ -687,16 +687,58 @@ def _ml_batch(rng, n):
     return hdr_t, out, model
 
 
+def _k18_matches_plain(h, o):
+    """K18 on (h, o) against its plain version: id_row and all but the
+    log1p columns bit-exact, those within 1 ulp."""
+    from cilium_tpu_torch.ml.features import (flow_features,
+                                              flow_features_plain)
+
+    (gid, gf), (wid, wf) = flow_features(h, o), flow_features_plain(h, o)
+    assert torch.equal(gid, wid)
+    exact = [c for c in range(27) if c not in (3, 4, 6, 19, 24)]
+    assert torch.equal(gf[:, exact], wf[:, exact])
+    ulps = (gf.view(torch.int32).long()
+            - wf.view(torch.int32).long()).abs().max().item()
+    assert ulps <= 1
+    return gid, gf
+
+
+def _done_within(event, seconds, what):
+    """Wait for ``event`` without a blocking synchronize, so that a
+    device-side deadlock fails the test instead of hanging it."""
+    import time
+
+    deadline = time.monotonic() + seconds
+    while not event.query():
+        assert time.monotonic() < deadline, f"{what}: not done in {seconds} s"
+        time.sleep(0.01)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["flow_features", "anomaly_score"])
+@pytest.mark.parametrize("case", ["flow_features", "anomaly_score",
+                                  "flow_features_shapes",
+                                  "anomaly_score_tile_edges",
+                                  "flow_features_beside_ct_update"])
 def test_ml_kernels_match_their_plain_versions(case):
     """K18 and K19 on the card against their plain versions on the same
     CUDA tensors.  K18: id_row and all but the log1p columns bit-exact,
     those within 1 ulp, on a ragged batch, a one-service batch (every
-    row in one bucket) and words at the top of the u32 range.  K19:
-    scores within 2e-3 and 99.9% bit-identical, logits within 1e-2, d2
-    bit-exact, with id_row past the table and negative, and with the
-    novelty unfitted (exactly the supervised score)."""
+    row in one bucket) and words at the top of the u32 range; at 1,
+    4096, 16384 and 16385 rows (the one-cluster kernel's last batch, the
+    cooperative one's first), 2^18 and 9 * 2^20 rows (rows past the
+    resident grid's registers, a block's counts past 16 bits) and 2^18
+    rows on one service, one
+    kernel a call (a CUDA-graph capture) and two calls bit-identical;
+    and 100 calls at
+    2^18 rows on one stream beside 100 cooperative K4 launches on
+    another, both done within a minute (two cooperative grids never wait
+    on each other), K18's outputs right and K4's CT equal to the same
+    100 launches run alone.  K19: scores within 2e-3 and 99.9%
+    bit-identical, logits within 1e-2, d2 bit-exact, with id_row past
+    the table and negative, and with the novelty unfitted (exactly the
+    supervised score); at 1, 15, 17, 4095 and 4096 rows (warp-tile
+    edges) each row's outputs bit-identical to the whole batch's, two
+    launches bit-identical."""
     _need_card()
     from cilium_tpu_torch.kernels import (KERNELS, launch_anomaly_score,
                                           reset_launch_counts)
@@ -705,11 +747,13 @@ def test_ml_kernels_match_their_plain_versions(case):
     from cilium_tpu_torch.ml.model import (NOV_DISABLED, forward_plain,
                                            novelty_d2_plain,
                                            score_packets_plain)
+    from cilium_tpu_torch.testing.capture import ops_a_call
 
     rng = np.random.default_rng(31)
     hdr, out, model = _ml_batch(rng, 5000)
     hdr, out, model = hdr.cuda(), out.cuda(), model.to("cuda")
     reset_launch_counts()
+    kernel = "flow_features" if case.startswith("flow") else "anomaly_score"
     if case == "flow_features":
         one_svc = hdr.clone()
         one_svc[:, 7], one_svc[:, 9], one_svc[:, 10] = 7, 5432, 6
@@ -718,15 +762,63 @@ def test_ml_kernels_match_their_plain_versions(case):
                 np.int32)).cuda()
         for h, o in ((hdr, out), (one_svc, out), (hdr[:1], out[:1]),
                      (top, out[:777])):
-            (gid, gf), (wid, wf) = flow_features(h, o), \
-                flow_features_plain(h, o)
-            assert torch.equal(gid, wid)
-            exact = [c for c in range(27) if c not in (3, 4, 6, 19, 24)]
-            assert torch.equal(gf[:, exact], wf[:, exact])
-            ulps = (gf.view(torch.int32).long()
-                    - wf.view(torch.int32).long()).abs().max().item()
-            assert ulps <= 1
-    else:
+            _k18_matches_plain(h, o)
+    elif case == "flow_features_shapes":
+        big, huge = 1 << 18, 9 << 20
+        reps = -(-huge // 5000)
+        hh, oh = hdr.repeat(reps, 1)[:huge], out.repeat(reps, 1)[:huge]
+        hb, ob = hh[:big], oh[:big]
+        one_svc = hb.clone()
+        one_svc[:, 7], one_svc[:, 9], one_svc[:, 10] = 7, 5432, 6
+        for h, o in ((hdr[:1], out[:1]), (hdr[:4096], out[:4096]),
+                     (hh[:16384], oh[:16384]), (hh[:16385], oh[:16385]),
+                     (hb, ob), (one_svc, ob), (hh, oh)):
+            got = _k18_matches_plain(h, o)
+            again = flow_features(h, o)
+            assert torch.equal(got[0], again[0])
+            assert torch.equal(got[1], again[1])
+            ops = ops_a_call(lambda h=h, o=o: functools.partial(
+                flow_features, h, o))
+            assert list(ops.values()) == [1], ops
+            assert "flow_features_" in next(iter(ops)), ops
+    elif case == "flow_features_beside_ct_update":
+        from cilium_tpu_torch import u32
+        from cilium_tpu_torch.datapath.verdict import verdict_stage_plain
+        from cilium_tpu_torch.kernels import launch_ct_update
+
+        big = 1 << 18
+        reps = -(-big // 5000)
+        hb, ob = hdr.repeat(reps, 1)[:big], out.repeat(reps, 1)[:big]
+        want = flow_features_plain(hb, ob)
+        w = tfix.build_world(256, 8, ct_capacity=1 << 16, device="cuda")
+        _pool, rows, _r, _v = _verdict_inputs(w, "syn", 1 << 15, 1, rng)
+        _o, c = verdict_stage_plain(w.state, u32.from_numpy(rows, "cuda"),
+                                    100)
+        args = (c.l4, c.fwd, c.result, c.slot, c.is_reply, c.do_create,
+                c.proxy_port, 100, None)
+        alone, beside = _ct_clone(w.state.ct), _ct_clone(w.state.ct)
+        for _ in range(100):
+            launch_ct_update(alone, *args)
+        torch.cuda.synchronize()
+        s4, s18 = torch.cuda.Stream(), torch.cuda.Stream()
+        with torch.cuda.stream(s4):
+            for _ in range(100):
+                launch_ct_update(beside, *args)
+        with torch.cuda.stream(s18):
+            for _ in range(100):
+                got = flow_features(hb, ob)
+        done = [torch.cuda.Event(), torch.cuda.Event()]
+        done[0].record(s4)
+        done[1].record(s18)
+        for e, what in zip(done, ("ct_update", "flow_features")):
+            _done_within(e, 60, what)
+        assert torch.equal(got[0], want[0])
+        assert (got[1] - want[1]).abs().max().item() <= 2.4e-7
+        for a, b in ((alone.table, beside.table), (alone.fp, beside.fp),
+                     (alone.dropped, beside.dropped)):
+            assert torch.equal(a, b)
+        assert bool((beside.claim == -1).all())
+    elif case == "anomaly_score":
         rows, feats = flow_features_plain(hdr, out)
         v = model.embed.shape[0]
         far = rows.clone()
@@ -746,8 +838,20 @@ def test_ml_kernels_match_their_plain_versions(case):
             assert (got["logit"] - forward_plain(m, ids, feats)).abs() \
                 .max().item() <= 1e-2
             assert torch.equal(got["d2"], novelty_d2_plain(m, feats))
+    else:  # anomaly_score_tile_edges
+        rows, feats = flow_features_plain(hdr, out)
+        whole = launch_anomaly_score(model, rows, feats,
+                                     outputs=("logit", "d2"))
+        for m in (1, 15, 17, 4095, 4096):
+            got = launch_anomaly_score(model, rows[:m], feats[:m],
+                                       outputs=("logit", "d2"))
+            again = launch_anomaly_score(model, rows[:m], feats[:m],
+                                         outputs=("logit", "d2"))
+            for k in ("score", "logit", "d2"):
+                assert torch.equal(got[k], whole[k][:m]), (m, k)
+                assert torch.equal(got[k], again[k]), (m, k)
     torch.cuda.synchronize()
-    assert KERNELS[case].launches > 0
+    assert KERNELS[kernel].launches > 0
 
 
 @pytest.mark.gpu

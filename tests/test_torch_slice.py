@@ -126,7 +126,7 @@ def test_state_carried_across_mid_stream():
 
 def _port_files():
     return sorted((ROOT / "cilium_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("chip_*.py"))
 
 
 @pytest.mark.parametrize("path", _port_files(),
