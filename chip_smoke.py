@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    version on the same CUDA tensors, bit-exact (every output is an
    integer): LPM over 2^18 v4+v6 addresses, a CT lookup and a
    ct_update on a 2^20 table filled to about half (duplicate tuples,
-   window contention, counters near 2^32), ring_append with overflow,
+   window contention, counters near 2^32), ring_append with overflow
+   (one kernel a call: ``testing.capture.ops_a_call``),
    the CT aging sweep and occupancy count on a half-full 2^20 table
    whose expiries straddle 2^31 and ``now``, ring_gather on lapped
    and unlapped 2^18 rings at several rungs, the in-place table
@@ -36,7 +37,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    channel, against its plain version on that state;
 5. timings: each kernel's device time at the main path's shapes (calls
    run back to back behind a spin kernel, so no host enqueue falls in
-   the window) beside its plain version's and its bound; then where a
+   the window) beside its plain version's and its bound (K5 also at
+   the daemon's 2^16 rows); then where a
    steady ``serve_packed`` batch spends its time (torch.profiler), and
    what staging a batch costs from pinned memory; then K1/K1s and
    K4/K4s at each main path's shape (the trainer's 4096 wide rows, the
@@ -150,7 +152,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    Phase 3 holds K20 ``anomaly_train_fwd``, K21 ``anomaly_train_bwd``
    and K22 ``adam_update`` against their plain versions at B = 4096, V =
    16384 (one identity on half the rows, id_row past V and negative;
-   adam from a mid-training state; K21's d_embed bit-exact with
+   adam from a mid-training state and from a count of INT_MAX - 1,
+   which saturates, one kernel a call; K21's d_embed bit-exact with
    ``embed_grad_sorted_plain``, its sort against a stable sort, its
    kernels a call counted and split by pass), and K20s/K21s over 8
    shards of that batch against their plain versions and against 8
@@ -162,7 +165,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    on a half-full 2^20 CT, one batch skewed so that one shard overflows
    on the host: out rows, CT, metrics, ring and cursors bit-exact, and
    one sharded sequence equal to 8 unsharded K1/K4/K5 calls on the
-   shards' slices; then each timed beside its plain version and bound;
+   shards' slices; then each timed beside its plain version and bound,
+   K5s one kernel a call;
    (b) phase 7's daemon with ``start_serving(mesh=8)`` serving 2^21
    packets of phase 7's traffic, then 2^16 wide rows: ledgers exact, no
    event lost, the route overflow equal to its metric and to its DROP
@@ -307,6 +311,18 @@ def rows_a_launch(label, report_part):
           + ", ".join(f"{n} {v:.0f}" for n, v in got.items()))
     report_part["rows_a_launch"] = got
     return got
+
+
+def one_kernel_a_call(prepare, kernel, what):
+    """Check that one call of ``prepare()`` puts one kernel, named
+    ``kernel``, on the stream (``testing.capture.ops_a_call``); -> its
+    mangled name."""
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    ops = ops_a_call(prepare)
+    check(list(ops.values()) == [1] and kernel in next(iter(ops)),
+          f"{what}: a call put {ops} on the stream, not one {kernel}")
+    return next(iter(ops))
 
 
 # -- inputs -----------------------------------------------------------
@@ -492,6 +508,8 @@ def phase_ct(torch, rng, kernels):
 
 
 def phase_ring(torch, rng, kernels):
+    import functools
+
     import numpy as np
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.monitor import ring as rg
@@ -504,22 +522,31 @@ def phase_ring(torch, rng, kernels):
     valid = torch.from_numpy(rng.random(N) < 0.95).cuda()
     ports = u32.from_numpy(np.array([10000, 10001], np.uint32), "cuda")
     err = 0
-    for cap, cursor, ts in ((1 << 15, (0xFFFFFF00, 7), 1024),
-                            (RING_CAPACITY, (0, 0), 0)):
-        rings = [rg.EventRing.create(cap, "cuda") for _ in range(2)]
-        for r in rings:
-            r.cursor.copy_(u32.from_numpy(np.array(cursor, np.uint32),
-                                          "cuda"))
-        rg.ring_append(rings[0], tout, 4097, ts, valid, ports)
-        rg.ring_append_plain(rings[1], tout, 4097, ts, valid, ports)
-        err = max(err, max_abs_err(rings[0].buf, rings[1].buf, "ring buf"),
-                  max_abs_err(rings[0].cursor, rings[1].cursor,
-                              "ring cursor"))
-        got = rg.ring_drain(rings[0], np.array([10000, 10001]))
-        kept = got[1] - cursor[0] - (cursor[1] << 32)
-        print(f"parity ring_append: capacity {cap}, {kept} kept, {got[2]} "
-              f"overwritten, bit-exact")
+    # the kernel's rows a thread follow the batch: 2 at N, 1 at the
+    # daemon's 2^16 bucket and at l7_redirect's 1024-row batches
+    for n in (N, 1 << 16, 1024):
+        for cap, cursor, ts in ((1 << 15, (0xFFFFFF00, 7), 1024),
+                                (RING_CAPACITY, (0, 0), 0)):
+            rings = [rg.EventRing.create(cap, "cuda") for _ in range(2)]
+            for r in rings:
+                r.cursor.copy_(u32.from_numpy(np.array(cursor, np.uint32),
+                                              "cuda"))
+            rg.ring_append(rings[0], tout[:n], 4097, ts, valid[:n], ports)
+            rg.ring_append_plain(rings[1], tout[:n], 4097, ts, valid[:n],
+                                 ports)
+            err = max(err,
+                      max_abs_err(rings[0].buf, rings[1].buf, "ring buf"),
+                      max_abs_err(rings[0].cursor, rings[1].cursor,
+                                  "ring cursor"))
+            got = rg.ring_drain(rings[0], np.array([10000, 10001]))
+            kept = got[1] - cursor[0] - (cursor[1] << 32)
+            print(f"parity ring_append: {n} rows, capacity {cap}, {kept} "
+                  f"kept, {got[2]} overwritten, bit-exact")
     kernels["ring_append"]["max_abs_err"] = err
+    name = one_kernel_a_call(lambda: functools.partial(
+        rg.ring_append, rg.EventRing.create(RING_CAPACITY, "cuda"), tout,
+        4097, 1024, valid, ports), "ring_append_kernel", "ring_append")
+    print(f"ring_append: one kernel a call ({name})")
 
 
 def phase_maint(torch, rng, kernels):
@@ -3458,6 +3485,7 @@ EMBED_TOL = 1e-5
 # sums (K20's loss mean; the plain d_embed's index_add_ in atomic order);
 # one adam step moves a parameter by ~lr, so a wrong sign, a swapped
 # leaf or a wrong moment is off by thousands of times REPLAY_PARAM_TOL
+INT32_MAX = (1 << 31) - 1  # adam's count saturates here, as optax's
 REPLAY_LOSS_RTOL = 1e-5
 REPLAY_PARAM_TOL = 1e-6
 TRAIN_SHARDS = 8  # the reference test's mesh, phase 15's
@@ -3602,6 +3630,8 @@ def phase_train_kernels(torch, rng, world, kernels, report):
     bounds against their plain versions, and bit-exact against that many
     unsharded K20/K21 launches on the blocks followed by the shard-order
     mean."""
+    import functools
+
     from cilium_tpu_torch.kernels import (launch_adam_update,
                                           launch_anomaly_train_bwd,
                                           launch_anomaly_train_fwd)
@@ -3683,6 +3713,25 @@ def phase_train_kernels(torch, rng, world, kernels, report):
                   f"differs from the plain version")
     check(int(ka[3].item()) == int(pa[3].item()) == 4,
           f"adam_update: count {int(ka[3].item())}")
+    # from INT_MAX - 1: two steps each way, the count saturating
+    ka, pa = clone_all(), clone_all()
+    for c in (ka[3], pa[3]):
+        c.fill_(INT32_MAX - 1)
+    for step in range(2):
+        launch_adam_update(ka[0], got, ka[1], ka[2], ka[3], TRAIN_LR)
+        adam_update_plain(pa[0], got, pa[1], pa[2], pa[3], TRAIN_LR)
+        check(all(torch.equal(a, b) for a, b in
+                  zip(ka[0] + ka[1] + ka[2], pa[0] + pa[1] + pa[2]))
+              and int(ka[3].item()) == int(pa[3].item()) == INT32_MAX,
+              f"adam_update: step {step} from INT_MAX - 1 differs from "
+              f"the plain version (count {int(ka[3].item())})")
+
+    def one_step():
+        k = clone_all()
+        return functools.partial(launch_adam_update, k[0], got, k[1], k[2],
+                                 k[3], TRAIN_LR)
+
+    k22_name = one_kernel_a_call(one_step, "adam_kernel", "adam_update")
     p_total = sum(t.numel() for t in leaves)
 
     # times: each on its own clones (K22 updates in place)
@@ -3735,7 +3784,8 @@ def phase_train_kernels(torch, rng, world, kernels, report):
           f"{g_err:.3g} against index_add_ ({e_same:.5f} identical); the "
           f"sort a stable sort; two runs bit-identical")
     print(f"parity adam_update: {p_total} parameters, one step from count "
-          f"3: params, mu, nu bit-exact, count 4")
+          f"3: params, mu, nu bit-exact, count 4; two from INT_MAX - 1 "
+          f"bit-exact, the count saturated; one kernel a call ({k22_name})")
     s_err, s_gerr, s_same, s_split = sharded_train_kernels(
         torch, kernels, leaves, ids, feats, labels, gloss,
         kernels["anomaly_train_fwd"], kernels["anomaly_train_bwd"])
@@ -4478,6 +4528,32 @@ def phase_verdict_and_timing(torch, rng, kl, packed_np, wide_np, now,
                 | (torch.arange(N, device="cuda") % 1024 == 0)).sum())
     kernels["ring_append"]["bytes"] = N * 24 + kept * 8 + 16
     kernels["ring_append"]["ops"] = N * 30
+    # and at the daemon's bucket: the batch's first 2^16 rows
+    n16 = 1 << 16
+    out16 = out_k[:n16]
+    kept16 = int(((out16[:, 5] != 0)
+                  | (torch.arange(n16, device="cuda") % 1024 == 0)).sum())
+    rec = {"rows": n16, "ms": device_ms(
+        lambda r: rg.ring_append(r, out16, 7, 1024, None, ports), 20,
+        lambda: rg.EventRing.create(RING_CAPACITY, "cuda")),
+        "plain_ms": device_ms(
+            lambda r: rg.ring_append_plain(r, out16, 7, 1024, None, ports),
+            3, lambda: rg.EventRing.create(RING_CAPACITY, "cuda"))}
+    rec["bound_ms"], rec["bound_by"] = bound(n16 * 24 + kept16 * 8 + 16,
+                                             n16 * 30)
+    kernels["ring_append"]["at_65536"] = rec
+    # the kernel at this bucket (1 row a thread) on the served rows
+    rings = [rg.EventRing.create(RING_CAPACITY, "cuda") for _ in range(2)]
+    rg.ring_append(rings[0], out16, 7, 1024, None, ports)
+    rg.ring_append_plain(rings[1], out16, 7, 1024, None, ports)
+    kernels["ring_append"]["max_abs_err"] = max(
+        kernels["ring_append"].get("max_abs_err", 0),
+        max_abs_err(rings[0].buf, rings[1].buf, "ring buf at 2^16"),
+        max_abs_err(rings[0].cursor, rings[1].cursor, "ring cursor at 2^16"))
+    print(f"ring_append at {n16} rows ({kept16} kept): {rec['ms']:.4f} ms "
+          f"(plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.6f} "
+          f"ms by {rec['bound_by']}); at {N} rows "
+          f"{kernels['ring_append']['ms']:.4f} ms ({kept} kept)")
 
 
 def phase_breakdown(torch, kl, packed_batches, now, report):
@@ -4547,7 +4623,8 @@ def phase_breakdown(torch, kl, packed_batches, now, report):
             device[e.key] = e.self_device_time_total
     busy = sum(device.values())
     stages = {"h2d copy": ("Memcpy",), "datapath_kernel": ("void datapath",),
-              "ct_update": ("ct_", "Memset"), "ring_append": ("ring_",)}
+              "ct_update": ("ct_", "Memset"),
+              "ring_append": ("ring_", "void ring_")}
     n = len(packed_batches)
     per_stage = {st: sum(v for k, v in device.items()
                          if k.startswith(prefixes)) / n / 1e3
@@ -4767,6 +4844,8 @@ def phase_sharded_kernels(torch, rng, world, kernels, report):
     routed rows a batch; one batch also against 8 unsharded K1/K4/K5
     calls, each on its shard's slice as a table of its own; then each
     sharded kernel timed beside its plain version and its bound."""
+    import functools
+
     import numpy as np
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.datapath import conntrack as ct
@@ -4947,6 +5026,10 @@ def phase_sharded_kernels(torch, rng, world, kernels, report):
     kernels["ring_append_sharded"]["bytes"] = (SHARD_ROWS * (24 + 1)
                                                + kept * 8 + 16 * SHARDS)
     kernels["ring_append_sharded"]["ops"] = SHARD_ROWS * 30
+    k5s_name = one_kernel_a_call(lambda: functools.partial(
+        launch_ring_append, pm.make_sharded_ring(mesh, RING_CAPACITY), out_k,
+        7, 1024, valid, pp, n_shards=SHARDS), "ring_append_kernel",
+        "ring_append_sharded")
     k = {n: kernels[n]["ms"] for n in ("datapath_packed_sharded",
                                        "ct_update_sharded",
                                        "ring_append_sharded")}
@@ -4958,7 +5041,8 @@ def phase_sharded_kernels(torch, rng, world, kernels, report):
           f"{k['datapath_packed_sharded']:.4f} ms (wide "
           f"{kernels['datapath_wide_sharded']['ms']:.4f}), K4s "
           f"{k['ct_update_sharded']:.4f}, K5s "
-          f"{k['ring_append_sharded']:.4f}; sum {sum(k.values()):.4f} ms "
+          f"{k['ring_append_sharded']:.4f} (one kernel a call, "
+          f"{k5s_name}); sum {sum(k.values()):.4f} ms "
           f"against 2 x (K1 + K4 + K5) at {N} rows = {2 * unsharded:.4f} "
           f"ms; bound {bounds:.4f} ms")
     report["sharded_kernels"] = {

@@ -142,12 +142,29 @@
 //      2 MB written (~0.6 us).
 //
 // K22 (bound: bytes, 28 B a parameter: p, g, mu, nu read, p, mu, nu
-// written; 532,353 parameters at V = 16384).  One fused pass over every
-// trainable leaf, densely as optax does (every embedding row's moments
-// decay every step): a thread a parameter, the leaf found from its
-// block; count stays on the card (the bias corrections 1 - b^(count+1)
-// are computed from it in the kernel, then a one-thread launch
-// increments it), so a step never syncs with the host.
+// written; 532,353 parameters at V = 16384, 0.0044 ms).  ONE launch a
+// step: one fused pass over every trainable leaf, densely as optax does
+// (every embedding row's moments decay every step).  The launcher
+// flattens the leaf table into work units: 16-byte units (four
+// parameters, float4 loads and stores) where a leaf's four pointers are
+// 16-byte aligned, then one unit a parameter for its tail (and for a leaf
+// that is not, such as a view at a 4-byte offset or b3's one element).  A
+// grid of at most ADAM_BLOCKS_PER_SM blocks an SM strides over the units,
+// a thread's leaf found by a search that only moves forward.  Thread 0 of
+// each block reads count (on the card, so a step never syncs with the
+// host), computes the bias corrections 1 - b^(count+1) once for its
+// block, and takes a last-block ticket (the per-(device, kernel, stream)
+// counter K20 uses; atomicInc wraps it back to 0): every block has read
+// count before the last ticket is taken, so the last block alone adds one
+// to it, saturating at INT_MAX, as optax's safe_int32_increment does.
+// Each thread starts its first unit's loads before it waits for thread
+// 0's bias corrections.  The element arithmetic is the plain version's
+// sequence of __fmul_rn, __fadd_rn, __fdiv_rn and __fsqrt_rn in the same
+// order, and powf gives the same bias corrections, so the outputs are the
+// same bits.  Nothing a step changes passes by value: the launch can be
+// captured in a CUDA graph.  On the H100 (PERF.md) a step takes ~0.0077
+// ms: the 14.9 MB move at ~2.2 TB/s in one wave, reads and then writes;
+// fewer blocks holding several units a thread were slower.
 //
 // No library product runs: every product is this file's FMA chain.
 // Tensor cores (mma.sync / wgmma on bf16 tiles) are later work.
@@ -170,7 +187,7 @@ constexpr int LOSS_PASS = 64;       // loss groups summed a pass of the tail
 constexpr int W4 = (IN * HID + HID * HID) / 4;  // w1, w2 in 16-byte loads
 constexpr int CHUNK = 64;           // rows a block of wgrad_partial (the
                                     // plain version's WGRAD_CHUNK)
-constexpr int WTB = 256;            // threads of the wgrad, scatter, adam blocks
+constexpr int WTB = 256;            // threads of the wgrad and scatter blocks
 constexpr int BR = 16;              // rows a block of bwd_rows
 constexpr int BG = 8;               // threads a row of bwd_rows
 constexpr int SORT_TB = 256;        // threads and rows a pass of embed_radix
@@ -179,6 +196,8 @@ constexpr int MAX_TILES = 64;       // embed_radix's tiles a shard, at most
 constexpr int HIST_BATCH = 8;      // embed_radix's sub-tiles a load batch
 constexpr int PIECE = 32;           // sorted rows a warp of embed_piece
 constexpr int MAX_LEAVES = 8;
+constexpr int ATB = 256;            // threads of adam_kernel
+constexpr int ADAM_BLOCKS_PER_SM = 4;  // its grid, at most
 static_assert(SORT_TB == RADIX, "embed_radix: a thread a digit");
 static_assert(HID / BG == 8 && EMB / BG == 4,
               "bwd_rows: a thread's outputs are one 16-byte (8-byte) load");
@@ -277,14 +296,17 @@ struct AdamLeaf {
   float* mu;
   float* nu;
   int64_t n;
-  int64_t block0;
+  int64_t n4;     // the launcher's: 16-byte units (0: the leaf unaligned)
+  int64_t unit0;  // the launcher's: the leaf's first unit
 };
 
 struct AdamIO {
   AdamLeaf leaf[MAX_LEAVES];
-  int32_t* count;  // [] on the card
+  int32_t* count;    // [] on the card
+  uint32_t* ticket;  // [1] the blocks done; 0 between launches
+  int64_t units;     // the launcher's: the units of every leaf
   int32_t n_leaves;
-  float neg_lr;    // -lr
+  float neg_lr;      // -lr
 };
 
 namespace {
@@ -985,33 +1007,101 @@ __global__ void __launch_bounds__(WTB) embed_finish(TrainBwdIO io,
 
 // ---- K22 ---------------------------------------------------------------
 
-__global__ void __launch_bounds__(WTB) adam_kernel(AdamIO io) {
-  int L = 0;
-  while (L + 1 < io.n_leaves && blockIdx.x >= io.leaf[L + 1].block0) ++L;
-  const AdamLeaf lf = io.leaf[L];
-  const int64_t i = (int64_t)(blockIdx.x - lf.block0) * WTB + threadIdx.x;
-  if (i >= lf.n) return;
-  int32_t c = io.count[0];
-  c = c < INT_MAX ? c + 1 : c;
-  const float cf = (float)c;
-  const float bc1 = __fsub_rn(1.0f, powf(ADAM_B1, cf));
-  const float bc2 = __fsub_rn(1.0f, powf(ADAM_B2, cf));
-  const float g = lf.g[i];
-  const float m = __fadd_rn(__fmul_rn(ADAM_OMB1, g),
-                            __fmul_rn(ADAM_B1, lf.mu[i]));
-  const float v = __fadd_rn(__fmul_rn(ADAM_OMB2, __fmul_rn(g, g)),
-                            __fmul_rn(ADAM_B2, lf.nu[i]));
+// One parameter's step, optax.adam's arithmetic in the plain version's
+// order: mu, nu, then p += -lr * mu_hat / (sqrt(nu_hat) + eps).
+__device__ __forceinline__ void adam_step(float g, float& p, float& m,
+                                          float& v, float bc1, float bc2,
+                                          float neg_lr) {
+  m = __fadd_rn(__fmul_rn(ADAM_OMB1, g), __fmul_rn(ADAM_B1, m));
+  v = __fadd_rn(__fmul_rn(ADAM_OMB2, __fmul_rn(g, g)),
+                __fmul_rn(ADAM_B2, v));
   const float u = __fdiv_rn(
-      __fdiv_rn(m, bc1),
-      __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), ADAM_EPS));
-  lf.p[i] = __fadd_rn(lf.p[i], __fmul_rn(io.neg_lr, u));
-  lf.mu[i] = m;
-  lf.nu[i] = v;
+      __fdiv_rn(m, bc1), __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), ADAM_EPS));
+  p = __fadd_rn(p, __fmul_rn(neg_lr, u));
 }
 
-__global__ void adam_count(int32_t* count) {
-  const int32_t c = count[0];
-  count[0] = c < INT_MAX ? c + 1 : c;
+// One work unit's operands: four parameters (a 16-byte unit) or one
+// (in .x).
+struct AdamUnit {
+  float4 p, m, v, g;
+};
+
+// Load unit u, its leaf L found by a search that only moves forward;
+// false past the last unit.
+__device__ __forceinline__ bool adam_load(const AdamIO& io, int64_t u,
+                                          int& L, AdamUnit& x) {
+  if (u >= io.units) return false;
+  while (L + 1 < io.n_leaves && u >= io.leaf[L + 1].unit0) ++L;
+  const AdamLeaf& lf = io.leaf[L];
+  const int64_t k = u - lf.unit0;
+  if (k < lf.n4) {
+    x.g = __ldg(reinterpret_cast<const float4*>(lf.g) + k);
+    x.p = reinterpret_cast<const float4*>(lf.p)[k];
+    x.m = reinterpret_cast<const float4*>(lf.mu)[k];
+    x.v = reinterpret_cast<const float4*>(lf.nu)[k];
+  } else {
+    const int64_t i = k + 3 * lf.n4;
+    x.g.x = __ldg(&lf.g[i]);
+    x.p.x = lf.p[i];
+    x.m.x = lf.mu[i];
+    x.v.x = lf.nu[i];
+  }
+  return true;
+}
+
+// Step unit u of leaf L and store it.
+__device__ __forceinline__ void adam_store(const AdamIO& io, int64_t u,
+                                           int L, AdamUnit& x, float bc1,
+                                           float bc2) {
+  const AdamLeaf& lf = io.leaf[L];
+  const int64_t k = u - lf.unit0;
+  const float nl = io.neg_lr;
+  if (k < lf.n4) {
+    adam_step(x.g.x, x.p.x, x.m.x, x.v.x, bc1, bc2, nl);
+    adam_step(x.g.y, x.p.y, x.m.y, x.v.y, bc1, bc2, nl);
+    adam_step(x.g.z, x.p.z, x.m.z, x.v.z, bc1, bc2, nl);
+    adam_step(x.g.w, x.p.w, x.m.w, x.v.w, bc1, bc2, nl);
+    reinterpret_cast<float4*>(lf.p)[k] = x.p;
+    reinterpret_cast<float4*>(lf.mu)[k] = x.m;
+    reinterpret_cast<float4*>(lf.nu)[k] = x.v;
+  } else {
+    const int64_t i = k + 3 * lf.n4;
+    adam_step(x.g.x, x.p.x, x.m.x, x.v.x, bc1, bc2, nl);
+    lf.p[i] = x.p.x;
+    lf.mu[i] = x.m.x;
+    lf.nu[i] = x.v.x;
+  }
+}
+
+__global__ void __launch_bounds__(ATB) adam_kernel(AdamIO io) {
+  __shared__ float s_bc[2];
+  const int64_t stride = (int64_t)gridDim.x * ATB;
+  int64_t u = (int64_t)blockIdx.x * ATB + threadIdx.x;
+  int L = 0;
+  AdamUnit x;
+  // the first unit's loads go out before the block waits for thread 0's
+  // bias corrections
+  bool more = adam_load(io, u, L, x);
+  int32_t c = 0;
+  if (threadIdx.x == 0) {
+    const int32_t c0 = __ldcg(io.count);
+    c = c0 < INT_MAX ? c0 + 1 : c0;
+    const float cf = (float)c;
+    s_bc[0] = __fsub_rn(1.0f, powf(ADAM_B1, cf));
+    s_bc[1] = __fsub_rn(1.0f, powf(ADAM_B2, cf));
+  }
+  __syncthreads();
+  const float bc1 = s_bc[0], bc2 = s_bc[1];
+  if (threadIdx.x == 0) {
+    // this block has read count: the last block to get here moves it
+    __threadfence();
+    if (atomicInc(io.ticket, gridDim.x - 1) == gridDim.x - 1) *io.count = c;
+  }
+  while (more) {
+    adam_store(io, u, L, x, bc1, bc2);
+    u += stride;
+    more = adam_load(io, u, L, x);
+  }
 }
 
 }  // namespace
@@ -1066,10 +1156,32 @@ extern "C" int anomaly_train_bwd_launch(const TrainBwdIO* io,
   return (int)cudaGetLastError();
 }
 
-extern "C" int adam_update_launch(const AdamIO* io, int blocks,
-                                  cudaStream_t stream) {
-  if (blocks > 0) adam_kernel<<<blocks, WTB, 0, stream>>>(*io);
-  adam_count<<<1, 1, 0, stream>>>(io->count);
+extern "C" int adam_update_launch(const AdamIO* iop, cudaStream_t stream) {
+  AdamIO io = *iop;
+  if (io.n_leaves < 1 || io.n_leaves > MAX_LEAVES)
+    return (int)cudaErrorInvalidValue;
+  int64_t units = 0;
+  for (int i = 0; i < io.n_leaves; ++i) {
+    AdamLeaf& lf = io.leaf[i];
+    const uintptr_t any = reinterpret_cast<uintptr_t>(lf.p) |
+                          reinterpret_cast<uintptr_t>(lf.g) |
+                          reinterpret_cast<uintptr_t>(lf.mu) |
+                          reinterpret_cast<uintptr_t>(lf.nu);
+    if (lf.n < 0) return (int)cudaErrorInvalidValue;
+    lf.n4 = any % 16 == 0 ? lf.n / 4 : 0;
+    lf.unit0 = units;
+    units += lf.n - 3 * lf.n4;
+  }
+  io.units = units;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t want = (units + ATB - 1) / ATB;
+  const int most = ADAM_BLOCKS_PER_SM * sms;
+  if (most <= 0) return (int)cudaErrorInvalidConfiguration;
+  // one block at least: the count moves even with no parameter
+  const int blocks = (int)(want < 1 ? 1 : want < most ? want : most);
+  adam_kernel<<<blocks, ATB, 0, stream>>>(io);
   return (int)cudaGetLastError();
 }
 

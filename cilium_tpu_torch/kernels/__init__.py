@@ -27,6 +27,7 @@ from . import abi
 
 MASK = 0xFFFFFFFF
 MAX_RING_BATCH = 1 << 19  # pkt_idx packs into 19 bits
+RING_COUNTS = 4096  # K5's block counts: at least its co-resident blocks
 MAX_PROXY_PORTS = 15
 
 
@@ -377,6 +378,45 @@ def launch_datapath(state, rows: torch.Tensor, now: int, ep, dirn, valid,
     return out, ctin
 
 
+# Words a kernel keeps between its launches, zeroed once here, one set a
+# (device, kernel, stream), so that launches sharing one run in stream
+# order: K20's and K22's last-block tickets (the last block of every
+# launch leaves its counter at 0 again) and K5's block counts (each
+# launch writes its entries before it reads them)
+_SCRATCH_WORDS = {"ring_append": RING_COUNTS,
+                  "ring_append_sharded": RING_COUNTS,
+                  "anomaly_train_fwd": 1, "anomaly_train_fwd_sharded": 1,
+                  "adam_update": 1}
+_STREAM_SCRATCH: Dict[tuple, torch.Tensor] = {}
+
+
+def make_stream_scratch(stream) -> None:
+    """Make every kernel's scratch for ``stream`` (a torch.cuda.Stream),
+    outside a CUDA graph capture, so that a graph captured on that
+    stream finds it.  A wrapper's first launch on a stream outside a
+    capture makes the stream's scratch itself."""
+    for name, n in _SCRATCH_WORDS.items():
+        key = (stream.device, name, stream.cuda_stream)
+        if key not in _STREAM_SCRATCH:
+            _STREAM_SCRATCH[key] = torch.zeros(n, dtype=I32,
+                                               device=stream.device)
+
+
+def _stream_scratch(dev, name: str, stream: int) -> int:
+    key = (dev, name, stream)
+    t = _STREAM_SCRATCH.get(key)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            # the zero fill would be a graph node, the words unset until
+            # the graph runs
+            raise RuntimeError(f"{name}: no scratch for the capturing "
+                               f"stream; call make_stream_scratch(stream) "
+                               f"before the capture")
+        t = _STREAM_SCRATCH.setdefault(key, torch.zeros(
+            _SCRATCH_WORDS[name], dtype=I32, device=dev))
+    return t.data_ptr()
+
+
 def launch_ring_append(ring, out: torch.Tensor, batch_id: int,
                        trace_sample: int, valid, proxy_ports,
                        n_shards: Optional[int] = None):
@@ -397,25 +437,24 @@ def launch_ring_append(ring, out: torch.Tensor, batch_id: int,
     if cap & (cap - 1) or cap * s != ring.buf.shape[0]:
         raise ValueError(f"ring capacity must be 2^k a shard, got "
                          f"{ring.buf.shape[0]} rows for {s} shards")
-    n_blocks = (block + 1023) // 1024
-    block_counts = torch.empty(max(s * n_blocks, 1), dtype=I32, device=dev)
-    meta = torch.empty(2 * s, dtype=I32, device=dev)
+    name = "ring_append" if n_shards is None else "ring_append_sharded"
+    stream = _stream(dev)
     io = abi.RingIO(
         out=_ptr(out, I32, dev, (n, 6), name="out"),
         valid=_ptr(valid, BOOL, dev, (n,), name="valid"),
         proxy_ports=(_ptr(proxy_ports, I32, dev, (n_proxy,),
                           name="proxy_ports") if n_proxy else None),
-        buf=_ptr(ring.buf, I32, dev, (s * cap, 2), name="ring.buf"),
+        buf=_ptr(ring.buf, I32, dev, (s * cap, 2), align=8,
+                 name="ring.buf"),
         cursor=_ptr(ring.cursor, I32, dev,
                     (2,) if n_shards is None else (s, 2),
                     name="ring.cursor"),
-        block_counts=block_counts.data_ptr(), meta=meta.data_ptr(),
+        block_counts=_stream_scratch(dev, name, stream),
         n=n, n_proxy=n_proxy, capacity=cap,
         trace_sample=int(trace_sample) & MASK,
-        batch_id=int(batch_id) & MASK, n_shards=s, block=block)
-    KERNELS["ring_append" if n_shards is None
-            else "ring_append_sharded"].launch(ctypes.addressof(io),
-                                               _stream(dev))
+        batch_id=int(batch_id) & MASK, n_shards=s, block=block,
+        counts_cap=RING_COUNTS)
+    KERNELS[name].launch(ctypes.addressof(io), stream)
     return ring
 
 
@@ -805,17 +844,6 @@ def launch_anomaly_score(model, id_row: torch.Tensor, feats: torch.Tensor,
 # the trainer's kernels (csrc/mltrain.cu; K21's sorted rows a piece and
 # weight-gradient chunk are ml/model.py's EMBED_PIECE and WGRAD_CHUNK)
 BF16, F32 = torch.bfloat16, torch.float32
-# K20's last-block tickets, one a (device, kernel, stream): zeroed once
-# here, the last block of every launch leaves its counter at 0 again
-_TICKETS: Dict[tuple, torch.Tensor] = {}
-
-
-def _ticket(dev, name: str, stream: int) -> int:
-    key = (dev, name, stream)
-    t = _TICKETS.get(key)
-    if t is None:
-        t = _TICKETS.setdefault(key, torch.zeros(1, dtype=I32, device=dev))
-    return t.data_ptr()
 
 
 def _train_shapes(name, leaves, n):
@@ -879,7 +907,7 @@ def launch_anomaly_train_fwd(leaves, id_row: torch.Tensor,
         xT=saved["xT"].data_ptr(), h1T=saved["h1T"].data_ptr(),
         h2T=saved["h2T"].data_ptr(), logit=saved["logit"].data_ptr(),
         partial=partial.data_ptr(), loss=loss.data_ptr(),
-        ticket=_ticket(dev, name, stream), n=n, v=v, n_shards=s,
+        ticket=_stream_scratch(dev, name, stream), n=n, v=v, n_shards=s,
         block=block)
     KERNELS[name].launch(ctypes.addressof(io), stream)
     return loss.reshape(()), saved
@@ -952,10 +980,11 @@ def launch_adam_update(params, grads, mu, nu, count: torch.Tensor,
     if not 1 <= len(params) <= abi.ADAM_MAX_LEAVES:
         raise ValueError(f"adam_update: {len(params)} leaves, the kernel "
                          f"takes 1 to {abi.ADAM_MAX_LEAVES}")
+    stream = _stream(dev)
     io = abi.AdamIO(
-        count=_ptr(count, I32, dev, (), name="count"), n_leaves=len(params),
-        neg_lr=-lr)
-    blocks = 0
+        count=_ptr(count, I32, dev, (), name="count"),
+        ticket=_stream_scratch(dev, "adam_update", stream),
+        n_leaves=len(params), neg_lr=-lr)
     for i, (p, g, m, v) in enumerate(zip(params, grads, mu, nu)):
         shape = tuple(p.shape)
         io.leaf[i] = abi.AdamLeaf(
@@ -963,6 +992,5 @@ def launch_adam_update(params, grads, mu, nu, count: torch.Tensor,
             g=_ptr(g, F32, dev, shape, name=f"grad {i}"),
             mu=_ptr(m, F32, dev, shape, name=f"mu {i}"),
             nu=_ptr(v, F32, dev, shape, name=f"nu {i}"),
-            n=p.numel(), block0=blocks)
-        blocks += -(-p.numel() // 256)
-    KERNELS["adam_update"].launch(ctypes.addressof(io), blocks, _stream(dev))
+            n=p.numel())
+    KERNELS["adam_update"].launch(ctypes.addressof(io), stream)

@@ -54,10 +54,10 @@ class CtUpdateIO(ctypes.Structure):
 
 class RingIO(ctypes.Structure):
     _fields_ = [("out", P), ("valid", P), ("proxy_ports", P), ("buf", P),
-                ("cursor", P), ("block_counts", P), ("meta", P),
+                ("cursor", P), ("block_counts", P),
                 ("n", I32), ("n_proxy", I32), ("capacity", I32),
                 ("trace_sample", U32), ("batch_id", U32), ("n_shards", I32),
-                ("block", I32), ("pad", I32)]
+                ("block", I32), ("counts_cap", I32)]
 
 
 MAX_GATHER_SHARDS = 8
@@ -174,8 +174,10 @@ class TrainBwdIO(ctypes.Structure):
 
 
 class AdamLeaf(ctypes.Structure):
+    # n4 and unit0 are the launcher's (csrc/mltrain.cu), left 0 here
     _fields_ = [("p", P), ("g", P), ("mu", P), ("nu", P),
-                ("n", ctypes.c_int64), ("block0", ctypes.c_int64)]
+                ("n", ctypes.c_int64), ("n4", ctypes.c_int64),
+                ("unit0", ctypes.c_int64)]
 
 
 ADAM_MAX_LEAVES = 8
@@ -183,7 +185,8 @@ ADAM_MAX_LEAVES = 8
 
 class AdamIO(ctypes.Structure):
     _fields_ = [("leaf", AdamLeaf * ADAM_MAX_LEAVES), ("count", P),
-                ("n_leaves", I32), ("neg_lr", F32)]
+                ("ticket", P), ("units", ctypes.c_int64), ("n_leaves", I32),
+                ("neg_lr", F32)]
 
 
 # per library: (symbol reporting sizeof, [structs in its index order])
@@ -225,5 +228,5 @@ SIGNATURES = {
            "anomaly_score_launch": [P, P]},
     "mltrain": {"anomaly_train_fwd_launch": [P, P],
                 "anomaly_train_bwd_launch": [P, P],
-                "adam_update_launch": [P, ctypes.c_int, P]},
+                "adam_update_launch": [P, P]},
 }

@@ -18,6 +18,11 @@ NODE_TYPES = {1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
               11: "mem free"}
 
 
+# the stream each device's captures run on, one for the process, whose
+# kernel scratch (``kernels.make_stream_scratch``) is made before them
+_CAPTURE_STREAMS: Dict[int, object] = {}
+
+
 def ops_a_call(prepare: Callable[[], Callable[[], object]]) -> Dict[str, int]:
     """{kernel name or node type: count} of one call of ``prepare()``
     (it returns the call, its inputs made outside the capture).  The
@@ -33,10 +38,18 @@ def ops_a_call(prepare: Callable[[], Callable[[], object]]) -> Dict[str, int]:
         if res != 0:
             raise RuntimeError(f"ops_a_call: {what} returned CUresult {res}")
 
+    from cilium_tpu_torch.kernels import make_stream_scratch
+
     fn = prepare()
+    dev = torch.cuda.current_device()
+    stream = _CAPTURE_STREAMS.get(dev)
+    if stream is None:
+        stream = _CAPTURE_STREAMS.setdefault(dev, torch.cuda.Stream(dev))
+    make_stream_scratch(stream)
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+    with torch.cuda.graph(g, stream=stream,
+                          capture_error_mode="thread_local"):
         fn()
     graph, n = vp(g.raw_cuda_graph()), ctypes.c_size_t(0)
     ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")

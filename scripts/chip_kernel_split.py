@@ -2,11 +2,12 @@
 """Split K4 ``ct_update`` (and K4s over 8 shards) by launch and time K1
 ``datapath_kernel`` (packed and wide, and K1s), K20
 ``anomaly_train_fwd`` (and K20s), K9 ``l7_verdict``, K18
-``flow_features`` and K19 ``anomaly_score`` at the shapes the main
-paths launch them, for one or more checkouts of this repository.
+``flow_features``, K19 ``anomaly_score``, K22 ``adam_update`` and K5
+``ring_append`` (and K5s) at the shapes the main paths launch them, for
+one or more checkouts of this repository.
 
-    python3 scripts/chip_kernel_split.py [--kernels=k1k4,k20,k9,k18,k19]
-        [--variants=TREE] [TREE ...]
+    python3 scripts/chip_kernel_split.py
+        [--kernels=k1k4,k20,k9,k18,k19,k22,k5] [--variants=TREE] [TREE ...]
 
 Each TREE is a checkout (a ``git archive`` of another commit unpacked
 in a directory that ``.gitignore`` lists will do); each runs in its own
@@ -66,7 +67,17 @@ sums in another order; K18: ``id_row`` and 22 columns bit-exact, the
 error and identical share), the operations a call puts on the stream
 (a CUDA-graph capture, ``testing/capture.py``) and whether two calls
 give the same bits; for K20s, whether it equals 8 unsharded launches on
-the blocks and their shard-order mean.
+the blocks and their shard-order mean.  K22: the trainer's leaves and
+gradients (``chip_smoke.train_model``, the plain backward of
+``chip_smoke.train_inputs``) after three plain steps, from count 3 and
+from INT_MAX - 1 (the count saturates), timed in place and on fresh
+copies, with params, mu, nu and count digested after one and two calls.
+K5: K1's out rows of served packed batches (config #3, listener table
+(10000,), trace sample 1024): the daemon's 2^16 bucket and the slice's
+2^18 batch (steady), the 2^16 SYN batch into a ring of 2^15
+(overflow), the 2^16 batch with the cursor's low word 256 short of
+2^32, and K5s over a 2^18 bucket routed into 8 shards of 2^16; each
+timed on fresh rings, the ring's buffer and cursors digested.
 
 Each run writes ``chiprun_out/split/<label>.json``; the main process
 prints, for every later run, the digests that differ from an earlier
@@ -123,7 +134,10 @@ ABLATIONS = {"k4_grid": ("conntrack", K4_GRID),
              "k1_occupancy": ("verdict", K1_OCCUPANCY)}
 # the flags that name a tree, and the variant sets each runs there
 TREE_FLAGS = {"--variants": ("k4_grid", "k1_occupancy")}
-KERNEL_SETS = ("k1k4", "k20", "k9", "k18", "k19")
+KERNEL_SETS = ("k1k4", "k20", "k9", "k18", "k19", "k22", "k5")
+INT_MAX = (1 << 31) - 1
+RING_CAP = 1 << 18  # chip_smoke's ring, a shard's on the sharded path
+LISTENERS = (10000,)  # the daemon's listener table: config #3's one rule
 
 
 def digest(*tensors) -> str:
@@ -207,13 +221,11 @@ def profiled(fn, fresh=None) -> dict:
     REPS calls after an untimed one (``fresh()`` makes each call's
     inputs before the window, for a call that changes them).  The
     operations one call puts on the stream are counted first from a
-    CUDA-graph capture (``testing.capture.ops_a_call``, twice, the
-    second kept, so that a launcher's first-use allocation on the
-    capture stream does not count), and the window must show each of
-    them REPS times: a dropped event would read as a lower time.  The
-    window opens and closes with a spin kernel that is not counted (the
-    profiler has dropped one event at a window's edge).  A short window
-    is measured once more; a second one fails the run."""
+    CUDA-graph capture (``testing.capture.ops_a_call``), and the window
+    must show each of them REPS times: a dropped event would read as a
+    lower time.  The window opens and closes with a spin kernel that is
+    not counted (the profiler has dropped one event at a window's edge).
+    A short window is measured once more; a second one fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -226,7 +238,6 @@ def profiled(fn, fresh=None) -> dict:
         x = fresh() if fresh else None
         return lambda: call(x)
 
-    ops_a_call(prepare)
     want = sum(ops_a_call(prepare).values()) * REPS
     for _attempt in range(2):
         inputs = [fresh() if fresh else None for _ in range(REPS + 1)]
@@ -524,6 +535,217 @@ def run_k19(label, cases) -> dict:
     return recs
 
 
+def adam_cases(world, rng) -> dict:
+    """K22 at the trainer's leaves (``chip_smoke.train_model``, V =
+    16384) and gradients (the plain backward of ``chip_smoke
+    .train_inputs``, d_embed summed in K21's order so that every process
+    gets the same bits), after three plain steps from zero moments:
+    {case: (params, grads, mu, nu, count before the call)}; the count 3
+    and, for the saturation, INT_MAX - 1."""
+    import chip_smoke as cs
+    import torch
+    from cilium_tpu_torch.ml.model import (embed_grad_sorted_plain,
+                                           train_backward_plain,
+                                           train_forward_plain)
+    from cilium_tpu_torch.ml.train import adam_update_plain
+
+    ids, feats, labels = cs.train_inputs(torch, rng, world)
+    leaves = cs.train_model(torch, world).leaves()
+    _loss, saved = train_forward_plain(leaves, ids, feats, labels)
+    gloss = torch.ones(1, device="cuda")
+    grads = list(train_backward_plain(leaves, saved, ids, labels, gloss))
+    grads[0] = embed_grad_sorted_plain(leaves, saved, ids, labels, gloss)
+    params = [t.clone() for t in leaves]
+    mu = [torch.zeros_like(t) for t in leaves]
+    nu = [torch.zeros_like(t) for t in leaves]
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        adam_update_plain(params, grads, mu, nu, count, cs.TRAIN_LR)
+    return {"k22_count3": (params, grads, mu, nu, 3),
+            "k22_saturate": (params, grads, mu, nu, INT_MAX - 1)}
+
+
+def run_k22(label, cases) -> dict:
+    """Time each K22 case (in place, as the trainer calls it, and on
+    fresh copies of the state), digest params, mu, nu and count after
+    one and after two calls, and hold them against the plain version's
+    and a second run's; -> {case: record}."""
+    import functools
+
+    import chip_smoke as cs
+    import torch
+    from cilium_tpu_torch.kernels import launch_adam_update
+    from cilium_tpu_torch.ml.train import adam_update_plain
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    recs = {}
+    for name, (params, grads, mu, nu, c0) in cases.items():
+        def fresh(params=params, mu=mu, nu=nu, c0=c0):
+            return ([t.clone() for t in params], [t.clone() for t in mu],
+                    [t.clone() for t in nu],
+                    torch.full((), c0, dtype=torch.int32, device="cuda"))
+
+        def fn(st, grads=grads):
+            launch_adam_update(st[0], grads, st[1], st[2], st[3],
+                               cs.TRAIN_LR)
+
+        def plain(st, grads=grads):
+            adam_update_plain(st[0], grads, st[1], st[2], st[3],
+                              cs.TRAIN_LR)
+
+        def two(call):
+            st, ds, counts = fresh(), [], []
+            for _ in range(2):
+                call(st)
+                ds.append(digest(*st[0], *st[1], *st[2], st[3]))
+                counts.append(int(st[3].item()))
+            return ds, counts
+
+        got, counts = two(fn)
+        again, _ = two(fn)
+        want, want_counts = two(plain)
+        inplace = fresh()
+        rec = {"elements": sum(t.numel() for t in params),
+               "inputs": digest(*params, *grads, *mu, *nu),
+               "ms": cs.device_ms(lambda: fn(inplace), REPS),
+               "ms_fresh": cs.device_ms(fn, REPS, fresh),
+               "out": "".join(got), "counts": counts,
+               "plain_equal": got == want and counts == want_counts,
+               "repeat_equal": got == again,
+               "ops_a_call": ops_a_call(
+                   lambda: functools.partial(fn, fresh())),
+               "by_kernel": profiled(lambda: fn(inplace))}
+        recs[name] = rec
+        print(f"[{label}] K22 {name}: {rec['ms']:.4f} ms in place, "
+              f"{rec['ms_fresh']:.4f} on fresh copies (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "ms_fresh", "by_kernel",
+                                       "inputs")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def ring_cases(world, rng) -> dict:
+    """K5 and K5s on K1's out rows of served packed batches (config #3,
+    a 2^20 CT): the daemon's 2^16 bucket and the slice's 2^18 batch, each
+    a steady batch drawn from a flow pool served first as SYNs; the
+    2^16 SYN batch (every row a new flow, so every row kept) into a
+    ring of 2^15 (newest-wins overflow); the 2^16 steady batch with the
+    cursor's low word 256 short of 2^32; and a 2^18 bucket routed into 8
+    shards of 2^16 (headroom 2) through K1s/K4s.  -> {case: (out rows,
+    valid or None, shards or None, ring capacity a shard, cursor)}."""
+    import chip_smoke as cs
+    import torch
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import pack_eligibility, pack_rows
+    from cilium_tpu_torch.datapath.verdict import datapath_step_packed
+    from cilium_tpu_torch.parallel import mesh as pm
+    from cilium_tpu_torch.parallel import route_by_flow
+    from cilium_tpu_torch.testing import fixtures as fx
+
+    def served(n):  # -> out rows of the SYN batch, of the steady batch
+        st = cs.card_state(world)
+        pool = fx.steady_flow_pool(world, n, rng)
+        outs = []
+        for b, hdr in enumerate((pool, fx.steady_traffic(pool, n, rng))):
+            out, _ = datapath_step_packed(
+                st, u32.from_numpy(pack_rows(hdr), "cuda"), NOW + b, 0, 0)
+            outs.append(out)
+        return outs
+
+    syn16, steady16 = served(1 << 16)
+    _syn18, steady18 = served(1 << 18)
+    cases = {"k5_daemon_65536": (steady16, None, None, RING_CAP, (0, 0)),
+             "k5_slice_262144": (steady18, None, None, RING_CAP, (0, 0)),
+             "k5_overflow_65536_cap32768": (syn16, None, None, 1 << 15,
+                                            (0, 0)),
+             "k5_carry_65536": (steady16, None, None, RING_CAP,
+                                (0xFFFFFF00, 7))}
+    n = 1 << 18
+    st = cs.card_state(world)
+    pool = fx.steady_flow_pool(world, n, rng)
+    for b, hdr in enumerate((pool, fx.steady_traffic(pool, n, rng))):
+        routed, valid, _o, _ovf = route_by_flow(hdr, SHARDS,
+                                                HEADROOM * n // SHARDS)
+        ok, ep, dirn = pack_eligibility(hdr)
+        valid = torch.from_numpy(valid).cuda()
+        out = pm.sharded_serve_launch(
+            st, None, u32.from_numpy(pack_rows(routed), "cuda"), NOW + b, b,
+            SHARDS, valid=valid, ep=ep, dirn=dirn)
+    cases[f"k5s_{SHARDS}x65536"] = (out, valid, SHARDS, RING_CAP, (0, 0))
+    return cases
+
+
+def run_k5(label, cases) -> dict:
+    """Time each K5/K5s case on fresh rings, digest the ring's buffer
+    and cursors after one call and hold them against the plain version's
+    and a second run's; -> {case: record}."""
+    import functools
+
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.kernels import launch_ring_append
+    from cilium_tpu_torch.monitor import ring as rg
+    from cilium_tpu_torch.parallel import mesh as pm
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    pp = u32.from_numpy(np.array(LISTENERS, np.uint32), "cuda")
+    recs = {}
+    for name, (out, valid, shards, cap, cursor) in cases.items():
+        s = shards or 1
+
+        def fresh(cap=cap, cursor=cursor, s=s):
+            r = (pm.make_sharded_ring(pm.make_mesh(s), cap) if s > 1
+                 else rg.EventRing.create(cap, "cuda"))
+            r.cursor.copy_(u32.from_numpy(
+                np.tile(np.array(cursor, np.uint32), (s, 1)).reshape(
+                    r.cursor.shape), "cuda"))
+            return r
+
+        def fn(r, out=out, valid=valid, shards=shards):
+            launch_ring_append(r, out, 7, 1024, valid, pp, n_shards=shards)
+
+        def plain(r, out=out, valid=valid, shards=shards):
+            if shards:
+                pm.sharded_ring_append_plain(r, out, 7, shards, 1024, valid,
+                                             pp)
+            else:
+                rg.ring_append_plain(r, out, 7, 1024, valid, pp)
+
+        def one(call):
+            r = fresh()
+            call(r)
+            return r, digest(r.buf, r.cursor)
+
+        r, got = one(fn)
+        _r2, again = one(fn)
+        _r3, want = one(plain)
+        before = rg._cursor_totals(np.tile(np.array(cursor, np.uint32),
+                                           (s, 1)))
+        kept = rg._cursor_totals(u32.to_numpy(r.cursor).reshape(s, 2)) \
+            - before
+        rec = {"rows": int(out.shape[0]), "shards": s, "capacity": cap,
+               "inputs": digest(out, *(() if valid is None else (valid,))),
+               "kept": [int(k) for k in kept],
+               "ms": cs.device_ms(fn, REPS, fresh), "out": got,
+               "plain_equal": got == want, "repeat_equal": got == again,
+               "ops_a_call": ops_a_call(
+                   lambda: functools.partial(fn, fresh())),
+               "by_kernel": profiled(fn, fresh)}
+        recs[name] = rec
+        print(f"[{label}] K5 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
 def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
     """One tree, in this process: build, make the cases, time them."""
     sys.path.insert(0, str(tree))
@@ -545,16 +767,18 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
 
     variants = "--variants" in flags
     sources = ["verdict", "conntrack"] + (
-        ["ml"] if kernels & {"k18", "k19", "k20"} else []) + (
-        ["mltrain"] if "k20" in kernels else []) + (
-        ["l7"] if "k9" in kernels else [])
+        ["ml"] if kernels & {"k18", "k19", "k20", "k22"} else []) + (
+        ["mltrain"] if kernels & {"k20", "k22"} else []) + (
+        ["l7"] if "k9" in kernels else []) + (
+        ["ring"] if "k5" in kernels else [])
     t0 = time.monotonic()
     build.build(sources)
     res = {"tree": str(tree), "label": label,
            "build_s": time.monotonic() - t0,
            "ptxas": {n: ptxas_regs((build.BUILD_DIR / f"{n}.log").read_text())
                      for n in sources},
-           "k1": {}, "k4": {}, "k20": {}, "k9": {}, "k18": {}, "k19": {}}
+           "k1": {}, "k4": {}, "k20": {}, "k9": {}, "k18": {}, "k19": {},
+           "k22": {}, "k5": {}}
     rng = np.random.default_rng(SEED)
     world = fx.build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
                            device="cpu")
@@ -568,6 +792,12 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
             res["k18"] = run_k18(label, k18)
         if "k19" in kernels:
             res["k19"] = run_k19(label, k19)
+    if "k22" in kernels:
+        res["k22"] = run_k22(label, adam_cases(
+            world, np.random.default_rng(SEED + 22)))
+    if "k5" in kernels:
+        res["k5"] = run_k5(label, ring_cases(
+            world, np.random.default_rng(SEED + 5)))
     if "k1k4" not in kernels:
         return save(label, res)
     has_stats = "stats" in inspect.signature(ct.ct_update_plain).parameters
@@ -805,7 +1035,7 @@ def main() -> int:
         runs.append(json.loads((OUT / f"{label}.json").read_text()))
     for later in runs[1:]:
         first = runs[0]
-        for kern in ("k1", "k4", "k20", "k9", "k18", "k19"):
+        for kern in ("k1", "k4", "k20", "k9", "k18", "k19", "k22", "k5"):
             for case, rec in later[kern].items():
                 want = first[kern].get(case, {})
                 for field in ("out", "inputs", "ct", "scores"):
@@ -822,7 +1052,8 @@ def main() -> int:
                       "nvidia_smi": smi,
                       "runs": [{k: r[k] for k in ("label", "k1", "k4",
                                                   "k20", "k9", "k18",
-                                                  "k19", "profiler_short")
+                                                  "k19", "k22", "k5",
+                                                  "profiler_short")
                                 if k in r} for r in runs]}))
     return 0
 

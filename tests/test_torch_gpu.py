@@ -1380,3 +1380,158 @@ def test_verdict_kernel_matches_its_plain_version(case):
     if size == "hot":
         added = (u32.widen(mk) - u32.widen(m)).flatten()
         assert int((added != 0).sum()) == 1 and int(added.sum()) == n
+
+
+def _one_kernel(prepare, name):
+    """The operations of one captured call (``testing.capture``): one
+    kernel named ``name``."""
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    ops = ops_a_call(prepare)
+    assert list(ops.values()) == [1] and name in next(iter(ops)), ops
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["count3", "saturate"])
+def test_adam_update_is_one_launch_matching_its_plain_version(case):
+    """K22, one kernel a step, against the plain version on the same
+    CUDA tensors, bit-exact: from count 3 (to 4), and from INT_MAX - 1
+    over two steps (INT_MAX, then INT_MAX again: the count saturates).
+    The leaves mix whole 16-byte units with tails, a leaf that is a view
+    at a 4-byte offset (its scalar path) and a one-element leaf."""
+    _need_card()
+    from cilium_tpu_torch.kernels import launch_adam_update
+    from cilium_tpu_torch.ml.train import adam_update_plain
+
+    gen = torch.Generator().manual_seed(17)
+    shapes = [(300, 32), (59, 64), (64,), (4099,), (1,), (7,)]
+
+    def leaf(shape, scale, offset=False):
+        n = int(np.prod(shape))
+        t = (torch.randn(n + offset, generator=gen) * scale).cuda()
+        return (t[1:] if offset else t).reshape(shape)
+
+    # the fourth leaf of each list is a view at a 4-byte offset
+    params = [leaf(s, 0.5, i == 3) for i, s in enumerate(shapes)]
+    grads = [leaf(s, 1e-2, i == 3) for i, s in enumerate(shapes)]
+    grads[0][::3] = 0  # rows with no gradient still decay
+    mu = [leaf(s, 1.0, i == 3).zero_() for i, s in enumerate(shapes)]
+    nu = [leaf(s, 1.0, i == 3).zero_() for i, s in enumerate(shapes)]
+    assert all(t[3].data_ptr() % 16 == 4 for t in (params, grads, mu, nu))
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        adam_update_plain(params, grads, mu, nu, count, 3e-3)
+    if case == "saturate":
+        count.fill_((1 << 31) - 2)
+
+    def clone():
+        return ([t.clone() for t in params], [t.clone() for t in mu],
+                [t.clone() for t in nu], count.clone())
+
+    k, p = clone(), clone()
+    steps = 1 if case == "count3" else 2
+    for step in range(steps):
+        launch_adam_update(k[0], grads, k[1], k[2], k[3], 3e-3)
+        adam_update_plain(p[0], grads, p[1], p[2], p[3], 3e-3)
+        for a, b in zip(k[0] + k[1] + k[2], p[0] + p[1] + p[2]):
+            assert torch.equal(a, b)
+        want = 4 if case == "count3" else (1 << 31) - 1
+        assert int(k[3].item()) == int(p[3].item()) == want, step
+    def prepare():
+        c = clone()
+        return functools.partial(launch_adam_update, c[0], grads, c[1],
+                                 c[2], c[3], 3e-3)
+
+    _one_kernel(prepare, "adam_kernel")
+
+
+def _ring_out(rng, n, trace_frac=0.8):
+    """[n, 6] out rows: random words, a ``trace_frac`` share of TRACE
+    events, proxy ports from the listener table, 0 and strays."""
+    from cilium_tpu_torch.datapath.verdict import (EV_DROP, EV_TRACE,
+                                                   EV_VERDICT, OUT_EVENT,
+                                                   OUT_PROXY)
+
+    out = rng.integers(0, 1 << 32, (n, 6), dtype=np.uint64).astype(
+        np.uint32)
+    out[:, OUT_EVENT] = np.where(rng.random(n) < trace_frac, EV_TRACE,
+                                 rng.choice([EV_DROP, EV_VERDICT], n))
+    out[:, OUT_PROXY] = rng.choice(
+        np.array([0, 0, 10000, 15001, 10001, 7], np.uint32), n)
+    return out
+
+
+# K5/K5s cases: (shards, rows a shard, ring capacity a shard, trace
+# sample, valid share or None, listener table?, cursor, TRACE share)
+RING_CASES = {
+    "empty": (1, 0, 1 << 10, 1024, None, True, (0xFFFFFF00, 2), 0.8),
+    "n3000": (1, 3000, 1 << 12, 1024, None, True, (0, 0), 0.8),
+    "overflow": (1, 5000, 1 << 10, 1024, None, True, (0, 0), 0.1),
+    "carry": (1, 3000, 1 << 12, 0, None, True, (0xFFFFFF00, 2), 0.3),
+    "trace0": (1, 3000, 1 << 12, 0, 0.7, True, (0, 0), 0.8),
+    "trace7": (1, 3000, 1 << 12, 7, None, True, (0, 0), 0.8),
+    "valid": (1, 3000, 1 << 12, 1024, 0.6, True, (5, 0), 0.8),
+    "no_listeners": (1, 3000, 1 << 12, 1024, None, False, (0, 0), 0.8),
+    "rows_2^19": (1, 1 << 19, 1 << 18, 1024, 0.95, True, (0, 0), 0.9),
+    "s8_empty": (8, 0, 1 << 10, 1024, None, True, (0xFFFFFF00, 2), 0.8),
+    "s8": (8, 3000, 1 << 10, 7, 0.8, True, (0xFFFFFFF0, 0), 0.5),
+    "s8_2^16": (8, 1 << 16, 1 << 14, 1024, 0.9, True, (0, 0), 0.9),
+    "s8_2^19": (8, 1 << 19, 1 << 16, 1024, None, False, (0, 0), 0.95),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(RING_CASES))
+def test_ring_append_is_one_launch_matching_its_plain_version(case):
+    """K5 and K5s, one cooperative kernel a call, against the plain
+    version (per shard for K5s) on the same CUDA tensors: the ring's
+    buffer and cursors bit-exact for an empty batch, rows not a multiple
+    of the block, more kept rows than the ring holds, the cursor's carry
+    into its high word, trace samples 0, 7 and 1024, ``valid`` None and
+    masked, no listener table, 8 shards, and the launcher's largest
+    batch (2^19 rows a shard, alone and over 8 shards: each thread holds
+    several rows)."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.kernels import launch_ring_append
+    from cilium_tpu_torch.parallel import mesh as pm
+
+    s, block, cap, ts, vfrac, listeners, cursor, trace = RING_CASES[case]
+    rng = np.random.default_rng(71)
+    n = s * block
+    out = u32.from_numpy(_ring_out(rng, n, trace), "cuda")
+    valid = (None if vfrac is None
+             else torch.from_numpy(rng.random(n) < vfrac).cuda())
+    pp = (u32.from_numpy(np.array([10000, 10001, 15001], np.uint32), "cuda")
+          if listeners else None)
+    sh = None if s == 1 else s
+
+    def fresh():
+        r = (pm.make_sharded_ring(pm.make_mesh(s), cap) if sh
+             else tring.EventRing.create(cap, "cuda"))
+        r.cursor.copy_(u32.from_numpy(np.tile(np.array(
+            cursor, np.uint32), (s, 1)).reshape(r.cursor.shape), "cuda"))
+        return r
+
+    for batch_id in (8190, 8191):  # two calls: the second on the first
+        if batch_id == 8190:
+            k, p = fresh(), fresh()
+        launch_ring_append(k, out, batch_id, ts, valid, pp, n_shards=sh)
+        if sh:
+            pm.sharded_ring_append_plain(p, out, batch_id, s, ts, valid, pp)
+        else:
+            tring.ring_append_plain(p, out, batch_id, ts, valid, pp)
+        assert torch.equal(k.buf, p.buf), batch_id
+        assert torch.equal(k.cursor, p.cursor), batch_id
+    totals = tring._cursor_totals(u32.to_numpy(k.cursor))
+    start = tring._cursor_totals(np.tile(np.array(cursor, np.uint32),
+                                         (s, 1)))
+    if case == "overflow":
+        assert int(totals[0] - start[0]) > 2 * cap
+    if case in ("carry", "s8"):
+        assert (totals >> 32 > start >> 32).all()
+    if block == 0:
+        assert (totals == start).all()
+    _one_kernel(lambda: functools.partial(
+        launch_ring_append, fresh(), out, 7, ts, valid, pp, n_shards=sh),
+        "ring_append_kernel")

@@ -100,3 +100,43 @@ def test_serve_step_packed_appends_through_the_ring():
     rows, total, lost = tr.ring_drain(ring)
     assert total == len(rows) > 0 and lost == 0
     assert set(rows[:, tr.COL_BATCH]) == {3}
+
+
+@pytest.mark.parametrize("case", ["empty", "capacity_plus_one"])
+def test_plain_version_matches_jax_at_the_edges(case):
+    """``ring_append_plain`` against the JAX ``ring_append`` on the same
+    numpy inputs: an empty batch (the cursor, 256 short of 2^32, stays
+    where it was) and a batch that keeps exactly capacity + 1 rows (the
+    oldest kept row is the one overwritten)."""
+    cap = 256
+    rng = np.random.default_rng(11)
+    n = 0 if case == "empty" else 1000
+    out = _out(rng, n)
+    out[:, OUT_EVENT] = EV_TRACE
+    if n:
+        kept = np.sort(rng.choice(np.arange(1, n), cap + 1, replace=False))
+        out[kept, OUT_EVENT] = rng.choice([EV_DROP, EV_VERDICT], cap + 1)
+    cursor = np.array([0xFFFFFF00, 2], np.uint32)
+    jring = jr.EventRing(buf=jr.EventRing.create(cap).buf,
+                         cursor=jnp.asarray(cursor))
+    tring = convert.event_ring_from_numpy(np.asarray(jring.buf), cursor,
+                                          "cpu")
+    jring = jr.ring_append_jit(jring, jnp.asarray(out), jnp.uint32(77),
+                               trace_sample=0,
+                               proxy_ports=jnp.asarray(PORTS))
+    tr.ring_append_plain(tring, u32.from_numpy(out, "cpu"), 77,
+                         trace_sample=0,
+                         proxy_ports=u32.from_numpy(PORTS, "cpu"))
+    buf, cur = convert.event_ring_to_numpy(tring)
+    np.testing.assert_array_equal(buf, np.asarray(jring.buf))
+    np.testing.assert_array_equal(cur, np.asarray(jring.cursor))
+    total = int(cur[0]) | int(cur[1]) << 32
+    assert total == 0xFFFFFF00 + (2 << 32) + (0 if n == 0 else cap + 1)
+    rows, t, lost = tr.ring_drain(tring, PORTS)
+    want = jr.ring_drain(jring, PORTS)
+    np.testing.assert_array_equal(rows, want[0])
+    assert (t, lost) == tuple(want[1:])
+    if n:
+        # every slot written once; the first kept row is the one lost
+        assert len(rows) == cap
+        assert sorted(rows[:, tr.COL_PKT_IDX]) == list(kept[1:])

@@ -314,6 +314,51 @@ def test_adam_matches_optax_from_a_mid_training_state():
         assert torch.equal(getattr(model, k), t), k
 
 
+def test_adam_count_saturates_like_optax():
+    """Three ``adam_update_plain`` steps against ``optax.adam`` from a
+    count of 2^31 - 2: the count saturates at INT32_MAX (optax's
+    safe_int32_increment) and the bias corrections 1 - b^count stay
+    those of the saturated count; moments and params agree."""
+    from cilium_tpu_torch.ml.train import adam_update_plain
+
+    v = 64
+    arrays = _params(v, seed=4)
+    params = _jax_model(arrays)
+    opt = optax.adam(3e-3)
+    rng = np.random.default_rng(9)
+    state = opt.init(params)
+    state = (state[0]._replace(
+        count=jnp.asarray(2 ** 31 - 2, dtype=jnp.int32),
+        mu=_jax_model({k: (rng.normal(size=np.shape(arrays[k])) * 1e-3)
+                       .astype(np.float32) for k in FIELDS}),
+        nu=_jax_model({k: (rng.random(np.shape(arrays[k])) * 1e-6)
+                       .astype(np.float32) for k in FIELDS})),
+             *state[1:])
+    tstate = convert.adam_state_from_numpy(_adam_state_arrays(state), "cpu")
+    model = convert.anomaly_model_from_numpy(_arrays(params), "cpu")
+    leaves = list(model.leaves())
+    mu = [tstate.mu[k] for k in tmod.TRAINABLE]
+    nu = [tstate.nu[k] for k in tmod.TRAINABLE]
+    for i in range(3):
+        g = {k: (rng.normal(size=np.shape(arrays[k])) * 1e-2).astype(
+            np.float32) for k in FIELDS}
+        u, state = opt.update(_jax_model(g), state, params)
+        params = optax.apply_updates(params, u)
+        adam_update_plain(leaves, [torch.from_numpy(g[k])
+                                   for k in tmod.TRAINABLE],
+                          mu, nu, tstate.count, 3e-3)
+        assert int(tstate.count) == int(state[0].count) == 2 ** 31 - 1, i
+    back = convert.adam_state_to_numpy(tstate, model)
+    want = _adam_state_arrays(state)
+    for group in ("mu", "nu"):
+        for k in tmod.TRAINABLE:
+            np.testing.assert_allclose(back[group][k], want[group][k],
+                                       rtol=1e-6, atol=0, err_msg=k)
+    for k in tmod.TRAINABLE:
+        np.testing.assert_allclose(getattr(model, k).numpy(),
+                                   np.asarray(getattr(params, k)),
+                                   rtol=1e-6, atol=1e-8, err_msg=k)
+
 def _world_batch(n_identities, n_rules, ct_capacity, n, seed, now):
     """One batch through the JAX datapath and features; -> (JAX world,
     id_row, feats, labels) as numpy."""
