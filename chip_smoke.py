@@ -313,6 +313,19 @@ def rows_a_launch(label, report_part):
     return got
 
 
+def claim_steps(launcher, tail_at, *args):
+    """The claim steps one call of K11's or K17's ``launcher`` ran on
+    ``args`` (its ``scratch`` counts, whose word ``tail_at`` is 1 + the
+    step from which one block finished): (steps with a row pending, that
+    step or None, the counts)."""
+    sc = {}
+    launcher(*args, scratch=sc)
+    counts = sc["counts"].cpu().tolist()
+    steps = sum(1 for c in counts[:8] if c)
+    tail = counts[tail_at]
+    return steps, (tail - 1 if tail else None), counts
+
+
 def one_kernel_a_call(prepare, kernel, what):
     """Check that one call of ``prepare()`` puts one kernel, named
     ``kernel``, on the stream (``testing.capture.ops_a_call``); -> its
@@ -765,7 +778,9 @@ def phase_egress_kernels(torch, rng, kernels):
     repeats of one flow in a batch, a pool run dry by one batch, replies
     (some to the wrong IP or with a forged protocol word), a clock
     crossing 2^32; each kernel and its plain version fed clones of the
-    same state."""
+    same state.  K11 is one kernel a call."""
+    import functools
+
     import numpy as np
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.datapath import bandwidth as bw
@@ -851,6 +866,9 @@ def phase_egress_kernels(torch, rng, kernels):
     found = int((nat.masq_rewrite_plain(t, hdr, None, t_now)[1]
                  & ~nat.masq_rewrite_plain(t, hdr, cti, t_now)[1]).sum())
     nb, ops = egress_counts(rows, t, found, k11=True)
+    one_kernel_a_call(lambda: functools.partial(
+        nat.snat_egress, clone(before), t, cti, hdr, t_now),
+        "snat_egress_kernel", "snat_egress")
     kernels["snat_egress"].update(
         max_abs_err=errs["snat_egress"],
         ms=device_ms(lambda tb: nat.snat_egress(tb, t, cti, hdr, t_now),
@@ -988,9 +1006,11 @@ def phase_lb_kernels(torch, rng, world, kernels, report):
     VIPs; K16 over the 256 v6 frontends; K17 over ``socklb_steps``'s
     threaded sequence on the daemon's default 2^16-slot cache and on
     bench_socket_lb's 2^20, the flow table, fingerprints and pins
-    compared word for word after every batch.  Returns the
-    ServiceManager, for phase 12 to take over with its filled Maglev
-    rows."""
+    compared word for word after every batch; K17 is one kernel a call.
+    Returns the ServiceManager, for phase 12 to take over with its filled
+    Maglev rows."""
+    import functools
+
     import numpy as np
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.core.packets import COL_FAMILY
@@ -1111,6 +1131,9 @@ def phase_lb_kernels(torch, rng, world, kernels, report):
     missed = (rows[:, COL_FAMILY] == 4) & ~socklb_live(base, rows, now)
     n_miss = int(missed.sum())
     nb, ops = socklb_counts(rows, n_miss, tt.svc_port.shape[0])
+    one_kernel_a_call(lambda: functools.partial(
+        sl.socklb_stage, clone(base), tt, hdr, now), "socklb_kernel",
+        "socklb_stage")
     kernels["socklb_stage"].update(
         max_abs_err=errs,
         ms=device_ms(lambda tb: sl.socklb_stage(tb, tt, hdr, now), 20,
@@ -1119,8 +1142,11 @@ def phase_lb_kernels(torch, rng, world, kernels, report):
             tb, tt, hdr, now), 3, lambda: clone(base)),
         bytes=nb, ops=ops)
     # where K17's time goes: its launches' device times on the steady
-    # batch and on the last connect batch (8192 new flows)
+    # batch and on the last connect batch (8192 new flows), and the
+    # claim steps its one kernel ran
     from torch.profiler import ProfilerActivity, profile
+
+    from cilium_tpu_torch.kernels import launch_socklb_stage
 
     split = {}
     for label, (b0, tt, hdr, now, rows) in timed.items():
@@ -1140,10 +1166,18 @@ def phase_lb_kernels(torch, rng, world, kernels, report):
                    key.split("(")[0].split("<")[0].split("::")[-1].strip())
             split[label][key] = (split[label].get(key, 0.0)
                                  + e.self_device_time_total)
+        steps, tail, counts = claim_steps(launch_socklb_stage, 10,
+                                          clone(b0), tt, hdr, now)
+        split[label]["claim_steps"] = steps
+        split[label]["tail_from_step"] = tail
+        split[label]["counts"] = counts
         print(f"socklb_stage {label} batch ({len(rows)} rows, "
               f"{socklb_misses(b0, rows, now)} misses), device us by "
               f"launch: " + ", ".join(f"{k} {v:.1f}"
-                                      for k, v in split[label].items()))
+                                      for k, v in split[label].items()
+                                      if isinstance(v, float))
+              + f"; claim steps run {steps}, one block from step {tail}, "
+              f"pending entering each step {counts[:8]}")
     report["lb_kernels"] = {"watch_s": t_watch, "compile_s": t_compile,
                             "kept_maglev_bytes": kept,
                             "socklb_sequence": seq,
@@ -2455,7 +2489,8 @@ def phase_egress(torch, rng, world, report):
                                                COL_SRC_IP3, N_COLS)
     from cilium_tpu_torch.datapath.verdict import (REASON_BANDWIDTH,
                                                    REASON_NAT_EXHAUSTED)
-    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.kernels import (KERNELS, launch_snat_egress,
+                                          reset_launch_counts)
     from cilium_tpu_torch.service import nat
     from cilium_tpu_torch.testing import egress as eg
     from cilium_tpu_torch.testing.workloads import (NatExhaustionScenario,
@@ -2602,9 +2637,14 @@ def phase_egress(torch, rng, world, report):
     n_rules = int(d.nat.egw_src.shape[0])
     k11_ms = device_ms(lambda tb: nat.snat_egress(
         tb, d.nat, live_ct, hdr, now), 20, pool)
+    k11_steps, k11_tail, k11_counts = claim_steps(
+        launch_snat_egress, 9, pool(), d.nat, live_ct, hdr, now)
     print(f"egress: K11 on the main path's inputs ({EGRESS_N} rows, "
           f"{n_rules} gateway rules, the live pool and CT): bit-exact "
-          f"with its plain version, {k11_ms:.4f} ms")
+          f"with its plain version, {k11_ms:.4f} ms; claim steps with a "
+          f"row pending {k11_steps}, one block from step {k11_tail}, rows "
+          f"pending entering each step {k11_counts[:8]}, failed "
+          f"{k11_counts[8]}")
     # that batch under the profiler (device activity only): how busy
     # the card is while process_batch runs
     from torch.profiler import ProfilerActivity, profile
@@ -2639,7 +2679,10 @@ def phase_egress(torch, rng, world, report):
         "expired": expired, "replies": n_replies,
         "bandwidth": {"kept": sum_kept, "available": sum_avail},
         "launches": launches, "exhaustion": res["metrics"],
-        "k11_main_path": {"gateway_rules": n_rules, "ms": k11_ms},
+        "k11_main_path": {"gateway_rules": n_rules, "ms": k11_ms,
+                          "claim_steps": k11_steps,
+                          "tail_from_step": k11_tail,
+                          "counts": k11_counts},
         "profiled": {"seconds": t_prof, "device_busy_ms": busy_us / 1e3}}
     return launches
 
@@ -2677,7 +2720,8 @@ def phase_service(torch, rng, world, mgr, report):
                                                ip_to_words)
     from cilium_tpu_torch.datapath.verdict import REASON_NO_SERVICE
     from cilium_tpu_torch.k8s.watchers import ServiceWatcher
-    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.kernels import (KERNELS, launch_socklb_stage,
+                                          reset_launch_counts)
     from cilium_tpu_torch.service import socklb as sl
     from cilium_tpu_torch.testing import egress as eg
     from cilium_tpu_torch.testing import services as sv
@@ -2939,9 +2983,12 @@ def phase_service(torch, rng, world, mgr, report):
                     f"path's inputs")
     k17_ms = device_ms(lambda tb: sl.socklb_stage(tb, t, hdr, now), 20, cache)
     n_miss = socklb_misses(d._socklb, rows, now)
+    k17_steps, k17_tail, k17_counts = claim_steps(
+        launch_socklb_stage, 10, cache(), t, hdr, now)
     print(f"service: K17 on the main path's inputs ({LB_N} rows, {n_miss} "
           f"misses, the live cache): bit-exact with its plain version, "
-          f"{k17_ms:.4f} ms")
+          f"{k17_ms:.4f} ms; claim steps run {k17_steps}, one block from "
+          f"step {k17_tail}, pending entering each step {k17_counts[:8]}")
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2966,7 +3013,10 @@ def phase_service(torch, rng, world, mgr, report):
         "stages_s": stages_s, "checked": totals["checked"],
         "kept": totals["kept"], "no_service": totals["no_service"],
         "occupied": occupied, "launches": launches,
-        "k17_main_path": {"ms": k17_ms, "misses": n_miss},
+        "k17_main_path": {"ms": k17_ms, "misses": n_miss,
+                          "claim_steps": k17_steps,
+                          "tail_from_step": k17_tail,
+                          "counts": k17_counts},
         "profiled": {"seconds": t_prof, "device_busy_ms": busy_us / 1e3}}
     return launches
 

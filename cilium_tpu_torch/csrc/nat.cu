@@ -7,39 +7,59 @@
 // without).  The plain versions are cilium_tpu_torch/service/nat.py
 // snat_egress_plain, snat_reverse_plain and masq_rewrite_plain.
 //
-// Bound: K11 by the latency of dependent random reads: a 16-slot probe
-// of the 68 MB CT table for the reverse key, then the 8-slot window of
-// the NAT table (24 B rows, 384 KB at 2^14 slots: it lives in L2), and
-// by its launches.  K12 and K14 by one row read and one row written per
-// packet (64 B each), plus K14's CT probe.
+// Bound: K11 by the latency of dependent random reads: the reverse-CT
+// probe of the 68 MB CT table, then the 8-slot window of the NAT table
+// (24 B rows, 384 KB at 2^14 slots: it lives in L2), and by the grid
+// barriers between its phases (~1.1-1.4 us each on the H100).  K12 and
+// K14 by one row read and one row written per packet (64 B each), plus
+// K14's CT probe.
 //
-// K11 design.  The reference awards a contended slot, step by step, to
-// the LOWEST batch row and lets a same-tuple loser adopt the winner's
-// slot when it reads the slot back.  Blocks run in no order, so every
-// phase that reads a slot another row may write gets its own launch on
-// the stream:
-//   1. snat_prep, one thread per row: the class (egress, v4, internal,
-//      portful), the first matching egress-gateway rule, the reverse-CT
-//      probe (ct_probe_full, conntrack.cuh), the FNV hash of (src,
-//      sport, dst, dport << 8 | proto) and the whole-window scan for a
-//      live same-tuple mapping, whose stored IP (0 read as node_ip) it
-//      keeps.  Per-row scratch: key, hash, rewrite IP, expiry, flags;
-//   2. snat_refresh: matched rows write their new row (rows of one flow
-//      write the same six words: the key pins the protocol, < 256 for a
-//      port-bearing row, so the expiry agrees; the IP is the stored one);
-//   3. NAT_PROBE claim steps: pending rows whose probe slot is claimable
-//      (expired, or holding their own tuple) atomicMin their row index
-//      into the slot's claim word; the lowest writes its row and frees
-//      the word (snat_write); every bidder reads the slot back and has
-//      won if it holds its key -- the winner, or a same-tuple loser that
-//      adopts it -- and the rest bid for the next step in the same
-//      launch (snat_verify).  The launcher fills the claim words with
-//      CLAIM_FREE for each call, and the writer frees the word it won,
-//      so every word is free again at the end of a step;
-//   4. snat_final: the source IP and port rewrite, the drop mask, and
-//      one atomicAdd per warp of the drops into `failed`.
-// 20 launches a call, each a thread per row that exits early when the
-// row has nothing left to do.
+// K11 design (PR 18; PRs 7-17 launched 20 kernels and a fill a call).
+// The reference awards a contended slot, step by step, to the LOWEST
+// batch row and lets a same-tuple loser adopt the winner's slot when it
+// reads the slot back.  ONE cooperative kernel a call (every co-resident
+// block of TPB threads, at most NAT_BLOCKS_PER_SM an SM, striding over
+// the rows); grid barriers stand where a row reads what another wrote:
+//   0. prep, a thread a row: the class (egress, v4, internal, portful),
+//      the first matching egress-gateway rule, the reverse-CT probe (the
+//      fingerprint window and its candidates, as K1 probes), the FNV
+//      hash of (src, sport, dst, dport << 8 | proto) and the whole 8-slot
+//      window, loaded before any compare, for a live same-tuple mapping,
+//      whose stored IP (0 read as node_ip) it keeps.  A row with no slot
+//      to claim is written out here;
+//   1. after the barrier (every window scanned), matched rows write
+//      their refreshed row (rows of one flow write the same six words:
+//      the key pins the protocol, < 256 for a port-bearing row, so the
+//      expiry agrees; the IP is the stored one); pending rows are listed
+//      (one atomicAdd a block);
+//   2. after the next (the bids read the refreshed expiries), each
+//      pending row checks its window for a claimable slot (expired, or
+//      holding its tuple) and bids (atomicMin of its row index) for step
+//      0's;
+//   3. after the next, when no pending row's window holds a claimable
+//      slot, nothing can be written at any step: every pending row
+//      fails and no step runs (a pool run dry).  Else the claim steps,
+//      ONE grid barrier a step: after the barrier each bidder reads its
+//      slot's claim word: the lowest bidder writes its row, and it and
+//      every same-tuple bidder (whose key equals the winner's) have the
+//      slot's node port and are written out.  The rest bid for the next
+//      step in the same phase, judging a slot bid on in this step by its
+//      winner's key and expiry (the winner writes it in this very
+//      phase), any other by the table; a step's words are cleared two
+//      phases later (three arrays in turn).  Each step's loads go out in
+//      two rounds before its stores.  Rows still pending after the last
+//      step are written out dropped and added to `failed` once a block;
+//      so is, at step 1, a row that did not bid and whose window holds no
+//      claimable slot past its next (snat_dead: where no expiry can wrap
+//      past 2^32 in the call, it can never bid again; a pool that step 0
+//      filled then ends its steps there).
+//      The steps stop when no row is pending; once at most
+//      NAT_TAIL_ROWS * TPB rows are, block 0 finishes them alone
+//      (snat_tail: rows in registers, __syncthreads for the grid
+//      barriers).
+// The claim words live with the table (NATTable.claim, [3, P]) and are
+// CLAIM_FREE between calls: a call clears every word it bids on.  The counters and phase stamps (views.cuh
+// Stamps) sit in `counts`, set inside the launch.
 //
 // K12 design: one thread per row gathers slot dport - NAT_PORT_MIN and
 // runs the hit test (ingress, v4, in the pool, the IP the mapping
@@ -47,16 +67,26 @@
 // protocol words can hit one slot (a forged protocol >= 256 aliases the
 // low byte the slot stores) and their refreshed expiries then differ;
 // the reference's scatter keeps the highest row's, so hits bid
-// n - 1 - row into the slot's claim word and the lowest bid, the
-// highest row, writes in a second launch and frees the word.
+// n - 1 - row into the slot's claim word (the first row of the table's
+// claim words, free between calls) and the lowest bid, the highest row,
+// writes in a second launch and frees the word.
 //
 // All compares of expiries and ports are unsigned, as on the reference.
+#include <cooperative_groups.h>
+
 #include "conntrack.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int N_COLS = 16;
 constexpr int TPB = 256;
+// K11: at most this many blocks of TPB an SM (PERF.md, PR 18), and the
+// rows a thread of its one-block tail
+constexpr int NAT_BLOCKS_PER_SM = 1;
+constexpr int NAT_TAIL_ROWS = 2;
+constexpr int NAT_RULES = 256;  // gateway rules a block stages: 4 KB
 constexpr int NAT_ROW = 6;
 constexpr int NAT_PROBE = 8;
 constexpr uint32_t NAT_PORT_MIN = 32768u;
@@ -142,9 +172,21 @@ __device__ __forceinline__ uint32_t nat_hash(uint4 k) {
   return (h ^ k.w) * 0x01000193u;
 }
 
-__device__ __forceinline__ bool key_match(const uint32_t* row, uint4 k) {
-  return row[NV_SRC] == k.x && row[NV_SPORT] == k.y && row[NV_DST] == k.z &&
-         row[NV_DP] == k.w;
+// A NAT row's six words, three 8-byte loads through L2 (K11's blocks
+// write the table within the launch; the table is 8-byte aligned).
+struct NatRow {
+  uint4 k;  // src, sport, dst, dport << 8 | proto
+  uint32_t expires, snat_ip;
+};
+
+__device__ __forceinline__ NatRow load_nat_row(const uint32_t* row) {
+  const uint2* r = reinterpret_cast<const uint2*>(row);
+  const uint2 a = __ldcg(r), b = __ldcg(r + 1), c = __ldcg(r + 2);
+  return {make_uint4(a.x, a.y, b.x, b.y), c.x, c.y};
+}
+
+__device__ __forceinline__ bool keys_equal(uint4 a, uint4 b) {
+  return a.x == b.x && a.y == b.y && a.z == b.z && a.w == b.w;
 }
 
 __device__ __forceinline__ void write_row(uint32_t* row, uint4 k, uint4 aux) {
@@ -162,133 +204,511 @@ __device__ __forceinline__ uint32_t nat_lifetime(uint32_t proto) {
 
 // --- K11 ---------------------------------------------------------------
 
-__global__ void snat_prep(SnatIO io, NatView t, CtView ct) {
-  int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n) return;
-  Hdr h = load_hdr(io.rows, i);
-  uint32_t src = h.src[3], dst = h.dst[3];
-  bool gw = false;
-  uint32_t rip = t.node_ip;
-  for (int g = 0; g < t.g; ++g) {
-    if (src == t.egw_src[g] && (dst & t.egw_mask[g]) == t.egw_net[g]) {
-      gw = true;
-      rip = t.egw_ip[g];
-      break;
+// K11's counters (SnatIO.counts): the rows pending entering step s, then
+// those still pending after the last (they fail); 1 + the step the
+// one-block tail began at (0: none); then the phase stamps (views.cuh),
+// then a word a block (whether one of its pending rows has a claimable
+// slot in its window).
+constexpr int C_TAIL = NAT_PROBE + 1;
+constexpr int C_WORDS = STAMP_AT + STAMPS;
+constexpr int NAT_MAX_BLOCKS = 1024;  // block words in `counts`
+
+// A live CT entry for the row's reply key `rev`, probed as K1 probes
+// (conntrack.cuh), from its fingerprint window (`p`, ct_probe_begin):
+// full rows for the first N_CAND fingerprint matches, the whole window
+// when more matched.
+// A live slot's fingerprint is a function of its stored key, so this
+// finds what ct_probe_full finds, through one or two dependent reads
+// instead of up to 16.
+__device__ __forceinline__ bool reverse_ct_found_fp(const CtView& ct,
+                                                    const uint32_t* rev,
+                                                    CtProbe p, uint32_t now) {
+  const uint32_t mask = (uint32_t)ct.capacity - 1u;
+  for (int c = 0; c < N_CAND && p.m; ++c) {
+    uint32_t w[V_EXPIRES + 1];
+    ct_row_head(ct.table, (p.h + (uint32_t)(__ffs(p.m) - 1)) & mask, w);
+    if (ct_head_match(w, rev, now)) return true;
+    p.m &= p.m - 1u;
+  }
+  int32_t slot;
+  return p.n > N_CAND && ct_probe_full(ct, rev, p.h, now, &slot);
+}
+
+// Row i's out row: the source IP rewritten to the rule's or mapping's IP
+// when masqueraded, the source port to the slot's node port when
+// allocated; its drop bit.
+__device__ __forceinline__ void snat_out(const SnatIO& io, int32_t i, uint4 k,
+                                         uint4 aux, bool allocated,
+                                         int32_t slot, bool dropped) {
+  store_row(io.rows, io.out, i, 3, (aux.w & F_MASQ) ? aux.y : k.x,
+            allocated ? NAT_PORT_MIN + (uint32_t)slot : k.y);
+  io.drop[i] = dropped;
+}
+
+// The first gateway rule of `rules` (n staged ones, then the rest of
+// t's) whose source is `src` and whose network holds `dst`: its egress
+// IP in *ip.  Four rules a step, none skipped: the first match stands.
+__device__ __forceinline__ bool gateway_rule(const NatView& t,
+                                             const uint4* rules, int n,
+                                             uint32_t src, uint32_t dst,
+                                             uint32_t* ip) {
+  int g = 0;
+  for (; g + 4 <= n; g += 4) {
+    int hit = -1;
+#pragma unroll
+    for (int u = 3; u >= 0; --u) {
+      const uint4 r = rules[g + u];
+      if (src == r.x && (dst & r.z) == r.y) hit = u;
+    }
+    if (hit >= 0) {
+      *ip = rules[g + hit].w;
+      return true;
     }
   }
-  bool masq = h.dirn == 1 && h.fam == 4 && (gw || !in_nets(t, dst)) &&
-              !reverse_ct_found(ct, h, io.now);
+  for (; g < n; ++g) {
+    const uint4 r = rules[g];
+    if (src == r.x && (dst & r.z) == r.y) {
+      *ip = r.w;
+      return true;
+    }
+  }
+  for (g = n; g < t.g; ++g) {
+    if (src == __ldg(&t.egw_src[g]) &&
+        (dst & __ldg(&t.egw_mask[g])) == __ldg(&t.egw_net[g])) {
+      *ip = __ldg(&t.egw_ip[g]);
+      return true;
+    }
+  }
+  return false;
+}
+
+// Phase 0 for row i: the class, the first matching egress-gateway rule,
+// the reverse-CT probe, the hash and the whole-window scan for a live
+// same-tuple mapping, whose stored IP (0 read as node_ip) it keeps.  The
+// probe's fingerprint window is loaded before the rule scan, for every
+// egress v4 row (a read, so reading it for an internal row changes
+// nothing).  A row with no slot to claim is written out now; a row that
+// refreshes or claims keeps its key, (hash, rewrite IP, expiry, flags)
+// and slot.
+__device__ void snat_prep_row(const SnatIO& io, const NatView& t,
+                              const CtView& ct, const uint4* rules,
+                              int n_rules, int32_t i) {
+  Hdr h = load_hdr(io.rows, i);
+  uint32_t src = h.src[3], dst = h.dst[3];
+  const bool out4 = h.dirn == 1 && h.fam == 4;
+  uint32_t fwd[KEY_WORDS], rev[KEY_WORDS];
+  CtProbe p{0u, 0u, 0};
+  if (out4) {
+    ct_keys(h.src, h.dst, h.sport, h.dport, h.proto, h.flags, h.dirn, fwd,
+            rev);
+    p = ct_probe_begin(ct, rev);
+  }
+  uint32_t rip = t.node_ip;
+  const bool gw = gateway_rule(t, rules, n_rules, src, dst, &rip);
+  bool masq = out4 && (gw || !in_nets(t, dst)) &&
+              !reverse_ct_found_fp(ct, rev, p, io.now);
   bool need = masq && (h.proto == 6 || h.proto == 17 || h.proto == 132);
   uint4 k = make_uint4(src, h.sport, dst, (h.dport << 8) | h.proto);
   uint32_t hash = nat_hash(k);
   uint32_t pmask = (uint32_t)io.capacity - 1u;
   bool match = false;
   int32_t mslot = 0;
-  for (int step = 0; step < NAT_PROBE; ++step) {
-    uint32_t s = (hash + (uint32_t)step) & pmask;
-    const uint32_t* row = io.table + (size_t)s * NAT_ROW;
-    if (row[NV_EXPIRES] >= io.now && key_match(row, k)) {
-      match = true;
-      mslot = (int32_t)s;
-      break;
+  if (need) {
+    // the window's first two slots (a repeated flow's mapping sits in
+    // its home slot as a rule), the other six together where neither
+    // holds it: the first live same-tuple slot in window order stands
+    auto live_same = [&](const NatRow& r) {
+      return r.expires >= io.now && keys_equal(r.k, k);
+    };
+    NatRow w[NAT_PROBE];
+#pragma unroll
+    for (int step = 0; step < 2; ++step)
+      w[step] = load_nat_row(io.table +
+                             (size_t)((hash + (uint32_t)step) & pmask) *
+                                 NAT_ROW);
+    const bool early = live_same(w[0]) || live_same(w[1]);
+    if (!early) {
+#pragma unroll
+      for (int step = 2; step < NAT_PROBE; ++step)
+        w[step] = load_nat_row(io.table +
+                               (size_t)((hash + (uint32_t)step) & pmask) *
+                                   NAT_ROW);
     }
-  }
-  if (match && need) {
-    // a live mapping keeps the IP it was made with (0: node_ip)
-    uint32_t stored = io.table[(size_t)mslot * NAT_ROW + NV_SNAT_IP];
-    rip = stored != 0 ? stored : t.node_ip;
+#pragma unroll
+    for (int step = NAT_PROBE - 1; step >= 0; --step) {
+      if (!(step < 2 || !early) || !live_same(w[step])) continue;
+      match = true;
+      mslot = (int32_t)((hash + (uint32_t)step) & pmask);
+      // a live mapping keeps the IP it was made with (0: node_ip)
+      rip = w[step].snat_ip != 0 ? w[step].snat_ip : t.node_ip;
+    }
   }
   uint32_t flags = (masq ? F_MASQ : 0u) | (need ? F_NEED : 0u) |
                    (match ? F_MATCH : 0u) | (need && !match ? F_PENDING : 0u);
-  reinterpret_cast<uint4*>(io.key)[i] = k;
-  reinterpret_cast<uint4*>(io.aux)[i] =
-      make_uint4(hash, rip, io.now + nat_lifetime(h.proto), flags);
-  io.slot[i] = mslot;
+  const uint4 aux = make_uint4(hash, rip, io.now + nat_lifetime(h.proto),
+                               flags);
+  if (need) {
+    reinterpret_cast<uint4*>(io.key)[i] = k;
+    reinterpret_cast<uint4*>(io.aux)[i] = aux;
+    io.slot[i] = mslot;
+  } else {
+    io.aux[(size_t)i * 4 + 3] = flags;
+  }
+  if (!(flags & F_PENDING)) snat_out(io, i, k, aux, match, mslot, false);
 }
 
-__global__ void snat_refresh(SnatIO io) {
-  int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n) return;
-  uint4 aux = reinterpret_cast<const uint4*>(io.aux)[i];
-  if ((aux.w & (F_NEED | F_MATCH)) != (F_NEED | F_MATCH)) return;
-  write_row(io.table + (size_t)io.slot[i] * NAT_ROW,
-            reinterpret_cast<const uint4*>(io.key)[i], aux);
+// Step s's claim words: three arrays in turn, so that a step's bids, the
+// previous step's verdicts and the clearing of the step before that can
+// share one phase.
+__device__ __forceinline__ int32_t* claim_of(const SnatIO& io, int step) {
+  return io.claim + (size_t)(step % 3) * io.capacity;
 }
 
-// A pending row's bid for its step-th probe slot; returns the flags with
-// F_TRYING set or cleared.
+__device__ __forceinline__ uint32_t nat_slot(const SnatIO& io, uint32_t hash,
+                                             int step) {
+  return (hash + (uint32_t)step) & ((uint32_t)io.capacity - 1u);
+}
+
+// What a pending row's step needs from memory, gathered before anything
+// is decided and in two rounds, so that the loads of several rows go out
+// together.  First its step-th slot's claim word (where it bid) and, for
+// the next step's bid, that slot's claim word of this step and its row
+// as the table holds it; then the winner's key (where another row won
+// its slot) and, where the next slot was bid on this step, its winner's
+// key and expiry in place of the row read (the winner writes that slot
+// in this very phase).
+struct NatStep {
+  int32_t w, wq;
+  NatRow rq;  // the next slot as this step leaves it
+  uint4 kw;   // the key of the row that won this step's slot
+};
+
+__device__ __forceinline__ NatStep snat_gather(const SnatIO& io, uint4 aux,
+                                               int step, bool next) {
+  NatStep g;
+  g.w = (aux.w & F_TRYING) ? __ldcg(&claim_of(io, step)[nat_slot(
+                                 io, aux.x, step)])
+                           : CLAIM_FREE;
+  g.wq = CLAIM_FREE;
+  g.rq = NatRow{};
+  g.kw = make_uint4(0u, 0u, 0u, 0u);
+  if (next) {
+    const uint32_t q = nat_slot(io, aux.x, step + 1);
+    g.wq = __ldcg(&claim_of(io, step)[q]);
+    g.rq = load_nat_row(io.table + (size_t)q * NAT_ROW);
+  }
+  return g;
+}
+
+__device__ __forceinline__ void snat_gather2(const SnatIO& io, int32_t i,
+                                             uint4 aux, NatStep& g) {
+  const uint4* key = reinterpret_cast<const uint4*>(io.key);
+  if ((aux.w & F_TRYING) && g.w != i) g.kw = __ldcg(key + g.w);
+  if (g.wq != CLAIM_FREE) {
+    g.rq.k = __ldcg(key + g.wq);
+    g.rq.expires = __ldcg(&io.aux[(size_t)g.wq * 4 + 2]);
+  }
+}
+
+// A pending row's bid for its `step`-th slot if `r` (the slot as the
+// previous step leaves it) is claimable: expired, or holding its tuple.
+// -> its flags with F_TRYING set or cleared.
 __device__ __forceinline__ uint32_t snat_bid(const SnatIO& io, int32_t i,
-                                             uint4 k, uint4 aux, int step) {
-  uint32_t s = (aux.x + (uint32_t)step) & ((uint32_t)io.capacity - 1u);
-  const uint32_t* row = io.table + (size_t)s * NAT_ROW;
-  if (row[NV_EXPIRES] < io.now || key_match(row, k)) {
-    atomicMin(&io.claim[s], i);
-    return aux.w | F_TRYING;
-  }
-  return aux.w & ~F_TRYING;
+                                             uint4 k, uint4 aux, int step,
+                                             NatRow r) {
+  if (!(r.expires < io.now || keys_equal(r.k, k))) return aux.w & ~F_TRYING;
+  atomicMin(&claim_of(io, step)[nat_slot(io, aux.x, step)], i);
+  return aux.w | F_TRYING;
 }
 
-__global__ void snat_claim(SnatIO io, int step) {
-  int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n) return;
-  uint4 aux = reinterpret_cast<const uint4*>(io.aux)[i];
-  if (!(aux.w & F_PENDING)) return;
-  io.aux[(size_t)i * 4 + 3] =
-      snat_bid(io, i, reinterpret_cast<const uint4*>(io.key)[i], aux, step);
-}
-
-__global__ void snat_write(SnatIO io, int step) {
-  int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n) return;
-  uint4 aux = reinterpret_cast<const uint4*>(io.aux)[i];
-  if (!(aux.w & F_TRYING)) return;
-  uint32_t s = (aux.x + (uint32_t)step) & ((uint32_t)io.capacity - 1u);
-  // only the lowest bidder reads its own index here; freeing the word
-  // leaves every other bidder reading an index not its own
-  if (io.claim[s] == i) {
-    write_row(io.table + (size_t)s * NAT_ROW,
-              reinterpret_cast<const uint4*>(io.key)[i], aux);
-    io.claim[s] = CLAIM_FREE;
-  }
-}
-
-__global__ void snat_verify(SnatIO io, int step) {
-  int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n) return;
-  uint4 aux = reinterpret_cast<const uint4*>(io.aux)[i];
-  if (!(aux.w & F_PENDING)) return;
-  uint4 k = reinterpret_cast<const uint4*>(io.key)[i];
+// Step s for a pending row, its words gathered (`g`), once every bid is
+// in.  The verdict: the lowest bidder of its slot (the index the claim
+// word holds) writes its row; it and every same-tuple bidder (whose key
+// equals the winner's) have the slot's node port and are written out.
+// A row still pending after the last step fails: written out with its
+// port and dropped.  Then, unless the step is the last, the next step's
+// bid.  -> its flags, F_PENDING cleared where it won.
+__device__ __forceinline__ uint32_t snat_step(const SnatIO& io, int32_t i,
+                                              uint4 k, uint4 aux, int step,
+                                              const NatStep& g) {
+  uint32_t flags = aux.w & ~F_TRYING;
   if (aux.w & F_TRYING) {
-    uint32_t s = (aux.x + (uint32_t)step) & ((uint32_t)io.capacity - 1u);
-    aux.w &= ~F_TRYING;
-    if (key_match(io.table + (size_t)s * NAT_ROW, k)) {
-      io.slot[i] = (int32_t)s;
-      aux.w &= ~F_PENDING;
+    const int32_t s = (int32_t)nat_slot(io, aux.x, step);
+    if (g.w == i) write_row(io.table + (size_t)s * NAT_ROW, k, aux);
+    if (g.w == i || keys_equal(g.kw, k)) {
+      flags &= ~F_PENDING;
+      snat_out(io, i, k, aux, true, s, false);
+      return flags;
     }
   }
-  // the next step's bid, in the same launch: it reads rows no thread of
-  // this launch writes, and every claim word is free again
-  if (step + 1 < NAT_PROBE && (aux.w & F_PENDING))
-    aux.w = snat_bid(io, i, k, aux, step + 1);
-  io.aux[(size_t)i * 4 + 3] = aux.w;
+  if (step + 1 == NAT_PROBE) {
+    snat_out(io, i, k, aux, false, 0, true);
+    return flags;
+  }
+  aux.w = flags;
+  return snat_bid(io, i, k, aux, step + 1, g.rq);
 }
 
-__global__ void snat_final(SnatIO io) {
-  int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool dropped = false;
-  if (i < io.n) {
-    uint4 aux = reinterpret_cast<const uint4*>(io.aux)[i];
-    uint4 k = reinterpret_cast<const uint4*>(io.key)[i];
-    bool need = aux.w & F_NEED, pending = aux.w & F_PENDING;
-    dropped = need && pending;
-    bool allocated = need && !pending;
-    store_row(io.rows, io.out, i, 3, (aux.w & F_MASQ) ? aux.y : k.x,
-              allocated ? NAT_PORT_MIN + (uint32_t)io.slot[i] : k.y);
-    io.drop[i] = dropped;
+// Whether none of a pending row's window slots from `from` on is
+// claimable as the table stands (read while other rows may be writing
+// it: a write leaves a live row of its writer's tuple, so a slot read as
+// not claimable stays so, and a slot read mid-write as claimable only
+// keeps the row).  With no expiry able to wrap past 2^32 in this call
+// (`no_wrap`), such a row can never bid again: every write leaves a live
+// row, and one of its own tuple only where it bids itself.
+__device__ __forceinline__ bool snat_dead(const SnatIO& io, uint4 k,
+                                          uint32_t hash, int from) {
+  bool any = false;
+#pragma unroll
+  for (int step = 2; step < NAT_PROBE; ++step) {
+    if (step < from) continue;
+    const NatRow r = load_nat_row(io.table +
+                                  (size_t)nat_slot(io, hash, step) * NAT_ROW);
+    any |= r.expires < io.now || keys_equal(r.k, k);
   }
-  unsigned ballot = __ballot_sync(0xFFFFFFFFu, dropped);
-  if ((threadIdx.x & 31) == 0 && ballot)
-    atomicAdd(io.failed, (uint32_t)__popc(ballot));
+  return !any;
+}
+
+// The claim word a listed row's step may have taken back to CLAIM_FREE
+// (every bidder of a word writes the same value; a word nobody bid on is
+// free already).
+__device__ __forceinline__ void snat_clear(const SnatIO& io, uint32_t hash,
+                                           int step) {
+  claim_of(io, step)[nat_slot(io, hash, step)] = CLAIM_FREE;
+}
+
+// Steps s0.. for the `nr` pending rows of `rows` (at most NAT_TAIL_ROWS *
+// TPB), by one block: the rows in registers, their words gathered
+// together, a __syncthreads where a grid barrier stood.  Step s0's bids
+// are in and step s0 - 1's words clear.  Every claim word is free when
+// it returns; the failures are added to `failed` once.
+__device__ void snat_tail(const SnatIO& io, const int32_t* rows, int32_t nr,
+                          int s0, Stamps& st) {
+  int32_t i[NAT_TAIL_ROWS];
+  uint4 k[NAT_TAIL_ROWS], aux[NAT_TAIL_ROWS];
+  bool mine[NAT_TAIL_ROWS], pend[NAT_TAIL_ROWS];
+#pragma unroll
+  for (int q = 0; q < NAT_TAIL_ROWS; ++q) {
+    const int32_t j = q * TPB + threadIdx.x;
+    mine[q] = pend[q] = j < nr;
+    i[q] = pend[q] ? __ldcg(&rows[j]) : 0;
+    k[q] = aux[q] = make_uint4(0u, 0u, 0u, 0u);
+    if (pend[q]) {
+      k[q] = __ldcg(reinterpret_cast<const uint4*>(io.key) + i[q]);
+      aux[q] = __ldcg(reinterpret_cast<const uint4*>(io.aux) + i[q]);
+    }
+  }
+  for (int s = s0;; ++s) {
+    const bool last = s + 1 == NAT_PROBE;
+    NatStep g[NAT_TAIL_ROWS];
+    // every row's loads before any row's stores: two rounds of loads
+#pragma unroll
+    for (int q = 0; q < NAT_TAIL_ROWS; ++q)
+      if (pend[q]) g[q] = snat_gather(io, aux[q], s, !last);
+#pragma unroll
+    for (int q = 0; q < NAT_TAIL_ROWS; ++q)
+      if (pend[q]) snat_gather2(io, i[q], aux[q], g[q]);
+#pragma unroll
+    for (int q = 0; q < NAT_TAIL_ROWS; ++q) {
+      // step s - 1's words: read by every bidder before the barrier
+      if (mine[q] && s > s0) snat_clear(io, aux[q].x, s - 1);
+      if (pend[q]) {
+        aux[q].w = snat_step(io, i[q], k[q], aux[q], s, g[q]);
+        pend[q] = aux[q].w & F_PENDING;
+      }
+    }
+    int left = 0;
+#pragma unroll
+    for (int q = 0; q < NAT_TAIL_ROWS; ++q) {
+      if (q * TPB >= nr) break;  // block-uniform
+      left += __syncthreads_count(pend[q]);
+    }
+    if (threadIdx.x == 0) {
+      // the failures add to the rows the grid found dead
+      if (last) atomicAdd(&io.counts[s + 1], (uint32_t)left);
+      else io.counts[s + 1] = (uint32_t)left;
+      if (last && left) atomicAdd(io.failed, (uint32_t)left);
+    }
+    st.mark();
+    if (left == 0 || last) {
+#pragma unroll
+      for (int q = 0; q < NAT_TAIL_ROWS; ++q)
+        if (mine[q]) snat_clear(io, aux[q].x, s);
+      return;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TPB)
+    snat_egress_kernel(SnatIO io, NatView t, CtView ct) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ uint4 rules[NAT_RULES];
+  __shared__ uint32_t sh[2];
+  const int32_t first = blockIdx.x * TPB, stride = gridDim.x * TPB;
+  const int32_t tid = first + threadIdx.x;
+  uint32_t* counts = io.counts;
+  // the rows pending entering step s
+  auto plist = [&io](int s) { return io.plist + (size_t)(s % 3) * io.n; };
+  const uint4* key = reinterpret_cast<const uint4*>(io.key);
+  const uint4* aux = reinterpret_cast<const uint4*>(io.aux);
+
+  // the counters, read after the first barrier
+  if (tid < STAMP_AT - 1) counts[tid] = 0u;
+  Stamps st{counts, 0};
+  st.mark();
+  // the first NAT_RULES gateway rules, staged once a block
+  const int staged = min(t.g, NAT_RULES);
+  for (int g = threadIdx.x; g < staged; g += TPB)
+    rules[g] = make_uint4(__ldg(&t.egw_src[g]), __ldg(&t.egw_net[g]),
+                          __ldg(&t.egw_mask[g]), __ldg(&t.egw_ip[g]));
+  __syncthreads();
+  for (int32_t i = tid; i < io.n; i += stride)
+    snat_prep_row(io, t, ct, rules, staged, i);
+  grid.sync();  // every window scanned: the refresh may write
+  st.mark();
+
+  // matched rows write their new row (rows of one flow write the same
+  // six words: the key pins the protocol, < 256 for a port-bearing row,
+  // so the expiry agrees; the IP is the stored one); pending rows are
+  // listed.  Trip counts are block-uniform, so every thread reaches the
+  // append.
+  for (int32_t b = first; b < io.n; b += stride) {
+    const int32_t i = b + threadIdx.x;
+    bool pend = false;
+    if (i < io.n) {
+      const uint32_t flags = __ldcg(&io.aux[(size_t)i * 4 + 3]);
+      if ((flags & (F_NEED | F_MATCH)) == (F_NEED | F_MATCH))
+        write_row(io.table + (size_t)__ldcg(&io.slot[i]) * NAT_ROW,
+                  __ldcg(key + i), __ldcg(aux + i));
+      pend = flags & F_PENDING;
+    }
+    block_append(pend, i, &counts[0], plist(0), nullptr, sh);
+  }
+  grid.sync();  // the refreshes are in: the bids read expiries after them
+  st.mark();
+
+  // every block reads the same counts after a barrier, so every branch on
+  // them below is taken by the whole grid
+  const int32_t np = (int32_t)__ldcg(&counts[0]);
+  if (np == 0) return st.mark();
+  // each pending row checks its window for a claimable slot (expired, or
+  // holding its tuple) and bids for step 0's
+  bool live = false;
+  for (int32_t j = tid; j < np; j += stride) {
+    const int32_t i = __ldcg(&plist(0)[j]);
+    const uint4 k = __ldcg(key + i);
+    uint4 a = __ldcg(aux + i);
+    NatRow win[NAT_PROBE];
+#pragma unroll
+    for (int step = 0; step < NAT_PROBE; ++step)
+      win[step] =
+          load_nat_row(io.table + (size_t)nat_slot(io, a.x, step) * NAT_ROW);
+#pragma unroll
+    for (int step = 0; step < NAT_PROBE; ++step)
+      live |= win[step].expires < io.now || keys_equal(win[step].k, k);
+    io.aux[(size_t)i * 4 + 3] = snat_bid(io, i, k, a, 0, win[0]);
+  }
+  live = __syncthreads_or(live);
+  if (threadIdx.x == 0) counts[C_WORDS + blockIdx.x] = live;
+  grid.sync();  // step 0's bids are in
+  st.mark();
+
+  int any = 0;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += TPB)
+    any |= (int)__ldcg(&counts[C_WORDS + b]);
+  if (!__syncthreads_or(any)) {
+    // no pending row's window holds a claimable slot: nobody bid, and
+    // nothing can be written at any step; every pending row fails
+    for (int32_t b = first; b < np; b += stride) {
+      const int32_t j = b + threadIdx.x;
+      const int32_t i = j < np ? __ldcg(&plist(0)[j]) : -1;
+      if (i >= 0) snat_out(io, i, __ldcg(key + i), __ldcg(aux + i), false, 0,
+                           true);
+      block_count(i >= 0, &counts[NAT_PROBE], io.failed);
+    }
+    if (tid == 0)
+      for (int s = 1; s < NAT_PROBE; ++s) counts[s] = (uint32_t)np;
+    return st.mark();
+  }
+  // no expiry this call writes can wrap past 2^32
+  const bool no_wrap = io.now <= 0xFFFFFFFFu - NAT_LIFETIME_TCP;
+  if (np <= NAT_TAIL_ROWS * TPB) {
+    if (blockIdx.x == 0) {
+      if (threadIdx.x == 0) counts[C_TAIL] = 1u;
+      snat_tail(io, plist(0), np, 0, st);
+    }
+    return st.mark();
+  }
+  for (int s = 0;; ++s) {
+    const int32_t nr = (int32_t)__ldcg(&counts[s]);
+    const int32_t* cur = plist(s);
+    const bool last = s + 1 == NAT_PROBE;
+    if (s > 0) {
+      // step s - 1's words, read by every bidder before the barrier
+      const int32_t np0 = (int32_t)__ldcg(&counts[s - 1]);
+      for (int32_t j = tid; j < np0; j += stride)
+        snat_clear(io, __ldcg(&io.aux[(size_t)__ldcg(&plist(s - 1)[j]) * 4]),
+                   s - 1);
+    }
+    // step s's verdicts and, in the same phase, step s + 1's bids; at
+    // step 1 (a pool that step 0 filled), a row that did not bid and
+    // whose window holds no claimable slot past its next fails now (it
+    // would at the last step)
+    for (int32_t b = first; b < nr; b += stride) {
+      const int32_t j = b + threadIdx.x;
+      const int32_t i = j < nr ? __ldcg(&cur[j]) : -1;
+      bool still = false, dead = false;
+      if (i >= 0) {
+        const uint4 k = __ldcg(key + i);
+        uint4 a = __ldcg(aux + i);
+        NatStep g = snat_gather(io, a, s, !last);
+        snat_gather2(io, i, a, g);
+        a.w = snat_step(io, i, k, a, s, g);
+        still = a.w & F_PENDING;
+        if (still && s == 1 && no_wrap && !(a.w & F_TRYING) &&
+            snat_dead(io, k, a.x, s + 2)) {
+          snat_out(io, i, k, a, false, 0, true);
+          still = false;
+          dead = true;
+        }
+        io.aux[(size_t)i * 4 + 3] = a.w;
+      }
+      block_append(still, i, &counts[s + 1], last ? nullptr : plist(s + 1),
+                   last ? io.failed : nullptr, sh);
+      block_count(dead, &counts[NAT_PROBE], io.failed);
+    }
+    grid.sync();  // its verdicts and step s + 1's bids are in
+    st.mark();
+    const int32_t left = (int32_t)__ldcg(&counts[s + 1]);
+    const bool stop = left == 0 || last;
+    if (stop || left <= NAT_TAIL_ROWS * TPB) {
+      for (int32_t j = tid; j < nr; j += stride)
+        snat_clear(io, __ldcg(&io.aux[(size_t)__ldcg(&cur[j]) * 4]), s);
+      if (stop) return st.mark();
+      grid.sync();  // step s's words clear before one block goes on
+      st.mark();
+      if (blockIdx.x == 0) {
+        if (threadIdx.x == 0) counts[C_TAIL] = (uint32_t)s + 2u;
+        snat_tail(io, plist(s + 1), left, s + 1, st);
+      }
+      return st.mark();
+    }
+  }
+}
+
+// The most blocks of snat_egress_kernel a launch takes on device `dev`:
+// co-resident ones, at most NAT_BLOCKS_PER_SM an SM (0: none fit).
+int snat_max_blocks(int dev) {
+  static int cached[64];
+  if (dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, snat_egress_kernel,
+                                                  TPB, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = min(per_sm, NAT_BLOCKS_PER_SM) * sms;
+  }
+  return cached[dev];
 }
 
 // --- K12 ---------------------------------------------------------------
@@ -339,20 +759,23 @@ inline int blocks_for(int32_t n) { return (n + TPB - 1) / TPB; }
 
 }  // namespace
 
-extern "C" int snat_egress_launch(const SnatIO* io, const NatView* t,
-                                  const CtView* ct, cudaStream_t stream) {
-  if (io->n > 0) {
-    int b = blocks_for(io->n);
-    snat_prep<<<b, TPB, 0, stream>>>(*io, *t, *ct);
-    snat_refresh<<<b, TPB, 0, stream>>>(*io);
-    snat_claim<<<b, TPB, 0, stream>>>(*io, 0);
-    for (int step = 0; step < NAT_PROBE; ++step) {
-      snat_write<<<b, TPB, 0, stream>>>(*io, step);
-      snat_verify<<<b, TPB, 0, stream>>>(*io, step);
-    }
-    snat_final<<<b, TPB, 0, stream>>>(*io);
-  }
-  return (int)cudaGetLastError();
+extern "C" int snat_egress_launch(const SnatIO* iop, const NatView* tp,
+                                  const CtView* ctp, cudaStream_t stream) {
+  SnatIO io = *iop;
+  NatView t = *tp;
+  CtView ct = *ctp;
+  if (io.n <= 0) return (int)cudaGetLastError();
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int blocks = blocks_for(io.n),
+      most = min(snat_max_blocks(dev), NAT_MAX_BLOCKS);
+  if (most <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (blocks > most) blocks = most;
+  void* args[] = {&io, &t, &ct};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(snat_egress_kernel), dim3(blocks), dim3(TPB),
+      args, 0, stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int snat_reverse_launch(const SnatRevIO* io, const NatView* t,

@@ -163,11 +163,15 @@ struct SnatIO {
   bool* drop;            // [n] pool exhausted
   uint32_t* table;       // [capacity, 6]
   uint32_t* failed;      // [1] allocation failures, added to
-  int32_t* claim;        // [capacity] claim words, CLAIM_FREE at each call
+  int32_t* claim;        // [3, capacity] the table's claim words,
+                         // CLAIM_FREE between calls
   // scratch, allocated by the wrapper
-  uint32_t* key;  // [n, 4] src, sport, dst, dport << 8 | proto
-  uint32_t* aux;  // [n, 4] hash, rewrite IP, expiry, flags
-  int32_t* slot;  // [n] the mapping's slot
+  uint32_t* key;     // [n, 4] src, sport, dst, dport << 8 | proto
+  uint32_t* aux;     // [n, 4] hash, rewrite IP, expiry, flags
+  int32_t* slot;     // [n] the mapping's slot
+  int32_t* plist;    // [3, n] the rows pending entering a step, in turn
+  uint32_t* counts;  // [64 + 1024] counters, phase stamps and block
+                     // words, set inside the launch (nat.cu)
   int32_t n;
   int32_t capacity;  // 2^k
   uint32_t now;
@@ -179,7 +183,8 @@ struct SnatRevIO {
   const uint32_t* rows;  // [n, 16], 16-byte aligned
   uint32_t* out;         // [n, 16] restored rows
   uint32_t* table;       // [capacity, 6], expiries refreshed in place
-  int32_t* claim;        // [capacity] claim words, CLAIM_FREE at each call
+  int32_t* claim;        // [capacity] the first row of the table's claim
+                         // words, CLAIM_FREE between calls
   int32_t* hit_slot;     // [n] scratch: the slot a reply hit, -1 none
   int32_t n;
   int32_t capacity;
@@ -265,17 +270,22 @@ struct SockIO {
   uint32_t* table;       // [capacity, 8]
   uint32_t* fp;          // [capacity]
   uint32_t* aff;         // [aff_capacity, 8]
-  int32_t* claim;        // [capacity] claim words, CLAIM_FREE at each call
-  int32_t* aclaim;       // [aff_capacity] the same for the pins
+  int32_t* claim;        // [3, capacity] the table's claim words,
+                         // CLAIM_FREE between calls
+  int32_t* aclaim;       // [3, aff_capacity] the same for the pins
   // scratch, allocated by the wrapper
-  uint32_t* key;   // [n, 4] src, sport, vip, dport << 8 | proto
-  uint32_t* aux;   // [n, 8] see socklb.cu
-  int32_t* list;   // [n] the batch rows that missed, in no order
-  int32_t* meta;   // [2] overflow flag, miss count; zero at each call
+  uint32_t* key;    // [n, 4] src, sport, vip, dport << 8 | proto
+  uint32_t* aux;    // [n, 8] see socklb.cu
+  int32_t* list;    // [n] the misses, in their blocks' segments
+  int32_t* plist;   // [3, n] the rows pending entering a step, in turn
+  uint32_t* meta;   // [64 + 2 * blocks_cap] counters, phase stamps and
+                    // block words, set inside the launch (socklb.cu)
   int32_t n;
   int32_t capacity;      // 2^k
   int32_t aff_capacity;  // 2^k
   uint32_t now;
+  int32_t blocks_cap;     // blocks `meta` has words for
+  int32_t rows_a_thread;  // set by the launcher
 };
 
 // K18: one batch's flow features (ml/features.py flow_features).
@@ -321,6 +331,63 @@ __device__ __forceinline__ int64_t xla_index(int64_t i, int64_t n) {
 }
 
 // The name of a CUDA error code, for the wrappers' exceptions.
+// Appends the rows i of the block's threads that keep them to `list`
+// (when not null) at one atomicAdd a block on *count, and adds their
+// number to *also (when not null): one atomicAdd a warp would queue a
+// thousand at one address.  Every thread of the block calls; `sh` is two
+// words of the block's shared memory.
+__device__ __forceinline__ void block_append(bool keep, int32_t i,
+                                             uint32_t* count, int32_t* list,
+                                             uint32_t* also, uint32_t* sh) {
+  const unsigned m = __ballot_sync(0xFFFFFFFFu, keep);
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) sh[0] = 0u;
+  __syncthreads();
+  uint32_t at = 0;
+  if (lane == 0 && m) at = atomicAdd(&sh[0], (uint32_t)__popc(m));
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t c = sh[0];
+    sh[1] = c ? atomicAdd(count, c) : 0u;
+    if (also && c) atomicAdd(also, c);
+  }
+  __syncthreads();
+  at = __shfl_sync(0xFFFFFFFFu, at, 0) + sh[1];
+  if (keep && list) list[at + __popc(m & ((1u << lane) - 1u))] = i;
+}
+
+// Adds the number of the block's threads whose `flag` is set to *count
+// and to *also (when not null), one atomicAdd each a block.  Every thread
+// of the block calls.
+__device__ __forceinline__ void block_count(bool flag, uint32_t* count,
+                                            uint32_t* also) {
+  const int c = __syncthreads_count(flag);
+  if (threadIdx.x == 0 && c) {
+    atomicAdd(count, (uint32_t)c);
+    if (also) atomicAdd(also, (uint32_t)c);
+  }
+}
+
+// Phase stamps of a cooperative kernel (K11, K17): thread 0 of block 0
+// writes the global timer's low word (ns) into words[STAMP_AT + k] at the
+// k-th mark, and k + 1 into words[STAMP_AT - 1], so that a reader sees
+// how long each phase between two grid barriers took.  One timer read
+// and two stores a barrier.
+constexpr int STAMP_AT = 16;
+constexpr int STAMPS = 48;
+
+struct Stamps {
+  uint32_t* words;
+  int k;
+  __device__ __forceinline__ void mark() {
+    if (blockIdx.x != 0 || threadIdx.x != 0 || k >= STAMPS) return;
+    uint64_t t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    words[STAMP_AT + k] = (uint32_t)t;
+    words[STAMP_AT - 1] = (uint32_t)++k;
+  }
+};
+
 extern "C" const char* cuda_error_name(int err) {
   return cudaGetErrorName((cudaError_t)err);
 }

@@ -577,23 +577,44 @@ def nat_view(t, device) -> abi.NatView:
 
 
 def _nat_table(tbl, device):
-    """The NAT table's pointers: (table, claim words, capacity).  The
-    claim words are made CLAIM_FREE for each call, and the returned
-    tensor must outlive the launch."""
-    from ..service.nat import CLAIM_FREE, NAT_ROW_WORDS
+    """The NAT table's pointers: (table, its claim words, capacity)."""
+    from ..service.nat import NAT_ROW_WORDS
 
     p = tbl.table.shape[0]
     if p & (p - 1):
         raise ValueError(f"NAT capacity must be 2^k, got {p}")
-    claim = torch.full((p,), CLAIM_FREE, dtype=I32, device=device)
-    return (_ptr(tbl.table, I32, device, (p, NAT_ROW_WORDS),
-                 name="nat.table"), claim, p)
+    return (_ptr(tbl.table, I32, device, (p, NAT_ROW_WORDS), align=8,
+                 name="nat.table"),
+            _ptr(tbl.claim, I32, device, (3, p), name="nat.claim"), p)
 
 
-def launch_snat_egress(tbl, t, ct, hdr: torch.Tensor, now: int):
-    """K11: egress SNAT with port allocation over wide [N, 16] rows;
-    updates ``tbl`` in place, reading ``ct``.  Returns (rows, tbl,
-    [N] bool drop mask)."""
+# K11's and K17's counters (csrc/nat.cu, csrc/socklb.cu): the rows
+# pending entering each claim step, then those left pending after the
+# last; K17 then its misses; then 1 + the step at which one block took
+# over (0: none); word 15 the number of phase stamps that follow it
+# (csrc/views.cuh Stamps)
+COUNT_WORDS = 64
+SOCK_BLOCKS = 1024  # K11's and K17's grids at most: they keep block words
+
+
+def _stamps(words: torch.Tensor) -> list:
+    """The phase stamps of a K11 or K17 call's counters: the ns between
+    each grid barrier and the next (block 0's view), from the start."""
+    w = words[:COUNT_WORDS].cpu().tolist()
+    t = [x & MASK for x in w[16:16 + w[15]]]
+    return [(b - a) & MASK for a, b in zip(t, t[1:])]
+
+
+def launch_snat_egress(tbl, t, ct, hdr: torch.Tensor, now: int,
+                       scratch: Optional[dict] = None):
+    """K11: egress SNAT with port allocation over wide [N, 16] rows, one
+    cooperative kernel; updates ``tbl`` in place, reading ``ct``.
+    Returns (rows, tbl, [N] bool drop mask).  A ``scratch`` dict gets
+    the kernel's ``counts`` ([10]: the rows pending entering each of the
+    8 claim steps, 0 from the step the kernel stopped at, then those
+    that failed; then 1 + the step from which one block finished, 0 for
+    none) and ``phase_ns`` (a callable: the ns each phase between two
+    grid barriers took, read when called)."""
     dev, n = hdr.device, hdr.shape[0]
     table, claim, p = _nat_table(tbl, dev)
 
@@ -601,17 +622,21 @@ def launch_snat_egress(tbl, t, ct, hdr: torch.Tensor, now: int):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     out, drop = empty(n, N_COLS), empty(n, dtype=BOOL)
-    key, aux, slot = empty(n, 4), empty(n, 4), empty(n)
+    s = dict(key=empty(n, 4), aux=empty(n, 4), slot=empty(n),
+             plist=empty(3, n), counts=empty(COUNT_WORDS + SOCK_BLOCKS))
     io = abi.SnatIO(
         rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
         out=out.data_ptr(), drop=drop.data_ptr(), table=table,
         failed=_ptr(tbl.failed, I32, dev, (), name="nat.failed"),
-        claim=claim.data_ptr(), key=key.data_ptr(), aux=aux.data_ptr(),
-        slot=slot.data_ptr(), n=n, capacity=p, now=int(now) & MASK)
+        claim=claim, n=n, capacity=p, now=int(now) & MASK,
+        **{k: v.data_ptr() for k, v in s.items()})
     view, ctv = nat_view(t, dev), ct_view(ct, dev)
     KERNELS["snat_egress"].launch(ctypes.addressof(io),
                                   ctypes.addressof(view),
                                   ctypes.addressof(ctv), _stream(dev))
+    if scratch is not None:
+        scratch.update(s, counts=s["counts"][:10],
+                       phase_ns=lambda: _stamps(s["counts"]))
     return out, tbl, drop
 
 
@@ -625,7 +650,7 @@ def launch_snat_reverse(tbl, t, hdr: torch.Tensor, now: int):
     hit_slot = torch.empty(n, dtype=I32, device=dev)
     io = abi.SnatRevIO(
         rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
-        out=out.data_ptr(), table=table, claim=claim.data_ptr(),
+        out=out.data_ptr(), table=table, claim=claim,
         hit_slot=hit_slot.data_ptr(), n=n, capacity=p,
         now=int(now) & MASK)
     view = nat_view(t, dev)
@@ -736,12 +761,16 @@ def launch_lb6_stage(t, hdr: torch.Tensor):
     return _launch_lb("lb6_stage", lb6_view(t, hdr.device), hdr)
 
 
-def launch_socklb_stage(tbl, t, hdr: torch.Tensor, now: int):
-    """K17: the flow-cached LB over wide [N, 16] rows; updates ``tbl``
-    (flow rows, fingerprints, affinity pins) in place.  Returns (rows,
-    [N] svc_hit, [N] no_backend, tbl)."""
-    from ..service.nat import CLAIM_FREE
-
+def launch_socklb_stage(tbl, t, hdr: torch.Tensor, now: int,
+                        scratch: Optional[dict] = None):
+    """K17: the flow-cached LB over wide [N, 16] rows, one cooperative
+    kernel; updates ``tbl`` (flow rows, fingerprints, affinity pins) in
+    place.  Returns (rows, [N] svc_hit, [N] no_backend, tbl).  A
+    ``scratch`` dict gets the kernel's ``counts`` ([11]: the rows
+    pending entering each of the 8 claim steps, 0 from the step the
+    kernel stopped at, then those left uncached; the batch's v4 misses;
+    1 + the step from which one block finished, 0 for none) and
+    ``phase_ns`` (as ``launch_snat_egress``'s)."""
     dev, n = hdr.device, hdr.shape[0]
     p, a = tbl.table.shape[0], tbl.aff.shape[0]
     if p & (p - 1) or a & (a - 1):
@@ -752,10 +781,8 @@ def launch_socklb_stage(tbl, t, hdr: torch.Tensor, now: int):
 
     out, hit, no_be = empty(n, N_COLS), empty(n, dtype=BOOL), empty(
         n, dtype=BOOL)
-    claim = torch.full((p,), CLAIM_FREE, dtype=I32, device=dev)
-    aclaim = torch.full((a,), CLAIM_FREE, dtype=I32, device=dev)
-    key, aux, rows_missed = empty(n, 4), empty(n, 8), empty(max(n, 1))
-    meta = torch.zeros(2, dtype=I32, device=dev)
+    s = dict(key=empty(n, 4), aux=empty(n, 8), list=empty(n),
+             plist=empty(3, n), meta=empty(COUNT_WORDS + 2 * SOCK_BLOCKS))
     io = abi.SockIO(
         rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
         out=out.data_ptr(), svc_hit=hit.data_ptr(),
@@ -764,13 +791,16 @@ def launch_socklb_stage(tbl, t, hdr: torch.Tensor, now: int):
                    name="socklb.table"),
         fp=_ptr(tbl.fp, I32, dev, (p,), name="socklb.fp"),
         aff=_ptr(tbl.aff, I32, dev, (a, 8), align=16, name="socklb.aff"),
-        claim=claim.data_ptr(), aclaim=aclaim.data_ptr(),
-        key=key.data_ptr(), aux=aux.data_ptr(),
-        list=rows_missed.data_ptr(), meta=meta.data_ptr(), n=n,
-        capacity=p, aff_capacity=a, now=int(now) & MASK)
+        claim=_ptr(tbl.claim, I32, dev, (3, p), name="socklb.claim"),
+        aclaim=_ptr(tbl.aclaim, I32, dev, (3, a), name="socklb.aclaim"),
+        n=n, capacity=p, aff_capacity=a, now=int(now) & MASK,
+        blocks_cap=SOCK_BLOCKS, **{k: v.data_ptr() for k, v in s.items()})
     view = lb_view(t, dev)
     KERNELS["socklb_stage"].launch(ctypes.addressof(io),
                                    ctypes.addressof(view), _stream(dev))
+    if scratch is not None:
+        scratch.update(s, counts=s["meta"][:11],
+                       phase_ns=lambda: _stamps(s["meta"]))
     return out, hit, no_be, tbl
 
 

@@ -93,8 +93,8 @@ class NatView(ctypes.Structure):
 class SnatIO(ctypes.Structure):
     _fields_ = [("rows", P), ("out", P), ("drop", P), ("table", P),
                 ("failed", P), ("claim", P), ("key", P), ("aux", P),
-                ("slot", P), ("n", I32), ("capacity", I32), ("now", U32),
-                ("pad", I32)]
+                ("slot", P), ("plist", P), ("counts", P), ("n", I32),
+                ("capacity", I32), ("now", U32), ("pad", I32)]
 
 
 class SnatRevIO(ctypes.Structure):
@@ -136,8 +136,9 @@ class SockIO(ctypes.Structure):
     _fields_ = [("rows", P), ("out", P), ("svc_hit", P), ("no_backend", P),
                 ("table", P), ("fp", P), ("aff", P), ("claim", P),
                 ("aclaim", P), ("key", P), ("aux", P), ("list", P),
-                ("meta", P), ("n", I32), ("capacity", I32),
-                ("aff_capacity", I32), ("now", U32)]
+                ("plist", P), ("meta", P), ("n", I32), ("capacity", I32),
+                ("aff_capacity", I32), ("now", U32), ("blocks_cap", I32),
+                ("rows_a_thread", I32)]
 
 
 class FeatIO(ctypes.Structure):

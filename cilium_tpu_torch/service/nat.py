@@ -25,8 +25,8 @@ int64 over ``[0, 2^32)`` so every compare is unsigned.
 from __future__ import annotations
 
 import ipaddress
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -159,6 +159,18 @@ class NATTable:
 
     table: torch.Tensor  # [P, NAT_ROW_WORDS] int32 (u32 words)
     failed: torch.Tensor  # [] int32 (u32): allocation failures
+    # [3, P] int32: the kernels' claim words (K11's steps take the three
+    # rows in turn, K12 the first), CLAIM_FREE between calls (not part of
+    # the state; the plain versions ignore them); made with every table,
+    # a copy may share them
+    claim: Optional[torch.Tensor] = field(default=None, repr=False,
+                                          compare=False)
+
+    def __post_init__(self):
+        if self.claim is None:
+            self.claim = torch.full((3, self.table.shape[0]), CLAIM_FREE,
+                                    dtype=torch.int32,
+                                    device=self.table.device)
 
     @staticmethod
     def create(capacity: int = NAT_DEFAULT_CAPACITY,

@@ -30,8 +30,8 @@ int64 over ``[0, 2^32)`` so every compare is unsigned.
 from __future__ import annotations
 
 import ipaddress
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +50,7 @@ from ..datapath.conntrack import _first_true, _fp_mix, _require_cpu
 from ..device import resolve_device
 from ..u32 import MASK, from_numpy, mul, narrow, to_numpy, widen
 from . import LBTensors, _lb_hash4, _lb_match4, _lb_select
+from .nat import CLAIM_FREE
 
 SOCK_PROBE = 8  # claim/probe window
 SOCK_DEFAULT_CAPACITY = 1 << 16
@@ -98,6 +99,21 @@ class SockLBTable:
     table: torch.Tensor  # [P, ROW_WORDS] int32 (u32 words)
     fp: torch.Tensor  # [P]
     aff: torch.Tensor  # [A, AFF_WORDS]
+    # [3, P] and [3, A] int32: K17's claim words for the flow slots and
+    # the pins (its steps take the three rows in turn), CLAIM_FREE between
+    # calls (not part of the state; the plain version ignores them); made
+    # with every table, a copy may share them
+    claim: Optional[torch.Tensor] = field(default=None, repr=False,
+                                          compare=False)
+    aclaim: Optional[torch.Tensor] = field(default=None, repr=False,
+                                           compare=False)
+
+    def __post_init__(self):
+        for name, rows in (("claim", self.table), ("aclaim", self.aff)):
+            if getattr(self, name) is None:
+                setattr(self, name, torch.full(
+                    (3, rows.shape[0]), CLAIM_FREE, dtype=torch.int32,
+                    device=rows.device))
 
     @staticmethod
     def create(capacity: int = SOCK_DEFAULT_CAPACITY,

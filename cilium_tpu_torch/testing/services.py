@@ -150,6 +150,35 @@ def rows(rng: np.random.Generator, n: int, n_services: int,
     return out
 
 
+def crowded_rows(n: int, cap: int, clients: np.ndarray,
+                 dst: int) -> np.ndarray:
+    """``n`` new flows from (the first four of) ``clients`` to ``dst`` on
+    8080/TCP whose flow keys share one home slot of a ``cap``-slot cache:
+    they contend for one 8-slot window, one winning a slot at each claim
+    step."""
+    import torch
+
+    from ..service.socklb import _hash
+
+    sports = np.arange(1024, 65536, dtype=np.int64)
+    some = np.asarray(clients, np.int64)[:4]  # ~16 keys a slot at 2^14
+    src = np.repeat(some, len(sports))
+    sport = np.tile(sports, len(some))
+    dp = (BACKEND_PORT << 8) | 6
+    key = torch.from_numpy(np.stack([src, sport, np.full_like(src, dst),
+                                     np.full_like(src, dp)], 1))
+    home = _hash(key).numpy() & (cap - 1)
+    slot = np.bincount(home).argmax()
+    pick = np.flatnonzero(home == slot)[:n]
+    assert len(pick) == n, f"no home slot holds {n} flows"
+    rows = np.zeros((n, N_COLS), np.uint32)
+    rows[:, COL_SRC_IP3], rows[:, COL_SPORT] = src[pick], sport[pick]
+    rows[:, COL_DST_IP3], rows[:, COL_DPORT] = dst, BACKEND_PORT
+    rows[:, COL_PROTO], rows[:, COL_FLAGS] = 6, TCP_SYN
+    rows[:, COL_LEN], rows[:, COL_FAMILY], rows[:, COL_DIR] = 100, 4, 1
+    return rows
+
+
 def force_overflow(fp: np.ndarray, row: np.ndarray, k: int = 3) -> np.ndarray:
     """``fp`` (u32 [P]) with ``k`` slots of the probe window of wide row
     ``row``'s flow key set to its fingerprint: with the flow not cached

@@ -2,12 +2,14 @@
 """Split K4 ``ct_update`` (and K4s over 8 shards) by launch and time K1
 ``datapath_kernel`` (packed and wide, and K1s), K20
 ``anomaly_train_fwd`` (and K20s), K9 ``l7_verdict``, K18
-``flow_features``, K19 ``anomaly_score``, K22 ``adam_update`` and K5
-``ring_append`` (and K5s) at the shapes the main paths launch them, for
-one or more checkouts of this repository.
+``flow_features``, K19 ``anomaly_score``, K22 ``adam_update``, K5
+``ring_append`` (and K5s), K17 ``socklb_stage`` and K11 ``snat_egress``
+(with K12 ``snat_reverse`` after it) at the shapes the main paths launch
+them, for one or more checkouts of this repository.
 
     python3 scripts/chip_kernel_split.py
-        [--kernels=k1k4,k20,k9,k18,k19,k22,k5] [--variants=TREE] [TREE ...]
+        [--kernels=k1k4,k20,k9,k18,k19,k22,k5,k17,k11] [--variants=TREE]
+        [--grids=TREE] [TREE ...]
 
 Each TREE is a checkout (a ``git archive`` of another commit unpacked
 in a directory that ``.gitignore`` lists will do); each runs in its own
@@ -79,6 +81,25 @@ K5: K1's out rows of served packed batches (config #3, listener table
 2^32, and K5s over a 2^18 bucket routed into 8 shards of 2^16; each
 timed on fresh rings, the ring's buffer and cursors digested.
 
+K17 (``lb_cases``): phase 3's service world (4096 v4 frontends, Maglev
+16381) and ``testing.services.socklb_steps`` on the 2^16 cache: the last
+connect batch (8192 new flows), the steady batch, the burst over
+CONNECT_CAP, the forced fingerprint overflow and the mixed batch (2^16
+rows, 4096 new flows: phase 12's shape).  K11 (``nat_cases``): phase
+11's main path (``chip_smoke.egress_daemon`` driven through its 8
+batches, then the next batch against the live pool and CT), phase 3's
+case (``chip_smoke.nat_case`` after one batch) and its rows into an
+empty 2^10 pool; K12 on replies to each call's rows.  Each case is timed
+on fresh copies of its table, split by the profiler, digested (rows,
+masks, tables; NAT ``failed``) and held against the plain version's, a
+second call's and the claim words' being free after the call; where the
+tree's launcher hands them back, the kernel's step counts and its phase
+times (``phase_ns``).  ``--grids=TREE`` builds, in TREE's first run,
+variants of its ``socklb.cu`` and ``nat.cu`` (1 or 2 blocks an SM, 1 or
+2 rows a thread in the one-block tail; K17 without its frontend scans,
+K11 without its reverse-CT probe or gateway rules: those outputs
+differ, and say so) and times each case in each.
+
 Each run writes ``chiprun_out/split/<label>.json``; the main process
 prints, for every later run, the digests that differ from an earlier
 run's.  The line before the last is the card's name and power limit
@@ -90,11 +111,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import ipaddress
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent.parent
 OUT = ROOT / "chiprun_out" / "split"
@@ -129,12 +152,46 @@ K1_OCCUPANCY = {
                      "__global__ void __launch_bounds__(TPB, 6)\n"
                      "    datapath_kernel(")],
 }
+# K17's and K11's grids (at most 1 or 2 blocks of 256 an SM: at 2^16
+# rows 2 or 1 rows a thread) and one-block tails (1 or 4 rows a thread
+# against the sources' 2); K17 without its frontend lookups (every miss
+# to no frontend: its outputs differ, and say so)
+K17_GRID = {**{f"per_sm{b}": [("constexpr int SK_BLOCKS_PER_SM = 1;",
+                               f"constexpr int SK_BLOCKS_PER_SM = {b};")]
+               for b in (1, 2)},
+            **{f"tail{r}": [("constexpr int SK_TAIL_ROWS = 2;",
+                             f"constexpr int SK_TAIL_ROWS = {r};")]
+               for r in (1, 4)},
+            "no_lookup": [("svc = lb_lookup4(t, fe_ip, fe_pp, fe_index, "
+                           "staged, b.w, c.y, c.z);", "svc = -1;")]}
+K11_GRID = {**{f"per_sm{b}": [("constexpr int NAT_BLOCKS_PER_SM = 1;",
+                               f"constexpr int NAT_BLOCKS_PER_SM = {b};")]
+               for b in (1, 2)},
+            **{f"tail{r}": [("constexpr int NAT_TAIL_ROWS = 2;",
+                             f"constexpr int NAT_TAIL_ROWS = {r};")]
+               for r in (1, 4)}}
+# K11's prep without its reverse-CT probe (every egress v4 row taken for
+# one with no live reverse entry) or without its gateway rules: what each
+# costs (their outputs differ, and say so)
+K11_PARTS = {
+    "no_ct_probe": [("    p = ct_probe_begin(ct, rev);\n",
+                     "    p = CtProbe{0u, 0u, 0};\n"),
+                    ("              !reverse_ct_found_fp(ct, rev, p, io.now);",
+                     "              true;")],
+    "no_gateway": [("  const bool gw = gateway_rule(t, rules, n_rules, src, dst, "
+                    "&rip);", "  const bool gw = false;")],
+}
 # variant set: (source, its variants)
 ABLATIONS = {"k4_grid": ("conntrack", K4_GRID),
-             "k1_occupancy": ("verdict", K1_OCCUPANCY)}
+             "k1_occupancy": ("verdict", K1_OCCUPANCY),
+             "k17_grid": ("socklb", K17_GRID),
+             "k11_grid": ("nat", K11_GRID),
+             "k11_parts": ("nat", K11_PARTS)}
 # the flags that name a tree, and the variant sets each runs there
-TREE_FLAGS = {"--variants": ("k4_grid", "k1_occupancy")}
-KERNEL_SETS = ("k1k4", "k20", "k9", "k18", "k19", "k22", "k5")
+TREE_FLAGS = {"--variants": ("k4_grid", "k1_occupancy"),
+              "--grids": ("k17_grid", "k11_grid", "k11_parts")}
+KERNEL_SETS = ("k1k4", "k20", "k9", "k18", "k19", "k22", "k5", "k17",
+               "k11")
 INT_MAX = (1 << 31) - 1
 RING_CAP = 1 << 18  # chip_smoke's ring, a shard's on the sharded path
 LISTENERS = (10000,)  # the daemon's listener table: config #3's one rule
@@ -746,6 +803,357 @@ def run_k5(label, cases) -> dict:
     return recs
 
 
+def lb_cases(world, rng):
+    """K17's inputs at phase 3's and phase 12's shapes: the service world
+    of ``chip_smoke.service_world`` (4096 v4 frontends, Maglev tables of
+    16381 slots) and ``testing.services.socklb_steps`` threaded through
+    the tree's K17 on the daemon's default 2^16-slot cache: the last of
+    4 connect batches (8192 new flows, every row a miss), the steady
+    batch (2^16 rows, every flow cached), the burst (2^16 new flows, over
+    CONNECT_CAP: resolved, nothing cached), the overflow batch (one row
+    whose window holds more fingerprint matches than the probe reads:
+    every row takes the full-window probe) and the mixed batch (2^16
+    rows, 4096 of them new flows: phase 12's shape).  -> (LB tensors,
+    {case: (cache before the call, rows, now)})."""
+    import dataclasses
+
+    import chip_smoke as cs
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.k8s.watchers import ServiceWatcher
+    from cilium_tpu_torch.service import ServiceManager
+    from cilium_tpu_torch.service import socklb as sl
+    from cilium_tpu_torch.testing import services as sv
+
+    mgr = ServiceManager(device="cuda")
+    sv.install(ServiceWatcher(mgr), cs.service_world(world))
+    t = mgr.tensors()
+    clients = (0x0A000000 + rng.choice(1 << 16, cs.N_LB_CLIENTS,
+                                       replace=False)).astype(np.uint32)
+    others = np.array([int(ipaddress.IPv4Address(ip))
+                       for ip in world.pod_ips[:2048]], np.uint32)
+    tbl = sl.SockLBTable.create(1 << 16, device="cuda")
+    names = {"connect": "k17_connect_8192", "steady": "k17_steady_65536",
+             "burst": "k17_burst_65536", "overflow": "k17_overflow_65536",
+             "backend-change": "k17_mixed_65536"}
+    cases = {}
+    for label, rows, now, ovf in sv.socklb_steps(
+            rng, cs.N_SERVICES, clients, others, cs.LB_N,
+            connect=sl.CONNECT_CAP, n_connect=4, n_v6=cs.N_V6_SERVICES):
+        if label not in names and label != "connect":
+            break
+        if ovf >= 0:
+            tbl.fp.copy_(u32.from_numpy(
+                sv.force_overflow(u32.to_numpy(tbl.fp), rows[ovf]), "cuda"))
+        hdr = u32.from_numpy(rows, "cuda")
+        # copies share the table's other fields (its claim words, where
+        # the tree keeps them)
+        cases[names[label]] = (dataclasses.replace(
+            tbl, table=tbl.table.clone(), fp=tbl.fp.clone(),
+            aff=tbl.aff.clone()), hdr, now)
+        sl.socklb_stage(tbl, t, hdr, now)
+    return t, cases
+
+
+def claims_free(tbl, names) -> Optional[bool]:
+    """Whether every claim word the table keeps (``names``) is free
+    (None for a tree whose tables keep none)."""
+    from cilium_tpu_torch.service.nat import CLAIM_FREE
+
+    words = [getattr(tbl, n, None) for n in names]
+    if any(w is None for w in words):
+        return None
+    return all(bool((w == CLAIM_FREE).all()) for w in words)
+
+
+def scratch_counts(launcher, *args) -> tuple:
+    """The kernel's step counts of one call and the ns each of its phases
+    took (``scratch=``), where the tree's launcher hands them back."""
+    import inspect
+
+    if "scratch" not in inspect.signature(launcher).parameters:
+        return None, None
+    sc = {}
+    launcher(*args, scratch=sc)
+    return sc["counts"].cpu().tolist(), sc["phase_ns"]()
+
+
+def run_k17(label, t, cases) -> dict:
+    """Time each K17 case on fresh copies of its cache, split it by the
+    profiler, digest the rows, masks, flow table, fingerprints and pins
+    after one call and hold them against the plain version's and a
+    second call's; -> {case: record}."""
+    import dataclasses
+    import functools
+
+    import chip_smoke as cs
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.kernels import launch_socklb_stage
+    from cilium_tpu_torch.service import socklb as sl
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    recs = {}
+    for name, (base, hdr, now) in cases.items():
+        def fresh(base=base):
+            return dataclasses.replace(base, table=base.table.clone(),
+                                       fp=base.fp.clone(),
+                                       aff=base.aff.clone())
+
+        def fn(tb, hdr=hdr, now=now):
+            return launch_socklb_stage(tb, t, hdr, now)
+
+        def one(call):
+            tb = fresh()
+            got = call(tb, t, hdr, now)
+            return tb, digest(*got[:3], tb.table, tb.fp, tb.aff)
+
+        tb, got = one(sl.socklb_stage)
+        _t2, again = one(sl.socklb_stage)
+        _t3, want = one(sl.socklb_stage_plain)
+        rec = {"rows": int(hdr.shape[0]),
+               "misses": cs.socklb_misses(base, u32.to_numpy(hdr), now),
+               "inputs": digest(hdr, base.table, base.fp, base.aff),
+               "ms": cs.device_ms(fn, REPS, fresh), "out": got,
+               "plain_equal": got == want, "repeat_equal": got == again,
+               "claims_free": claims_free(tb, ("claim", "aclaim")),
+               "ops_a_call": ops_a_call(
+                   lambda: functools.partial(fn, fresh())),
+               "by_kernel": profiled(fn, fresh)}
+        rec["counts"], rec["phase_ns"] = scratch_counts(
+            launch_socklb_stage, fresh(), t, hdr, now)
+        recs[name] = rec
+        print(f"[{label}] K17 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def nat_cases(world, rng) -> dict:
+    """K11's inputs: phase 11's main path (``chip_smoke.egress_daemon``
+    driven through ``process_batch`` for its 8 batches of 2^16 rows,
+    then the next batch against the live pool of 2^14 slots, the live
+    CT and the daemon's compiled gateway table); phase 3's case
+    (``chip_smoke.nat_case``: 2^16 rows, a 2^20 CT holding 8192 inbound
+    connections, 256 gateway rules, the pool after one batch); and the
+    same rows into a pool of 2^10 slots that one batch runs dry (every
+    claim step used, the failures counted).  -> {case: (NAT table
+    before, NAT tensors, CT, rows, now)}."""
+    import dataclasses
+
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import N_COLS
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+
+    def copy(tbl):
+        return dataclasses.replace(tbl, table=tbl.table.clone(),
+                                   failed=tbl.failed.clone())
+
+    cases = {}
+    d, clients, _rates = cs.egress_daemon(world, rng)
+    flows, prev, now = np.zeros((0, N_COLS), np.uint32), None, 100
+    for b in range(cs.EGRESS_BATCHES):
+        rows, new, _want = cs.egress_batch(rng, clients, flows, b, prev)
+        prev = (rows, d.process_batch(rows, now=now))
+        flows = new
+        now += 60
+    rows, _new, _want = cs.egress_batch(rng, clients, flows,
+                                        cs.EGRESS_BATCHES, prev)
+    cases["k11_main_65536"] = (copy(d.loader.nat_state), d.nat,
+                               d.loader.state.ct,
+                               u32.from_numpy(rows, "cuda"), now)
+    t, cti, rows, pods = cs.nat_case(torch, rng, 1000)
+    tbl = nat.NATTable.create(cs.NAT_POOL, "cuda")
+    nat.snat_egress(tbl, t, cti, u32.from_numpy(rows, "cuda"), 1000)
+    rows = np.concatenate([rows[::2], eg.egress_rows(
+        rng, len(rows) - len(rows[::2]), pods, sports=16384)])
+    hdr = u32.from_numpy(rows, "cuda")
+    cases["k11_phase3_65536"] = (copy(tbl), t, cti, hdr, 1090)
+    cases["k11_exhaust_65536_pool1024"] = (
+        nat.NATTable.create(1 << 10, "cuda"), t, cti, hdr, 1090)
+    return cases
+
+
+def run_k11(label, cases) -> dict:
+    """Time each K11 case on fresh copies of its pool, split it by the
+    profiler, digest the rows, drop mask, table and ``failed`` after one
+    call and hold them against the plain version's and a second call's;
+    then K12 on replies to that call's rows against the pool it left
+    (digested and held the same way).  -> {case: record}."""
+    import dataclasses
+    import functools
+
+    import chip_smoke as cs
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.kernels import launch_snat_egress
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+    from cilium_tpu_torch.testing.capture import ops_a_call
+    import numpy as np
+
+    recs = {}
+    rng = np.random.default_rng(SEED + 12)
+    for name, (base, t, cti, hdr, now) in cases.items():
+        def fresh(base=base):
+            return dataclasses.replace(base, table=base.table.clone(),
+                                       failed=base.failed.clone())
+
+        def fn(tb, t=t, cti=cti, hdr=hdr, now=now):
+            return launch_snat_egress(tb, t, cti, hdr, now)
+
+        def one(call):
+            tb = fresh()
+            got = call(tb, t, cti, hdr, now)
+            return tb, got, digest(got[0], got[2], tb.table, tb.failed)
+
+        tb, res, got = one(nat.snat_egress)
+        _t2, _r2, again = one(nat.snat_egress)
+        _t3, _r3, want = one(nat.snat_egress_plain)
+        rec = {"rows": int(hdr.shape[0]),
+               "inputs": digest(hdr, base.table, base.failed),
+               "ms": cs.device_ms(fn, REPS, fresh), "out": got,
+               "plain_equal": got == want, "repeat_equal": got == again,
+               "dropped": int(res[2].sum()),
+               "claims_free": claims_free(tb, ("claim",)),
+               "ops_a_call": ops_a_call(
+                   lambda: functools.partial(fn, fresh())),
+               "by_kernel": profiled(fn, fresh)}
+        rec["counts"], rec["phase_ns"] = scratch_counts(
+            launch_snat_egress, fresh(), t, cti, hdr, now)
+        # K12 on replies to the rows K11 rewrote, against its pool
+        rep = u32.from_numpy(eg.reply_rows(rng, u32.to_numpy(res[0]),
+                                           int(hdr.shape[0])), "cuda")
+
+        def after(tb=tb):
+            return dataclasses.replace(tb, table=tb.table.clone(),
+                                       failed=tb.failed.clone())
+
+        def rev(tb2, t=t, rep=rep, now=now):
+            return nat.snat_reverse(tb2, t, rep, now + 1)
+
+        k12 = {}
+        for what, call in (("out", nat.snat_reverse),
+                           ("again", nat.snat_reverse),
+                           ("want", nat.snat_reverse_plain)):
+            tb2 = after()
+            k12[what] = digest(call(tb2, t, rep, now + 1)[0], tb2.table)
+            if what == "out":
+                k12["claims_free"] = claims_free(tb2, ("claim",))
+        rec["k12"] = {"out": k12["out"],
+                      "plain_equal": k12["out"] == k12["want"],
+                      "repeat_equal": k12["out"] == k12["again"],
+                      "claims_free": k12["claims_free"],
+                      "ms": cs.device_ms(rev, REPS, after),
+                      "ops_a_call": ops_a_call(
+                          lambda: functools.partial(rev, after())),
+                      "by_kernel": profiled(rev, after)}
+        recs[name] = rec
+        print(f"[{label}] K11 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs", "k12")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+        print(f"[{label}] K12 after {name}: {rec['k12']['ms']:.4f} ms "
+              f"(events); " + ", ".join(
+                  f"{k}={v}" for k, v in rec["k12"].items()
+                  if k not in ("ms", "by_kernel")))
+    return recs
+
+
+def k17_lb_calls(t, cases) -> dict:
+    """{case: (call, fresh, digest of a call's outputs, phase ns of a
+    call)} for K17."""
+    import dataclasses
+
+    from cilium_tpu_torch.kernels import launch_socklb_stage
+
+    calls = {}
+    for name, (base, hdr, now) in cases.items():
+        def fresh(base=base):
+            return dataclasses.replace(base, table=base.table.clone(),
+                                       fp=base.fp.clone(),
+                                       aff=base.aff.clone())
+
+        def call(tb, hdr=hdr, now=now):
+            return launch_socklb_stage(tb, t, hdr, now)
+
+        def out(fresh=fresh, call=call):
+            tb = fresh()
+            got = call(tb)
+            return digest(*got[:3], tb.table, tb.fp, tb.aff)
+
+        def phases(fresh=fresh, hdr=hdr, now=now):
+            return scratch_counts(launch_socklb_stage, fresh(), t, hdr,
+                                  now)[1]
+
+        calls[name] = (call, fresh, out, phases)
+    return calls
+
+
+def k11_nat_calls(cases) -> dict:
+    """{case: (call, fresh, digest of a call's outputs, phase ns of a
+    call)} for K11."""
+    import dataclasses
+
+    from cilium_tpu_torch.kernels import launch_snat_egress
+
+    calls = {}
+    for name, (base, t, cti, hdr, now) in cases.items():
+        def fresh(base=base):
+            return dataclasses.replace(base, table=base.table.clone(),
+                                       failed=base.failed.clone())
+
+        def call(tb, t=t, cti=cti, hdr=hdr, now=now):
+            return launch_snat_egress(tb, t, cti, hdr, now)
+
+        def out(fresh=fresh, call=call):
+            tb = fresh()
+            got = call(tb)
+            return digest(got[0], got[2], tb.table, tb.failed)
+
+        def phases(fresh=fresh, t=t, cti=cti, hdr=hdr, now=now):
+            return scratch_counts(launch_snat_egress, fresh(), t, cti, hdr,
+                                  now)[1]
+
+        calls[name] = (call, fresh, out, phases)
+    return calls
+
+
+def run_grids(tree: Path, label: str, which: str, recs: dict,
+              calls: dict) -> dict:
+    """Each grid variant of ``which`` (built from ``tree``'s source, out
+    of the tree) timed on every case, its outputs held against the
+    tree's own by digest."""
+    import chip_smoke as cs
+    from cilium_tpu_torch.kernels import build
+
+    source = ABLATIONS[which][0]
+    own = build.library_path(source)
+    out = {}
+    for aname, (so, log) in build_ablations(tree, which).items():
+        use_library(source, so)
+        rec = {"ptxas": ptxas_regs(log)}
+        for case, (call, fresh, digest_of, phases) in calls.items():
+            rec[case] = {"ms": cs.device_ms(call, REPS, fresh),
+                         "out_equal": digest_of() == recs[case]["out"],
+                         "phase_ns": phases()}
+        out[aname] = rec
+        print(f"[{label}] {which} {aname}: " + ", ".join(
+            f"{k} {v['ms']:.4f}" + ("" if v["out_equal"] else " (DIFFERS)")
+            + f" {v['phase_ns']}"
+            for k, v in rec.items() if k != "ptxas")
+            + f" ms; ptxas {[r for r in rec['ptxas'] if 'kernel' in r[0]]}")
+    use_library(source, own)
+    return out
+
+
 def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
     """One tree, in this process: build, make the cases, time them."""
     sys.path.insert(0, str(tree))
@@ -766,11 +1174,16 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
     from cilium_tpu_torch.testing import fixtures as fx
 
     variants = "--variants" in flags
-    sources = ["verdict", "conntrack"] + (
+    sources = (["verdict", "conntrack"] if kernels & {"k1k4", "k18", "k19",
+                                                      "k20", "k22", "k5"}
+               else []) + (
         ["ml"] if kernels & {"k18", "k19", "k20", "k22"} else []) + (
         ["mltrain"] if kernels & {"k20", "k22"} else []) + (
         ["l7"] if "k9" in kernels else []) + (
-        ["ring"] if "k5" in kernels else [])
+        ["ring"] if "k5" in kernels else []) + (
+        ["socklb"] if "k17" in kernels else [])
+    if "k11" in kernels:  # the egress daemon runs every kernel
+        sources = list(build.SOURCES)
     t0 = time.monotonic()
     build.build(sources)
     res = {"tree": str(tree), "label": label,
@@ -778,7 +1191,7 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
            "ptxas": {n: ptxas_regs((build.BUILD_DIR / f"{n}.log").read_text())
                      for n in sources},
            "k1": {}, "k4": {}, "k20": {}, "k9": {}, "k18": {}, "k19": {},
-           "k22": {}, "k5": {}}
+           "k22": {}, "k5": {}, "k17": {}, "k11": {}}
     rng = np.random.default_rng(SEED)
     world = fx.build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
                            device="cpu")
@@ -798,6 +1211,23 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
     if "k5" in kernels:
         res["k5"] = run_k5(label, ring_cases(
             world, np.random.default_rng(SEED + 5)))
+    if "k17" in kernels:
+        k17_t, k17_cases = lb_cases(world, np.random.default_rng(SEED + 17))
+        res["k17"] = run_k17(label, k17_t, k17_cases)
+    if "k11" in kernels:
+        k11_cases = nat_cases(world, np.random.default_rng(SEED + 11))
+        res["k11"] = run_k11(label, k11_cases)
+    if "--grids" in flags:
+        res["grids"] = {}
+        if "k17" in kernels:
+            res["grids"]["k17"] = run_grids(tree, label, "k17_grid", res["k17"],
+                                            k17_lb_calls(k17_t, k17_cases))
+        if "k11" in kernels:
+            res["grids"]["k11"] = run_grids(tree, label, "k11_grid", res["k11"],
+                                            k11_nat_calls(k11_cases))
+            res["grids"]["k11_parts"] = run_grids(
+                tree, label, "k11_parts", res["k11"],
+                k11_nat_calls(k11_cases))
     if "k1k4" not in kernels:
         return save(label, res)
     has_stats = "stats" in inspect.signature(ct.ct_update_plain).parameters
@@ -1035,12 +1465,14 @@ def main() -> int:
         runs.append(json.loads((OUT / f"{label}.json").read_text()))
     for later in runs[1:]:
         first = runs[0]
-        for kern in ("k1", "k4", "k20", "k9", "k18", "k19", "k22", "k5"):
+        for kern in ("k1", "k4", "k20", "k9", "k18", "k19", "k22", "k5",
+                     "k17", "k11"):
             for case, rec in later[kern].items():
                 want = first[kern].get(case, {})
-                for field in ("out", "inputs", "ct", "scores"):
+                for field in ("out", "inputs", "ct", "scores", "k12"):
                     if field in rec and field in want:
-                        same = rec[field] == want[field]
+                        same = (rec[field] == want[field] if field != "k12"
+                                else rec[field]["out"] == want[field]["out"])
                         print(f"{later['label']} {kern} {case} {field}: "
                               f"{'equal to' if same else 'DIFFERS from'} "
                               f"{first['label']}")
@@ -1053,6 +1485,7 @@ def main() -> int:
                       "runs": [{k: r[k] for k in ("label", "k1", "k4",
                                                   "k20", "k9", "k18",
                                                   "k19", "k22", "k5",
+                                                  "k17", "k11",
                                                   "profiler_short")
                                 if k in r} for r in runs]}))
     return 0

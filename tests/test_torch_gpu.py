@@ -534,6 +534,7 @@ def test_egress_kernels_match_their_plain_versions(case):
                 assert torch.equal(got[0], want[0])
                 assert torch.equal(got[2], want[2])
                 _same_nat(tabs)
+                assert bool((tabs[0].claim == nat.CLAIM_FREE).all())
                 if case == "snat_reverse":
                     rep = u32.from_numpy(eg.reply_rows(
                         rng, u32.to_numpy(got[0]), 4096), "cuda")
@@ -541,6 +542,7 @@ def test_egress_kernels_match_their_plain_versions(case):
                     w = nat.snat_reverse_plain(tabs[1], t, rep, t_now + 1)
                     assert torch.equal(g[0], w[0])
                     _same_nat(tabs)
+                    assert bool((tabs[0].claim == nat.CLAIM_FREE).all())
                 rows = np.concatenate([rows[::3], eg.egress_rows(
                     rng, len(rows) - len(rows[::3]), eg.pod_ips(64))])
             if cap == 1 << 8:
@@ -658,8 +660,191 @@ def test_lb_kernels_match_their_plain_versions(case):
                 for f in ("table", "fp", "aff"):
                     assert torch.equal(getattr(tabs[0], f),
                                        getattr(tabs[1], f)), (label, f)
+                for f in ("claim", "aclaim"):
+                    assert bool((getattr(tabs[0], f)
+                                 == sl.CLAIM_FREE).all()), (label, f)
     torch.cuda.synchronize()
     assert KERNELS[case].launches > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["steady", "grid-then-tail", "crowded",
+                                  "full-table", "overflow", "over-cap"])
+def test_socklb_is_one_launch_whose_steps_stop(case):
+    """K17, one cooperative kernel a call (no fill node), against its
+    plain version on the same CUDA tensors, the claim steps it ran read
+    from its counts: a steady batch of cached flows (no row pending: no
+    step runs); 4096 new flows on a 2^14 cache (more pending rows than
+    one block's tail takes: grid steps, then the tail); 12 new flows
+    sharing one window among 1024 others (contention: one wins a slot at
+    each step, all 8 steps run, 4 stay uncached); 512 new flows on a
+    2^6 cache (every window filled: rows left uncached); a forced
+    fingerprint overflow (every row re-probes its whole window);
+    CONNECT_CAP + 1 misses (resolved, nothing claimed).  Every claim
+    word of both tables is free after the call."""
+    _need_card()
+    import functools
+
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.kernels import launch_socklb_stage
+    from cilium_tpu_torch.service import socklb as sl
+    from cilium_tpu_torch.testing import services as sv
+
+    rng = np.random.default_rng(61)
+    mgr, clients, others = _lb_world()
+    t = mgr.tensors()
+    cap = {"full-table": 1 << 6, "grid-then-tail": 1 << 14,
+           "crowded": 1 << 14}.get(case, 1 << 16)
+    base = sl.SockLBTable.create(cap, 1 << 12, device="cuda")
+
+    def fresh(k):
+        return sv.rows(rng, k, 512, clients, others, dup_frac=0.0)
+
+    now = 100
+    if case == "steady" or case == "overflow":
+        pool = fresh(4096)
+        sl.socklb_stage_plain(base, t, u32.from_numpy(pool, "cuda"), now)
+        now += 10
+        rows = pool[rng.integers(0, len(pool), 8192)]
+        if case == "overflow":
+            rows = np.concatenate([rows, fresh(1)])
+            base.fp.copy_(u32.from_numpy(sv.force_overflow(
+                u32.to_numpy(base.fp), rows[-1]), "cuda"))
+    elif case == "crowded":
+        rows = np.concatenate([sv.crowded_rows(12, cap, clients, others[0]),
+                               fresh(1024)])
+    else:
+        rows = fresh({"grid-then-tail": 4096, "full-table": 512}.get(
+            case, sl.CONNECT_CAP + 1))
+    hdr = u32.from_numpy(rows, "cuda")
+
+    def copy():
+        return sl.SockLBTable(base.table.clone(), base.fp.clone(),
+                              base.aff.clone())
+
+    tabs, sc = [copy(), copy()], {}
+    got = launch_socklb_stage(tabs[0], t, hdr, now, scratch=sc)
+    want = sl.socklb_stage_plain(tabs[1], t, hdr, now)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    for f in ("table", "fp", "aff"):
+        assert torch.equal(getattr(tabs[0], f), getattr(tabs[1], f)), f
+    for f in ("claim", "aclaim"):
+        assert bool((getattr(tabs[0], f) == sl.CLAIM_FREE).all()), f
+    _one_kernel(lambda: functools.partial(launch_socklb_stage, copy(), t,
+                                          hdr, now), "socklb_kernel")
+    counts = sc["counts"].cpu().tolist()
+    steps, left, misses, tail = counts[:8], counts[8], counts[9], counts[10]
+    if case in ("steady", "over-cap"):
+        assert not any(steps) and tail == 0, counts
+    if case == "over-cap":
+        assert misses == sl.CONNECT_CAP + 1
+    if case == "grid-then-tail":
+        assert steps[0] > 4 * 256 and tail >= 2, counts
+    if case == "crowded":
+        assert all(steps) and left >= 4, counts
+    if case == "full-table":
+        assert steps[0] > 0 and left > 0, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["steady", "grid-then-tail", "exhausted",
+                                  "dry", "duplicates"])
+def test_snat_egress_is_one_launch_whose_steps_stop(case):
+    """K11, one cooperative kernel a call (no fill node), against its
+    plain version on the same CUDA tensors, the claim steps it ran read
+    from its counts, then K12 on replies to its rows (no fill node): a
+    batch whose flows all hold live mappings (no row pending: no step
+    runs); 4096 new flows on a 2^14 pool (more pending rows than one
+    block's tail takes: grid steps, then the tail); the same rows into a
+    2^8 pool (every step used, the failures counted in ``failed``); new
+    flows into that pool once it is full of live mappings (no window
+    holds a claimable slot: every pending row fails, no step runs);
+    every flow four times in one batch, with a crafted collision window
+    (same-tuple losers adopt the lowest row's slot).  Every claim word is
+    free after K11 and after K12."""
+    _need_card()
+    import functools
+
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.kernels import launch_snat_egress
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    rng = np.random.default_rng(62)
+    now = 1000
+    cap = 1 << 8 if case in ("exhausted", "dry") else 1 << 14
+    (base, _), t, cttab, rows = _card_nat(rng, cap, now,
+                                          eg.gateway_rules(eg.pod_ips(64)))
+    if case == "steady":  # past the crafted window, whose rows never fit
+        rows = rows[12:2060]
+        nat.snat_egress_plain(base, t, cttab, u32.from_numpy(rows, "cuda"),
+                              now)
+        now += 10
+    elif case == "grid-then-tail":
+        rows = eg.egress_rows(rng, 8192, eg.pod_ips(64))
+    elif case == "dry":
+        nat.snat_egress_plain(base, t, cttab, u32.from_numpy(rows, "cuda"),
+                              now)
+        now += 10
+        rows = eg.egress_rows(rng, 4096, eg.pod_ips(64), dup_frac=0.0)
+    elif case == "duplicates":
+        flows = eg.egress_rows(rng, 256, eg.pod_ips(64), dup_frac=0.0)
+        rows = np.concatenate([eg.colliding_rows(12, cap, 5),
+                               np.repeat(flows, 4, axis=0)])
+        rows = rows[rng.permutation(len(rows))]
+    hdr = u32.from_numpy(rows, "cuda")
+
+    def copy():
+        return nat.NATTable(base.table.clone(), base.failed.clone())
+
+    tabs, sc = [copy(), copy()], {}
+    got = launch_snat_egress(tabs[0], t, cttab, hdr, now, scratch=sc)
+    want = nat.snat_egress_plain(tabs[1], t, cttab, hdr, now)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    _same_nat(tabs)
+    assert bool((tabs[0].claim == nat.CLAIM_FREE).all())
+    _one_kernel(lambda: functools.partial(launch_snat_egress, copy(), t,
+                                          cttab, hdr, now),
+                "snat_egress_kernel")
+    counts = sc["counts"].cpu().tolist()
+    steps, failed, tail = counts[:8], counts[8], counts[9]
+    dropped = int(got[2].sum())
+    assert failed == dropped
+    assert (int(tabs[0].failed) & 0xFFFFFFFF) == (
+        int(base.failed) & 0xFFFFFFFF) + dropped
+    if case == "steady":
+        assert not any(steps) and tail == 0, counts
+    if case == "grid-then-tail":
+        assert steps[0] > 4 * 256 and tail >= 2, counts
+    if case == "exhausted":
+        assert steps[0] > 0 and dropped > 0, counts
+    if case == "dry":
+        assert steps == [counts[0]] * 8 == [counts[8]] * 8, counts
+        assert counts[0] > 0 and tail == 0, counts
+    if case == "duplicates":  # the crafted window: a winner each step
+        assert all(steps), counts
+        out = u32.to_numpy(got[0])
+        ok = ~got[2].cpu().numpy()
+        alloc = ok & (out[:, 8] >= nat.NAT_PORT_MIN)
+        pre = {}
+        for r, o in zip(rows[alloc], out[alloc]):
+            pre.setdefault(tuple(r[[3, 7, 8, 9, 10]]), set()).add(
+                (int(o[3]), int(o[8])))
+        assert all(len(v) == 1 for v in pre.values())
+    # K12 on replies to the rewritten rows: no fill, the words free again
+    rep = u32.from_numpy(eg.reply_rows(rng, u32.to_numpy(got[0]),
+                                       len(rows)), "cuda")
+    g = nat.snat_reverse(tabs[0], t, rep, now + 1)
+    w = nat.snat_reverse_plain(tabs[1], t, rep, now + 1)
+    assert torch.equal(g[0], w[0])
+    _same_nat(tabs)
+    assert bool((tabs[0].claim == nat.CLAIM_FREE).all())
+    ops = ops_a_call(lambda: functools.partial(nat.snat_reverse, copy(), t,
+                                               rep, now + 1))
+    assert sorted(ops.values()) == [1, 1] and not any(
+        "Fill" in k or k == "memset" for k in ops), ops
 
 
 def _ml_batch(rng, n):

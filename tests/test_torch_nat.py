@@ -402,3 +402,62 @@ def test_live_count_and_entries_decode():
     table = u32.to_numpy(pair.ttbl.table)
     assert tnat.nat_entries_from_snapshot(table) == \
         jnat.nat_entries_from_snapshot(np.asarray(pair.jtbl.table))
+
+
+@pytest.mark.parametrize("how", ["created", "restored", "loader-restored"])
+def test_claim_words_free_and_ignored_by_the_plain_versions(how):
+    """The NAT table's claim words (``NATTable.claim``, K11's and K12's)
+    live with the table and are CLAIM_FREE between calls: a table made
+    by ``create``, restored from a snapshot (``convert``, or a loader's
+    ``nat_restore``) holds none in use.  The plain versions neither read
+    nor write them: with every word set in use, egress and reverse give
+    the same rows, drops, table and failures, and leave the words as
+    they were."""
+    from cilium_tpu_torch.datapath.loader import TorchLoader
+
+    rng = np.random.default_rng(7)
+    pair = _Pair(cap=256, rules=GW_RULES)
+    hdr, _drop = pair.egress(_random_rows(rng), 50)
+    if how == "created":
+        tbl = tnat.NATTable.create(256, "cpu")
+    elif how == "restored":
+        tbl = convert.nat_table_from_numpy(
+            *convert.nat_table_to_numpy(pair.ttbl), device="cpu")
+    else:
+        loader = TorchLoader(ct_capacity=1 << 4, device="cpu")
+        loader.nat_restore(u32.to_numpy(pair.ttbl.table))
+        tbl = loader.nat_state
+    assert tbl.claim.dtype == torch.int32
+    assert tuple(tbl.claim.shape) == (3, tbl.table.shape[0])
+    assert bool((tbl.claim == tnat.CLAIM_FREE).all())
+
+    def copy(claims_in_use):
+        t = tnat.NATTable(pair.ttbl.table.clone(), pair.ttbl.failed.clone())
+        if claims_in_use:
+            t.claim = torch.arange(3 * t.table.shape[0],
+                                   dtype=torch.int32).reshape(3, -1)
+        return t
+
+    free, busy = copy(False), copy(True)
+    rows = u32.from_numpy(_random_rows(rng), "cpu")
+    got = [tnat.snat_egress_plain(t, pair.tt, pair.tct, rows, 60)
+           for t in (free, busy)]
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][2], got[1][2])
+    # replies to the first batch's rewritten rows
+    rep = hdr.copy()
+    rep[:, COL_SRC_IP3], rep[:, COL_DST_IP3] = hdr[:, COL_DST_IP3], hdr[
+        :, COL_SRC_IP3]
+    rep[:, COL_SPORT], rep[:, COL_DPORT] = hdr[:, COL_DPORT], hdr[:, COL_SPORT]
+    rep[:, COL_DIR] = 0
+    back = [tnat.snat_reverse_plain(t, pair.tt, u32.from_numpy(rep, "cpu"),
+                                    61)[0] for t in (free, busy)]
+    assert torch.equal(back[0], back[1])
+    assert bool((back[0][:, COL_DST_IP3] != u32.from_numpy(
+        rep, "cpu")[:, COL_DST_IP3]).any())  # some replies restored
+    for a, b in ((free.table, busy.table), (free.failed, busy.failed)):
+        assert torch.equal(a, b)
+    assert bool((free.claim == tnat.CLAIM_FREE).all())
+    assert torch.equal(busy.claim.flatten(),
+                       torch.arange(3 * busy.table.shape[0],
+                                    dtype=torch.int32))

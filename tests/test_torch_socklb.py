@@ -304,3 +304,59 @@ def test_state_carried_across_from_jax():
             "backend_port")}, "m": t6.m}, device="cpu")
     assert u32.to_numpy(mine.svc_ip).tolist() == np.asarray(
         t6.svc_ip).tolist()
+
+
+@pytest.mark.parametrize("how", ["created", "restored", "pruned"])
+def test_claim_words_free_and_ignored_by_the_plain_version(how):
+    """K17's claim words (``SockLBTable.claim``, ``.aclaim``) live with
+    the table and are CLAIM_FREE between calls: a table made by
+    ``create``, restored from a snapshot (``convert``) or pruned holds
+    none in use.  The plain version neither reads nor writes them: with
+    every word set in use it gives the same rows, masks and tables, and
+    leaves the words as they were."""
+    from cilium_tpu_torch import convert
+    from cilium_tpu_torch.service.nat import CLAIM_FREE
+
+    p = _Pair()
+    rows = np.concatenate([_flows(64), _flows(16, dst=AFF_VIP, sport0=50000),
+                           _flows(8, dst="203.0.113.7")])
+    p.step(rows, 10)
+    if how == "created":
+        tbl = tsl.SockLBTable.create(1 << 14, 1 << 12, device="cpu")
+    elif how == "restored":
+        tbl = convert.socklb_table_from_numpy(
+            *convert.socklb_table_to_numpy(p.ttbl), device="cpu")
+    else:
+        p.upsert("aff", f"{AFF_VIP}:80", BACKENDS[:1], affinity_timeout=60)
+        p.prune()
+        tbl = p.ttbl
+    for words, rows_of in ((tbl.claim, tbl.table), (tbl.aclaim, tbl.aff)):
+        assert words.dtype == torch.int32
+        assert tuple(words.shape) == (3, rows_of.shape[0])
+        assert bool((words == CLAIM_FREE).all())
+
+    def copy(claims_in_use):
+        t = tsl.SockLBTable(tbl.table.clone(), tbl.fp.clone(),
+                            tbl.aff.clone())
+        if claims_in_use:
+            t.claim = torch.arange(3 * t.table.shape[0],
+                                   dtype=torch.int32).reshape(3, -1)
+            t.aclaim = torch.arange(3 * t.aff.shape[0],
+                                    dtype=torch.int32).reshape(3, -1)
+        return t
+
+    free, busy = copy(False), copy(True)
+    batch = u32.from_numpy(np.concatenate([rows, _flows(32, sport0=60000)]),
+                           "cpu")
+    got = [tsl.socklb_stage_plain(t, p.tm.tensors(), batch, 20)
+           for t in (free, busy)]
+    for a, b in zip(got[0][:3], got[1][:3]):
+        assert torch.equal(a, b)
+    for f in ("table", "fp", "aff"):
+        assert torch.equal(getattr(free, f), getattr(busy, f))
+    assert bool((free.claim == CLAIM_FREE).all())
+    assert torch.equal(busy.claim.flatten(),
+                       torch.arange(3 * busy.table.shape[0],
+                                    dtype=torch.int32))
+    assert torch.equal(busy.aclaim.flatten(),
+                       torch.arange(3 * busy.aff.shape[0], dtype=torch.int32))
