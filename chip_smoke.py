@@ -95,9 +95,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    reply translates back to its pod tuple, no two flows share a node
    port, the pool's failures equal the NAT_EXHAUSTED rows, each limited
    pod's bucket ledger holds, UDP mappings expire; then a short
-   exhaustion leg at ``NatExhaustionScenario``'s shape.  Phase 3 holds
-   K11-K14 against their plain versions at these shapes (collision
-   windows, duplicates, a pool run dry, a clock crossing 2^32);
+   exhaustion leg at ``NatExhaustionScenario``'s shape; K13, one kernel
+   a call, equals its plain version on the path's own inputs and is
+   timed there.  Phase 3 holds K11-K14 against their plain versions at
+   these shapes (collision windows, duplicates, a pool run dry, a clock
+   crossing 2^32);
 12. the service path: phase 11's daemon with 4096 ClusterIP services (2
    backends each among the world's pods, Maglev tables of 16381 slots,
    256 dual-stack over its v6 pods, a 16th with ClientIP affinity, 16
@@ -111,8 +113,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    flows keep theirs across the change, new ones follow the new Maglev
    tables, pins to the backend that left are pruned, NO_SERVICE drops
    equal the rows to frontends with no backend (the denied pod's too),
-   the burst caches nothing, and K17 equals its plain version on the
-   main path's own inputs.  Phase 3 holds K15-K17 against their plain
+   the burst caches nothing, and K17, K16 and K13 equal their plain
+   versions on the main path's own inputs (K16 and K13 one kernel a
+   call, timed there).  Phase 3 holds K15-K17 against their plain
    versions at full width (2^16 rows, 4096 frontends; K17 over a
    threaded sequence on 2^16 and 2^20 caches: connect batches, a
    steady batch, a burst, a forced fingerprint overflow, a backend
@@ -336,6 +339,95 @@ def one_kernel_a_call(prepare, kernel, what):
     check(list(ops.values()) == [1] and kernel in next(iter(ops)),
           f"{what}: a call put {ops} on the stream, not one {kernel}")
     return next(iter(ops))
+
+
+def stage_inputs(d, rows, now):
+    """The inputs K13 (``Daemon._bw_police``) and K16 (``lb6_stage``)
+    take in one ``d.process_batch(rows, now)``: ((bandwidth state
+    before, rows, now, rates) or None, (v6 LB tensors, rows) or None);
+    the tensors are copies."""
+    import cilium_tpu_torch.service as svc
+    from cilium_tpu_torch.datapath.bandwidth import BandwidthState
+
+    got13, got16 = [], []
+    police, lb6 = d._bw_police, svc.lb6_stage
+
+    def spy13(hdr, now):
+        got13.append((BandwidthState(d._bw.tokens.clone(),
+                                     d._bw.last.clone()),
+                      hdr.clone(), now, d._bw_rates))
+        return police(hdr, now)
+
+    def spy16(t, hdr):
+        got16.append((t, hdr.clone()))
+        return lb6(t, hdr)
+
+    d._bw_police, svc.lb6_stage = spy13, spy16
+    try:
+        d.process_batch(rows, now=now)
+    finally:
+        d._bw_police, svc.lb6_stage = police, lb6
+    return (got13[0] if got13 else None), (got16[0] if got16 else None)
+
+
+def k13_on(label, state, hdr, now, rates):
+    """K13 on a path's own inputs (``stage_inputs``), each call on a
+    copy of the buckets: bit-exact with its plain version (reasons,
+    tokens, last), one kernel a call, its two sums zero after the call;
+    -> {ms, rows, dropped}."""
+    import functools
+
+    import torch
+    from cilium_tpu_torch.datapath import bandwidth as bw
+    from cilium_tpu_torch.kernels import launch_bw_stage
+
+    def fresh():
+        return bw.BandwidthState(state.tokens.clone(), state.last.clone())
+
+    sts, sc = [fresh(), fresh()], {}
+    got = launch_bw_stage(sts[0], hdr, now, rates, scratch=sc)
+    want = bw.bw_stage_plain(sts[1], hdr, now, rates)
+    for g, w, what in ((got, want, "reasons"),
+                       (sts[0].tokens, sts[1].tokens, "tokens"),
+                       (sts[0].last, sts[1].last, "last")):
+        max_abs_err(g, w, f"{label}: bw_stage {what} on the main path's "
+                    f"inputs")
+    check(bool((sc["sums"] == 0).all()), f"{label}: bw_stage left its "
+          f"sums non-zero")
+    one_kernel_a_call(lambda: functools.partial(
+        bw.bw_stage, fresh(), hdr, now, rates), "bw_stage_kernel",
+        f"{label}: bw_stage")
+    ms = device_ms(lambda st: bw.bw_stage(st, hdr, now, rates), 20, fresh)
+    res = {"ms": ms, "rows": int(hdr.shape[0]),
+           "dropped": int((got != 0).sum())}
+    print(f"{label}: K13 on the main path's inputs ({res['rows']} rows, "
+          f"{res['dropped']} dropped): bit-exact with its plain version, "
+          f"one kernel, its sums zero after the call, {ms:.4f} ms")
+    return res
+
+
+def k16_on(label, t, hdr):
+    """K16 on a path's own inputs (``stage_inputs``): bit-exact with its
+    plain version (rows, both masks), one kernel a call; -> {ms, rows,
+    v6_rows}."""
+    import functools
+
+    from cilium_tpu_torch.core.packets import COL_FAMILY
+    from cilium_tpu_torch.service import lb6_stage, lb6_stage_plain
+
+    for g, w, what in zip(lb6_stage(t, hdr), lb6_stage_plain(t, hdr),
+                          ("rows", "have", "no_backend")):
+        max_abs_err(g, w, f"{label}: lb6_stage {what} on the main path's "
+                    f"inputs")
+    one_kernel_a_call(lambda: functools.partial(lb6_stage, t, hdr),
+                      "lb6_stage_kernel", f"{label}: lb6_stage")
+    ms = device_ms(lambda: lb6_stage(t, hdr), 20)
+    res = {"ms": ms, "rows": int(hdr.shape[0]),
+           "v6_rows": int((hdr[:, COL_FAMILY] == 6).sum())}
+    print(f"{label}: K16 on the main path's inputs ({res['rows']} rows, "
+          f"{res['v6_rows']} v6, {t.svc_port.shape[0]} v6 frontends): "
+          f"bit-exact with its plain version, one kernel, {ms:.4f} ms")
+    return res
 
 
 # -- inputs -----------------------------------------------------------
@@ -778,7 +870,7 @@ def phase_egress_kernels(torch, rng, kernels):
     repeats of one flow in a batch, a pool run dry by one batch, replies
     (some to the wrong IP or with a forged protocol word), a clock
     crossing 2^32; each kernel and its plain version fed clones of the
-    same state.  K11 is one kernel a call."""
+    same state.  K11 and K13 are one kernel a call."""
     import functools
 
     import numpy as np
@@ -902,15 +994,19 @@ def phase_egress_kernels(torch, rng, kernels):
         return bw.BandwidthState(states[0].tokens.clone(),
                                  states[0].last.clone())
 
+    one_kernel_a_call(lambda: functools.partial(
+        bw.bw_stage, fresh_bw(), hdr_bw, 5, rates), "bw_stage_kernel",
+        "bw_stage")
     kernels["bw_stage"].update(
         max_abs_err=errs["bw_stage"],
         ms=device_ms(lambda s: bw.bw_stage(s, hdr_bw, 5, rates), 20,
                      fresh_bw),
         plain_ms=device_ms(lambda s: bw.bw_stage_plain(s, hdr_bw, 5, rates),
                            3, fresh_bw),
-        # the five words a row needs (20 B) and its reason (4 B); rates,
-        # tokens read and written for every bucket
-        bytes=EGRESS_N * 24 + 4096 * 12 + 8,
+        # the five words a row needs lie in both 32 B sectors of its 64 B
+        # row (bytes 12-15, 32-35, 48-63): the whole row, and its reason
+        # (4 B); rates, tokens read and written for every bucket
+        bytes=EGRESS_N * 68 + 4096 * 12 + 8,
         ops=EGRESS_N * 30 + 4096 * 20)
 
 
@@ -1006,7 +1102,8 @@ def phase_lb_kernels(torch, rng, world, kernels, report):
     VIPs; K16 over the 256 v6 frontends; K17 over ``socklb_steps``'s
     threaded sequence on the daemon's default 2^16-slot cache and on
     bench_socket_lb's 2^20, the flow table, fingerprints and pins
-    compared word for word after every batch; K17 is one kernel a call.
+    compared word for word after every batch; K16 and K17 are one kernel
+    a call.
     Returns the ServiceManager, for phase 12 to take over with its filled
     Maglev rows."""
     import functools
@@ -1060,6 +1157,9 @@ def phase_lb_kernels(torch, rng, world, kernels, report):
         err = max(max_abs_err(g, w, f"{name} {what}") for g, w, what in zip(
             kern(tt, hdr), plain(tt, hdr), ("rows", "have", "no_backend")))
         hits = lb_hits(rows, tt, v6)
+        if v6:
+            one_kernel_a_call(lambda: functools.partial(kern, tt, hdr),
+                              "lb6_stage_kernel", name)
         s = tt.svc_port.shape[0]
         per = 24 if v6 else 12
         kernels[name].update(
@@ -2660,6 +2760,11 @@ def phase_egress(torch, rng, world, report):
           f"ms, device busy {busy_us / 1e3:.3f} ms "
           f"({busy_us / 1e6 / t_prof:.1%}), idle "
           f"{1 - busy_us / 1e6 / t_prof:.1%}")
+    # K13 at the main path's own inputs: the next batch's rows as SNAT
+    # leaves them, against the live buckets
+    rows, _new, _want = egress_batch(rng, clients, flows,
+                                     EGRESS_BATCHES + 1, prev)
+    k13_path = k13_on("egress", *stage_inputs(d, rows, now + 60)[0])
     d.shutdown()
 
     # the exhaustion leg: NatExhaustionScenario's shape on the card
@@ -2683,6 +2788,7 @@ def phase_egress(torch, rng, world, report):
                           "claim_steps": k11_steps,
                           "tail_from_step": k11_tail,
                           "counts": k11_counts},
+        "k13_main_path": k13_path,
         "profiled": {"seconds": t_prof, "device_busy_ms": busy_us / 1e3}}
     return launches
 
@@ -3002,6 +3108,13 @@ def phase_service(torch, rng, world, mgr, report):
           f"device busy {busy_us / 1e3:.3f} ms "
           f"({busy_us / 1e6 / t_prof:.1%}), idle "
           f"{1 - busy_us / 1e6 / t_prof:.1%}")
+    # K13 and K16 at the main path's own inputs: the next batch's rows
+    # as the stages before each leave them
+    now += 10
+    rows, _idx, _k = batch(SVC_FRESH)
+    bw_in, lb6_in = stage_inputs(d, rows, now)
+    k13_path, k16_path = k13_on("service", *bw_in), k16_on("service",
+                                                           *lb6_in)
     d.shutdown()
     report["service"] = {
         "build_s": t_build, "batches": SVC_BATCHES, "rows": rows_main,
@@ -3017,6 +3130,7 @@ def phase_service(torch, rng, world, mgr, report):
                           "claim_steps": k17_steps,
                           "tail_from_step": k17_tail,
                           "counts": k17_counts},
+        "k13_main_path": k13_path, "k16_main_path": k16_path,
         "profiled": {"seconds": t_prof, "device_busy_ms": busy_us / 1e3}}
     return launches
 
@@ -5466,6 +5580,11 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    # K13 and K16 timed again on the paths' own inputs (phases 11, 12)
+    kernels["bw_stage"]["path_ms"] = {
+        p: report[p]["k13_main_path"]["ms"] for p in ("egress", "service")}
+    kernels["lb6_stage"]["path_ms"] = {
+        "service": report["service"]["k16_main_path"]["ms"]}
     on_path, launchers = [], []
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"),

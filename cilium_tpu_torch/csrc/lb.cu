@@ -10,18 +10,20 @@
 // read once, one Maglev gather (a row of 16381 int32 per frontend: the
 // [S, m] table is 268 MB at 4096 frontends, so each gather is a cold
 // 32 B sector) and one backend gather per hit row.  The lowest matching
-// frontend needs only one probe a row into an index of the frontends;
-// these kernels scan the frontends instead, up to each row's first
-// match, as the reference's [N, S] compare does (~0.6 G integer
-// compares at 2^16 rows x 4096 frontends).
+// frontend needs only one probe a row into an index of the frontends.
 //
-// Design: one thread per row.  A block of 256 rows stages the frontends
-// into shared memory a 24 KB tile at a time (lb.cuh); every thread scans
-// the tile from shared memory (the same entry for all lanes: a
-// broadcast), keeps its lowest match, and the block moves to the next
-// tile only while some thread is still unmatched.  Then the hash, the
-// Maglev gather, the backend gather and the rewritten row, written as
-// four 16-byte stores.
+// Design: one thread per row, its row loaded and stored as four 16-byte
+// words.  K15 scans the v4 frontends up to each row's first match, as
+// the reference's [N, S] compare does: a block of 256 rows stages them
+// into shared memory a 24 KB tile at a time (lb.cuh lb_match4), every
+// thread scans the tile (the same entry for all lanes: a broadcast),
+// keeps its lowest match, and the block moves to the next tile only
+// while some thread is still unmatched.  K16 probes the host-built v6
+// index (lb.cuh lb_find6): a v6 row's chain is its index slot, the
+// frontend's words, the Maglev sector and the backend, four dependent
+// reads from L2 whatever the number of frontends, with no staging and
+// no block barrier; a row that is not v6 is only copied.  Then the hash,
+// the Maglev gather, the backend gather and the rewritten row.
 #include "lb.cuh"
 
 namespace {
@@ -67,20 +69,20 @@ __global__ void __launch_bounds__(LB_TPB) lb_stage_kernel(LbIO io, LbView t) {
 
 __global__ void __launch_bounds__(LB_TPB) lb6_stage_kernel(LbIO io,
                                                            Lb6View t) {
-  __shared__ LbTile6 tile;
-  int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool in = i < io.n;
-  Row r{};
-  if (in) r = load_row(io.rows, i);
-  int32_t svc = lb_match6(t, tile, in && r.d.y == 6, r.b, r.c.y, r.c.z);
-  if (!in) return;
-  const uint32_t src[4] = {r.a.x, r.a.y, r.a.z, r.a.w};
-  int32_t be = lb_pick(t.maglev, t.m, svc,
-                       lb_hash6(src, r.c.x, r.b.w, r.c.y, r.c.z));
+  const int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= io.n) return;
+  Row r = load_row(io.rows, i);
+  int32_t be = -1, svc = -1;
+  if (r.d.y == 6) {
+    svc = lb_find6(t, r.b, r.c.y, r.c.z);
+    const uint32_t src[4] = {r.a.x, r.a.y, r.a.z, r.a.w};
+    be = lb_pick(t.maglev, t.m, svc,
+                 lb_hash6(src, r.c.x, r.b.w, r.c.y, r.c.z));
+  }
   if (be >= 0) {
-    const uint32_t* w = t.backend_ip + (size_t)be * 4;
-    r.b = make_uint4(w[0], w[1], w[2], w[3]);
-    r.c.y = t.backend_port[be];
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(t.backend_ip) + be);
+    r.b = w;
+    r.c.y = __ldg(t.backend_port + be);
   }
   store_row(io.out, i, r);
   io.have_backend[i] = be >= 0;

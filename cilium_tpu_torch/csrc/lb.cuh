@@ -1,5 +1,5 @@
-// Service LB device functions: the frontend match over frontends staged
-// in shared memory, the flow hashes and the Maglev pick.
+// Service LB device functions: the frontend matches, the flow hashes
+// and the Maglev pick.
 //
 // Replaces: the match and select of cilium_tpu/service/__init__.py
 // lb_stage (:391) and lb6_stage (:435), which service/socklb.py _resolve
@@ -17,29 +17,24 @@
 // predecessor, a warp a row streaming the frontends from global memory,
 // paid an L2 trip for every 32 frontends it passed (29 us for a batch's
 // ~300 misses), and a warp-wide scan of staged frontends reads all of
-// them for every miss (PERF.md, PR 18).
+// them for every miss (PERF.md).  The v6 match (lb_find6) probes
+// an index that the host builds with the tables (service/__init__.py
+// lb6_index): a probe a row, whatever the number of frontends.
 //
 // The match is the reference's [N, S] compare: every row against every
 // frontend, the LOWEST matching index winning (two service names may
-// share a VIP:port).  A block stages the frontends into shared memory a
-// tile at a time (every thread reads each entry, a broadcast), and stops
-// once every thread of the block has its match.
+// share a VIP:port).  The v4 tiles stop once every thread of the block
+// has its match; the indexes keep the lowest index of each key.
 #pragma once
 
 #include "views.cuh"
 
 constexpr int LB_TPB = 256;
 constexpr int LB_TILE4 = 2048;  // v4 frontends a tile: 24 KB
-constexpr int LB_TILE6 = 1024;  // v6 frontends a tile: 24 KB
 
 struct LbTile4 {
   __align__(16) uint32_t ip[LB_TILE4];
   uint32_t port[LB_TILE4], proto[LB_TILE4];
-};
-
-struct LbTile6 {
-  uint4 ip[LB_TILE6];
-  uint32_t port[LB_TILE6], proto[LB_TILE6];
 };
 
 // The lowest v4 frontend matching (dst, dport, proto), -1 for none.
@@ -227,34 +222,36 @@ __device__ __forceinline__ int32_t lb_lookup4(const LbView& t,
   return -1;
 }
 
-// The same over v6 frontends (the 4-word destination).
-__device__ __forceinline__ int32_t lb_match6(const Lb6View& t, LbTile6& tile,
-                                             bool active, uint4 dst,
-                                             uint32_t dport, uint32_t proto) {
-  int32_t found = -1;
-  for (int base = 0; base < t.s; base += LB_TILE6) {
-    int cnt = min(LB_TILE6, t.s - base);
-    __syncthreads();
-    for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
-      const uint32_t* w = t.svc_ip + (size_t)(base + k) * 4;
-      tile.ip[k] = make_uint4(w[0], w[1], w[2], w[3]);
-      tile.port[k] = t.svc_port[base + k];
-      tile.proto[k] = t.svc_proto[base + k];
-    }
-    __syncthreads();
-    if (active && found < 0) {
-      for (int k = 0; k < cnt; ++k) {
-        uint4 f = tile.ip[k];
-        if (f.w == dst.w && f.z == dst.z && f.y == dst.y && f.x == dst.x &&
-            tile.port[k] == dport && tile.proto[k] == proto) {
-          found = base + k;
-          break;
-        }
-      }
-    }
-    if (!__syncthreads_or(active && found < 0)) break;
+// The v6 index's slot hash of a frontend key.  The one source of its
+// constants: service/__init__.py lb6_index_hash copies it to place the
+// frontends on the host, so a change here is made there too.
+__device__ __forceinline__ uint32_t lb6_index_hash(uint4 dst, uint32_t dport,
+                                                  uint32_t proto) {
+  uint32_t h = (dst.x * 0x9E3779B1u) ^ (dst.y * 0x85EBCA6Bu) ^
+               (dst.z * 0xC2B2AE35u) ^ (dst.w * 0x27D4EB2Fu) ^
+               (dport * 0x165667B1u) ^ proto;
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  return h ^ (h >> 15);
+}
+
+// The lowest v6 frontend matching (dst, dport, proto), -1 for none: a
+// linear probe of t's index (index_cap slots, a power of two above the
+// frontends, so an empty slot ends every probe), each slot the lowest
+// frontend of one key or LB_EMPTY; a slot's frontend is taken only when
+// its own words match.
+__device__ __forceinline__ int32_t lb_find6(const Lb6View& t, uint4 dst,
+                                            uint32_t dport, uint32_t proto) {
+  const uint32_t mask = (uint32_t)t.index_cap - 1;
+  for (uint32_t h = lb6_index_hash(dst, dport, proto) & mask;;
+       h = (h + 1) & mask) {
+    const int32_t q = __ldg(t.index + h);
+    if (q == LB_EMPTY) return -1;
+    const uint4 f = __ldg(reinterpret_cast<const uint4*>(t.svc_ip) + q);
+    if (f.x == dst.x && f.y == dst.y && f.z == dst.z && f.w == dst.w &&
+        __ldg(t.svc_port + q) == dport && __ldg(t.svc_proto + q) == proto)
+      return q;
   }
-  return found;
 }
 
 // The v4 flow hash (u32 wrapping): src ip/port dominate, the dst side is

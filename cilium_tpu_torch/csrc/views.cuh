@@ -212,10 +212,10 @@ struct BwIO {
   uint32_t* tokens;       // [MAX_ENDPOINTS] updated in place
   uint32_t* last;         // [1] updated in place
   uint32_t* reasons;      // [n] out
-  // scratch, allocated by the wrapper
-  uint32_t* batch_bytes;  // [MAX_ENDPOINTS], zeroed
-  uint32_t* consumed;     // [MAX_ENDPOINTS], zeroed
-  float* frac;            // [MAX_ENDPOINTS]
+  // the per-stream scratch: the kernel leaves both sums zero
+  uint32_t* batch_bytes;  // [MAX_ENDPOINTS] the policed bytes
+  uint32_t* consumed;     // [MAX_ENDPOINTS] the kept bytes
+  uint32_t* meta;         // [64] phase stamps (Stamps)
   int32_t n;
   uint32_t now;
 };
@@ -237,16 +237,17 @@ struct LbView {
 
 // The compiled v6 frontends (service/__init__.py LBTensors6).
 struct Lb6View {
-  const uint32_t* svc_ip;        // [s, 4]
+  const uint32_t* svc_ip;        // [s, 4], 16-byte aligned
   const uint32_t* svc_port;      // [s]
   const uint32_t* svc_proto;     // [s]
   const int32_t* maglev;         // [s, m]
-  const uint32_t* backend_ip;    // [b, 4]
+  const uint32_t* backend_ip;    // [b, 4], 16-byte aligned
   const uint32_t* backend_port;  // [b]
+  const int32_t* index;          // [index_cap] lowest frontend a key, -1
   int32_t s;
   int32_t b;
   int32_t m;
-  int32_t pad;
+  int32_t index_cap;  // 2^k > s
 };
 
 // One batch through lb_stage or lb6_stage.
@@ -368,7 +369,7 @@ __device__ __forceinline__ void block_count(bool flag, uint32_t* count,
   }
 }
 
-// Phase stamps of a cooperative kernel (K11, K17): thread 0 of block 0
+// Phase stamps of a cooperative kernel (K11, K13, K17): thread 0 of block 0
 // writes the global timer's low word (ns) into words[STAMP_AT + k] at the
 // k-th mark, and k + 1 into words[STAMP_AT - 1], so that a reader sees
 // how long each phase between two grid barriers took.  One timer read

@@ -381,12 +381,14 @@ def launch_datapath(state, rows: torch.Tensor, now: int, ep, dirn, valid,
 # Words a kernel keeps between its launches, zeroed once here, one set a
 # (device, kernel, stream), so that launches sharing one run in stream
 # order: K20's and K22's last-block tickets (the last block of every
-# launch leaves its counter at 0 again) and K5's block counts (each
-# launch writes its entries before it reads them)
+# launch leaves its counter at 0 again), K5's block counts (each
+# launch writes its entries before it reads them) and K13's two sums over
+# the 4096 buckets (each launch zeroes them behind itself), then its 64
+# words of phase stamps
 _SCRATCH_WORDS = {"ring_append": RING_COUNTS,
                   "ring_append_sharded": RING_COUNTS,
                   "anomaly_train_fwd": 1, "anomaly_train_fwd_sharded": 1,
-                  "adam_update": 1}
+                  "adam_update": 1, "bw_stage": 2 * 4096 + 64}
 _STREAM_SCRATCH: Dict[tuple, torch.Tensor] = {}
 
 
@@ -678,25 +680,34 @@ def launch_masq_rewrite(t, hdr: torch.Tensor, ct, now: int):
 
 
 def launch_bw_stage(state, hdr: torch.Tensor, now: int,
-                    rates: torch.Tensor) -> torch.Tensor:
+                    rates: torch.Tensor,
+                    scratch: Optional[dict] = None) -> torch.Tensor:
     """K13: police one batch of wide [N, 16] rows against the
-    per-endpoint buckets, updated in place; returns [N] int32 reasons."""
+    per-endpoint buckets, updated in place; returns [N] int32 reasons.
+    One cooperative kernel; its two sums live in the stream's scratch,
+    zero between calls.  A ``scratch`` dict gets ``sums`` ([2, 4096]:
+    the policed and the kept bytes, zero once the call has run) and
+    ``phase_ns`` (as ``launch_snat_egress``'s)."""
     from ..datapath.verdict import MAX_ENDPOINTS
 
     dev, n = hdr.device, hdr.shape[0]
     reasons = torch.empty(n, dtype=I32, device=dev)
-    sums = torch.zeros((2, MAX_ENDPOINTS), dtype=I32, device=dev)
-    frac = torch.empty(MAX_ENDPOINTS, dtype=torch.float32, device=dev)
+    stream = _stream(dev)
+    words = _stream_scratch(dev, "bw_stage", stream)
     io = abi.BwIO(
         rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
         rates=_ptr(rates, I32, dev, (MAX_ENDPOINTS,), name="rates"),
         tokens=_ptr(state.tokens, I32, dev, (MAX_ENDPOINTS,),
                     name="bw.tokens"),
         last=_ptr(state.last, I32, dev, (), name="bw.last"),
-        reasons=reasons.data_ptr(), batch_bytes=sums[0].data_ptr(),
-        consumed=sums[1].data_ptr(), frac=frac.data_ptr(), n=n,
-        now=int(now) & MASK)
-    KERNELS["bw_stage"].launch(ctypes.addressof(io), _stream(dev))
+        reasons=reasons.data_ptr(), batch_bytes=words,
+        consumed=words + 4 * MAX_ENDPOINTS,
+        meta=words + 8 * MAX_ENDPOINTS, n=n, now=int(now) & MASK)
+    KERNELS["bw_stage"].launch(ctypes.addressof(io), stream)
+    if scratch is not None:
+        t = _STREAM_SCRATCH[(dev, "bw_stage", stream)]
+        scratch.update(sums=t[:2 * MAX_ENDPOINTS].view(2, MAX_ENDPOINTS),
+                       phase_ns=lambda: _stamps(t[2 * MAX_ENDPOINTS:]))
     return reasons
 
 
@@ -723,17 +734,23 @@ def lb6_view(t, device) -> abi.Lb6View:
     b = t.backend_ip.shape[0]
     if m != t.m:
         raise ValueError(f"maglev table has {m} slots, LBTensors6.m is {t.m}")
+    cap = t.index.shape[0]
+    if cap & (cap - 1) or cap <= s:  # an empty slot ends every probe
+        raise ValueError(f"v6 index of {cap} slots for {s} frontends: a "
+                         f"power of two above them")
     return abi.Lb6View(
-        svc_ip=_ptr(t.svc_ip, I32, device, (s, 4), name="lb6.svc_ip"),
+        svc_ip=_ptr(t.svc_ip, I32, device, (s, 4), align=16,
+                    name="lb6.svc_ip"),
         svc_port=_ptr(t.svc_port, I32, device, (s,), name="lb6.svc_port"),
         svc_proto=_ptr(t.svc_proto, I32, device, (s,),
                        name="lb6.svc_proto"),
         maglev=_ptr(t.maglev, I32, device, (s, m), name="lb6.maglev"),
-        backend_ip=_ptr(t.backend_ip, I32, device, (b, 4),
+        backend_ip=_ptr(t.backend_ip, I32, device, (b, 4), align=16,
                         name="lb6.backend_ip"),
         backend_port=_ptr(t.backend_port, I32, device, (b,),
                           name="lb6.backend_port"),
-        s=s, b=b, m=m)
+        index=_ptr(t.index, I32, device, (cap,), name="lb6.index"),
+        s=s, b=b, m=m, index_cap=cap)
 
 
 def _launch_lb(name: str, view, hdr: torch.Tensor):

@@ -111,7 +111,7 @@ class MasqIO(ctypes.Structure):
 class BwIO(ctypes.Structure):
     _fields_ = [("rows", P), ("rates", P), ("tokens", P), ("last", P),
                 ("reasons", P), ("batch_bytes", P), ("consumed", P),
-                ("frac", P), ("n", I32), ("now", U32)]
+                ("meta", P), ("n", I32), ("now", U32)]
 
 
 class LbView(ctypes.Structure):
@@ -124,7 +124,8 @@ class LbView(ctypes.Structure):
 class Lb6View(ctypes.Structure):
     _fields_ = [("svc_ip", P), ("svc_port", P), ("svc_proto", P),
                 ("maglev", P), ("backend_ip", P), ("backend_port", P),
-                ("s", I32), ("b", I32), ("m", I32), ("pad", I32)]
+                ("index", P), ("s", I32), ("b", I32), ("m", I32),
+                ("index_cap", I32)]
 
 
 class LbIO(ctypes.Structure):

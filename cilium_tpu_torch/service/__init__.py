@@ -189,7 +189,8 @@ class LBTensors:
 class LBTensors6:
     """The compiled v6 frontends (dual-stack services; reference: lb6
     maps).  Word layout matches the header tensor's 4-word big-endian
-    IP columns."""
+    IP columns.  ``index`` is :func:`lb6_index` of the frontends, which
+    K16 probes; the plain version ignores it."""
 
     svc_ip: torch.Tensor  # [S, 4] frontend v6 words
     svc_port: torch.Tensor  # [S]
@@ -197,15 +198,59 @@ class LBTensors6:
     maglev: torch.Tensor  # [S, m]
     backend_ip: torch.Tensor  # [B, 4]
     backend_port: torch.Tensor  # [B]
+    index: torch.Tensor  # [2^k > S] int32: lowest frontend of a key, -1
     m: int
 
     @staticmethod
     def from_numpy(svc_ip, svc_port, svc_proto, maglev, backend_ip,
                    backend_port, m: int, device=None) -> "LBTensors6":
+        """numpy arrays (the JAX package's leaves) -> tensors on
+        ``device`` (None: the card), with the frontends' index."""
         device = resolve_device(device)
+        index = lb6_index(svc_ip, svc_port, svc_proto)
         return LBTensors6(*(from_numpy(a, device) for a in (
             svc_ip, svc_port, svc_proto, maglev, backend_ip,
-            backend_port)), m=int(m))
+            backend_port, index)), m=int(m))
+
+
+def lb6_index_hash(keys: np.ndarray) -> np.ndarray:
+    """[K, 6] u32 frontend keys (address words, port, protocol) -> their
+    u32 slot hashes (u32 wrapping).  A copy of ``csrc/lb.cuh``
+    ``lb6_index_hash``, the one source of the constants: the kernel probes
+    from the slot this puts a frontend in."""
+    k = np.asarray(keys, np.uint32)
+    h = np.zeros(len(k), np.uint32)
+    for col, c in enumerate((0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35,
+                             0x27D4EB2F, 0x165667B1, 1)):
+        h ^= k[:, col] * np.uint32(c)
+    h ^= h >> np.uint32(16)
+    h *= np.uint32(0x7FEB352D)
+    return h ^ (h >> np.uint32(15))
+
+
+def lb6_index(svc_ip, svc_port, svc_proto) -> np.ndarray:
+    """The v6 frontends' open-addressing index: [cap] int32, cap the
+    least power of two at least 2 S (and 2), each slot -1 or the LOWEST
+    frontend of one key (address words, port, protocol), placed by
+    linear probing from its :func:`lb6_index_hash` slot.  Half the slots
+    stay empty, so every probe ends; the lowest index of a key is the
+    reference's argmax over an [N, S] compare."""
+    keys = np.concatenate([np.asarray(svc_ip, np.uint32).reshape(-1, 4),
+                           np.asarray(svc_port, np.uint32)[:, None],
+                           np.asarray(svc_proto, np.uint32)[:, None]], 1)
+    cap = 1 << max(1, (2 * len(keys) - 1).bit_length())
+    index = np.full(cap, -1, np.int32)
+    home = lb6_index_hash(keys) & np.uint32(cap - 1)
+    seen = set()
+    for q, key in enumerate(map(bytes, keys)):
+        if key in seen:
+            continue  # a higher name on a key already indexed
+        seen.add(key)
+        h = int(home[q])
+        while index[h] >= 0:
+            h = (h + 1) & (cap - 1)
+        index[h] = q
+    return index
 
 
 def _split_hostport(s: str) -> Tuple[str, int]:

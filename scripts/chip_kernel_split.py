@@ -3,13 +3,14 @@
 ``datapath_kernel`` (packed and wide, and K1s), K20
 ``anomaly_train_fwd`` (and K20s), K9 ``l7_verdict``, K18
 ``flow_features``, K19 ``anomaly_score``, K22 ``adam_update``, K5
-``ring_append`` (and K5s), K17 ``socklb_stage`` and K11 ``snat_egress``
-(with K12 ``snat_reverse`` after it) at the shapes the main paths launch
-them, for one or more checkouts of this repository.
+``ring_append`` (and K5s), K17 ``socklb_stage``, K11 ``snat_egress``
+(with K12 ``snat_reverse`` after it), K13 ``bw_stage`` and K16
+``lb6_stage`` at the shapes the main paths launch them, for one or more
+checkouts of this repository.
 
     python3 scripts/chip_kernel_split.py
-        [--kernels=k1k4,k20,k9,k18,k19,k22,k5,k17,k11] [--variants=TREE]
-        [--grids=TREE] [TREE ...]
+        [--kernels=k1k4,k20,k9,k18,k19,k22,k5,k17,k11,k13,k16]
+        [--variants=TREE] [--grids=TREE] [TREE ...]
 
 Each TREE is a checkout (a ``git archive`` of another commit unpacked
 in a directory that ``.gitignore`` lists will do); each runs in its own
@@ -99,6 +100,20 @@ variants of its ``socklb.cu`` and ``nat.cu`` (1 or 2 blocks an SM, 1 or
 2 rows a thread in the one-block tail; K17 without its frontend scans,
 K11 without its reverse-CT probe or gateway rules: those outputs
 differ, and say so) and times each case in each.
+
+K13 and K16 (``bw_lb_cases``): K13 on phase 3's case (2^16 rows over 257
+endpoints, 65 limited, after clocks across 2^32), every row an egress
+row of one limited endpoint, n = 0 and 1, and the egress and service
+paths' own inputs (``chip_smoke.egress_daemon`` driven through
+``process_batch``; the rows ``Daemon._bw_police`` takes in the next
+batch); K16 on phase 3's case (half of 2^16 rows v6, 256 v6 frontends),
+the service path's own rows (those ``lb6_stage`` takes), no v6 row,
+every v6 row on a port or protocol no frontend has, and 4096 v6
+frontends.  Each is timed (K13 on fresh copies of its buckets), split
+by the profiler and digested (K13: reasons, tokens, last; K16: rows and
+both masks), held against the plain version's and a second call's;
+where the tree's K13 launcher hands them back, whether its sums are
+zero after the call and its phase times.
 
 Each run writes ``chiprun_out/split/<label>.json``; the main process
 prints, for every later run, the digests that differ from an earlier
@@ -191,7 +206,7 @@ ABLATIONS = {"k4_grid": ("conntrack", K4_GRID),
 TREE_FLAGS = {"--variants": ("k4_grid", "k1_occupancy"),
               "--grids": ("k17_grid", "k11_grid", "k11_parts")}
 KERNEL_SETS = ("k1k4", "k20", "k9", "k18", "k19", "k22", "k5", "k17",
-               "k11")
+               "k11", "k13", "k16")
 INT_MAX = (1 << 31) - 1
 RING_CAP = 1 << 18  # chip_smoke's ring, a shard's on the sharded path
 LISTENERS = (10000,)  # the daemon's listener table: config #3's one rule
@@ -1126,6 +1141,263 @@ def k11_nat_calls(cases) -> dict:
     return calls
 
 
+def copy_bw(state):
+    """A copy of a bandwidth state (every tensor field cloned)."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)})
+
+
+def stage_inputs(d, rows, now) -> tuple:
+    """The inputs K13 (``Daemon._bw_police``) and K16 (``lb6_stage``)
+    take in one ``d.process_batch(rows, now)``: ((bandwidth state
+    before, rows, now, rates) or None, (v6 LB tensors, rows) or None)."""
+    import cilium_tpu_torch.service as svc
+
+    got13, got16 = [], []
+    police, lb6 = d._bw_police, svc.lb6_stage
+
+    def spy13(hdr, now):
+        got13.append((copy_bw(d._bw), hdr.clone(), now, d._bw_rates))
+        return police(hdr, now)
+
+    def spy16(t, hdr):
+        got16.append((t, hdr.clone()))
+        return lb6(t, hdr)
+
+    d._bw_police, svc.lb6_stage = spy13, spy16
+    try:
+        d.process_batch(rows, now=now)
+    finally:
+        d._bw_police, svc.lb6_stage = police, lb6
+    return (got13[0] if got13 else None), (got16[0] if got16 else None)
+
+
+def bw_lb_cases(world, rng) -> tuple:
+    """K13's and K16's inputs.  K13: phase 3's case (2^16 rows of
+    ``testing.egress.bw_rows`` over 257 endpoints, 65 limited, the
+    buckets threaded through clocks 10, 10, 11, 4000, 2^32 - 1, 3, then
+    the batch at 5); every row an egress row of one limited endpoint;
+    n = 0 and n = 1; phase 11's main path (``chip_smoke.egress_daemon``
+    through its 8 batches, then the next batch, as SNAT leaves it); and
+    phase 12's (that daemon with phase 3's service world, a warm-up of
+    4096 new flows and two batches of 2^16 rows, 4096 of them new flows
+    of phase 12's mix, then the next such batch after the LB and SNAT
+    stages).  K16: phase 3's case (2^16 rows, half v6, to the 256 v6
+    frontends); phase 12's batch; 2^16 rows with no v6 row; 2^16 v6 rows
+    to the VIPs on a port or protocol no frontend has; and 2^16 rows,
+    half v6, against a world of 4096 v6 frontends.  -> ({K13 case:
+    (state before, rows, now, rates)}, {K16 case: (LB tensors, rows)})."""
+    import chip_smoke as cs
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import (COL_DIR, COL_DPORT,
+                                               COL_PROTO, COL_SPORT, N_COLS)
+    from cilium_tpu_torch.datapath import bandwidth as bw
+    from cilium_tpu_torch.k8s.watchers import ServiceWatcher
+    from cilium_tpu_torch.service import ServiceManager
+    from cilium_tpu_torch.testing import egress as eg
+    from cilium_tpu_torch.testing import services as sv
+
+    def dev(a):
+        return u32.from_numpy(np.ascontiguousarray(a), "cuda")
+
+    k13, k16 = {}, {}
+    eps = list(range(1, 257)) + [5000]
+    limits = {e: int(x) for e, x in zip(
+        range(1, 65), rng.integers(100_000, 2_000_000, 64))}
+    limits[2] = 0x7FFFFFFF
+    rates = dev(bw.rates_array(limits))
+    state = bw.BandwidthState.create("cuda")
+    for now in (10, 10, 11, 4000, (1 << 32) - 1, 3):
+        hdr = dev(eg.bw_rows(rng, cs.EGRESS_N, eps))
+        bw.bw_stage(state, hdr, now, rates)
+    k13["k13_phase3_65536"] = (copy_bw(state), hdr, 5, rates)
+    one = eg.bw_rows(rng, cs.EGRESS_N, [1])
+    one[:, COL_DIR] = 1
+    k13["k13_one_endpoint_65536"] = (copy_bw(state), dev(one), 6, rates)
+    k13["k13_n0"] = (copy_bw(state), dev(np.zeros((0, N_COLS), np.uint32)),
+                     7, rates)
+    k13["k13_n1"] = (copy_bw(state), dev(one[:1]), 7, rates)
+
+    # phase 11's main path
+    d, clients, _rates = cs.egress_daemon(world, rng)
+    flows, prev, now = np.zeros((0, N_COLS), np.uint32), None, 100
+    for b in range(cs.EGRESS_BATCHES):
+        rows, new, _want = cs.egress_batch(rng, clients, flows, b, prev)
+        prev = (rows, d.process_batch(rows, now=now))
+        flows = new
+        now += 60
+    rows, _new, _want = cs.egress_batch(rng, clients, flows,
+                                        cs.EGRESS_BATCHES, prev)
+    k13["k13_egress_65536"] = stage_inputs(d, rows, now)[0]
+    d.shutdown()
+
+    # phase 3's service world, and phase 12's daemon over it
+    mgr = ServiceManager(device="cuda")
+    sv.install(ServiceWatcher(mgr), cs.service_world(world))
+    t6 = mgr.tensors6()
+    lb_clients = (0x0A000000 + rng.choice(1 << 16, cs.N_LB_CLIENTS,
+                                          replace=False)).astype(np.uint32)
+    lb_others = np.array([int(ipaddress.IPv4Address(ip))
+                          for ip in world.pod_ips[:2048]], np.uint32)
+    rows = sv.rows(rng, cs.LB_N, cs.N_SERVICES, lb_clients, lb_others,
+                   vip_frac=0.0, v6_frac=0.5, n_v6=cs.N_V6_SERVICES)
+    rows[::5, 3] |= 0x80000000
+    k16["k16_phase3_65536"] = (t6, dev(rows))
+    k16["k16_no_v6_65536"] = (t6, dev(sv.rows(
+        rng, cs.LB_N, cs.N_SERVICES, lb_clients, lb_others, vip_frac=0.5)))
+    miss = sv.rows(rng, cs.LB_N, cs.N_SERVICES, lb_clients, lb_others,
+                   vip_frac=0.0, v6_frac=1.0, n_v6=cs.N_V6_SERVICES)
+    miss[::2, COL_DPORT] = 8443
+    miss[1::2, COL_PROTO] = 132
+    k16["k16_no_match_65536"] = (t6, dev(miss))
+
+    d, clients, _rates = cs.egress_daemon(world, rng)
+    d.services = mgr
+    sv.install(ServiceWatcher(mgr, node_ip=eg.NODE_IP),
+               cs.service_world(world))
+    ips = np.array([eg.ip(c.ips[0]) for c in clients], np.uint32)
+    ids = np.array([c.id for c in clients], np.uint32)
+    others = np.array([eg.ip(p) for p in world.pod_ips[:4096]], np.uint32)
+    sport = [0]
+
+    def fresh(k):
+        r = sv.rows(rng, k, cs.N_SERVICES, ips, others, vip_frac=0.5,
+                    v6_frac=0.1, n_v6=cs.N_V6_SERVICES, dup_frac=0.0,
+                    ep_ids=ids)
+        r[:, COL_SPORT] = 1024 + (sport[0] + np.arange(k)) % 64000
+        sport[0] += k
+        return r
+
+    pool = fresh(cs.SVC_FRESH)
+    now = 1000
+    d.process_batch(pool, now=now)
+    for b in range(3):
+        new = fresh(cs.SVC_FRESH)
+        rows = np.concatenate([new, pool[rng.integers(
+            0, len(pool), cs.LB_N - len(new))]])[rng.permutation(cs.LB_N)]
+        now += 10
+        if b == 2:
+            k13["k13_service_65536"], k16["k16_service_65536"] = (
+                stage_inputs(d, rows, now))
+        else:
+            d.process_batch(rows, now=now)
+        pool = np.concatenate([pool, new])
+    d.shutdown()
+
+    # 4096 v6 frontends: every service of the world dual-stack
+    sv.install(ServiceWatcher(mgr), sv.k8s_objects(
+        world.pod_ips, world.pod_ips6, n=cs.N_SERVICES,
+        n_v6=cs.N_SERVICES))
+    k16["k16_v6_frontends_4096"] = (mgr.tensors6(), dev(sv.rows(
+        rng, cs.LB_N, cs.N_SERVICES, lb_clients, lb_others,
+        vip_frac=0.0, v6_frac=0.5, n_v6=cs.N_SERVICES)))
+    return k13, k16
+
+
+def run_k13(label, cases) -> dict:
+    """Time each K13 case on fresh copies of its buckets, split it by the
+    profiler, digest the reasons, tokens and last after one call and hold
+    them against the plain version's and a second call's; where the
+    tree's launcher hands back its sums (``scratch=``), whether they are
+    zero after the call, and its phase times.  -> {case: record}."""
+    import functools
+
+    import chip_smoke as cs
+    import inspect
+    import torch
+    from cilium_tpu_torch.datapath import bandwidth as bw
+    from cilium_tpu_torch.kernels import launch_bw_stage
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    has_scratch = "scratch" in inspect.signature(launch_bw_stage).parameters
+    recs = {}
+    for name, (base, hdr, now, rates) in cases.items():
+        def fresh(base=base):
+            return copy_bw(base)
+
+        def fn(st, hdr=hdr, now=now, rates=rates):
+            return launch_bw_stage(st, hdr, now, rates)
+
+        def one(call):
+            st = fresh()
+            got = call(st, hdr, now, rates)
+            return digest(got, st.tokens, st.last)
+
+        got, again, want = (one(bw.bw_stage), one(bw.bw_stage),
+                            one(bw.bw_stage_plain))
+        st = fresh()
+        reasons = bw.bw_stage(st, hdr, now, rates)
+        rec = {"rows": int(hdr.shape[0]),
+               "dropped": int((reasons != 0).sum()),
+               "inputs": digest(hdr, base.tokens, base.last, rates),
+               "ms": cs.device_ms(fn, REPS, fresh), "out": got,
+               "plain_equal": got == want, "repeat_equal": got == again,
+               "ops_a_call": ops_a_call(
+                   lambda: functools.partial(fn, fresh())),
+               "by_kernel": profiled(fn, fresh)}
+        if has_scratch:
+            sc = {}
+            launch_bw_stage(fresh(), hdr, now, rates, scratch=sc)
+            torch.cuda.synchronize()
+            rec["sums_zero"] = bool((sc["sums"] == 0).all())
+            rec["phase_ns"] = sc["phase_ns"]()
+        recs[name] = rec
+        print(f"[{label}] K13 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def run_k16(label, cases) -> dict:
+    """Time each K16 case, split it by the profiler, digest its rows and
+    both masks and hold them against the plain version's and a second
+    call's.  -> {case: record}."""
+    import functools
+
+    import chip_smoke as cs
+    from cilium_tpu_torch.core.packets import COL_FAMILY
+    from cilium_tpu_torch.kernels import launch_lb6_stage
+    from cilium_tpu_torch.service import lb6_stage, lb6_stage_plain
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    recs = {}
+    for name, (t, hdr) in cases.items():
+        def fn(t=t, hdr=hdr):
+            return launch_lb6_stage(t, hdr)
+
+        got = lb6_stage(t, hdr)
+        out = digest(*got)
+        rec = {"rows": int(hdr.shape[0]),
+               "v6_rows": int((hdr[:, COL_FAMILY] == 6).sum()),
+               "frontends": int(t.svc_port.shape[0]),
+               "have_backend": int(got[1].sum()),
+               "no_backend": int(got[2].sum()),
+               "inputs": digest(hdr, t.svc_ip, t.svc_port, t.svc_proto),
+               "ms": cs.device_ms(fn, REPS), "out": out,
+               "plain_equal": out == digest(*lb6_stage_plain(t, hdr)),
+               "repeat_equal": out == digest(*lb6_stage(t, hdr)),
+               "ops_a_call": ops_a_call(lambda: fn),
+               "by_kernel": profiled(fn)}
+        recs[name] = rec
+        print(f"[{label}] K16 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
 def run_grids(tree: Path, label: str, which: str, recs: dict,
               calls: dict) -> dict:
     """Each grid variant of ``which`` (built from ``tree``'s source, out
@@ -1182,7 +1454,7 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
         ["l7"] if "k9" in kernels else []) + (
         ["ring"] if "k5" in kernels else []) + (
         ["socklb"] if "k17" in kernels else [])
-    if "k11" in kernels:  # the egress daemon runs every kernel
+    if kernels & {"k11", "k13", "k16"}:  # the daemons run every kernel
         sources = list(build.SOURCES)
     t0 = time.monotonic()
     build.build(sources)
@@ -1191,7 +1463,8 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
            "ptxas": {n: ptxas_regs((build.BUILD_DIR / f"{n}.log").read_text())
                      for n in sources},
            "k1": {}, "k4": {}, "k20": {}, "k9": {}, "k18": {}, "k19": {},
-           "k22": {}, "k5": {}, "k17": {}, "k11": {}}
+           "k22": {}, "k5": {}, "k17": {}, "k11": {}, "k13": {},
+           "k16": {}}
     rng = np.random.default_rng(SEED)
     world = fx.build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
                            device="cpu")
@@ -1217,6 +1490,13 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
     if "k11" in kernels:
         k11_cases = nat_cases(world, np.random.default_rng(SEED + 11))
         res["k11"] = run_k11(label, k11_cases)
+    if kernels & {"k13", "k16"}:
+        k13_cases, k16_cases = bw_lb_cases(world, np.random.default_rng(
+            SEED + 13))
+        if "k13" in kernels:
+            res["k13"] = run_k13(label, k13_cases)
+        if "k16" in kernels:
+            res["k16"] = run_k16(label, k16_cases)
     if "--grids" in flags:
         res["grids"] = {}
         if "k17" in kernels:
@@ -1466,7 +1746,7 @@ def main() -> int:
     for later in runs[1:]:
         first = runs[0]
         for kern in ("k1", "k4", "k20", "k9", "k18", "k19", "k22", "k5",
-                     "k17", "k11"):
+                     "k17", "k11", "k13", "k16"):
             for case, rec in later[kern].items():
                 want = first[kern].get(case, {})
                 for field in ("out", "inputs", "ct", "scores", "k12"):
@@ -1485,8 +1765,8 @@ def main() -> int:
                       "runs": [{k: r[k] for k in ("label", "k1", "k4",
                                                   "k20", "k9", "k18",
                                                   "k19", "k22", "k5",
-                                                  "k17", "k11",
-                                                  "profiler_short")
+                                                  "k17", "k11", "k13",
+                                                  "k16", "profiler_short")
                                 if k in r} for r in runs]}))
     return 0
 

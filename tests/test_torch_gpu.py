@@ -668,6 +668,118 @@ def test_lb_kernels_match_their_plain_versions(case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["empty", "one-row", "wide", "one-endpoint",
+                                  "clamped", "drained-then-empty",
+                                  "past-registers"])
+def test_bw_stage_is_one_launch_matching_its_plain_version(case):
+    """K13, one cooperative kernel and one graph node a call (no fill),
+    against its plain version on the same CUDA tensors over successive
+    batches with clocks across 2^32: an empty batch (the buckets still
+    accrue), one row, 2^16 rows over 7 endpoints, 2^16 egress rows of
+    one limited endpoint (every sum on one word), endpoints past
+    MAX_ENDPOINTS clamped onto the last bucket, and 2^16-row batches
+    that drain the buckets each followed by an empty one a second later
+    (every bucket refills only if each thread read the clock before
+    ``last`` was written), and 2^18 rows, more than the co-resident grid
+    keeps in registers (the rest are read again in phase 2); its two
+    sums zero after every call."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import COL_DIR
+    from cilium_tpu_torch.datapath import bandwidth as bw
+    from cilium_tpu_torch.kernels import (KERNELS, launch_bw_stage,
+                                          reset_launch_counts)
+    from cilium_tpu_torch.testing import egress as eg
+
+    rng = np.random.default_rng(31)
+    limits = {1: 16_000, 2: 0x7FFFFFFF, 7: 90_000, 300: 50_000, 4095: 1_000}
+    rates = u32.from_numpy(bw.rates_array(limits), "cuda")
+    n = {"empty": 0, "one-row": 1, "past-registers": 1 << 18}.get(case,
+                                                                  1 << 16)
+    eps = {"one-endpoint": [7],
+           "clamped": [7, 4095, 4096, 9000, 1 << 31, 0xFFFFFFFF]}.get(
+        case, [1, 2, 3, 7, 300, 4095, 9000])
+    states = [bw.BandwidthState.create("cuda") for _ in range(2)]
+    clock = [(now, n) for now in (10, 10, 11, 5000, (1 << 32) - 1, 2)]
+    if case == "drained-then-empty":
+        clock = [(100 + k, n * (1 - k % 2)) for k in range(32)]
+    reset_launch_counts()
+    for now, n in clock:
+        rows = eg.bw_rows(rng, max(n, 2), eps)[:n]
+        if case == "one-endpoint":
+            rows[:, COL_DIR] = 1
+        hdr = u32.from_numpy(rows, "cuda")
+        sc = {}
+        got = launch_bw_stage(states[0], hdr, now, rates, scratch=sc)
+        want = bw.bw_stage_plain(states[1], hdr, now, rates)
+        assert torch.equal(got, want), now
+        assert torch.equal(states[0].tokens, states[1].tokens), now
+        assert torch.equal(states[0].last, states[1].last), now
+        assert bool((sc["sums"] == 0).all()), now
+    if case == "one-endpoint":
+        assert bool((got != 0).any())  # the one bucket polices
+    assert KERNELS["bw_stage"].launches == len(clock)
+    _one_kernel(lambda: functools.partial(
+        bw.bw_stage, bw.BandwidthState(states[0].tokens.clone(),
+                                       states[0].last.clone()),
+        hdr, 5, rates), "bw_stage_kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["duplicates", "4096-frontends", "no-v6",
+                                  "all-v6", "wrong-port"])
+def test_lb6_stage_is_one_kernel_matching_its_plain_version(case):
+    """K16, one kernel and one graph node a call, through the host-built
+    frontend index, against its plain version on the same CUDA tensors:
+    a second name on a v6 VIP:port (the lower name wins), 4096 v6
+    frontends (index collisions, long probes), no v6 row (a copy), every
+    row v6, and v6 rows to the VIPs on a port or protocol no frontend
+    has."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import (COL_DPORT, COL_FAMILY,
+                                               COL_PROTO)
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.service import lb6_stage, lb6_stage_plain
+    from cilium_tpu_torch.testing import services as sv
+
+    rng = np.random.default_rng(37)
+    n_svc, n_v6 = (4096, 4096) if case == "4096-frontends" else (512, 64)
+    mgr, clients, others = _lb_world(n=n_svc, n_v6=n_v6)
+    if case == "duplicates":
+        mgr.upsert("a-dup6", f"[{sv.vip6(3)}]:443", ["2001:db8::99:1"])
+        mgr.upsert("a-dup6b", f"[{sv.vip6(5)}]:443", [])
+    t = mgr.tensors6()
+    assert t.index.shape[0] >= 2 * t.svc_port.shape[0]
+    v6_frac = {"no-v6": 0.0, "all-v6": 1.0, "wrong-port": 1.0}.get(case,
+                                                                   0.5)
+    reset_launch_counts()
+    for n in (1, 300, 1 << 16):
+        rows = sv.rows(rng, n, n_svc, clients, others,
+                       vip_frac=0.5 * (1 - v6_frac), v6_frac=v6_frac,
+                       n_v6=n_v6)
+        rows[: n // 8, 3] |= 0x80000000  # sources above 2^31
+        if case == "wrong-port":
+            rows[::2, COL_DPORT] = 8443
+            rows[1::2, COL_PROTO] = 132
+        hdr = u32.from_numpy(rows, "cuda")
+        got, want = lb6_stage(t, hdr), lb6_stage_plain(t, hdr)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), n
+        six = int((hdr[:, COL_FAMILY] == 6).sum())
+        if case in ("duplicates", "4096-frontends", "all-v6") and n > 1:
+            assert bool(got[1].any())
+        if case in ("no-v6", "wrong-port"):
+            assert not bool(got[1].any()) and not bool(got[2].any())
+            assert torch.equal(got[0], hdr)
+        if case == "no-v6":
+            assert six == 0
+    assert KERNELS["lb6_stage"].launches == 3
+    _one_kernel(lambda: functools.partial(lb6_stage, t, hdr),
+                "lb6_stage_kernel")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["steady", "grid-then-tail", "crowded",
                                   "full-table", "overflow", "over-cap"])
 def test_socklb_is_one_launch_whose_steps_stop(case):

@@ -27,8 +27,9 @@ from cilium_tpu_torch.core.packets import (COL_DPORT, COL_DST_IP0,
                                            COL_PROTO, COL_SPORT,
                                            COL_SRC_IP0, COL_SRC_IP3, N_COLS)
 from cilium_tpu_torch.k8s.watchers import ServiceWatcher
-from cilium_tpu_torch.service import (M_DEFAULT, ServiceManager, lb6_stage,
-                                      lb_stage, maglev_table)
+from cilium_tpu_torch.service import (M_DEFAULT, ServiceManager, lb6_index,
+                                      lb6_index_hash, lb6_stage, lb_stage,
+                                      maglev_table)
 
 torch.set_num_threads(1)
 
@@ -230,6 +231,153 @@ def test_lb_stages_match_jax(family, seed):
     assert got[1].any() and got[2].any()
     changed = (u32.to_numpy(got[0]) != rows).any(axis=1)
     np.testing.assert_array_equal(changed, got[1].numpy())
+
+
+def _probe6(index, keys, key):
+    """K16's probe (``csrc/lb.cuh`` ``lb_find6``) over host copies: the
+    frontend of the first slot from ``key``'s home whose frontend has
+    ``key``'s words, -1 at an empty slot."""
+    mask = len(index) - 1
+    h = int(lb6_index_hash(key[None])[0]) & mask
+    while index[h] >= 0:
+        if (keys[index[h]] == key).all():
+            return int(index[h])
+        h = (h + 1) & mask
+    return -1
+
+
+def _lowest(keys, key):
+    hit = np.flatnonzero((keys == key).all(axis=1))
+    return int(hit[0]) if len(hit) else -1
+
+
+def _index_keys(case, rng):
+    """[S, 6] u32 v6 frontend keys (address words, port, protocol)."""
+    def rand(n):
+        k = rng.integers(0, 1 << 32, (n, 6), dtype=np.uint64).astype(
+            np.uint32)
+        k[:, 4] = rng.choice([53, 80, 443, 8080], n)
+        k[:, 5] = rng.choice([6, 17], n)
+        return k
+
+    if case == "none":
+        return np.zeros((0, 6), np.uint32)
+    if case == "random":
+        return rand(300)
+    if case == "duplicates":  # a third name a key already named
+        k = rand(300)
+        dup = np.flatnonzero(rng.random(300) < 0.33)
+        dup = dup[dup > 0]
+        k[dup] = k[rng.integers(0, dup)]
+        return k
+    if case == "one-vip":  # every frontend on one address
+        k = rand(512)
+        k[:, :4] = k[0, :4]
+        k[:, 4] = rng.integers(1, 1024, 512)
+        return k
+    # "crowded": 64 keys whose home is one of the last two of the 128
+    # slots, so their probes run long and wrap past the end
+    k = rand(20000)
+    home = lb6_index_hash(k) & np.uint32(127)
+    return k[home >= 126][:64]
+
+
+@pytest.mark.parametrize("case", ["random", "duplicates", "one-vip",
+                                  "crowded", "none"])
+def test_lb6_index_probe_finds_the_lowest_matching_frontend(case):
+    """The host-built v6 index K16 probes: a power of two of slots at
+    least twice the frontends, each distinct key in exactly one slot,
+    at its lowest frontend; the probe finds, for every key of the
+    frontends and for near misses (another port, protocol or last
+    address word) and random keys, the lowest matching frontend, as a
+    brute-force scan does, or none."""
+    rng = np.random.default_rng(7)
+    keys = _index_keys(case, rng)
+    s = len(keys)
+    if case == "crowded":
+        assert s == 64
+    index = lb6_index(keys[:, :4], keys[:, 4], keys[:, 5])
+    cap = len(index)
+    assert index.dtype == np.int32 and cap & (cap - 1) == 0
+    assert cap >= max(2, 2 * s)
+    held = index[index >= 0]
+    distinct = {bytes(k) for k in keys}
+    assert len(held) == len(set(held.tolist())) == len(distinct)
+    for q in held:
+        assert _lowest(keys, keys[q]) == q
+    near = keys.copy()
+    if s:
+        near[0::3, 4] += 1
+        near[1::3, 5] ^= 23
+        near[2::3, 3] += 1
+    queries = np.concatenate([keys, near, _index_keys("random", rng)])
+    found = 0
+    for key in queries:
+        want = _lowest(keys, key)
+        assert _probe6(index, keys, key) == want
+        found += want >= 0
+    assert found >= s
+
+
+def test_lb6_index_hash_wraps_as_u32_arithmetic():
+    """The host's vectorised ``lb6_index_hash`` wraps as u32 arithmetic
+    does: it equals the same steps on Python integers masked to 32 bits.
+    Whether the host's index and the kernel's probe agree (the constants'
+    one source is ``csrc/lb.cuh`` ``lb6_index_hash``) shows on the card,
+    where K16 against ``lb6_stage_plain`` misses every frontend whose
+    home slot differs."""
+    rng = np.random.default_rng(8)
+    keys = rng.integers(0, 1 << 32, (64, 6), dtype=np.uint64).astype(
+        np.uint32)
+    keys[0] = 0xFFFFFFFF
+    mask = 0xFFFFFFFF
+    for key, got in zip(keys.tolist(), lb6_index_hash(keys).tolist()):
+        h = 0
+        for w, c in zip(key, (0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35,
+                              0x27D4EB2F, 0x165667B1, 1)):
+            h ^= (w * c) & mask
+        h ^= h >> 16
+        h = (h * 0x7FEB352D) & mask
+        assert got == h ^ (h >> 15)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lb6_tensors_from_jax_carry_the_index_and_match_jax(seed):
+    """JAX ``LBTensors6`` leaves through ``convert.lb6_tensors_from_numpy``
+    get the index the ServiceManager builds (two names share a VIP:port:
+    the lower is indexed); ``lb6_stage`` on them matches the JAX
+    package, and the index's probe picks the frontend the plain
+    version's [N, S] compare picks for every v6 row."""
+    from cilium_tpu_torch import convert
+
+    jm, tm = _stage_world()
+    jt6 = jm.tensors6()
+    mine = convert.lb6_tensors_from_numpy(
+        {**{f: np.asarray(getattr(jt6, f)) for f in (
+            "svc_ip", "svc_port", "svc_proto", "maglev", "backend_ip",
+            "backend_port")}, "m": jt6.m}, device="cpu")
+    assert torch.equal(mine.index, tm.tensors6().index)
+    keys = np.concatenate([u32.to_numpy(mine.svc_ip),
+                           u32.to_numpy(mine.svc_port)[:, None],
+                           u32.to_numpy(mine.svc_proto)[:, None]], 1)
+    assert len({bytes(k) for k in keys}) < len(keys)  # a shared key
+    rows = _stage_rows(np.random.default_rng(seed))
+    want = lb6_stage_jit(jt6, jnp.asarray(rows))
+    got = lb6_stage(mine, u32.from_numpy(rows, "cpu"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(u32.to_numpy(g) if g.dtype
+                                      == torch.int32 else g.numpy(),
+                                      np.asarray(w))
+    index = mine.index.numpy()
+    six = np.flatnonzero(rows[:, COL_FAMILY] == 6)
+    hits = 0
+    for i in six:
+        key = rows[i, [COL_DST_IP0, COL_DST_IP0 + 1, COL_DST_IP0 + 2,
+                       COL_DST_IP3, COL_DPORT, COL_PROTO]]
+        svc = _probe6(index, keys, key)
+        assert svc == _lowest(keys, key)
+        hits += svc >= 0
+    assert hits and got[1].any()
 
 
 def test_lb_stage_lowest_name_wins_a_shared_frontend():
