@@ -342,15 +342,17 @@ def one_kernel_a_call(prepare, kernel, what):
 
 
 def stage_inputs(d, rows, now):
-    """The inputs K13 (``Daemon._bw_police``) and K16 (``lb6_stage``)
-    take in one ``d.process_batch(rows, now)``: ((bandwidth state
-    before, rows, now, rates) or None, (v6 LB tensors, rows) or None);
-    the tensors are copies."""
+    """The inputs K13 (``Daemon._bw_police``), K16 (``lb6_stage``) and
+    K12 (``TorchLoader.reverse_nat``) take in one ``d.process_batch(rows,
+    now)``: ((bandwidth state before, rows, now, rates) or None, (v6 LB
+    tensors, rows) or None, (NAT table before, NAT tensors, rows, now)
+    or None); the tensors are copies."""
     import cilium_tpu_torch.service as svc
     from cilium_tpu_torch.datapath.bandwidth import BandwidthState
+    from cilium_tpu_torch.service.nat import NATTable
 
-    got13, got16 = [], []
-    police, lb6 = d._bw_police, svc.lb6_stage
+    got13, got16, got12 = [], [], []
+    police, lb6, rev = d._bw_police, svc.lb6_stage, d.loader.reverse_nat
 
     def spy13(hdr, now):
         got13.append((BandwidthState(d._bw.tokens.clone(),
@@ -362,12 +364,51 @@ def stage_inputs(d, rows, now):
         got16.append((t, hdr.clone()))
         return lb6(t, hdr)
 
-    d._bw_police, svc.lb6_stage = spy13, spy16
+    def spy12(t, hdr, now):
+        tbl = d.loader._nat_table()
+        got12.append((NATTable(tbl.table.clone(), tbl.failed.clone()), t,
+                      d.loader._to_device(hdr).clone(), now))
+        return rev(t, hdr, now)
+
+    d._bw_police, svc.lb6_stage, d.loader.reverse_nat = spy13, spy16, spy12
     try:
         d.process_batch(rows, now=now)
     finally:
-        d._bw_police, svc.lb6_stage = police, lb6
-    return (got13[0] if got13 else None), (got16[0] if got16 else None)
+        d._bw_police, svc.lb6_stage, d.loader.reverse_nat = police, lb6, rev
+    return tuple(g[0] if g else None for g in (got13, got16, got12))
+
+
+def k12_on(label, tbl, t, hdr, now):
+    """K12 on a path's own inputs (``stage_inputs``), each call on a copy
+    of the pool: bit-exact with its plain version (rows, table), one
+    kernel a call, the claim words free after the call; -> {ms, rows,
+    hits}."""
+    import functools
+
+    from cilium_tpu_torch.service import nat
+
+    def fresh():
+        return nat.NATTable(tbl.table.clone(), tbl.failed.clone())
+
+    tabs = [fresh(), fresh()]
+    got = nat.snat_reverse(tabs[0], t, hdr, now)
+    want = nat.snat_reverse_plain(tabs[1], t, hdr, now)
+    for g, w, what in ((got[0], want[0], "rows"),
+                       (tabs[0].table, tabs[1].table, "table")):
+        max_abs_err(g, w, f"{label}: snat_reverse {what} on the main "
+                    f"path's inputs")
+    check(bool((tabs[0].claim == nat.CLAIM_FREE).all()),
+          f"{label}: snat_reverse left a claim word set")
+    one_kernel_a_call(lambda: functools.partial(
+        nat.snat_reverse, fresh(), t, hdr, now), "snat_reverse_kernel",
+        f"{label}: snat_reverse")
+    ms = device_ms(lambda tb: nat.snat_reverse(tb, t, hdr, now), 20, fresh)
+    res = {"ms": ms, "rows": int(hdr.shape[0]),
+           "hits": int((got[0] != hdr).any(1).sum())}
+    print(f"{label}: K12 on the main path's inputs ({res['rows']} rows, "
+          f"{res['hits']} restored): bit-exact with its plain version, one "
+          f"kernel, its claim words free after the call, {ms:.4f} ms")
+    return res
 
 
 def k13_on(label, state, hdr, now, rates):
@@ -654,10 +695,27 @@ def phase_ring(torch, rng, kernels):
     print(f"ring_append: one kernel a call ({name})")
 
 
+def ct_gc_bytes(fp, expired):
+    """The least bytes K7 moves on a CT whose fingerprints are ``fp``
+    (host u32 array; 0 = free) when it evicts ``expired`` slots: every
+    fingerprint, each 32 B sector that holds a live slot's state and
+    expiry (words 10-11 of its 68 B row: bytes 40-47, two sectors for one
+    row in eight), the state and fingerprint of each evicted slot written
+    back and the count."""
+    import numpy as np
+
+    live = np.flatnonzero(fp != 0).astype(np.int64)
+    sectors = np.union1d((live * 68 + 40) // 32, (live * 68 + 47) // 32)
+    return len(fp) * 4 + len(sectors) * 32 + expired * 8 + 4
+
+
 def phase_maint(torch, rng, kernels):
     """The CT aging sweep and the occupancy count against their plain
     versions on a half-full 2^20 table whose expiries straddle 2^31 and
-    ``now`` (an unsigned compare: a signed one gets them wrong)."""
+    ``now`` (an unsigned compare: a signed one gets them wrong); the
+    sweep is one kernel a call."""
+    import functools
+
     import numpy as np
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.datapath import conntrack as ct
@@ -699,13 +757,13 @@ def phase_maint(torch, rng, kernels):
           f"{expired} expired at now={now}, bit-exact")
     print(f"parity ct_occupied: {occ_k} occupied of {CT_CAPACITY}, "
           f"bit-exact")
+    name = one_kernel_a_call(lambda: functools.partial(
+        ct.ct_gc, fresh(), now), "ct_gc_kernel", "ct_gc")
+    print(f"ct_gc: one kernel a call ({name})")
     kernels["ct_gc"].update(
         ms=device_ms(lambda w: ct.ct_gc(w, now), 20, fresh),
         plain_ms=device_ms(lambda w: ct.ct_gc_plain(w, now), 3, fresh),
-        # every slot's state word, each live slot's expiry, and the
-        # state and fingerprint of each expired slot written back
-        bytes=CT_CAPACITY * 4 + int(live.sum()) * 4 + expired * 8 + 4,
-        ops=CT_CAPACITY * 4)
+        bytes=ct_gc_bytes(fp, expired), ops=CT_CAPACITY * 4)
     kernels["ct_occupied"].update(
         ms=device_ms(lambda: _ct_occupied(base.fp), 20),
         plain_ms=device_ms(lambda: _ct_occupied_plain(base.fp), 3),
@@ -826,6 +884,26 @@ def nat_case(torch, rng, now, n_inbound=8192):
 CT_PROBE_OPS = 100  # reverse key, its hash, 16 fingerprint compares
 
 
+def snat_reverse_bytes(rows, out, pool):
+    """The least bytes K12 moves for replies ``rows`` that it rewrote to
+    ``out`` (tensors) over a pool of ``pool`` slots: every row read and
+    written (64 B each), the 24 B slot of each ingress v4 row in the
+    pool, and one expiry written for each slot a reply hit."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import (COL_DIR, COL_DPORT,
+                                               COL_FAMILY)
+    from cilium_tpu_torch.service.nat import NAT_PORT_MIN
+
+    r, o = u32.to_numpy(rows), u32.to_numpy(out)
+    need = ((r[:, COL_DIR] == 0) & (r[:, COL_FAMILY] == 4)
+            & (r[:, COL_DPORT] >= NAT_PORT_MIN)
+            & (r[:, COL_DPORT] < NAT_PORT_MIN + pool))
+    hit = (r != o).any(1)
+    return (len(r) * 128 + int(need.sum()) * 24
+            + len(np.unique(r[hit, COL_DPORT])) * 4)
+
+
 def egress_counts(rows, t, found, k11):
     """The least bytes and integer operations K11 (``k11``) or K14 must
     move and do for ``rows``: every row read and written (64 B each)
@@ -870,7 +948,7 @@ def phase_egress_kernels(torch, rng, kernels):
     repeats of one flow in a batch, a pool run dry by one batch, replies
     (some to the wrong IP or with a forged protocol word), a clock
     crossing 2^32; each kernel and its plain version fed clones of the
-    same state.  K11 and K13 are one kernel a call."""
+    same state.  K11, K12 and K13 are one kernel a call."""
     import functools
 
     import numpy as np
@@ -973,15 +1051,18 @@ def phase_egress_kernels(torch, rng, kernels):
     rep = u32.from_numpy(eg.reply_rows(rng, out, EGRESS_N), "cuda")
     after = clone(before)
     nat.snat_egress(after, t, cti, hdr, t_now)
+    one_kernel_a_call(lambda: functools.partial(
+        nat.snat_reverse, clone(after), t, rep, t_now),
+        "snat_reverse_kernel", "snat_reverse")
     kernels["snat_reverse"].update(
         max_abs_err=errs["snat_reverse"],
         ms=device_ms(lambda tb: nat.snat_reverse(tb, t, rep, t_now), 20,
                      lambda: clone(after)),
         plain_ms=device_ms(lambda tb: nat.snat_reverse_plain(
             tb, t, rep, t_now), 3, lambda: clone(after)),
-        # rows read and written, one 24 B slot gathered a row, an expiry
-        # written a hit
-        bytes=EGRESS_N * (128 + 24 + 4), ops=EGRESS_N * 40)
+        bytes=snat_reverse_bytes(rep, nat.snat_reverse_plain(
+            clone(after), t, rep, t_now)[0], NAT_POOL),
+        ops=EGRESS_N * 40)
     nb, ops = egress_counts(rows, t, found, k11=False)
     kernels["masq_rewrite"].update(
         max_abs_err=errs["masq_rewrite"],
@@ -1908,6 +1989,7 @@ def phase_daemon(torch, rng, world, report):
           f"under the tracer), {fe2['dispatch']['dispatches']} dispatches; "
           f"device busy {busy_us / 1e3:.3f} ms ({busy_us / 1e6 / t_prof:.1%}"
           f"), idle {1 - busy_us / 1e6 / t_prof:.1%}")
+    k7 = time_gc_on_daemon(torch, d)
     # a final sweep far in the future evicts every occupied slot
     occ = d.loader.map_pressure(1)["ct"]["occupied"]
     evicted = d.loader.gc(1 << 30)
@@ -1925,7 +2007,7 @@ def phase_daemon(torch, rng, world, report):
         "windows": out["windows"], "events": out["events"],
         "lost": out["lost"], "event_plane": out["event-plane"],
         "l7": l7, "launches": launches, "k9": k9,
-        "pressure_sample": sample,
+        "pressure_sample": sample, "k7_daemon_table": k7,
         "evicted_at_end": evicted, "metrics": m_daemon.tolist(),
         "stages": {"seconds": t_st, "packets": len(rows) - per,
                    "front_end": fe_st, "l7": out_st["l7"],
@@ -1935,6 +2017,39 @@ def phase_daemon(torch, rng, world, report):
                      "front_end": fe2, "event_plane": out2["event-plane"],
                      "device_ms_by_name": by_name}}
     return launches, rung
+
+
+def time_gc_on_daemon(torch, d):
+    """K7 on the daemon's own CT at a sweep (its clock now), each call on
+    a copy: bit-exact with its plain version (table, fingerprints,
+    count), one kernel a call; -> {ms, occupied, evicted, now}."""
+    import functools
+
+    from cilium_tpu_torch.datapath import conntrack as ct
+
+    base, now = d.loader.state.ct, d._now()
+
+    def fresh():
+        return ct.CTTable(base.table.clone(), base.fp.clone(),
+                          base.dropped.clone())
+
+    tabs = [fresh(), fresh()]
+    n_k = ct.ct_gc(tabs[0], now)
+    n_p = ct.ct_gc_plain(tabs[1], now)
+    max_abs_err(n_k.reshape(-1), n_p.reshape(-1).to(n_k.dtype),
+                "daemon: ct_gc count on its own table")
+    max_abs_err(tabs[0].table, tabs[1].table, "daemon: ct_gc table")
+    max_abs_err(tabs[0].fp, tabs[1].fp, "daemon: ct_gc fp")
+    one_kernel_a_call(lambda: functools.partial(ct.ct_gc, fresh(), now),
+                      "ct_gc_kernel", "daemon: ct_gc")
+    ms = device_ms(lambda w: ct.ct_gc(w, now), 20, fresh)
+    res = {"ms": ms, "occupied": int((base.fp != 0).sum()),
+           "evicted": int(n_k.sum()), "now": now}
+    print(f"daemon: K7 on its own CT ({res['occupied']} of "
+          f"{base.fp.shape[0]} slots occupied, {res['evicted']} expired at "
+          f"now={now}): bit-exact with its plain version, one kernel, "
+          f"{ms:.4f} ms")
+    return res
 
 
 def syn_rows(src, dst, sport0, n, dport, ep, dirn, proto=6):
@@ -2764,7 +2879,9 @@ def phase_egress(torch, rng, world, report):
     # leaves them, against the live buckets
     rows, _new, _want = egress_batch(rng, clients, flows,
                                      EGRESS_BATCHES + 1, prev)
-    k13_path = k13_on("egress", *stage_inputs(d, rows, now + 60)[0])
+    bw_in, _lb6_in, rev_in = stage_inputs(d, rows, now + 60)
+    k13_path, k12_path = k13_on("egress", *bw_in), k12_on("egress",
+                                                            *rev_in)
     d.shutdown()
 
     # the exhaustion leg: NatExhaustionScenario's shape on the card
@@ -2788,7 +2905,7 @@ def phase_egress(torch, rng, world, report):
                           "claim_steps": k11_steps,
                           "tail_from_step": k11_tail,
                           "counts": k11_counts},
-        "k13_main_path": k13_path,
+        "k13_main_path": k13_path, "k12_main_path": k12_path,
         "profiled": {"seconds": t_prof, "device_busy_ms": busy_us / 1e3}}
     return launches
 
@@ -3112,9 +3229,10 @@ def phase_service(torch, rng, world, mgr, report):
     # as the stages before each leave them
     now += 10
     rows, _idx, _k = batch(SVC_FRESH)
-    bw_in, lb6_in = stage_inputs(d, rows, now)
+    bw_in, lb6_in, rev_in = stage_inputs(d, rows, now)
     k13_path, k16_path = k13_on("service", *bw_in), k16_on("service",
                                                            *lb6_in)
+    k12_path = k12_on("service", *rev_in)
     d.shutdown()
     report["service"] = {
         "build_s": t_build, "batches": SVC_BATCHES, "rows": rows_main,
@@ -3131,6 +3249,7 @@ def phase_service(torch, rng, world, mgr, report):
                           "tail_from_step": k17_tail,
                           "counts": k17_counts},
         "k13_main_path": k13_path, "k16_main_path": k16_path,
+        "k12_main_path": k12_path,
         "profiled": {"seconds": t_prof, "device_busy_ms": busy_us / 1e3}}
     return launches
 
@@ -5585,6 +5704,12 @@ def main() -> int:
         p: report[p]["k13_main_path"]["ms"] for p in ("egress", "service")}
     kernels["lb6_stage"]["path_ms"] = {
         "service": report["service"]["k16_main_path"]["ms"]}
+    # K12 on the egress and service paths' own inputs, K7 on the daemon's
+    # own table (phases 11, 12, 7)
+    kernels["snat_reverse"]["path_ms"] = {
+        p: report[p]["k12_main_path"]["ms"] for p in ("egress", "service")}
+    kernels["ct_gc"]["path_ms"] = {
+        "daemon": report["daemon"]["k7_daemon_table"]["ms"]}
     on_path, launchers = [], []
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"),

@@ -59,10 +59,29 @@
 // every live slot whose expiry lies before `now` (an UNSIGNED compare:
 // expiries at or above 2^31 are late, not early) becomes free, state
 // and fingerprint zeroed, and the evictions are counted.
-// Bound: bytes.  Each slot's state and expiry words (8 B, one 32 B
-// sector of its 68 B row) are read; an expired slot writes its state
-// and fingerprint.  Design: one thread per slot, rewriting in place; a
-// warp ballot and a block sum leave one atomicAdd per block.
+// Bound: bytes.  The fingerprints (4 B a slot, coalesced) and, for each
+// live slot, its state and expiry words: 8 B of its 68 B row, whose
+// 32 B sector (two for one row in eight) the card reads whole; an
+// expired slot writes its state and fingerprint.
+// Design.  A slot's fingerprint is 0 exactly when its state is ST_FREE:
+// every CT writer keeps it so (ct_update and its kernel write a claimed
+// slot's row and fingerprint together, the sweep zeroes both, restores
+// and conversions derive the fingerprints from the states;
+// tests/test_torch_maint.py checks each).  So the sweep reads each
+// slot's fingerprint first (a slot a thread a step, coalesced) and, where
+// it is not 0, the state and expiry of its row (two 32-bit loads: the
+// pair is 8-byte aligned only on even rows), both before the compare.
+// The state test stays: a slot with a fingerprint and a free state is
+// not evicted.  Free slots cost their 4 fingerprint bytes.  The grid,
+// GC_BLOCKS_PER_SM blocks an SM, strides over the table, so the rows in
+// flight lie in one window that slides through it, as a thread a slot's
+// did.  On the H100 (PERF.md) this was faster than each block or thread
+// taking a contiguous chunk of several slots at once, which beat the old
+// sweep on sparse tables but lost to it by up to 15% where every slot
+// expires.  The count: a warp and block sum, one atomicAdd a block into
+// the stream's scratch, then a last-block ticket (atomicInc wraps it to
+// 0) whose block moves the sum into `count` and zeroes it: no memset,
+// one graph node a call.
 //
 // K8 ct_occupied replaces loader.py _ct_occupied (:76), the map-
 // pressure sample: the count of slots whose fingerprint is not 0.
@@ -83,6 +102,8 @@ constexpr int K4_TPB = 256;  // ct_update_kernel's block
 // fast: a block that waits at a grid barrier polls it while the others
 // still work
 constexpr int K4_BLOCKS_PER_SM = 1;
+// K7: at most this many blocks of TPB an SM
+constexpr int GC_BLOCKS_PER_SM = 8;
 
 __global__ void ct_lookup_kernel(CtView ct, const uint32_t* fwd,
                                  const uint32_t* rev, uint32_t now,
@@ -515,39 +536,57 @@ extern "C" int ct_update_launch(const CtView* ctp, const CtUpdateIO* iop,
 
 // --- maintenance: aging sweep and occupancy ---------------------------
 
-// Sum of one value per thread over a block of TPB threads; thread 0
-// adds the block's total to *count (when not 0).
-__device__ __forceinline__ void block_count_add(uint32_t v,
-                                                uint32_t* count) {
+// Sum of one value per thread over a block of TPB threads, at thread 0.
+__device__ __forceinline__ uint32_t block_sum(uint32_t v) {
   __shared__ uint32_t warp_sums[TPB / 32];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warp_sums[warp] = v;
   __syncthreads();
+  v = 0u;
   if (warp == 0) {
     v = lane < TPB / 32 ? warp_sums[lane] : 0u;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
       v += __shfl_down_sync(0xFFFFFFFFu, v, o);
     }
-    if (lane == 0 && v) atomicAdd(count, v);
   }
+  return v;
 }
 
-__global__ void __launch_bounds__(TPB) ct_gc_kernel(CtView ct, uint32_t now,
-                                                    uint32_t* count) {
-  int32_t i = blockIdx.x * TPB + threadIdx.x;
-  bool expired = false;
-  if (i < ct.capacity) {
+// Sum of one value per thread over a block of TPB threads; thread 0
+// adds the block's total to *count (when not 0).
+__device__ __forceinline__ void block_count_add(uint32_t v,
+                                                uint32_t* count) {
+  v = block_sum(v);
+  if (threadIdx.x == 0 && v) atomicAdd(count, v);
+}
+
+__global__ void __launch_bounds__(TPB)
+    ct_gc_kernel(CtView ct, uint32_t now, uint32_t* count, uint32_t* sum) {
+  uint32_t evicted = 0;
+  for (int32_t i = blockIdx.x * TPB + threadIdx.x; i < ct.capacity;
+       i += gridDim.x * TPB) {
+    if (ct.fp[i] == 0u) continue;
     uint32_t* row = ct.table + (size_t)i * ROW_WORDS;
-    expired = row[V_STATE] != ST_FREE && row[V_EXPIRES] < now;
-    if (expired) {
-      row[V_STATE] = ST_FREE;
-      ct.fp[i] = 0;
+    const uint32_t state = row[V_STATE], expires = row[V_EXPIRES];
+    if (state == ST_FREE || !(expires < now)) continue;
+    row[V_STATE] = ST_FREE;
+    ct.fp[i] = 0u;
+    ++evicted;
+  }
+  // the blocks' sum, moved into `count` by the last block, which zeroes
+  // it and the ticket (sum[1]) for the next launch on the stream
+  const uint32_t total = block_sum(evicted);
+  if (threadIdx.x == 0) {
+    if (total) atomicAdd(sum, total);
+    __threadfence();
+    if (atomicInc(sum + 1, gridDim.x - 1) == gridDim.x - 1) {
+      __threadfence();
+      *count = atomicExch(sum, 0u);
     }
   }
-  block_count_add(expired ? 1u : 0u, count);
 }
 
 __global__ void __launch_bounds__(TPB) ct_occupied_kernel(const uint32_t* fp,
@@ -562,13 +601,17 @@ __global__ void __launch_bounds__(TPB) ct_occupied_kernel(const uint32_t* fp,
 }
 
 extern "C" int ct_gc_launch(const CtView* ctp, uint32_t now, uint32_t* count,
-                            cudaStream_t stream) {
+                            uint32_t* sum, cudaStream_t stream) {
   const CtView ct = *ctp;
-  cudaMemsetAsync(count, 0, sizeof(uint32_t), stream);
-  if (ct.capacity > 0) {
-    ct_gc_kernel<<<(ct.capacity + TPB - 1) / TPB, TPB, 0, stream>>>(ct, now,
-                                                                   count);
-  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // a slot a thread, at least one block (its last block writes the
+  // count), at most GC_BLOCKS_PER_SM an SM
+  const int64_t want = ((int64_t)ct.capacity + TPB - 1) / TPB;
+  const int most = GC_BLOCKS_PER_SM * sms;
+  const int blocks = want < 1 ? 1 : (want < most ? (int)want : most);
+  ct_gc_kernel<<<blocks, TPB, 0, stream>>>(ct, now, count, sum);
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,7 @@
 // (24 B rows, 384 KB at 2^14 slots: it lives in L2), and by the grid
 // barriers between its phases (~1.1-1.4 us each on the H100).  K12 and
 // K14 by one row read and one row written per packet (64 B each), plus
-// K14's CT probe.
+// K12's slot (24 B) and grid barrier and K14's CT probe.
 //
 // K11 design (PR 18; PRs 7-17 launched 20 kernels and a fill a call).
 // The reference awards a contended slot, step by step, to the LOWEST
@@ -61,15 +61,31 @@
 // CLAIM_FREE between calls: a call clears every word it bids on.  The counters and phase stamps (views.cuh
 // Stamps) sit in `counts`, set inside the launch.
 //
-// K12 design: one thread per row gathers slot dport - NAT_PORT_MIN and
-// runs the hit test (ingress, v4, in the pool, the IP the mapping
-// rewrote to, live, the reply tuple).  Two replies of different
+// K12 design.  A reply hits slot dport - NAT_PORT_MIN when it is
+// ingress, v4, in the pool, to the IP the mapping rewrote to, and the
+// slot is live and holds the reply tuple.  Two replies of different
 // protocol words can hit one slot (a forged protocol >= 256 aliases the
 // low byte the slot stores) and their refreshed expiries then differ;
-// the reference's scatter keeps the highest row's, so hits bid
-// n - 1 - row into the slot's claim word (the first row of the table's
-// claim words, free between calls) and the lowest bid, the highest row,
-// writes in a second launch and frees the word.
+// the reference's scatter keeps the highest row's.  No block can tell
+// whether another block's row hits its slot, so ONE cooperative kernel
+// a call (at most REV_BLOCKS_PER_SM blocks of REV_TPB an SM) takes one
+// grid barrier:
+//   1. each thread takes its rows one after another (a row base + r *
+//      grid threads, so a warp's loads stay neighbours): the row, 16
+//      bytes a load, then its slot if it is in the pool, then the out
+//      row; a hit keeps its slot and the expiry its refresh writes (now
+//      + the lifetime of its protocol word) in registers (its first
+//      REV_ROWS rows) and bids n - 1 - row into the slot's claim word
+//      (atomicMin: the lowest bid is the highest row).  A hit whose next
+//      row (the next lane) hits the same slot leaves the bid to it:
+//      2^16 replies to one slot bid once a warp;
+//   2. after the barrier, a hit whose bid stands in the claim word
+//      writes its expiry and frees the word.  Only a hit bids n - 1 -
+//      row, so rows past a thread's REV_ROWS (a batch larger than the
+//      co-resident grid holds) read their port and protocol words
+//      again and test the claim word alone.
+// The claim words are the first row of the table's (free between
+// calls): no fill, one graph node a call.
 //
 // All compares of expiries and ports are unsigned, as on the reference.
 #include <cooperative_groups.h>
@@ -86,6 +102,12 @@ constexpr int TPB = 256;
 // rows a thread of its one-block tail
 constexpr int NAT_BLOCKS_PER_SM = 1;
 constexpr int NAT_TAIL_ROWS = 2;
+// K12: its block, at most this many blocks an SM, and the hits a thread
+// keeps in registers across its grid barrier (2^16 rows: 132 blocks of
+// 256, at most 2 rows a thread)
+constexpr int REV_TPB = 256;
+constexpr int REV_BLOCKS_PER_SM = 1;
+constexpr int REV_ROWS = 2;
 constexpr int NAT_RULES = 256;  // gateway rules a block stages: 4 KB
 constexpr int NAT_ROW = 6;
 constexpr int NAT_PROBE = 8;
@@ -713,34 +735,129 @@ int snat_max_blocks(int dev) {
 
 // --- K12 ---------------------------------------------------------------
 
-__global__ void snat_reverse_hit(SnatRevIO io, NatView t) {
-  int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n) return;
-  Hdr h = load_hdr(io.rows, i);
-  uint32_t src = h.src[3], dst = h.dst[3];
-  bool in_pool = h.dport >= NAT_PORT_MIN &&
-                 h.dport < NAT_PORT_MIN + (uint32_t)io.capacity;
-  uint32_t cand = in_pool ? h.dport - NAT_PORT_MIN : 0u;
-  const uint32_t* row = io.table + (size_t)cand * NAT_ROW;
-  uint32_t row_ip = row[NV_SNAT_IP];
-  bool ip_ok = row_ip != 0 ? dst == row_ip : dst == t.node_ip;
-  bool hit = h.dirn == 0 && h.fam == 4 && in_pool && ip_ok &&
-             row[NV_EXPIRES] >= io.now && row[NV_DST] == src &&
-             row[NV_DP] == ((h.sport << 8) | h.proto);
-  store_row(io.rows, io.out, i, 7, hit ? row[NV_SRC] : dst,
-            hit ? row[NV_SPORT] : h.dport);
-  io.hit_slot[i] = hit ? (int32_t)cand : -1;
-  if (hit) atomicMin(&io.claim[cand], io.n - 1 - i);  // the highest row
+// What a row's refresh needs after the barrier: the slot it hit (-1:
+// none) and the expiry it writes there.
+struct RevHit {
+  int32_t slot;
+  uint32_t expires;
+};
+
+// Row i (none past n): the row, 16 bytes a load, then its slot if it is
+// an ingress v4 reply to a port in the pool, the hit test and the out
+// row (the destination IP and port restored on a hit).
+__device__ __forceinline__ RevHit rev_row(const SnatRevIO& io,
+                                          const NatView& t, int32_t i) {
+  if (i >= io.n) return RevHit{-1, 0u};
+  const uint4* in = reinterpret_cast<const uint4*>(io.rows +
+                                                   (size_t)i * N_COLS);
+  uint4 w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) w[q] = __ldg(in + q);
+  const uint32_t slot = w[2].y - NAT_PORT_MIN;  // dport
+  const bool need = w[3].w == 0 && w[3].y == 4 && w[2].y >= NAT_PORT_MIN &&
+                    slot < (uint32_t)io.capacity;
+  const NatRow r = need ? load_nat_row(io.table + (size_t)slot * NAT_ROW)
+                        : NatRow{};
+  const uint32_t dst = w[1].w;
+  const bool hit = need &&
+                   (r.snat_ip != 0 ? dst == r.snat_ip : dst == t.node_ip) &&
+                   r.expires >= io.now && r.k.z == w[0].w &&
+                   r.k.w == ((w[2].x << 8) | w[2].z);
+  if (hit) {
+    w[1].w = r.k.x;
+    w[2].y = r.k.y;
+  }
+  uint4* o = reinterpret_cast<uint4*>(io.out + (size_t)i * N_COLS);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) o[q] = w[q];
+  return hit ? RevHit{(int32_t)slot, io.now + nat_lifetime(w[2].z)}
+             : RevHit{-1, 0u};
 }
 
-__global__ void snat_reverse_refresh(SnatRevIO io) {
-  int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n) return;
-  int32_t s = io.hit_slot[i];
-  if (s < 0 || io.claim[s] != io.n - 1 - i) return;
-  io.table[(size_t)s * NAT_ROW + NV_EXPIRES] =
-      io.now + nat_lifetime(io.rows[(size_t)i * N_COLS + 10]);
-  io.claim[s] = CLAIM_FREE;
+// Row i's bid for its slot (every lane of the warp calls, row i in lane
+// i % 32): a hit whose next row, in the next lane, hits the same slot
+// leaves the bid to that row, whose bid is lower.
+__device__ __forceinline__ void rev_bid(const SnatRevIO& io, RevHit h,
+                                        int32_t i) {
+  const int32_t next = __shfl_down_sync(0xFFFFFFFFu, h.slot, 1);
+  if (h.slot >= 0 && ((threadIdx.x & 31) == 31 || next != h.slot))
+    atomicMin(&io.claim[h.slot], io.n - 1 - i);
+}
+
+// After the barrier: the claim word of a row's slot (CLAIM_FREE for no
+// slot), then, where the row's bid stands in it, the refresh: the expiry
+// written and the word freed.  Its losers read the bid or CLAIM_FREE,
+// never theirs: only a hit bids n - 1 - row.
+__device__ __forceinline__ int32_t rev_word(const SnatRevIO& io, RevHit h) {
+  return h.slot >= 0 ? __ldcg(&io.claim[h.slot]) : CLAIM_FREE;
+}
+
+__device__ __forceinline__ void rev_refresh(const SnatRevIO& io, RevHit h,
+                                            int32_t word, int32_t i) {
+  if (word != io.n - 1 - i) return;
+  io.table[(size_t)h.slot * NAT_ROW + NV_EXPIRES] = h.expires;
+  io.claim[h.slot] = CLAIM_FREE;
+}
+
+__global__ void __launch_bounds__(REV_TPB)
+    snat_reverse_kernel(SnatRevIO io, NatView t) {
+  Stamps st{io.meta, 0};
+  st.mark();
+  const int32_t stride = gridDim.x * REV_TPB;
+  const int32_t base = blockIdx.x * REV_TPB + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // 1. the rows whose hits stay in registers, one at a time (on the H100
+  // faster than all of a thread's rows' loads in flight together)
+  RevHit hit[REV_ROWS];
+#pragma unroll
+  for (int q = 0; q < REV_ROWS; ++q) {
+    const int32_t i = base + q * stride;
+    hit[q] = rev_row(io, t, i);
+    rev_bid(io, hit[q], i);
+  }
+  // rows past them (warp-uniform trips): the same, their hits found
+  // again after the barrier
+  for (int32_t b = base - lane + REV_ROWS * stride; b < io.n; b += stride)
+    rev_bid(io, rev_row(io, t, b + lane), b + lane);
+  if (gridDim.x == 1) {
+    __syncthreads();
+  } else {
+    cg::this_grid().sync();  // every bid is in
+  }
+  st.mark();
+
+  // 2. the refreshes: every kept hit's claim word read before any store
+  int32_t word[REV_ROWS];
+#pragma unroll
+  for (int q = 0; q < REV_ROWS; ++q) word[q] = rev_word(io, hit[q]);
+#pragma unroll
+  for (int q = 0; q < REV_ROWS; ++q)
+    rev_refresh(io, hit[q], word[q], base + q * stride);
+  for (int32_t i = base + REV_ROWS * stride; i < io.n; i += stride) {
+    const uint4 c = __ldg(reinterpret_cast<const uint4*>(
+                              io.rows + (size_t)i * N_COLS) + 2);
+    const uint32_t s = c.y - NAT_PORT_MIN;
+    const RevHit h{c.y >= NAT_PORT_MIN && s < (uint32_t)io.capacity
+                       ? (int32_t)s : -1,
+                   io.now + nat_lifetime(c.z)};
+    rev_refresh(io, h, rev_word(io, h), i);
+  }
+  st.mark();
+}
+
+// The most blocks of snat_reverse_kernel a launch takes on device `dev`:
+// co-resident ones, at most REV_BLOCKS_PER_SM an SM (0: none fit).
+int rev_max_blocks(int dev) {
+  static int cached[64];
+  if (dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, snat_reverse_kernel, REV_TPB, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = min(per_sm, REV_BLOCKS_PER_SM) * sms;
+  }
+  return cached[dev];
 }
 
 // --- K14 ---------------------------------------------------------------
@@ -778,14 +895,24 @@ extern "C" int snat_egress_launch(const SnatIO* iop, const NatView* tp,
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-extern "C" int snat_reverse_launch(const SnatRevIO* io, const NatView* t,
+extern "C" int snat_reverse_launch(const SnatRevIO* iop, const NatView* tp,
                                    cudaStream_t stream) {
-  if (io->n > 0) {
-    int b = blocks_for(io->n);
-    snat_reverse_hit<<<b, TPB, 0, stream>>>(*io, *t);
-    snat_reverse_refresh<<<b, TPB, 0, stream>>>(*io);
-  }
-  return (int)cudaGetLastError();
+  SnatRevIO io = *iop;
+  NatView t = *tp;
+  if (io.n <= 0) return (int)cudaGetLastError();
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int most = rev_max_blocks(dev);
+  if (most <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // a row a thread, at most `most` blocks (past them a thread takes
+  // more rows)
+  const int64_t want = ((int64_t)io.n + REV_TPB - 1) / REV_TPB;
+  const int blocks = want < most ? (int)want : most;
+  void* args[] = {&io, &t};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(snat_reverse_kernel), dim3(blocks),
+      dim3(REV_TPB), args, 0, stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 extern "C" int masq_rewrite_launch(const MasqIO* io, const NatView* t,

@@ -185,7 +185,8 @@ struct SnatRevIO {
   uint32_t* table;       // [capacity, 6], expiries refreshed in place
   int32_t* claim;        // [capacity] the first row of the table's claim
                          // words, CLAIM_FREE between calls
-  int32_t* hit_slot;     // [n] scratch: the slot a reply hit, -1 none
+  uint32_t* meta;        // [64] phase stamps (Stamps), in the per-stream
+                         // scratch
   int32_t n;
   int32_t capacity;
   uint32_t now;
@@ -369,11 +370,11 @@ __device__ __forceinline__ void block_count(bool flag, uint32_t* count,
   }
 }
 
-// Phase stamps of a cooperative kernel (K11, K13, K17): thread 0 of block 0
-// writes the global timer's low word (ns) into words[STAMP_AT + k] at the
-// k-th mark, and k + 1 into words[STAMP_AT - 1], so that a reader sees
-// how long each phase between two grid barriers took.  One timer read
-// and two stores a barrier.
+// Phase stamps of a cooperative kernel (K11, K12, K13, K17): thread 0 of
+// block 0 writes the global timer's low word (ns) into words[STAMP_AT +
+// k] at the k-th mark, and k + 1 into words[STAMP_AT - 1], so that a
+// reader sees how long each phase between two grid barriers took.  One
+// timer read and two stores a barrier.
 constexpr int STAMP_AT = 16;
 constexpr int STAMPS = 48;
 

@@ -382,13 +382,15 @@ def launch_datapath(state, rows: torch.Tensor, now: int, ep, dirn, valid,
 # (device, kernel, stream), so that launches sharing one run in stream
 # order: K20's and K22's last-block tickets (the last block of every
 # launch leaves its counter at 0 again), K5's block counts (each
-# launch writes its entries before it reads them) and K13's two sums over
+# launch writes its entries before it reads them), K13's two sums over
 # the 4096 buckets (each launch zeroes them behind itself), then its 64
-# words of phase stamps
+# words of phase stamps, K7's eviction sum and ticket (its last block
+# zeroes both) and K12's phase stamps
 _SCRATCH_WORDS = {"ring_append": RING_COUNTS,
                   "ring_append_sharded": RING_COUNTS,
                   "anomaly_train_fwd": 1, "anomaly_train_fwd_sharded": 1,
-                  "adam_update": 1, "bw_stage": 2 * 4096 + 64}
+                  "adam_update": 1, "bw_stage": 2 * 4096 + 64, "ct_gc": 2,
+                  "snat_reverse": 64}
 _STREAM_SCRATCH: Dict[tuple, torch.Tensor] = {}
 
 
@@ -483,13 +485,16 @@ def launch_ring_gather(buf: torch.Tensor, starts, rung: int,
 
 
 def launch_ct_gc(ct, now: int) -> torch.Tensor:
-    """K7: the CT aging sweep, in place; returns the eviction count as a
-    [1] u32 tensor on the card (no host sync)."""
+    """K7: the CT aging sweep, in place, one kernel; returns the eviction
+    count as a [1] u32 tensor on the card (no host sync).  The blocks
+    sum it in the stream's scratch, which the last block leaves zero."""
     dev = ct.table.device
     count = torch.empty(1, dtype=I32, device=dev)
     view = ct_view(ct, dev)
+    stream = _stream(dev)
     KERNELS["ct_gc"].launch(ctypes.addressof(view), int(now) & MASK,
-                            count.data_ptr(), _stream(dev))
+                            count.data_ptr(),
+                            _stream_scratch(dev, "ct_gc", stream), stream)
     return count
 
 
@@ -642,22 +647,27 @@ def launch_snat_egress(tbl, t, ct, hdr: torch.Tensor, now: int,
     return out, tbl, drop
 
 
-def launch_snat_reverse(tbl, t, hdr: torch.Tensor, now: int):
+def launch_snat_reverse(tbl, t, hdr: torch.Tensor, now: int,
+                        scratch: Optional[dict] = None):
     """K12: reverse translation of replies to allocated node ports over
-    wide [N, 16] rows; refreshes ``tbl`` in place.  Returns (rows,
-    tbl)."""
+    wide [N, 16] rows, one cooperative kernel; refreshes ``tbl`` in
+    place.  Returns (rows, tbl).  A ``scratch`` dict gets ``phase_ns``
+    (as ``launch_snat_egress``'s)."""
     dev, n = hdr.device, hdr.shape[0]
     table, claim, p = _nat_table(tbl, dev)
     out = torch.empty((n, N_COLS), dtype=I32, device=dev)
-    hit_slot = torch.empty(n, dtype=I32, device=dev)
+    stream = _stream(dev)
+    meta = _stream_scratch(dev, "snat_reverse", stream)
     io = abi.SnatRevIO(
         rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
-        out=out.data_ptr(), table=table, claim=claim,
-        hit_slot=hit_slot.data_ptr(), n=n, capacity=p,
-        now=int(now) & MASK)
+        out=out.data_ptr(), table=table, claim=claim, meta=meta, n=n,
+        capacity=p, now=int(now) & MASK)
     view = nat_view(t, dev)
     KERNELS["snat_reverse"].launch(ctypes.addressof(io),
-                                   ctypes.addressof(view), _stream(dev))
+                                   ctypes.addressof(view), stream)
+    if scratch is not None:
+        words = _STREAM_SCRATCH[(dev, "snat_reverse", stream)]
+        scratch.update(phase_ns=lambda: _stamps(words))
     return out, tbl
 
 

@@ -99,7 +99,7 @@ class SnatIO(ctypes.Structure):
 
 class SnatRevIO(ctypes.Structure):
     _fields_ = [("rows", P), ("out", P), ("table", P), ("claim", P),
-                ("hit_slot", P), ("n", I32), ("capacity", I32),
+                ("meta", P), ("n", I32), ("capacity", I32),
                 ("now", U32), ("pad", I32)]
 
 
@@ -213,7 +213,7 @@ SIGNATURES = {
     "verdict": {"datapath_launch": [P, P, P, P, ctypes.c_int, P]},
     "conntrack": {"ct_lookup_launch": [P, P, P, U32, P, P, P, I32, P],
                   "ct_update_launch": [P, P, P],
-                  "ct_gc_launch": [P, U32, P, P],
+                  "ct_gc_launch": [P, U32, P, P, P],
                   "ct_occupied_launch": [P, I32, P, P]},
     "lpm": {"lpm_lookup_launch": [P, P, P, P, I32, P]},
     "ring": {"ring_append_launch": [P, P], "ring_gather_launch": [P, P]},

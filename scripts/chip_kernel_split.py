@@ -4,12 +4,12 @@
 ``anomaly_train_fwd`` (and K20s), K9 ``l7_verdict``, K18
 ``flow_features``, K19 ``anomaly_score``, K22 ``adam_update``, K5
 ``ring_append`` (and K5s), K17 ``socklb_stage``, K11 ``snat_egress``
-(with K12 ``snat_reverse`` after it), K13 ``bw_stage`` and K16
-``lb6_stage`` at the shapes the main paths launch them, for one or more
-checkouts of this repository.
+(with K12 ``snat_reverse`` after it), K13 ``bw_stage``, K16
+``lb6_stage``, K12 and K7 ``ct_gc`` at the shapes the main paths launch
+them, for one or more checkouts of this repository.
 
     python3 scripts/chip_kernel_split.py
-        [--kernels=k1k4,k20,k9,k18,k19,k22,k5,k17,k11,k13,k16]
+        [--kernels=k1k4,k20,k9,k18,k19,k22,k5,k17,k11,k13,k16,k12,k7]
         [--variants=TREE] [--grids=TREE] [TREE ...]
 
 Each TREE is a checkout (a ``git archive`` of another commit unpacked
@@ -115,6 +115,25 @@ both masks), held against the plain version's and a second call's;
 where the tree's K13 launcher hands them back, whether its sums are
 zero after the call and its phase times.
 
+K12 (``k12_cases`` and ``bw_lb_cases``): phase 3's pool (a batch at
+1000, then the next at 1090) and that batch's replies (misses and
+forged protocol words mixed in); 2^16 replies to one TCP mapping; 2^16
+forged twins (protocol 6 | 0x100, the remote port one lower) aliasing
+TCP mappings' slots, in random order; 2^16 replies below the pool; one
+reply; the egress and service paths' own inputs (the rows
+``TorchLoader.reverse_nat`` takes in the next batch).  K7
+(``k7_cases``): phase 3's half-full 2^20 CT with its edge expiries, the
+daemon's own CT (config #3's 2^18-flow steady pool through K1/K4, swept
+at its clock), an empty CT, a full one with 10% expired and a full one
+all expired.  Each is timed on fresh copies of its table, split by the
+profiler, digested (K12: rows and table; K7: table, fingerprints and
+count) and held against the plain version's and a second call's, with
+its operations a call (a CUDA-graph capture); K12 also with its claim
+words free after the call and, where its launcher hands them back, its
+phase times.  ``--grids=TREE`` also builds K12's grid variants (256 or
+512 threads a block, 1-4 rows a thread in registers, every hit
+bidding) and K7's (1-64 blocks an SM).
+
 Each run writes ``chiprun_out/split/<label>.json``; the main process
 prints, for every later run, the digests that differ from an earlier
 run's.  The line before the last is the card's name and power limit
@@ -196,17 +215,44 @@ K11_PARTS = {
     "no_gateway": [("  const bool gw = gateway_rule(t, rules, n_rules, src, dst, "
                     "&rip);", "  const bool gw = false;")],
 }
+
+
+def _knob(name, old, new):
+    return (f"constexpr int {name} = {old};", f"constexpr int {name} = {new};")
+
+
+# K12's block and grid (threads a block, blocks an SM, hits a thread
+# keeps in registers: at 2^16 rows the source's 132 blocks of 256 keep
+# 2 rows a thread) and its bids without the warp's same-slot pairing
+# (every hit bids)
+K12_GRID = {
+    "as_is": [],
+    **{f"tpb{t}_per_sm{b}_rows{r}": [
+        _knob("REV_TPB", 256, t), _knob("REV_BLOCKS_PER_SM", 1, b),
+        _knob("REV_ROWS", 2, r)]
+       for t, b, r in ((256, 1, 1), (256, 1, 4), (512, 1, 1))},
+    "bid_every_hit": [("  if (h.slot >= 0 && ((threadIdx.x & 31) == 31 || "
+                       "next != h.slot))", "  if (h.slot >= 0)")],
+}
+# K7's grid: blocks an SM (at 2^20 slots the source's 8 an SM stride
+# four times over the table; 64 an SM is a thread a slot, the old grid)
+K7_GRID = {"as_is": [], **{
+    f"per_sm{b}": [_knob("GC_BLOCKS_PER_SM", 8, b)] for b in (1, 2, 4, 16,
+                                                              64)}}
 # variant set: (source, its variants)
 ABLATIONS = {"k4_grid": ("conntrack", K4_GRID),
              "k1_occupancy": ("verdict", K1_OCCUPANCY),
              "k17_grid": ("socklb", K17_GRID),
              "k11_grid": ("nat", K11_GRID),
-             "k11_parts": ("nat", K11_PARTS)}
+             "k11_parts": ("nat", K11_PARTS),
+             "k12_grid": ("nat", K12_GRID),
+             "k7_grid": ("conntrack", K7_GRID)}
 # the flags that name a tree, and the variant sets each runs there
 TREE_FLAGS = {"--variants": ("k4_grid", "k1_occupancy"),
-              "--grids": ("k17_grid", "k11_grid", "k11_parts")}
+              "--grids": ("k17_grid", "k11_grid", "k11_parts", "k12_grid",
+                          "k7_grid")}
 KERNEL_SETS = ("k1k4", "k20", "k9", "k18", "k19", "k22", "k5", "k17",
-               "k11", "k13", "k16")
+               "k11", "k13", "k16", "k12", "k7")
 INT_MAX = (1 << 31) - 1
 RING_CAP = 1 << 18  # chip_smoke's ring, a shard's on the sharded path
 LISTENERS = (10000,)  # the daemon's listener table: config #3's one rule
@@ -1153,14 +1199,23 @@ def copy_bw(state):
         if isinstance(getattr(state, f.name), torch.Tensor)})
 
 
+def copy_nat(tbl):
+    """A copy of a NAT table with claim words of its own."""
+    from cilium_tpu_torch.service import nat
+
+    return nat.NATTable(tbl.table.clone(), tbl.failed.clone())
+
+
 def stage_inputs(d, rows, now) -> tuple:
-    """The inputs K13 (``Daemon._bw_police``) and K16 (``lb6_stage``)
-    take in one ``d.process_batch(rows, now)``: ((bandwidth state
-    before, rows, now, rates) or None, (v6 LB tensors, rows) or None)."""
+    """The inputs K13 (``Daemon._bw_police``), K16 (``lb6_stage``) and
+    K12 (``TorchLoader.reverse_nat``) take in one ``d.process_batch(rows,
+    now)``: ((bandwidth state before, rows, now, rates) or None, (v6 LB
+    tensors, rows) or None, (NAT table before, NAT tensors, rows, now)
+    or None)."""
     import cilium_tpu_torch.service as svc
 
-    got13, got16 = [], []
-    police, lb6 = d._bw_police, svc.lb6_stage
+    got13, got16, got12 = [], [], []
+    police, lb6, rev = d._bw_police, svc.lb6_stage, d.loader.reverse_nat
 
     def spy13(hdr, now):
         got13.append((copy_bw(d._bw), hdr.clone(), now, d._bw_rates))
@@ -1170,15 +1225,20 @@ def stage_inputs(d, rows, now) -> tuple:
         got16.append((t, hdr.clone()))
         return lb6(t, hdr)
 
-    d._bw_police, svc.lb6_stage = spy13, spy16
+    def spy12(t, hdr, now):
+        got12.append((copy_nat(d.loader._nat_table()), t,
+                      d.loader._to_device(hdr).clone(), now))
+        return rev(t, hdr, now)
+
+    d._bw_police, svc.lb6_stage, d.loader.reverse_nat = spy13, spy16, spy12
     try:
         d.process_batch(rows, now=now)
     finally:
-        d._bw_police, svc.lb6_stage = police, lb6
-    return (got13[0] if got13 else None), (got16[0] if got16 else None)
+        d._bw_police, svc.lb6_stage, d.loader.reverse_nat = police, lb6, rev
+    return tuple(g[0] if g else None for g in (got13, got16, got12))
 
 
-def bw_lb_cases(world, rng) -> tuple:
+def bw_lb_cases(world, rng, v6_world=True) -> tuple:
     """K13's and K16's inputs.  K13: phase 3's case (2^16 rows of
     ``testing.egress.bw_rows`` over 257 endpoints, 65 limited, the
     buckets threaded through clocks 10, 10, 11, 4000, 2^32 - 1, 3, then
@@ -1191,8 +1251,12 @@ def bw_lb_cases(world, rng) -> tuple:
     stages).  K16: phase 3's case (2^16 rows, half v6, to the 256 v6
     frontends); phase 12's batch; 2^16 rows with no v6 row; 2^16 v6 rows
     to the VIPs on a port or protocol no frontend has; and 2^16 rows,
-    half v6, against a world of 4096 v6 frontends.  -> ({K13 case:
-    (state before, rows, now, rates)}, {K16 case: (LB tensors, rows)})."""
+    half v6, against a world of 4096 v6 frontends (left out unless
+    ``v6_world``).  K12: the egress and service paths' own inputs (the
+    rows ``TorchLoader.reverse_nat`` takes in those next batches).  ->
+    ({K13 case: (state before, rows, now, rates)}, {K16 case: (LB
+    tensors, rows)}, {K12 case: (NAT table before, NAT tensors, rows,
+    now)})."""
     import chip_smoke as cs
     import numpy as np
     from cilium_tpu_torch import u32
@@ -1207,7 +1271,7 @@ def bw_lb_cases(world, rng) -> tuple:
     def dev(a):
         return u32.from_numpy(np.ascontiguousarray(a), "cuda")
 
-    k13, k16 = {}, {}
+    k13, k16, k12 = {}, {}, {}
     eps = list(range(1, 257)) + [5000]
     limits = {e: int(x) for e, x in zip(
         range(1, 65), rng.integers(100_000, 2_000_000, 64))}
@@ -1235,7 +1299,8 @@ def bw_lb_cases(world, rng) -> tuple:
         now += 60
     rows, _new, _want = cs.egress_batch(rng, clients, flows,
                                         cs.EGRESS_BATCHES, prev)
-    k13["k13_egress_65536"] = stage_inputs(d, rows, now)[0]
+    k13["k13_egress_65536"], _k16, k12["k12_egress_65536"] = stage_inputs(
+        d, rows, now)
     d.shutdown()
 
     # phase 3's service world, and phase 12's daemon over it
@@ -1284,12 +1349,14 @@ def bw_lb_cases(world, rng) -> tuple:
             0, len(pool), cs.LB_N - len(new))]])[rng.permutation(cs.LB_N)]
         now += 10
         if b == 2:
-            k13["k13_service_65536"], k16["k16_service_65536"] = (
-                stage_inputs(d, rows, now))
+            (k13["k13_service_65536"], k16["k16_service_65536"],
+             k12["k12_service_65536"]) = stage_inputs(d, rows, now)
         else:
             d.process_batch(rows, now=now)
         pool = np.concatenate([pool, new])
     d.shutdown()
+    if not v6_world:
+        return k13, k16, k12
 
     # 4096 v6 frontends: every service of the world dual-stack
     sv.install(ServiceWatcher(mgr), sv.k8s_objects(
@@ -1298,7 +1365,7 @@ def bw_lb_cases(world, rng) -> tuple:
     k16["k16_v6_frontends_4096"] = (mgr.tensors6(), dev(sv.rows(
         rng, cs.LB_N, cs.N_SERVICES, lb_clients, lb_others,
         vip_frac=0.0, v6_frac=0.5, n_v6=cs.N_SERVICES)))
-    return k13, k16
+    return k13, k16, k12
 
 
 def run_k13(label, cases) -> dict:
@@ -1398,6 +1465,265 @@ def run_k16(label, cases) -> dict:
     return recs
 
 
+def k12_cases(rng) -> dict:
+    """K12's inputs beside the paths' own (``bw_lb_cases``), on the pool
+    phase 3 times it on (``chip_smoke.nat_case``: a batch at 1000, then
+    the next at 1090, half of it repeats): that batch's replies
+    (``testing.egress.reply_rows``: misses and forged protocol words
+    mixed in); 2^16 replies to one TCP mapping (2^16 bids for one claim
+    word); 2^16 replies to the TCP mappings of odd remote ports, half of
+    them with the protocol word 6 | 0x100 and the remote port one lower,
+    which alias the same slots with a non-TCP lifetime, in random order
+    (the highest row's refresh must stand); 2^16 replies below the pool
+    (no hit: the copy alone); one reply that hits.  -> {case: (NAT table
+    before, NAT tensors, rows, now)}."""
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import (COL_DPORT, COL_PROTO,
+                                               COL_SPORT)
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+
+    t, cti, rows, pods = cs.nat_case(torch, rng, 1000)
+    tbl = nat.NATTable.create(cs.NAT_POOL, "cuda")
+    nat.snat_egress(tbl, t, cti, u32.from_numpy(rows, "cuda"), 1000)
+    rows = np.concatenate([rows[::2], eg.egress_rows(
+        rng, len(rows) - len(rows[::2]), pods, sports=16384)])
+    out = u32.to_numpy(nat.snat_egress(tbl, t, cti, u32.from_numpy(
+        rows, "cuda"), 1090)[0])
+    now = 1090
+    rep = eg.reply_rows(rng, out, cs.EGRESS_N)
+    cases = {"k12_phase3_65536": (copy_nat(tbl), t, rep, now)}
+    # the replies that hit, as the plain version finds them
+    probe = copy_nat(tbl)
+    hit = u32.to_numpy(nat.snat_reverse_plain(
+        probe, t, u32.from_numpy(rep, "cuda"), now)[0]) != rep
+    hit = hit.any(1)
+    tcp = rep[hit & (rep[:, COL_PROTO] == 6)]
+    cases["k12_one_slot_65536"] = (copy_nat(tbl), t, np.repeat(
+        tcp[:1], cs.EGRESS_N, axis=0), now)
+    odd = tcp[tcp[:, COL_SPORT] % 2 == 1]
+    fr = odd[rng.integers(0, len(odd), cs.EGRESS_N)]
+    forged = rng.random(cs.EGRESS_N) < 0.5
+    fr[forged, COL_PROTO] = 6 | 0x100
+    fr[forged, COL_SPORT] -= 1
+    cases["k12_forged_65536"] = (copy_nat(tbl), t, fr, now)
+    miss = rep.copy()
+    miss[:, COL_DPORT] = 1000
+    cases["k12_no_hit_65536"] = (copy_nat(tbl), t, miss, now)
+    cases["k12_n1"] = (copy_nat(tbl), t, tcp[:1].copy(), now)
+    return {k: (b, tt, u32.from_numpy(np.ascontiguousarray(r), "cuda"), n)
+            for k, (b, tt, r, n) in cases.items()}
+
+
+def run_k12(label, cases) -> dict:
+    """Time each K12 case on fresh copies of its pool, split it by the
+    profiler, digest the rows and table after one call and hold them
+    against the plain version's and a second call's, with the claim
+    words free after the call; where the tree's launcher hands them
+    back, its phase times.  -> {case: record}."""
+    import functools
+    import inspect
+
+    import chip_smoke as cs
+    from cilium_tpu_torch.kernels import launch_snat_reverse
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    has_scratch = "scratch" in inspect.signature(
+        launch_snat_reverse).parameters
+    recs = {}
+    for name, (base, t, hdr, now) in cases.items():
+        def fresh(base=base):
+            return copy_nat(base)
+
+        def fn(tb, t=t, hdr=hdr, now=now):
+            return launch_snat_reverse(tb, t, hdr, now)
+
+        def one(call):
+            tb = fresh()
+            got = call(tb, t, hdr, now)
+            return tb, got, digest(got[0], tb.table)
+
+        tb, res, got = one(nat.snat_reverse)
+        _t2, _r2, again = one(nat.snat_reverse)
+        _t3, _r3, want = one(nat.snat_reverse_plain)
+        rec = {"rows": int(hdr.shape[0]),
+               "hits": int((res[0] != hdr).any(1).sum()),
+               "inputs": digest(hdr, base.table),
+               "ms": cs.device_ms(fn, REPS, fresh), "out": got,
+               "plain_equal": got == want, "repeat_equal": got == again,
+               "claims_free": claims_free(tb, ("claim",)),
+               "ops_a_call": ops_a_call(
+                   lambda: functools.partial(fn, fresh())),
+               "by_kernel": profiled(fn, fresh)}
+        if has_scratch:
+            sc = {}
+            launch_snat_reverse(fresh(), t, hdr, now, scratch=sc)
+            rec["phase_ns"] = sc["phase_ns"]()
+        recs[name] = rec
+        print(f"[{label}] K12 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def k7_cases(world, rng) -> dict:
+    """K7's inputs, each a 2^20 CT (``chip_smoke.CT_CAPACITY``): phase
+    3's half-full table (``chip_smoke.half_full_table`` at now = 2^31 +
+    1000, its live expiries drawn from the u32 edges around 2^31 and
+    now, as ``phase_maint`` draws them); the daemon's own table at a
+    sweep (config #3's steady flow pool of 2^18 flows, phase 7's, served
+    through K1/K4 in 4 wide batches of 2^16, swept at the batches'
+    clock: nothing has expired); an empty table (the daemon's first
+    sweeps); every slot live, 10% expired; every slot live and expired
+    (every row written back).  -> {case: (CT before, now)}."""
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.datapath.verdict import datapath_step
+    from cilium_tpu_torch.testing import fixtures as fx
+
+    def card(table, fp):
+        return ct.CTTable(table=u32.from_numpy(table, "cuda"),
+                          fp=u32.from_numpy(fp, "cuda"),
+                          dropped=torch.zeros((), dtype=torch.int32,
+                                              device="cuda"))
+
+    cap = cs.CT_CAPACITY
+    cases = {}
+    now = (1 << 31) + 1000
+    table, fp, _rows = cs.half_full_table(rng, now)
+    live = table[:, ct.V_STATE] != ct.ST_FREE
+    edges = np.array([(1 << 31) - 1, 1 << 31, (1 << 31) + 1, now - 1, now,
+                      now + 1, 0xFFFFFFFF, 5, now + 100], np.uint32)
+    table[live, ct.V_EXPIRES] = rng.choice(edges, int(live.sum()))
+    cases["k7_phase3_half"] = (card(table, fp), now)
+
+    st = cs.card_state(world)
+    pool = fx.steady_flow_pool(world, 1 << 18, rng)
+    for b in range(4):
+        datapath_step(st, u32.from_numpy(
+            pool[b << 16:(b + 1) << 16], "cuda"), NOW + b)
+    cases["k7_daemon"] = (st.ct, NOW + 4)
+    cases["k7_empty"] = (ct.CTTable.create(cap, "cuda"), now)
+
+    full = np.zeros((cap, ct.ROW_WORDS), np.uint32)
+    full[:, :ct.KEY_WORDS] = rng.integers(0, 1 << 32, (cap, ct.KEY_WORDS),
+                                          dtype=np.uint64)
+    full[:, ct.V_STATE] = rng.integers(1, 4, cap)
+    full[:, ct.V_EXPIRES] = np.where(rng.random(cap) < 0.1, now - 5,
+                                     now + 100)
+    ffp = rng.integers(1, 256, cap).astype(np.uint32)
+    cases["k7_full_10pct_expired"] = (card(full, ffp), now)
+    full[:, ct.V_EXPIRES] = now - 5
+    cases["k7_full_all_expired"] = (card(full, ffp), now)
+    return cases
+
+
+def run_k7(label, cases) -> dict:
+    """Time each K7 case on fresh copies of its CT, split it by the
+    profiler, digest the table, fingerprints and count after one call
+    and hold them against the plain version's and a second call's.  ->
+    {case: record}."""
+    import functools
+
+    import chip_smoke as cs
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.kernels import launch_ct_gc
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    recs = {}
+    for name, (base, now) in cases.items():
+        def fresh(base=base):
+            return ct.CTTable(base.table.clone(), base.fp.clone(),
+                              base.dropped.clone())
+
+        def fn(w, now=now):
+            return launch_ct_gc(w, now)
+
+        def one(call):
+            w = fresh()
+            n = call(w, now)
+            return n, digest(n.reshape(-1).to(w.fp.dtype), w.table, w.fp)
+
+        n, got = one(ct.ct_gc)
+        _n2, again = one(ct.ct_gc)
+        _n3, want = one(ct.ct_gc_plain)
+        rec = {"slots": int(base.fp.shape[0]),
+               "live": int((base.fp != 0).sum()), "evicted": int(n.sum()),
+               "inputs": digest(base.table, base.fp),
+               "ms": cs.device_ms(fn, REPS, fresh), "out": got,
+               "plain_equal": got == want, "repeat_equal": got == again,
+               "ops_a_call": ops_a_call(
+                   lambda: functools.partial(fn, fresh())),
+               "by_kernel": profiled(fn, fresh)}
+        recs[name] = rec
+        print(f"[{label}] K7 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def k12_calls(cases) -> dict:
+    """{case: (call, fresh, digest of a call's outputs, phase ns of a
+    call)} for K12."""
+    from cilium_tpu_torch.kernels import launch_snat_reverse
+
+    calls = {}
+    for name, (base, t, hdr, now) in cases.items():
+        def fresh(base=base):
+            return copy_nat(base)
+
+        def call(tb, t=t, hdr=hdr, now=now):
+            return launch_snat_reverse(tb, t, hdr, now)
+
+        def out(fresh=fresh, call=call):
+            tb = fresh()
+            return digest(call(tb)[0], tb.table)
+
+        def phases(fresh=fresh, t=t, hdr=hdr, now=now):
+            sc = {}
+            launch_snat_reverse(fresh(), t, hdr, now, scratch=sc)
+            return sc["phase_ns"]()
+
+        calls[name] = (call, fresh, out, phases)
+    return calls
+
+
+def k7_calls(cases) -> dict:
+    """{case: (call, fresh, digest of a call's outputs, None)} for K7."""
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.kernels import launch_ct_gc
+
+    calls = {}
+    for name, (base, now) in cases.items():
+        def fresh(base=base):
+            return ct.CTTable(base.table.clone(), base.fp.clone(),
+                              base.dropped.clone())
+
+        def call(w, now=now):
+            return launch_ct_gc(w, now)
+
+        def out(fresh=fresh, call=call):
+            w = fresh()
+            n = call(w)
+            return digest(n.reshape(-1).to(w.fp.dtype), w.table, w.fp)
+
+        calls[name] = (call, fresh, out, lambda: None)
+    return calls
+
+
 def run_grids(tree: Path, label: str, which: str, recs: dict,
               calls: dict) -> dict:
     """Each grid variant of ``which`` (built from ``tree``'s source, out
@@ -1454,8 +1780,8 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
         ["l7"] if "k9" in kernels else []) + (
         ["ring"] if "k5" in kernels else []) + (
         ["socklb"] if "k17" in kernels else [])
-    if kernels & {"k11", "k13", "k16"}:  # the daemons run every kernel
-        sources = list(build.SOURCES)
+    if kernels & {"k11", "k13", "k16", "k12", "k7"}:  # the daemons run
+        sources = list(build.SOURCES)  # every kernel
     t0 = time.monotonic()
     build.build(sources)
     res = {"tree": str(tree), "label": label,
@@ -1464,7 +1790,7 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
                      for n in sources},
            "k1": {}, "k4": {}, "k20": {}, "k9": {}, "k18": {}, "k19": {},
            "k22": {}, "k5": {}, "k17": {}, "k11": {}, "k13": {},
-           "k16": {}}
+           "k16": {}, "k12": {}, "k7": {}}
     rng = np.random.default_rng(SEED)
     world = fx.build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
                            device="cpu")
@@ -1490,13 +1816,21 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
     if "k11" in kernels:
         k11_cases = nat_cases(world, np.random.default_rng(SEED + 11))
         res["k11"] = run_k11(label, k11_cases)
-    if kernels & {"k13", "k16"}:
-        k13_cases, k16_cases = bw_lb_cases(world, np.random.default_rng(
-            SEED + 13))
+    if kernels & {"k13", "k16", "k12"}:
+        k13_cases, k16_cases, k12_paths = bw_lb_cases(
+            world, np.random.default_rng(SEED + 13),
+            v6_world="k16" in kernels)
         if "k13" in kernels:
             res["k13"] = run_k13(label, k13_cases)
         if "k16" in kernels:
             res["k16"] = run_k16(label, k16_cases)
+    if "k12" in kernels:
+        k12_all = {**k12_cases(np.random.default_rng(SEED + 120)),
+                   **k12_paths}
+        res["k12"] = run_k12(label, k12_all)
+    if "k7" in kernels:
+        k7_all = k7_cases(world, np.random.default_rng(SEED + 7))
+        res["k7"] = run_k7(label, k7_all)
     if "--grids" in flags:
         res["grids"] = {}
         if "k17" in kernels:
@@ -1508,6 +1842,12 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
             res["grids"]["k11_parts"] = run_grids(
                 tree, label, "k11_parts", res["k11"],
                 k11_nat_calls(k11_cases))
+        if "k12" in kernels:
+            res["grids"]["k12"] = run_grids(tree, label, "k12_grid",
+                                            res["k12"], k12_calls(k12_all))
+        if "k7" in kernels:
+            res["grids"]["k7"] = run_grids(tree, label, "k7_grid",
+                                           res["k7"], k7_calls(k7_all))
     if "k1k4" not in kernels:
         return save(label, res)
     has_stats = "stats" in inspect.signature(ct.ct_update_plain).parameters
@@ -1746,7 +2086,7 @@ def main() -> int:
     for later in runs[1:]:
         first = runs[0]
         for kern in ("k1", "k4", "k20", "k9", "k18", "k19", "k22", "k5",
-                     "k17", "k11", "k13", "k16"):
+                     "k17", "k11", "k13", "k16", "k12", "k7"):
             for case, rec in later[kern].items():
                 want = first[kern].get(case, {})
                 for field in ("out", "inputs", "ct", "scores", "k12"):
@@ -1766,7 +2106,8 @@ def main() -> int:
                                                   "k20", "k9", "k18",
                                                   "k19", "k22", "k5",
                                                   "k17", "k11", "k13",
-                                                  "k16", "profiler_short")
+                                                  "k16", "k12", "k7",
+                                                  "profiler_short")
                                 if k in r} for r in runs]}))
     return 0
 

@@ -116,6 +116,117 @@ def test_maintenance_and_gather_kernels_match_plain_versions():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1 << 12, 1 << 16])
+@pytest.mark.parametrize("occupancy", ["empty", "half", "full",
+                                       "all_expired"])
+def test_ct_gc_is_one_launch_matching_its_plain_version(cap, occupancy):
+    """K7, one kernel a call and no memset, against the plain version on
+    the same CUDA tensors over successive sweeps (clocks on both sides of
+    2^31), bit-exact (table, fingerprints, count): tables empty, half and
+    wholly live with expiries on the u32 edges, and wholly live and
+    expired.  The stream's scratch (the blocks' sum and the ticket) is
+    zero after every call."""
+    _need_card()
+    from cilium_tpu_torch import kernels, u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+
+    rng = np.random.default_rng(cap + len(occupancy))
+    now = (1 << 31) + 7
+    table = np.zeros((cap, ct.ROW_WORDS), np.uint32)
+    live = rng.random(cap) < {"empty": 0.0, "half": 0.5}.get(occupancy, 1.0)
+    table[:, :ct.KEY_WORDS] = rng.integers(0, 1 << 32, (cap, ct.KEY_WORDS),
+                                           dtype=np.uint64)
+    table[live, ct.V_STATE] = rng.integers(1, 4, int(live.sum()))
+    table[:, ct.V_EXPIRES] = rng.choice(np.array(
+        [5, (1 << 31) - 1, 1 << 31, now - 1, now, now + 1, now + 5000,
+         0xFFFFFFFF], np.uint32), cap)
+    if occupancy == "all_expired":
+        table[:, ct.V_EXPIRES] = now - 1
+    fp = np.where(live, rng.integers(1, 256, cap), 0).astype(np.uint32)
+    tabs = [ct.CTTable(table=u32.from_numpy(table, "cuda"),
+                       fp=u32.from_numpy(fp, "cuda"),
+                       dropped=torch.zeros((), dtype=torch.int32,
+                                           device="cuda"))
+            for _ in range(2)]
+    stream = torch.cuda.current_stream()
+    for sweep_now in (now - 100, now, now + 4999, (1 << 32) - 1):
+        n_k = ct.ct_gc(tabs[0], sweep_now)
+        n_p = ct.ct_gc_plain(tabs[1], sweep_now)
+        assert int(n_k.sum()) == int(n_p)
+        assert torch.equal(tabs[0].table, tabs[1].table)
+        assert torch.equal(tabs[0].fp, tabs[1].fp)
+        words = kernels._STREAM_SCRATCH[(n_k.device, "ct_gc",
+                                         stream.cuda_stream)]
+        assert not bool(words.any())
+    _one_kernel(lambda: functools.partial(
+        ct.ct_gc, ct.CTTable(u32.from_numpy(table, "cuda"),
+                             u32.from_numpy(fp, "cuda"),
+                             torch.zeros((), dtype=torch.int32,
+                                         device="cuda")), now),
+        "ct_gc_kernel")
+
+
+@pytest.mark.gpu
+def test_fingerprint_marks_the_live_slots_after_k4_and_k7():
+    """The invariant K7's sweep rests on, on the card: after K4 has
+    inserted flows (a window run full), refreshed them with replies and
+    closed some, and after K7's sweeps, a slot's fingerprint is 0
+    exactly when its state is ST_FREE."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core import packets as pk
+    from cilium_tpu_torch.datapath import conntrack as ct
+
+    def check(c):
+        table, fp = u32.to_numpy(c.table), u32.to_numpy(c.fp)
+        np.testing.assert_array_equal(fp != 0,
+                                      table[:, ct.V_STATE] != ct.ST_FREE)
+
+    def step(c, hdr, now):
+        th = u32.from_numpy(hdr, "cuda")
+        f, r = ct.ct_keys_from_headers(th)
+        res, slot, rep = ct.ct_lookup(c, f, r, now)
+        n = len(hdr)
+        ct.ct_update(c, ct.ct_l4_from_headers(th), f, res, slot, rep,
+                     torch.ones(n, dtype=torch.bool, device="cuda"),
+                     torch.zeros(n, dtype=torch.int32, device="cuda"), now)
+        check(c)
+
+    rng = np.random.default_rng(64)
+    cap, n = 1 << 10, 1 << 11
+    rows = np.zeros((n, pk.N_COLS), np.uint32)
+    rows[:, pk.COL_SRC_IP3] = 0x0A000000 + rng.choice(1 << 20, n,
+                                                      replace=False)
+    rows[:, pk.COL_DST_IP3] = 0x0AC80001
+    rows[:, pk.COL_SPORT] = rng.integers(1024, 60000, n)
+    rows[:, pk.COL_DPORT] = 443
+    rows[:, pk.COL_PROTO] = np.where(rng.random(n) < 0.8, 6, 17)
+    rows[:, pk.COL_FLAGS] = pk.TCP_SYN
+    rows[:, pk.COL_LEN] = 100
+    rows[:, pk.COL_FAMILY] = 4
+    rows[:, pk.COL_DIR] = 1
+    rep = rows.copy()
+    rep[:, [pk.COL_SRC_IP3, pk.COL_DST_IP3]] = rows[:, [pk.COL_DST_IP3,
+                                                        pk.COL_SRC_IP3]]
+    rep[:, [pk.COL_SPORT, pk.COL_DPORT]] = rows[:, [pk.COL_DPORT,
+                                                    pk.COL_SPORT]]
+    rep[:, pk.COL_DIR], rep[:, pk.COL_FLAGS] = 0, pk.TCP_ACK
+    c = ct.CTTable.create(cap, "cuda")
+    step(c, rows, 100)  # twice the table: windows run full
+    assert int(c.dropped) > 0
+    step(c, rep, 101)
+    close = rows[::3].copy()
+    close[:, pk.COL_FLAGS] = pk.TCP_FIN | pk.TCP_ACK
+    step(c, close, 102)
+    for now in (100 + ct.LIFETIME_CLOSE + 1, 100 + ct.LIFETIME_SYN + 1,
+                1 << 31):
+        ct.ct_gc(c, now)
+        check(c)
+    step(c, rows[: cap // 2], 1 << 31)
+    assert int((c.fp != 0).sum()) > 0
+
+
+@pytest.mark.gpu
 def test_superbatch_and_daemon_on_the_card_match_the_cpu():
     """A packed superbatch through the kernels equals sequential
     serve_packed calls; the daemon's ingress path on the card (pinned
@@ -945,7 +1056,8 @@ def test_snat_egress_is_one_launch_whose_steps_stop(case):
             pre.setdefault(tuple(r[[3, 7, 8, 9, 10]]), set()).add(
                 (int(o[3]), int(o[8])))
         assert all(len(v) == 1 for v in pre.values())
-    # K12 on replies to the rewritten rows: no fill, the words free again
+    # K12 on replies to the rewritten rows: one kernel, no fill, the
+    # words free again
     rep = u32.from_numpy(eg.reply_rows(rng, u32.to_numpy(got[0]),
                                        len(rows)), "cuda")
     g = nat.snat_reverse(tabs[0], t, rep, now + 1)
@@ -955,8 +1067,74 @@ def test_snat_egress_is_one_launch_whose_steps_stop(case):
     assert bool((tabs[0].claim == nat.CLAIM_FREE).all())
     ops = ops_a_call(lambda: functools.partial(nat.snat_reverse, copy(), t,
                                                rep, now + 1))
-    assert sorted(ops.values()) == [1, 1] and not any(
+    assert sorted(ops.values()) == [1] and not any(
         "Fill" in k or k == "memset" for k in ops), ops
+    assert "snat_reverse_kernel" in next(iter(ops)), ops
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["replies", "forged", "one_slot", "no_hit",
+                                  "n1", "wrap", "past_registers"])
+def test_snat_reverse_is_one_launch_matching_its_plain_version(case):
+    """K12, one cooperative kernel a call, against the plain version on
+    the same CUDA tensors over successive calls, bit-exact (rows and
+    table), the claim words CLAIM_FREE after every call: replies with
+    misses and forged protocol words mixed in; replies to TCP mappings
+    whose forged twins (protocol 6 | 0x100, the remote port one lower)
+    alias the same slots with a non-TCP lifetime, in random order; every
+    reply on one slot; no reply in the pool; one reply; clocks across
+    2^32 (a refresh that wraps); 2^18 rows, more than the grid keeps in
+    registers."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import (COL_DPORT, COL_PROTO,
+                                               COL_SPORT)
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+
+    rng = np.random.default_rng(63)
+    now = (1 << 32) - 30_000 if case == "wrap" else 1000
+    (base, _), t, cttab, rows = _card_nat(rng, 1 << 12, now,
+                                          eg.gateway_rules(eg.pod_ips(64)))
+    out = nat.snat_egress_plain(base, t, cttab, u32.from_numpy(rows, "cuda"),
+                                now)[0]
+    n = 1 << 18 if case == "past_registers" else 4096
+    rep = eg.reply_rows(rng, u32.to_numpy(out), n)
+    hit = (u32.to_numpy(nat.snat_reverse_plain(
+        nat.NATTable(base.table.clone(), base.failed.clone()), t,
+        u32.from_numpy(rep, "cuda"), now)[0]) != rep).any(1)
+    tcp = rep[hit & (rep[:, COL_PROTO] == 6)]
+    assert len(tcp) > 0
+    if case == "forged":
+        odd = tcp[tcp[:, COL_SPORT] % 2 == 1]
+        rep = odd[rng.integers(0, len(odd), n)]
+        forged = rng.random(n) < 0.5
+        rep[forged, COL_PROTO] = 6 | 0x100
+        rep[forged, COL_SPORT] -= 1
+    elif case == "one_slot":
+        rep = np.repeat(tcp[:1], n, axis=0)
+    elif case == "no_hit":
+        rep[:, COL_DPORT] = 1000
+    elif case == "n1":
+        rep = tcp[:1].copy()
+    hdr = u32.from_numpy(np.ascontiguousarray(rep), "cuda")
+    tabs = [nat.NATTable(base.table.clone(), base.failed.clone())
+            for _ in range(2)]
+    for step in range(4):  # at "wrap" the third call's refreshes wrap
+        t_now = (now + 7000 * step) & 0xFFFFFFFF
+        got = nat.snat_reverse(tabs[0], t, hdr, t_now)
+        want = nat.snat_reverse_plain(tabs[1], t, hdr, t_now)
+        assert torch.equal(got[0], want[0])
+        _same_nat(tabs)
+        assert bool((tabs[0].claim == nat.CLAIM_FREE).all())
+        if step == 0 and case in ("forged", "one_slot", "n1"):
+            assert bool((got[0] != hdr).any(1).all())  # every row hit
+    if case == "no_hit":
+        assert torch.equal(got[0], hdr)
+    _one_kernel(lambda: functools.partial(
+        nat.snat_reverse, nat.NATTable(base.table.clone(),
+                                       base.failed.clone()), t, hdr, now),
+        "snat_reverse_kernel")
 
 
 def _ml_batch(rng, n):
