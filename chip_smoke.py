@@ -17,7 +17,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    window contention, counters near 2^32), ring_append with overflow
    (one kernel a call: ``testing.capture.ops_a_call``),
    the CT aging sweep and occupancy count on a half-full 2^20 table
-   whose expiries straddle 2^31 and ``now``, ring_gather on lapped
+   whose expiries straddle 2^31 and ``now`` (each one kernel a call, no
+   memset), ring_gather on lapped
    and unlapped 2^18 rings at several rungs, the in-place table
    update ``dus`` at config #3's table shapes (a verdict row, an auth
    column, l1/l2/l3 payloads, starts the start rule moves; timed at
@@ -62,7 +63,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    through ``TorchLoader.serve_packed`` in fixed batches; the ct-gc and
    map-pressure controllers must have run; K9's rows a launch (its row
    counter over its launches), and K9 timed at that shape against the
-   daemon's rule table;
+   daemon's rule table; K7 and K8 on the daemon's own CT and K6 at the
+   rung its windows used (one kernel a call each; K6 beside one
+   ``torch.index_select`` of the same rows);
 8. the redirect overhead (``bench.py`` ``bench_l7_redirect``'s shape):
    two daemons on the card, an L4 allow on port 80 and the same port
    with an HTTP GET rule, fresh-sport SYN batches of 1024, six a leg,
@@ -174,7 +177,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    packets of phase 7's traffic, then 2^16 wide rows: ledgers exact, no
    event lost, the route overflow equal to its metric and to its DROP
    events, the metrics equal to the fixed-batch run, the host stages
-   and the card's idle share; (c) the sharded demotion under injected
+   and the card's idle share, then K6 over 8 shards at the rung its
+   windows used; (c) the sharded demotion under injected
    faults: the replies of flows established sharded forward after it.
 
 Phases 7, 14 (a) and 15 (b) print K1's and K4's rows a launch.  The
@@ -760,6 +764,9 @@ def phase_maint(torch, rng, kernels):
     name = one_kernel_a_call(lambda: functools.partial(
         ct.ct_gc, fresh(), now), "ct_gc_kernel", "ct_gc")
     print(f"ct_gc: one kernel a call ({name})")
+    name = one_kernel_a_call(lambda: functools.partial(
+        _ct_occupied, base.fp), "ct_occupied_kernel", "ct_occupied")
+    print(f"ct_occupied: one kernel a call, no memset ({name})")
     kernels["ct_gc"].update(
         ms=device_ms(lambda w: ct.ct_gc(w, now), 20, fresh),
         plain_ms=device_ms(lambda w: ct.ct_gc_plain(w, now), 3, fresh),
@@ -1423,21 +1430,69 @@ def phase_gather(torch, rng, kernels):
               f"equal to the CPU drainer")
 
 
+def gather_index(torch, starts, rung, cap):
+    """The [n_shards * rung] ring rows a gather reads, on the card: the
+    index ``torch.index_select`` takes for K6's library time."""
+    st = torch.tensor(starts, dtype=torch.int64, device="cuda")
+    idx = (st[:, None] + torch.arange(rung, device="cuda")[None, :]) & (
+        cap - 1)
+    return (idx + (torch.arange(len(starts), device="cuda")
+                   * cap)[:, None]).reshape(-1)
+
+
 def time_gather(torch, rng, kernels, rung):
-    """ring_gather's times at the rung the daemon's windows used."""
-    import numpy as np
+    """ring_gather's times at the rung the daemon's windows used, one
+    kernel a call, beside one ``torch.index_select`` of the same rows
+    (its index built once, not timed)."""
+    import functools
+
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.monitor import ring as rg
 
     cap = RING_CAPACITY
     buf = u32.from_numpy(random_ring_words(rng, cap), "cuda")
     start = [int(rng.integers(0, cap))]
+    name = one_kernel_a_call(lambda: functools.partial(
+        rg.ring_gather, buf, start, rung, cap), "ring_gather_kernel",
+        "ring_gather")
+    idx = gather_index(torch, start, rung, cap)
+    max_abs_err(rg.ring_gather(buf, start, rung, cap),
+                torch.index_select(buf, 0, idx), "ring_gather against "
+                "index_select")
     kernels["ring_gather"].update(
         ms=device_ms(lambda: rg.ring_gather(buf, start, rung, cap), 20),
         plain_ms=device_ms(
             lambda: rg.ring_gather_plain(buf, start, rung, cap), 3),
+        library_ms=device_ms(lambda: torch.index_select(buf, 0, idx), 20),
         bytes=rung * 8 * 2, ops=rung * 4, rung=rung)
-    print(f"timing ring_gather at rung {rung}")
+    print(f"timing ring_gather at rung {rung} from slot {start[0]}: one "
+          f"kernel a call ({name})")
+
+
+def time_gather_sharded(torch, rng, kernels, rung):
+    """ring_gather at the sharded drainer's shape: SHARDS rings of
+    RING_CAPACITY, ``rung`` rows a shard from starts even and odd by
+    turns; bit-exact with its plain version, one kernel a call; -> ms."""
+    import functools
+
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.monitor import ring as rg
+
+    cap = RING_CAPACITY
+    buf = u32.from_numpy(random_ring_words(rng, SHARDS * cap), "cuda")
+    starts = [int(rng.integers(0, cap // 2)) * 2 + (s & 1)
+              for s in range(SHARDS)]
+    max_abs_err(rg.ring_gather(buf, starts, rung, cap),
+                rg.ring_gather_plain(buf, starts, rung, cap),
+                f"ring_gather over {SHARDS} shards at rung {rung}")
+    one_kernel_a_call(lambda: functools.partial(
+        rg.ring_gather, buf, starts, rung, cap), "ring_gather_kernel",
+        "ring_gather, sharded")
+    ms = device_ms(lambda: rg.ring_gather(buf, starts, rung, cap), 20)
+    kernels["ring_gather"]["path_ms"] = {"sharded": ms}
+    kernels["ring_gather"]["sharded_rung"] = rung
+    print(f"timing ring_gather over {SHARDS} shards at rung {rung} (phase "
+          f"15's windows): bit-exact, one kernel a call, {ms:.4f} ms")
 
 
 L7_PORT = 10000
@@ -1990,6 +2045,7 @@ def phase_daemon(torch, rng, world, report):
           f"device busy {busy_us / 1e3:.3f} ms ({busy_us / 1e6 / t_prof:.1%}"
           f"), idle {1 - busy_us / 1e6 / t_prof:.1%}")
     k7 = time_gc_on_daemon(torch, d)
+    k8 = time_occupied_on_daemon(torch, d)
     # a final sweep far in the future evicts every occupied slot
     occ = d.loader.map_pressure(1)["ct"]["occupied"]
     evicted = d.loader.gc(1 << 30)
@@ -2008,6 +2064,7 @@ def phase_daemon(torch, rng, world, report):
         "lost": out["lost"], "event_plane": out["event-plane"],
         "l7": l7, "launches": launches, "k9": k9,
         "pressure_sample": sample, "k7_daemon_table": k7,
+        "k8_daemon_table": k8,
         "evicted_at_end": evicted, "metrics": m_daemon.tolist(),
         "stages": {"seconds": t_st, "packets": len(rows) - per,
                    "front_end": fe_st, "l7": out_st["l7"],
@@ -2050,6 +2107,27 @@ def time_gc_on_daemon(torch, d):
           f"now={now}): bit-exact with its plain version, one kernel, "
           f"{ms:.4f} ms")
     return res
+
+
+def time_occupied_on_daemon(torch, d):
+    """K8 on the daemon's own fingerprints, as its map-pressure
+    controller samples them: equal to its plain version, one kernel a
+    call and no memset; -> {ms, occupied}."""
+    import functools
+
+    from cilium_tpu_torch.datapath.loader import (_ct_occupied,
+                                                  _ct_occupied_plain)
+
+    fp = d.loader.state.ct.fp
+    got, want = int(_ct_occupied(fp).sum()), int(_ct_occupied_plain(fp))
+    check(got == want, f"daemon: ct_occupied {got}, plain {want}")
+    one_kernel_a_call(lambda: functools.partial(_ct_occupied, fp),
+                      "ct_occupied_kernel", "daemon: ct_occupied")
+    ms = device_ms(lambda: _ct_occupied(fp), 20)
+    print(f"daemon: K8 on its own CT ({got} of {fp.shape[0]} slots "
+          f"occupied): equal to its plain version, one kernel, "
+          f"{ms:.4f} ms")
+    return {"ms": ms, "occupied": got}
 
 
 def syn_rows(src, dst, sport0, n, dport, ep, dirn, proto=6):
@@ -5607,6 +5685,7 @@ def main() -> int:
         # -- 2. build -----------------------------------------------------
         from cilium_tpu_torch.kernels import KERNELS
         from cilium_tpu_torch.kernels import build as kbuild
+        from cilium_tpu_torch.monitor.ring import _gather_rung
 
         t0 = time.monotonic()
         for name, s in kbuild.build().items():
@@ -5692,6 +5771,10 @@ def main() -> int:
         t15 = time.monotonic()
         phase_sharded_kernels(torch, rng, world, kernels, report)
         by_path["sharded"] = phase_sharded_daemon(torch, rng, world, report)
+        sd = report["sharded_daemon"]
+        time_gather_sharded(torch, rng, kernels, _gather_rung(
+            -(-sd["events"] // (max(sd["windows"], 1) * SHARDS)),
+            RING_CAPACITY))
         phase_sharded_demotion(torch, report)
         report["sharded_s"] = time.monotonic() - t15
         print(f"sharded serving: {report['sharded_s']:.1f} s")
@@ -5710,6 +5793,8 @@ def main() -> int:
         p: report[p]["k12_main_path"]["ms"] for p in ("egress", "service")}
     kernels["ct_gc"]["path_ms"] = {
         "daemon": report["daemon"]["k7_daemon_table"]["ms"]}
+    kernels["ct_occupied"]["path_ms"] = {
+        "daemon": report["daemon"]["k8_daemon_table"]["ms"]}
     on_path, launchers = [], []
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"),

@@ -85,9 +85,21 @@
 //
 // K8 ct_occupied replaces loader.py _ct_occupied (:76), the map-
 // pressure sample: the count of slots whose fingerprint is not 0.
-// Bound: bytes, the 4 B fingerprint of every slot.  Design: a grid of a
-// few blocks per SM strides over the slots, counting in registers, then
-// a warp and block sum and one atomicAdd per block.
+// Bound: bytes, the 4 B fingerprint of every slot (4 MB at 2^20 slots, ~1.3 us
+// at 3.35 TB/s).  Design: one kernel, one graph node a call (it was a memset
+// and a fixed grid of 132 * 8 blocks).  A grid of at most OCC_BLOCKS_PER_SM
+// blocks an SM (the SM count read from the device) strides over the
+// fingerprints in 16 B loads (4 slots a load), OCC_LOADS loads a thread in
+// flight before any is counted; a scalar head and tail cover a view that does
+// not start on a 16 B boundary or whose length is not a multiple of 4.  Counts
+// sum in registers, then over the warp and the block.  The blocks meet in one
+// 64-bit word of the stream's scratch: each adds (1 << 32) | its count with
+// one atomicAdd, and the block whose add returns blocks - 1 in the high word
+// writes the low word plus its own count and zeroes the word (the stream's
+// next launch starts after this one ends), so no memset and no fence.  A sum
+// word with a ticket behind a fence (K7's), or a count a block summed by the
+// last, cost ~1.3 us more on the H100: their dependent L2 round trips
+// (PERF.md, the K8 redesign).
 #include <cooperative_groups.h>
 
 #include "conntrack.cuh"
@@ -104,6 +116,10 @@ constexpr int K4_TPB = 256;  // ct_update_kernel's block
 constexpr int K4_BLOCKS_PER_SM = 1;
 // K7: at most this many blocks of TPB an SM
 constexpr int GC_BLOCKS_PER_SM = 8;
+// K8: at most this many blocks of TPB an SM, and 16 B loads a thread in
+// flight (measured on the H100: PERF.md, the K8 redesign)
+constexpr int OCC_BLOCKS_PER_SM = 2;
+constexpr int OCC_LOADS = 4;
 
 __global__ void ct_lookup_kernel(CtView ct, const uint32_t* fwd,
                                  const uint32_t* rev, uint32_t now,
@@ -555,14 +571,6 @@ __device__ __forceinline__ uint32_t block_sum(uint32_t v) {
   return v;
 }
 
-// Sum of one value per thread over a block of TPB threads; thread 0
-// adds the block's total to *count (when not 0).
-__device__ __forceinline__ void block_count_add(uint32_t v,
-                                                uint32_t* count) {
-  v = block_sum(v);
-  if (threadIdx.x == 0 && v) atomicAdd(count, v);
-}
-
 __global__ void __launch_bounds__(TPB)
     ct_gc_kernel(CtView ct, uint32_t now, uint32_t* count, uint32_t* sum) {
   uint32_t evicted = 0;
@@ -589,15 +597,44 @@ __global__ void __launch_bounds__(TPB)
   }
 }
 
-__global__ void __launch_bounds__(TPB) ct_occupied_kernel(const uint32_t* fp,
-                                                          int32_t n,
-                                                          uint32_t* count) {
+// `meet`: one 64-bit word of the stream's scratch, zero between calls
+__global__ void __launch_bounds__(TPB)
+    ct_occupied_kernel(const uint32_t* fp, int32_t n, uint32_t* count,
+                       unsigned long long* meet) {
+  // slots before the first 16 B boundary, the 4-slot quads, the rest
+  const int32_t head =
+      min(n, (int32_t)(((16u - ((uintptr_t)fp & 15u)) & 15u) >> 2));
+  const int32_t quads = (n - head) >> 2, rest = head + 4 * quads;
+  const uint4* q = reinterpret_cast<const uint4*>(fp + head);
+  const int32_t nth = gridDim.x * TPB;
+  const int32_t tid = blockIdx.x * TPB + threadIdx.x;
   uint32_t c = 0;
-  for (int32_t i = blockIdx.x * TPB + threadIdx.x; i < n;
-       i += gridDim.x * TPB) {
-    c += fp[i] != 0 ? 1u : 0u;
+  for (int32_t i = tid; i < quads; i += nth * OCC_LOADS) {
+    uint4 v[OCC_LOADS];
+#pragma unroll
+    for (int k = 0; k < OCC_LOADS; ++k) {
+      const int32_t j = i + k * nth;
+      v[k] = j < quads ? q[j] : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int k = 0; k < OCC_LOADS; ++k) {
+      c += (v[k].x != 0u) + (v[k].y != 0u) + (v[k].z != 0u) +
+           (v[k].w != 0u);
+    }
   }
-  block_count_add(c, count);
+  if (tid < head) c += fp[tid] != 0u;
+  if (tid < n - rest) c += fp[rest + tid] != 0u;
+  const uint32_t total = block_sum(c);
+  if (threadIdx.x == 0) {
+    // high word: the blocks that have added; low word: their count (at
+    // most n < 2^31, so it never carries into the high word)
+    const unsigned long long old =
+        atomicAdd(meet, (1ull << 32) | (unsigned long long)total);
+    if ((uint32_t)(old >> 32) == gridDim.x - 1) {
+      *count = (uint32_t)old + total;
+      *meet = 0ull;
+    }
+  }
 }
 
 extern "C" int ct_gc_launch(const CtView* ctp, uint32_t now, uint32_t* count,
@@ -616,13 +653,20 @@ extern "C" int ct_gc_launch(const CtView* ctp, uint32_t now, uint32_t* count,
 }
 
 extern "C" int ct_occupied_launch(const uint32_t* fp, int32_t n,
-                                  uint32_t* count, cudaStream_t stream) {
-  cudaMemsetAsync(count, 0, sizeof(uint32_t), stream);
-  if (n > 0) {
-    int blocks = (n + TPB - 1) / TPB;
-    blocks = blocks < 132 * 8 ? blocks : 132 * 8;
-    ct_occupied_kernel<<<blocks, TPB, 0, stream>>>(fp, n, count);
-  }
+                                  uint32_t* count, unsigned long long* meet,
+                                  cudaStream_t stream) {
+  if (n < 0 || ((uintptr_t)fp & 3u) || ((uintptr_t)meet & 7u))
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // OCC_LOADS quads a thread, at least one block (the last block writes
+  // the count), at most OCC_BLOCKS_PER_SM an SM
+  const int64_t want = ((int64_t)n / 4 + TPB * OCC_LOADS - 1) /
+                       (TPB * OCC_LOADS);
+  const int most = OCC_BLOCKS_PER_SM * sms;
+  const int blocks = want < 1 ? 1 : (want < most ? (int)want : most);
+  ct_occupied_kernel<<<blocks, TPB, 0, stream>>>(fp, n, count, meet);
   return (int)cudaGetLastError();
 }
 

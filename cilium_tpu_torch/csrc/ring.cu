@@ -47,11 +47,23 @@
 //
 // Replaces: cilium_tpu/monitor/ring.py ring_gather (:344-366).
 // Bound: bytes, one 8 B row read and one written per gathered slot (the
-// rung, a power of two at least as large as the window's events).
-// Design: one thread per output row of a 2-D grid (x: rows, y: shard),
-// each copying one 8 B row from slot (start + i) & (capacity - 1) of its
-// shard's ring.  The per-shard starts ride in the argument block by
-// value; the host computed them from the cursor it had just read.
+// rung, a power of two at least as large as the window's events): at
+// the daemon's rung 2^18, 2 MB each way, ~1.25 us at 3.35 TB/s, under
+// the ~1.9 us of a launch.
+// Design (it was one thread an 8 B row over a block per 256 rows, at 0.65
+// TB/s): a thread copies 16-byte units, two output rows a unit, a unit a
+// thread a step, over a grid of at most GATHER_BLOCKS_PER_SM blocks an SM (the
+// SM count read from the device) that strides over the (shard, unit) pairs, so
+// that a warp's loads and stores stay neighbours.  Small rungs launch only the
+// blocks they need.  A shard's window is at most two runs of its ring (from
+// `start` to the end, then from slot 0); `capacity` is a power of two, so the
+// wrap falls between two aligned source pairs.  With an even `start` a unit is
+// one aligned 16 B load; with an odd one its rows lie in two pairs and load as
+// two 8 B rows (measured as fast as realigning 16 B loads across lanes with
+// __shfl_down_sync, PERF.md).  An odd rung or a buffer not 16-byte aligned
+// takes the row path: a row a thread a step over the same grid.  The per-shard
+// starts ride in the argument block by value; the host computed them from the
+// cursor it had just read.
 #include <cooperative_groups.h>
 
 #include "views.cuh"
@@ -317,6 +329,9 @@ extern "C" int ring_append_launch(const RingIO* iop, cudaStream_t stream) {
 
 constexpr int GATHER_TPB = 256;
 constexpr int MAX_GATHER_SHARDS = 8;
+// At most this many blocks of GATHER_TPB an SM (measured on the H100:
+// PERF.md, the K6 redesign)
+constexpr int GATHER_BLOCKS_PER_SM = 4;
 
 struct GatherIO {
   const uint2* buf;  // [n_shards * capacity] rows of 2 u32
@@ -328,20 +343,58 @@ struct GatherIO {
   uint32_t starts[MAX_GATHER_SHARDS];  // oldest surviving slot per shard
 };
 
-__global__ void __launch_bounds__(GATHER_TPB) ring_gather_kernel(GatherIO io) {
-  int32_t s = blockIdx.y;
-  int32_t i = blockIdx.x * GATHER_TPB + threadIdx.x;
-  if (i >= io.rung) return;
-  uint32_t slot = (io.starts[s] + (uint32_t)i) & (uint32_t)(io.capacity - 1);
-  io.out[(size_t)s * io.rung + i] = io.buf[(size_t)s * io.capacity + slot];
+// Units: two output rows each (PAIRS, an even rung), or one; a unit a
+// thread a step.  The argument block is read in place: it is indexed by
+// shard, which may otherwise copy it to each thread's local memory.
+template <bool PAIRS>
+__global__ void __launch_bounds__(GATHER_TPB)
+    ring_gather_kernel(const __grid_constant__ GatherIO io) {
+  const uint32_t mask = (uint32_t)io.capacity - 1u;
+  const uint32_t per = PAIRS ? (uint32_t)io.rung >> 1 : (uint32_t)io.rung;
+  const uint32_t total = (uint32_t)io.n_shards * per;
+  const uint32_t nth = gridDim.x * GATHER_TPB;
+  for (uint32_t g = blockIdx.x * GATHER_TPB + threadIdx.x; g < total;
+       g += nth) {
+    const uint32_t s = g / per, u = g - s * per;
+    const uint2* ring = io.buf + (size_t)s * io.capacity;
+    if (!PAIRS) {
+      io.out[g] = ring[(io.starts[s] + u) & mask];
+      continue;
+    }
+    const uint32_t first = (io.starts[s] + 2u * u) & mask;
+    uint4 w;
+    if (!(first & 1u)) {
+      w = reinterpret_cast<const uint4*>(ring)[first >> 1];
+    } else {  // the rows lie in two pairs (the second maybe across the wrap)
+      const uint2 a = ring[first], b = ring[(first + 1u) & mask];
+      w = make_uint4(a.x, a.y, b.x, b.y);
+    }
+    reinterpret_cast<uint4*>(io.out)[g] = w;
+  }
 }
 
 extern "C" int ring_gather_launch(const GatherIO* iop, cudaStream_t stream) {
   const GatherIO io = *iop;
-  if (io.rung > 0 && io.n_shards > 0) {
-    dim3 grid((io.rung + GATHER_TPB - 1) / GATHER_TPB, io.n_shards);
-    ring_gather_kernel<<<grid, GATHER_TPB, 0, stream>>>(io);
-  }
+  if (io.n_shards < 1 || io.n_shards > MAX_GATHER_SHARDS || io.rung < 1 ||
+      io.capacity < io.rung || (io.capacity & (io.capacity - 1)))
+    return (int)cudaErrorInvalidValue;
+  const bool pairs =
+      (io.rung & 1) == 0 && ((uintptr_t)io.buf & 15u) == 0 &&
+      ((uintptr_t)io.out & 15u) == 0;
+  const int64_t units =
+      (int64_t)io.n_shards * (pairs ? io.rung >> 1 : io.rung);
+  if (units > INT32_MAX) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // a unit a thread, at most GATHER_BLOCKS_PER_SM blocks an SM
+  const int64_t want = (units + GATHER_TPB - 1) / GATHER_TPB;
+  const int most = GATHER_BLOCKS_PER_SM * sms;
+  const int blocks = want < most ? (int)want : most;
+  if (pairs)
+    ring_gather_kernel<true><<<blocks, GATHER_TPB, 0, stream>>>(io);
+  else
+    ring_gather_kernel<false><<<blocks, GATHER_TPB, 0, stream>>>(io);
   return (int)cudaGetLastError();
 }
 

@@ -385,12 +385,13 @@ def launch_datapath(state, rows: torch.Tensor, now: int, ep, dirn, valid,
 # launch writes its entries before it reads them), K13's two sums over
 # the 4096 buckets (each launch zeroes them behind itself), then its 64
 # words of phase stamps, K7's eviction sum and ticket (its last block
-# zeroes both) and K12's phase stamps
+# zeroes both), K12's phase stamps, and K8's 64-bit meeting word (its
+# last block zeroes it)
 _SCRATCH_WORDS = {"ring_append": RING_COUNTS,
                   "ring_append_sharded": RING_COUNTS,
                   "anomaly_train_fwd": 1, "anomaly_train_fwd_sharded": 1,
                   "adam_update": 1, "bw_stage": 2 * 4096 + 64, "ct_gc": 2,
-                  "snat_reverse": 64}
+                  "snat_reverse": 64, "ct_occupied": 2}
 _STREAM_SCRATCH: Dict[tuple, torch.Tensor] = {}
 
 
@@ -499,11 +500,16 @@ def launch_ct_gc(ct, now: int) -> torch.Tensor:
 
 
 def launch_ct_occupied(fp: torch.Tensor) -> torch.Tensor:
-    """K8: occupied CT slots (fingerprint not 0) as a [1] u32 tensor."""
+    """K8: occupied CT slots (fingerprint not 0) as a [1] u32 tensor on
+    the card, one kernel: the blocks meet in a 64-bit word of the
+    stream's scratch, which the last block leaves zero."""
     dev, c = fp.device, fp.shape[0]
     count = torch.empty(1, dtype=I32, device=dev)
+    stream = _stream(dev)
     KERNELS["ct_occupied"].launch(_ptr(fp, I32, dev, (c,), name="ct.fp"), c,
-                                  count.data_ptr(), _stream(dev))
+                                  count.data_ptr(),
+                                  _stream_scratch(dev, "ct_occupied",
+                                                  stream), stream)
     return count
 
 

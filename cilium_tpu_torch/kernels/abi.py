@@ -214,7 +214,7 @@ SIGNATURES = {
     "conntrack": {"ct_lookup_launch": [P, P, P, U32, P, P, P, I32, P],
                   "ct_update_launch": [P, P, P],
                   "ct_gc_launch": [P, U32, P, P, P],
-                  "ct_occupied_launch": [P, I32, P, P]},
+                  "ct_occupied_launch": [P, I32, P, P, P]},
     "lpm": {"lpm_lookup_launch": [P, P, P, P, I32, P]},
     "ring": {"ring_append_launch": [P, P], "ring_gather_launch": [P, P]},
     "l7": {"l7_verdict_launch": [P, P]},

@@ -5,11 +5,12 @@
 ``flow_features``, K19 ``anomaly_score``, K22 ``adam_update``, K5
 ``ring_append`` (and K5s), K17 ``socklb_stage``, K11 ``snat_egress``
 (with K12 ``snat_reverse`` after it), K13 ``bw_stage``, K16
-``lb6_stage``, K12 and K7 ``ct_gc`` at the shapes the main paths launch
-them, for one or more checkouts of this repository.
+``lb6_stage``, K12, K7 ``ct_gc``, K6 ``ring_gather`` and K8
+``ct_occupied`` at the shapes the main paths launch them, for one or
+more checkouts of this repository.
 
     python3 scripts/chip_kernel_split.py
-        [--kernels=k1k4,k20,k9,k18,k19,k22,k5,k17,k11,k13,k16,k12,k7]
+        [--kernels=k1k4,k20,k9,k18,k19,k22,k5,k17,k11,k13,k16,k12,k7,k6,k8]
         [--variants=TREE] [--grids=TREE] [TREE ...]
 
 Each TREE is a checkout (a ``git archive`` of another commit unpacked
@@ -134,6 +135,22 @@ phase times.  ``--grids=TREE`` also builds K12's grid variants (256 or
 512 threads a block, 1-4 rows a thread in registers, every hit
 bidding) and K7's (1-64 blocks an SM).
 
+K6 (``k6_cases``): a ring of 2^18 random event words a shard
+(``chip_smoke.random_ring_words``), one shard at rungs 2^18, 4096 and
+64 from slot 0 and from an odd slot that wraps, 8 shards at rungs 2^15
+and 2^18 from starts even and odd by turns.  K8 (``k8_cases``): phase
+3's half-full 2^20 fingerprints, the same table empty and full, shard
+3's slice of 8 (a view at an offset), that slice from its fourth slot
+and 5 slots short, a half-full 2^12 table.  Each is timed, split by the
+profiler (K8's memset apart, where the tree has one), digested, held
+against the plain version's and a second call's, with its operations a
+call (a CUDA-graph capture) and its library time: one
+``torch.index_select`` of the same rows (its index built once on the
+card, not timed) for K6, ``torch.count_nonzero`` for K8; K6 also with
+the host's enqueue microseconds of a call and of its ``torch.empty``.
+``--grids=TREE`` builds K6's grid variants (1-8 blocks an SM) and K8's
+(1-4 blocks an SM, 2 or 4 loads a thread).
+
 Each run writes ``chiprun_out/split/<label>.json``; the main process
 prints, for every later run, the digests that differ from an earlier
 run's.  The line before the last is the card's name and power limit
@@ -239,6 +256,15 @@ K12_GRID = {
 K7_GRID = {"as_is": [], **{
     f"per_sm{b}": [_knob("GC_BLOCKS_PER_SM", 8, b)] for b in (1, 2, 4, 16,
                                                               64)}}
+# K6's grid: blocks an SM (at rung 2^18 the source's 4 an SM give a
+# unit a thread; 1 an SM 4 units a thread)
+K6_GRID = {"as_is": [], **{f"per_sm{b}": [_knob("GATHER_BLOCKS_PER_SM", 4, b)]
+                           for b in (1, 2, 8)}}
+# K8's grid: blocks an SM, 16 B loads a thread in flight
+K8_GRID = {"as_is": [],
+           **{f"per_sm{b}_loads{n}": [_knob("OCC_BLOCKS_PER_SM", 2, b),
+                                      _knob("OCC_LOADS", 4, n)]
+              for b in (1, 2, 4) for n in (2, 4) if (b, n) != (2, 4)}}
 # variant set: (source, its variants)
 ABLATIONS = {"k4_grid": ("conntrack", K4_GRID),
              "k1_occupancy": ("verdict", K1_OCCUPANCY),
@@ -246,13 +272,15 @@ ABLATIONS = {"k4_grid": ("conntrack", K4_GRID),
              "k11_grid": ("nat", K11_GRID),
              "k11_parts": ("nat", K11_PARTS),
              "k12_grid": ("nat", K12_GRID),
-             "k7_grid": ("conntrack", K7_GRID)}
+             "k7_grid": ("conntrack", K7_GRID),
+             "k6_grid": ("ring", K6_GRID),
+             "k8_grid": ("conntrack", K8_GRID)}
 # the flags that name a tree, and the variant sets each runs there
 TREE_FLAGS = {"--variants": ("k4_grid", "k1_occupancy"),
               "--grids": ("k17_grid", "k11_grid", "k11_parts", "k12_grid",
-                          "k7_grid")}
+                          "k7_grid", "k6_grid", "k8_grid")}
 KERNEL_SETS = ("k1k4", "k20", "k9", "k18", "k19", "k22", "k5", "k17",
-               "k11", "k13", "k16", "k12", "k7")
+               "k11", "k13", "k16", "k12", "k7", "k6", "k8")
 INT_MAX = (1 << 31) - 1
 RING_CAP = 1 << 18  # chip_smoke's ring, a shard's on the sharded path
 LISTENERS = (10000,)  # the daemon's listener table: config #3's one rule
@@ -1675,6 +1703,198 @@ def run_k7(label, cases) -> dict:
     return recs
 
 
+def k6_cases(rng) -> dict:
+    """K6's inputs, each a ring of 2^18 slots a shard of random event
+    words (``chip_smoke.random_ring_words``, as phase 7's ``time_gather``
+    makes it): one shard at rung 2^18 from slot 0 (the daemon's window
+    before its ring laps) and from an odd slot, so that the window
+    wraps; one shard at rungs 64 and 4096 (the ladder's small rungs,
+    ``monitor/ring.py`` ``GATHER_MIN_RUNG``), from slot 0 and from an odd
+    slot that wraps; 8 shards (the sharded drainer's most) at rungs 2^15
+    and 2^18, their starts even and odd by turns.  -> {case: (ring
+    buffer, starts, rung)}."""
+    import chip_smoke as cs
+    from cilium_tpu_torch import u32
+
+    cap = cs.RING_CAPACITY
+    one = u32.from_numpy(cs.random_ring_words(rng, cap), "cuda")
+    eight = u32.from_numpy(cs.random_ring_words(rng, SHARDS * cap), "cuda")
+    mixed = [int(rng.integers(0, cap // 2)) * 2 + (s & 1)
+             for s in range(SHARDS)]
+    return {"k6_1x262144_even": (one, [0], cap),
+            "k6_1x262144_odd": (one, [cap // 2 + 12345], cap),
+            "k6_1x4096_even": (one, [0], 4096),
+            "k6_1x4096_odd": (one, [cap - 1001], 4096),
+            "k6_1x64_even": (one, [0], 64),
+            "k6_1x64_odd": (one, [cap - 31], 64),
+            f"k6_{SHARDS}x32768_mixed": (eight, mixed, 1 << 15),
+            f"k6_{SHARDS}x262144_mixed": (eight, mixed, cap)}
+
+
+def enqueue_us(fn, n=200) -> float:
+    """Host microseconds one call of ``fn`` takes to return (the
+    wrapper, its argument block, its allocation, the launch), over ``n``
+    calls after a synchronize; the card runs behind."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def run_k6(label, cases) -> dict:
+    """Time each K6 case, split it by the profiler, digest its output
+    and hold it against the plain version's, a second call's and, as its
+    library time, one ``torch.index_select`` of the same rows (the index
+    built once on the card, not timed); the host's enqueue time of a
+    call and of its ``torch.empty`` alone.  -> {case: record}."""
+    import chip_smoke as cs
+    import torch
+    from cilium_tpu_torch.monitor import ring as rg
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    cap = cs.RING_CAPACITY
+    recs = {}
+    for name, (buf, starts, rung) in cases.items():
+        buf = buf[:len(starts) * cap]
+
+        def fn(buf=buf, starts=starts, rung=rung):
+            return rg.ring_gather(buf, starts, rung, cap)
+
+        st = torch.tensor(starts, dtype=torch.int64, device="cuda")
+        idx = ((st[:, None] + torch.arange(rung, device="cuda")[None, :])
+               & (cap - 1)) + (torch.arange(len(starts), device="cuda")
+                               * cap)[:, None]
+        idx = idx.reshape(-1)
+        got, again = fn(), fn()
+        want = rg.ring_gather_plain(buf, starts, rung, cap)
+        lib = torch.index_select(buf, 0, idx)
+        rec = {"shards": len(starts), "rung": rung, "starts": starts,
+               "inputs": digest(buf), "out": digest(got),
+               "plain_equal": bool(torch.equal(got, want)),
+               "repeat_equal": bool(torch.equal(got, again)),
+               "library_equal": bool(torch.equal(got, lib)),
+               "ms": cs.device_ms(fn, REPS),
+               "library_ms": cs.device_ms(
+                   lambda buf=buf, idx=idx: torch.index_select(buf, 0, idx),
+                   REPS),
+               "bound_ms": len(starts) * rung * 16 / cs.HBM_BYTES_PER_S
+               * 1e3,
+               "enqueue_us": enqueue_us(fn),
+               "empty_us": enqueue_us(
+                   lambda n=len(starts) * rung: torch.empty(
+                       (n, 2), dtype=torch.int32, device="cuda")),
+               "ops_a_call": ops_a_call(lambda fn=fn: fn),
+               "by_kernel": profiled(fn)}
+        recs[name] = rec
+        print(f"[{label}] K6 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def k8_cases(rng) -> dict:
+    """K8's inputs: phase 3's half-full 2^20 CT's fingerprints
+    (``chip_smoke.half_full_table``, the occupancy the daemon's map-
+    pressure samples see by its third session); the same table empty and
+    full; shard 3's slice of the half-full one over 8 shards (a view at
+    an offset, as ``parallel/mesh.py`` ``_shard_part`` cuts it); that
+    slice from its fourth slot, 5 slots short (no 16 B boundary at
+    either end); a 2^12 table, half full.  -> {case: fingerprints}."""
+    import chip_smoke as cs
+    import numpy as np
+    from cilium_tpu_torch import u32
+
+    cap = cs.CT_CAPACITY
+    _table, fp, _rows = cs.half_full_table(rng, (1 << 31) + 1000)
+    half = u32.from_numpy(fp, "cuda")
+    full = u32.from_numpy(rng.integers(1, 256, cap).astype(np.uint32),
+                          "cuda")
+    cs_ = cap // SHARDS
+    small = np.where(rng.random(1 << 12) < 0.5,
+                     rng.integers(1, 256, 1 << 12), 0).astype(np.uint32)
+    return {"k8_half_1048576": half,
+            "k8_empty_1048576": u32.from_numpy(np.zeros(cap, np.uint32),
+                                               "cuda"),
+            "k8_full_1048576": full,
+            f"k8_shard3_of_{SHARDS}": half[3 * cs_:4 * cs_],
+            f"k8_shard3_of_{SHARDS}_unaligned": half[3 * cs_ + 3:
+                                                      4 * cs_ - 2],
+            "k8_half_4096": u32.from_numpy(small, "cuda")}
+
+
+def run_k8(label, cases) -> dict:
+    """Time each K8 case, split it by the profiler (the memset and the
+    kernel apart, where the tree has a memset), digest the count and
+    hold it against the plain version's, a second call's and
+    ``torch.count_nonzero``'s (its library time).  -> {case: record}."""
+    import chip_smoke as cs
+    import torch
+    from cilium_tpu_torch.datapath.loader import (_ct_occupied,
+                                                  _ct_occupied_plain)
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    recs = {}
+    for name, fp in cases.items():
+        def fn(fp=fp):
+            return _ct_occupied(fp)
+
+        got, again = fn(), fn()
+        want = int(_ct_occupied_plain(fp))
+        rec = {"slots": int(fp.shape[0]),
+               "offset_bytes": fp.data_ptr() % 16,
+               "inputs": digest(fp), "out": digest(got),
+               "count": int(got.sum()), "plain_equal": int(got.sum()) == want,
+               "repeat_equal": bool(torch.equal(got, again)),
+               "ms": cs.device_ms(fn, REPS),
+               "library_ms": cs.device_ms(
+                   lambda fp=fp: torch.count_nonzero(fp), REPS),
+               "bound_ms": (fp.shape[0] * 4 + 4) / cs.HBM_BYTES_PER_S * 1e3,
+               "ops_a_call": ops_a_call(lambda fn=fn: fn),
+               "by_kernel": profiled(fn)}
+        recs[name] = rec
+        print(f"[{label}] K8 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def k6_calls(cases) -> dict:
+    """{case: (call, None, digest of a call's output, None)} for K6."""
+    import chip_smoke as cs
+    from cilium_tpu_torch.monitor import ring as rg
+
+    cap = cs.RING_CAPACITY
+    calls = {}
+    for name, (buf, starts, rung) in cases.items():
+        def call(buf=buf[:len(starts) * cap], starts=starts, rung=rung):
+            return rg.ring_gather(buf, starts, rung, cap)
+
+        calls[name] = (call, None, lambda call=call: digest(call()),
+                       lambda: None)
+    return calls
+
+
+def k8_calls(cases) -> dict:
+    """{case: (call, None, digest of a call's output, None)} for K8."""
+    from cilium_tpu_torch.datapath.loader import _ct_occupied
+
+    return {name: (lambda fp=fp: _ct_occupied(fp), None,
+                   lambda fp=fp: digest(_ct_occupied(fp)), lambda: None)
+            for name, fp in cases.items()}
+
+
 def k12_calls(cases) -> dict:
     """{case: (call, fresh, digest of a call's outputs, phase ns of a
     call)} for K12."""
@@ -1778,7 +1998,8 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
         ["ml"] if kernels & {"k18", "k19", "k20", "k22"} else []) + (
         ["mltrain"] if kernels & {"k20", "k22"} else []) + (
         ["l7"] if "k9" in kernels else []) + (
-        ["ring"] if "k5" in kernels else []) + (
+        ["ring"] if kernels & {"k5", "k6"} else []) + (
+        ["conntrack"] if "k8" in kernels else []) + (
         ["socklb"] if "k17" in kernels else [])
     if kernels & {"k11", "k13", "k16", "k12", "k7"}:  # the daemons run
         sources = list(build.SOURCES)  # every kernel
@@ -1790,7 +2011,7 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
                      for n in sources},
            "k1": {}, "k4": {}, "k20": {}, "k9": {}, "k18": {}, "k19": {},
            "k22": {}, "k5": {}, "k17": {}, "k11": {}, "k13": {},
-           "k16": {}, "k12": {}, "k7": {}}
+           "k16": {}, "k12": {}, "k7": {}, "k6": {}, "k8": {}}
     rng = np.random.default_rng(SEED)
     world = fx.build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
                            device="cpu")
@@ -1831,6 +2052,12 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
     if "k7" in kernels:
         k7_all = k7_cases(world, np.random.default_rng(SEED + 7))
         res["k7"] = run_k7(label, k7_all)
+    if "k6" in kernels:
+        k6_all = k6_cases(np.random.default_rng(SEED + 6))
+        res["k6"] = run_k6(label, k6_all)
+    if "k8" in kernels:
+        k8_all = k8_cases(np.random.default_rng(SEED + 8))
+        res["k8"] = run_k8(label, k8_all)
     if "--grids" in flags:
         res["grids"] = {}
         if "k17" in kernels:
@@ -1848,6 +2075,12 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
         if "k7" in kernels:
             res["grids"]["k7"] = run_grids(tree, label, "k7_grid",
                                            res["k7"], k7_calls(k7_all))
+        if "k6" in kernels:
+            res["grids"]["k6"] = run_grids(tree, label, "k6_grid",
+                                           res["k6"], k6_calls(k6_all))
+        if "k8" in kernels:
+            res["grids"]["k8"] = run_grids(tree, label, "k8_grid",
+                                           res["k8"], k8_calls(k8_all))
     if "k1k4" not in kernels:
         return save(label, res)
     has_stats = "stats" in inspect.signature(ct.ct_update_plain).parameters
@@ -2086,7 +2319,7 @@ def main() -> int:
     for later in runs[1:]:
         first = runs[0]
         for kern in ("k1", "k4", "k20", "k9", "k18", "k19", "k22", "k5",
-                     "k17", "k11", "k13", "k16", "k12", "k7"):
+                     "k17", "k11", "k13", "k16", "k12", "k7", "k6", "k8"):
             for case, rec in later[kern].items():
                 want = first[kern].get(case, {})
                 for field in ("out", "inputs", "ct", "scores", "k12"):
@@ -2107,6 +2340,7 @@ def main() -> int:
                                                   "k19", "k22", "k5",
                                                   "k17", "k11", "k13",
                                                   "k16", "k12", "k7",
+                                                  "k6", "k8",
                                                   "profiler_short")
                                 if k in r} for r in runs]}))
     return 0

@@ -39,14 +39,23 @@ def _rings(words, total):
     return jring, tring
 
 
-@pytest.mark.parametrize("n_shards", [1, 2])
+# lapped: each shard's window from a random slot; "odd": from an odd
+# slot (the last one, CAP - 1, for shard 0), every window wrapping
+@pytest.mark.parametrize("n_shards", [1, 2, 8])
 @pytest.mark.parametrize("rung", [64, 512, CAP])
-@pytest.mark.parametrize("lapped", [False, True])
+@pytest.mark.parametrize("lapped", [False, True, "odd"])
 def test_ring_gather_matches_jax(n_shards, rung, lapped):
-    rng = np.random.default_rng(rung + n_shards + 7 * lapped)
+    rng = np.random.default_rng(rung + n_shards + 7 * (lapped is True)
+                                + 13 * (lapped == "odd"))
     buf = _words(rng, n_shards * CAP, empty_frac=0.0)
-    starts = (rng.integers(0, CAP, n_shards) if lapped
-              else np.zeros(n_shards, np.int64)).astype(np.uint32)
+    if lapped == "odd":
+        starts = rng.integers(0, CAP // 2, n_shards) * 2 + 1
+        starts[0] = CAP - 1
+    elif lapped:
+        starts = rng.integers(0, CAP, n_shards)
+    else:
+        starts = np.zeros(n_shards, np.int64)
+    starts = starts.astype(np.uint32)
     want = np.asarray(jr.ring_gather(jnp.asarray(buf), jnp.asarray(starts),
                                      rung, CAP))
     got = tr.ring_gather(u32.from_numpy(buf, "cpu"), starts, rung, CAP)

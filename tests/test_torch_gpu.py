@@ -167,6 +167,100 @@ def test_ct_gc_is_one_launch_matching_its_plain_version(cap, occupancy):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_shards", [1, 2, 8])
+@pytest.mark.parametrize("rung", [64, 1024, "cap"])
+def test_ring_gather_is_one_kernel_matching_its_plain_version(n_shards,
+                                                              rung):
+    """K6, one kernel and one graph node a call, against its plain
+    version on the same CUDA tensors, bit-exact: each shard's window
+    from slot 0, from an even and an odd slot, from the last slot (every
+    window wraps there) and, over several shards, from starts even and
+    odd by turns."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    cap = 1 << 12
+    rung = cap if rung == "cap" else rung
+    rng = np.random.default_rng(n_shards * 7 + rung)
+    buf = u32.from_numpy(rng.integers(0, 1 << 32, (n_shards * cap, 2),
+                                      dtype=np.uint64), "cuda")
+    patterns = [[0] * n_shards, [2 * int(rng.integers(1, cap // 2))]
+                * n_shards, [2 * int(rng.integers(0, cap // 2)) + 1]
+                * n_shards, [cap - 1] * n_shards,
+                [int(rng.integers(0, cap // 2)) * 2 + (s & 1)
+                 for s in range(n_shards)]]
+    reset_launch_counts()
+    for starts in patterns:
+        got = tring.ring_gather(buf, starts, rung, cap)
+        want = tring.ring_gather_plain(buf, starts, rung, cap)
+        assert torch.equal(got, want), starts
+    assert KERNELS["ring_gather"].launches == len(patterns)
+    _one_kernel(lambda: functools.partial(
+        tring.ring_gather, buf, patterns[2], rung, cap),
+        "ring_gather_kernel")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["odd_rung", "buffer_off_16_bytes"])
+def test_ring_gather_row_path_matches_its_plain_version(case):
+    """K6's row path, a row a thread: an odd rung, and a ring buffer
+    that starts 8 bytes past a 16-byte boundary, each from even and odd
+    starts over 1 and 3 shards, against the plain version."""
+    _need_card()
+    from cilium_tpu_torch import u32
+
+    cap, rng = 1 << 10, np.random.default_rng(len(case))
+    words = u32.from_numpy(rng.integers(0, 1 << 32, (3 * cap + 1, 2),
+                                        dtype=np.uint64), "cuda")
+    for n_shards in (1, 3):
+        buf = (words[1:1 + n_shards * cap] if case == "buffer_off_16_bytes"
+               else words[:n_shards * cap])
+        rung = 33 if case == "odd_rung" else 64
+        for starts in ([0] * n_shards, [cap - 1] * n_shards,
+                       [5 + s for s in range(n_shards)]):
+            got = tring.ring_gather(buf, starts, rung, cap)
+            assert torch.equal(
+                got, tring.ring_gather_plain(buf, starts, rung, cap))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [1 << 12, 1 << 16])
+@pytest.mark.parametrize("occupancy", ["empty", "half", "full"])
+def test_ct_occupied_is_one_kernel_matching_its_plain_version(cap,
+                                                              occupancy):
+    """K8, one kernel and one graph node a call with no memset or fill,
+    against its plain version over successive calls on one stream: the
+    whole table, shard 3's slice of 8 (a view at an offset), and a view
+    from slot 3 whose length is not a multiple of 4 (no 16-byte boundary
+    at either end).  The stream's scratch (the blocks' sum, the ticket
+    and their counts) is zero after every call."""
+    _need_card()
+    from cilium_tpu_torch import kernels, u32
+    from cilium_tpu_torch.datapath.loader import (_ct_occupied,
+                                                  _ct_occupied_plain)
+
+    rng = np.random.default_rng(cap + len(occupancy))
+    share = {"empty": 0.0, "half": 0.5, "full": 1.0}[occupancy]
+    fp = u32.from_numpy(np.where(rng.random(cap) < share,
+                                 rng.integers(1, 256, cap), 0).astype(
+                                     np.uint32), "cuda")
+    part = cap // 8
+    stream = torch.cuda.current_stream()
+    for view in (fp, fp[3 * part:4 * part], fp[3:cap - 2],
+                 fp[3 * part + 1:4 * part + 2]):
+        for _ in range(2):
+            got = _ct_occupied(view)
+            assert got.shape == (1,) and got.is_cuda
+            assert int(got.sum()) == int(_ct_occupied_plain(view))
+            words = kernels._STREAM_SCRATCH[(got.device, "ct_occupied",
+                                             stream.cuda_stream)]
+            assert not bool(words.any())
+    _one_kernel(lambda: functools.partial(_ct_occupied, fp),
+                "ct_occupied_kernel")
+
+
+@pytest.mark.gpu
 def test_fingerprint_marks_the_live_slots_after_k4_and_k7():
     """The invariant K7's sweep rests on, on the card: after K4 has
     inserted flows (a window run full), refreshed them with replies and
