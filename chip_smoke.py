@@ -528,42 +528,187 @@ def crowded_keys(rng, n_regions=64, width=8):
 # -- phases -----------------------------------------------------------
 
 
+def lpm_rows(rng, n, v4_pods, v6_pods, v6_frac=0.2, miss_frac=0.3,
+             misses=None):
+    """[n, 4] u32 address words and [n] families of phase 1's mix: v4
+    rows 70% on ``v4_pods`` (u32), the rest random; a ``v6_frac`` share
+    v6 rows on ``v6_pods`` ([P, 4] u32 words), of which ``miss_frac``
+    are made misses by ``misses(rng, words)`` (default: outside
+    2001:db8::/32, so that only ::/0 holds them)."""
+    import numpy as np
+
+    words = np.zeros((n, 4), np.uint32)
+    fam = np.full(n, 4, np.uint32)
+    words[:, 3] = np.where(rng.random(n) < 0.7, rng.choice(v4_pods, n),
+                           rng.integers(0, 1 << 32, n, dtype=np.uint64))
+    v6 = rng.random(n) < v6_frac
+    words[v6] = v6_pods[rng.integers(0, len(v6_pods), int(v6.sum()))]
+    miss = v6 & (rng.random(n) < miss_frac)
+    if misses is None:
+        words[miss, 0] = 0x20020000
+    else:
+        words[miss] = misses(rng, words[miss])
+    fam[v6] = 6
+    return words, fam
+
+
+def big_tcam(world):
+    """Config #3's v4 entries with a larger dual-stack TCAM: 16 /48s
+    (2001:db8:k::/48), 64 /64s inside them, 4096 /128 pods inside those
+    and ::/0: four prefix lengths, 4177 v6 entries.  -> (entries, the
+    pods' [4096, 4] words, a miss maker: a third of the misses inside a
+    /64 only, a third inside a /48 only, a third outside every prefix
+    but ::/0)."""
+    import numpy as np
+
+    def words(a):
+        return [(a >> s) & 0xFFFFFFFF for s in (96, 64, 32, 0)]
+
+    ent = {c: v for c, v in world.ipcache.items() if ":" not in c}
+    base = 0x20010DB8 << 96
+    nets48 = [base | (k << 80) for k in range(16)]
+    nets64 = [nets48[j % 16] | ((j // 16 + 1) << 64) for j in range(64)]
+    pods = [nets64[i % 64] | (i + 1) for i in range(4096)]
+    for v, (nets, plen) in enumerate(((nets48, 48), (nets64, 64),
+                                      (pods, 128))):
+        for i, a in enumerate(nets):
+            ent[f"{ipaddress.IPv6Address(a)}/{plen}"] = 1000 * (v + 1) + i
+    ent["::/0"] = world.ipcache["::/0"]
+    n64 = np.array([words(a) for a in nets64], np.uint32)
+    n48 = np.array([words(a) for a in nets48], np.uint32)
+
+    def misses(rng, w):
+        w = w.copy()
+        pick = rng.integers(0, 3, len(w))
+        a = pick == 0  # a /64's, off every pod (pods have word 2 zero)
+        w[a] = n64[rng.integers(0, 64, int(a.sum()))]
+        w[a, 2] = rng.integers(1, 1 << 32, int(a.sum()), dtype=np.uint64)
+        w[a, 3] = rng.integers(0, 1 << 32, int(a.sum()), dtype=np.uint64)
+        b = pick == 1  # a /48's, on a /64 no entry has
+        w[b] = n48[rng.integers(0, 16, int(b.sum()))]
+        w[b, 1] |= 0xFFFF
+        w[b, 2:] = rng.integers(0, 1 << 32, (int(b.sum()), 2),
+                                dtype=np.uint64)
+        w[pick == 2, 0] = 0x20020000
+        return w
+
+    return ent, np.array([words(a) for a in pods], np.uint32), misses
+
+
+def lpm6_probes(t, words, fam) -> int:
+    """The index probes that the rows of (``words``, ``fam``) other than
+    v4 make in ``lpm_v6`` (``csrc/lpm.cuh``): a group a probe, in the
+    index's order, while no shorter group is ruled out (host copies of
+    ``t``'s index)."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+
+    groups = t.v6_groups.cpu().numpy()
+    slots = t.v6_index.cpu().numpy()
+    w6 = np.ascontiguousarray(u32.to_numpy(words)[u32.to_numpy(fam) != 4])
+    best = np.full(len(w6), -1, np.int64)
+    probes = 0
+    for g, grp in enumerate(groups):
+        on = best <= grp[4]
+        probes += int(on.sum())
+        held = slots[slots[:, 4] == g]
+        plen = {s[:4].tobytes(): int(s[6]) for s in held}
+        keys = w6[on] & grp[:4].view(np.uint32)
+        best[on] = np.maximum(best[on], [plen.get(k.tobytes(), -1)
+                                         for k in keys])
+    return probes
+
+
+def lpm_bound(torch, t, w, f):
+    """(bytes, ops) of K2 on (``w``, ``f``): each row's 16 B of words, 4
+    B of family and 4 B out; a v4 row's levels (4 B each); a v6 row's
+    probes, a 32 B index slot each (the index read at most once); per
+    row a few compares and selects, per probe its hash and key
+    compare."""
+    v4 = f == 4
+    ip = w[:, 3].to(torch.int64) & 0xFFFFFFFF
+    a = t.l1[ip >> 16]
+    l2 = v4 & (a < 0)
+    l3 = l2 & (t.l2[(-a - 1).clamp(min=0), (ip >> 8) & 0xFF] < 0)
+    levels = int(v4.sum()) + int(l2.sum()) + int(l3.sum())
+    probes = lpm6_probes(t, w, f)
+    return (w.shape[0] * 24 + 4 * levels
+            + min(32 * probes, t.v6_index.numel() * 4),
+            w.shape[0] * 12 + probes * 24)
+
+
+def lpm_plain_chunked(t, w, f):
+    """``lpm_lookup_plain`` a slice of rows at a time: its [N, K, 4]
+    compare at 2^18 x 4177 entries would take ~17 GB."""
+    import torch
+    from cilium_tpu_torch.datapath.lpm import lpm_lookup_plain
+
+    step = max(1, (1 << 26) // max(1, t.v6_net.shape[0]))
+    return torch.cat([lpm_lookup_plain(t, w[i:i + step], f[i:i + step])
+                      for i in range(0, w.shape[0], step)])
+
+
 def phase_lpm(torch, rng, world, kernels):
+    """K2 against its plain version on phase 1's inputs (2^18 addresses,
+    20% v6, 30% of those off every /128) and on a larger TCAM
+    (:func:`big_tcam`, its own generator: the later phases' inputs do
+    not move), one kernel a call; its index's host build time at both
+    sizes."""
+    import functools
+
     import numpy as np
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.core.packets import ip_to_words
-    from cilium_tpu_torch.datapath.lpm import (DeviceLPM, lpm_lookup,
-                                               lpm_lookup_plain)
+    from cilium_tpu_torch.datapath.lpm import (DeviceLPM, compile_lpm,
+                                               lpm_lookup, lpm_lookup_plain)
 
     t = DeviceLPM.from_tensors(world.lpm, "cuda")
-    words = np.zeros((N, 4), np.uint32)
-    fam = np.full(N, 4, np.uint32)
+    t0 = time.perf_counter()  # again: the first build set up the card
+    DeviceLPM.from_tensors(world.lpm, "cuda")
+    build_ms = {world.lpm.v6_net.shape[0]: (time.perf_counter() - t0) * 1e3}
     pods = np.array([ip_to_words(ip)[3] for ip in world.pod_ips],
                     np.uint32)
-    words[:, 3] = np.where(rng.random(N) < 0.7, rng.choice(pods, N),
-                           rng.integers(0, 1 << 32, N, dtype=np.uint64))
-    v6 = rng.random(N) < 0.2
     pods6 = np.array([ip_to_words(ip) for ip in world.pod_ips6], np.uint32)
-    words[v6] = pods6[rng.integers(0, len(pods6), int(v6.sum()))]
-    miss6 = v6 & (rng.random(N) < 0.3)
-    words[miss6, 0] = 0x20020000  # outside 2001:db8::/32: ::/0 only
-    fam[v6] = 6
+    words, fam = lpm_rows(rng, N, pods, pods6)
     w, f = u32.from_numpy(words, "cuda"), u32.from_numpy(fam, "cuda")
     got = lpm_lookup(t, w, f)
     want = lpm_lookup_plain(t, w, f)
     err = max_abs_err(got, want, "lpm_lookup")
-    kernels["lpm_lookup"]["max_abs_err"] = err
-    kernels["lpm_lookup"]["ms"] = device_ms(lambda: lpm_lookup(t, w, f), 20)
-    kernels["lpm_lookup"]["plain_ms"] = device_ms(
-        lambda: lpm_lookup_plain(t, w, f), 3)
-    levels = 1 + int((t.l1[(w[:, 3].to(torch.int64) & 0xFFFFFFFF) >> 16]
-                      < 0).sum())
-    kernels["lpm_lookup"]["bytes"] = (N * (16 + 4 + 4) + 4 * levels
-                                      + t.v6_net.numel() * 9)
-    kernels["lpm_lookup"]["ops"] = N * 12 + int(v6.sum()) * (
-        t.v6_net.shape[0] * 14)
-    print(f"parity lpm_lookup: {N} addresses ({int(v6.sum())} v6), "
-          f"bit-exact")
+    one_kernel_a_call(lambda: functools.partial(lpm_lookup, t, w, f),
+                      "lpm_lookup_kernel", "lpm_lookup")
+    k = kernels["lpm_lookup"]
+    k["max_abs_err"] = err
+    k["ms"] = device_ms(lambda: lpm_lookup(t, w, f), 20)
+    k["plain_ms"] = device_ms(lambda: lpm_lookup_plain(t, w, f), 3)
+    k["bytes"], k["ops"] = lpm_bound(torch, t, w, f)
+    k["v6_probes"] = lpm6_probes(t, w, f)
+    print(f"parity lpm_lookup: {N} addresses ({int((fam == 6).sum())} v6, "
+          f"{k['v6_probes']} index probes), bit-exact, one kernel a call")
+
+    # the larger TCAM: 4177 v6 entries, four prefix lengths
+    ent, pods_big, misses = big_tcam(world)
+    lt = compile_lpm(ent)
+    t0 = time.perf_counter()
+    tb = DeviceLPM.from_tensors(lt, "cuda")
+    build_ms[lt.v6_net.shape[0]] = (time.perf_counter() - t0) * 1e3
+    wb, fb = (u32.from_numpy(a, "cuda") for a in lpm_rows(
+        np.random.default_rng(20261017 + 2), N, pods, pods_big,
+        misses=misses))
+    err = max(err, max_abs_err(lpm_lookup(tb, wb, fb),
+                               lpm_plain_chunked(tb, wb, fb),
+                               "lpm_lookup, the larger TCAM"))
+    k["max_abs_err"] = err
+    b, o = lpm_bound(torch, tb, wb, fb)
+    k["big_tcam"] = {"v6_entries": lt.v6_net.shape[0],
+                     "groups": tb.v6_groups.shape[0],
+                     "v6_probes": lpm6_probes(tb, wb, fb),
+                     "ms": device_ms(lambda: lpm_lookup(tb, wb, fb), 20),
+                     "bound_ms": bound(b, o)[0]}
+    k["index_build_ms"] = build_ms
+    print(f"lpm_lookup on the larger TCAM ({lt.v6_net.shape[0]} v6 "
+          f"entries, {tb.v6_groups.shape[0]} masks): "
+          f"{k['big_tcam']['ms']:.4f} ms, bit-exact; DeviceLPM.from_tensors "
+          f"(with the index) host ms by v6 entries: {build_ms}")
 
 
 def phase_ct(torch, rng, kernels):
@@ -1190,8 +1335,8 @@ def phase_lb_kernels(torch, rng, world, kernels, report):
     VIPs; K16 over the 256 v6 frontends; K17 over ``socklb_steps``'s
     threaded sequence on the daemon's default 2^16-slot cache and on
     bench_socket_lb's 2^20, the flow table, fingerprints and pins
-    compared word for word after every batch; K16 and K17 are one kernel
-    a call.
+    compared word for word after every batch; K15, K16 and K17 are one
+    kernel a call.
     Returns the ServiceManager, for phase 12 to take over with its filled
     Maglev rows."""
     import functools
@@ -1245,22 +1390,32 @@ def phase_lb_kernels(torch, rng, world, kernels, report):
         err = max(max_abs_err(g, w, f"{name} {what}") for g, w, what in zip(
             kern(tt, hdr), plain(tt, hdr), ("rows", "have", "no_backend")))
         hits = lb_hits(rows, tt, v6)
-        if v6:
-            one_kernel_a_call(lambda: functools.partial(kern, tt, hdr),
-                              "lb6_stage_kernel", name)
+        one_kernel_a_call(lambda: functools.partial(kern, tt, hdr),
+                          f"{name}_kernel", name)
         s = tt.svc_port.shape[0]
-        per = 24 if v6 else 12
-        kernels[name].update(
-            max_abs_err=err, ms=device_ms(lambda: kern(tt, hdr), 20),
-            plain_ms=device_ms(lambda: plain(tt, hdr), 3),
+        if v6:
             # rows read and written, two masks; the frontends read once;
             # a Maglev entry and a backend read for each hit
-            bytes=LB_N * 130 + (s + hits) * per,
+            moved = LB_N * 130 + (s + hits) * 24
             # the frontends indexed in one pass (a compare a word), one
             # probe of that index a row; the hash, select and rewrite
-            ops=(per // 4) * s + 24 * LB_N)
+            ops = 6 * s + 24 * LB_N
+        else:
+            v4 = int((rows[:, COL_FAMILY] == 4).sum())
+            # rows read and written, two masks; a v4 row's 16 B index
+            # slot (the index read at most once); a hit's Maglev sector
+            # and backend
+            moved = (LB_N * 130 + min(v4, tt.index.shape[0]) * 16
+                     + hits * (32 + 8))
+            # a probe a v4 row (its hash and key compare); the hash,
+            # select and rewrite
+            ops = 16 * v4 + 24 * LB_N
+        kernels[name].update(
+            max_abs_err=err, ms=device_ms(lambda: kern(tt, hdr), 20),
+            plain_ms=device_ms(lambda: plain(tt, hdr), 3), bytes=moved,
+            ops=ops)
         print(f"parity {name}: {LB_N} rows against {s} frontends, "
-              f"{hits} hits, bit-exact")
+              f"{hits} hits, bit-exact, one kernel a call")
 
     # K17: the threaded sequence on two cache sizes
     errs, timed, seq = 0, {}, {}
@@ -4827,14 +4982,21 @@ def phase_verdict_and_timing(torch, rng, kl, packed_np, wide_np, now,
         # (fwd key, l4, result, slot, flags, proxy: 66 B a packet) is
         # left out: it exists only because the port splits the step
         # that XLA ran as one program
+        # the v6 rows' LPM probes: the remote address (the source of an
+        # ingress row, the destination of an egress one) through the index
+        lpm = kl.state.ipcache
+        remote = torch.where((hdr[:, 15] == 0)[:, None], hdr[:, 0:4],
+                             hdr[:, 4:8])
+        probes = lpm6_probes(lpm, remote.contiguous(), hdr[:, 13])
         kernels[name]["bytes"] = (
             N * (row_b + 24 + 2 * 64 + 8 * 4)
-            + hits * 68 + kl.state.ipcache.v6_net.numel() * 9
+            + hits * 68 + min(32 * probes, lpm.v6_index.numel() * 4)
             + (0 if scal else N * 7))
         kernels[name]["ops"] = (N * (2 * (10 * 4 + 12 + 16 * 3) + 120)
-                                + n_v6 * kl.state.ipcache.v6_net.shape[0]
-                                * 14)
-        print(f"parity {name}: {N} rows ({n_v6} v6, {hits} CT hits"
+                                + probes * 24)
+        kernels[name]["v6_rows"] = n_v6
+        print(f"parity {name}: {N} rows ({n_v6} v6, a share of "
+              f"{n_v6 / N:.4f}, {probes} v6 index probes, {hits} CT hits"
               f"{', every channel + audit' if opts else ''}), bit-exact")
         s_t = fork(kl.state)  # only its metrics change, by atomic adds
         kernels[name]["ms"] = device_ms(

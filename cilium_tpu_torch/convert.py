@@ -37,7 +37,7 @@ from typing import Dict, Iterable, Tuple
 import numpy as np
 
 from .datapath.conntrack import CTTable
-from .datapath.lpm import DeviceLPM
+from .datapath.lpm import DeviceLPM, LPMTensors
 from .datapath.verdict import DatapathState, DevicePolicy
 from .device import resolve_device
 from .datapath.bandwidth import BandwidthState
@@ -55,11 +55,18 @@ _U32 = {("policy", "auth"), ("ipcache", "v6_net"), ("ipcache", "v6_mask"),
 _GROUPS = {"policy": DevicePolicy, "ipcache": DeviceLPM, "ct": CTTable}
 
 
+# fields made here, not carried: the claim words, the LPM's v6 index
+_MADE_HERE = ("claim", "v6_groups", "v6_index")
+
+
 def _field_names(cls) -> Tuple[str, ...]:
-    return tuple(n for n in cls.__dataclass_fields__ if n != "claim")
+    return tuple(n for n in cls.__dataclass_fields__ if n not in _MADE_HERE)
 
 
 def _group_from_numpy(group: str, arrays: Dict, device) -> object:
+    if group == "ipcache":  # the v6 index is built from the leaves
+        return DeviceLPM.from_tensors(LPMTensors(**{
+            name: arrays[name] for name in _field_names(DeviceLPM)}), device)
     cls = _GROUPS[group]
     return cls(**{name: (int(arrays[name]) if name == "default"
                          else from_numpy(arrays[name], device))

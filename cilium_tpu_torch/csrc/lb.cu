@@ -6,24 +6,24 @@
 // are cilium_tpu_torch/service/__init__.py lb_stage_plain and
 // lb6_stage_plain.
 //
-// Bound: the rows read and written (~9 MB at 2^16 rows), the frontends
-// read once, one Maglev gather (a row of 16381 int32 per frontend: the
-// [S, m] table is 268 MB at 4096 frontends, so each gather is a cold
-// 32 B sector) and one backend gather per hit row.  The lowest matching
+// Bound: the rows read and written (~9 MB at 2^16 rows) and, for each
+// hit row, its index slot, one Maglev gather (a row of 16381 int32 per
+// frontend: the [S, m] table is 268 MB at 4096 frontends, so each gather
+// is a cold 32 B sector) and one backend gather.  The lowest matching
 // frontend needs only one probe a row into an index of the frontends.
 //
 // Design: one thread per row, its row loaded and stored as four 16-byte
-// words.  K15 scans the v4 frontends up to each row's first match, as
-// the reference's [N, S] compare does: a block of 256 rows stages them
-// into shared memory a 24 KB tile at a time (lb.cuh lb_match4), every
-// thread scans the tile (the same entry for all lanes: a broadcast),
-// keeps its lowest match, and the block moves to the next tile only
-// while some thread is still unmatched.  K16 probes the host-built v6
-// index (lb.cuh lb_find6): a v6 row's chain is its index slot, the
-// frontend's words, the Maglev sector and the backend, four dependent
-// reads from L2 whatever the number of frontends, with no staging and
-// no block barrier; a row that is not v6 is only copied.  Then the hash,
-// the Maglev gather, the backend gather and the rewritten row.
+// words.  K15 probes the host-built v4 index (lb.cuh lb_find4: 16-byte
+// slots holding the key and its lowest frontend, so a probe step is one
+// load) and K16 the v6 one (lb.cuh lb_find6: a v6 row's chain is its
+// index slot, the frontend's words, the Maglev sector and the backend).
+// Either chain is a few dependent reads from L2 whatever the number of
+// frontends, with no staging and no block barrier; a row of the other
+// family is only copied.  Then the hash, the Maglev gather, the backend
+// gather and the rewritten row.  K15's old shared-memory scan of every
+// frontend (a 24 KB tile and two block barriers a tile, until every row
+// of the block matched) read all 4096 frontends in any block with a row
+// to no VIP (PERF.md).
 #include "lb.cuh"
 
 namespace {
@@ -49,18 +49,18 @@ __device__ __forceinline__ void store_row(uint32_t* out, int32_t i,
 }
 
 __global__ void __launch_bounds__(LB_TPB) lb_stage_kernel(LbIO io, LbView t) {
-  __shared__ LbTile4 tile;
-  int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool in = i < io.n;
-  Row r{};
-  if (in) r = load_row(io.rows, i);
-  int32_t svc = lb_match4(t, tile, in && r.d.y == 4, r.b.w, r.c.y, r.c.z);
-  if (!in) return;
-  int32_t be = lb_pick(t.maglev, t.m, svc,
-                       lb_hash4(r.a.w, r.c.x, r.b.w, r.c.y, r.c.z));
+  const int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= io.n) return;
+  Row r = load_row(io.rows, i);
+  int32_t be = -1, svc = -1;
+  if (r.d.y == 4) {
+    svc = lb_find4(t, r.b.w, r.c.y, r.c.z);
+    be = lb_pick(t.maglev, t.m, svc,
+                 lb_hash4(r.a.w, r.c.x, r.b.w, r.c.y, r.c.z));
+  }
   if (be >= 0) {
-    r.b.w = t.backend_ip[be];
-    r.c.y = t.backend_port[be];
+    r.b.w = __ldg(t.backend_ip + be);
+    r.c.y = __ldg(t.backend_port + be);
   }
   store_row(io.out, i, r);
   io.have_backend[i] = be >= 0;

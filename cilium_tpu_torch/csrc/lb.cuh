@@ -7,72 +7,26 @@
 // resolve phase (socklb.cu) all call these, so the connect path selects
 // exactly as lb_stage does: the same compare, the same lowest index.
 //
-// Two v4 matchers, one for each shape.  lb_match4, a thread a row over
-// shared-memory tiles, serves K15's whole batches (2^16 rows fill every
-// SM, and a tile staged once serves the block's 256 rows).  K17's
-// connect path (a few hundred to CONNECT_CAP misses spread over every
-// SM) indexes the frontends its block staged (lb_index4) and looks a
-// miss up a lane each (lb_lookup4), with lb_match4_staged, a warp a row
-// over the staged addresses, where a port does not pack.  Its
-// predecessor, a warp a row streaming the frontends from global memory,
-// paid an L2 trip for every 32 frontends it passed (29 us for a batch's
-// ~300 misses), and a warp-wide scan of staged frontends reads all of
-// them for every miss (PERF.md).  The v6 match (lb_find6) probes
-// an index that the host builds with the tables (service/__init__.py
-// lb6_index): a probe a row, whatever the number of frontends.
+// K15 and K16 probe an index that the host builds with the tables
+// (service/__init__.py lb4_index, lb6_index): a probe a row (lb_find4,
+// lb_find6), whatever the number of frontends.  K17's connect path (a
+// few hundred to CONNECT_CAP misses spread over every SM) indexes the
+// frontends its block staged (lb_index4) and looks a miss up a lane each
+// (lb_lookup4), with lb_match4_staged, a warp a row over the staged
+// addresses, where a port does not pack.  Its predecessor, a warp a row
+// streaming the frontends from global memory, paid an L2 trip for every
+// 32 frontends it passed (29 us for a batch's ~300 misses), and a
+// warp-wide scan of staged frontends reads all of them for every miss
+// (PERF.md).
 //
 // The match is the reference's [N, S] compare: every row against every
 // frontend, the LOWEST matching index winning (two service names may
-// share a VIP:port).  The v4 tiles stop once every thread of the block
-// has its match; the indexes keep the lowest index of each key.
+// share a VIP:port).  The indexes keep the lowest index of each key.
 #pragma once
 
 #include "views.cuh"
 
 constexpr int LB_TPB = 256;
-constexpr int LB_TILE4 = 2048;  // v4 frontends a tile: 24 KB
-
-struct LbTile4 {
-  __align__(16) uint32_t ip[LB_TILE4];
-  uint32_t port[LB_TILE4], proto[LB_TILE4];
-};
-
-// The lowest v4 frontend matching (dst, dport, proto), -1 for none.
-// Every thread of the block calls it (it synchronises); `active` false
-// for a thread with no row.
-__device__ __forceinline__ int32_t lb_match4(const LbView& t, LbTile4& tile,
-                                             bool active, uint32_t dst,
-                                             uint32_t dport, uint32_t proto) {
-  int32_t found = -1;
-  for (int base = 0; base < t.s; base += LB_TILE4) {
-    int cnt = min(LB_TILE4, t.s - base);
-    __syncthreads();  // the previous tile is consumed
-    for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
-      tile.ip[k] = t.svc_ip[base + k];
-      tile.port[k] = t.svc_port[base + k];
-      tile.proto[k] = t.svc_proto[base + k];
-    }
-    __syncthreads();
-    if (active && found < 0) {
-      // four addresses a 16-byte load; the port and protocol only where
-      // an address matches
-      for (int k = 0; k < cnt && found < 0; k += 4) {
-        uint4 ip4 = *reinterpret_cast<const uint4*>(&tile.ip[k]);
-        if (ip4.x != dst && ip4.y != dst && ip4.z != dst && ip4.w != dst)
-          continue;
-        for (int u = k; u < min(k + 4, cnt); ++u) {
-          if (tile.ip[u] == dst && tile.port[u] == dport &&
-              tile.proto[u] == proto) {
-            found = base + u;
-            break;
-          }
-        }
-      }
-    }
-    if (!__syncthreads_or(active && found < 0)) break;
-  }
-  return found;
-}
 
 // K17's staging: the first `staged` (at most PER * blockDim.x) v4
 // frontends' addresses into `ips` and their port << 8 | protocol into
@@ -251,6 +205,26 @@ __device__ __forceinline__ int32_t lb_find6(const Lb6View& t, uint4 dst,
     if (f.x == dst.x && f.y == dst.y && f.z == dst.z && f.w == dst.w &&
         __ldg(t.svc_port + q) == dport && __ldg(t.svc_proto + q) == proto)
       return q;
+  }
+}
+
+// The lowest v4 frontend matching (dst, dport, proto), -1 for none: a
+// linear probe of t's index (index_cap slots, a power of two above the
+// frontends, so an empty slot ends every probe) from the key's
+// lb6_index_hash slot, the address in its last word (the host places
+// the keys so: one source of the constants).  A slot is 16 bytes, the
+// key's words and its lowest frontend (-1: empty), so a probe step is
+// one load.
+__device__ __forceinline__ int32_t lb_find4(const LbView& t, uint32_t dst,
+                                            uint32_t dport, uint32_t proto) {
+  const uint32_t mask = (uint32_t)t.index_cap - 1;
+  const uint4* slots = reinterpret_cast<const uint4*>(t.index);
+  for (uint32_t h = lb6_index_hash(make_uint4(0u, 0u, 0u, dst), dport,
+                                   proto) & mask;;
+       h = (h + 1) & mask) {
+    const uint4 s = __ldg(slots + h);
+    if ((int32_t)s.w < 0) return -1;
+    if (s.x == dst && s.y == dport && s.z == proto) return (int32_t)s.w;
   }
 }
 

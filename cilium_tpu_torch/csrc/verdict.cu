@@ -149,7 +149,8 @@ __device__ __forceinline__ int32_t verdict_row(const DatapathIO& io,
   const int32_t cls =
       __ldg(&pol.class_map[prow * pol.n_cls + xla_index(gcls, pol.n_cls)]);
   const int32_t id_row =
-      v4 ? lpm_v4_step(lpm.l3, lpm.n_l3, l2, rem[3] & 0xFF) : lpm_v6(lpm, rem);
+      v4 ? lpm_v4_step(lpm.l3, lpm.n_l3, l2, rem[3] & 0xFF)
+         : lpm_v6(lpm, reinterpret_cast<const uint4*>(lpm.v6_groups), rem);
   const bool related_hint = (flags & FLAG_RELATED) != 0;
   const bool is_related = related_hint && ct_res != CT_NEW;
 

@@ -7,19 +7,25 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-// The compiled ipcache LPM (datapath/lpm.py DeviceLPM).
+// The compiled ipcache LPM (datapath/lpm.py DeviceLPM).  The v6 TCAM's
+// index (datapath/lpm.py lpm6_index) is what the kernels read of v6.
 struct LpmView {
-  const int32_t* l1;        // [65536]
-  const int32_t* l2;        // [n_l2, 256]
-  const int32_t* l3;        // [n_l3, 256]
-  const uint32_t* v6_net;   // [n_v6, 4]
-  const uint32_t* v6_mask;  // [n_v6, 4]
-  const int32_t* v6_value;  // [n_v6]
-  const int32_t* v6_plen;   // [n_v6]
+  const int32_t* l1;         // [65536]
+  const int32_t* l2;         // [n_l2, 256]
+  const int32_t* l3;         // [n_l3, 256]
+  const uint32_t* v6_net;    // [n_v6, 4]
+  const uint32_t* v6_mask;   // [n_v6, 4]
+  const int32_t* v6_value;   // [n_v6]
+  const int32_t* v6_plen;    // [n_v6]
+  const int32_t* v6_groups;  // [n_groups, 8]: mask[4], top plen, 0, 0, 0
+  const int32_t* v6_index;   // [index_cap, 8]: net[4], group (-1 free),
+                             // entry, plen, value; 32-byte aligned
   int32_t n_l2;
   int32_t n_l3;
   int32_t n_v6;
   int32_t dflt;
+  int32_t n_groups;   // in descending order of their top plen
+  int32_t index_cap;  // 2^k, at least half of it free
 };
 
 // The policy tensors (datapath/verdict.py DevicePolicy).
@@ -230,10 +236,12 @@ struct LbView {
   const uint32_t* backend_ip;    // [b]
   const uint32_t* backend_port;  // [b]
   const uint32_t* svc_aff;       // [s] ClientIP affinity TTL, 0 off
+  const uint32_t* index;  // [index_cap, 4]: address, port, protocol, the
+                          // lowest frontend of that key (-1 free)
   int32_t s;
   int32_t b;
   int32_t m;
-  int32_t pad;
+  int32_t index_cap;  // 2^k > s
 };
 
 // The compiled v6 frontends (service/__init__.py LBTensors6).

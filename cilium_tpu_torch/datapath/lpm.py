@@ -12,7 +12,9 @@ with no data-dependent control flow:
 
 Non-negative entries are values (identity rows); negative entries are
 ``-(block+1)`` pointers into the next level.  IPv6 uses a masked-compare
-TCAM over the (typically small) v6 prefix set.
+TCAM over the (typically small) v6 prefix set; on the card a v6 address
+probes :func:`lpm6_index`, an exact hash index of that TCAM built with
+the tables, once for each distinct mask.
 
 The host compiler (:func:`compile_lpm`, :func:`lpm_upsert`,
 :class:`LPMUndo`) is a copy of the JAX package's; :class:`LPMEntries`
@@ -147,6 +149,90 @@ def compile_lpm(entries: Dict[str, int], default: int = 0,
         v6_plen=v6_plen,
         default=default,
     )
+
+
+def lpm6_index_hash(words: np.ndarray, group: np.ndarray) -> np.ndarray:
+    """[K, 4] u32 masked address words and [K] group numbers -> their
+    u32 slot hashes (u32 wrapping).  A copy of ``csrc/lpm.cuh``
+    ``lpm6_index_hash``, the one source of the constants: the kernel
+    probes from the slot this puts an entry in."""
+    k = np.asarray(words, np.uint32).reshape(-1, 4)
+    h = np.asarray(group, np.uint32) * np.uint32(0x165667B1)
+    for col, c in enumerate((0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35,
+                             0x27D4EB2F)):
+        h ^= k[:, col] * np.uint32(c)
+    h ^= h >> np.uint32(16)
+    h *= np.uint32(0x7FEB352D)
+    return h ^ (h >> np.uint32(15))
+
+
+LPM6_FREE = -1  # the group word of an empty index slot
+
+
+def lpm6_index(v6_net, v6_mask, v6_value, v6_plen
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """The v6 TCAM's exact index, which the kernels probe in place of
+    its [N, K] scan.  -> (groups, slots):
+
+    - ``groups`` [G, 8] int32: each distinct mask of the entries that
+      can win (``plen >= 0``, no ``net`` bit outside the mask), its 4
+      words, the largest ``plen`` among its entries and 3 zero words, in
+      descending order of that ``plen``;
+    - ``slots`` [cap, 8] int32, cap the least power of two at least
+      twice the keys (and 2): each slot empty (group word
+      :data:`LPM6_FREE`) or one key (group, ``net``) as its ``net``
+      words, its group, then the entry of the largest ``plen`` with that
+      key (the lowest index among ties), its ``plen`` and its value;
+      placed by linear probing from its :func:`lpm6_index_hash` slot.
+
+    A v6 address probes each group with ``ip & mask`` and keeps the
+    largest ``plen`` found, the lowest entry on a tie: the reference's
+    argmax, the first entry of the longest matching prefix.  Half the
+    slots stay empty, so every probe ends."""
+    net = np.asarray(v6_net, np.uint32).reshape(-1, 4)
+    mask = np.asarray(v6_mask, np.uint32).reshape(-1, 4)
+    value = np.asarray(v6_value, np.int32).reshape(-1)
+    plen = np.asarray(v6_plen, np.int32).reshape(-1)
+    live = np.flatnonzero((plen >= 0) & ~(net & ~mask).any(axis=1))
+    masks, inv = np.unique(mask[live], axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    top = np.full(len(masks), -1, np.int32)
+    np.maximum.at(top, inv, plen[live])
+    order = np.argsort(-top.astype(np.int64), kind="stable")
+    rank = np.empty(len(masks), np.int64)
+    rank[order] = np.arange(len(masks))
+    groups = np.zeros((len(masks), 8), np.int32)
+    groups[:, :4] = masks[order].view(np.int32)
+    groups[:, 4] = top[order]
+    # each key's entry: the largest plen, then the lowest index
+    gid = rank[inv]
+    k = net[live]
+    o = np.lexsort((live, -plen[live].astype(np.int64), k[:, 3], k[:, 2],
+                    k[:, 1], k[:, 0], gid))
+    first = np.ones(len(o), bool)
+    first[1:] = ((gid[o][1:] != gid[o][:-1])
+                 | (k[o][1:] != k[o][:-1]).any(axis=1))
+    win, wgid = live[o][first], gid[o][first]
+    cap = 1 << max(1, (2 * len(win) - 1).bit_length())
+    slots = np.zeros((cap, 8), np.int32)
+    slots[:, 4] = LPM6_FREE
+    rows = np.concatenate([net[win].view(np.int32), wgid[:, None],
+                           win[:, None], plen[win, None], value[win, None]],
+                          axis=1).astype(np.int32)
+    # linear probing, every pending key a step a round: the first key
+    # to reach a free slot takes it, the rest move on past it
+    pos = (lpm6_index_hash(net[win], wgid) & np.uint32(cap - 1)).astype(
+        np.int64)
+    pending = np.arange(len(win))
+    while len(pending):
+        at = pos[pending]
+        free = slots[at, 4] == LPM6_FREE
+        taken, first_at = np.unique(at[free], return_index=True)
+        who = pending[free][first_at]
+        slots[taken] = rows[who]
+        pending = np.setdiff1d(pending, who, assume_unique=True)
+        pos[pending] = (pos[pending] + 1) & (cap - 1)
+    return groups, slots
 
 
 def lpm_used_blocks(t: LPMTensors) -> Tuple[int, int]:
@@ -382,7 +468,11 @@ def lpm_lookup(t: "DeviceLPM", ip_words: torch.Tensor,
 @dataclass
 class DeviceLPM:
     """LPM tensors living on a device (int32; the v6 words are u32 bit
-    patterns)."""
+    patterns).  ``v6_groups`` and ``v6_index`` are :func:`lpm6_index` of
+    the v6 arrays, which the kernels probe; the plain version ignores
+    them.  Only :meth:`from_tensors` builds one, so the index always
+    matches its TCAM (a v6 change rebuilds the LPM; the v4 patches touch
+    ``l1``-``l3`` alone)."""
 
     l1: torch.Tensor  # [65536]
     l2: torch.Tensor  # [n_l2, 256]
@@ -392,6 +482,8 @@ class DeviceLPM:
     v6_value: torch.Tensor  # [K]
     v6_plen: torch.Tensor  # [K]
     default: int
+    v6_groups: torch.Tensor  # [G, 8] a distinct mask, its largest plen
+    v6_index: torch.Tensor  # [2^k, 8] net, group, entry, plen, value
 
     @staticmethod
     def from_tensors(t: LPMTensors, device=None) -> "DeviceLPM":
@@ -407,9 +499,12 @@ class DeviceLPM:
                 np.ascontiguousarray(a, dtype=np.int32)).to(device,
                                                             copy=True)
 
+        groups, index = lpm6_index(t.v6_net, t.v6_mask, t.v6_value,
+                                   t.v6_plen)
         return DeviceLPM(
             l1=i32(t.l1), l2=i32(t.l2), l3=i32(t.l3),
             v6_net=from_numpy(t.v6_net, device),
             v6_mask=from_numpy(t.v6_mask, device),
             v6_value=i32(t.v6_value), v6_plen=i32(t.v6_plen),
-            default=int(t.default))
+            default=int(t.default), v6_groups=i32(groups),
+            v6_index=i32(index))

@@ -191,8 +191,20 @@ def _stream(device) -> int:
 I32, BOOL = torch.int32, torch.bool
 
 
+def _index_cap(index, keys: int, what: str) -> int:
+    """The slots of a host-built open-addressing index: a power of two
+    above ``keys``, so that an empty slot ends every probe."""
+    cap = index.shape[0]
+    if cap & (cap - 1) or cap <= keys:
+        raise ValueError(f"{what} of {cap} slots for {keys} keys: a power "
+                         f"of two above them")
+    return cap
+
+
 def lpm_view(t, device) -> abi.LpmView:
     k = t.v6_net.shape[0]
+    g = t.v6_groups.shape[0]
+    cap = _index_cap(t.v6_index, 1, "LPM v6 index")
     return abi.LpmView(
         l1=_ptr(t.l1, I32, device, (1 << 16,), name="l1"),
         l2=_ptr(t.l2, I32, device, (t.l2.shape[0], 256), name="l2"),
@@ -201,7 +213,12 @@ def lpm_view(t, device) -> abi.LpmView:
         v6_mask=_ptr(t.v6_mask, I32, device, (k, 4), name="v6_mask"),
         v6_value=_ptr(t.v6_value, I32, device, (k,), name="v6_value"),
         v6_plen=_ptr(t.v6_plen, I32, device, (k,), name="v6_plen"),
-        n_l2=t.l2.shape[0], n_l3=t.l3.shape[0], n_v6=k, dflt=t.default)
+        v6_groups=_ptr(t.v6_groups, I32, device, (g, 8), align=16,
+                       name="v6_groups"),
+        v6_index=_ptr(t.v6_index, I32, device, (cap, 8), align=32,
+                      name="v6_index"),
+        n_l2=t.l2.shape[0], n_l3=t.l3.shape[0], n_v6=k, dflt=t.default,
+        n_groups=g, index_cap=cap)
 
 
 def policy_view(p, device) -> abi.PolicyView:
@@ -732,6 +749,7 @@ def lb_view(t, device) -> abi.LbView:
     b = t.backend_ip.shape[0]
     if m != t.m:
         raise ValueError(f"maglev table has {m} slots, LBTensors.m is {t.m}")
+    cap = _index_cap(t.index, s, "v4 index")
     return abi.LbView(
         svc_ip=_ptr(t.svc_ip, I32, device, (s,), name="lb.svc_ip"),
         svc_port=_ptr(t.svc_port, I32, device, (s,), name="lb.svc_port"),
@@ -742,7 +760,9 @@ def lb_view(t, device) -> abi.LbView:
         backend_port=_ptr(t.backend_port, I32, device, (b,),
                           name="lb.backend_port"),
         svc_aff=_ptr(t.svc_aff, I32, device, (s,), name="lb.svc_aff"),
-        s=s, b=b, m=m)
+        index=_ptr(t.index, I32, device, (cap, 4), align=16,
+                   name="lb.index"),
+        s=s, b=b, m=m, index_cap=cap)
 
 
 def lb6_view(t, device) -> abi.Lb6View:
@@ -750,10 +770,7 @@ def lb6_view(t, device) -> abi.Lb6View:
     b = t.backend_ip.shape[0]
     if m != t.m:
         raise ValueError(f"maglev table has {m} slots, LBTensors6.m is {t.m}")
-    cap = t.index.shape[0]
-    if cap & (cap - 1) or cap <= s:  # an empty slot ends every probe
-        raise ValueError(f"v6 index of {cap} slots for {s} frontends: a "
-                         f"power of two above them")
+    cap = _index_cap(t.index, s, "v6 index")
     return abi.Lb6View(
         svc_ip=_ptr(t.svc_ip, I32, device, (s, 4), align=16,
                     name="lb6.svc_ip"),

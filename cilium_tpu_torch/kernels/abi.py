@@ -15,7 +15,9 @@ F32 = ctypes.c_float
 class LpmView(ctypes.Structure):
     _fields_ = [("l1", P), ("l2", P), ("l3", P), ("v6_net", P),
                 ("v6_mask", P), ("v6_value", P), ("v6_plen", P),
-                ("n_l2", I32), ("n_l3", I32), ("n_v6", I32), ("dflt", I32)]
+                ("v6_groups", P), ("v6_index", P),
+                ("n_l2", I32), ("n_l3", I32), ("n_v6", I32), ("dflt", I32),
+                ("n_groups", I32), ("index_cap", I32)]
 
 
 class PolicyView(ctypes.Structure):
@@ -117,8 +119,8 @@ class BwIO(ctypes.Structure):
 class LbView(ctypes.Structure):
     _fields_ = [("svc_ip", P), ("svc_port", P), ("svc_proto", P),
                 ("maglev", P), ("backend_ip", P), ("backend_port", P),
-                ("svc_aff", P), ("s", I32), ("b", I32), ("m", I32),
-                ("pad", I32)]
+                ("svc_aff", P), ("index", P), ("s", I32), ("b", I32),
+                ("m", I32), ("index_cap", I32)]
 
 
 class Lb6View(ctypes.Structure):

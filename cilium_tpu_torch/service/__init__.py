@@ -163,7 +163,9 @@ class Service:
 
 @dataclass
 class LBTensors:
-    """The compiled v4 frontends on one device (int32 bit patterns)."""
+    """The compiled v4 frontends on one device (int32 bit patterns).
+    ``index`` is :func:`lb4_index` of the frontends, which K15 probes;
+    the plain version ignores it."""
 
     svc_ip: torch.Tensor  # [S] frontend v4 address
     svc_port: torch.Tensor  # [S]
@@ -172,17 +174,19 @@ class LBTensors:
     backend_ip: torch.Tensor  # [B]
     backend_port: torch.Tensor  # [B]
     svc_aff: torch.Tensor  # [S] ClientIP affinity TTL (0 = off)
+    index: torch.Tensor  # [2^k > S, 4] int32: a key, its lowest frontend
     m: int
 
     @staticmethod
     def from_numpy(svc_ip, svc_port, svc_proto, maglev, backend_ip,
                    backend_port, svc_aff, m: int, device=None) -> "LBTensors":
         """numpy arrays (the JAX package's leaves) -> tensors on
-        ``device`` (None: the card)."""
+        ``device`` (None: the card), with the frontends' index."""
         device = resolve_device(device)
+        index = lb4_index(svc_ip, svc_port, svc_proto)
         return LBTensors(*(from_numpy(a, device) for a in (
             svc_ip, svc_port, svc_proto, maglev, backend_ip, backend_port,
-            svc_aff)), m=int(m))
+            svc_aff, index)), m=int(m))
 
 
 @dataclass
@@ -251,6 +255,28 @@ def lb6_index(svc_ip, svc_port, svc_proto) -> np.ndarray:
             h = (h + 1) & (cap - 1)
         index[h] = q
     return index
+
+
+def lb4_index(svc_ip, svc_port, svc_proto) -> np.ndarray:
+    """The v4 frontends' index, which K15 probes (``csrc/lb.cuh``
+    ``lb_find4``): [cap, 4] int32, a slot of :func:`lb6_index`'s
+    placement each, its key (address, port, protocol) and the LOWEST
+    frontend of that key, or zeros and -1 where it is empty.  A key
+    hashes as a v6 key whose address is 0, 0, 0 and the v4 address
+    (:func:`lb6_index_hash`: one source of the constants)."""
+    ip = np.asarray(svc_ip, np.uint32).reshape(-1)
+    port = np.asarray(svc_port, np.uint32).reshape(-1)
+    proto = np.asarray(svc_proto, np.uint32).reshape(-1)
+    words = np.zeros((len(ip), 4), np.uint32)
+    words[:, 3] = ip
+    front = lb6_index(words, port, proto)
+    index = np.zeros((len(front), 4), np.uint32)
+    index[:, 3] = 0xFFFFFFFF  # -1: empty
+    held = front >= 0
+    index[held] = np.stack([ip[front[held]], port[front[held]],
+                            proto[front[held]],
+                            front[held].astype(np.uint32)], 1)
+    return index.view(np.int32)
 
 
 def _split_hostport(s: str) -> Tuple[str, int]:

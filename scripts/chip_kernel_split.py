@@ -5,13 +5,15 @@
 ``flow_features``, K19 ``anomaly_score``, K22 ``adam_update``, K5
 ``ring_append`` (and K5s), K17 ``socklb_stage``, K11 ``snat_egress``
 (with K12 ``snat_reverse`` after it), K13 ``bw_stage``, K16
-``lb6_stage``, K12, K7 ``ct_gc``, K6 ``ring_gather`` and K8
-``ct_occupied`` at the shapes the main paths launch them, for one or
-more checkouts of this repository.
+``lb6_stage``, K12, K7 ``ct_gc``, K6 ``ring_gather``, K8
+``ct_occupied``, K2 ``lpm_lookup`` and K15 ``lb_stage`` at the shapes
+the main paths launch them (K2 and K15: the shapes ``chip_smoke.py``
+holds them at), for one or more checkouts of this repository.
 
     python3 scripts/chip_kernel_split.py
-        [--kernels=k1k4,k20,k9,k18,k19,k22,k5,k17,k11,k13,k16,k12,k7,k6,k8]
-        [--variants=TREE] [--grids=TREE] [TREE ...]
+        [--kernels=k1k4,k20,k9,k18,k19,k22,k5,k17,k11,k13,k16,k12,k7,k6,k8,
+                   k2,k15]
+        [--variants=TREE] [--grids=TREE] [--layouts=TREE] [TREE ...]
 
 Each TREE is a checkout (a ``git archive`` of another commit unpacked
 in a directory that ``.gitignore`` lists will do); each runs in its own
@@ -151,6 +153,26 @@ the host's enqueue microseconds of a call and of its ``torch.empty``.
 ``--grids=TREE`` builds K6's grid variants (1-8 blocks an SM) and K8's
 (1-4 blocks an SM, 2 or 4 loads a thread).
 
+K2 (``k2_cases``): config #3's LPM (257 v6 entries) on phase 1's
+inputs (``chip_smoke.lpm_rows``: 2^18 addresses, 20% v6, 30% of those
+off every /128), the same 2^18 all v4 and all v6, 4096 rows of phase
+1's mix, the larger TCAM of ``chip_smoke.big_tcam`` (4177 v6 entries,
+four prefix lengths) with the same mix and a table with no v6 entry,
+with the host time of ``DeviceLPM.from_tensors`` for each table (the
+best of 5).  K15 (``k15_cases``): phase 3's service world (4096 v4
+frontends, Maglev 16381) on phase 3's rows (2^16, half to a VIP, every
+fifth source above 2^31), with no row to a VIP, with every row to one,
+4096 rows of that mix, a world of 64 frontends, and that world with a
+second name on one VIP:port (correctness).  Each is timed, split by the
+profiler (a window short twice is recorded, not fatal: the events time
+holds), digested (K2: the rows' values; K15: rows and both masks), held
+against the plain version's (K2's a slice of rows at a time) and a
+second call's, with its operations a call.  ``--layouts=TREE`` builds
+K15's slot layouts (the source's 16-byte slot against a slot naming the
+frontend, whose words the probe then reads) and K2's mask staging
+(shared memory against global) from TREE's source and times each case
+in each.
+
 Each run writes ``chiprun_out/split/<label>.json``; the main process
 prints, for every later run, the digests that differ from an earlier
 run's.  The line before the last is the card's name and power limit
@@ -161,6 +183,7 @@ CUDA device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import ipaddress
 import json
@@ -265,6 +288,23 @@ K8_GRID = {"as_is": [],
            **{f"per_sm{b}_loads{n}": [_knob("OCC_BLOCKS_PER_SM", 2, b),
                                       _knob("OCC_LOADS", 4, n)]
               for b in (1, 2, 4) for n in (2, 4) if (b, n) != (2, 4)}}
+# K15's index slot: the source's 16-byte slot (the key and its lowest
+# frontend: a load a probe step) against K16's layout, a slot that names
+# the frontend whose address, port and protocol the probe then reads
+K15_LAYOUT = {"as_is": [], "slot_then_frontend": [(
+    """    const uint4 s = __ldg(slots + h);
+    if ((int32_t)s.w < 0) return -1;
+    if (s.x == dst && s.y == dport && s.z == proto) return (int32_t)s.w;""",
+    """    const int32_t q = (int32_t)__ldg(t.index + 4 * h + 3);
+    if (q < 0) return -1;
+    if (__ldg(t.svc_ip + q) == dst && __ldg(t.svc_port + q) == dport &&
+        __ldg(t.svc_proto + q) == proto)
+      return q;""")]}
+# K2's group masks: staged in shared memory a block (the source) against
+# read from global memory (L1) by every lane
+K2_GROUPS = {"as_is": [], "groups_global": [(
+    "const bool in_smem = t.n_groups <= LPM_SMEM_GROUPS;",
+    "const bool in_smem = false;")]}
 # variant set: (source, its variants)
 ABLATIONS = {"k4_grid": ("conntrack", K4_GRID),
              "k1_occupancy": ("verdict", K1_OCCUPANCY),
@@ -274,13 +314,16 @@ ABLATIONS = {"k4_grid": ("conntrack", K4_GRID),
              "k12_grid": ("nat", K12_GRID),
              "k7_grid": ("conntrack", K7_GRID),
              "k6_grid": ("ring", K6_GRID),
-             "k8_grid": ("conntrack", K8_GRID)}
+             "k8_grid": ("conntrack", K8_GRID),
+             "k15_layout": ("lb", K15_LAYOUT),
+             "k2_groups": ("lpm", K2_GROUPS)}
 # the flags that name a tree, and the variant sets each runs there
 TREE_FLAGS = {"--variants": ("k4_grid", "k1_occupancy"),
               "--grids": ("k17_grid", "k11_grid", "k11_parts", "k12_grid",
-                          "k7_grid", "k6_grid", "k8_grid")}
+                          "k7_grid", "k6_grid", "k8_grid"),
+              "--layouts": ("k15_layout", "k2_groups")}
 KERNEL_SETS = ("k1k4", "k20", "k9", "k18", "k19", "k22", "k5", "k17",
-               "k11", "k13", "k16", "k12", "k7", "k6", "k8")
+               "k11", "k13", "k16", "k12", "k7", "k6", "k8", "k2", "k15")
 INT_MAX = (1 << 31) - 1
 RING_CAP = 1 << 18  # chip_smoke's ring, a shard's on the sharded path
 LISTENERS = (10000,)  # the daemon's listener table: config #3's one rule
@@ -306,12 +349,18 @@ def build_ablations(tree: Path, which: str) -> dict:
     source, variants = ABLATIONS[which]
     csrc = tree / "cilium_tpu_torch" / "csrc"
     src = (csrc / f"{source}.cu").read_text()
+    own_header = f'#include "{source}.cuh"'
     work = OUT / "ablate"
     work.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, edits in variants.items():
         text = src
         for old, new in edits:
+            if old not in text and own_header in text:
+                # a pattern of the source's own header: inline it
+                text = text.replace(own_header, (
+                    csrc / f"{source}.cuh").read_text().replace(
+                        "#pragma once\n", ""))
             if old not in text:
                 raise RuntimeError(f"ablation {name}: pattern not found: "
                                    f"{old[:60]!r}")
@@ -1944,6 +1993,231 @@ def k7_calls(cases) -> dict:
     return calls
 
 
+@functools.lru_cache(maxsize=None)
+def own_smoke():
+    """This checkout's ``chip_smoke`` (K2's case makers, which an older
+    tree's copy lacks), loaded beside the tree's own."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("own_chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def k2_cases(world, rng) -> tuple:
+    """K2's inputs on config #3's world (``chip_smoke.lpm_rows``): phase
+    1's (2^18 addresses, 20% v6 on the 256 /128 pods, 30% of those off
+    every /128), the same 2^18 all v4 and all v6, 4096 rows of phase 1's
+    mix, the larger TCAM of ``chip_smoke.big_tcam`` with the same mix,
+    and a table with no v6 entry (the v6 rows all take the default).  -> ({case: (DeviceLPM, words,
+    families)}, {table: host ms of ``DeviceLPM.from_tensors``, the best
+    of 5})."""
+    import numpy as np
+    import torch
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import ip_to_words
+    from cilium_tpu_torch.datapath.lpm import DeviceLPM, compile_lpm
+
+    own = own_smoke()
+    lpm_rows = own.lpm_rows
+    pods = np.array([ip_to_words(ip)[3] for ip in world.pod_ips], np.uint32)
+    pods6 = np.array([ip_to_words(ip) for ip in world.pod_ips6], np.uint32)
+    ent_big, pods_big, misses = own.big_tcam(world)
+    tables = {"config3_257": world.lpm,
+              "big_4177": compile_lpm(ent_big),
+              "no_v6": compile_lpm({c: v for c, v in world.ipcache.items()
+                                    if ":" not in c})}
+    build_ms = {}
+    for name, lt in tables.items():
+        best = None
+        for _ in range(5):
+            t0 = time.perf_counter()
+            dev = DeviceLPM.from_tensors(lt, "cuda")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            best = ms if best is None else min(best, ms)
+        build_ms[name] = best
+        tables[name] = dev
+
+    def case(t, words, fam):
+        return (t, u32.from_numpy(words, "cuda"), u32.from_numpy(fam, "cuda"))
+
+    n = 1 << 18
+    cases = {
+        "k2_phase1_262144": case(tables["config3_257"],
+                                 *lpm_rows(rng, n, pods, pods6)),
+        "k2_all_v4_262144": case(tables["config3_257"],
+                                 *lpm_rows(rng, n, pods, pods6, 0.0)),
+        "k2_all_v6_262144": case(tables["config3_257"],
+                                 *lpm_rows(rng, n, pods, pods6, 1.0)),
+        "k2_phase1_4096": case(tables["config3_257"],
+                               *lpm_rows(rng, 4096, pods, pods6)),
+        "k2_big_tcam_262144": case(tables["big_4177"], *lpm_rows(
+            rng, n, pods, pods_big, misses=misses)),
+        "k2_no_v6_table_262144": case(tables["no_v6"],
+                                      *lpm_rows(rng, n, pods, pods6)),
+    }
+    return cases, build_ms
+
+
+def profiled_or_short(fn) -> dict:
+    """:func:`profiled`, or {} where the profiler came back short twice
+    (the windows are kept in ``profiler_short``): the events time holds
+    the case."""
+    try:
+        return profiled(fn)
+    except RuntimeError as e:
+        print(f"profiler: {e}")
+        return {}
+
+
+def run_k2(label, cases) -> dict:
+    """Time each K2 case, split it by the profiler, digest its output and
+    hold it against the plain version's and a second call's, with its
+    operations a call.  -> {case: record}."""
+    import chip_smoke as cs
+    from cilium_tpu_torch.datapath.lpm import lpm_lookup
+    from cilium_tpu_torch.kernels import launch_lpm_lookup
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    recs = {}
+    for name, (t, w, f) in cases.items():
+        def fn(t=t, w=w, f=f):
+            return launch_lpm_lookup(t, w, f)
+
+        got = lpm_lookup(t, w, f)
+        out = digest(got)
+        rec = {"rows": int(w.shape[0]), "v6_rows": int((f == 6).sum()),
+               "v6_entries": int(t.v6_net.shape[0]),
+               "default_rows": int((got == t.default).sum()),
+               "inputs": digest(w, f, t.l1, t.l2, t.l3, t.v6_net, t.v6_mask,
+                                t.v6_value, t.v6_plen),
+               "ms": cs.device_ms(fn, REPS), "out": out,
+               "plain_equal": out == digest(
+                   own_smoke().lpm_plain_chunked(t, w, f)),
+               "repeat_equal": out == digest(lpm_lookup(t, w, f)),
+               "ops_a_call": ops_a_call(lambda fn=fn: fn),
+               "by_kernel": profiled_or_short(fn)}
+        recs[name] = rec
+        print(f"[{label}] K2 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def k15_cases(world, rng) -> dict:
+    """K15's inputs: phase 3's (2^16 rows, half to the 4096 v4 frontends
+    of ``chip_smoke.service_world``, Maglev 16381, every fifth source
+    above 2^31), the same with no row to a VIP and with every row to
+    one, 4096 rows of that mix, 2^16 rows over a world of 64 frontends,
+    and that world with a second name on svc3's VIP:port (correctness:
+    the lower frontend wins).  -> {case: (LBTensors, rows)}."""
+    import chip_smoke as cs
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.k8s.watchers import ServiceWatcher
+    from cilium_tpu_torch.service import ServiceManager
+    from cilium_tpu_torch.testing import services as sv
+
+    mgr = ServiceManager(device="cuda")
+    sv.install(ServiceWatcher(mgr), cs.service_world(world))
+    small = ServiceManager(device="cuda")
+    sv.install(ServiceWatcher(small), sv.k8s_objects(
+        world.pod_ips, world.pod_ips6, n=64))
+    t64 = small.tensors()
+    small.upsert("a-dup", f"{sv.vip4(3)}:443", ["10.9.9.9:1"])
+    clients = (0x0A000000 + rng.choice(1 << 16, cs.N_LB_CLIENTS,
+                                       replace=False)).astype(np.uint32)
+    others = np.array([int(ipaddress.IPv4Address(ip))
+                       for ip in world.pod_ips[:2048]], np.uint32)
+
+    def rows(n, n_svc, vip_frac):
+        r = sv.rows(rng, n, n_svc, clients, others, vip_frac=vip_frac)
+        r[::5, 3] |= 0x80000000
+        return u32.from_numpy(r, "cuda")
+
+    t = mgr.tensors()
+    return {"k15_phase3_65536": (t, rows(cs.LB_N, cs.N_SERVICES, 0.5)),
+            "k15_no_vip_65536": (t, rows(cs.LB_N, cs.N_SERVICES, 0.0)),
+            "k15_all_vip_65536": (t, rows(cs.LB_N, cs.N_SERVICES, 1.0)),
+            "k15_phase3_4096": (t, rows(4096, cs.N_SERVICES, 0.5)),
+            "k15_frontends_64_65536": (t64, rows(cs.LB_N, 64, 0.5)),
+            "k15_shared_frontend_65536": (small.tensors(),
+                                          rows(cs.LB_N, 64, 0.5))}
+
+
+def run_k15(label, cases) -> dict:
+    """Time each K15 case, split it by the profiler, digest its rows and
+    both masks and hold them against the plain version's and a second
+    call's, with its operations a call.  -> {case: record}."""
+    import chip_smoke as cs
+    from cilium_tpu_torch.core.packets import COL_FAMILY
+    from cilium_tpu_torch.kernels import launch_lb_stage
+    from cilium_tpu_torch.service import lb_stage, lb_stage_plain
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    recs = {}
+    for name, (t, hdr) in cases.items():
+        def fn(t=t, hdr=hdr):
+            return launch_lb_stage(t, hdr)
+
+        got = lb_stage(t, hdr)
+        out = digest(*got)
+        rec = {"rows": int(hdr.shape[0]),
+               "v4_rows": int((hdr[:, COL_FAMILY] == 4).sum()),
+               "frontends": int(t.svc_port.shape[0]),
+               "have_backend": int(got[1].sum()),
+               "no_backend": int(got[2].sum()),
+               "inputs": digest(hdr, t.svc_ip, t.svc_port, t.svc_proto,
+                                t.maglev),
+               "ms": cs.device_ms(fn, REPS), "out": out,
+               "plain_equal": out == digest(*lb_stage_plain(t, hdr)),
+               "repeat_equal": out == digest(*lb_stage(t, hdr)),
+               "ops_a_call": ops_a_call(lambda fn=fn: fn),
+               "by_kernel": profiled_or_short(fn)}
+        recs[name] = rec
+        print(f"[{label}] K15 {name}: {rec['ms']:.4f} ms (events); "
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs")))
+        print(f"[{label}]   " + ", ".join(
+            f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+            for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def k2_calls(cases) -> dict:
+    """{case: (call, None, digest of a call's output, None)} for K2."""
+    from cilium_tpu_torch.kernels import launch_lpm_lookup
+
+    calls = {}
+    for name, (t, w, f) in cases.items():
+        def call(t=t, w=w, f=f):
+            return launch_lpm_lookup(t, w, f)
+
+        calls[name] = (call, None, lambda call=call: digest(call()),
+                       lambda: None)
+    return calls
+
+
+def k15_calls(cases) -> dict:
+    """{case: (call, None, digest of a call's outputs, None)} for K15."""
+    from cilium_tpu_torch.kernels import launch_lb_stage
+
+    calls = {}
+    for name, (t, hdr) in cases.items():
+        def call(t=t, hdr=hdr):
+            return launch_lb_stage(t, hdr)
+
+        calls[name] = (call, None, lambda call=call: digest(*call()),
+                       lambda: None)
+    return calls
+
+
 def run_grids(tree: Path, label: str, which: str, recs: dict,
               calls: dict) -> dict:
     """Each grid variant of ``which`` (built from ``tree``'s source, out
@@ -2000,7 +2274,9 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
         ["l7"] if "k9" in kernels else []) + (
         ["ring"] if kernels & {"k5", "k6"} else []) + (
         ["conntrack"] if "k8" in kernels else []) + (
-        ["socklb"] if "k17" in kernels else [])
+        ["socklb"] if "k17" in kernels else []) + (
+        ["lpm"] if "k2" in kernels else []) + (
+        ["lb"] if "k15" in kernels else [])
     if kernels & {"k11", "k13", "k16", "k12", "k7"}:  # the daemons run
         sources = list(build.SOURCES)  # every kernel
     t0 = time.monotonic()
@@ -2011,7 +2287,8 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
                      for n in sources},
            "k1": {}, "k4": {}, "k20": {}, "k9": {}, "k18": {}, "k19": {},
            "k22": {}, "k5": {}, "k17": {}, "k11": {}, "k13": {},
-           "k16": {}, "k12": {}, "k7": {}, "k6": {}, "k8": {}}
+           "k16": {}, "k12": {}, "k7": {}, "k6": {}, "k8": {}, "k2": {},
+           "k15": {}}
     rng = np.random.default_rng(SEED)
     world = fx.build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
                            device="cpu")
@@ -2058,8 +2335,16 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
     if "k8" in kernels:
         k8_all = k8_cases(np.random.default_rng(SEED + 8))
         res["k8"] = run_k8(label, k8_all)
-    if "--grids" in flags:
+    if "k15" in kernels:
+        k15_all = k15_cases(world, np.random.default_rng(SEED + 15))
+        res["k15"] = run_k15(label, k15_all)
+    if "--layouts" in flags:
         res["grids"] = {}
+        if "k15" in kernels:
+            res["grids"]["k15"] = run_grids(tree, label, "k15_layout",
+                                            res["k15"], k15_calls(k15_all))
+    if "--grids" in flags:
+        res.setdefault("grids", {})
         if "k17" in kernels:
             res["grids"]["k17"] = run_grids(tree, label, "k17_grid", res["k17"],
                                             k17_lb_calls(k17_t, k17_cases))
@@ -2081,8 +2366,22 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
         if "k8" in kernels:
             res["grids"]["k8"] = run_grids(tree, label, "k8_grid",
                                            res["k8"], k8_calls(k8_all))
-    if "k1k4" not in kernels:
+    def last_k2_and_save():
+        # K2 last: after the parent's 43 ms profiler window (the larger
+        # TCAM) every later window came back two events short
+        if "k2" in kernels:
+            k2_all, res["k2_build_ms"] = k2_cases(
+                world, np.random.default_rng(SEED + 2))
+            res["k2"] = run_k2(label, k2_all)
+            print(f"[{label}] K2 DeviceLPM.from_tensors host ms: "
+                  f"{res['k2_build_ms']}")
+            if "--layouts" in flags:
+                res.setdefault("grids", {})["k2"] = run_grids(
+                    tree, label, "k2_groups", res["k2"], k2_calls(k2_all))
         return save(label, res)
+
+    if "k1k4" not in kernels:
+        return last_k2_and_save()
     has_stats = "stats" in inspect.signature(ct.ct_update_plain).parameters
     has_scratch = "scratch" in inspect.signature(launch_ct_update).parameters
 
@@ -2264,7 +2563,7 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
                   + ", ".join(f"{k} {v:.4f}" for k, v in rec.items()
                               if k != "ptxas")
                   + f" ms; ptxas {rec['ptxas']}")
-    return save(label, res)
+    return last_k2_and_save()
 
 
 def save(label, res) -> dict:
@@ -2319,7 +2618,8 @@ def main() -> int:
     for later in runs[1:]:
         first = runs[0]
         for kern in ("k1", "k4", "k20", "k9", "k18", "k19", "k22", "k5",
-                     "k17", "k11", "k13", "k16", "k12", "k7", "k6", "k8"):
+                     "k17", "k11", "k13", "k16", "k12", "k7", "k6", "k8",
+                     "k2", "k15"):
             for case, rec in later[kern].items():
                 want = first[kern].get(case, {})
                 for field in ("out", "inputs", "ct", "scores", "k12"):
@@ -2340,7 +2640,8 @@ def main() -> int:
                                                   "k19", "k22", "k5",
                                                   "k17", "k11", "k13",
                                                   "k16", "k12", "k7",
-                                                  "k6", "k8",
+                                                  "k6", "k8", "k2",
+                                                  "k2_build_ms", "k15",
                                                   "profiler_short")
                                 if k in r} for r in runs]}))
     return 0

@@ -794,6 +794,111 @@ def _lb_world(n=512, n_v6=64, m=4093):
     return mgr, clients, others
 
 
+def _lpm_case(case, rng, n):
+    """K2's inputs at a small size: (LPM tensors on the card, [n, 4]
+    words, [n] families).  "mixed": 20% v6 on 16 /128 pods (30% of them
+    outside 2001:db8::/32, only ::/0 holds them), the rest v4 on /32
+    pods or random; "all-v4", "all-v6"; "big-tcam": 1024 /128s, 64 /64s
+    and 16 /48s with misses inside each; "no-v6-table": the v6 rows all
+    take the default; "hand-built": non-prefix masks, a net with bits
+    outside its mask, a plen of -1, a key under two plens and two masks
+    of one top plen; "many-groups": every prefix length 0-128 (more
+    masks than a block stages)."""
+    import ipaddress
+
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import ip_to_words
+    from cilium_tpu_torch.datapath.lpm import (DeviceLPM, LPMTensors,
+                                               compile_lpm)
+
+    pods = [f"10.0.{i // 250}.{i % 250 + 1}" for i in range(512)]
+    ent = {f"{p}/32": 10 + i for i, p in enumerate(pods)}
+    ent["10.0.0.0/8"] = 3
+    v6 = [f"2001:db8::{i + 1:x}" for i in range(16)]
+    if case == "big-tcam":
+        v6 = [f"2001:db8:{i % 16:x}:{i % 64 + 1:x}::{i + 1:x}"
+              for i in range(1024)]
+        for k in range(16):
+            ent[f"2001:db8:{k:x}::/48"] = 900 + k
+        for j in range(64):
+            ent[f"2001:db8:{j % 16:x}:{j + 1:x}::/64"] = 950 + j
+    if case == "many-groups":
+        for p in range(1, 128):
+            net = ipaddress.ip_network(f"2001:db8::1/{p}", strict=False)
+            ent[str(net)] = 1000 + p
+    if case != "no-v6-table":
+        ent.update({f"{a}/128": 600 + i for i, a in enumerate(v6)})
+        ent["::/0"] = 2
+    if case == "hand-built":
+        f = 0xFFFFFFFF
+        lt = compile_lpm(ent)
+        extra = [([0x20010DB8, 0, 0, 7], [f, 0, 0, 0xF], 71, 100),
+                 ([0x20010DB8, 0, 1, 0], [f, 0, 0, 0], 72, 128),
+                 ([0x20010DB8, 0, 0, 0], [f, 0, 0, 0], 73, -1),
+                 ([0x20010DB8, 0, 0, 0], [f, 0xFFFF0000, 0, 0], 74, 120),
+                 ([0x20010DB8, 0, 0, 0], [f, 0, 0, 0], 75, 120),
+                 ([0x20010DB8, 0, 0, 0], [f, 0, 0, 0], 76, 120)]
+        net, mask, value, plen = zip(*extra)
+        lt = LPMTensors(
+            l1=lt.l1, l2=lt.l2, l3=lt.l3,
+            v6_net=np.concatenate([np.array(net, np.uint32), lt.v6_net]),
+            v6_mask=np.concatenate([np.array(mask, np.uint32),
+                                    lt.v6_mask]),
+            v6_value=np.concatenate([np.array(value, np.int32),
+                                     lt.v6_value]),
+            v6_plen=np.concatenate([np.array(plen, np.int32), lt.v6_plen]),
+            default=lt.default)
+    else:
+        lt = compile_lpm(ent, default=1)
+    words = np.zeros((n, 4), np.uint32)
+    words[:, 3] = np.where(
+        rng.random(n) < 0.7,
+        rng.choice([int(ipaddress.IPv4Address(p)) for p in pods], n),
+        rng.integers(0, 1 << 32, n, dtype=np.uint64))
+    frac = {"all-v4": 0.0, "all-v6": 1.0}.get(case, 0.2)
+    six = rng.random(n) < frac
+    v6w = np.array([ip_to_words(a) for a in v6], np.uint32)
+    words[six] = v6w[rng.integers(0, len(v6w), int(six.sum()))]
+    miss = six & (rng.random(n) < 0.3)
+    words[miss, 3] ^= rng.integers(1, 1 << 32, int(miss.sum()),
+                                   dtype=np.uint64).astype(np.uint32)
+    words[miss & (rng.random(n) < 0.3), 0] = 0x20020000
+    words[miss & (rng.random(n) < 0.3), 1] ^= 0x00100000
+    fam = np.where(six, 6, 4).astype(np.uint32)
+    return (DeviceLPM.from_tensors(lt, "cuda"), u32.from_numpy(words, "cuda"),
+            u32.from_numpy(fam, "cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["mixed", "all-v4", "all-v6", "big-tcam",
+                                  "no-v6-table", "hand-built",
+                                  "many-groups"])
+def test_lpm_lookup_is_one_kernel_matching_its_plain_version(case):
+    """K2, one kernel and one graph node a call, through the host-built
+    v6 index, against its plain version (the TCAM scan) on the same CUDA
+    tensors at 1, 300 and 2^14 addresses: the step-0 cases at a small
+    size, hand-built masks and more masks than a block stages in shared
+    memory."""
+    _need_card()
+    from cilium_tpu_torch.datapath.lpm import lpm_lookup, lpm_lookup_plain
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    rng = np.random.default_rng(67)
+    reset_launch_counts()
+    for n in (1, 300, 1 << 14):
+        t, w, f = _lpm_case(case, rng, n)
+        got, want = lpm_lookup(t, w, f), lpm_lookup_plain(t, w, f)
+        assert torch.equal(got, want), n
+    if case == "no-v6-table":
+        assert t.v6_groups.shape[0] == 0
+        assert bool((got[f == 6] == t.default).all())
+    if case == "many-groups":
+        assert t.v6_groups.shape[0] > 64
+    assert KERNELS["lpm_lookup"].launches == 3
+    _one_kernel(lambda: functools.partial(lpm_lookup, t, w, f),
+                "lpm_lookup_kernel")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", ["lb_stage", "lb6_stage", "socklb_stage"])
 def test_lb_kernels_match_their_plain_versions(case):
@@ -821,13 +926,29 @@ def test_lb_kernels_match_their_plain_versions(case):
         kernel, plain, t = ((lb_stage, lb_stage_plain, mgr.tensors())
                             if case == "lb_stage" else
                             (lb6_stage, lb6_stage_plain, mgr.tensors6()))
-        for n in (1, 300, 8192):
-            rows = sv.rows(rng, n, 512, clients, others, v6_frac=0.3,
+        # K15 also on batches with no row to a VIP, with every row to one
+        # and with every row to the VIP:port two names share
+        batches = [(n, 0.5) for n in (1, 300, 8192)] + (
+            [(8192, 0.0), (8192, 1.0), (8192, "shared")]
+            if case == "lb_stage" else [])
+        for n, vip_frac in batches:
+            rows = sv.rows(rng, n, 512, clients, others,
+                           vip_frac=1.0 if vip_frac == "shared" else vip_frac,
+                           v6_frac=0.3 if vip_frac == 0.5 else 0.0,
                            n_v6=64)
+            if vip_frac == "shared":
+                rows[:, 7], rows[:, 9], rows[:, 10] = sv.VIP4 + 3, 443, 6
             rows[: n // 8, 3] |= 0x80000000  # sources above 2^31
             hdr = u32.from_numpy(rows, "cuda")
-            for got, want in zip(kernel(t, hdr), plain(t, hdr)):
-                assert torch.equal(got, want)
+            got = kernel(t, hdr)
+            for g, w in zip(got, plain(t, hdr)):
+                assert torch.equal(g, w), (n, vip_frac)
+            if vip_frac == "shared":  # one frontend's backends for all
+                assert bool(got[1].all())
+                assert len(set(got[0][:, 7].tolist())) <= 2
+        if case == "lb_stage":
+            _one_kernel(lambda: functools.partial(lb_stage, t, hdr),
+                        "lb_stage_kernel")
     else:
         def clone(tbl):
             return sl.SockLBTable(tbl.table.clone(), tbl.fp.clone(),
@@ -1877,12 +1998,15 @@ def test_ct_update_stops_where_the_last_pending_row_settles(settle):
 @pytest.mark.parametrize("case", [
     "packed-4096", "packed-65536", "packed-262144", "wide-4096",
     "wide-65536", "wide-262144", "packed-hot", "wide-hot",
-    "packed-sharded", "wide-sharded"])
+    "packed-sharded", "wide-sharded", "wide-tcam"])
 def test_verdict_kernel_matches_its_plain_version(case):
     """K1 (packed, and wide with every channel and audit) and K1s over 8
     shards against the plain verdict stage on the card: out rows, the
     ct_update hand-off and the metrics bit-exact, at 4096, 2^16 and
-    2^18 rows, and with every row in one hot metrics cell."""
+    2^18 rows, and with every row in one hot metrics cell; wide rows
+    with IPv6 also against a TCAM of 90 prefix lengths (its v6 index
+    probed a group at a time), a third of them on addresses no /128
+    holds."""
     _need_card()
     from cilium_tpu_torch import u32
     from cilium_tpu_torch.core.packets import pack_eligibility, unpack_hdr
@@ -1894,9 +2018,12 @@ def test_verdict_kernel_matches_its_plain_version(case):
 
     kind, size = case.split("-")
     shards = 8 if size == "sharded" else 1
-    n = {"hot": 1 << 16, "sharded": 1 << 16}.get(size) or int(size)
+    n = {"hot": 1 << 16, "sharded": 1 << 16, "tcam": 1 << 16}.get(
+        size) or int(size)
     w = tfix.build_world(256, 8, ct_capacity=1 << 16, n_v6=16,
                          device="cuda")
+    if size == "tcam":
+        w.state.ipcache = _deep_tcam(w)
     rng = np.random.default_rng(61)
     st, now = w.state, 100
     pool, hdr, routed, valid = _verdict_inputs(
@@ -1910,6 +2037,10 @@ def test_verdict_kernel_matches_its_plain_version(case):
     if kind == "wide" and shards == 1 and size != "hot":
         wpool = tfix.wide_flow_pool(w, 512, rng)
         hdr = tfix.wide_traffic(wpool, n, rng)  # IPv6, ICMP errors
+        if size == "tcam":  # v6 rows off every /128: deeper probes
+            six = np.flatnonzero(hdr[:, 13] == 6)[::3]
+            hdr[six, 3] += 0x1000
+            hdr[six, 7] += 0x1000
     ep = dirn = None
     rows = hdr if routed is None else routed
     if kind == "packed":
@@ -1949,6 +2080,25 @@ def test_verdict_kernel_matches_its_plain_version(case):
     if size == "hot":
         added = (u32.widen(mk) - u32.widen(m)).flatten()
         assert int((added != 0).sum()) == 1 and int(added.sum()) == n
+
+
+def _deep_tcam(w):
+    """``w``'s ipcache with the v6 TCAM deepened: the network of
+    2001:db8::1 at every prefix length from 40 to 127 (88 more masks,
+    each on a row of the world), so that a v6 address off every /128
+    probes group after group."""
+    import ipaddress
+
+    from cilium_tpu_torch.datapath.lpm import DeviceLPM, compile_lpm
+
+    ent = {c: w.row_map.row(i) for c, i in w.ipcache.items()}
+    rows = sorted(set(ent.values()))
+    for k, p in enumerate(range(40, 128)):
+        net = ipaddress.ip_network(f"2001:db8::1/{p}", strict=False)
+        ent[str(net)] = rows[k % len(rows)]
+    t = DeviceLPM.from_tensors(compile_lpm(ent), "cuda")
+    assert t.v6_groups.shape[0] == 90
+    return t
 
 
 def _one_kernel(prepare, name):

@@ -27,9 +27,9 @@ from cilium_tpu_torch.core.packets import (COL_DPORT, COL_DST_IP0,
                                            COL_PROTO, COL_SPORT,
                                            COL_SRC_IP0, COL_SRC_IP3, N_COLS)
 from cilium_tpu_torch.k8s.watchers import ServiceWatcher
-from cilium_tpu_torch.service import (M_DEFAULT, ServiceManager, lb6_index,
-                                      lb6_index_hash, lb6_stage, lb_stage,
-                                      maglev_table)
+from cilium_tpu_torch.service import (M_DEFAULT, ServiceManager, lb4_index,
+                                      lb6_index, lb6_index_hash, lb6_stage,
+                                      lb_stage, maglev_table)
 
 torch.set_num_threads(1)
 
@@ -378,6 +378,130 @@ def test_lb6_tensors_from_jax_carry_the_index_and_match_jax(seed):
         assert svc == _lowest(keys, key)
         hits += svc >= 0
     assert hits and got[1].any()
+
+
+def _probe4(index, ip, port, proto):
+    """K15's probe (``csrc/lb.cuh`` ``lb_find4``) over a host copy of the
+    v4 index: from the key's home (``lb6_index_hash`` with the address in
+    word 3), the frontend of the first slot holding the key, -1 at an
+    empty slot."""
+    mask = len(index) - 1
+    u = index.view(np.uint32)
+    key = np.array([[0, 0, 0, ip, port, proto]], np.uint32)
+    h = int(lb6_index_hash(key)[0]) & mask
+    while index[h, 3] >= 0:
+        if (u[h, :3] == (ip, port, proto)).all():
+            return int(index[h, 3])
+        h = (h + 1) & mask
+    return -1
+
+
+def _v4_keys(case, rng):
+    """[S, 3] u32 v4 frontend keys (address, port, protocol)."""
+    if case != "crowded":
+        return np.ascontiguousarray(_index_keys(case, rng)[:, 3:])
+    # 64 keys whose home is one of the last two of the 128 slots
+    k = np.concatenate([_index_keys("random", rng) for _ in range(80)])
+    k[:, :3] = 0
+    home = lb6_index_hash(k) & np.uint32(127)
+    return np.ascontiguousarray(k[home >= 126][:64, 3:])
+
+
+@pytest.mark.parametrize("case", ["random", "duplicates", "one-vip",
+                                  "crowded", "none"])
+def test_lb4_index_probe_finds_the_lowest_matching_frontend(case):
+    """The host-built v4 index K15 probes: a power of two of 16-byte
+    slots at least twice the frontends, each distinct key in exactly one
+    slot with its lowest frontend, the rest empty (-1); the probe finds,
+    for every key of the frontends, for near misses (another port,
+    protocol or address) and for random keys, the lowest matching
+    frontend, as a brute-force scan does, or none."""
+    rng = np.random.default_rng(11)
+    keys = _v4_keys(case, rng)
+    s = len(keys)
+    if case == "crowded":
+        assert s == 64
+    index = lb4_index(keys[:, 0], keys[:, 1], keys[:, 2])
+    cap = len(index)
+    assert index.dtype == np.int32 and index.shape[1] == 4
+    assert cap & (cap - 1) == 0 and cap >= max(2, 2 * s)
+    held = index[index[:, 3] >= 0]
+    assert len(held) == len({bytes(k) for k in keys})
+    assert (index[index[:, 3] < 0, :3] == 0).all()
+    for slot in held:
+        assert _lowest(keys, slot[:3].view(np.uint32)) == slot[3]
+    near = keys.copy()
+    if s:
+        near[0::3, 1] += 1
+        near[1::3, 2] ^= 23
+        near[2::3, 0] += 1
+    queries = np.concatenate([keys, near, _v4_keys("random", rng)])
+    found = 0
+    for key in queries:
+        want = _lowest(keys, key)
+        assert _probe4(index, *key.tolist()) == want
+        found += want >= 0
+    assert found >= s
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lb_tensors_from_jax_carry_the_v4_index_and_match_jax(seed):
+    """JAX ``LBTensors`` leaves through ``convert.lb_tensors_from_numpy``
+    get the index the ServiceManager builds (two names share a VIP:port:
+    the lower is indexed); ``lb_stage`` on them matches the JAX package,
+    and the index's probe picks the frontend the plain version's [N, S]
+    compare picks for every v4 row."""
+    from cilium_tpu_torch import convert
+
+    jm, tm = _stage_world()
+    jt = jm.tensors()
+    mine = convert.lb_tensors_from_numpy(
+        {**{f: np.asarray(getattr(jt, f)) for f in V4_FIELDS}, "m": jt.m},
+        device="cpu")
+    assert torch.equal(mine.index, tm.tensors().index)
+    keys = np.stack([u32.to_numpy(mine.svc_ip), u32.to_numpy(mine.svc_port),
+                     u32.to_numpy(mine.svc_proto)], 1)
+    assert len({bytes(k) for k in keys}) < len(keys)  # a shared key
+    rows = _stage_rows(np.random.default_rng(seed))
+    want = lb_stage_jit(jt, jnp.asarray(rows))
+    got = lb_stage(mine, u32.from_numpy(rows, "cpu"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(u32.to_numpy(g) if g.dtype
+                                      == torch.int32 else g.numpy(),
+                                      np.asarray(w))
+    index = mine.index.numpy()
+    hits = 0
+    for i in np.flatnonzero(rows[:, COL_FAMILY] == 4):
+        key = rows[i, [COL_DST_IP3, COL_DPORT, COL_PROTO]]
+        svc = _probe4(index, *key.tolist())
+        assert svc == _lowest(keys, key)
+        hits += svc >= 0
+    assert hits and got[1].any()
+
+
+def test_service_manager_rebuilds_the_v4_index_after_upserts_and_deletes():
+    """Every compile rebuilds the v4 index from the frontends it
+    compiles: after upserts, a shared VIP:port, a port change and
+    deletes, each frontend key's probe finds its lowest frontend and a
+    deleted frontend's key finds none."""
+    tm = ServiceManager(m=M, device="cpu")
+    tm.upsert("a", "172.16.0.10:80", ["10.0.1.1:8080"])
+    tm.upsert("b", "172.16.0.11:53", ["10.0.1.2:53"], protocol=17)
+    tm.upsert("c", "172.16.0.10:80", ["10.0.1.3:8080"])
+    first = tm.tensors()
+    tm.upsert("b", "172.16.0.11:5353", ["10.0.1.2:53"], protocol=17)
+    tm.delete("a")
+    tm.upsert("d", "172.16.0.12:443", [])
+    t = tm.tensors()
+    assert t is not first
+    keys = np.stack([u32.to_numpy(t.svc_ip), u32.to_numpy(t.svc_port),
+                     u32.to_numpy(t.svc_proto)], 1)
+    np.testing.assert_array_equal(
+        t.index.numpy(), lb4_index(keys[:, 0], keys[:, 1], keys[:, 2]))
+    for key in keys:
+        assert _probe4(t.index.numpy(), *key.tolist()) == _lowest(keys, key)
+    assert _probe4(t.index.numpy(), _ip("172.16.0.11"), 53, 17) == -1
+    assert _probe4(first.index.numpy(), _ip("172.16.0.11"), 53, 17) >= 0
 
 
 def test_lb_stage_lowest_name_wins_a_shared_frontend():
