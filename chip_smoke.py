@@ -102,7 +102,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    a call, equals its plain version on the path's own inputs and is
    timed there.  Phase 3 holds K11-K14 against their plain versions at
    these shapes (collision windows, duplicates, a pool run dry, a clock
-   crossing 2^32);
+   crossing 2^32; K14 with and without its CT probe, also on reverse
+   entries behind more than N_CAND of their fingerprint, windows that
+   wrap the CT's end, a clock within 150 of 2^32, no and four
+   non-masquerade networks, rows off a 16-byte boundary, n = 0 and 1),
+   and times K14 both ways;
 12. the service path: phase 11's daemon with 4096 ClusterIP services (2
    backends each among the world's pods, Maglev tables of 16381 slots,
    256 dual-stack over its v6 pods, a 16th with ClientIP affinity, 16
@@ -1033,6 +1037,74 @@ def nat_case(torch, rng, now, n_inbound=8192):
     return t, cti, rows, pods
 
 
+MASQ_EXCLUSIONS = ("10.0.0.0/8", "172.16.0.0/12", "192.168.0.0/16",
+                   "100.64.0.0/10")
+
+
+def masq_edge_cases(rng):
+    """K14's edge inputs at phase 11's shapes (EGRESS_N rows, a CT of
+    CT_CAPACITY slots), in numpy: {case: (non-masquerade CIDRs, rows,
+    (CT table, fingerprints), now)}.  "overflow": 4096 of the pods'
+    replies among egress rows (some toward 172.16.0.0/12 and
+    100.64.0.0/10), their connections' entries crowded by
+    ``testing.egress.crowded_ct`` (most behind N_CAND + 1 or more live
+    entries of their fingerprint, so the probe takes its full-window
+    fallback; some expired, some absent); "wrap": 64 connections whose
+    windows wrap the CT's end (``wrap_inbound``), each reply 16 times;
+    "clock_2^32": overflow's rows on a CT made at 2^32 - 1100 and probed
+    at 2^32 - 150 (its live entries expire at 2^32 - 100); "no_exclusions"
+    and "four_exclusions": overflow's case with no non-masquerade network
+    (one unsatisfiable pad row) and with MASQ_EXCLUSIONS."""
+    import numpy as np
+    from cilium_tpu_torch.core.packets import COL_DST_IP3
+    from cilium_tpu_torch.testing import egress as eg
+
+    pods = eg.pod_ips(256)
+    default = ("10.0.0.0/8",)
+    inbound, replies = eg.inbound_pairs(rng, 4096, pods)
+    mix = eg.egress_rows(rng, EGRESS_N - len(replies), pods, sports=16384)
+    mix[::7, COL_DST_IP3] = eg.ip("172.16.5.5")
+    mix[::11, COL_DST_IP3] = eg.ip("100.64.1.1")
+    rows = np.concatenate([replies, mix])[rng.permutation(EGRESS_N)]
+    now, late = 1000, (1 << 32) - 150
+    crowd = eg.crowded_ct(rng, inbound, now, CT_CAPACITY)
+    wrap_in = eg.wrap_inbound(rng, 64, pods, CT_CAPACITY)
+    wrap_rows = np.concatenate([np.repeat(eg.replies_to(wrap_in), 16, 0),
+                                mix[:EGRESS_N - 1024]])
+    return {
+        "overflow": (default, rows, crowd, now),
+        "wrap": (default, wrap_rows, eg.crowded_ct(
+            rng, wrap_in, now, CT_CAPACITY, crowded=0.1), now),
+        "clock_2^32": (default, rows, eg.crowded_ct(
+            rng, inbound, late - 950, CT_CAPACITY), late),
+        "no_exclusions": ((), rows, crowd, now),
+        "four_exclusions": (MASQ_EXCLUSIONS, rows, crowd, now)}
+
+
+def masq_card_case(torch, cidrs, rows, table_fp, offset=0):
+    """One of ``masq_edge_cases`` on the card: (NAT tensors, CT, rows);
+    ``offset`` > 0 puts the rows ``offset`` words past a 16-byte
+    boundary (a view into a larger buffer)."""
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+
+    t = nat.NATConfig(node_ip=eg.NODE_IP,
+                      non_masquerade_cidrs=cidrs).compile("cuda")
+    cti = ct.CTTable(table=u32.from_numpy(table_fp[0], "cuda"),
+                     fp=u32.from_numpy(table_fp[1], "cuda"),
+                     dropped=torch.zeros((), dtype=torch.int32,
+                                         device="cuda"))
+    hdr = u32.from_numpy(rows, "cuda")
+    if offset:
+        buf = torch.empty(hdr.numel() + offset, dtype=hdr.dtype,
+                          device="cuda")
+        buf[offset:] = hdr.reshape(-1)
+        hdr = buf[offset:].view(hdr.shape)
+    return t, cti, hdr
+
+
 CT_PROBE_OPS = 100  # reverse key, its hash, 16 fingerprint compares
 
 
@@ -1105,6 +1177,7 @@ def phase_egress_kernels(torch, rng, kernels):
 
     import numpy as np
     from cilium_tpu_torch import u32
+    from cilium_tpu_torch.core.packets import COL_DIR, COL_FAMILY
     from cilium_tpu_torch.datapath import bandwidth as bw
     from cilium_tpu_torch.service import nat
     from cilium_tpu_torch.testing import egress as eg
@@ -1158,6 +1231,36 @@ def phase_egress_kernels(torch, rng, kernels):
                 errs["masq_rewrite"],
                 max_abs_err(g[0], w[0], "masq_rewrite rows"),
                 max_abs_err(g[1], w[1], "masq_rewrite mask"))
+
+    # K14 on its edges, with and without the probe: reverse entries past
+    # the fingerprint candidates, windows wrapping the CT's end, a clock
+    # near 2^32, no and four exclusions, rows off a 16-byte boundary,
+    # n = 0 and 1
+    edges = masq_edge_cases(rng)
+    runs = [(name, *c, 0) for name, c in edges.items()]
+    runs.append(("unaligned", *edges["overflow"], 1))
+    o_rows = edges["overflow"][1]
+    first = int(np.flatnonzero((o_rows[:, COL_DIR] == 1)
+                               & (o_rows[:, COL_FAMILY] == 4))[0])
+    runs.append(("n1", *edges["overflow"][:1], o_rows[first:first + 1],
+                 *edges["overflow"][2:], 0))
+    runs.append(("n0", *edges["overflow"][:1], edges["overflow"][1][:0],
+                 *edges["overflow"][2:], 0))
+    kept = {}
+    for name, cidrs, m_rows, table_fp, m_now, offset in runs:
+        t_m, ct_m, hdr_m = masq_card_case(torch, cidrs, m_rows, table_fp,
+                                          offset)
+        for ct_arg in (ct_m, None):
+            g = nat.masq_rewrite(t_m, hdr_m, ct_arg, m_now)
+            w = nat.masq_rewrite_plain(t_m, hdr_m, ct_arg, m_now)
+            errs["masq_rewrite"] = max(
+                errs["masq_rewrite"],
+                max_abs_err(g[0], w[0], f"masq_rewrite {name} rows"),
+                max_abs_err(g[1], w[1], f"masq_rewrite {name} mask"))
+            kept[name] = kept.get(name, 0) + (1 if ct_arg is None
+                                              else -1) * int(w[1].sum())
+    print(f"parity masq_rewrite edges: rows kept by the probe {kept}, "
+          f"bit-exact with and without it")
 
     # K13 over the 4096 buckets: 64 limited endpoints among 256
     eps = list(range(1, 257)) + [5000]
@@ -1216,12 +1319,23 @@ def phase_egress_kernels(torch, rng, kernels):
             clone(after), t, rep, t_now)[0], NAT_POOL),
         ops=EGRESS_N * 40)
     nb, ops = egress_counts(rows, t, found, k11=False)
+    for ct_arg in (cti, None):
+        one_kernel_a_call(lambda: functools.partial(
+            nat.masq_rewrite, t, hdr, ct_arg, t_now), "masq_kernel",
+            "masq_rewrite")
     kernels["masq_rewrite"].update(
         max_abs_err=errs["masq_rewrite"],
         ms=device_ms(lambda: nat.masq_rewrite(t, hdr, cti, t_now), 20),
         plain_ms=device_ms(lambda: nat.masq_rewrite_plain(
             t, hdr, cti, t_now), 3),
         bytes=nb, ops=ops)
+    # snat_stage's call, without the probe: bounded by the rows alone
+    kernels["masq_rewrite"]["no_probe"] = {
+        "ms": device_ms(lambda: nat.masq_rewrite(t, hdr), 20),
+        "plain_ms": device_ms(lambda: nat.masq_rewrite_plain(t, hdr), 3),
+        "bound_ms": bound(len(rows) * 129, len(rows) * 40)[0]}
+    print(f"masq_rewrite without the CT probe: "
+          f"{kernels['masq_rewrite']['no_probe']}")
 
     def fresh_bw():
         return bw.BandwidthState(states[0].tokens.clone(),

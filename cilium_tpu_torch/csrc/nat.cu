@@ -12,7 +12,10 @@
 // (24 B rows, 384 KB at 2^14 slots: it lives in L2), and by the grid
 // barriers between its phases (~1.1-1.4 us each on the H100).  K12 and
 // K14 by one row read and one row written per packet (64 B each), plus
-// K12's slot (24 B) and grid barrier and K14's CT probe.
+// K12's slot (24 B) and grid barrier; K14 by its bytes: the rows' 129 B
+// (the mask byte with them), a candidate's 64 B fingerprint window and
+// a found key's 40 B (0.0035 ms at 2^16 rows of which 4096 find their
+// entry; without the probe the rows alone, 0.0025 ms).
 //
 // K11 design (PR 18; PRs 7-17 launched 20 kernels and a fill a call).
 // The reference awards a contended slot, step by step, to the LOWEST
@@ -86,6 +89,23 @@
 //      again and test the claim word alone.
 // The claim words are the first row of the table's (free between
 // calls): no fill, one graph node a call.
+//
+// K14 design.  A thread a row (MASQ_ROWS) in blocks of MASQ_TPB, at most
+// MASQ_BLOCKS_PER_SM blocks an SM striding over the rows (at 2^16 rows a
+// thread takes two in turn, which measured faster than a thread a row
+// where most rows find their entry), no barrier and no memset: one
+// graph node a call.  The row comes in four 16-byte loads (sixteen word loads where
+// the rows sit off a 16-byte boundary).  The non-masquerade networks,
+// a few words every thread of a warp reads at the same address, come
+// through L1 (read-only loads; staging them in shared memory behind a
+// block barrier measured slower).  A candidate (egress, v4, toward no
+// such network) builds its reverse key and loads its fingerprint window
+// whole (ct_probe_begin), then reads row heads only for the fingerprint
+// matches, as K11 does (reverse_ct_found_fp: the whole window past
+// N_CAND matches).  A miss in a sparse table thus costs one window load,
+// not a chain of 16 dependent row reads.  Word 3 is rewritten in
+// registers; the row goes out in four 16-byte stores, with its mask
+// byte.
 //
 // All compares of expiries and ports are unsigned, as on the reference.
 #include <cooperative_groups.h>
@@ -175,14 +195,26 @@ __device__ __forceinline__ bool in_nets(const NatView& t, uint32_t a) {
   return false;
 }
 
-// A live CT entry for the row's reply tuple: the row answers a
-// connection a remote opened into the node.
-__device__ __forceinline__ bool reverse_ct_found(const CtView& ct,
-                                                 const Hdr& h, uint32_t now) {
-  uint32_t fwd[KEY_WORDS], rev[KEY_WORDS];
-  ct_keys(h.src, h.dst, h.sport, h.dport, h.proto, h.flags, h.dirn, fwd, rev);
+// A live CT entry for the row's reply key `rev` (the row answers a
+// connection a remote opened into the node), probed as K1 probes
+// (conntrack.cuh), from its fingerprint window (`p`, ct_probe_begin):
+// full rows for the first N_CAND fingerprint matches, the whole window
+// when more matched.
+// A live slot's fingerprint is a function of its stored key, so this
+// finds what ct_probe_full finds, through one or two dependent reads
+// instead of up to 16.
+__device__ __forceinline__ bool reverse_ct_found_fp(const CtView& ct,
+                                                    const uint32_t* rev,
+                                                    CtProbe p, uint32_t now) {
+  const uint32_t mask = (uint32_t)ct.capacity - 1u;
+  for (int c = 0; c < N_CAND && p.m; ++c) {
+    uint32_t w[V_EXPIRES + 1];
+    ct_row_head(ct.table, (p.h + (uint32_t)(__ffs(p.m) - 1)) & mask, w);
+    if (ct_head_match(w, rev, now)) return true;
+    p.m &= p.m - 1u;
+  }
   int32_t slot;
-  return ct_probe_full(ct, rev, ct_hash(rev), now, &slot);
+  return p.n > N_CAND && ct_probe_full(ct, rev, p.h, now, &slot);
 }
 
 // FNV-1a over the four key words (service/nat.py _nat_hash).
@@ -234,27 +266,6 @@ __device__ __forceinline__ uint32_t nat_lifetime(uint32_t proto) {
 constexpr int C_TAIL = NAT_PROBE + 1;
 constexpr int C_WORDS = STAMP_AT + STAMPS;
 constexpr int NAT_MAX_BLOCKS = 1024;  // block words in `counts`
-
-// A live CT entry for the row's reply key `rev`, probed as K1 probes
-// (conntrack.cuh), from its fingerprint window (`p`, ct_probe_begin):
-// full rows for the first N_CAND fingerprint matches, the whole window
-// when more matched.
-// A live slot's fingerprint is a function of its stored key, so this
-// finds what ct_probe_full finds, through one or two dependent reads
-// instead of up to 16.
-__device__ __forceinline__ bool reverse_ct_found_fp(const CtView& ct,
-                                                    const uint32_t* rev,
-                                                    CtProbe p, uint32_t now) {
-  const uint32_t mask = (uint32_t)ct.capacity - 1u;
-  for (int c = 0; c < N_CAND && p.m; ++c) {
-    uint32_t w[V_EXPIRES + 1];
-    ct_row_head(ct.table, (p.h + (uint32_t)(__ffs(p.m) - 1)) & mask, w);
-    if (ct_head_match(w, rev, now)) return true;
-    p.m &= p.m - 1u;
-  }
-  int32_t slot;
-  return p.n > N_CAND && ct_probe_full(ct, rev, p.h, now, &slot);
-}
 
 // Row i's out row: the source IP rewritten to the rule's or mapping's IP
 // when masqueraded, the source port to the slot's node port when
@@ -862,14 +873,90 @@ int rev_max_blocks(int dev) {
 
 // --- K14 ---------------------------------------------------------------
 
-__global__ void masq_kernel(MasqIO io, NatView t, CtView ct) {
-  int32_t i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n) return;
-  Hdr h = load_hdr(io.rows, i);
-  bool masq = h.dirn == 1 && h.fam == 4 && !in_nets(t, h.dst[3]);
-  if (masq && io.probe) masq = !reverse_ct_found(ct, h, io.now);
-  store_row(io.rows, io.out, i, 3, masq ? t.node_ip : h.src[3], h.sport);
-  io.masq[i] = masq;
+// K14: its block, the rows a thread takes at once (their loads and
+// probes in flight together) and at most this many blocks an SM
+constexpr int MASQ_TPB = 128;
+constexpr int MASQ_ROWS = 1;
+constexpr int MASQ_BLOCKS_PER_SM = 2;
+
+// Row i's 16 words: four 16-byte loads, or word loads where the rows
+// sit off a 16-byte boundary (`vec` false).
+__device__ __forceinline__ void masq_load(const uint32_t* rows, bool vec,
+                                          int32_t i, uint4 w[4]) {
+  const uint32_t* r = rows + (size_t)i * N_COLS;
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      w[q] = __ldg(reinterpret_cast<const uint4*>(r) + q);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      w[q] = make_uint4(__ldg(r + 4 * q), __ldg(r + 4 * q + 1),
+                        __ldg(r + 4 * q + 2), __ldg(r + 4 * q + 3));
+  }
+}
+
+// Whether a non-masquerade network holds `a` (every lane reads the same
+// words: one L1 broadcast a load).
+__device__ __forceinline__ bool masq_in_nets(const NatView& t, uint32_t a) {
+  bool in = false;
+  for (int k = 0; k < t.k; ++k)
+    in |= (a & __ldg(&t.mask[k])) == __ldg(&t.net[k]);
+  return in;
+}
+
+// R rows a thread at once: rows b + q * (grid threads), q < R, then the
+// next R * (grid threads) on.
+template <int R>
+__global__ void __launch_bounds__(MASQ_TPB)
+    masq_kernel(MasqIO io, NatView t, CtView ct) {
+  const int32_t stride = gridDim.x * MASQ_TPB;
+  const bool vec = (reinterpret_cast<uintptr_t>(io.rows) & 15u) == 0;
+  int32_t b = blockIdx.x * MASQ_TPB + threadIdx.x;
+  uint4 w[R][4];
+#pragma unroll
+  for (int q = 0; q < R; ++q)
+    if (b + q * stride < io.n) masq_load(io.rows, vec, b + q * stride, w[q]);
+  for (;;) {
+    bool masq[R];
+    uint32_t rev[R][KEY_WORDS];
+    CtProbe p[R];
+    // every candidate's fingerprint window in flight before any row head
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      // egress (word 15), v4 (word 13), toward no such network (word 7)
+      masq[q] = b + q * stride < io.n && w[q][3].w == 1 &&
+                w[q][3].y == 4 && !masq_in_nets(t, w[q][1].w);
+      if (masq[q] && io.probe) {
+        const uint32_t src[4] = {w[q][0].x, w[q][0].y, w[q][0].z, w[q][0].w};
+        const uint32_t dst[4] = {w[q][1].x, w[q][1].y, w[q][1].z, w[q][1].w};
+        uint32_t fwd[KEY_WORDS];
+        ct_keys(src, dst, w[q][2].x, w[q][2].y, w[q][2].z, w[q][2].w,
+                w[q][3].w, fwd, rev[q]);
+        p[q] = ct_probe_begin(ct, rev[q]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (masq[q] && io.probe)
+        masq[q] = !reverse_ct_found_fp(ct, rev[q], p[q], io.now);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int32_t i = b + q * stride;
+      if (i >= io.n) continue;
+      if (masq[q]) w[q][0].w = t.node_ip;
+      uint4* o = reinterpret_cast<uint4*>(io.out + (size_t)i * N_COLS);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) o[k] = w[q][k];
+      io.masq[i] = masq[q];
+    }
+    b += R * stride;
+    if (b >= io.n) return;
+#pragma unroll
+    for (int q = 0; q < R; ++q)
+      if (b + q * stride < io.n)
+        masq_load(io.rows, vec, b + q * stride, w[q]);
+  }
 }
 
 inline int blocks_for(int32_t n) { return (n + TPB - 1) / TPB; }
@@ -919,8 +1006,14 @@ extern "C" int masq_rewrite_launch(const MasqIO* io, const NatView* t,
                                    const CtView* ct, cudaStream_t stream) {
   if (io->n > 0) {
     CtView none{};
-    masq_kernel<<<blocks_for(io->n), TPB, 0, stream>>>(*io, *t,
-                                                       ct ? *ct : none);
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int64_t per_block = (int64_t)MASQ_TPB * MASQ_ROWS;
+    const int64_t want = (io->n + per_block - 1) / per_block;
+    const int64_t most = (int64_t)MASQ_BLOCKS_PER_SM * (sms > 0 ? sms : 1);
+    masq_kernel<MASQ_ROWS><<<(int)(want < most ? want : most), MASQ_TPB, 0,
+                             stream>>>(*io, *t, ct ? *ct : none);
   }
   return (int)cudaGetLastError();
 }

@@ -203,7 +203,7 @@ struct SnatRevIO {
 // apply_masquerade with the CT probe, service/nat.py snat_stage
 // without).
 struct MasqIO {
-  const uint32_t* rows;  // [n, 16], 16-byte aligned
+  const uint32_t* rows;  // [n, 16] (16-byte aligned: vector loads)
   uint32_t* out;         // [n, 16]
   bool* masq;            // [n]
   int32_t n;

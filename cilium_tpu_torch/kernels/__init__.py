@@ -695,13 +695,17 @@ def launch_snat_reverse(tbl, t, hdr: torch.Tensor, now: int,
 
 
 def launch_masq_rewrite(t, hdr: torch.Tensor, ct, now: int):
-    """K14: the stateless masquerade over wide [N, 16] rows, with the
-    reverse-CT probe when ``ct`` is given.  Returns (rows, [N] bool)."""
+    """K14: the stateless masquerade over wide [N, 16] rows (16-byte
+    loads where they start on a 16-byte boundary, word loads where not),
+    with the reverse-CT probe when ``ct`` is given.  One kernel a call.
+    Returns (rows, [N] bool)."""
     dev, n = hdr.device, hdr.shape[0]
     out = torch.empty((n, N_COLS), dtype=I32, device=dev)
     masq = torch.empty(n, dtype=BOOL, device=dev)
+    if n == 0:
+        return out, masq
     io = abi.MasqIO(
-        rows=_ptr(hdr, I32, dev, (n, N_COLS), align=16, name="rows"),
+        rows=_ptr(hdr, I32, dev, (n, N_COLS), name="rows"),
         out=out.data_ptr(), masq=masq.data_ptr(), n=n,
         now=int(now) & MASK, probe=int(ct is not None))
     view = nat_view(t, dev)

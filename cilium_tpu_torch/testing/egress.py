@@ -6,9 +6,10 @@ pods to the world and inside the cluster, v6, ICMP, SCTP, ingress rows,
 repeats of one flow in a batch, flows crafted to hash into one claim
 window, replies to allocated node ports (and to the wrong IP, with a
 forged protocol word), and inbound connections whose reverse CT entries
-make the pods' replies keep their source.  ``tests/test_torch_gpu.py``
-and ``chip_smoke.py`` feed the same rows to a kernel and to its plain
-version.
+make the pods' replies keep their source (also behind crowds of entries
+of their fingerprint, and in windows that wrap the table's end).
+``tests/test_torch_gpu.py`` and ``chip_smoke.py`` feed the same rows to
+a kernel and to its plain version.
 """
 
 from __future__ import annotations
@@ -112,13 +113,104 @@ def inbound_pairs(rng: np.random.Generator, n: int, pods: np.ndarray
     inbound[:, COL_DPORT], inbound[:, COL_PROTO] = 80, 6
     inbound[:, COL_FLAGS], inbound[:, COL_FAMILY] = TCP_SYN, 4
     inbound[:, COL_LEN] = 60
+    return inbound, replies_to(inbound)
+
+
+def replies_to(inbound: np.ndarray) -> np.ndarray:
+    """The pods' egress replies to ``inbound`` connections (port 80):
+    each reply's reverse CT key is its connection's forward key."""
     replies = inbound.copy()
     replies[:, COL_SRC_IP3] = inbound[:, COL_DST_IP3]
     replies[:, COL_DST_IP3] = inbound[:, COL_SRC_IP3]
     replies[:, COL_SPORT] = 80
     replies[:, COL_DPORT] = inbound[:, COL_SPORT]
     replies[:, COL_FLAGS], replies[:, COL_DIR] = TCP_ACK, 1
-    return inbound, replies
+    return replies
+
+
+def _forward_keys(rows: np.ndarray) -> np.ndarray:
+    """[N, KEY_WORDS] forward CT keys of header rows."""
+    from .. import u32
+    from ..datapath import conntrack as ct
+
+    return u32.to_numpy(ct.ct_keys_from_headers(u32.from_numpy(rows,
+                                                               "cpu"))[0])
+
+
+def wrap_inbound(rng: np.random.Generator, n: int, pods: np.ndarray,
+                 capacity: int) -> np.ndarray:
+    """n inbound connections from the world into ``pods`` on port 80
+    whose forward key homes in the last N_PROBE - 1 slots of a
+    ``capacity``-slot CT, so that its probe window wraps the table's
+    end (the remote ports searched, a (remote, pod) pair at a time)."""
+    from ..datapath.conntrack import N_PROBE, _hash_np
+
+    world = np.array([ip(x) for x in WORLD], np.uint32)
+    found, got = [], 0
+    while got < n:
+        rows = np.zeros((64512, N_COLS), np.uint32)
+        rows[:, COL_SRC_IP3] = rng.choice(world)
+        rows[:, COL_DST_IP3] = rng.choice(pods)
+        rows[:, COL_SPORT] = np.arange(1024, 65536, dtype=np.uint32)
+        rows[:, COL_DPORT], rows[:, COL_PROTO] = 80, 6
+        rows[:, COL_FLAGS], rows[:, COL_FAMILY] = TCP_SYN, 4
+        rows[:, COL_LEN] = 60
+        home = _hash_np(_forward_keys(rows)) & np.uint32(capacity - 1)
+        rows = rows[home >= capacity - (N_PROBE - 1)]
+        found.append(rows)
+        got += len(rows)
+    return np.concatenate(found)[:n]
+
+
+def crowded_ct(rng: np.random.Generator, inbound: np.ndarray, now: int,
+               capacity: int, crowded: float = 0.75
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """A CT table (table, fingerprints) of ``capacity`` slots whose
+    windows the ``inbound`` connections' forward keys crowd.  Each key
+    in turn takes the free slots of its window in window order: a
+    ``crowded`` share first fill N_CAND + 1 to N_PROBE - 2 of them with
+    live entries of other keys that share its fingerprint (a probe
+    filtered by fingerprint then passes its candidate budget), then
+    hold the key live, expired (now - 1) or not at all, a third each;
+    the rest hold it live, or expired one time in four.  A key whose
+    window has too few free slots left is not placed.  Every slot keeps
+    the invariant the kernels' probes rest on: its fingerprint is
+    nonzero, and its key's, exactly where its state is not ST_FREE."""
+    from ..datapath.conntrack import (KEY_WORDS, N_CAND, N_PROBE,
+                                      ROW_WORDS, ST_ESTABLISHED, V_EXPIRES,
+                                      V_STATE, _fp_mix_np, _hash_np)
+
+    keys = _forward_keys(inbound)
+    h = _hash_np(keys)
+    kfp = _fp_mix_np(h)
+    others = rng.integers(0, 1 << 32, (1 << 16, KEY_WORDS),
+                          dtype=np.uint64).astype(np.uint32)
+    ofp = _fp_mix_np(_hash_np(others))
+    table = np.zeros((capacity, ROW_WORDS), np.uint32)
+    fp = np.zeros(capacity, np.uint32)
+
+    def put(s, key, f, expires):
+        table[s, :KEY_WORDS] = key
+        table[s, V_STATE] = ST_ESTABLISHED
+        table[s, V_EXPIRES] = expires & 0xFFFFFFFF
+        fp[s] = f
+
+    live, dead = now + 1000, now - 1
+    for j in range(len(keys)):
+        win = (h[j] + np.arange(N_PROBE, dtype=np.uint32)) & np.uint32(
+            capacity - 1)
+        free = win[fp[win] == 0]
+        crowd = rng.random() < crowded
+        c = int(rng.integers(N_CAND + 1, N_PROBE - 1)) if crowd else 0
+        if len(free) < c + 1:
+            continue
+        same = others[ofp == kfp[j]]
+        for q in range(c):
+            put(free[q], same[rng.integers(len(same))], kfp[j], live)
+        kind = int(rng.integers(3)) if crowd else int(rng.random() < 0.25)
+        if kind < 2:
+            put(free[c], keys[j], kfp[j], dead if kind else live)
+    return table, fp
 
 
 def reply_rows(rng: np.random.Generator, out: np.ndarray, n: int,
@@ -170,12 +262,10 @@ def inbound_ct(inbound: np.ndarray, now: int, capacity: int
     """A CT table (table, fingerprints) of ``capacity`` slots holding the
     forward entries of the ``inbound`` rows, established and live until
     ``now + 1000``."""
-    from .. import u32
     from ..datapath import conntrack as ct
 
-    fwd, _rev = ct.ct_keys_from_headers(u32.from_numpy(inbound, "cpu"))
     rows = np.zeros((len(inbound), ct.ROW_WORDS), np.uint32)
-    rows[:, :ct.KEY_WORDS] = u32.to_numpy(fwd)
+    rows[:, :ct.KEY_WORDS] = _forward_keys(inbound)
     rows[:, ct.V_STATE] = ct.ST_ESTABLISHED
     rows[:, ct.V_EXPIRES] = (now + 1000) & 0xFFFFFFFF
     table, _dropped = ct.ct_table_from_rows(rows, capacity)

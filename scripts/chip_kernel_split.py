@@ -6,13 +6,14 @@
 ``ring_append`` (and K5s), K17 ``socklb_stage``, K11 ``snat_egress``
 (with K12 ``snat_reverse`` after it), K13 ``bw_stage``, K16
 ``lb6_stage``, K12, K7 ``ct_gc``, K6 ``ring_gather``, K8
-``ct_occupied``, K2 ``lpm_lookup`` and K15 ``lb_stage`` at the shapes
-the main paths launch them (K2 and K15: the shapes ``chip_smoke.py``
-holds them at), for one or more checkouts of this repository.
+``ct_occupied``, K2 ``lpm_lookup``, K15 ``lb_stage`` and K14
+``masq_rewrite`` at the shapes the main paths launch them (K2, K15 and
+K14: the shapes ``chip_smoke.py`` holds them at), for one or more
+checkouts of this repository.
 
     python3 scripts/chip_kernel_split.py
         [--kernels=k1k4,k20,k9,k18,k19,k22,k5,k17,k11,k13,k16,k12,k7,k6,k8,
-                   k2,k15]
+                   k2,k15,k14]
         [--variants=TREE] [--grids=TREE] [--layouts=TREE] [TREE ...]
 
 Each TREE is a checkout (a ``git archive`` of another commit unpacked
@@ -173,6 +174,21 @@ frontend, whose words the probe then reads) and K2's mask staging
 (shared memory against global) from TREE's source and times each case
 in each.
 
+K14 (``k14_make_inputs``, made once by this checkout's code in a
+temporary directory and fed to every tree): phase 3's inputs
+(``chip_smoke.nat_case``: 2^16 rows, 4096 replies to 8192 live inbound
+connections in a 2^20 CT) with the probe and without it, 2^16 replies
+that all find their entry, those rows with no candidate, a CT 86% full,
+4096 rows; then, for correctness only, ``chip_smoke.masq_edge_cases``
+(entries past N_CAND fingerprint matches, wrapping windows, a clock near
+2^32, no and four exclusions), rows off a 16-byte boundary, n = 1 and 0.
+Each is digested (rows and mask) and held against the plain version's
+and a second call's, with its operations a call, its candidates and the
+rows its probe keeps; the timed ones are timed and split by the
+profiler.  ``--grids=TREE`` also builds K14's grid variants (1 or 4
+blocks an SM, a grid sized to the rows, blocks of 256, two rows a
+thread).
+
 Each run writes ``chiprun_out/split/<label>.json``; the main process
 prints, for every later run, the digests that differ from an earlier
 run's.  The line before the last is the card's name and power limit
@@ -187,8 +203,11 @@ import functools
 import hashlib
 import ipaddress
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Optional
@@ -305,6 +324,19 @@ K15_LAYOUT = {"as_is": [], "slot_then_frontend": [(
 K2_GROUPS = {"as_is": [], "groups_global": [(
     "const bool in_smem = t.n_groups <= LPM_SMEM_GROUPS;",
     "const bool in_smem = false;")]}
+# K14's grid: a thread a row in blocks of 128, at most 2 an SM striding
+# over the rows (the source), against 1 or 4 an SM, a grid sized to the
+# rows, blocks of 256 and two rows a thread (two fingerprint windows in
+# flight)
+K14_GRID = {"as_is": [],
+            **{f"per_sm{b}": [_knob("MASQ_BLOCKS_PER_SM", 2, b)]
+               for b in (1, 4)},
+            "grid_rows": [("    masq_kernel<MASQ_ROWS><<<(int)(want < most ? "
+                           "want : most), MASQ_TPB, 0,",
+                           "    masq_kernel<MASQ_ROWS><<<(int)want, "
+                           "MASQ_TPB, 0,")],
+            "tpb256": [_knob("MASQ_TPB", 128, 256)],
+            "rows2": [_knob("MASQ_ROWS", 1, 2)]}
 # variant set: (source, its variants)
 ABLATIONS = {"k4_grid": ("conntrack", K4_GRID),
              "k1_occupancy": ("verdict", K1_OCCUPANCY),
@@ -316,14 +348,16 @@ ABLATIONS = {"k4_grid": ("conntrack", K4_GRID),
              "k6_grid": ("ring", K6_GRID),
              "k8_grid": ("conntrack", K8_GRID),
              "k15_layout": ("lb", K15_LAYOUT),
-             "k2_groups": ("lpm", K2_GROUPS)}
+             "k2_groups": ("lpm", K2_GROUPS),
+             "k14_grid": ("nat", K14_GRID)}
 # the flags that name a tree, and the variant sets each runs there
 TREE_FLAGS = {"--variants": ("k4_grid", "k1_occupancy"),
               "--grids": ("k17_grid", "k11_grid", "k11_parts", "k12_grid",
-                          "k7_grid", "k6_grid", "k8_grid"),
+                          "k7_grid", "k6_grid", "k8_grid", "k14_grid"),
               "--layouts": ("k15_layout", "k2_groups")}
 KERNEL_SETS = ("k1k4", "k20", "k9", "k18", "k19", "k22", "k5", "k17",
-               "k11", "k13", "k16", "k12", "k7", "k6", "k8", "k2", "k15")
+               "k11", "k13", "k16", "k12", "k7", "k6", "k8", "k2", "k15",
+               "k14")
 INT_MAX = (1 << 31) - 1
 RING_CAP = 1 << 18  # chip_smoke's ring, a shard's on the sharded path
 LISTENERS = (10000,)  # the daemon's listener table: config #3's one rule
@@ -2218,6 +2252,207 @@ def k15_calls(cases) -> dict:
     return calls
 
 
+K14_INPUTS = "CHIP_SPLIT_K14_INPUTS"  # where main() saved K14's inputs
+K14_NETS = ("10.0.0.0/8",)  # phase 11's non-masquerade network
+
+
+def k14_make_inputs(path: Path) -> None:
+    """Make K14's inputs once, with this checkout's code, and save them
+    under ``path`` (numpy files and ``cases.json``) for every tree's run.
+    Timed: phase 3's (``chip_smoke.nat_case`` at NOW: 2^16 rows, 4096 of
+    them replies to 8192 live inbound connections in a 2^20 CT) with
+    the probe and without it (``snat_stage``'s call); 2^16 replies whose
+    reverse entries are all live; the first case's rows with no
+    candidate (every row ingress, v6 or toward 10.0.0.0/8); its rows on
+    a CT 86% full (its connections and random live keys placed by the
+    device hash); 4096 of its rows.  Correctness only:
+    ``chip_smoke.masq_edge_cases`` (reverse entries past N_CAND
+    fingerprint matches, wrapping windows, a clock within 150 of 2^32,
+    no and four exclusions), the overflow case without the probe, its
+    rows off a 16-byte boundary, n = 0, and one reply that finds its
+    entry."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    from cilium_tpu_torch.core.packets import (COL_DIR, COL_DST_IP3,
+                                               COL_FAMILY)
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.testing import egress as eg
+
+    own = own_smoke()
+    rng = np.random.default_rng(SEED + 14)
+    path.mkdir(parents=True, exist_ok=True)
+    arrays, cases = {}, {}
+
+    def case(name, cidrs, rows, ct_name, now, timed, offset=0):
+        arrays.setdefault(f"rows_{name}", np.ascontiguousarray(rows))
+        cases[name] = {"cidrs": list(cidrs), "rows": f"rows_{name}",
+                       "ct": ct_name, "now": int(now), "timed": timed,
+                       "offset": offset}
+
+    _t, cti, rows, pods = own.nat_case(torch, rng, NOW)
+    arrays["ct_phase3"] = (cti.table.cpu().numpy(), cti.fp.cpu().numpy())
+    del cti
+    case("k14_phase3_probe_65536", K14_NETS, rows, "ct_phase3", NOW, True)
+    case("k14_phase3_no_probe_65536", K14_NETS, rows, None, NOW, True)
+    inbound, replies = eg.inbound_pairs(rng, own.EGRESS_N, pods)
+    arrays["ct_all_found"] = eg.inbound_ct(inbound, NOW, own.CT_CAPACITY)
+    case("k14_all_found_65536", K14_NETS, replies, "ct_all_found", NOW,
+         True)
+    none = rows.copy()
+    k = np.arange(len(none)) % 3
+    none[k == 0, COL_DIR] = 0
+    none[k == 1, COL_FAMILY] = 6
+    none[k == 2, COL_DST_IP3] = eg.ip(eg.CLUSTER[0])
+    case("k14_no_candidate_65536", K14_NETS, none, "ct_phase3", NOW, True)
+    n86 = int(own.CT_CAPACITY * 0.86)
+    table0 = arrays["ct_phase3"][0]
+    live = table0[table0[:, ct.V_STATE] != ct.ST_FREE]
+    filler = np.zeros((n86 - len(live), ct.ROW_WORDS), np.uint32)
+    filler[:, :ct.KEY_WORDS] = own.random_keys(rng, len(filler))
+    filler[:, ct.V_STATE] = ct.ST_ESTABLISHED
+    filler[:, ct.V_EXPIRES] = NOW + 1000
+    table86, _dropped = ct.ct_table_from_rows(
+        np.concatenate([live, filler]), own.CT_CAPACITY)
+    arrays["ct_86pct"] = (table86, ct.ct_fp_from_table(table86))
+    case("k14_ct_86pct_65536", K14_NETS, rows, "ct_86pct", NOW, True)
+    case("k14_phase3_probe_4096", K14_NETS,
+         rows[np.sort(rng.choice(len(rows), 4096, replace=False))],
+         "ct_phase3", NOW, True)
+    ct_names = {}  # the edge cases share some tables
+    for name, (cidrs, e_rows, table_fp, e_now) in own.masq_edge_cases(
+            rng).items():
+        ct_name = ct_names.setdefault(id(table_fp), f"ct_{name}")
+        arrays.setdefault(ct_name, table_fp)
+        case(f"k14_{name}", cidrs, e_rows, ct_name, e_now, False)
+    over = cases["k14_overflow"]
+    o_rows = arrays[over["rows"]]
+    case("k14_overflow_no_probe", K14_NETS, o_rows, None, over["now"],
+         False)
+    case("k14_unaligned", K14_NETS, o_rows, over["ct"], over["now"], False,
+         offset=1)
+    case("k14_n1", K14_NETS, replies[:1], "ct_all_found", NOW, False)
+    case("k14_n0", K14_NETS, o_rows[:0], over["ct"], over["now"], False)
+    for name, a in arrays.items():
+        if isinstance(a, tuple):
+            np.save(path / f"{name}_table.npy", a[0])
+            np.save(path / f"{name}_fp.npy", a[1])
+        else:
+            np.save(path / f"{name}.npy", a)
+    (path / "cases.json").write_text(json.dumps(cases, indent=1))
+
+
+def k14_cases(path: Path) -> dict:
+    """K14's inputs saved by :func:`k14_make_inputs`, on the card: {case:
+    (NAT tensors, CT or None, rows, now, timed)}."""
+    import numpy as np
+    import torch
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+
+    spec = json.loads((path / "cases.json").read_text())
+    tables = {}
+
+    def table(name):
+        if name not in tables:
+            tables[name] = ct.CTTable(
+                table=u32.from_numpy(np.load(path / f"{name}_table.npy"),
+                                     "cuda"),
+                fp=u32.from_numpy(np.load(path / f"{name}_fp.npy"), "cuda"),
+                dropped=torch.zeros((), dtype=torch.int32, device="cuda"))
+        return tables[name]
+
+    out = {}
+    for name, c in spec.items():
+        hdr = u32.from_numpy(np.load(path / f"{c['rows']}.npy"), "cuda")
+        if c["offset"]:  # the same rows `offset` words past 16 bytes
+            buf = torch.empty(hdr.numel() + c["offset"], dtype=hdr.dtype,
+                              device="cuda")
+            buf[c["offset"]:] = hdr.reshape(-1)
+            hdr = buf[c["offset"]:].view(hdr.shape)
+        t = nat.NATConfig(node_ip=eg.NODE_IP,
+                          non_masquerade_cidrs=tuple(c["cidrs"])).compile(
+                              "cuda")
+        out[name] = (t, table(c["ct"]) if c["ct"] else None, hdr, c["now"],
+                     c["timed"])
+    return out
+
+
+def run_k14(label, cases) -> dict:
+    """Hold each K14 case against the plain version's and a second call's
+    by digest (rows and mask), with its operations a call, the rows that
+    are candidates (egress v4 toward no non-masquerade network) and those
+    the probe keeps; time the timed ones (events) and split them by the
+    profiler.  A tree whose launcher refuses the rows records why.  ->
+    {case: record}."""
+    import chip_smoke as cs
+    from cilium_tpu_torch.kernels import launch_masq_rewrite
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    recs, ct_digests = {}, {}
+    for name, (t, cti, hdr, now, timed) in cases.items():
+        def fn(t=t, cti=cti, hdr=hdr, now=now):
+            return launch_masq_rewrite(t, hdr, cti, now)
+
+        rec = {"rows": int(hdr.shape[0])}
+        try:
+            got = fn()
+        except ValueError as e:
+            rec["refused"] = str(e)
+            recs[name] = rec
+            print(f"[{label}] K14 {name}: refused: {e}")
+            continue
+        plain = nat.masq_rewrite_plain(t, hdr, cti, now)
+        cand = nat.masq_rewrite_plain(t, hdr, None, now)[1]
+        if cti is not None and id(cti) not in ct_digests:
+            ct_digests[id(cti)] = digest(cti.table, cti.fp)
+        out = digest(*got)
+        rec.update(candidates=int(cand.sum()),
+                   kept=int(cand.sum() - plain[1].sum()),
+                   inputs=digest(hdr) + (ct_digests[id(cti)] if cti is not
+                                         None else ""),
+                   out=out, plain_equal=out == digest(*plain),
+                   repeat_equal=out == digest(*fn()),
+                   # an empty capture cannot be read: n = 0 launches
+                   # nothing
+                   ops_a_call=ops_a_call(lambda fn=fn: fn) if len(hdr)
+                   else {})
+        if timed:
+            rec.update(ms=cs.device_ms(fn, REPS),
+                       by_kernel=profiled_or_short(fn))
+        recs[name] = rec
+        print(f"[{label}] K14 {name}: "
+              + (f"{rec['ms']:.4f} ms (events); " if timed else "")
+              + ", ".join(f"{k}={v}" for k, v in rec.items()
+                          if k not in ("ms", "by_kernel", "inputs")))
+        if timed:
+            print(f"[{label}]   " + ", ".join(
+                f"{k[:40]} {v['ms']:.4f}x{v['calls']:.0f}"
+                for k, v in rec["by_kernel"].items()))
+    return recs
+
+
+def k14_calls(cases) -> dict:
+    """{case: (call, None, digest of a call's outputs, None)} for K14's
+    timed cases."""
+    from cilium_tpu_torch.kernels import launch_masq_rewrite
+
+    calls = {}
+    for name, (t, cti, hdr, now, timed) in cases.items():
+        if not timed:
+            continue
+
+        def call(t=t, cti=cti, hdr=hdr, now=now):
+            return launch_masq_rewrite(t, hdr, cti, now)
+
+        calls[name] = (call, None, lambda call=call: digest(*call()),
+                       lambda: None)
+    return calls
+
+
 def run_grids(tree: Path, label: str, which: str, recs: dict,
               calls: dict) -> dict:
     """Each grid variant of ``which`` (built from ``tree``'s source, out
@@ -2276,7 +2511,8 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
         ["conntrack"] if "k8" in kernels else []) + (
         ["socklb"] if "k17" in kernels else []) + (
         ["lpm"] if "k2" in kernels else []) + (
-        ["lb"] if "k15" in kernels else [])
+        ["lb"] if "k15" in kernels else []) + (
+        ["nat"] if "k14" in kernels else [])
     if kernels & {"k11", "k13", "k16", "k12", "k7"}:  # the daemons run
         sources = list(build.SOURCES)  # every kernel
     t0 = time.monotonic()
@@ -2288,7 +2524,7 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
            "k1": {}, "k4": {}, "k20": {}, "k9": {}, "k18": {}, "k19": {},
            "k22": {}, "k5": {}, "k17": {}, "k11": {}, "k13": {},
            "k16": {}, "k12": {}, "k7": {}, "k6": {}, "k8": {}, "k2": {},
-           "k15": {}}
+           "k15": {}, "k14": {}}
     rng = np.random.default_rng(SEED)
     world = fx.build_world(10_000, 64, ct_capacity=1 << 4, n_v6=256,
                            device="cpu")
@@ -2338,6 +2574,9 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
     if "k15" in kernels:
         k15_all = k15_cases(world, np.random.default_rng(SEED + 15))
         res["k15"] = run_k15(label, k15_all)
+    if "k14" in kernels:
+        k14_all = k14_cases(Path(os.environ[K14_INPUTS]))
+        res["k14"] = run_k14(label, k14_all)
     if "--layouts" in flags:
         res["grids"] = {}
         if "k15" in kernels:
@@ -2366,6 +2605,9 @@ def split_one(tree: Path, label: str, flags: set, kernels: set) -> dict:
         if "k8" in kernels:
             res["grids"]["k8"] = run_grids(tree, label, "k8_grid",
                                            res["k8"], k8_calls(k8_all))
+        if "k14" in kernels:
+            res["grids"]["k14"] = run_grids(tree, label, "k14_grid",
+                                            res["k14"], k14_calls(k14_all))
     def last_k2_and_save():
         # K2 last: after the parent's 43 ms profiler window (the larger
         # TCAM) every later window came back two events short
@@ -2574,6 +2816,27 @@ def save(label, res) -> dict:
     return res
 
 
+def split_trees(trees, kernels, opts, env) -> Optional[list]:
+    """Each tree's run in a process of its own, in the order given; ->
+    their records (None where one failed)."""
+    runs = []
+    for i, tree in enumerate(trees):
+        label = f"{i}_{tree.name}"
+        # each variant set once, on the first run of the tree it names
+        extra = [k for k, v in opts.items()
+                 if v == tree and tree not in trees[:i]]
+        p = subprocess.run([sys.executable, __file__,
+                            f"--kernels={','.join(sorted(kernels))}",
+                            "--one", str(tree), label, *extra], timeout=900,
+                           env=env)
+        if p.returncode != 0:
+            print(f"chip_kernel_split: {tree} failed ({p.returncode})",
+                  file=sys.stderr)
+            return None
+        runs.append(json.loads((OUT / f"{label}.json").read_text()))
+    return runs
+
+
 def main() -> int:
     args = sys.argv[1:]
     kernels = set(KERNEL_SETS)
@@ -2601,25 +2864,23 @@ def main() -> int:
         print("chip_kernel_split: no CUDA device", file=sys.stderr)
         return 1
     trees = [Path(t).resolve() for t in args] or [ROOT]
-    runs = []
-    for i, tree in enumerate(trees):
-        label = f"{i}_{tree.name}"
-        # each variant set once, on the first run of the tree it names
-        extra = [k for k, v in opts.items()
-                 if v == tree and tree not in trees[:i]]
-        p = subprocess.run([sys.executable, __file__,
-                            f"--kernels={','.join(sorted(kernels))}",
-                            "--one", str(tree), label, *extra], timeout=900)
-        if p.returncode != 0:
-            print(f"chip_kernel_split: {tree} failed ({p.returncode})",
-                  file=sys.stderr)
-            return 1
-        runs.append(json.loads((OUT / f"{label}.json").read_text()))
+    env = dict(os.environ)
+    if "k14" in kernels:
+        env[K14_INPUTS] = tempfile.mkdtemp(prefix="k14_inputs_")
+    try:
+        if "k14" in kernels:
+            k14_make_inputs(Path(env[K14_INPUTS]))
+        runs = split_trees(trees, kernels, opts, env)
+    finally:
+        if K14_INPUTS in env:
+            shutil.rmtree(env[K14_INPUTS])
+    if runs is None:
+        return 1
     for later in runs[1:]:
         first = runs[0]
         for kern in ("k1", "k4", "k20", "k9", "k18", "k19", "k22", "k5",
                      "k17", "k11", "k13", "k16", "k12", "k7", "k6", "k8",
-                     "k2", "k15"):
+                     "k2", "k15", "k14"):
             for case, rec in later[kern].items():
                 want = first[kern].get(case, {})
                 for field in ("out", "inputs", "ct", "scores", "k12"):
@@ -2642,7 +2903,7 @@ def main() -> int:
                                                   "k16", "k12", "k7",
                                                   "k6", "k8", "k2",
                                                   "k2_build_ms", "k15",
-                                                  "profiler_short")
+                                                  "k14", "profiler_short")
                                 if k in r} for r in runs]}))
     return 0
 

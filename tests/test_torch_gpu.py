@@ -776,6 +776,90 @@ def test_egress_kernels_match_their_plain_versions(case):
     assert KERNELS[case].launches > 0
 
 
+MASQ_CASES = ("overflow", "wrap", "expired", "clock_near_2^32",
+              "no_exclusions", "four_exclusions", "unaligned", "n0", "n1")
+
+
+def _masq_case(case, rng, cap=1 << 12, n=1024):
+    """K14's edges at a small size: (non-masquerade CIDRs, rows, (CT
+    table, fingerprints), now, words the rows sit past a 16-byte
+    boundary).  Replies to inbound connections among egress rows (some
+    toward 172.16.0.0/12 and 100.64.0.0/10), the connections' entries
+    crowded by ``testing.egress.crowded_ct``: every one behind N_CAND + 1
+    or more live entries of its fingerprint (found, expired or absent),
+    or ("wrap") homing in the CT's last slots; "expired" probes past
+    every expiry, "clock_near_2^32" at 2^32 - 150 a table whose live
+    entries expire at 2^32 - 100."""
+    from cilium_tpu_torch.core.packets import COL_DST_IP3
+    from cilium_tpu_torch.testing import egress as eg
+
+    pods = eg.pod_ips(64)
+    now = (1 << 32) - 150 if case == "clock_near_2^32" else 1000
+    if case == "wrap":
+        inbound = eg.wrap_inbound(rng, 16, pods, cap)
+        replies = np.repeat(eg.replies_to(inbound), 4, 0)
+    else:
+        inbound, replies = eg.inbound_pairs(rng, 128, pods)
+    made = now - 950 if case == "clock_near_2^32" else now
+    ct = eg.crowded_ct(rng, inbound, made, cap,
+                       crowded=0.3 if case == "wrap" else 1.0)
+    mix = eg.egress_rows(rng, n - len(replies), pods)
+    mix[::7, COL_DST_IP3] = eg.ip("172.16.5.5")
+    mix[::11, COL_DST_IP3] = eg.ip("100.64.1.1")
+    rows = np.concatenate([replies, mix])[rng.permutation(n)]
+    cidrs = {"no_exclusions": (),
+             "four_exclusions": ("10.0.0.0/8", "172.16.0.0/12",
+                                 "192.168.0.0/16", "100.64.0.0/10")}.get(
+                                     case, ("10.0.0.0/8",))
+    rows = {"n0": rows[:0], "n1": replies[:1]}.get(case, rows)
+    return (cidrs, rows, ct, now + 1001 if case == "expired" else now,
+            1 if case == "unaligned" else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MASQ_CASES)
+def test_masq_rewrite_is_one_kernel_matching_its_plain_version(case):
+    """K14 on its edges, with its CT probe and without it: reverse entries
+    behind more than N_CAND live entries of their fingerprint (the
+    full-window fallback), windows wrapping the CT's end, expired
+    entries, a clock near 2^32, no and four non-masquerade networks,
+    rows off a 16-byte boundary, n = 0 and 1.  Rows and mask equal the
+    plain version's; one graph node a call (n = 0 launches nothing, and
+    an empty capture cannot be read)."""
+    _need_card()
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath import conntrack as ct
+    from cilium_tpu_torch.service import nat
+    from cilium_tpu_torch.testing import egress as eg
+    from cilium_tpu_torch.testing.capture import ops_a_call
+
+    cidrs, rows, (table, fp), now, offset = _masq_case(
+        case, np.random.default_rng(23))
+    t = nat.NATConfig(node_ip=eg.NODE_IP,
+                      non_masquerade_cidrs=cidrs).compile("cuda")
+    cttab = ct.CTTable(table=u32.from_numpy(table, "cuda"),
+                       fp=u32.from_numpy(fp, "cuda"),
+                       dropped=torch.zeros((), dtype=torch.int32,
+                                           device="cuda"))
+    hdr = u32.from_numpy(rows, "cuda")
+    if offset:
+        buf = torch.empty(hdr.numel() + offset, dtype=hdr.dtype,
+                          device="cuda")
+        buf[offset:] = hdr.reshape(-1)
+        hdr = buf[offset:].view(hdr.shape)
+        assert hdr.data_ptr() % 16
+    for ct_arg in (cttab, None):
+        got = nat.masq_rewrite(t, hdr, ct_arg, now)
+        want = nat.masq_rewrite_plain(t, hdr, ct_arg, now)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+        if len(rows):
+            ops = ops_a_call(lambda ct_arg=ct_arg: functools.partial(
+                nat.masq_rewrite, t, hdr, ct_arg, now))
+            assert list(ops.values()) == [1]
+            assert "masq_kernel" in next(iter(ops))
+
+
 def _lb_world(n=512, n_v6=64, m=4093):
     """A mid-size service world on the card, through ServiceWatcher: 512
     services (a 16th with ClientIP affinity, 8 with no backend, the

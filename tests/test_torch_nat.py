@@ -377,6 +377,51 @@ def test_apply_masquerade_and_snat_stage_match_jax(cidrs):
     assert tm[:4].all()  # no CT probe in snat_stage
 
 
+@pytest.mark.parametrize("case", ["fingerprint-overflow", "wrap"])
+def test_apply_masquerade_matches_jax_on_crowded_windows(case):
+    """The probe's edges: replies whose reverse entries sit behind more
+    than N_CAND live entries of their fingerprint (found, expired or
+    absent), and replies whose windows wrap the CT's end (entries past
+    the wrap), among mixed rows."""
+    from cilium_tpu_torch.testing import egress as eg
+
+    now = 500
+    rng = np.random.default_rng(23)
+    pods = np.array([_ip(p) for p in POD], np.uint32)
+    if case == "wrap":
+        inbound = eg.wrap_inbound(rng, 8, pods, CT_CAP)
+        replies = eg.replies_to(inbound)
+    else:
+        inbound, replies = eg.inbound_pairs(rng, 32, pods)
+    table, fp = eg.crowded_ct(rng, inbound, now, CT_CAP,
+                              crowded=0.3 if case == "wrap" else 1.0)
+    pair = _Pair(ct=(table, fp))
+    rows = _random_rows(rng)
+    rows[:len(replies)] = replies
+    want = np.asarray(apply_masquerade_jit(pair.jct, pair.jt,
+                                           jnp.asarray(rows),
+                                           jnp.uint32(now)))
+    got = apply_masquerade(pair.tct, pair.tt, u32.from_numpy(rows, "cpu"),
+                           now)
+    np.testing.assert_array_equal(u32.to_numpy(got), want)
+    # the edge is there: a kept reply whose entry lies past N_CAND
+    # fingerprint matches, or past the capacity's end
+    kept = np.flatnonzero(want[:len(replies), COL_SRC_IP3]
+                          == replies[:, COL_SRC_IP3])
+    fwd = u32.to_numpy(tct.ct_keys_from_headers(
+        u32.from_numpy(inbound, "cpu"))[0])
+    h = tct._hash_np(fwd)
+    edge = False
+    for j in kept:
+        win = (h[j] + np.arange(tct.N_PROBE, dtype=np.uint32)) & np.uint32(
+            CT_CAP - 1)
+        at = int(np.flatnonzero((table[win, :tct.KEY_WORDS] == fwd[j]).all(1))
+                 [0])
+        edge |= (bool(win[at] < win[0]) if case == "wrap"
+                 else int((fp[win[:at]] == fp[win[at]]).sum()) > tct.N_CAND)
+    assert edge
+
+
 def test_disabled_config_is_the_identity():
     pair = _Pair()
     j = jnat.NATConfig(node_ip=NODE, enabled=False).compile()
