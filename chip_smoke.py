@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's serving step, serving daemon, L7 proxy
 plane, live table churn, offline egress path, service load balancer,
-anomaly scorer, its trainer and sharded serving on one NVIDIA GPU.
+anomaly scorer, its trainer, sharded serving and the policy control
+plane (the connectivity test, the delta attach, mutual authentication)
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -183,7 +185,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    events, the metrics equal to the fixed-batch run, the host stages
    and the card's idle share, then K6 over 8 shards at the rung its
    windows used; (c) the sharded demotion under injected
-   faults: the replies of flows established sharded forward after it.
+   faults: the replies of flows established sharded forward after it;
+16. the connectivity test (BASELINE.md config #1, a 2-pod world by
+   nature): ``testing.connectivity.run_connectivity_tests`` on a daemon
+   on the card, pods through the Pod watcher, each scenario's policy a
+   CNP: every probe of the 8 scenarios ok, the re-attaches delta
+   attaches, the mutual-auth probe dropped AUTH_REQUIRED and then
+   forwarded; K1, K4, K5, K9 and K10 launches and the wall time;
+17. the delta attach at config #3 (phase 7's world plus a ``web``
+   endpoint: 2 policies) beside a daemon built with
+   ``policy_delta_compile=False``: an edit of db's rules while the
+   delta daemon serves phase 7's traffic (one delta attach, one policy
+   repainted, ledgers exact), then an edit that moves a port boundary;
+   after each the five policy tables equal the full daemon's bit for
+   bit; host ms of the delta against the full attach; K10 at a whole
+   policy's slice against its plain version, timed (profiler and
+   events) beside ``Tensor.copy_`` with its bound;
+18. mutual authentication at config #3 (``auth_ttl`` 20 s): 2^16 SYNs
+   from 2048 live identities through ``process_batch`` to an
+   auth-required port of db all drop AUTH_REQUIRED, each pair is
+   granted once (one K10 launch a grant), the retry forwards every row;
+   past the TTL and ``auth_gc``, fresh SYNs drop again while the
+   established flows forward; the auth table equals a full attach's
+   projection bit for bit; K10 at an auth cell timed beside ``copy_``.
 
 Phases 7, 14 (a) and 15 (b) print K1's and K4's rows a launch.  The
 kernel launch counts are read per path (the slice of phase 4, the
@@ -191,7 +215,9 @@ daemon of phase 7, the L7 paths of phases 3, 8 and 9, the churn of
 phase 10, the egress path of phase 11, the service path of phase 12,
 the armed daemon's first session in phase 13, the 200-step ``train``
 runs of phase 14 (a) and (d), the sharded daemon's two sessions of
-phase 15), each
+phase 15, the connectivity run of phase 16, the edited session and
+the second edit of phase 17, the grant pass and its retry of phase
+18), each
 zeroed just before its path runs.  The line before the last is one JSON object describing every
 kernel (the standalone launchers with 0 launches and ``"standalone":
 true``); the last line is the device record.  Details go to
@@ -205,6 +231,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -223,6 +250,10 @@ F32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores, published
 
 class SmokeFailure(Exception):
     pass
+
+
+class ProfilerShort(SmokeFailure):
+    """torch.profiler came back short from a window twice."""
 
 
 def check(cond, msg):
@@ -4175,9 +4206,15 @@ def pass_split(torch, fn, per_call, reps=20):
     for each of the ``reps`` calls, or a dropped event would read as a
     lower time; it opens and closes with a spin kernel that is not
     counted (the profiler has dropped one event at a window's edge).  A
-    short window is measured once more; a second one fails the smoke."""
+    short window is measured once more; a second one fails the smoke.
+    The profiler records every thread's launches, so no daemon's
+    controller thread may be live: it fails the smoke at once."""
     from torch.profiler import ProfilerActivity, profile
 
+    live = sorted(t.name for t in threading.enumerate()
+                  if t.name.startswith("ctrl-"))
+    check(not live, f"pass_split: a daemon's controllers are live and "
+          f"would launch into the profiler's window: {live}")
     for _attempt in range(2):
         fn()
         torch.cuda.synchronize()
@@ -4201,8 +4238,34 @@ def pass_split(torch, fn, per_call, reps=20):
                                              for e in events}})
         print(f"profiler: {seen} device events of {per_call * reps} in a "
               f"window of {reps} calls")
-    raise SmokeFailure(f"torch.profiler came back short twice: "
-                       f"{PROFILER_SHORT[-2:]}")
+    raise ProfilerShort(f"torch.profiler came back short twice: "
+                        f"{PROFILER_SHORT[-2:]}")
+
+
+def pass_split_or_short(torch, fn, per_call):
+    """:func:`pass_split`, or {} where the profiler came back short twice
+    (the windows are kept in ``PROFILER_SHORT``): for a one-kernel call,
+    whose device time the events hold, and whose windows the profiler
+    on the H100 now and then records only in part."""
+    try:
+        return pass_split(torch, fn, per_call)
+    except ProfilerShort as e:
+        print(f"profiler: {e}; not measured")
+        return {}
+
+
+def profiler_ms(split, kernel):
+    """Device ms a launch of the one kernel of ``split`` whose name holds
+    ``kernel``; None where the split is empty (not measured)."""
+    if not split:
+        return None
+    keys = [k for k in split if kernel in k]
+    check(len(keys) == 1, f"profiler: {kernel} in {sorted(split)}")
+    return split[keys[0]][0]
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def check_k21_call(torch, name, fn, v, got, want_sorted, ids, n_shards):
@@ -5933,6 +5996,498 @@ def phase_sharded_demotion(torch, report):
                                   "replies_forwarded": fwd}
 
 
+# -- the policy control plane (phases 16-18) ----------------------------
+
+CONN_SCENARIOS = {"no-policies", "client-ingress-l3", "client-ingress-l4",
+                  "all-ingress-deny", "client-egress-l4", "to-entities-world",
+                  "echo-ingress-l7", "echo-ingress-mutual-auth"}
+PATH_KERNELS = ("datapath_wide", "datapath_packed", "ct_update",
+                "ring_append", "l7_verdict", "dus")
+
+
+def phase_connectivity(torch, report):
+    """BASELINE.md config #1, the connectivity test: the port's
+    ``run_connectivity_tests`` on a daemon on the card (a 2-pod world by
+    nature: client, client2 and server arrive through the Pod watcher,
+    each scenario imports and deletes its policy as a CNP, every probe
+    runs through ``process_batch``).  Every probe of the 8 scenarios is
+    ok, the re-attaches take the delta path, the mutual-auth probe drops
+    AUTH_REQUIRED and its retry forwards after one grant.  Returns the
+    launch counts of the run."""
+    from cilium_tpu_torch.agent import Daemon, DaemonConfig
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.testing.connectivity import (
+        format_results, run_connectivity_tests)
+
+    d = Daemon(DaemonConfig(ct_capacity=1 << 12))
+    check(d.loader.device.type == "cuda", "connectivity: not on the card")
+    s0 = d.loader.table_stats()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    res = run_connectivity_tests(daemon=d)
+    wall = time.monotonic() - t0
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    s1 = d.loader.table_stats()
+    auth = d.status()["auth"]
+    failed = [r for r in res if not r.ok]
+    check(not failed, "connectivity: failed probes\n" + format_results(res))
+    check({r.scenario for r in res} == CONN_SCENARIOS,
+          f"connectivity: scenarios {sorted({r.scenario for r in res})}")
+    (mutual,) = [r for r in res if r.scenario == "echo-ingress-mutual-auth"]
+    check(mutual.got == "auth-then-allow" and auth["granted"] == 1,
+          f"connectivity: the mutual-auth probe got {mutual.got}, "
+          f"auth {auth}")
+    delta = s1["delta-attaches"] - s0["delta-attaches"]
+    check(delta > 0 and s1["failed-builds"] == 0,
+          f"connectivity: {delta} delta attaches, tables {s1}")
+    check(launches["datapath_wide"] > 0 and launches["ct_update"] > 0
+          and launches["l7_verdict"] > 0 and launches["dus"] > 0,
+          f"connectivity: launches {launches}")
+    d.shutdown()
+    print(format_results(res))
+    print(f"connectivity: {len(res)} probes of {len(CONN_SCENARIOS)} "
+          f"scenarios ok in {wall:.3f} s (host clock); "
+          f"{delta} delta attaches, "
+          f"{s1['full-attaches'] - s0['full-attaches']} full; auth {auth}; "
+          f"launches " + ", ".join(f"{k} {launches[k]}"
+                                   for k in PATH_KERNELS))
+    report["connectivity"] = {
+        "probes": len(res), "wall_s": wall, "delta_attaches": delta,
+        "full_attaches": s1["full-attaches"] - s0["full-attaches"],
+        "auth": auth, "launches": launches}
+    return launches
+
+
+WEB_IP = "10.0.0.6"
+# phase 17's edits: db's rules only; the first keeps every port
+# boundary (5432 is one), the second adds 6000-6010
+EDIT_SAME_PORTS = {
+    "endpointSelector": {"matchLabels": {"app": "db"}},
+    "ingress": [{"fromEndpoints": [{"matchLabels": {"app": "web"}}],
+                 "toPorts": [{"ports": [{"port": "5432",
+                                         "protocol": "TCP"}]}]}]}
+EDIT_NEW_PORTS = {
+    "endpointSelector": {"matchLabels": {"app": "db"}},
+    "ingress": [{"fromEndpoints": [{"matchLabels": {"app": "web"}}],
+                 "toPorts": [{"ports": [{"port": "6000", "endPort": 6010,
+                                         "protocol": "TCP"}]}]}]}
+POLICY_TABLES = ("verdict", "port_class", "class_map", "ep_policy", "auth")
+
+
+def policy_tables(loader):
+    p = loader.state.policy
+    return {k: getattr(p, k).clone() for k in POLICY_TABLES}
+
+
+@__import__("contextlib").contextmanager
+def attach_stages(kept):
+    """Time the attach's host stages: the functions and methods the
+    loader looks up at call time are wrapped for the block, each call
+    appending (stage, host ms) to ``kept``."""
+    import cilium_tpu_torch.datapath.loader as lm
+    import cilium_tpu_torch.policy.compiler as comp
+    import cilium_tpu_torch.policy.incremental as inc
+
+    targets = [(comp, "policy_fingerprint"), (inc, "delta_compile"),
+               (lm, "compile_policy"), (lm, "compile_lpm"),
+               (lm.TorchLoader, "_project_auth"),
+               (lm.TorchLoader, "_delta_patch"),
+               (lm.DevicePolicy, "from_tensors"),
+               (lm.DeviceLPM, "from_tensors"),
+               (lm.TorchLoader, "_publish_tables")]
+    saved = [(owner, name, owner.__dict__[name]) for owner, name in targets]
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                kept.append((name, (time.perf_counter() - t) * 1e3))
+        return call
+
+    for owner, name, orig in saved:
+        label = (name if owner.__name__.startswith("cilium")
+                 else f"{owner.__name__}.{name}")
+        if isinstance(orig, staticmethod):
+            setattr(owner, name, staticmethod(timed(label, orig.__func__)))
+        else:
+            setattr(owner, name, timed(label, orig))
+    try:
+        yield kept
+    finally:
+        for owner, name, orig in saved:
+            setattr(owner, name, orig)
+
+
+def stage_sums(calls):
+    """(stage, ms) calls -> {stage: summed ms}, in first-call order."""
+    out = {}
+    for name, ms in calls:
+        out[name] = out.get(name, 0.0) + ms
+    return out
+
+
+def timed_attaches(d):
+    """Wrap ``d.loader.attach`` to keep each call's host ms."""
+    real, kept = d.loader.attach, []
+
+    def attach(*args):
+        t = time.perf_counter()
+        real(*args)
+        kept.append((time.perf_counter() - t) * 1e3)
+
+    d.loader.attach = attach
+    return kept
+
+
+def phase_delta_attach(torch, rng, world, report):
+    """The delta attach at config #3: phase 7's daemon world plus a
+    ``web`` endpoint (2 policies, db and web), and a second daemon on the
+    same world built with ``policy_delta_compile=False``.  The first
+    edit appends a rule to db alone while the delta daemon serves phase
+    7's traffic: a delta attach that repaints db's slice alone, ledgers
+    exact.  The second moves a port boundary (the class maps re-upload).
+    After each edit the card's verdict, port_class, class_map, ep_policy
+    and auth equal the full daemon's bit for bit.  Then K10 at a whole
+    policy's slice: against its plain version, timed by the profiler (20
+    calls) and by events beside ``Tensor.copy_`` of the same slice.
+    Returns the launch counts of the edited session and the second
+    edit."""
+    import contextlib
+    import threading
+
+    from cilium_tpu_torch.agent import Daemon, DaemonConfig
+    from cilium_tpu_torch.datapath.loader import _dus, _dus_plain
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+
+    t0 = time.monotonic()
+    d, db, rows = config3_daemon(world, rng)
+    d.add_endpoint("web", (WEB_IP,), ["k8s:app=web"])
+    full = Daemon(DaemonConfig(ct_capacity=1 << 4,
+                               policy_delta_compile=False))
+    check(config3_world(full, world).id == db.id,
+          "delta: the two daemons gave db different endpoint ids")
+    full.add_endpoint("web", (WEB_IP,), ["k8s:app=web"])
+    d.start()
+    print(f"delta: config #3 with web and db, two daemons built in "
+          f"{time.monotonic() - t0:.1f} s")
+    check(d.loader.state.policy.verdict.shape[0] == 2,
+          f"delta: {d.loader.state.policy.verdict.shape[0]} policies")
+    ms = {"delta": timed_attaches(d), "full": timed_attaches(full)}
+
+    def same_tables(what):
+        got, want = policy_tables(d.loader), policy_tables(full.loader)
+        for k in POLICY_TABLES:
+            check(torch.equal(got[k], want[k]),
+                  f"delta: after {what} the delta daemon's {k} differs "
+                  f"from the full daemon's")
+
+    same_tables("the build")
+    pi = d.loader.tensors.policy_row(
+        d.endpoints.get(db.id).labels.sorted_key())
+    edits, stages = [], []
+    for i, (what, edit) in enumerate((("db's rules, same ports",
+                                       EDIT_SAME_PORTS),
+                                      ("a new port boundary",
+                                       EDIT_NEW_PORTS))):
+        stages.clear()
+        s0 = d.loader.table_stats()
+        pc0 = d.loader.state.policy.port_class.clone()
+        n_ms = len(ms["delta"])
+        if i == 0:
+            reset_launch_counts()
+            at = {}
+            errors = []
+
+            @contextlib.contextmanager
+            def editing():
+                def run():
+                    try:
+                        wait_for(lambda: d.serving_stats()["admitted"] > 0,
+                                 "delta: the traffic to start")
+                        at["start"] = d.serving_stats()["verdicts"]
+                        d.policy_import([edit])
+                        at["end"] = d.serving_stats()["verdicts"]
+                    except Exception as e:  # noqa: BLE001 -- reported
+                        errors.append(e)
+
+                th = threading.Thread(target=run, name="smoke-edit")
+                th.start()
+                try:
+                    yield
+                finally:
+                    th.join(timeout=120)
+                check(not th.is_alive() and not errors,
+                      f"delta: the edit failed: {errors}")
+
+            with attach_stages(stages):
+                out, t = serve_session(d, rows, during=editing())
+            fe, ft = out["front-end"], out["front-end"]["fault-tolerance"]
+            check(fe["submitted"] == fe["verdicts"] + fe["shed"]
+                  + ft["recovery-dropped"] and fe["verdicts"] == len(rows)
+                  and out["lost"] == 0 and out["l7"]["ledger-exact"],
+                  f"delta: the edited session's ledgers: {fe}, lost "
+                  f"{out['lost']}, l7 {out['l7']}")
+            check(at["start"] < len(rows),
+                  f"delta: the edit began after the traffic ({at})")
+            serving = {"verdicts_per_s": len(rows) / t, "edit_at": at,
+                       "ledger": fe}
+        else:
+            with attach_stages(stages):
+                d.policy_import([edit])
+        delta_stages = stage_sums(stages)
+        stages.clear()
+        with attach_stages(stages):
+            full.policy_import([edit])
+        full_stages = stage_sums(stages)
+        s1 = d.loader.table_stats()
+        moved = not torch.equal(d.loader.state.policy.port_class, pc0)
+        check(s1["delta-attaches"] == s0["delta-attaches"] + 1
+              and s1["policies-recompiled"] == s0["policies-recompiled"] + 1
+              and s1["full-attaches"] == s0["full-attaches"]
+              and moved == (i == 1),
+              f"delta: {what}: tables {s0} -> {s1}, port_class moved "
+              f"{moved}")
+        same_tables(what)
+        edits.append({"what": what, "delta_attach_ms": ms["delta"][n_ms:],
+                      "full_attach_ms": ms["full"][-1],
+                      "class_structure_changed": moved,
+                      "delta_stages_ms": delta_stages,
+                      "full_stages_ms": full_stages})
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    check(launches["dus"] >= 2 and launches["datapath_packed"] > 0,
+          f"delta: launches {launches}")
+    for e in edits:
+        took = ", ".join(f"{x:.1f}" for x in e["delta_attach_ms"])
+        print(f"delta: {e['what']}: a delta attach (1 of 2 policies "
+              f"repainted) {took} ms against a full attach "
+              f"{e['full_attach_ms']:.1f} ms "
+              f"(host clock); class maps re-uploaded "
+              f"{e['class_structure_changed']}; the five tables equal the "
+              f"full daemon's bit for bit")
+        for k in ("delta", "full"):
+            print(f"delta:   {k} attach stages (host ms): " + ", ".join(
+                f"{n} {v:.1f}" for n, v in e[f"{k}_stages_ms"].items()))
+    print(f"delta: the first edit ran while serving {len(rows)} packets "
+          f"({serving['verdicts_per_s']:.0f} verdicts/s, began at verdict "
+          f"{at['start']}, published by {at['end']}), ledger exact; "
+          f"launches " + ", ".join(f"{k} {launches[k]}"
+                                   for k in PATH_KERNELS))
+    # K10 at a whole policy's slice [1, 2, n_rows, width], timed with
+    # both daemons shut down: a controller's sweep would land in the
+    # profiler's window and in the events' span
+    verdict = d.loader.state.policy.verdict
+    sl = torch.from_numpy(d.loader.tensors.verdict[pi:pi + 1].copy()).cuda()
+    for x in (d, full):
+        x.shutdown()
+    starts = (pi, 0, 0, 0)
+    got, want = verdict.clone(), verdict.clone()
+    _dus(got, sl, starts)
+    _dus_plain(want, sl, starts)
+    err = max_abs_err(got, want, "dus at a policy's slice")
+    dst = verdict.clone()
+    split = pass_split_or_short(torch, lambda: _dus(dst, sl, starts), 1)
+    t = [device_ms(lambda: _dus(dst, sl, starts), 20),
+         device_ms(lambda: dst[pi:pi + 1].copy_(sl), 20),
+         device_ms(lambda: dst[pi:pi + 1].copy_(sl), 20),
+         device_ms(lambda: _dus(dst, sl, starts), 20)]
+    copy_split = pass_split_or_short(
+        torch, lambda: dst[pi:pi + 1].copy_(sl), 1)
+    nbytes = 2 * sl.numel() * 4
+    slice_t = {"update": list(sl.shape), "table": list(verdict.shape),
+               "bytes": nbytes, "max_abs_err": err,
+               "profiler_ms": profiler_ms(split, "dus"),
+               "ms": (t[0] + t[3]) / 2, "copy_ms": (t[1] + t[2]) / 2,
+               "copy_profiler_ms": (sum(v[0] for v in copy_split.values())
+                                    if copy_split else None),
+               "bound_ms": bound(nbytes, 0)[0], "turns": t}
+    print(f"delta: K10 at a policy's slice {tuple(sl.shape)} into "
+          f"{tuple(verdict.shape)} ({nbytes} bytes read and written): "
+          f"bit-exact; {fmt_ms(slice_t['profiler_ms'])} (profiler, 20 "
+          f"calls), {t[0]:.4f} / {t[3]:.4f} ms (events), Tensor.copy_ "
+          f"{t[1]:.4f} / {t[2]:.4f} ms (profiler "
+          f"{fmt_ms(slice_t['copy_profiler_ms'])}), bound "
+          f"{slice_t['bound_ms']:.4f} ms by bytes")
+    report["delta_attach"] = {"edits": edits, "serving": serving,
+                              "k10_slice": slice_t, "launches": launches}
+    return launches, slice_t
+
+
+AUTH_PORT = 5433
+AUTH_ROWS = 1 << 16
+AUTH_IDENTITIES = 2048
+AUTH_TTL = 20
+
+
+def phase_auth(torch, rng, world, report):
+    """Mutual authentication at config #3 (``mesh_auth`` on, the
+    default; ``auth_ttl`` 20 s): phase 7's daemon world plus an
+    ``authentication: {mode: required}`` ingress rule on db.  The rule
+    takes port 5433: the world's broad plain allow of 5432 would win the
+    merge for every source (a plain allow of the same key forwards with
+    no handshake, in the reference as here).  ``process_batch`` takes
+    2^16 SYNs from 2048 distinct live identities: every row drops
+    AUTH_REQUIRED, the manager grants each pair once (one K10 launch a
+    grant), the retry forwards every row; past the TTL and ``auth_gc``,
+    fresh SYNs drop again while the established flows forward.  The
+    auth table equals a full attach's projection of the grants bit for
+    bit.  Then K10 at an auth cell [1, 1], timed beside ``copy_``.
+    Returns the launch counts of the first pass and its retry."""
+    import numpy as np
+    from cilium_tpu_torch.agent import Daemon, DaemonConfig
+    from cilium_tpu_torch.core import packets as pk
+    from cilium_tpu_torch.datapath.loader import TorchLoader, _dus, _dus_plain
+    from cilium_tpu_torch.datapath.verdict import (REASON_AUTH_REQUIRED,
+                                                   REASON_FORWARDED)
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.labels import LabelSet
+
+    t0 = time.monotonic()
+    d = Daemon(DaemonConfig(ct_capacity=CT_CAPACITY, auth_ttl=AUTH_TTL))
+    db = config3_world(d, world, extra_rules=[{
+        "endpointSelector": {"matchLabels": {"app": "db"}},
+        "ingress": [{"fromEndpoints": [{"matchLabels": {"ns": "default"}}],
+                     "toPorts": [{"ports": [{"port": str(AUTH_PORT),
+                                             "protocol": "TCP"}]}],
+                     "authentication": {"mode": "required"}}]}])
+    check(d.auth_manager is not None, "auth: mesh_auth is off")
+    print(f"auth: config #3 with the auth rule on db:{AUTH_PORT} built in "
+          f"{time.monotonic() - t0:.1f} s")
+    n = AUTH_ROWS
+    per = n // AUTH_IDENTITIES
+    src = rng.choice(np.array(world.pod_ips), AUTH_IDENTITIES, replace=False)
+    # each identity's flows on sports 20000.., as many as it sends
+    rows = np.concatenate([syn_rows(ip, DB_IP, 20000, per, AUTH_PORT,
+                                    db.id, 0) for ip in src])
+
+    def reasons(ev):
+        return np.asarray(ev.reason)
+
+    upserts = []
+    real_upsert = d.loader.auth_upsert
+
+    def auth_upsert(*args):
+        t = time.perf_counter()
+        ok = real_upsert(*args)
+        upserts.append((time.perf_counter() - t) * 1e3)
+        return ok
+
+    d.loader.auth_upsert = auth_upsert
+    t_obs = []
+    real_observe = d.auth_manager.observe
+
+    def observe(batch, now):
+        t_obs.append(time.perf_counter())
+        return real_observe(batch, now)
+
+    d.auth_manager.observe = observe
+    now = 50
+    reset_launch_counts()
+    ev = d.process_batch(rows, now=now)
+    k10_grants = KERNELS["dus"].launches
+    r = reasons(ev)
+    st = d.auth_manager.status()
+    check((r == REASON_AUTH_REQUIRED).all(),
+          f"auth: the first pass: {int((r == REASON_AUTH_REQUIRED).sum())} "
+          f"of {n} rows dropped AUTH_REQUIRED")
+    check(st["granted"] == AUTH_IDENTITIES and st["failed"] == 0
+          and len(d.loader.auth_entries()) == AUTH_IDENTITIES
+          and k10_grants == AUTH_IDENTITIES,
+          f"auth: {st}, {len(d.loader.auth_entries())} entries, "
+          f"{k10_grants} dus launches for {AUTH_IDENTITIES} pairs")
+    ev = d.process_batch(rows, now=now + 1)
+    t_forward = time.perf_counter()
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    r = reasons(ev)
+    check((r == REASON_FORWARDED).all(),
+          f"auth: the retry forwarded {int((r == REASON_FORWARDED).sum())} "
+          f"of {n} rows")
+    check(d.auth_manager.status()["granted"] == AUTH_IDENTITIES,
+          "auth: the retry granted again")
+
+    def same_as_full_attach(when):
+        fl = TorchLoader(ct_capacity=1 << 4, device=d.loader.device)
+        fl._auth = dict(d.loader._auth)
+        fl.attach([d.repo.resolve(LabelSet.parse("k8s:app=db"))],
+                  d.ipcache.to_identity_map(), {db.id: 0},
+                  d.endpoints.row_map)
+        check(torch.equal(d.loader.state.policy.auth, fl.state.policy.auth),
+              f"auth: {when}, the auth table differs from a full attach's "
+              f"projection of the grants")
+
+    same_as_full_attach("after the grants")
+    # past the TTL: the sweep, then fresh SYNs and the established flows
+    late = now + AUTH_TTL + 30
+    swept = d.auth_manager.gc(late)
+    check(swept == AUTH_IDENTITIES and d.loader.auth_entries() == [],
+          f"auth: the sweep at {late} dropped {swept} grants")
+    # every identity sends both: its even flows' ACKs, its odd flows
+    # again as fresh SYNs (new sports), so every pair is granted again
+    est = rows[0::2].copy()
+    est[:, pk.COL_FLAGS] = pk.TCP_ACK
+    fresh = rows[1::2].copy()
+    fresh[:, pk.COL_SPORT] += per
+    check(int(fresh[:, pk.COL_SPORT].max()) < 1 << 16, "auth: sports")
+    mixed = np.concatenate([est, fresh])
+    r = reasons(d.process_batch(mixed, now=late))
+    check((r[: n // 2] == REASON_FORWARDED).all()
+          and (r[n // 2:] == REASON_AUTH_REQUIRED).all(),
+          f"auth: past the TTL {int((r[: n // 2] == REASON_FORWARDED).sum())}"
+          f" of {n // 2} established rows forwarded, "
+          f"{int((r[n // 2:] == REASON_AUTH_REQUIRED).sum())} of {n // 2} "
+          f"fresh SYNs dropped AUTH_REQUIRED")
+    same_as_full_attach("after the expiry and the grants again")
+    # K10 at one auth cell [1, 1]
+    auth = d.loader.state.policy.auth
+    cell = torch.full((1, 1), 12345, dtype=torch.int32, device="cuda")
+    at = (0, auth.shape[1] // 3)
+    got, want = auth.clone(), auth.clone()
+    _dus(got, cell, at)
+    _dus_plain(want, cell, at)
+    err = max_abs_err(got, want, "dus at an auth cell")
+    dst = auth.clone()
+    idx = (slice(at[0], at[0] + 1), slice(at[1], at[1] + 1))
+    split = pass_split_or_short(torch, lambda: _dus(dst, cell, at), 1)
+    t = [device_ms(lambda: _dus(dst, cell, at), 20),
+         device_ms(lambda: dst[idx].copy_(cell), 20),
+         device_ms(lambda: dst[idx].copy_(cell), 20),
+         device_ms(lambda: _dus(dst, cell, at), 20)]
+    cell_t = {"update": [1, 1], "table": list(auth.shape), "bytes": 8,
+              "max_abs_err": err, "profiler_ms": profiler_ms(split, "dus"),
+              "ms": (t[0] + t[3]) / 2, "copy_ms": (t[1] + t[2]) / 2,
+              "bound_ms": bound(8, 0)[0], "turns": t}
+    d.shutdown()
+    grant_ms = np.percentile(np.array(upserts[:AUTH_IDENTITIES]), [50, 99])
+    g2f = (t_forward - t_obs[0]) * 1e3
+    print(f"auth: {n} SYNs from {AUTH_IDENTITIES} identities to "
+          f"db:{AUTH_PORT}: all dropped AUTH_REQUIRED, {st['granted']} "
+          f"grants ({k10_grants} dus launches, one a grant; auth_upsert "
+          f"p50 {grant_ms[0]:.3f} ms, p99 {grant_ms[1]:.3f} ms, host "
+          f"clock), the retry forwarded all {n}; grant to forward "
+          f"{g2f:.1f} ms (the first drop observed to the retry's verdicts "
+          f"in hand, host clock)")
+    print(f"auth: past the {AUTH_TTL} s TTL the sweep dropped {swept} "
+          f"grants; {n // 2} established rows forwarded, {n // 2} fresh "
+          f"SYNs dropped AUTH_REQUIRED and every pair was granted again; "
+          f"the auth table equals a full attach's projection bit for bit "
+          f"(after each grant pass)")
+    print(f"auth: launches " + ", ".join(f"{k} {launches[k]}"
+                                         for k in PATH_KERNELS))
+    print(f"auth: K10 at an auth cell [1, 1] into {tuple(auth.shape)}: "
+          f"bit-exact; {fmt_ms(cell_t['profiler_ms'])} (profiler, 20 "
+          f"calls), {t[0]:.4f} / {t[3]:.4f} ms (events), copy_ "
+          f"{t[1]:.4f} / {t[2]:.4f} ms, bound {cell_t['bound_ms']:.7f} ms "
+          f"by bytes")
+    report["auth"] = {"rows": n, "identities": AUTH_IDENTITIES,
+                      "status": st, "dus_launches_for_grants": k10_grants,
+                      "auth_upsert_ms": {"p50": grant_ms[0],
+                                         "p99": grant_ms[1]},
+                      "grant_to_forward_ms": g2f, "swept": swept,
+                      "k10_cell": cell_t, "launches": launches}
+    return launches, cell_t
+
+
 def main() -> int:
     if not (ROOT / "cilium_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout (cilium_tpu_torch/ is "
@@ -6054,6 +6609,16 @@ def main() -> int:
         phase_sharded_demotion(torch, report)
         report["sharded_s"] = time.monotonic() - t15
         print(f"sharded serving: {report['sharded_s']:.1f} s")
+
+        # -- 16. the connectivity test (config #1) ------------------------
+        by_path["connectivity"] = phase_connectivity(torch, report)
+
+        # -- 17. the delta attach --------------------------------------
+        by_path["delta_attach"], k10_slice = phase_delta_attach(
+            torch, rng, world, report)
+
+        # -- 18. mutual authentication ---------------------------------
+        by_path["auth"], k10_cell = phase_auth(torch, rng, world, report)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6071,6 +6636,14 @@ def main() -> int:
         "daemon": report["daemon"]["k7_daemon_table"]["ms"]}
     kernels["ct_occupied"]["path_ms"] = {
         "daemon": report["daemon"]["k8_daemon_table"]["ms"]}
+    # K10 at a delta attach's policy slice and at an auth grant's cell
+    # (phases 17, 18), each with its bound and the same Tensor.copy_
+    kernels["dus"]["path_ms"] = {
+        "policy_slice": k10_slice["ms"], "auth_cell": k10_cell["ms"]}
+    kernels["dus"]["path_shapes"] = {
+        p: {k: t[k] for k in ("update", "table", "profiler_ms", "bound_ms",
+                              "copy_ms")}
+        for p, t in (("policy_slice", k10_slice), ("auth_cell", k10_cell))}
     on_path, launchers = [], []
     for name, k in kernels.items():
         k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"), k.pop("ops"),
@@ -6078,7 +6651,8 @@ def main() -> int:
         # launches: the daemon path's count where the kernel runs there,
         # else the slice path's, the churn path's, the egress path's,
         # the service path's, the anomaly path's, the trainer's, the
-        # trainer's over a mesh or the sharded daemon's (each path's
+        # trainer's over a mesh, the sharded daemon's, the connectivity
+        # test's, the delta attach's or the auth grants' (each path's
         # counts zeroed before it ran)
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         k["launches"] = (by_path["daemon"][name] or by_path["slice"][name]
@@ -6087,7 +6661,10 @@ def main() -> int:
                          or by_path["anomaly"][name]
                          or by_path["train"][name]
                          or by_path["train_mesh"][name]
-                         or by_path["sharded"][name])
+                         or by_path["sharded"][name]
+                         or by_path["connectivity"][name]
+                         or by_path["delta_attach"][name]
+                         or by_path["auth"][name])
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
         print(f"kernel {name}: {k['launches']} launches on the main path "

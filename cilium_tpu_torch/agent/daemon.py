@@ -13,7 +13,9 @@ port allocation and the egress gateway, bandwidth policing, the
 datapath step, reverse NAT, the monitor), and sharded serving over S
 flow-routed shards on the one card (``start_serving(mesh=S)``, with its
 rung of the degraded-mode ladder and the CT carried across its
-demotion), CT snapshots and checkpoint/restore.  The datapath
+demotion), CT snapshots and checkpoint/restore, mutual authentication
+(an :class:`auth.AuthManager` granting the identity pairs that dropped
+AUTH_REQUIRED) and the k8s watcher hub (``k8s_watchers``).  The datapath
 is :class:`TorchLoader` on ``device`` (None: the card; the tests pass
 ``device="cpu"``), and the proxy runs its L7 verdicts on the same
 device.  With ``anomaly_model_path`` set, an :class:`ml.AnomalyScorer`
@@ -23,12 +25,12 @@ no verdict changes).
 Ported members keep the reference's names and semantics.  What the
 reference wires in besides, and the port does not have yet, raises
 NotImplementedError naming its ROADMAP item, at construction (a config
-knob turned on) or at the call: span tracing and the profiler window, mutual auth, encryption, the SLO plane and metric
-history, the flight recorder, flow analytics, Hubble, policy audit
-mode and monitor trace aggregation.  The proxy's socket listeners, the
-DNS proxy and the xDS surface are not ported (ROADMAP A17): L7
-requests arrive through the ``handle_l7*`` calls and the serving
-plane's request source.
+knob turned on) or at the call: span tracing and the profiler window,
+encryption, the SLO plane and metric history, the flight recorder, flow
+analytics, Hubble, policy audit mode and monitor trace aggregation.
+The proxy's socket listeners, the DNS proxy and the xDS surface are
+not ported (ROADMAP A17): L7 requests arrive through the
+``handle_l7*`` calls and the serving plane's request source.
 """
 
 from __future__ import annotations
@@ -76,11 +78,9 @@ class DaemonConfig:
 
     Knobs of unported planes raise NotImplementedError naming their
     ROADMAP item at construction when set off their default
-    (``_UNPORTED_KNOBS``).  Four defaults differ from the reference on
-    purpose, because their planes are not ported: ``enable_hubble``,
-    ``flow_agg_enabled`` and ``mesh_auth`` are False and
-    ``history_interval`` 0.0; ``policy_delta_compile`` is False because
-    the port always compiles in full (delta attach is ROADMAP A2).
+    (``_UNPORTED_KNOBS``).  Three defaults differ from the reference on
+    purpose, because their planes are not ported: ``enable_hubble`` and
+    ``flow_agg_enabled`` are False and ``history_interval`` 0.0.
     ``backend`` ("tpu" | "interpreter") picks the reference's loader;
     the port has one loader on ``Daemon(device=...)`` and ignores it.
     ``flow_ring_capacity`` sizes the Hubble flow ring, which comes with
@@ -102,9 +102,11 @@ class DaemonConfig:
     hubble_listen: Optional[str] = None  # A13
     api_socket_path: Optional[str] = None  # A19
     health_probe_interval: float = 10.0  # A20
-    mesh_auth: bool = False  # the reference's True: A5
-    auth_ttl: int = 3600  # A5
-    auth_gc_interval: float = 30.0  # A5
+    # mutual authentication (agent/auth.py): the manager observes
+    # AUTH_REQUIRED drops and grants for auth_ttl seconds
+    mesh_auth: bool = True
+    auth_ttl: int = 3600
+    auth_gc_interval: float = 30.0
     enable_encryption: bool = False  # A15
     encryption_key_path: Optional[str] = None  # A15
     # -- egress masquerade (service/nat.py): node_ip is required with it
@@ -185,8 +187,11 @@ class DaemonConfig:
     cluster_autoscale_interval_s: float = 0.5
     cluster_autoscale_min_nodes: int = 1
     cluster_autoscale_low_frac: float = 0.0
-    # -- delta attach (ROADMAP A2); the reference's default is True
-    policy_delta_compile: bool = False
+    # -- delta attach: repaint only the fingerprint-changed policies on
+    # a re-attach (False: every attach compiles in full); warn when a
+    # publish holds the dispatch lock longer than policy_swap_warn_ms
+    # (0: off)
+    policy_delta_compile: bool = True
     policy_swap_warn_ms: float = 0.0
     # -- map pressure (datapath/pressure.py); 0 disables the sampler
     map_pressure_interval: float = 5.0
@@ -219,8 +224,6 @@ _UNPORTED_KNOBS = {
     "hubble_listen": ("the Hubble gRPC server (flow/)", "A13"),
     "api_socket_path": ("the agent's API server (api/)", "A19"),
     "health_probe_interval": ("the health plane (health/)", "A20"),
-    "auth_ttl": ("mutual authentication (agent/auth.py)", "A5"),
-    "auth_gc_interval": ("mutual authentication (agent/auth.py)", "A5"),
     "encryption_key_path": ("transparent encryption (encryption/)",
                             "A15"),
     "nodeport_addresses": ("the nodePort frontends of the k8s "
@@ -231,13 +234,9 @@ _UNPORTED_KNOBS = {
     "profile_batches": ("the serving profiler window", "A14"),
     "enable_hubble": ("the Hubble observer (flow/)", "A13"),
     "sysdump_dir": ("the flight recorder (obs/flightrec.py)", "A14"),
-    "mesh_auth": ("mutual authentication (agent/auth.py)", "A5"),
     "enable_encryption": ("transparent encryption (encryption/)", "A15"),
     "policy_audit_mode": ("policy audit mode", "A16"),
     "monitor_aggregation": ("monitor trace aggregation", "A16"),
-    "policy_delta_compile": ("delta attach (policy/incremental.py "
-                             "delta_compile)", "A2"),
-    "policy_swap_warn_ms": ("delta attach's slow-swap warning", "A2"),
 }
 for _knob in ("flow_agg_enabled", "flow_agg_window_s", "flow_agg_windows",
               "flow_agg_topk", "flow_agg_queue_depth", "flow_agg_max_duty",
@@ -267,15 +266,6 @@ for _knob in ("cluster_forward_depth", "cluster_probe_interval_s",
     _UNPORTED_KNOBS[_knob] = ("the process-mode cluster (cluster/)",
                               "A21")
 BACKENDS = ("tpu", "interpreter")  # the reference's; the port ignores it
-
-
-def _requires_auth(rules) -> bool:
-    """Whether a rule section asks for mutual authentication, which the
-    port cannot enforce yet (ROADMAP A5)."""
-    return any(entry.auth_mode == "required"
-               for r in rules
-               for entry in (r.ingress + r.egress + r.ingress_deny
-                             + r.egress_deny))
 
 
 class Daemon:
@@ -354,6 +344,9 @@ class Daemon:
                     f"[{NAT_PORT_MIN}, {NAT_PORT_MIN} + capacity) node "
                     f"ports)")
             cfg.nat_pool_capacity = cap
+        cfg.policy_swap_warn_ms = float(cfg.policy_swap_warn_ms)
+        if cfg.policy_swap_warn_ms < 0:
+            raise ValueError("policy_swap_warn_ms must be >= 0")
         if cfg.masquerade and not cfg.node_ip:
             # running WITHOUT masquerade when the operator asked for it
             # would leak pod source IPs
@@ -362,7 +355,9 @@ class Daemon:
         self.repo = PolicyRepository(self.allocator)
         self.ipcache = IPCache()
         self.loader = TorchLoader(cfg.ct_capacity, device=device,
-                                  nat_capacity=cfg.nat_pool_capacity)
+                                  nat_capacity=cfg.nat_pool_capacity,
+                                  delta_compile=cfg.policy_delta_compile,
+                                  swap_warn_ms=cfg.policy_swap_warn_ms)
         self.endpoints = EndpointManager(self.repo, self.ipcache,
                                          self.loader)
         # L7 proxy plane: listeners follow the resolved redirects
@@ -444,6 +439,15 @@ class Daemon:
         self.services = ServiceManager(device=self.loader.device)
         self._socklb = None
         self._svc_version_seen = None  # affinity prune bookkeeping
+        # mutual auth (pkg/auth): the drop-observing handshake manager,
+        # fed where the batch's clock is in hand (process_batch, the
+        # serving event join): grants are stamped on the clock the
+        # datapath compares them with
+        self.auth_manager = None
+        if cfg.mesh_auth:
+            from .auth import AuthManager
+
+            self.auth_manager = AuthManager(self)
         # initial empty attach so the datapath is live pre-endpoints
         self.endpoints.regenerate()
         # learned path: advisory anomaly scores on the monitor stream
@@ -567,6 +571,10 @@ class Daemon:
                 self.config.map_pressure_interval)
         self.controllers.update(
             "fqdn-gc", self.fqdn.gc, self.config.fqdn_gc_interval)
+        if self.auth_manager is not None:
+            self.controllers.update(
+                "auth-gc", lambda: self.auth_manager.gc(self._now()),
+                self.config.auth_gc_interval)
         if self.config.ct_snapshot_interval > 0:
             # periodic CT snapshots: a recovery path whose live CT is
             # unreadable restores established flows from the last one
@@ -592,11 +600,9 @@ class Daemon:
 
     # -- policy, endpoint and ipcache API ------------------------------
     def policy_import(self, obj) -> int:
-        rules = rules_from_obj(obj)
-        if _requires_auth(rules):
-            raise _not_ported("a policy rule requiring mutual "
-                              "authentication (agent/auth.py)", "A5")
-        return self.repo.add_list(rules)
+        """Add rules: a rule dict, a list of them, or a
+        CiliumNetworkPolicy object (k8s translation)."""
+        return self.repo.add_list(rules_from_obj(obj))
 
     def add_endpoint(self, name: str, ips: Tuple[str, ...],
                      labels: List[str],
@@ -820,19 +826,22 @@ class Daemon:
     def _finish_batch(self, out, hdr: np.ndarray, row_map,
                       now: int) -> EventBatch:
         # thread-affinity: offline, api, cli
-        """The process_batch tail: decode, then monitor publish.  The
-        reference's auth observer and flow analytics are not ported
-        (ROADMAP A5, A14)."""
+        """The process_batch tail: decode, auth observe, then monitor
+        publish.  The reference's flow analytics are not ported (ROADMAP
+        A14)."""
         from ..monitor.api import decode_out
 
         batch = decode_out(out, hdr, row_map.numeric_array(),
                            timestamp=time.time())
+        if self.auth_manager is not None:
+            self.auth_manager.observe(batch, now)
         self.monitor.publish(self._filter_events(batch))
         return batch
 
     def status(self) -> dict:
         """The agent's status, cut to the ported planes; the ``nat``
-        block appears once the SNAT pool is in use."""
+        block appears once the SNAT pool is in use, the ``auth`` block
+        with ``mesh_auth``."""
         m = self.loader.metrics()
         out = {
             "endpoints": {"total": len(self.endpoints.list())},
@@ -850,7 +859,22 @@ class Daemon:
                if self.nat is not None else None)
         if nat:
             out["nat"] = nat
+        if self.auth_manager is not None:
+            out["auth"] = self.auth_manager.status()
         return out
+
+    # -- k8s integration ------------------------------------------------
+    _k8s_hub = None
+
+    def k8s_watchers(self):
+        """The k8s watcher aggregate (pkg/k8s/watchers analogue), built
+        on first use; drive it from an informer stream or a fixture
+        replay."""
+        if self._k8s_hub is None:
+            from ..k8s.watchers import K8sWatcherHub
+
+            self._k8s_hub = K8sWatcherHub(self)
+        return self._k8s_hub
 
     # -- CT snapshots (periodic, on demotion, on demand) ---------------
     def ct_snapshot_now(self, trigger: str = "manual") -> dict:
@@ -1874,6 +1898,11 @@ class Daemon:
             l7 = self._l7plane
             if l7 is not None:
                 l7.ingest(batch)
+            if self.auth_manager is not None:
+                # the drained window's clock is gone; the serving loop
+                # stamps its batches with _now(), so grants land on the
+                # clock the datapath compares them with
+                self.auth_manager.observe(batch, self._now())
             self.monitor.publish(self._filter_events(batch))
 
     def _filter_events(self, batch: EventBatch) -> EventBatch:

@@ -11,14 +11,14 @@ table and metric counters — the analogue of cilium replacing pinned
 BPF programs while maps persist in bpffs.
 
 TABLE GENERATIONS (``datapath/tables.py``): every table mutation —
-``attach``, ``patch_identity``, ``patch_ipcache``, ``delete_ipcache``
-— is a BUILDER.  It compiles and uploads holding only the builder lock
-and publishes through ``_publish_tables``, which takes the dispatch
-lock for the generation flip (and, for a patch, the ``dus`` launches).
-The host mirrors (``tensors``, ``_lpm_tensors``, ``_lpm_entries``,
-``_policies``, ``_epp``) are painted after the flip, so a build that
-dies before it leaves the published tables and the mirrors as they
-were.
+``attach``, ``patch_identity``, ``patch_ipcache``, ``delete_ipcache``,
+``auth_upsert`` — is a BUILDER.  It compiles and uploads holding only
+the builder lock and publishes through ``_publish_tables``, which takes
+the dispatch lock for the generation flip (and, for a patch or a delta
+attach, the ``dus`` launches).  The host mirrors (``tensors``,
+``_lpm_tensors``, ``_lpm_entries``, ``_policies``, ``_policy_fps``,
+``_epp``) are painted after the flip, so a build that dies before it
+leaves the published tables and the mirrors as they were.
 
 Stream ordering replaces JAX's donation: every step updates CT, ring
 and metrics in place on the current CUDA stream, which on every thread
@@ -51,7 +51,7 @@ import contextlib
 import ipaddress
 import threading
 import time
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -269,19 +269,21 @@ class TorchLoader(Loader):
     (``device`` None or "cuda"), or in their plain versions on the CPU
     (``device="cpu"``).
 
-    Ported: ``attach`` (always a full compile; delta attach is ROADMAP
-    A2), the in-place patches ``patch_identity``, ``patch_ipcache`` and
-    ``delete_ipcache``, ``step``, ``serve``, ``serve_packed``,
-    ``serve_superbatch``, sharded serving (``serving_shard``,
-    ``serve_sharded``, ``serving_unshard``, ``add_route_overflow``),
-    ``gc``, ``map_pressure``, ``add_host_drops``, ``metrics``,
-    ``ct_snapshot``, ``ct_restore``, ``table_stats`` and the NAT pool's
-    ``masquerade``, ``reverse_nat``, ``nat_status``, ``nat_snapshot``
-    and ``nat_restore``.  The authmap plane raises NotImplementedError
-    naming its ROADMAP item."""
+    Ported: ``attach`` (a delta attach that repaints only the policies
+    whose fingerprints changed when ``delta_compile`` and the shapes
+    allow, else a full compile), the in-place patches
+    ``patch_identity``, ``patch_ipcache`` and ``delete_ipcache``, the
+    authmap plane ``auth_upsert``, ``auth_entries`` and ``auth_gc``,
+    ``step``, ``serve``, ``serve_packed``, ``serve_superbatch``, sharded
+    serving (``serving_shard``, ``serve_sharded``, ``serving_unshard``,
+    ``add_route_overflow``), ``gc``, ``map_pressure``,
+    ``add_host_drops``, ``metrics``, ``ct_snapshot``, ``ct_restore``,
+    ``table_stats`` and the NAT pool's ``masquerade``, ``reverse_nat``,
+    ``nat_status``, ``nat_snapshot`` and ``nat_restore``."""
 
     def __init__(self, ct_capacity: int = 1 << 20, device=None,
-                 nat_capacity: Optional[int] = None):
+                 nat_capacity: Optional[int] = None,
+                 delta_compile: bool = True, swap_warn_ms: float = 0.0):
         self.device = resolve_device(device)
         self.ct_capacity = ct_capacity
         # SNAT port-pool size (service/nat.py NATTable); None: the
@@ -292,6 +294,11 @@ class TorchLoader(Loader):
         self.state: Optional[DatapathState] = None
         self.row_map: Optional[IdentityRowMap] = None
         self.attach_count = 0
+        # mutual-auth grants, host-authoritative and guarded by the
+        # dispatch lock: (ep_id, remote numeric identity) -> expires.
+        # The device [n_pol, n_rows] table is their projection, rebuilt
+        # on every attach (rows and policy indices shift; the keys stay)
+        self._auth: Dict[Tuple[int, int], int] = {}
         # the lock covers the step enqueue + state swap only; host
         # compile and h2d staging happen before it is taken
         self._lock = threading.Lock()
@@ -301,7 +308,12 @@ class TorchLoader(Loader):
                         if self.device.type == "cuda" else None)
         # the published generation + the builder lock (lock order:
         # table-builder BEFORE the dispatch lock)
-        self.tables = TableVersioner()
+        self.tables = TableVersioner(warn_ms=swap_warn_ms)
+        # delta attach (policy.incremental.delta_compile): repaint only
+        # the policies whose fingerprints changed; _policy_fps is the
+        # last attach's fingerprints (None until the first)
+        self.delta_compile = bool(delta_compile)
+        self._policy_fps: Optional[List[tuple]] = None
         # set while a publish is inside the dispatch lock: a builder
         # that dies there re-uploads from the mirrors (_building)
         self._swap_incomplete = False
@@ -379,20 +391,43 @@ class TorchLoader(Loader):
                 self._heal_incomplete_swap()
                 raise
 
-    def _project_auth(self, n_pol: int, n_rows: int) -> np.ndarray:
-        """The auth grants projected onto the device [n_pol, n_rows]
-        table, one definition for the attach and the recovery.  There
-        are no grants until the authmap plane is ported (ROADMAP A5),
-        so the projection is all zeros."""
-        return np.zeros((n_pol, n_rows), dtype=np.uint32)
+    def _project_auth(self, epp, row_map, n_pol: int,
+                      n_rows: int) -> np.ndarray:
+        """The host grants projected onto the device [n_pol, n_rows]
+        table: ONE definition for the full attach, the delta attach and
+        the recovery, so a world republished from the mirrors carries
+        the same grants as an attach.  ``row_map`` is explicit: an
+        attach projects through its argument (``self.row_map`` is still
+        the previous one before the publish)."""
+        auth = np.zeros((n_pol, n_rows), dtype=np.uint32)
+        with self._lock:  # _auth shares the dispatch lock
+            items = list(self._auth.items())
+        for (ep, rem), exp in items:
+            pr = (epp[ep] if epp is not None and 0 <= ep < MAX_ENDPOINTS
+                  else -1)
+            r = row_map.row(rem) if row_map is not None else 0
+            if pr >= 0 and 0 < r < n_rows:
+                auth[pr, r] = max(auth[pr, r], exp)
+        return auth
 
     def _project_auth_column(self, kind: str, numeric_id: int,
                              n_pol: int) -> np.ndarray:
         """One identity's auth column [n_pol]: a recycled row must not
-        hand its previous occupant's grants to the newcomer, so a patch
-        rewrites the column from the grants (zeros on remove, and
-        zeros for every identity until ROADMAP A5)."""
-        return np.zeros(n_pol, dtype=np.uint32)
+        hand its previous occupant's grants to the newcomer (a forward
+        with no handshake), so a patch rewrites the column from this
+        identity's own grants, and zeros it on remove."""
+        col = np.zeros(n_pol, dtype=np.uint32)
+        if kind != "add" or self._epp is None:
+            return col
+        with self._lock:  # _auth shares the dispatch lock
+            items = list(self._auth.items())
+        for (ep, rem), exp in items:
+            if rem != numeric_id:
+                continue
+            pr = self._epp[ep] if 0 <= ep < MAX_ENDPOINTS else -1
+            if pr >= 0:
+                col[pr] = max(col[pr], exp)
+        return col
 
     def _heal_incomplete_swap(self) -> None:
         """No-op unless a publish died inside the dispatch lock (the
@@ -409,7 +444,8 @@ class TorchLoader(Loader):
         with self._on_stream():
             policy = DevicePolicy.from_tensors(
                 t, self._epp,
-                self._project_auth(t.verdict.shape[0], t.verdict.shape[2]),
+                self._project_auth(self._epp, self.row_map,
+                                   t.verdict.shape[0], t.verdict.shape[2]),
                 device=self.device)
             lpm = DeviceLPM.from_tensors(self._lpm_tensors, self.device)
         with self._lock:
@@ -431,10 +467,10 @@ class TorchLoader(Loader):
         """THE swap: the only place a new table generation becomes
         visible to dispatches.  Under the dispatch lock: the
         ``churn.swap`` fault site, the in-place ``device_patch``
-        launches on the loader's stream (microseconds of enqueue), the
-        state swap and the generation flip.  The mirrors are painted
-        after it (build lock still held).  Callers are inside
-        ``_building()``."""
+        launches on the loader's stream (microseconds of enqueue; a
+        patch may return the successor ``DevicePolicy``), the state
+        swap and the generation flip.  The mirrors are painted after it
+        (build lock still held).  Callers are inside ``_building()``."""
         from ..infra import faults
 
         with self._lock:
@@ -448,7 +484,9 @@ class TorchLoader(Loader):
             self._swap_incomplete = True
             if device_patch is not None:
                 with self._on_stream():
-                    device_patch(self.state)
+                    patched = device_patch(self.state)
+                if patched is not None:
+                    policy = patched
             if policy is None:
                 policy = self.state.policy
             if lpm is None:
@@ -476,13 +514,27 @@ class TorchLoader(Loader):
         return self.tables.snapshot()
 
     def attach(self, policies, ipcache, ep_policy, row_map) -> None:
-        """Full (re)compile + swap: new tensors are built and uploaded
-        off the dispatch lock and published through
-        ``_publish_tables``.  Live CT and metrics carry over."""
+        """(Re)compile + swap: new tensors are built and uploaded off
+        the dispatch lock and published through ``_publish_tables``.
+        Live CT and metrics carry over.  When the last attach's
+        per-policy fingerprints are known and the shapes still fit, only
+        the policies whose fingerprints changed are repainted
+        (``policy.incremental.delta_compile``): their slices are staged
+        off the lock and written into the live verdict tensor by one
+        ``dus`` launch each under it, so rule and selector churn costs
+        O(changed policies), not O(world)."""
         from ..infra import faults
+        from ..policy.compiler import policy_fingerprint
+        from ..policy.incremental import delta_compile
 
         with self._building() as build:
             policies = list(policies)
+            fps = [policy_fingerprint(p) for p in policies]
+            plan = None
+            if (self.delta_compile and self._published_state() is not None
+                    and row_map is self.row_map):
+                plan = delta_compile(self.tensors, policies, row_map,
+                                     self._policy_fps, fps)
             # -1 = lxcmap-miss sentinel: a packet with an unregistered
             # endpoint id DROPS (REASON_NO_ENDPOINT)
             epp = np.full(MAX_ENDPOINTS, -1, dtype=np.int32)
@@ -492,34 +544,86 @@ class TorchLoader(Loader):
                         f"endpoint id {ep_id} out of range "
                         f"[0, {MAX_ENDPOINTS})")
                 epp[ep_id] = pol_row
-            # compile first: it may GROW the row map's capacity, which
-            # sizes the auth projection
-            tensors = compile_policy(policies, row_map)
-            auth = self._project_auth(len(policies),
-                                      tensors.verdict.shape[2])
+            tensors = None
+            if plan is None:
+                # compile first: it may GROW the row map's capacity,
+                # which sizes the auth projection
+                tensors = compile_policy(policies, row_map)
+                n_rows = tensors.verdict.shape[2]
+            else:
+                n_rows = self.tensors.verdict.shape[2]
+            auth = self._project_auth(epp, row_map, len(policies), n_rows)
+            # the LPM recompiles every attach (/32 churn goes through
+            # patch_ipcache, never here): milliseconds, never a policy
+            # compile
             lpm = compile_lpm({c: row_map.row(i)
                                for c, i in ipcache.items()})
             entries = LPMEntries(ipcache)  # cidr -> numeric
+            policy = device_patch = None
             with self._on_stream():
-                policy = DevicePolicy.from_tensors(tensors, epp, auth,
-                                                   device=self.device)
+                if plan is None:
+                    policy = DevicePolicy.from_tensors(
+                        tensors, epp, auth, device=self.device)
+                else:
+                    device_patch = self._delta_patch(plan, epp, auth)
                 device_lpm = DeviceLPM.from_tensors(lpm, self.device)
             faults.check(faults.SITE_CHURN_BUILD)
 
             def mirrors():
                 self._epp = epp
                 self._policies = policies
+                self._policy_fps = fps
                 self._lpm_entries = entries
                 self._lpm_tensors = lpm
-                self.tensors = tensors
+                if plan is None:
+                    self.tensors = tensors
+                else:
+                    for pi in plan.changed:
+                        self.tensors.verdict[pi] = plan.slices[pi]
+                    self.tensors = plan.apply_structure(self.tensors)
 
             self._publish_tables(build, policy=policy, lpm=device_lpm,
+                                 device_patch=device_patch,
                                  row_map=row_map, mirrors=mirrors,
                                  attach=True)
             # counted only after the publish: a fault-aborted attach is
-            # a failed build
-            self.tables.full_attaches += 1
-            self.tables.policies_recompiled += len(policies)
+            # a failed build, never a completed (full or delta) attach
+            if plan is None:
+                self.tables.full_attaches += 1
+                self.tables.policies_recompiled += len(policies)
+            else:
+                self.tables.delta_attaches += 1
+                self.tables.policies_recompiled += len(plan.changed)
+
+    def _delta_patch(self, plan, epp: np.ndarray, auth: np.ndarray):
+        """A delta attach's device half: the changed policies' slices
+        [1, 2, n_rows, width], the class maps when the global partition
+        moved, and the fresh ``ep_policy`` and ``auth`` are staged now,
+        off the dispatch lock; the returned ``device_patch`` writes each
+        slice into the live verdict tensor with K10 under it and hands
+        back the successor ``DevicePolicy``."""
+        slices = {pi: self._stage(plan.slices[pi][None])
+                  for pi in plan.changed}
+        port_class = class_map = None
+        if plan.class_structure_changed:
+            port_class = self._stage(plan.struct.port_class)
+            class_map = self._stage(plan.struct.class_map)
+        epp_dev = self._stage(epp)
+        auth_dev = self._stage(auth)
+        self._preload_dus()
+
+        def device_patch(state):
+            pol = state.policy
+            for pi, sl in slices.items():
+                _dus(pol.verdict, sl, (pi, 0, 0, 0))
+            return DevicePolicy(
+                proto_table=pol.proto_table,
+                port_class=(pol.port_class if port_class is None
+                            else port_class),
+                class_map=pol.class_map if class_map is None else class_map,
+                verdict=pol.verdict, ep_policy=epp_dev, auth=auth_dev)
+
+        return device_patch
 
     def step(self, hdr, now: int, pre_drop=None, pre_drop_reason=None,
              lb_drop=None, audit=False):
@@ -803,21 +907,47 @@ class TorchLoader(Loader):
                 policy=self.state.policy, ipcache=self.state.ipcache,
                 ct=ct, metrics=self.state.metrics)
 
+    # -- the authmap plane (pkg/auth authmap analogue) -----------------
     def auth_upsert(self, ep_id: int, remote_id: int,
                     expires: int) -> bool:
-        raise NotImplementedError(
-            "the authmap plane is not ported yet (ROADMAP A5: auth "
-            "grants)")
+        """Record a grant in the host dict (under the dispatch lock it
+        shares) and write its one [1, 1] cell of the device auth table
+        with K10.  A grant for an endpoint or an identity with no row
+        yet stays host-side and lands at the next attach (False)."""
+        with self._building() as build:
+            with self._lock:
+                self._auth[(int(ep_id), int(remote_id))] = int(expires)
+            published = self._published_state()
+            if published is None or self._epp is None:
+                return False
+            pr = int(self._epp[ep_id]) if 0 <= ep_id < MAX_ENDPOINTS else -1
+            r = self.row_map.row(remote_id) if self.row_map else 0
+            if pr < 0 or not 0 < r < published.policy.auth.shape[1]:
+                return False
+            exp_dev = self._stage(np.full((1, 1), expires, dtype=np.uint32))
+            self._preload_dus()
+
+            def device_patch(state):
+                _dus(state.policy.auth, exp_dev, (pr, r))
+
+            self._publish_tables(build, device_patch=device_patch)
+        return True
 
     def auth_entries(self) -> list:
-        raise NotImplementedError(
-            "the authmap plane is not ported yet (ROADMAP A5: auth "
-            "grants)")
+        with self._lock:
+            return [{"endpoint": ep, "remote_identity": rem,
+                     "expires": exp}
+                    for (ep, rem), exp in sorted(self._auth.items())]
 
     def auth_gc(self, now: int) -> int:
-        raise NotImplementedError(
-            "the authmap plane is not ported yet (ROADMAP A5: auth "
-            "grants)")
+        """Drop the expired grants from the host dict.  The device cells
+        need no write: the verdict kernel compares each expiry with the
+        batch's clock, and the next projection leaves them out."""
+        with self._lock:
+            dead = [k for k, exp in self._auth.items() if exp <= now]
+            for k in dead:
+                del self._auth[k]
+        return len(dead)
 
     # -- in-place patches (identity and ipcache churn) ----------------
     def patch_identity(self, kind: str, numeric_id: int,

@@ -34,6 +34,7 @@ dispatch lock while holding the build lock, never the reverse).
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from contextlib import contextmanager
@@ -63,7 +64,7 @@ class TableVersioner:
     are read lock-free by stats scrapes (single-writer ints and log2
     buckets)."""
 
-    def __init__(self):
+    def __init__(self, warn_ms: float = 0.0):
         # serializes builders end to end (compute + publish + mirror
         # writes); the flip additionally holds the dispatch lock
         self.build_lock = threading.Lock()
@@ -75,10 +76,14 @@ class TableVersioner:
         # operator-visible "policy update latency")
         self.swap_stall = LatencyHistogram()
         self.update_visible = LatencyHistogram()
+        # delta-compile scoreboard (TorchLoader.attach)
         self.full_attaches = 0
+        self.delta_attaches = 0
         self.policies_recompiled = 0
         self.patches = 0  # in-place row/LPM patch publishes
         self.failed_builds = 0  # builder passes that raised
+        # slow-swap warning budget (policy_swap_warn_ms; 0 = off)
+        self.warn_ms = float(warn_ms)
 
     # -- builder side ---------------------------------------------------
     @contextmanager
@@ -110,6 +115,13 @@ class TableVersioner:
         self.last_swap_us = round(stall_us, 3)
         self.swap_stall.record(stall_us)
         build.published = self.generation
+        if self.warn_ms > 0 and stall_us > self.warn_ms * 1e3:
+            # operator-armed (policy_swap_warn_ms, default off): fires
+            # only when a flip exceeds the configured budget
+            logging.getLogger(__name__).warning(
+                "table publish held the dispatch lock %.1fms "
+                "(policy_swap_warn_ms=%.1f) at generation %d",
+                stall_us / 1e3, self.warn_ms, self.generation)
         return self.generation
 
     # -- read side ------------------------------------------------------
@@ -122,8 +134,7 @@ class TableVersioner:
             "swap-stall-us": self.swap_stall.snapshot(),
             "update-visible-us": self.update_visible.snapshot(),
             "full-attaches": self.full_attaches,
-            # delta attach is ROADMAP A2: none until then
-            "delta-attaches": 0,
+            "delta-attaches": self.delta_attaches,
             "policies-recompiled": self.policies_recompiled,
             "patches": self.patches,
             "failed-builds": self.failed_builds,

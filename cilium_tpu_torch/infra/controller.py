@@ -98,8 +98,11 @@ class ControllerManager:
             c.stop()
 
     def stop_all(self) -> None:
-        for name in list(self._controllers):
-            self.remove(name)
+        # a controller stopped mid-run may re-arm another (map pressure
+        # re-schedules CT GC): sweep until none is left
+        while self._controllers:
+            for name in list(self._controllers):
+                self.remove(name)
 
     def statuses(self) -> Dict[str, ControllerStatus]:
         return {n: c.status for n, c in self._controllers.items()}

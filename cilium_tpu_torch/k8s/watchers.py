@@ -1,20 +1,66 @@
-"""k8s watchers: Service and Endpoints objects into the ServiceManager.
+"""k8s watchers: Service/Endpoints, Pod, Namespace and CiliumCIDRGroup
+event handlers, and the hub that routes an event stream to them.
 
-Reference: the JAX package's ``k8s/watchers.py`` ``ServiceWatcher``
-(itself upstream ``pkg/k8s/watchers`` service.go + endpoints.go):
-Service + Endpoints objects reconcile into the ServiceManager (frontend
-= clusterIP:port and the external frontend classes, backends = ready
-endpoint addresses x the matching port).  The translation half only:
-tests drive it from fake event streams.  Handlers are idempotent (k8s
-informers re-deliver).  The Pod, CiliumIdentity, CiliumEndpoint and
-CiliumNode watchers and the hub are not ported yet (ROADMAP A20).
+Reference: the JAX package's ``k8s/watchers.py`` (itself upstream
+``pkg/k8s/watchers``): informer callbacks translating k8s objects into
+agent mutations:
+
+- ``service.go`` + ``endpoints.go``: Service + Endpoints objects
+  reconcile into the ServiceManager (frontend = clusterIP:port and the
+  external frontend classes, backends = ready endpoint addresses x the
+  matching port);
+- ``pod.go``: local pods become endpoints (labels -> identity, pod IP
+  -> ipcache host route, container ports -> named ports), with their
+  namespace's labels folded in (the Namespace watcher);
+- CiliumCIDRGroup objects: named CIDR sets for ``cidrGroupRef``.
+
+The translation half only: tests drive it from fake event streams.
+Handlers are idempotent (k8s informers re-deliver).  The
+CiliumIdentity, CiliumEndpoint(Slice), CiliumEgressGatewayPolicy,
+CiliumLocalRedirectPolicy and CiliumNode watchers are not ported yet
+(ROADMAP A20): the hub raises NotImplementedError for their kinds.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
+from . import NS_LABEL, NS_LABELS_PREFIX
+
 _PROTO_NUM = {"TCP": 6, "UDP": 17, "SCTP": 132}
+# k8s resource.Quantity suffixes, CASE-SENSITIVE ("m" is milli, "M"
+# mega — upstream parses the annotation as a Quantity of bits/s);
+# "K"/"k" both accepted (common operator typo for the canonical "k")
+_BW_UNITS = {"": 1, "m": 1e-3, "k": 10 ** 3, "K": 10 ** 3,
+             "M": 10 ** 6, "G": 10 ** 9, "T": 10 ** 12,
+             "P": 10 ** 15, "E": 10 ** 18,
+             "Ki": 1 << 10, "Mi": 1 << 20, "Gi": 1 << 30,
+             "Ti": 1 << 40, "Pi": 1 << 50, "Ei": 1 << 60}
+
+
+def parse_bandwidth(spec) -> int:
+    """``kubernetes.io/egress-bandwidth`` quantity -> BYTES/s (0 =
+    none/invalid; the annotation is a k8s resource.Quantity in
+    bits/s — upstream pkg/bandwidth parses it the same way)."""
+    if not spec:
+        return 0
+    s = str(spec).strip()
+    for suffix in sorted(_BW_UNITS, key=len, reverse=True):
+        if suffix and s.endswith(suffix):
+            num = s[: -len(suffix)]
+            break
+    else:
+        suffix, num = "", s
+    try:
+        bits = float(num) * _BW_UNITS[suffix]
+        return max(int(bits / 8), 0)
+    except (ValueError, OverflowError):
+        # covers non-numeric specs AND inf/nan/1e400, whose float()
+        # succeeds but whose int() raises — one malformed annotation
+        # must read as "no limit", never crash the watcher
+        return 0
+
+
 
 
 def _meta_key(obj: dict) -> str:
@@ -284,3 +330,255 @@ class ServiceWatcher:
                 if ip:
                     out.append(f"{ip}:{target}")
         return sorted(out)
+
+
+def pod_labels(obj: dict,
+               ns_labels: Optional[Dict[str, str]] = None) -> List[str]:
+    """Pod metadata labels -> cilium identity labels (``k8s:`` source
+    + the namespace label + the NAMESPACE's own labels under the
+    ``io.cilium.k8s.namespace.labels.`` prefix, reference:
+    k8s.GetPodMetadata — that prefix is what namespaceSelector peers
+    compile to)."""
+    meta = obj.get("metadata") or {}
+    ns = meta.get("namespace", "default")
+    out = [f"k8s:{k}={v}" for k, v in (meta.get("labels") or {}).items()]
+    out.append(f"k8s:{NS_LABEL}={ns}")
+    for k, v in (ns_labels or {}).items():
+        out.append(f"k8s:{NS_LABELS_PREFIX}{k}={v}")
+    return sorted(out)
+
+
+class PodWatcher:
+    """Local pods -> endpoint lifecycle (reference: pod.go).
+
+    Only pods scheduled on THIS node become endpoints (remote pods
+    reach the ipcache via CiliumEndpoint objects).  A label change
+    re-registers the endpoint (identity change = new endpoint policy,
+    like upstream's UpdateLabels regeneration)."""
+
+    def __init__(self, daemon, node_name: Optional[str] = None,
+                 namespaces: Optional["NamespaceWatcher"] = None):
+        self.daemon = daemon
+        self.node_name = node_name or daemon.config.node_name
+        self.namespaces = namespaces
+        self._eps: Dict[str, int] = {}  # ns/name -> endpoint id
+        self._sig: Dict[str, tuple] = {}  # ns/name -> (labels,ips,ports)
+        self._objs: Dict[str, dict] = {}  # ns/name -> last pod object
+
+    def _pod_ips(self, obj: dict) -> Tuple[str, ...]:
+        st = obj.get("status") or {}
+        ips = [e.get("ip") for e in st.get("podIPs") or () if e.get("ip")]
+        if not ips and st.get("podIP"):
+            ips = [st["podIP"]]
+        return tuple(ips)
+
+    @staticmethod
+    def _named_ports(obj: dict) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for c in (obj.get("spec") or {}).get("containers") or ():
+            for p in c.get("ports") or ():
+                if p.get("name") and p.get("containerPort"):
+                    out[p["name"]] = int(p["containerPort"])
+        return out
+
+    def on_add(self, obj: dict) -> Optional[int]:
+        key = _meta_key(obj)
+        if (obj.get("spec") or {}).get("nodeName") != self.node_name:
+            return None
+        ips = self._pod_ips(obj)
+        if not ips:
+            return None  # not yet scheduled/IP'd; a later update fires
+        ns = (obj.get("metadata") or {}).get("namespace", "default")
+        ns_labels = (self.namespaces.labels_of(ns)
+                     if self.namespaces else None)
+        labels = pod_labels(obj, ns_labels)
+        ports = self._named_ports(obj)
+        bw = parse_bandwidth(((obj.get("metadata") or {}).get(
+            "annotations") or {}).get("kubernetes.io/egress-bandwidth"))
+        # idempotency covers EVERYTHING the endpoint derives from the
+        # pod: an IP change (sandbox restart) or port change with
+        # unchanged labels must still re-register
+        sig = (tuple(labels), ips, tuple(sorted(ports.items())), bw)
+        if key in self._eps:
+            if sig == self._sig.get(key):
+                return self._eps[key]  # idempotent re-deliver
+            self.on_delete(obj)  # pod changed: re-register
+        ep = self.daemon.add_endpoint(key, ips, labels,
+                                      named_ports=ports)
+        if bw:
+            # reference: pkg/bandwidth reads the pod annotation and
+            # programs the endpoint's EDT aggregate
+            self.daemon.set_bandwidth(ep.id, bw)
+        self._eps[key] = ep.id
+        self._sig[key] = sig
+        self._objs[key] = obj
+        return ep.id
+
+    on_update = on_add
+
+    def on_delete(self, obj: dict) -> bool:
+        key = _meta_key(obj)
+        ep_id = self._eps.pop(key, None)
+        self._sig.pop(key, None)
+        self._objs.pop(key, None)
+        if ep_id is None:
+            return False
+        self.daemon.set_bandwidth(ep_id, None)
+        return self.daemon.endpoints.remove(ep_id)
+
+    def reregister_namespace(self, ns: str) -> int:
+        """Namespace labels changed: replay every known pod of that
+        namespace so identities pick up the new
+        ``io.cilium.k8s.namespace.labels.*`` set."""
+        n = 0
+        for key, obj in list(self._objs.items()):
+            if key.split("/", 1)[0] == ns:
+                self.on_add(obj)
+                n += 1
+        return n
+
+
+class NamespaceWatcher:
+    """Namespace objects -> namespace-label registry (reference:
+    pkg/k8s watcher for Namespace; upstream folds namespace labels
+    into pod identity labels under ``io.cilium.k8s.namespace.labels.``
+    so namespaceSelector peers can match them)."""
+
+    def __init__(self, pods: Optional[PodWatcher] = None):
+        self.pods = pods
+        self._labels: Dict[str, Dict[str, str]] = {}
+
+    def labels_of(self, ns: str) -> Dict[str, str]:
+        return self._labels.get(ns, {})
+
+    def on_add(self, obj: dict):
+        meta = obj.get("metadata") or {}
+        name = meta.get("name", "")
+        labels = dict(meta.get("labels") or {})
+        if self._labels.get(name) == labels:
+            return
+        self._labels[name] = labels
+        if self.pods is not None:
+            self.pods.reregister_namespace(name)
+
+    on_update = on_add
+
+    def on_delete(self, obj: dict):
+        name = (obj.get("metadata") or {}).get("name", "")
+        if self._labels.pop(name, None) is not None and self.pods:
+            self.pods.reregister_namespace(name)
+
+
+class CIDRGroupWatcher:
+    """CiliumCIDRGroup objects -> named CIDR sets for policy
+    ``cidrGroupRef`` expansion (reference: pkg/policy CIDRGroupRef +
+    the CiliumCIDRGroup CRD, cilium 1.13+).  ``on_change`` fires with
+    the group name so the CNP watcher re-expands only dependents."""
+
+    def __init__(self):
+        self._groups: Dict[str, tuple] = {}
+        self.on_change = None
+
+    def _changed(self, name: str) -> None:
+        if self.on_change is not None:
+            self.on_change(name)
+
+    def on_add(self, obj: dict) -> None:
+        name = (obj.get("metadata") or {}).get("name", "")
+        spec = obj.get("spec") or {}
+        self._groups[name] = tuple(spec.get("externalCIDRs") or ())
+        self._changed(name)
+
+    on_update = on_add
+
+    def on_delete(self, obj: dict) -> None:
+        name = (obj.get("metadata") or {}).get("name", "")
+        self._groups.pop(name, None)
+        self._changed(name)
+
+    def get(self, name: str):
+        return self._groups.get(name)
+
+
+# kinds whose watchers are not ported yet: dispatching one raises
+_UNPORTED_KINDS = {
+    "CiliumIdentity": "the CiliumIdentity watcher",
+    "CiliumEndpoint": "the CiliumEndpoint watcher",
+    "CiliumEndpointSlice": "the CiliumEndpointSlice watcher",
+    "CiliumEgressGatewayPolicy": "the CiliumEgressGatewayPolicy watcher",
+    "CiliumLocalRedirectPolicy": "the CiliumLocalRedirectPolicy watcher",
+    "CiliumNode": "the CiliumNode watcher",
+}
+
+
+class K8sWatcherHub:
+    """The ported watchers wired to one daemon — the pkg/k8s/watchers
+    K8sWatcher aggregate.  ``dispatch(event, obj)`` routes a fake (or
+    real) informer stream: CNP, CCNP, Service, Endpoints, Pod, Namespace
+    and CiliumCIDRGroup objects.  The kinds of the watchers not ported
+    yet raise NotImplementedError naming ROADMAP A20; nothing is
+    dropped silently."""
+
+    def __init__(self, daemon):
+        from . import CNPWatcher
+
+        self.services = ServiceWatcher(
+            daemon.services, node_ip=daemon.config.node_ip,
+            nodeport_addresses=daemon.config.nodeport_addresses,
+            local_ips=lambda: {ip for ep in daemon.endpoints.list()
+                               for ip in ep.ips})
+        daemon.endpoints.on_attach(
+            lambda _p: self.services.resync())
+        self.cidr_groups = CIDRGroupWatcher()
+        self.cnp = CNPWatcher(daemon.repo, services=self.services,
+                              groups=self.cidr_groups)
+        self.services.on_change = self.cnp.resync_services
+        self.cidr_groups.on_change = self.cnp.resync_cidr_groups
+        self.pods = PodWatcher(daemon)
+        self.namespaces = NamespaceWatcher(self.pods)
+        self.pods.namespaces = self.namespaces
+        self._routes = {
+            "CiliumNetworkPolicy": self.cnp,
+            "CiliumClusterwideNetworkPolicy": self.cnp,
+            "Service": _Renamed(self.services, "service"),
+            "Endpoints": _Renamed(self.services, "endpoints"),
+            "Pod": self.pods,
+            "Namespace": self.namespaces,
+            "CiliumCIDRGroup": self.cidr_groups,
+        }
+
+    def dispatch(self, event: str, obj: dict):
+        """``event`` in add|update|delete; ``obj`` any supported
+        kind."""
+        kind = obj.get("kind", "")
+        what = _UNPORTED_KINDS.get(kind)
+        if what is not None:
+            raise NotImplementedError(
+                f"{what} ({kind}) is not ported yet (ROADMAP A20)")
+        handler = self._routes.get(kind)
+        if handler is None:
+            raise ValueError(f"unhandled k8s kind {kind!r}")
+        return getattr(handler, f"on_{event}")(obj)
+
+    def replay(self, events) -> int:
+        """Apply a fixture stream of (event, obj) pairs."""
+        n = 0
+        for event, obj in events:
+            self.dispatch(event, obj)
+            n += 1
+        return n
+
+
+class _Renamed:
+    """Adapts ServiceWatcher's per-kind handler names to the generic
+    on_add/on_update/on_delete surface."""
+
+    def __init__(self, inner, prefix: str):
+        self._inner = inner
+        self._prefix = prefix
+
+    def __getattr__(self, name: str):
+        if name.startswith("on_"):
+            return getattr(self._inner,
+                           f"on_{self._prefix}_{name[3:]}")
+        raise AttributeError(name)

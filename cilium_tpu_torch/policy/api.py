@@ -562,16 +562,15 @@ def rule_from_dict(d: dict) -> Rule:
 
 
 def rules_from_obj(obj) -> List[Rule]:
-    """Accept a single rule dict or a list of rules.  A
-    CiliumNetworkPolicy object raises: its k8s translation layer is
-    not ported yet."""
+    """Accept a single rule dict, a list of rules, or a
+    CiliumNetworkPolicy object (`cilium policy import` takes all
+    three; CNPs route through the k8s translation layer)."""
     if isinstance(obj, dict):
         if obj.get("kind") in ("CiliumNetworkPolicy",
                                "CiliumClusterwideNetworkPolicy"):
-            raise NotImplementedError(
-                "CiliumNetworkPolicy translation is not ported yet "
-                "(ROADMAP A6: k8s CNP translation); pass plain rule "
-                "dicts or lists")
+            from ..k8s import rules_from_cnp
+
+            return rules_from_cnp(obj)
         return [rule_from_dict(obj)]
     out: List[Rule] = []
     for d in obj:

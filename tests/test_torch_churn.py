@@ -113,10 +113,11 @@ def _world(d, rules, start=True):
 
 
 def _pair(rules=RULES, **serving):
-    """A JAX daemon and a port daemon built alike; returns (jd, td,
-    db id)."""
+    """A JAX daemon and a port daemon built alike (delta attach off on
+    both, so both full-attach alike); returns (jd, td, db id)."""
     jd = _jdaemon(**serving)
-    td = Daemon(DaemonConfig(ct_capacity=CT, **serving), device="cpu")
+    td = Daemon(DaemonConfig(ct_capacity=CT, policy_delta_compile=False,
+                             **serving), device="cpu")
     ids = [_world(d, rules) for d in (jd, td)]
     assert ids[0] == ids[1]
     return jd, td, ids[0]
@@ -437,7 +438,8 @@ def _inc_pair():
     """tests/test_incremental.py's daemon on both sides: one db
     endpoint under INC_RULES, started."""
     out = []
-    for d in (_jdaemon(), Daemon(DaemonConfig(ct_capacity=CT),
+    for d in (_jdaemon(), Daemon(DaemonConfig(ct_capacity=CT,
+                                              policy_delta_compile=False),
                                  device="cpu")):
         db = d.add_endpoint("db-1", ("10.0.2.1",), ["k8s:app=db"])
         d.policy_import(INC_RULES)

@@ -1,8 +1,9 @@
 """The port's ``DaemonConfig`` accepts every field of the reference's
 (ROADMAP C6): the reference's defaults construct, the fields whose
-default differs on purpose are listed, and each field of an unported
-plane set off its default raises NotImplementedError naming its ROADMAP
-item."""
+default differs on purpose are listed, each field of an unported plane
+set off its default raises NotImplementedError naming its ROADMAP item,
+and the knobs of the delta attach and mutual authentication construct
+off their defaults and reach the loader and the auth manager."""
 
 import dataclasses
 
@@ -18,19 +19,15 @@ DIFFER_ON_PURPOSE = {
     "enable_hubble": False,  # A13
     "flow_agg_enabled": False,  # A14
     "history_interval": 0.0,  # A14
-    "mesh_auth": False,  # A5
-    "policy_delta_compile": False,  # A2: the port always compiles in full
 }
 
 ITEMS = {
     "node_name": "A20", "export_path": "A13", "hubble_listen": "A13",
     "api_socket_path": "A19", "health_probe_interval": "A20",
-    "auth_ttl": "A5", "auth_gc_interval": "A5", "mesh_auth": "A5",
     "enable_encryption": "A15", "encryption_key_path": "A15",
     "nodeport_addresses": "A20", "identity_lease_ttl": "A20",
     "enable_hubble": "A13", "policy_audit_mode": "A16",
-    "monitor_aggregation": "A16", "policy_delta_compile": "A2",
-    "policy_swap_warn_ms": "A2", "serving_trace_sample": "A14",
+    "monitor_aggregation": "A16", "serving_trace_sample": "A14",
     "profile_dir": "A14", "profile_batches": "A14", "sysdump_dir": "A14",
 }
 for _k in _UNPORTED_KNOBS:
@@ -82,6 +79,35 @@ def test_unported_field_off_its_default_raises_naming_its_item(knob):
     with pytest.raises(NotImplementedError,
                        match=f"\\({knob}\\).*ROADMAP {ITEMS[knob]}"):
         Daemon(DaemonConfig(**{knob: value}), device="cpu")
+
+
+# the knobs of the delta attach and mutual authentication: each off its
+# default constructs, and the value reaches its plane
+PORTED = {
+    "mesh_auth": lambda d: d.auth_manager is None,
+    "auth_ttl": lambda d: d.auth_manager.provider.ttl == 3601,
+    "auth_gc_interval": lambda d: (
+        d.controllers.get("auth-gc") is not None),
+    "policy_delta_compile": lambda d: not d.loader.delta_compile,
+    "policy_swap_warn_ms": lambda d: d.loader.tables.warn_ms == 1.0,
+}
+
+
+@pytest.mark.parametrize("knob", sorted(PORTED))
+def test_ported_field_off_its_default_constructs(knob):
+    assert knob not in _UNPORTED_KNOBS
+    value = _off_default(getattr(DaemonConfig(), knob))
+    d = Daemon(DaemonConfig(ct_capacity=1 << 12, **{knob: value}),
+               device="cpu")
+    d.start()
+    assert PORTED[knob](d)
+    d.shutdown()
+
+
+def test_a_negative_swap_warning_is_refused():
+    with pytest.raises(ValueError, match="policy_swap_warn_ms"):
+        Daemon(DaemonConfig(ct_capacity=1 << 12, policy_swap_warn_ms=-1.0),
+               device="cpu")
 
 
 @pytest.mark.parametrize("backend", ["tpu", "interpreter"])

@@ -320,8 +320,8 @@ def test_upsert_ipcache_falls_back_to_regeneration_like_jax_patch():
     assert (got["identity"][from_patch] == svc3[0].numeric_id).all()
     np.testing.assert_array_equal(td.loader.metrics(), jd.loader.metrics())
     js, ts = jd.loader.table_stats(), td.loader.table_stats()
-    assert ts["generation"] - ts["full-attaches"] == \
-        js["generation"] - js["full-attaches"] - js["delta-attaches"]
+    for k in ("generation", "full-attaches", "delta-attaches"):
+        assert ts[k] == js[k], k
     for d in (jd, td):
         d.shutdown()
 
@@ -420,7 +420,7 @@ def test_dead_dispatch_restarts_and_accounts_the_batch():
                                          "A14"),
     ("enable_hubble", True, "A13"), ("flow_agg_enabled", True, "A14"),
     ("sysdump_dir", "/nonexistent", "A14"),
-    ("history_interval", 10.0, "A14"), ("mesh_auth", True, "A5"),
+    ("history_interval", 10.0, "A14"),
     ("enable_encryption", True, "A15"),
     ("policy_audit_mode", True, "A16"),
     ("monitor_aggregation", "medium", "A16")])
@@ -429,18 +429,40 @@ def test_unported_config_raises_naming_its_roadmap_item(knob, value, item):
         Daemon(DaemonConfig(**{knob: value}), device="cpu")
 
 
+def test_mesh_auth_off_its_default_constructs():
+    """mutual authentication is ported: mesh_auth=False constructs a
+    daemon with no auth manager and no ``auth`` status block, the
+    default builds the manager."""
+    td = Daemon(DaemonConfig(ct_capacity=CT, mesh_auth=False), device="cpu")
+    assert td.auth_manager is None
+    assert "auth" not in td.status()
+    td.shutdown()
+    td = Daemon(DaemonConfig(ct_capacity=CT), device="cpu")
+    assert td.status()["auth"]["provider"] == "mutual-identity"
+    td.shutdown()
+
+
 def test_unported_calls_raise_naming_their_roadmap_item():
     td = Daemon(DaemonConfig(ct_capacity=CT), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+        td.start_serving(span_sample=4)
+    assert td._serving is None
+    td.shutdown()
+
+
+def test_a_rule_requiring_mutual_auth_imports():
+    """A rule with ``authentication: required`` imports (it raised
+    before the authmap plane was ported) and compiles its auth bit."""
+    from cilium_tpu_torch.policy.compiler import unpack_auth
+
+    td = Daemon(DaemonConfig(ct_capacity=CT), device="cpu")
+    td.add_endpoint("db", (DB,), ["k8s:app=db"])
     auth = [{"endpointSelector": {"matchLabels": {"app": "db"}},
              "ingress": [{"fromEndpoints": [{}],
                           "authentication": {"mode": "required"}}]}]
-    cases = [(lambda: td.policy_import(auth), "A5"),
-             (lambda: td.start_serving(span_sample=4), "A14")]
-    for call, item in cases:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            call()
-    assert td.repo.revision == 1  # the rule set was not imported
-    assert td._serving is None
+    assert td.policy_import(auth) == 2
+    assert td.repo.revision == 2
+    assert unpack_auth(td.loader.tensors.verdict).any()
     td.shutdown()
 
 
@@ -463,8 +485,9 @@ def test_daemon_defaults_to_the_card():
 
 
 def test_controllers_sweep_and_sample_in_the_background():
-    """start() schedules the ct-gc and map-pressure controllers; both
-    tick on their own threads against the port's loader."""
+    """start() schedules the ct-gc and map-pressure controllers (both
+    tick on their own threads against the port's loader), the FQDN
+    sweep and, with mesh_auth on by default, the auth-gc sweep."""
     td = Daemon(DaemonConfig(ct_capacity=CT, ct_gc_interval=0.02,
                              map_pressure_interval=0.02), device="cpu")
     td.start()
@@ -473,5 +496,44 @@ def test_controllers_sweep_and_sample_in_the_background():
         time.sleep(0.01)
     assert td.pressure.samples >= 3
     st = td.controllers.statuses()
-    assert set(st) == {"ct-gc", "map-pressure", "fqdn-gc"}
+    assert set(st) == {"ct-gc", "map-pressure", "fqdn-gc", "auth-gc"}
     td.shutdown()
+
+
+def test_stop_all_stops_a_controller_re_armed_while_stopping():
+    """A controller caught mid-run by stop_all may re-arm another, as
+    map pressure re-schedules CT GC: stop_all still leaves no
+    controller and no controller thread live."""
+    from cilium_tpu_torch.infra.controller import ControllerManager
+
+    mgr = ControllerManager()
+    running, go = threading.Event(), threading.Event()
+    made, update = [], mgr.update
+
+    def record(name, fn, interval):
+        made.append(update(name, fn, interval))
+        return made[-1]
+
+    mgr.update = record
+
+    def pressure():
+        if not running.is_set():
+            running.set()
+            go.wait(10)
+            mgr.update("ct-gc", lambda: None, 60)
+
+    mgr.update("ct-gc", lambda: None, 60)
+    mgr.update("map-pressure", pressure, 60)
+    assert running.wait(10)
+    stopper = threading.Thread(target=mgr.stop_all)
+    stopper.start()
+    t0 = time.monotonic()
+    # both popped: ct-gc stopped, map-pressure's stop joining its run
+    while mgr._controllers and time.monotonic() - t0 < 10:
+        time.sleep(0.01)
+    go.set()
+    stopper.join(20)
+    assert not stopper.is_alive()
+    assert mgr.statuses() == {}
+    assert len(made) == 3  # ct-gc, map-pressure, ct-gc re-armed
+    assert not [c.status.name for c in made if c._thread.is_alive()]

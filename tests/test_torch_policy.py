@@ -82,8 +82,24 @@ def test_every_verdict_class_compiles_identically():
 
 
 def test_cnp_objects_raise_until_k8s_translation_is_ported():
+    """A CNP object went through NotImplementedError until the k8s
+    translation was ported; now it translates: namespaced, labelled,
+    the reference's rules."""
+    import dataclasses
+
+    from cilium_tpu.policy.api import rules_from_obj as jrules_from_obj
     from cilium_tpu_torch.policy.api import rules_from_obj
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rules_from_obj({"kind": "CiliumNetworkPolicy", "spec": {}})
+    cnp = {"kind": "CiliumNetworkPolicy",
+           "metadata": {"name": "db", "namespace": "prod"},
+           "spec": _RULES[0]}
+    (rule,) = rules_from_obj(cnp)
+    assert dict(rule.endpoint_selector.match_labels)[
+        "k8s:io.kubernetes.pod.namespace"] == "prod"
+    assert "k8s:io.cilium.k8s.policy.name=db" in rule.labels
+    assert [dataclasses.asdict(r) for r in rules_from_obj(cnp)] == \
+        [dataclasses.asdict(r) for r in jrules_from_obj(cnp)]
+    with pytest.raises(ValueError, match="spec or specs"):
+        rules_from_obj({"kind": "CiliumNetworkPolicy",
+                        "metadata": {"name": "x"}, "spec": {}})
     assert len(rules_from_obj(_RULES)) == 1
