@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port's serving step, serving daemon, L7 proxy
 plane, live table churn, offline egress path, service load balancer,
-anomaly scorer, its trainer, sharded serving and the policy control
-plane (the connectivity test, the delta attach, mutual authentication)
-on one NVIDIA GPU.
+anomaly scorer, its trainer, sharded serving, the policy control plane
+(the connectivity test, the delta attach, mutual authentication) and
+the Hubble flow plane over a pcap replay on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -37,7 +37,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    and 1 ``step``.  The same sequence through the plain versions on the
    card must give equal ring rows, out rows, metrics, CT table and drop
    count.  Then the verdict kernel, packed and wide with every optional
-   channel, against its plain version on that state;
+   channel and audit, and packed with audit, against its plain version
+   on that state;
 5. timings: each kernel's device time at the main path's shapes (calls
    run back to back behind a spin kernel, so no host enqueue falls in
    the window) beside its plain version's and its bound (K5 also at
@@ -177,8 +178,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    on a half-full 2^20 CT, one batch skewed so that one shard overflows
    on the host: out rows, CT, metrics, ring and cursors bit-exact, and
    one sharded sequence equal to 8 unsharded K1/K4/K5 calls on the
-   shards' slices; then each timed beside its plain version and bound,
-   K5s one kernel a call;
+   shards' slices; K1s with audit on, packed and wide; then each timed
+   beside its plain version and bound, K5s one kernel a call;
    (b) phase 7's daemon with ``start_serving(mesh=8)`` serving 2^21
    packets of phase 7's traffic, then 2^16 wide rows: ledgers exact, no
    event lost, the route overflow equal to its metric and to its DROP
@@ -207,7 +208,31 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    granted once (one K10 launch a grant), the retry forwards every row;
    past the TTL and ``auth_gc``, fresh SYNs drop again while the
    established flows forward; the auth table equals a full attach's
-   projection bit for bit; K10 at an auth cell timed beside ``copy_``.
+   projection bit for bit; K10 at an auth cell timed beside ``copy_``;
+19. BASELINE.md config #2, the three-four parser over a 1k-flow pcap
+   replay with flow export: (a) 1024 TCP flows between config #3's
+   world pods and db (768 allowed, 192 that policy drops, 64 to the L7
+   port; 64 from IPv6 pods), 8 packets each, written by ``write_pcap``
+   and read back by ``read_pcap``, whose native parse must equal the
+   Python parse bit for bit (and on the golden CIC capture); (b) a
+   config #3 daemon with Hubble on (the default) and ``export_path``
+   replays it through ``submit`` in rounds (packet k of every flow,
+   then k + 1), then the golden capture through ``submit`` and through
+   ``process_batch``: every published event is one Observer flow and
+   one exported line whose verdict, reason, addresses, ports, reply
+   flag and proxy port equal its event row's (as a multiset), every
+   flow survives ``encode_flow``/``decode_flow``, the ledgers are exact;
+   (c) the replay again under ``monitor_aggregation="medium"``, through
+   ``submit`` and ``process_batch``: the monitor publishes exactly the
+   rows a numpy copy of the filter keeps; (d) a daemon with
+   ``policy_audit_mode`` replays it: every event's verdict and reason
+   equal the plain versions' over the same rounds, each policy-dropped
+   flow forwards on its first packet with its reason, the metrics are
+   equal; (e) wall time from the first submit to the last exported
+   line, flows exported/s, ``Observer.get_flows(number=1000)`` ms, phase
+   7's traffic with Hubble on and off in turns (verdicts/s, the
+   event-join worker's share by ``StageClock``), and the native and the
+   Python parse in packets/s over a 2^21-packet capture.
 
 Phases 7, 14 (a) and 15 (b) print K1's and K4's rows a launch.  The
 kernel launch counts are read per path (the slice of phase 4, the
@@ -217,7 +242,7 @@ the armed daemon's first session in phase 13, the 200-step ``train``
 runs of phase 14 (a) and (d), the sharded daemon's two sessions of
 phase 15, the connectivity run of phase 16, the edited session and
 the second edit of phase 17, the grant pass and its retry of phase
-18), each
+18, the replays of phase 19 (b)), each
 zeroed just before its path runs.  The line before the last is one JSON object describing every
 kernel (the standalone launchers with 0 launches and ``"standalone":
 true``); the last line is the device record.  Details go to
@@ -274,6 +299,20 @@ def max_abs_err(got, want, what) -> int:
     check(err == 0, f"{what}: kernel differs from its plain version "
           f"(max abs err {err}, {int((g != w).sum())} cells)")
     return err
+
+
+def audited_rows(out) -> int:
+    """Rows of a verdict stage's ``out`` (a tensor or a numpy array) that
+    audit mode forwarded with a policy drop's reason."""
+    from cilium_tpu_torch.datapath.verdict import (
+        OUT_REASON, OUT_VERDICT, REASON_POLICY_DEFAULT_DENY,
+        REASON_POLICY_DENY)
+    from cilium_tpu_torch.policy.mapstate import VERDICT_ALLOW
+
+    reason = out[:, OUT_REASON]
+    return int(((out[:, OUT_VERDICT] == VERDICT_ALLOW)
+                & ((reason == REASON_POLICY_DENY)
+                   | (reason == REASON_POLICY_DEFAULT_DENY))).sum())
 
 
 SPIN_MS = 200.0  # how far the host may run ahead of a timed window
@@ -2071,13 +2110,17 @@ class StageClock:
 
 
 DB_IP = "10.0.0.5"
+DB_IP6 = "fd00::5"  # db's address for config #2's IPv6 flows
 
 
-def config3_world(d, world, extra_rules=()):
+def config3_world(d, world, extra_rules=(), v6_pods=0):
     """BASELINE.md config #3 into daemon ``d`` through its own API: the
     remote identities and their /32s, the world's rules (with its L7
     HTTP rule) and ``extra_rules`` in one import, the ``db`` endpoint.
-    Returns the db endpoint."""
+    With ``v6_pods``, the first that many of the world's IPv6 pods too
+    (their identities in the namespace and /128s, as ``build_world``
+    gives them) and db gets ``DB_IP6`` beside ``DB_IP``.  Returns the db
+    endpoint."""
     from cilium_tpu_torch.labels import LabelSet
     from cilium_tpu_torch.testing import fixtures as fx
 
@@ -2087,18 +2130,23 @@ def config3_world(d, world, extra_rules=()):
         ident = d.allocator.allocate(
             LabelSet.parse(f"k8s:app=svc{i}", "k8s:ns=default"))
         d.ipcache.upsert(ip + "/32", ident.numeric_id, source="k8s")
+    for i, ip in enumerate(world.pod_ips6[:v6_pods]):
+        ident = d.allocator.allocate(
+            LabelSet.parse(f"k8s:app=v6svc{i}", "k8s:ns=default"))
+        d.ipcache.upsert(ip + "/128", ident.numeric_id, source="k8s")
     d.policy_import(fx.world_rules(len(world.pod_ips), 64)
                     + list(extra_rules))
-    return d.add_endpoint("db", (DB_IP,), ["k8s:app=db"])
+    return d.add_endpoint("db", (DB_IP, DB_IP6) if v6_pods else (DB_IP,),
+                          ["k8s:app=db"])
 
 
-def config3_daemon(world, rng, **config):
+def config3_daemon(world, rng, v6_pods=0, **config):
     """BASELINE.md config #3 through the daemon's own API (phase 7's
     world: the remote identities and their /32s, the world's rules with
-    its L7 HTTP rule, the ``db`` endpoint) and 2^21 rows of steady
-    traffic into db: a pool of SYNs, then 7 steady draws from it.
-    ``config`` adds DaemonConfig knobs.  Returns (daemon, db endpoint,
-    rows)."""
+    its L7 HTTP rule, the ``db`` endpoint; ``v6_pods`` as
+    :func:`config3_world`) and 2^21 rows of steady traffic into db: a
+    pool of SYNs, then 7 steady draws from it.  ``config`` adds
+    DaemonConfig knobs.  Returns (daemon, db endpoint, rows)."""
     import numpy as np
     from cilium_tpu_torch.agent import Daemon, DaemonConfig
     from cilium_tpu_torch.core.packets import (COL_DST_IP3, COL_EP,
@@ -2110,7 +2158,7 @@ def config3_daemon(world, rng, **config):
                        serving_queue_depth=1 << 19, ct_gc_interval=0.5,
                        map_pressure_interval=0.5, **config)
     d = Daemon(cfg)
-    db = config3_world(d, world)
+    db = config3_world(d, world, v6_pods=v6_pods)
     per = (1 << 21) // 8
     pool = fx.steady_flow_pool(world, per, rng)
     rows = np.concatenate([pool] + [fx.steady_traffic(pool, per, rng)
@@ -5183,6 +5231,27 @@ def phase_verdict_and_timing(torch, rng, kl, packed_np, wide_np, now,
                 s_t, unpack_hdr(rows, **scal) if scal else rows, now,
                 **opts), 3)
 
+    # K1 packed with audit on: the same rows, bit for bit; its policy
+    # drops of new flows forward, their reasons kept (phase 19 (d))
+    sk, sp = fork(kl.state), fork(kl.state)
+    ak, cin_k = verdict_stage(sk, packed, now, ep=0, dirn=0, audit=True)
+    ap, cin_p = verdict_stage_plain(sp, unpack_hdr(packed, ep=0, dirn=0),
+                                    now, audit=True)
+    err = max(max_abs_err(ak, ap, "datapath_packed out, audit"),
+              max_abs_err(sk.metrics, sp.metrics,
+                          "datapath_packed metrics, audit"))
+    for f in ("l4", "fwd", "result", "slot", "is_reply", "do_create",
+              "proxy_port"):
+        err = max(err, max_abs_err(getattr(cin_k, f), getattr(cin_p, f),
+                                   f"datapath_packed {f}, audit"))
+    audited = audited_rows(ak)
+    check(audited > 0, "datapath_packed, audit: no policy drop to audit")
+    k1 = kernels["datapath_packed"]
+    k1["max_abs_err"] = max(k1["max_abs_err"], err)
+    k1["audit_rows"] = audited
+    print(f"parity datapath_packed with audit: {N} rows, {audited} "
+          f"would-be policy drops forwarded with their reasons, bit-exact")
+
     # ct_update and ring_append at the packed batch's shapes
     out_k, c = ctins["datapath_packed"]
     base = kl.state.ct
@@ -5646,6 +5715,31 @@ def phase_sharded_kernels(torch, rng, world, kernels, report):
         max_abs_err(g, w, f"sharded vs {SHARDS} unsharded calls: {what}")
     print(f"parity sharded: one K1s/K4s/K5s sequence equals {SHARDS} "
           f"unsharded K1/K4/K5 calls on the shards' slices, bit-exact")
+
+    # K1s (and K4s after it) with audit on, packed and wide, against the
+    # plain per-shard loop (phase 19 (d))
+    for b in (1, 8):
+        kind, rows, valid, meta, _ovf = batches[b]
+        a, p = clone_state(base), clone_state(base)
+        outs = [f(st, None, rows, now + b, b, SHARDS, valid=valid,
+                  proxy_ports=pp, audit=True, **meta)
+                for f, st in ((pm.sharded_serve_launch, a),
+                              (pm.sharded_serve_plain, p))]
+        err = max(max_abs_err(outs[0], outs[1], f"sharded {kind}, audit"),
+                  max_abs_err(a.metrics, p.metrics,
+                              f"sharded {kind} metrics, audit"),
+                  max_abs_err(a.ct.table, p.ct.table,
+                              f"sharded {kind} CT, audit"))
+        k1s = kernels[f"datapath_{kind}_sharded"]
+        k1s["max_abs_err"] = max(k1s["max_abs_err"], err)
+        k1s["audit_rows"] = audited_rows(outs[0])
+        check(k1s["audit_rows"] > 0, f"sharded {kind}, audit: no policy "
+              f"drop to audit")
+    print(f"parity sharded with audit: K1s packed and wide on batches 1 "
+          f"and 8 equal the plain per-shard loop (out rows, metrics, CT), "
+          f"{kernels['datapath_packed_sharded']['audit_rows']} and "
+          f"{kernels['datapath_wide_sharded']['audit_rows']} would-be "
+          f"policy drops forwarded")
 
     # timings at the main path's shapes: 2^19 routed rows a batch
     def fork(state):  # the verdict stage reads the CT, adds to metrics
@@ -6488,6 +6582,550 @@ def phase_auth(torch, rng, world, report):
     return launches, cell_t
 
 
+CONFIG2_FLOWS = {"allowed": 768, "dropped": 192, "l7": 64}  # 1024 flows
+CONFIG2_PORTS = {"allowed": 5432, "dropped": 443, "l7": 80}
+CONFIG2_V6 = 64  # of the flows, from the world's IPv6 pods
+# a flow's 8 packets: (from db, TCP flags); SYN, SYN-ACK, ACK, two data
+# packets each way, FIN
+CONFIG2_PACKETS = ((0, 0x02), (1, 0x12), (0, 0x10), (0, 0x18), (1, 0x18),
+                   (0, 0x18), (1, 0x18), (0, 0x11))
+HUBBLE_STAGE = "event join: Hubble parser + flow metrics"
+
+
+def equal_rows(got, want, what):
+    """Host arrays equal, shape and every word; else the smoke fails."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    check(got.shape == want.shape and np.array_equal(got, want),
+          f"{what}: {got.shape} vs {want.shape}, "
+          f"{int((got != want).sum()) if got.shape == want.shape else '-'}"
+          f" cells differ")
+
+
+def config2_capture(rng, world):
+    """BASELINE.md config #2's capture: 1024 TCP flows between config
+    #3's world pods and db (768 to the allowed 5432, 192 to 443, which
+    policy drops, 64 to the L7 port 80; 64 of them from the world's IPv6
+    pods to ``DB_IP6``), 8 packets a flow.  Returns the header rows in
+    round order (packet k of every flow, then packet k + 1), db's
+    replies with COL_DIR 1, and each flow's kind."""
+    import numpy as np
+    from cilium_tpu_torch.core import packets as pk
+
+    kinds = np.array([k for k, n in CONFIG2_FLOWS.items()
+                      for _ in range(n)])
+    rng.shuffle(kinds)
+    n = len(kinds)
+    dport = np.array([CONFIG2_PORTS[k] for k in kinds], np.uint32)
+    v6 = np.zeros(n, bool)
+    v6[rng.choice(n, CONFIG2_V6, replace=False)] = True
+    w4 = np.array([pk.ip_to_words(ip) for ip in world.pod_ips], np.uint32)
+    w6 = np.array([pk.ip_to_words(ip)
+                   for ip in world.pod_ips6[:CONFIG2_V6]], np.uint32)
+    client = np.where(v6[:, None], w6[rng.integers(0, len(w6), n)],
+                      w4[rng.integers(0, len(w4), n)]).astype(np.uint32)
+    db = np.where(v6[:, None], np.array(pk.ip_to_words(DB_IP6), np.uint32),
+                  np.array(pk.ip_to_words(DB_IP), np.uint32))
+    sport = 20000 + np.arange(n, dtype=np.uint32)  # every flow new
+    rounds = []
+    for k, (reply, flags) in enumerate(CONFIG2_PACKETS):
+        r = np.zeros((n, pk.N_COLS), np.uint32)
+        r[:, pk.COL_SRC_IP0:pk.COL_SRC_IP0 + 4] = db if reply else client
+        r[:, pk.COL_DST_IP0:pk.COL_DST_IP0 + 4] = client if reply else db
+        r[:, pk.COL_SPORT] = dport if reply else sport
+        r[:, pk.COL_DPORT] = sport if reply else dport
+        r[:, pk.COL_PROTO] = 6
+        r[:, pk.COL_FLAGS] = flags
+        # one length a packet of the flow: every row of the capture is
+        # its own (the events join back to them by their bytes)
+        r[:, pk.COL_LEN] = 100 + 100 * k
+        r[:, pk.COL_FAMILY] = np.where(v6, 6, 4)
+        r[:, pk.COL_DIR] = reply
+        rounds.append(r)
+    return np.concatenate(rounds), kinds
+
+
+def from_db(rows):
+    """[N] bool: the rows db sent (source DB_IP or DB_IP6): a capture
+    taken at db's interface replays them as egress."""
+    import numpy as np
+    from cilium_tpu_torch.core import packets as pk
+
+    src = rows[:, pk.COL_SRC_IP0:pk.COL_SRC_IP0 + 4]
+    return ((src == np.array(pk.ip_to_words(DB_IP), np.uint32)).all(1)
+            | (src == np.array(pk.ip_to_words(DB_IP6), np.uint32)).all(1))
+
+
+def pcap_of(rows):
+    """A classic LINKTYPE_ETHERNET pcap of IPv4 ``rows``, built with
+    numpy from ``frames_from_batch``'s frames (no per-packet Python)."""
+    import struct
+
+    import numpy as np
+    from cilium_tpu_torch.core.ingest import FRAME_LEN, frames_from_batch
+
+    n = len(rows)
+    frames = np.frombuffer(frames_from_batch(rows), np.uint8).reshape(
+        n, 4 + FRAME_LEN)
+    rec = np.zeros((n, 16 + FRAME_LEN), np.uint8)
+    lens = np.frombuffer(struct.pack("<II", FRAME_LEN, FRAME_LEN), np.uint8)
+    rec[:, 8:16] = lens
+    rec[:, 16:] = frames[:, 4:]
+    return struct.pack("<IHHiIII", 0xA1B2C3D4, 2, 4, 0, 0, 65535,
+                       1) + rec.tobytes()
+
+
+def replay_rounds(d, rows, n_rounds):
+    """One serving session of ``rows`` in ``n_rounds`` equal rounds
+    through ``submit``, each admitted whole and verdicted before the
+    next, so no two packets of one flow share a batch.  The exporter's
+    consumer is timed.  Returns (stop_serving's result, seconds from
+    the first submit to the last exported line)."""
+    stamps = []
+    exporter = d.monitor._consumers.get("exporter")
+    if exporter is not None:
+        def timed(batch):
+            exporter(batch)
+            stamps.append(time.perf_counter())
+        d.monitor.register("exporter", timed)
+    d.start_serving(ring_capacity=RING_CAPACITY, ingress=True, packed=True,
+                    superbatch_k=4)
+    per = len(rows) // n_rounds
+    t0 = time.perf_counter()
+    for k in range(n_rounds):
+        got = d.submit(rows[k * per:(k + 1) * per])
+        check(got == per, f"config #2: round {k} admitted {got} of {per}")
+        wait_for(lambda: d.serving_stats()["verdicts"] >= (k + 1) * per,
+                 f"config #2: round {k}'s verdicts")
+    out = d.stop_serving()
+    if exporter is not None:
+        d.monitor.register("exporter", exporter)
+    return out, (stamps[-1] - t0 if stamps else None)
+
+
+def check_ledger(out, n, what):
+    fe = out["front-end"]
+    ft = fe["fault-tolerance"]
+    check(fe["submitted"] == fe["verdicts"] + fe["shed"]
+          + ft["recovery-dropped"] and fe["verdicts"] == n
+          and fe["shed"] == 0 and out["lost"] == 0,
+          f"{what}: ledger {fe}, lost {out['lost']}")
+
+
+def flow_keys_of_events(batches):
+    """The exported fields of each event row: verdict name, drop
+    reason, addresses, ports, reply (the CT state), proxy port."""
+    import numpy as np
+    from cilium_tpu_torch.core import packets as pk
+    from cilium_tpu_torch.datapath.conntrack import CT_REPLY
+    from cilium_tpu_torch.flow.flow import VERDICT_NAMES
+
+    keys = []
+    for b in batches:
+        h = b.hdr
+        proto = h[:, pk.COL_PROTO]
+        sport = np.where(np.isin(proto, (6, 17, 132)), h[:, pk.COL_SPORT], 0)
+        dport = np.where(np.isin(proto, (6, 17, 132, 1, 58)),
+                         h[:, pk.COL_DPORT], 0)
+        for i in range(len(b)):
+            fam = int(h[i, pk.COL_FAMILY])
+            keys.append((
+                VERDICT_NAMES.get(int(b.verdict[i]), "VERDICT_UNKNOWN"),
+                int(b.reason[i]),
+                pk.words_to_ip(h[i, pk.COL_SRC_IP0:pk.COL_SRC_IP0 + 4], fam),
+                pk.words_to_ip(h[i, pk.COL_DST_IP0:pk.COL_DST_IP0 + 4], fam),
+                int(sport[i]), int(dport[i]),
+                int(b.ct_state[i]) == CT_REPLY, int(b.proxy_port[i])))
+    return keys
+
+
+def flow_key_of_line(rec):
+    """The same fields of one exported JSONL flow."""
+    f = rec["flow"]
+    (l4,) = f["l4"].values()
+    ports = ((l4.get("source_port", 0), l4.get("destination_port", 0))
+             if isinstance(l4, dict) and "type" not in l4
+             else (0, l4.get("type", 0) if isinstance(l4, dict) else 0))
+    return (f["verdict"], f.get("drop_reason", 0), f["IP"]["source"],
+            f["IP"]["destination"], ports[0], ports[1], f["is_reply"],
+            f.get("proxy_port", 0))
+
+
+class FlowTally:
+    """What the monitor published, the observer saw, the seven parser
+    added and the exporter wrote, since the last ``take``."""
+
+    def __init__(self, d, export_path):
+        self.d, self.path = d, export_path
+        self.seen = []  # the event batches the monitor fanned out
+        d.monitor.register("smoke", self.seen.append)
+        self.mark = self._now()
+
+    def _now(self):
+        import os
+
+        d = self.d
+        lines = 0
+        if os.path.exists(self.path):
+            with open(self.path, "rb") as f:
+                lines = sum(1 for _ in f)
+        return {"published": d.monitor.published, "seq": d.observer.seq,
+                "seven": d.seven.parsed, "written": d.exporter.written,
+                "lines": lines, "batches": len(self.seen)}
+
+    def take(self, what):
+        """Check the stretch since the last take: every published event
+        one observer flow (the seven parser's L7 flows besides) and one
+        exported line; each exported line's fields those of its event
+        row, as a multiset; no consumer lost a row.  -> the stretch's
+        counts and its event batches."""
+        import collections
+
+        d, a, b = self.d, self.mark, self._now()
+        self.mark = b
+        got = {k: b[k] - a[k] for k in a}
+        batches = self.seen[a["batches"]:b["batches"]]
+        events = sum(len(x) for x in batches)
+        check(got["published"] == events > 0
+              and got["seq"] == events + got["seven"]
+              and got["written"] == got["lines"] == events,
+              f"{what}: published {got['published']}, observer "
+              f"{got['seq']} (seven {got['seven']}), exported "
+              f"{got['written']} ({got['lines']} lines), {events} event "
+              f"rows")
+        for name in ("hubble", "metrics", "exporter", "smoke"):
+            check(d.monitor.lost_count(name) == 0,
+                  f"{what}: the {name} consumer lost rows")
+        with open(self.path) as f:
+            lines = f.read().splitlines()[a["lines"]:b["lines"]]
+        want = collections.Counter(flow_keys_of_events(batches))
+        have = collections.Counter(flow_key_of_line(json.loads(x))
+                                   for x in lines)
+        check(have == want, f"{what}: exported flows differ from their "
+              f"event rows: {list((have - want).items())[:3]} / "
+              f"{list((want - have).items())[:3]}")
+        got["events"] = events
+        return got, batches
+
+
+def proto_round_trip(d, batches):
+    """Every event row as the exporter materializes it, through
+    ``encode_flow`` and ``decode_flow``: what the decoder renders equals
+    the flow's ``to_dict``.  -> flows checked."""
+    from cilium_tpu_torch.flow.observer import materialize_flow
+    from cilium_tpu_torch.flow.proto import decode_flow, encode_flow
+
+    n = 0
+    for b in batches:
+        for i in range(len(b)):
+            f = materialize_flow(
+                b.hdr[i], b.timestamp, n, int(b.verdict[i]),
+                int(b.reason[i]), int(b.ct_state[i]), int(b.msg_type[i]),
+                int(b.identity[i]), d._identity_labels, d._endpoint_info,
+                proxy_port=int(b.proxy_port[i]))
+            want = f.to_dict()
+            back = decode_flow(encode_flow(f))
+            check(back == {k: want[k] for k in back},
+                  f"config #2: flow {n} changed on the wire: {back} / "
+                  f"{want}")
+            n += 1
+    return n
+
+
+def medium_keep(batch):
+    """A numpy copy of the reference's "medium" monitor aggregation (no
+    endpoint has Debug on here): a TCP trace with none of SYN, FIN and
+    RST is dropped."""
+    from cilium_tpu_torch.core import packets as pk
+    from cilium_tpu_torch.monitor.api import MSG_TRACE
+
+    boring = ((batch.hdr[:, pk.COL_PROTO] == 6)
+              & ((batch.hdr[:, pk.COL_FLAGS]
+                  & (pk.TCP_SYN | pk.TCP_FIN | pk.TCP_RST)) == 0)
+              & (batch.msg_type == MSG_TRACE))
+    return ~boring
+
+
+def plain_replay(d, db, rows, n_rounds, audit):
+    """The capture's rounds through the plain versions on the card, on
+    a fresh CT and the tables daemon ``d`` compiled: -> (out rows, the
+    metrics)."""
+    import numpy as np
+    from cilium_tpu_torch import u32
+    from cilium_tpu_torch.datapath.conntrack import ct_update_plain
+    from cilium_tpu_torch.datapath.loader import TorchLoader
+    from cilium_tpu_torch.datapath.verdict import verdict_stage_plain
+    from cilium_tpu_torch.labels import LabelSet
+
+    fl = TorchLoader(ct_capacity=CT_CAPACITY)
+    fl.attach([d.repo.resolve(LabelSet.parse("k8s:app=db"))],
+              d.ipcache.to_identity_map(), {db.id: 0}, d.endpoints.row_map)
+    per = len(rows) // n_rounds
+    outs = []
+    for k in range(n_rounds):
+        hdr = u32.from_numpy(rows[k * per:(k + 1) * per], "cuda")
+        out, c = verdict_stage_plain(fl.state, hdr, k + 1, audit=audit)
+        ct_update_plain(fl.state.ct, c.l4, c.fwd, c.result, c.slot,
+                        c.is_reply, c.do_create, c.proxy_port, k + 1, None)
+        outs.append(u32.to_numpy(out))
+    return np.concatenate(outs), fl.metrics()
+
+
+def hubble_turns(d, rows, report_part):
+    """Phase 7's steady traffic through daemon ``d`` with Hubble on (the
+    default: the three-four parser and the flow metrics on the monitor)
+    and off, in turns (on, off, off, on), after a first session that
+    establishes the flows: verdicts/s and the event-join worker's share
+    by ``StageClock``, the Hubble consumers timed as a stage of it."""
+    threads = {**StageClock.THREADS, HUBBLE_STAGE: "worker"}
+    consumers = {"hubble": d.parser, "metrics": d.flow_metrics}
+    serve_session(d, rows)  # every pool flow established
+    per = len(rows) // 8
+    turns = []
+    for on in (True, False, False, True):
+        clock = StageClock(threads)
+        for name, owner in consumers.items():
+            if on:
+                clock.wrap(owner, "consume", HUBBLE_STAGE)
+                d.monitor.register(name, owner.consume)
+            else:
+                d.monitor.unregister(name)
+        out, t = serve_session(d, rows[per:], clock)
+        for name, owner in consumers.items():
+            if on:
+                delattr(owner, "consume")
+        check_ledger(out, len(rows) - per, f"hubble {'on' if on else 'off'}")
+        st = clock.summary(t)
+        turns.append({
+            "hubble": on, "seconds": t, "verdicts_per_s": (len(rows) - per) / t,
+            "events": out["events"],
+            "worker_share": st["event join, all"]["share"],
+            "hubble_share": st[HUBBLE_STAGE]["share"],
+            "hubble_ms_median": st[HUBBLE_STAGE]["median_ms"]})
+        print(f"hubble {'on ' if on else 'off'}: {len(rows) - per} packets "
+              f"in {t:.3f} s ({(len(rows) - per) / t:.0f} verdicts/s), "
+              f"{out['events']} events; event join {turns[-1]['worker_share']:.1%}"
+              f" of the session, Hubble {turns[-1]['hubble_share']:.2%}")
+    for name, owner in consumers.items():  # the default again
+        d.monitor.register(name, owner.consume)
+    report_part["hubble_turns"] = turns
+
+
+def phase_config2(torch, rng, world, report):
+    """BASELINE.md config #2: the three-four parser over a 1k-flow pcap
+    replay with flow export, through the daemon at config #3's width;
+    returns the replay's launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from cilium_tpu_torch import native
+    from cilium_tpu_torch.core import packets as pk
+    from cilium_tpu_torch.core.pcap import parse_pcap_py, read_pcap, write_pcap
+    from cilium_tpu_torch.datapath.verdict import (
+        OUT_REASON, OUT_VERDICT, REASON_POLICY_DEFAULT_DENY,
+        REASON_POLICY_DENY)
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.policy.mapstate import (VERDICT_ALLOW,
+                                                  VERDICT_DEFAULT_DENY,
+                                                  VERDICT_DENY)
+
+    t19 = time.monotonic()
+    part = report["config2"] = {}
+    tmp = tempfile.TemporaryDirectory(prefix="config2-")
+    # -- (a) the capture, written and read back ---------------------------
+    rows, kinds = config2_capture(rng, world)
+    n_rounds = len(CONFIG2_PACKETS)
+    path = os.path.join(tmp.name, "config2.pcap")
+    write_pcap(path, pk.HeaderBatch(rows.copy()))
+    with open(path, "rb") as f:
+        data = f.read()
+    d, db, steady = config3_daemon(
+        world, rng, v6_pods=CONFIG2_V6,
+        export_path=os.path.join(tmp.name, "flows.jsonl"))
+    native.reset_parse_counts()
+    replay = read_pcap(path, ep=db.id, direction=0).data
+    check(native.parse_counts() == {"native": 1},
+          f"config #2: read_pcap parsed with {native.parse_counts()}")
+    equal_rows(replay, parse_pcap_py(data, db.id, 0),
+               "config #2: native parse against the Python parse")
+    replay[:, pk.COL_DIR] = from_db(replay)
+    want = rows.copy()
+    want[:, pk.COL_EP] = db.id
+    equal_rows(replay, want, "config #2: the capture read back")
+    golden = read_pcap(str(ROOT / GOLDEN[0]), ep=db.id, direction=0).data
+    with open(ROOT / GOLDEN[0], "rb") as f:
+        equal_rows(golden, parse_pcap_py(f.read(), db.id, 0),
+                   "golden capture: native parse against the Python parse")
+    check(native.parse_counts() == {"native": 2, "python": 2}
+          and len(golden) == 6144, f"golden capture: {len(golden)} rows, "
+          f"parsers {native.parse_counts()}")
+    print(f"config #2 capture: {len(rows)} packets of {len(kinds)} flows "
+          f"({CONFIG2_V6} IPv6), {len(data)} pcap bytes; the native parse "
+          f"equals the Python parse, as on the golden capture's "
+          f"{len(golden)}")
+
+    # -- (b) the replay with flow export ----------------------------------
+    tally = FlowTally(d, d.config.export_path)
+    reset_launch_counts()
+    d.start()
+    out, wall = replay_rounds(d, replay, n_rounds)
+    check_ledger(out, len(replay), "config #2")
+    got, batches = tally.take("config #2")
+    n_proto = proto_round_trip(d, batches)
+    reps = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        flows = d.observer.get_flows(number=1000)
+        reps.append((time.perf_counter() - t0) * 1e3)
+    check(len(flows) == 1000, f"get_flows gave {len(flows)}")
+    get_ms = statistics.median(reps[1:])
+    print(f"config #2 replay: {got['events']} events published = observer "
+          f"flows ({got['seq']} with {got['seven']} L7 flows of the seven "
+          f"parser) = exported lines, each line its event row's fields, "
+          f"{n_proto} flows intact through encode_flow/decode_flow; "
+          f"{out['windows']} windows, lost 0")
+    print(f"config #2: {wall:.4f} s from the first submit to the last "
+          f"exported line ({got['written'] / wall:.0f} flows exported/s); "
+          f"Observer.get_flows(number=1000) {get_ms:.3f} ms (median of 20)")
+    out_g, _ = replay_rounds(d, golden, 6)
+    check_ledger(out_g, len(golden), "golden replay")
+    got_g, _ = tally.take("golden replay")
+    for b in range(0, len(golden), 1024):
+        d.process_batch(golden[b:b + 1024], now=d._now())
+    got_p, _ = tally.take("golden through process_batch")
+    check(got_p["events"] == len(golden),
+          f"process_batch published {got_p['events']} of {len(golden)}")
+    wait_for(lambda: d.controllers.statuses()["ct-gc"].success_count >= 1,
+             "the ct-gc controller's first sweep")
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    for name in ("ct_update", "ring_append", "ring_gather", "ct_gc",
+                 "ct_occupied"):
+        check(launches[name] > 0, f"config #2: {name} never launched")
+    check(launches["datapath_wide"] + launches["datapath_packed"] > 0,
+          "config #2: K1 never launched")
+    print(f"golden capture: {got_g['events']} events through submit, "
+          f"{got_p['events']} through process_batch, each an exported "
+          f"flow; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+
+    # -- (c) monitor aggregation "medium" ---------------------------------
+    def under_medium(replay_fn, what):
+        """``replay_fn`` under the reference's runtime monitor-aggregation
+        option "medium": what the monitor published must be, row for
+        row, what the numpy copy of the filter keeps of every row the
+        filter was handed.  -> (rows handed, rows kept)."""
+        inputs = []
+        filt = d._filter_events
+        d._filter_events = lambda b: (inputs.append(b), filt(b))[1]
+        d.config.monitor_aggregation = "medium"
+        try:
+            replay_fn()
+        finally:
+            del d._filter_events
+            d.config.monitor_aggregation = "none"
+        got_m, kept = tally.take(what)
+        want_m = [b.hdr[medium_keep(b)] for b in inputs]
+        n_in = sum(len(b) for b in inputs)
+        equal_rows(np.concatenate([b.hdr for b in kept]),
+                   np.concatenate(want_m), f"{what}: the kept rows")
+        check(got_m["events"] == sum(len(x) for x in want_m) < n_in,
+              f"{what}: the observer saw {got_m['events']} of {n_in}")
+        print(f"{what}: {got_m['events']} of {n_in} events kept (drops, "
+              f"SYN/FIN/RST, non-TCP), equal to the numpy copy of the "
+              f"filter, row for row")
+        return {"events_in": n_in, "kept": got_m["events"]}
+
+    per = len(replay) // n_rounds
+    medium = {
+        "submit": under_medium(lambda: check_ledger(
+            replay_rounds(d, replay, n_rounds)[0], len(replay),
+            "config #2, medium"), "config #2, medium, through submit"),
+        "process_batch": under_medium(lambda: [
+            d.process_batch(replay[k * per:(k + 1) * per], now=d._now())
+            for k in range(n_rounds)],
+            "config #2, medium, through process_batch")}
+
+    # -- (e) Hubble on and off at phase 7's traffic -----------------------
+    d.monitor.unregister("smoke")
+    d.monitor.unregister("exporter")  # phase 7's daemon exports nothing
+    hubble_turns(d, steady, part)
+    d.shutdown()
+    n_parse = len(steady)
+    big = pcap_of(steady)  # the parse-rate capture: phase 7's 2^21 rows
+    del steady
+
+    # -- (d) policy audit mode --------------------------------------------
+    da, dba, _ = config3_daemon(world, rng, v6_pods=CONFIG2_V6,
+                                policy_audit_mode=True)
+    check(dba.id == db.id, "audit daemon: db's id differs")
+    seen = []
+    da.monitor.register("smoke", seen.append)
+    out_a, _ = replay_rounds(da, replay, n_rounds)
+    check_ledger(out_a, len(replay), "config #2, audit")
+    plain_out, plain_m = plain_replay(da, dba, replay, n_rounds, True)
+    equal_rows(da.loader.metrics(), plain_m,
+               "audit: the daemon's metrics against the plain versions'")
+    by_row = {r.tobytes(): (int(o[OUT_VERDICT]), int(o[OUT_REASON]))
+              for r, o in zip(replay, plain_out)}
+    policy = (REASON_POLICY_DENY, REASON_POLICY_DEFAULT_DENY)
+    audited = 0
+    for b in seen:
+        for i in range(len(b)):
+            v, r = int(b.verdict[i]), int(b.reason[i])
+            check(by_row[b.hdr[i].tobytes()] == (v, r),
+                  f"audit: event {(v, r)} against the plain version's "
+                  f"{by_row[b.hdr[i].tobytes()]}")
+            check(not (v in (VERDICT_DENY, VERDICT_DEFAULT_DENY)
+                       and r in policy), f"audit: a policy drop {(v, r)}")
+            audited += v == VERDICT_ALLOW and r in policy
+    plain_audited = audited_rows(plain_out)
+    n_dropped = CONFIG2_FLOWS["dropped"]
+    check(audited == plain_audited == n_dropped,
+          f"audit: {audited} audited events, the plain versions "
+          f"{plain_audited}, {n_dropped} flows policy drops")
+    da.shutdown()
+    print(f"config #2, policy audit mode: {sum(len(b) for b in seen)} "
+          f"events, each equal to the plain versions' verdict and reason; "
+          f"every one of the {n_dropped} policy-dropped flows forwarded "
+          f"on its first packet with its reason, no policy drop; metrics "
+          f"equal the plain versions'")
+
+    # -- (e) the parse rates over a 2^21-packet capture -------------------
+    best = None
+    for _ in range(3):
+        t0 = time.perf_counter()
+        nat = native.parse_pcap_bytes(big)
+        dt = time.perf_counter() - t0
+        best = dt if best is None else min(best, dt)
+    t0 = time.perf_counter()
+    py = parse_pcap_py(big)
+    t_py = time.perf_counter() - t0
+    equal_rows(nat, py, "the parse-rate capture: native against Python")
+    check(len(nat) == n_parse, f"parsed {len(nat)} of {n_parse} packets")
+    print(f"parse {n_parse} packets ({len(big)} bytes): native "
+          f"{n_parse / best:.0f} packets/s ({best:.4f} s, best of 3), "
+          f"Python {n_parse / t_py:.0f} packets/s ({t_py:.3f} s); "
+          f"equal rows")
+    tmp.cleanup()
+    part.update({
+        "flows": len(kinds), "packets": len(rows), "events": got["events"],
+        "observer_flows": got["seq"], "seven_flows": got["seven"],
+        "exported": got["written"], "proto_round_trip": n_proto,
+        "wall_s": wall, "flows_exported_per_s": got["written"] / wall,
+        "get_flows_1000_ms": get_ms, "golden_events": got_g["events"],
+        "process_batch_events": got_p["events"],
+        "medium": medium,
+        "audit": {"events": sum(len(b) for b in seen), "audited": audited},
+        "parse": {"packets": n_parse, "bytes": len(big),
+                  "native_s": best, "python_s": t_py,
+                  "native_pps": n_parse / best,
+                  "python_pps": n_parse / t_py},
+        "launches": launches, "seconds": time.monotonic() - t19})
+    print(f"config #2 phase: {part['seconds']:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "cilium_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout (cilium_tpu_torch/ is "
@@ -6619,6 +7257,9 @@ def main() -> int:
 
         # -- 18. mutual authentication ---------------------------------
         by_path["auth"], k10_cell = phase_auth(torch, rng, world, report)
+
+        # -- 19. config #2: the flow plane over a pcap replay ------------
+        by_path["config2"] = phase_config2(torch, rng, world, report)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6652,8 +7293,8 @@ def main() -> int:
         # else the slice path's, the churn path's, the egress path's,
         # the service path's, the anomaly path's, the trainer's, the
         # trainer's over a mesh, the sharded daemon's, the connectivity
-        # test's, the delta attach's or the auth grants' (each path's
-        # counts zeroed before it ran)
+        # test's, the delta attach's, the auth grants' or config #2's
+        # replay (each path's counts zeroed before it ran)
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         k["launches"] = (by_path["daemon"][name] or by_path["slice"][name]
                          or by_path["churn"][name] or by_path["egress"][name]
@@ -6664,7 +7305,8 @@ def main() -> int:
                          or by_path["sharded"][name]
                          or by_path["connectivity"][name]
                          or by_path["delta_attach"][name]
-                         or by_path["auth"][name])
+                         or by_path["auth"][name]
+                         or by_path["config2"][name])
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
         print(f"kernel {name}: {k['launches']} launches on the main path "

@@ -15,7 +15,12 @@ flow-routed shards on the one card (``start_serving(mesh=S)``, with its
 rung of the degraded-mode ladder and the CT carried across its
 demotion), CT snapshots and checkpoint/restore, mutual authentication
 (an :class:`auth.AuthManager` granting the identity pairs that dropped
-AUTH_REQUIRED) and the k8s watcher hub (``k8s_watchers``).  The datapath
+AUTH_REQUIRED) and the k8s watcher hub (``k8s_watchers``), and the
+Hubble flow plane (``flow/``: the three-four parser into the Observer's
+flow ring, the flow metrics, the JSONL exporter, the seven parser on the
+proxy's access records, the pcap recorder, the relay and, with
+``hubble_listen``, the gRPC Observer server), policy audit mode and
+monitor trace aggregation.  The datapath
 is :class:`TorchLoader` on ``device`` (None: the card; the tests pass
 ``device="cpu"``), and the proxy runs its L7 verdicts on the same
 device.  With ``anomaly_model_path`` set, an :class:`ml.AnomalyScorer`
@@ -26,8 +31,8 @@ Ported members keep the reference's names and semantics.  What the
 reference wires in besides, and the port does not have yet, raises
 NotImplementedError naming its ROADMAP item, at construction (a config
 knob turned on) or at the call: span tracing and the profiler window,
-encryption, the SLO plane and metric history, the flight recorder, flow
-analytics, Hubble, policy audit mode and monitor trace aggregation.
+encryption, the SLO plane and metric history, the flight recorder and
+flow analytics.
 The proxy's socket listeners, the DNS proxy and the xDS surface are
 not ported (ROADMAP A17): L7 requests arrive through the
 ``handle_l7*`` calls and the serving plane's request source.
@@ -78,28 +83,28 @@ class DaemonConfig:
 
     Knobs of unported planes raise NotImplementedError naming their
     ROADMAP item at construction when set off their default
-    (``_UNPORTED_KNOBS``).  Three defaults differ from the reference on
-    purpose, because their planes are not ported: ``enable_hubble`` and
-    ``flow_agg_enabled`` are False and ``history_interval`` 0.0.
-    ``backend`` ("tpu" | "interpreter") picks the reference's loader;
-    the port has one loader on ``Daemon(device=...)`` and ignores it.
-    ``flow_ring_capacity`` sizes the Hubble flow ring, which comes with
-    the observer (ROADMAP A13): it must be a positive power of two, as
-    the reference's Observer asserts, and has no effect until then."""
+    (``_UNPORTED_KNOBS``).  Two defaults differ from the reference on
+    purpose, because their planes are not ported: ``flow_agg_enabled``
+    is False and ``history_interval`` 0.0.  ``backend`` ("tpu" |
+    "interpreter") picks the reference's loader; the port has one loader
+    on ``Daemon(device=...)`` and ignores it.  ``flow_ring_capacity``
+    sizes the Hubble flow ring: a positive power of two, as the
+    Observer asserts."""
 
     node_name: str = "node0"  # A20 (the node registry)
     backend: str = "tpu"  # accepted and ignored (docstring)
     ct_capacity: int = 1 << 20
     ct_gc_interval: float = 30.0
-    flow_ring_capacity: int = 4096  # the Hubble flow ring (A13)
-    export_path: Optional[str] = None  # A13
+    flow_ring_capacity: int = 4096  # the Hubble flow ring
+    export_path: Optional[str] = None  # the Hubble JSONL flow export
     # checkpoint directory: shutdown() checkpoints into it
     state_dir: Optional[str] = None
-    enable_hubble: bool = False  # the reference's True: A13
+    enable_hubble: bool = True  # the Hubble observer and flow metrics
     anomaly_model_path: Optional[str] = None  # trained AnomalyModel .npz
     anomaly_threshold: float = 0.8
     fqdn_gc_interval: float = 15.0  # pkg/fqdn TTL sweep cadence
-    hubble_listen: Optional[str] = None  # A13
+    # the Hubble gRPC Observer server's address (needs ``grpc``)
+    hubble_listen: Optional[str] = None
     api_socket_path: Optional[str] = None  # A19
     health_probe_interval: float = 10.0  # A20
     # mutual authentication (agent/auth.py): the manager observes
@@ -115,8 +120,12 @@ class DaemonConfig:
     nodeport_addresses: Tuple[str, ...] = ()  # A20
     non_masquerade_cidrs: Tuple[str, ...] = ("10.0.0.0/8",)
     identity_lease_ttl: Optional[float] = None  # A20
-    policy_audit_mode: bool = False  # A16
-    monitor_aggregation: str = "none"  # A16
+    # policy audit mode: policy/auth denials FORWARD (and create CT
+    # state) while the event keeps the would-be reason
+    policy_audit_mode: bool = False
+    # monitor trace aggregation: "medium" keeps only drops, SYN/FIN/RST
+    # and non-TCP traces; an endpoint's Debug option exempts it
+    monitor_aggregation: str = "none"
     # -- serving front end (serving/): see the reference for each knob
     serving_queue_depth: int = 1 << 16
     serving_bucket_ladder: Tuple[int, ...] = (1024, 4096, 16384, 65536)
@@ -220,8 +229,6 @@ class DaemonConfig:
 # config knob -> (what it turns on, the ROADMAP item that ports it)
 _UNPORTED_KNOBS = {
     "node_name": ("the node registry and health plane", "A20"),
-    "export_path": ("the Hubble flow exporter (flow/)", "A13"),
-    "hubble_listen": ("the Hubble gRPC server (flow/)", "A13"),
     "api_socket_path": ("the agent's API server (api/)", "A19"),
     "health_probe_interval": ("the health plane (health/)", "A20"),
     "encryption_key_path": ("transparent encryption (encryption/)",
@@ -232,11 +239,8 @@ _UNPORTED_KNOBS = {
     "serving_trace_sample": ("span tracing (obs/trace.py)", "A14"),
     "profile_dir": ("the serving profiler window", "A14"),
     "profile_batches": ("the serving profiler window", "A14"),
-    "enable_hubble": ("the Hubble observer (flow/)", "A13"),
     "sysdump_dir": ("the flight recorder (obs/flightrec.py)", "A14"),
     "enable_encryption": ("transparent encryption (encryption/)", "A15"),
-    "policy_audit_mode": ("policy audit mode", "A16"),
-    "monitor_aggregation": ("monitor trace aggregation", "A16"),
 }
 for _knob in ("flow_agg_enabled", "flow_agg_window_s", "flow_agg_windows",
               "flow_agg_topk", "flow_agg_queue_depth", "flow_agg_max_duty",
@@ -292,6 +296,8 @@ class Daemon:
         if ring_cap < 1 or ring_cap & (ring_cap - 1):
             raise ValueError(f"flow_ring_capacity must be a positive power "
                              f"of two, got {ring_cap}")
+        cfg.monitor_aggregation = self._cast_aggregation(
+            cfg.monitor_aggregation)
         # serving knobs fail at CONSTRUCTION, normalized values written
         # back (the reference's contract)
         (cfg.serving_queue_depth, cfg.serving_bucket_ladder,
@@ -450,6 +456,38 @@ class Daemon:
             self.auth_manager = AuthManager(self)
         # initial empty attach so the datapath is live pre-endpoints
         self.endpoints.regenerate()
+        # the Hubble plane: the monitor's consumers in the reference's
+        # order (hubble, metrics, exporter, anomaly, recorder)
+        from ..flow import FlowExporter, FlowMetrics, Observer, ThreeFourParser
+        from ..flow.recorder import Recorder
+
+        self.observer = Observer(capacity=cfg.flow_ring_capacity,
+                                 identity_getter=self._identity_labels,
+                                 endpoint_getter=self._endpoint_info)
+        self.parser = ThreeFourParser(self.observer)
+        self.flow_metrics = FlowMetrics()
+        self.seven = None
+        self.exporter: Optional[FlowExporter] = None
+        self.relay = None
+        self.hubble_server = None
+        if cfg.enable_hubble:
+            self.monitor.register("hubble", self.parser.consume)
+            self.monitor.register("metrics", self.flow_metrics.consume)
+            # the seven parser: the proxy's access records become L7
+            # flows in the same ring
+            from ..flow.seven import SevenParser
+
+            self.seven = SevenParser(
+                self.observer,
+                numeric_of_row=lambda r: (self.loader.row_map.numeric(r)
+                                          if self.loader.row_map else 0))
+            self.proxy.on_record(self.seven.consume)
+        if cfg.export_path:
+            self.exporter = FlowExporter(
+                cfg.export_path, cfg.node_name,
+                identity_getter=self._identity_labels,
+                endpoint_getter=self._endpoint_info)
+            self.monitor.register("exporter", self.exporter.consume)
         # learned path: advisory anomaly scores on the monitor stream
         self.anomaly = None
         if cfg.anomaly_model_path:
@@ -460,6 +498,9 @@ class Daemon:
                 self._rows_of_identity, threshold=cfg.anomaly_threshold,
                 device=self.loader.device)
             self.monitor.register("anomaly", self.anomaly.consume)
+        # the recorder: FlowFilter-gated pcap capture off the monitor
+        self.recorder = Recorder()
+        self.monitor.register("recorder", self.recorder.consume)
         # deterministic fault injection, armed last so a construction
         # that fails leaves nothing armed; shutdown() disarms it
         self._fault_injector = None
@@ -575,6 +616,14 @@ class Daemon:
             self.controllers.update(
                 "auth-gc", lambda: self.auth_manager.gc(self._now()),
                 self.config.auth_gc_interval)
+        if self.config.hubble_listen and self.hubble_server is None:
+            # grpc is imported here only: a host without it runs every
+            # other plane
+            from ..flow.grpc_server import serve as hubble_serve
+
+            self.hubble_server = hubble_serve(
+                self.observer, self.config.hubble_listen,
+                node_name=self.config.node_name)
         if self.config.ct_snapshot_interval > 0:
             # periodic CT snapshots: a recovery path whose live CT is
             # unreadable restores established flows from the last one
@@ -586,6 +635,11 @@ class Daemon:
     def shutdown(self) -> None:
         self.controllers.stop_all()
         self.stop_serving()  # no-op when idle; drains in-flight work
+        if self.hubble_server is not None:
+            self.hubble_server.stop(grace=0.5)
+            self.hubble_server = None
+        if self.exporter:
+            self.exporter.close()
         if self.config.state_dir:
             self.checkpoint(self.config.state_dir)
         self.allocator.close()
@@ -789,7 +843,8 @@ class Daemon:
             now = self._now()
         if not (len(self.services) or self.nat is not None
                 or self._bw_rates is not None):
-            out, row_map = self.loader.step(hdr, now)
+            out, row_map = self.loader.step(
+                hdr, now, audit=self.config.policy_audit_mode)
             return self._finish_batch(out, hdr, row_map, now)
         hdr_dev = self.loader._to_device(hdr)
         svc_nobe = None
@@ -805,7 +860,8 @@ class Daemon:
         bw_reasons = self._bw_police(hdr_dev, now)
         out, row_map = self.loader.step(hdr_dev, now, pre_drop=nat_drop,
                                         pre_drop_reason=bw_reasons,
-                                        lb_drop=svc_nobe)
+                                        lb_drop=svc_nobe,
+                                        audit=self.config.policy_audit_mode)
         if self.nat is not None:
             # reverse translation AFTER the verdict: CT and policy see
             # the wire tuple, delivery and events the pod destination
@@ -853,6 +909,7 @@ class Daemon:
             "forwarded": int(m[0].sum()),
             "dropped": int(m[1:].sum()),
             "monitor-events": self.monitor.published,
+            "flows-seen": self.observer.seq,
             "map-pressure": self.pressure.stats(),
         }
         nat = (self.loader.nat_status(self._now())
@@ -1036,6 +1093,28 @@ class Daemon:
         if row_map is None:
             return np.zeros(len(numerics), dtype=np.int64)
         return row_map.rows_of(numerics)
+
+    # -- getters for flow enrichment -----------------------------------
+    def _identity_labels(self, numeric: int) -> Tuple[str, ...]:
+        # thread-affinity: any
+        ident = self.allocator.lookup_by_id(numeric)
+        return tuple(str(l) for l in ident.labels) if ident else ()
+
+    def _endpoint_info(self, ep_id: int) -> Tuple[str, int]:
+        # thread-affinity: any
+        ep = self.endpoints.get(ep_id)
+        return (ep.name, ep.id) if ep else ("", ep_id)
+
+    def add_relay_peer(self, name: str, observer) -> None:
+        """Register a peer agent's Observer (or anything with its
+        ``get_flows`` protocol, such as a gRPC ``ObserverClient``) for
+        relay-merged flow views: ``self.relay`` merges this node's
+        observer with every peer, time-ordered and node-stamped."""
+        from ..flow.relay import Relay
+
+        if self.relay is None:
+            self.relay = Relay({self.config.node_name: self.observer})
+        self.relay.add_peer(name, observer)
 
     # -- L7 proxy API (the listener-facing entry) ----------------------
     def _src_row(self, src_identity: int) -> int:
@@ -1604,7 +1683,8 @@ class Daemon:
             s["ring"], row_map = self.loader.serve_packed(
                 s["ring"], hdr, now, bid, ep, dirn,
                 trace_sample=s["trace_sample"],
-                proxy_ports=s["table_dev"], valid=valid)
+                proxy_ports=s["table_dev"],
+                audit=self.config.policy_audit_mode, valid=valid)
             self._serving_snapshot_numerics(s, row_map)
             s["window"][bid] = ("packed", np.asarray(hdr),
                                 (int(ep), int(dirn)), s["numerics"],
@@ -1615,7 +1695,8 @@ class Daemon:
             s["ring"], row_map = self.loader.serve(
                 s["ring"], hdr, now, bid,
                 trace_sample=s["trace_sample"],
-                proxy_ports=s["table_dev"], valid=valid)
+                proxy_ports=s["table_dev"],
+                audit=self.config.policy_audit_mode, valid=valid)
             self._serving_snapshot_numerics(s, row_map)
             # retained by REFERENCE: callers must not mutate hdr until
             # its window drains (the batcher arena's horizon)
@@ -1665,7 +1746,8 @@ class Daemon:
         s["ring"], row_map = self.loader.serve_superbatch(
             s["ring"], sb.hdr, now, bid0, eps=sb.eps, dirns=sb.dirns,
             trace_sample=s["trace_sample"], proxy_ports=s["table_dev"],
-            valid=sb.valid, packed=sb.packed)
+            audit=self.config.policy_audit_mode, valid=sb.valid,
+            packed=sb.packed)
         self._serving_snapshot_numerics(s, row_map)
         ts = time.time()
         kind = "packed" if sb.packed else "wide"
@@ -1734,7 +1816,9 @@ class Daemon:
                 meta, kind = (ep, dirn), "packed"
         s["ring"], row_map = self.loader.serve_sharded(
             s["ring"], ship, now, bid, trace_sample=s["trace_sample"],
-            proxy_ports=s["table_dev"], valid=rvalid, packed_meta=meta)
+            proxy_ports=s["table_dev"],
+            audit=self.config.policy_audit_mode, valid=rvalid,
+            packed_meta=meta)
         self._serving_snapshot_numerics(s, row_map)
         s["window"][bid] = (kind, ship, meta, s["numerics"], time.time())
         return {"h2d_bytes": ship.nbytes, "mode": f"sharded-{kind}",
@@ -1906,16 +1990,33 @@ class Daemon:
             self.monitor.publish(self._filter_events(batch))
 
     def _filter_events(self, batch: EventBatch) -> EventBatch:
-        """Per-endpoint event options: filters what the MONITOR plane
-        sees; metrics keep every row."""
-        from ..core.packets import COL_EP
+        # thread-affinity: any
+        """Per-endpoint event options (DropNotification,
+        TraceNotification, Debug) and monitor trace aggregation: what
+        the MONITOR plane sees; the caller's EventBatch (and metrics)
+        keep every row.  Under ``"medium"`` a TCP trace with none of
+        SYN, FIN and RST is boring and dropped, except on an endpoint
+        whose Debug option is on."""
+        from ..core.packets import (COL_EP, COL_FLAGS, COL_PROTO, TCP_FIN,
+                                    TCP_RST, TCP_SYN)
         from ..monitor.api import MSG_DROP, MSG_TRACE
 
         opts = self.endpoints.event_options()
-        if not opts:
+        aggregate = self.config.monitor_aggregation == "medium"
+        if not opts and not aggregate:
             return batch
         keep = np.ones(len(batch), dtype=bool)
         ep_col = batch.hdr[:, COL_EP]
+        if aggregate:
+            proto = batch.hdr[:, COL_PROTO]
+            flags = batch.hdr[:, COL_FLAGS]
+            boring = ((proto == 6)
+                      & ((flags & (TCP_SYN | TCP_FIN | TCP_RST)) == 0)
+                      & (batch.msg_type == MSG_TRACE))
+            for ep_id, o in opts.items():
+                if o.get("Debug"):
+                    boring &= ep_col != ep_id
+            keep &= ~boring
         for ep_id, o in opts.items():
             m = ep_col == ep_id
             if not o.get("DropNotification", True):
@@ -1930,3 +2031,13 @@ class Daemon:
             identity=batch.identity[keep],
             proxy_port=batch.proxy_port[keep], hdr=batch.hdr[keep],
             timestamp=batch.timestamp)
+
+    @staticmethod
+    def _cast_aggregation(raw) -> str:
+        """The monitor_aggregation knob's value check (the reference's
+        cast of its runtime ``monitor-aggregation`` option)."""
+        v = str(raw)
+        if v not in ("none", "medium"):
+            raise ValueError(f"monitor-aggregation must be none|medium,"
+                             f" got {v!r}")
+        return v

@@ -6,10 +6,11 @@ wire format), and a HeaderBatch can be written back out as a valid pcap
 for interop with tcpdump/wireshark.
 
 Host-only (``struct`` and numpy over ``HeaderBatch.data``): the capture
-path of the anomaly evaluation.  The reference hands a file to its
-native C++ parser when one is built and keeps this Python parser as the
-fallback the native one is equivalence-tested against; the port parses
-in Python always.
+path of the anomaly evaluation and of the flow plane's pcap replay.  As
+in the reference, ``read_pcap`` hands the file to the native C++ parser
+(``cilium_tpu_torch/native``) and keeps the Python parser here
+(:func:`parse_pcap_py`) as the oracle the native one is held to and as
+the path on a host without a compiler.
 """
 
 from __future__ import annotations
@@ -245,11 +246,32 @@ def build_row(parsed, ep: int, direction: int,
 
 def read_pcap(path: str, ep: int = 0, direction: int = 0) -> HeaderBatch:
     """Parse a pcap file into a HeaderBatch (non-IP frames are skipped;
-    a truncated last record ends the parse)."""
+    a truncated last record ends the parse): the native parser when the
+    host can build it, else :func:`parse_pcap_py`."""
     with open(path, "rb") as f:
         data = f.read()
     if len(data) < 24:
         return HeaderBatch(np.zeros((0, N_COLS), dtype=np.uint32))
+    from .. import native
+
+    try:
+        rows = native.parse_pcap_bytes(data, ep, direction)
+    except ValueError:
+        raise ValueError(f"{path}: not a pcap file") from None
+    if rows is None:
+        rows = parse_pcap_py(data, ep, direction, path)
+    return HeaderBatch(rows)
+
+
+def parse_pcap_py(data: bytes, ep: int = 0, direction: int = 0,
+                  path: str = "<bytes>") -> np.ndarray:
+    """The Python parse of pcap file bytes -> [N, N_COLS] rows, one
+    record at a time (the native parser's oracle)."""
+    from ..native import count_parse
+
+    count_parse("python")
+    if len(data) < 24:
+        return np.zeros((0, N_COLS), dtype=np.uint32)
     magic = struct.unpack_from("<I", data, 0)[0]
     if magic == PCAP_MAGIC:
         endian = "<"
@@ -288,8 +310,8 @@ def read_pcap(path: str, ep: int = 0, direction: int = 0) -> HeaderBatch:
             continue
         rows.append(build_row(parsed, ep, direction))
     if not rows:
-        return HeaderBatch(np.zeros((0, N_COLS), dtype=np.uint32))
-    return HeaderBatch(np.stack(rows))
+        return np.zeros((0, N_COLS), dtype=np.uint32)
+    return np.stack(rows)
 
 
 def write_pcap(path: str, batch: HeaderBatch) -> None:

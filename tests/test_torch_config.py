@@ -2,8 +2,9 @@
 (ROADMAP C6): the reference's defaults construct, the fields whose
 default differs on purpose are listed, each field of an unported plane
 set off its default raises NotImplementedError naming its ROADMAP item,
-and the knobs of the delta attach and mutual authentication construct
-off their defaults and reach the loader and the auth manager."""
+and the knobs of the delta attach, mutual authentication, the Hubble
+flow plane, policy audit mode and monitor trace aggregation construct
+off their defaults and reach their planes."""
 
 import dataclasses
 
@@ -16,19 +17,17 @@ from cilium_tpu_torch.agent.daemon import _UNPORTED_KNOBS
 # field -> the port's default: their planes are not ported, so the port
 # starts with them off (the reference's defaults turn them on)
 DIFFER_ON_PURPOSE = {
-    "enable_hubble": False,  # A13
     "flow_agg_enabled": False,  # A14
     "history_interval": 0.0,  # A14
 }
 
 ITEMS = {
-    "node_name": "A20", "export_path": "A13", "hubble_listen": "A13",
+    "node_name": "A20",
     "api_socket_path": "A19", "health_probe_interval": "A20",
     "enable_encryption": "A15", "encryption_key_path": "A15",
     "nodeport_addresses": "A20", "identity_lease_ttl": "A20",
-    "enable_hubble": "A13", "policy_audit_mode": "A16",
-    "monitor_aggregation": "A16", "serving_trace_sample": "A14",
-    "profile_dir": "A14", "profile_batches": "A14", "sysdump_dir": "A14",
+    "serving_trace_sample": "A14", "profile_dir": "A14",
+    "profile_batches": "A14", "sysdump_dir": "A14",
 }
 for _k in _UNPORTED_KNOBS:
     for _prefix, _item in (("flow_agg_", "A14"), ("spike_", "A14"),
@@ -69,7 +68,8 @@ def test_the_unported_table_names_every_unported_field():
     assert set(_UNPORTED_KNOBS) == set(ITEMS)
     assert set(DIFFER_ON_PURPOSE) <= set(_UNPORTED_KNOBS)
     live = {"backend", "state_dir", "ct_snapshot_interval",
-            "flow_ring_capacity"}
+            "flow_ring_capacity", "enable_hubble", "export_path",
+            "hubble_listen", "policy_audit_mode", "monitor_aggregation"}
     assert not live & set(_UNPORTED_KNOBS)
 
 
@@ -81,26 +81,44 @@ def test_unported_field_off_its_default_raises_naming_its_item(knob):
         Daemon(DaemonConfig(**{knob: value}), device="cpu")
 
 
-# the knobs of the delta attach and mutual authentication: each off its
-# default constructs, and the value reaches its plane
+# the knobs of the delta attach, mutual authentication, the Hubble plane,
+# audit mode and trace aggregation: each off its default constructs, and
+# the value reaches its plane (a value of its own where the kind's other
+# value would not be a valid setting)
 PORTED = {
-    "mesh_auth": lambda d: d.auth_manager is None,
-    "auth_ttl": lambda d: d.auth_manager.provider.ttl == 3601,
-    "auth_gc_interval": lambda d: (
-        d.controllers.get("auth-gc") is not None),
-    "policy_delta_compile": lambda d: not d.loader.delta_compile,
-    "policy_swap_warn_ms": lambda d: d.loader.tables.warn_ms == 1.0,
+    "mesh_auth": (None, lambda d: d.auth_manager is None),
+    "auth_ttl": (None, lambda d: d.auth_manager.provider.ttl == 3601),
+    "auth_gc_interval": (None, lambda d: (
+        d.controllers.get("auth-gc") is not None)),
+    "policy_delta_compile": (None, lambda d: not d.loader.delta_compile),
+    "policy_swap_warn_ms": (None, lambda d: d.loader.tables.warn_ms == 1.0),
+    "enable_hubble": (None, lambda d: (
+        d.seven is None and {"hubble", "metrics"}.isdisjoint(
+            d.monitor._consumers))),
+    "export_path": (None, lambda d: (
+        d.exporter.path == "/nonexistent"
+        and "exporter" in d.monitor._consumers)),
+    "hubble_listen": ("unix:{tmp}/hubble.sock", lambda d: (
+        d.hubble_server is not None)),
+    "policy_audit_mode": (None, lambda d: d.config.policy_audit_mode),
+    "monitor_aggregation": ("medium", lambda d: (
+        d.config.monitor_aggregation == "medium")),
 }
 
 
 @pytest.mark.parametrize("knob", sorted(PORTED))
-def test_ported_field_off_its_default_constructs(knob):
+def test_ported_field_off_its_default_constructs(knob, tmp_path):
     assert knob not in _UNPORTED_KNOBS
-    value = _off_default(getattr(DaemonConfig(), knob))
+    value, reaches = PORTED[knob]
+    if value is None:
+        value = _off_default(getattr(DaemonConfig(), knob))
+    elif knob == "hubble_listen":
+        pytest.importorskip("grpc")
+        value = value.format(tmp=tmp_path)
     d = Daemon(DaemonConfig(ct_capacity=1 << 12, **{knob: value}),
                device="cpu")
     d.start()
-    assert PORTED[knob](d)
+    assert reaches(d)
     d.shutdown()
 
 

@@ -8,7 +8,8 @@ front end (``submit`` -> ``stop_serving``): its ledger is exact and its
 metrics equal the JAX daemon's for forward-only traffic;
 ``upsert_ipcache`` patches in place as the JAX daemon's does; and
 every unported feature raises NotImplementedError naming its
-ROADMAP item."""
+ROADMAP item, while the Hubble, audit and aggregation knobs construct
+and reach their planes."""
 
 import threading
 import time
@@ -418,15 +419,48 @@ def test_dead_dispatch_restarts_and_accounts_the_batch():
 @pytest.mark.parametrize("knob,value,item", [
     ("serving_trace_sample", 4, "A14"), ("profile_dir", "/nonexistent",
                                          "A14"),
-    ("enable_hubble", True, "A13"), ("flow_agg_enabled", True, "A14"),
+    ("flow_agg_enabled", True, "A14"),
     ("sysdump_dir", "/nonexistent", "A14"),
     ("history_interval", 10.0, "A14"),
-    ("enable_encryption", True, "A15"),
-    ("policy_audit_mode", True, "A16"),
-    ("monitor_aggregation", "medium", "A16")])
+    ("enable_encryption", True, "A15")])
 def test_unported_config_raises_naming_its_roadmap_item(knob, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Daemon(DaemonConfig(**{knob: value}), device="cpu")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("enable_hubble", True), ("policy_audit_mode", True),
+    ("monitor_aggregation", "medium")])
+def test_hubble_and_audit_knobs_construct_and_reach_their_plane(knob,
+                                                                value):
+    """The knobs that raised until the flow plane, audit mode and trace
+    aggregation were ported: each constructs, and one process_batch of
+    db's traffic (a denied SYN, then an ACK of an allowed flow, whose
+    trace "medium" aggregation calls boring) shows its plane at work."""
+    td = Daemon(DaemonConfig(ct_capacity=CT, **{knob: value}),
+                device="cpu")
+    _web, db = _build(td, LabelSet)
+    ev = _collect(td)
+    syn = _ingress_rows(np.random.default_rng(5), 2, db)
+    syn[:, COL_SRC_IP3] = ip_to_words(WEB)[3]
+    syn[:, COL_DPORT] = [9999, 5432]
+    syn[:, COL_FLAGS] = TCP_SYN
+    ack = syn[1:].copy()
+    ack[:, COL_FLAGS] = TCP_ACK
+    first = td.process_batch(syn, now=10)
+    second = td.process_batch(ack, now=11)
+    if knob == "enable_hubble":
+        flows = td.observer.get_flows(number=10)
+        assert td.status()["flows-seen"] == len(flows) == 3
+        assert td.parser.decoded == 3
+        assert sum(td.flow_metrics.flows_total.values()) == 3
+    elif knob == "policy_audit_mode":
+        assert int(first.verdict[0]) == 1  # forwarded, the reason kept
+        assert int(first.reason[0]) == 2  # POLICY_DENY_DEFAULT
+    else:
+        assert len(second) == 1 and int(second.msg_type[0]) == 4
+        assert [len(b) for b in ev] == [2, 0]  # the trace never published
+    td.shutdown()
 
 
 def test_mesh_auth_off_its_default_constructs():

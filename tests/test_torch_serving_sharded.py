@@ -5,8 +5,10 @@ rings drained round-robin with no event lost, and the ladder's sharded
 demotion carrying the CT.  Mirrors ``tests/test_serving_sharded.py`` and
 ``tests/test_serving_faults.py::TestLadderDemotion::
 test_sharded_demotion_preserves_established_ct``: for each, the port's
-per-reason metrics and event counts equal the reference's (the Hubble
-flow layer the reference also checks is not ported: ROADMAP A13).
+per-reason metrics and event counts equal the reference's, and so do
+the Hubble flows both observers hold (``to_dict``, wall-clock times
+aside): every published event a flow, the overflow drops rendered
+QUEUE_OVERFLOW.
 
 Four shards, not the reference's eight: the reference's sharded compile
 is its suite's largest cost, and the properties do not depend on S.
@@ -97,11 +99,21 @@ def _events(got):
     return int((msg == MSG_POLICY_VERDICT).sum()), int((msg == MSG_DROP).sum())
 
 
+def _flows(d):
+    out = [f.to_dict() for f in d.observer.get_flows(number=1 << 13)]
+    for f in out:
+        f.pop("time")
+    return out
+
+
 def _same(pair):
-    """Equal per-reason metrics and event counts in both daemons."""
+    """Equal per-reason metrics, event counts and Hubble flows in both
+    daemons; every published event became a flow."""
     (td, _, tgot), (jd, _, jgot) = pair
     np.testing.assert_array_equal(td.loader.metrics(), jd.loader.metrics())
     assert _events(tgot) == _events(jgot)
+    assert td.observer.seq == td.monitor.published == jd.observer.seq
+    assert _flows(td) == _flows(jd)
 
 
 def _shutdown(pair):
@@ -187,6 +199,11 @@ def test_route_overflow_counted_and_decoded():
                for b in tgot) == 64 - 64 // S
     assert DropNotify(materialize(drops[0], 0)).reason_name == \
         "Shard queue overflow" == DROP_REASON_NAMES[REASON_ROUTE_OVERFLOW]
+    # the flow layer (hubble JSON)
+    ovf = [f for f in _flows(pair[0][0])
+           if f.get("drop_reason") == REASON_ROUTE_OVERFLOW]
+    assert len(ovf) == 64 - 64 // S
+    assert ovf[0]["drop_reason_desc"] == "QUEUE_OVERFLOW"
     _same(pair)
     _shutdown(pair)
 
