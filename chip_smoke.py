@@ -3,7 +3,8 @@
 plane, live table churn, offline egress path, service load balancer,
 anomaly scorer, its trainer, sharded serving, the policy control plane
 (the connectivity test, the delta attach, mutual authentication) and
-the Hubble flow plane over a pcap replay on one NVIDIA GPU.
+the Hubble flow plane over a pcap replay, and the scenario engine with
+the flow analytics on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -64,9 +65,15 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ledger (redirected = allowed + denied + shed + failed) must be
    exact; the per-reason metrics must equal those of the same rows
    through ``TorchLoader.serve_packed`` in fixed batches; the ct-gc and
-   map-pressure controllers must have run; K9's rows a launch (its row
+   map-pressure controllers must have run; the flow analytics (on by
+   default) must have aggregated events with an exact batch ledger;
+   K9's rows a launch (its row
    counter over its launches), and K9 timed at that shape against the
-   daemon's rule table; K7 and K8 on the daemon's own CT and K6 at the
+   daemon's rule table; the steady traffic with the flow analytics on
+   and off in turns (on, off, off, on: verdicts/s, the event-join
+   worker's share, ``FlowAnalytics.drain``'s share and median ms on
+   that worker, the batches the duty governor dropped); K7 and K8 on
+   the daemon's own CT and K6 at the
    rung its windows used (one kernel a call each; K6 beside one
    ``torch.index_select`` of the same rows);
 8. the redirect overhead (``bench.py`` ``bench_l7_redirect``'s shape):
@@ -232,7 +239,16 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    line, flows exported/s, ``Observer.get_flows(number=1000)`` ms, phase
    7's traffic with Hubble on and off in turns (verdicts/s, the
    event-join worker's share by ``StageClock``), and the native and the
-   Python parse in packets/s over a 2^21-packet capture.
+   Python parse in packets/s over a 2^21-packet capture;
+20. the scenario engine (``bench.py`` ``bench_scenarios``'s drive): the
+   seven registered scenarios at seed 31 and their own sizes, each on a
+   fresh ``scenario_daemon(sc, map_pressure_interval=0.25)`` through
+   ``run_scenario`` (six on the serving leg, ``nat_exhaustion`` on the
+   offline one), and ``elephant_mice`` again with ``trace_sample=1``:
+   every criterion holds, the front-end, L7 and flow-analytics ledgers
+   are exact, and the rank-0 elephant is among ``flows_aggregate(top=8)``
+   's top talkers; one line a run (its metrics, the analytics stats and
+   the drop-spike incidents) and the phase's wall.
 
 Phases 7, 14 (a) and 15 (b) print K1's and K4's rows a launch.  The
 kernel launch counts are read per path (the slice of phase 4, the
@@ -242,7 +258,7 @@ the armed daemon's first session in phase 13, the 200-step ``train``
 runs of phase 14 (a) and (d), the sharded daemon's two sessions of
 phase 15, the connectivity run of phase 16, the edited session and
 the second edit of phase 17, the grant pass and its retry of phase
-18, the replays of phase 19 (b)), each
+18, the replays of phase 19 (b), the scenario runs of phase 20), each
 zeroed just before its path runs.  The line before the last is one JSON object describing every
 kernel (the standalone launchers with 0 launches and ``"standalone":
 true``); the last line is the device record.  Details go to
@@ -2034,16 +2050,22 @@ class StageClock:
         self.times = {name: [] for name in self.threads}
         self._depth = threading.local()
 
-    def wrap(self, owner, attr, name, skip_none=False):
+    def wrap(self, owner, attr, name, skip_none=False, thread=None):
         """Replace ``owner.attr`` by a timed wrapper.  A call made
         inside another call of the same stage (the batcher's K-batch
         assembly falls back to the single one) counts once, in the
         outer call; with ``skip_none`` a call that returns None (an
-        idle poll of the batcher) is not recorded."""
+        idle poll of the batcher) is not recorded, and with ``thread``
+        only calls on threads whose name starts with it are."""
+        import threading
+
         fn = getattr(owner, attr)
         times, depth = self.times[name], self._depth
 
         def timed(*args, **kwargs):
+            if thread is not None and not (
+                    threading.current_thread().name.startswith(thread)):
+                return fn(*args, **kwargs)
             outer = not getattr(depth, name, 0)
             setattr(depth, name, getattr(depth, name, 0) + 1)
             t0 = time.perf_counter()
@@ -2153,10 +2175,10 @@ def config3_daemon(world, rng, v6_pods=0, **config):
                                                ip_to_words)
     from cilium_tpu_torch.testing import fixtures as fx
 
-    cfg = DaemonConfig(ct_capacity=CT_CAPACITY, serving_packed_ingest=True,
-                       serving_superbatch_k=4,
-                       serving_queue_depth=1 << 19, ct_gc_interval=0.5,
-                       map_pressure_interval=0.5, **config)
+    cfg = DaemonConfig(**{
+        "ct_capacity": CT_CAPACITY, "serving_packed_ingest": True,
+        "serving_superbatch_k": 4, "serving_queue_depth": 1 << 19,
+        "ct_gc_interval": 0.5, "map_pressure_interval": 0.5, **config})
     d = Daemon(cfg)
     db = config3_world(d, world, v6_pods=v6_pods)
     per = (1 << 21) // 8
@@ -2302,6 +2324,14 @@ def phase_daemon(torch, rng, world, report):
           f"daemon: {fe['verdicts']} verdicts of {len(rows)}")
     check(out["lost"] == 0 and out["events"] > 0,
           f"daemon: {out['events']} events, {out['lost']} lost")
+    # the flow analytics are on by default: every event was offered,
+    # and the card's joined batches were read (the duty governor may
+    # cut every one of this session's 2^16-event batches part way, so
+    # none need count as ingested whole)
+    a7 = analytics_ledger(d, "daemon")
+    check(a7["enabled"] and a7["batches-submitted"] > 0
+          and a7["packets-seen"] > 0,
+          f"daemon: the flow analytics aggregated nothing: {a7}")
     for name in ("datapath_packed", "ct_update", "ring_append",
                  "ring_gather", "ct_gc", "ct_occupied", "l7_verdict"):
         check(launches[name] > 0, f"daemon: {name} never launched")
@@ -2320,12 +2350,21 @@ def phase_daemon(torch, rng, world, report):
     print(f"daemon ledger: submitted {fe['submitted']} = verdicts "
           f"{fe['verdicts']} + shed {fe['shed']} + recovery-dropped "
           f"{ft['recovery-dropped']}")
+    ev7 = out["event-plane"]
+    check(ev7["windows-dropped"] == 0,
+          f"daemon: the event plane dropped windows: {ev7}")
     print(f"daemon events: {out['windows']} windows, {out['events']} "
-          f"events, lost {out['lost']}; dispatches "
+          f"events, lost {out['lost']}, {ev7['windows-dropped']} windows "
+          f"dropped (join lag p99 {ev7['join-lag-us']['p99']:.0f} us); "
+          f"dispatches "
           f"{fe['dispatch']['dispatches']} for {fe['batches']} batches "
           f"({fe['dispatch']['superbatches']} superbatches)")
     print(f"daemon verdicts/s: {len(rows) / t_serve:.0f} ({len(rows)} "
           f"packets submit -> stop_serving in {t_serve:.3f} s, host clock)")
+    print(f"daemon flow analytics: batches submitted "
+          f"{a7['batches-submitted']} = ingested {a7['batches-ingested']} "
+          f"+ dropped {a7['batches-dropped']}; {a7['packets-seen']} "
+          f"packets aggregated, {a7['windows-closed']} windows closed")
     print(f"daemon launches: {json.dumps(launches)}")
     print(f"daemon L7 plane: redirected {l7['redirected']} = allowed "
           f"{l7['l7-allowed']} + denied {l7['l7-denied']} + shed "
@@ -2373,6 +2412,8 @@ def phase_daemon(torch, rng, world, report):
         med = "-" if v["median_ms"] is None else f"{v['median_ms']:.3f}"
         print(f"  [{v['thread']}] {name}: {v['calls']}, {med}, "
               f"{v['total_ms']:.3f}, {v['share']:.1%}")
+    # the flow analytics on and off in turns, on the same traffic
+    turns7 = analytics_turns(d, rows)
     # a third session under the profiler (device activity only): how
     # busy the card is while the daemon serves steady traffic
     from torch.profiler import ProfilerActivity, profile
@@ -2414,6 +2455,7 @@ def phase_daemon(torch, rng, world, report):
         "pressure_sample": sample, "k7_daemon_table": k7,
         "k8_daemon_table": k8,
         "evicted_at_end": evicted, "metrics": m_daemon.tolist(),
+        "analytics": a7, "analytics_turns": turns7,
         "stages": {"seconds": t_st, "packets": len(rows) - per,
                    "front_end": fe_st, "l7": out_st["l7"],
                    "by_stage": stages},
@@ -6872,44 +6914,118 @@ def plain_replay(d, db, rows, n_rounds, audit):
     return np.concatenate(outs), fl.metrics()
 
 
-def hubble_turns(d, rows, report_part):
-    """Phase 7's steady traffic through daemon ``d`` with Hubble on (the
-    default: the three-four parser and the flow metrics on the monitor)
-    and off, in turns (on, off, off, on), after a first session that
-    establishes the flows: verdicts/s and the event-join worker's share
-    by ``StageClock``, the Hubble consumers timed as a stage of it."""
-    threads = {**StageClock.THREADS, HUBBLE_STAGE: "worker"}
-    consumers = {"hubble": d.parser, "metrics": d.flow_metrics}
-    serve_session(d, rows)  # every pool flow established
+def consumer_turns(d, rows, label, stage, timed, enable, disable,
+                   counters=None):
+    """Phase 7's steady traffic (``rows`` after their first eighth, the
+    SYN pool) through daemon ``d`` with one monitor plane on and off in
+    turns (on, off, off, on): verdicts/s and the event-join worker's
+    share by ``StageClock``, the plane's work on that worker timed as
+    ``stage``.  ``timed`` lists (owner, attr, thread) to time while on;
+    ``enable()`` and ``disable()`` switch the plane after the wrap;
+    ``counters(what)`` (optional) reads the plane's counters after each
+    turn, which must not move while it is off.  -> one record a turn."""
     per = len(rows) // 8
+    n = len(rows) - per
     turns = []
     for on in (True, False, False, True):
-        clock = StageClock(threads)
-        for name, owner in consumers.items():
-            if on:
-                clock.wrap(owner, "consume", HUBBLE_STAGE)
-                d.monitor.register(name, owner.consume)
-            else:
-                d.monitor.unregister(name)
+        clock = StageClock({**StageClock.THREADS, stage: "worker"})
+        if on:
+            for owner, attr, thread in timed:
+                clock.wrap(owner, attr, stage, thread=thread)
+            enable()
+        else:
+            disable()
+        what = f"{label} {'on' if on else 'off'}"
+        c0 = counters(what) if counters else {}
         out, t = serve_session(d, rows[per:], clock)
-        for name, owner in consumers.items():
-            if on:
-                delattr(owner, "consume")
-        check_ledger(out, len(rows) - per, f"hubble {'on' if on else 'off'}")
+        if on:
+            for owner, attr, _ in timed:
+                delattr(owner, attr)
+        check_ledger(out, n, what)
+        c1 = counters(what) if counters else {}
+        delta = {k.replace("-", "_"): c1[k] - c0[k] for k in c0}
+        check(on or not any(delta.values()),
+              f"{what}: the plane's counters moved: {delta}")
         st = clock.summary(t)
+        med = st[stage]["median_ms"]
         turns.append({
-            "hubble": on, "seconds": t, "verdicts_per_s": (len(rows) - per) / t,
+            label: on, "seconds": t, "verdicts_per_s": n / t,
             "events": out["events"],
             "worker_share": st["event join, all"]["share"],
-            "hubble_share": st[HUBBLE_STAGE]["share"],
-            "hubble_ms_median": st[HUBBLE_STAGE]["median_ms"]})
-        print(f"hubble {'on ' if on else 'off'}: {len(rows) - per} packets "
-              f"in {t:.3f} s ({(len(rows) - per) / t:.0f} verdicts/s), "
-              f"{out['events']} events; event join {turns[-1]['worker_share']:.1%}"
-              f" of the session, Hubble {turns[-1]['hubble_share']:.2%}")
-    for name, owner in consumers.items():  # the default again
-        d.monitor.register(name, owner.consume)
-    report_part["hubble_turns"] = turns
+            f"{label}_share": st[stage]["share"],
+            f"{label}_calls": st[stage]["calls"],
+            f"{label}_ms_median": med, **delta})
+        print(f"{what:13}: {n} packets in {t:.3f} s ({n / t:.0f} "
+              f"verdicts/s), {out['events']} events; event join "
+              f"{turns[-1]['worker_share']:.1%} of the session, {stage} "
+              f"{st[stage]['share']:.2%} ({st[stage]['calls']} calls, "
+              f"median {'-' if med is None else f'{med:.3f}'} ms)"
+              + "".join(f"; {k} {v}" for k, v in delta.items()))
+    return turns
+
+
+def hubble_turns(d, rows):
+    """:func:`consumer_turns` of Hubble (the default: the three-four
+    parser and the flow metrics on the monitor)."""
+    consumers = {"hubble": d.parser, "metrics": d.flow_metrics}
+
+    def enable():
+        for name, owner in consumers.items():
+            d.monitor.register(name, owner.consume)
+
+    def disable():
+        for name in consumers:
+            d.monitor.unregister(name)
+
+    turns = consumer_turns(
+        d, rows, "hubble", HUBBLE_STAGE,
+        [(owner, "consume", None) for owner in consumers.values()],
+        enable, disable)
+    enable()  # the default again
+    return turns
+
+
+ANALYTICS_STAGE = "event join: FlowAnalytics.drain"
+
+
+def analytics_ledger(d, what):
+    """The flow analytics' batch ledger, which must be exact with nothing
+    pending (after stop_serving or a process_batch), and no batch the
+    engine could not read (those are counted drops too); -> its
+    stats."""
+    a = d.analytics.stats()
+    check(a["batches-submitted"] == a["batches-ingested"]
+          + a["batches-dropped"] and a["pending"] == 0
+          and d.analytics.ingest_failures == 0,
+          f"{what}: analytics ledger {a}, "
+          f"{d.analytics.ingest_failures} batches unreadable")
+    return a
+
+
+def analytics_turns(d, rows):
+    """:func:`consumer_turns` of the flow analytics (the default:
+    ``FlowAnalytics.submit`` on the monitor and the ``flow-agg-roll``
+    controller), ``drain`` timed on the event-join worker; the counters
+    include the batches the duty governor dropped."""
+    a = d.analytics
+
+    def enable():
+        d.monitor.register("analytics", a.submit)
+        d.controllers.update("flow-agg-roll", a.drain,
+                             d.config.flow_agg_window_s)
+
+    def disable():
+        d.monitor.unregister("analytics")
+        d.controllers.remove("flow-agg-roll")
+
+    def counters(what):
+        st = analytics_ledger(d, what)
+        return {k: st[k] for k in ("batches-submitted", "batches-ingested",
+                                   "batches-dropped", "packets-seen")}
+
+    return consumer_turns(d, rows, "analytics", ANALYTICS_STAGE,
+                          [(a, "drain", "serving-eventjoin")], enable,
+                          disable, counters)
 
 
 def phase_config2(torch, rng, world, report):
@@ -7049,7 +7165,8 @@ def phase_config2(torch, rng, world, report):
     # -- (e) Hubble on and off at phase 7's traffic -----------------------
     d.monitor.unregister("smoke")
     d.monitor.unregister("exporter")  # phase 7's daemon exports nothing
-    hubble_turns(d, steady, part)
+    serve_session(d, steady)  # every pool flow established
+    part["hubble_turns"] = hubble_turns(d, steady)
     d.shutdown()
     n_parse = len(steady)
     big = pcap_of(steady)  # the parse-rate capture: phase 7's 2^21 rows
@@ -7123,6 +7240,113 @@ def phase_config2(torch, rng, world, report):
                   "python_pps": n_parse / t_py},
         "launches": launches, "seconds": time.monotonic() - t19})
     print(f"config #2 phase: {part['seconds']:.1f} s")
+    return launches
+
+
+SCENARIO_SEED = 31
+# the kernels the scenarios' paths run: the serving leg's packed step,
+# CT update, ring append and gather, the controllers' CT sweep and
+# occupancy count, l7_abuse's L7 verdicts, the churn scenarios' table
+# patches, and nat_exhaustion's offline leg (the wide step, SNAT and
+# reverse NAT)
+SCENARIO_KERNELS = ("datapath_packed", "ct_update", "ring_append",
+                    "ring_gather", "ct_gc", "ct_occupied", "l7_verdict",
+                    "dus", "datapath_wide", "snat_egress", "snat_reverse")
+
+
+def phase_scenarios(torch, report):
+    """The scenario engine on the card, as ``bench.py``'s
+    ``bench_scenarios`` drives the reference: every registered scenario
+    at seed 31 and its own (the reference's) sizes, each on a fresh
+    ``scenario_daemon(sc, map_pressure_interval=0.25)`` through
+    ``run_scenario``, and ``elephant_mice`` once more with every
+    forwarded packet evented (``trace_sample=1``), whose top talkers must
+    keep the rank-0 elephant; returns the runs' launches."""
+    from cilium_tpu_torch.kernels import KERNELS, reset_launch_counts
+    from cilium_tpu_torch.testing.workloads import (SCENARIOS,
+                                                    make_scenario,
+                                                    run_scenario,
+                                                    scenario_daemon)
+
+    t20 = time.monotonic()
+    runs = [(name, None) for name in SCENARIOS] + [
+        ("elephant_mice", {"trace_sample": 1})]
+    part = report["scenarios"] = {"seed": SCENARIO_SEED, "runs": []}
+    reset_launch_counts()
+    for name, serving in runs:
+        label = name if serving is None else f"{name} {serving}"
+        sc = make_scenario(name, seed=SCENARIO_SEED)
+        d = scenario_daemon(sc, map_pressure_interval=0.25)
+        check(d.loader.device.type == "cuda",
+              f"scenarios: {label} built on {d.loader.device}")
+        d.start()
+        t0 = time.monotonic()
+        r = run_scenario(d, sc, serving_kwargs=serving)
+        wall = time.monotonic() - t0
+        m = r["metrics"]
+        for crit, ok in r["checks"].items():
+            check(ok, f"scenarios: {label}: {crit} = "
+                      f"{sc.criteria[crit]} failed: {m}")
+        check(r["passed"] and m["ledger_exact"]
+              and m["submitted"] == m["verdicts"],
+              f"scenarios: {label}: front-end ledger {m}")
+        if sc.path == "serving":
+            check(m["l7_ledger_exact"] and m["l7_redirected"] == (
+                m["l7_allowed"] + m["l7_denied"] + m["l7_shed"]
+                + m["l7_failed"]), f"scenarios: {label}: L7 ledger {m}")
+        a = analytics_ledger(d, f"scenarios: {label}")
+        check(a["batches-ingested"] > 0 and a["packets-seen"] > 0,
+              f"scenarios: {label}: the flow analytics aggregated "
+              f"nothing: {a}")
+
+        def drop_spikes():
+            return [i["detail"] for i in d.incidents
+                    if i["kind"] == "drop-spike"]
+
+        if "spike_min_drops" in sc.daemon_overrides:
+            # the silence after the stream: the flow-agg-roll
+            # controller closes the drop window, which must fire one
+            # incident (the path the override exists for)
+            wait_for(drop_spikes, lambda: f"scenarios: {label}: a "
+                     f"drop-spike incident ({d.flows_aggregate()['spike']})",
+                     timeout=4 * d.config.flow_agg_window_s)
+            check(len(drop_spikes()) == 1,
+                  f"scenarios: {label}: drop spikes {drop_spikes()}")
+        spikes = drop_spikes()
+        top = None
+        if serving is not None:
+            talkers = d.flows_aggregate(top=8)["top-talkers"]
+            top = [t["sport"] for t in talkers]
+            check(1024 in top, f"scenarios: {label}: the rank-0 elephant "
+                               f"(sport 1024) is not in the top 8: {top}")
+        d.shutdown()
+        shown = {k: m[k] for k in (
+            "submitted", "verdicts", "shed_frac", "sustained_pps", "p99_us",
+            "drop_frac", "drops_by_reason", "ops_applied",
+            "ct_insert_drops", "ct_occupancy", "nat_failures",
+            "l7_redirected", "elapsed_s")}
+        print(f"scenario {label}: passed {r['checks']}; {json.dumps(shown)}"
+              f"; analytics {a['batches-submitted']} batches = "
+              f"{a['batches-ingested']} ingested + {a['batches-dropped']} "
+              f"dropped, {a['packets-seen']} packets, "
+              f"{a['windows-closed']} windows closed; {len(spikes)} "
+              f"drop-spike incidents "
+              f"{[(s['drops'], s['threshold']) for s in spikes]}"
+              + ("" if top is None else f"; top talkers' sports {top}")
+              + f"; {wall:.2f} s")
+        part["runs"].append({"scenario": name, "serving_kwargs": serving,
+                             "checks": r["checks"], "metrics": m,
+                             "analytics": a, "spikes": spikes,
+                             "top_sports": top, "wall_s": wall})
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    for name in SCENARIO_KERNELS:
+        check(launches[name] > 0, f"scenarios: {name} never launched")
+    part["launches"] = launches
+    part["seconds"] = time.monotonic() - t20
+    slowest = max(part["runs"], key=lambda x: x["wall_s"])
+    print(f"scenarios phase: {part['seconds']:.1f} s ({len(runs)} runs; "
+          f"the longest {slowest['scenario']} at "
+          f"{slowest['wall_s']:.1f} s)")
     return launches
 
 
@@ -7260,6 +7484,9 @@ def main() -> int:
 
         # -- 19. config #2: the flow plane over a pcap replay ------------
         by_path["config2"] = phase_config2(torch, rng, world, report)
+
+        # -- 20. the scenario engine ---------------------------------------
+        by_path["scenarios"] = phase_scenarios(torch, report)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7293,8 +7520,9 @@ def main() -> int:
         # else the slice path's, the churn path's, the egress path's,
         # the service path's, the anomaly path's, the trainer's, the
         # trainer's over a mesh, the sharded daemon's, the connectivity
-        # test's, the delta attach's, the auth grants' or config #2's
-        # replay (each path's counts zeroed before it ran)
+        # test's, the delta attach's, the auth grants', config #2's
+        # replay or the scenarios' (each path's counts zeroed before it
+        # ran)
         k["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
         k["launches"] = (by_path["daemon"][name] or by_path["slice"][name]
                          or by_path["churn"][name] or by_path["egress"][name]
@@ -7306,7 +7534,8 @@ def main() -> int:
                          or by_path["connectivity"][name]
                          or by_path["delta_attach"][name]
                          or by_path["auth"][name]
-                         or by_path["config2"][name])
+                         or by_path["config2"][name]
+                         or by_path["scenarios"][name])
         lib = ("" if k["library_ms"] is None
                else f", library {k['library_ms']:.4f} ms")
         print(f"kernel {name}: {k['launches']} launches on the main path "

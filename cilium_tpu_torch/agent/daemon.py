@@ -19,8 +19,11 @@ AUTH_REQUIRED) and the k8s watcher hub (``k8s_watchers``), and the
 Hubble flow plane (``flow/``: the three-four parser into the Observer's
 flow ring, the flow metrics, the JSONL exporter, the seven parser on the
 proxy's access records, the pcap recorder, the relay and, with
-``hubble_listen``, the gRPC Observer server), policy audit mode and
-monitor trace aggregation.  The datapath
+``hubble_listen``, the gRPC Observer server), policy audit mode,
+monitor trace aggregation and the flow analytics plane
+(``obs/analytics.py``: windowed identity-pair aggregates, top-K
+talkers and drop-spike incidents, aggregated off the dispatch path).
+The datapath
 is :class:`TorchLoader` on ``device`` (None: the card; the tests pass
 ``device="cpu"``), and the proxy runs its L7 verdicts on the same
 device.  With ``anomaly_model_path`` set, an :class:`ml.AnomalyScorer`
@@ -31,8 +34,7 @@ Ported members keep the reference's names and semantics.  What the
 reference wires in besides, and the port does not have yet, raises
 NotImplementedError naming its ROADMAP item, at construction (a config
 knob turned on) or at the call: span tracing and the profiler window,
-encryption, the SLO plane and metric history, the flight recorder and
-flow analytics.
+encryption, the SLO plane and metric history, and the flight recorder.
 The proxy's socket listeners, the DNS proxy and the xDS surface are
 not ported (ROADMAP A17): L7 requests arrive through the
 ``handle_l7*`` calls and the serving plane's request source.
@@ -83,9 +85,9 @@ class DaemonConfig:
 
     Knobs of unported planes raise NotImplementedError naming their
     ROADMAP item at construction when set off their default
-    (``_UNPORTED_KNOBS``).  Two defaults differ from the reference on
-    purpose, because their planes are not ported: ``flow_agg_enabled``
-    is False and ``history_interval`` 0.0.  ``backend`` ("tpu" |
+    (``_UNPORTED_KNOBS``).  One default differs from the reference on
+    purpose, because its plane is not ported: ``history_interval`` is
+    0.0.  ``backend`` ("tpu" |
     "interpreter") picks the reference's loader; the port has one loader
     on ``Daemon(device=...)`` and ignores it.  ``flow_ring_capacity``
     sizes the Hubble flow ring: a positive power of two, as the
@@ -159,7 +161,9 @@ class DaemonConfig:
     serving_trace_sample: int = 0  # span tracing
     profile_dir: Optional[str] = None  # the profiler window
     profile_batches: int = 16
-    flow_agg_enabled: bool = False  # the reference's True: A14
+    # -- the flow analytics plane (obs/analytics.py): windowed
+    # identity-pair aggregates, top-K talkers, drop-spike incidents
+    flow_agg_enabled: bool = True
     flow_agg_window_s: float = 1.0
     flow_agg_windows: int = 8
     flow_agg_topk: int = 32
@@ -242,10 +246,6 @@ _UNPORTED_KNOBS = {
     "sysdump_dir": ("the flight recorder (obs/flightrec.py)", "A14"),
     "enable_encryption": ("transparent encryption (encryption/)", "A15"),
 }
-for _knob in ("flow_agg_enabled", "flow_agg_window_s", "flow_agg_windows",
-              "flow_agg_topk", "flow_agg_queue_depth", "flow_agg_max_duty",
-              "spike_factor", "spike_min_drops", "spike_baseline_windows"):
-    _UNPORTED_KNOBS[_knob] = ("flow analytics (obs/analytics.py)", "A14")
 for _knob in ("sysdump_retention", "sysdump_max_bytes",
               "sysdump_min_interval_s", "sysdump_flows"):
     _UNPORTED_KNOBS[_knob] = ("the flight recorder (obs/flightrec.py)",
@@ -357,6 +357,15 @@ class Daemon:
             # running WITHOUT masquerade when the operator asked for it
             # would leak pod source IPs
             raise ValueError("masquerade=True requires node_ip to be set")
+        from ..obs import FlowAnalytics, validate_analytics_config
+
+        (cfg.flow_agg_window_s, cfg.flow_agg_windows, cfg.flow_agg_topk,
+         cfg.flow_agg_queue_depth, cfg.spike_factor, cfg.spike_min_drops,
+         cfg.spike_baseline_windows,
+         cfg.flow_agg_max_duty) = validate_analytics_config(
+            cfg.flow_agg_window_s, cfg.flow_agg_windows, cfg.flow_agg_topk,
+            cfg.flow_agg_queue_depth, cfg.spike_factor, cfg.spike_min_drops,
+            cfg.spike_baseline_windows, cfg.flow_agg_max_duty)
         self.allocator = CachingIdentityAllocator()
         self.repo = PolicyRepository(self.allocator)
         self.ipcache = IPCache()
@@ -457,7 +466,7 @@ class Daemon:
         # initial empty attach so the datapath is live pre-endpoints
         self.endpoints.regenerate()
         # the Hubble plane: the monitor's consumers in the reference's
-        # order (hubble, metrics, exporter, anomaly, recorder)
+        # order (hubble, metrics, exporter, anomaly, analytics, recorder)
         from ..flow import FlowExporter, FlowMetrics, Observer, ThreeFourParser
         from ..flow.recorder import Recorder
 
@@ -498,6 +507,22 @@ class Daemon:
                 self._rows_of_identity, threshold=cfg.anomaly_threshold,
                 device=self.loader.device)
             self.monitor.register("anomaly", self.anomaly.consume)
+        # flow analytics: one O(1) reference-park consumer on the
+        # monitor stream; the aggregation runs on the event-join worker,
+        # the process_batch caller, the roll controller and queries
+        self.analytics = FlowAnalytics(
+            window_s=cfg.flow_agg_window_s,
+            retention=cfg.flow_agg_windows,
+            topk=cfg.flow_agg_topk,
+            queue_depth=cfg.flow_agg_queue_depth,
+            spike_factor=cfg.spike_factor,
+            spike_min_drops=cfg.spike_min_drops,
+            spike_baseline_windows=cfg.spike_baseline_windows,
+            max_duty=cfg.flow_agg_max_duty,
+            ep_identity=self._endpoint_identity,
+            on_incident=self.record_incident,
+            enabled=cfg.flow_agg_enabled)
+        self.monitor.register("analytics", self.analytics.submit)
         # the recorder: FlowFilter-gated pcap capture off the monitor
         self.recorder = Recorder()
         self.monitor.register("recorder", self.recorder.consume)
@@ -514,7 +539,7 @@ class Daemon:
     def record_incident(self, kind: str, detail=None) -> dict:
         # thread-affinity: any
         """Keep one incident (map-pressure episode, ladder demotion,
-        watchdog restart, terminal event worker) in memory."""
+        watchdog restart, terminal event worker, drop spike) in memory."""
         inc = {"kind": kind, "detail": detail, "at": time.time()}
         self.incidents.append(inc)
         return inc
@@ -602,7 +627,8 @@ class Daemon:
     def start(self) -> None:
         """Start the background controllers: the CT aging sweep, the
         map-pressure sampler (one synchronous sample first, which seeds
-        the insert-drop baseline) and the FQDN TTL sweep."""
+        the insert-drop baseline), the FQDN TTL sweep and, with flow
+        analytics on, the window roll."""
         self._started = True
         self._ct_gc_schedule(self.config.ct_gc_interval)
         if self.config.map_pressure_interval > 0:
@@ -631,6 +657,14 @@ class Daemon:
                 "ct-snapshot",
                 lambda: self.ct_snapshot_now(trigger="interval"),
                 self.config.ct_snapshot_interval)
+        if self.config.flow_agg_enabled:
+            # close aggregation windows on WALL time: a drop burst
+            # followed by silence must still reach the spike detector.
+            # A controller thread is off the dispatch path, like every
+            # other drain() caller
+            self.controllers.update(
+                "flow-agg-roll", self.analytics.drain,
+                self.config.flow_agg_window_s)
 
     def shutdown(self) -> None:
         self.controllers.stop_all()
@@ -882,9 +916,8 @@ class Daemon:
     def _finish_batch(self, out, hdr: np.ndarray, row_map,
                       now: int) -> EventBatch:
         # thread-affinity: offline, api, cli
-        """The process_batch tail: decode, auth observe, then monitor
-        publish.  The reference's flow analytics are not ported (ROADMAP
-        A14)."""
+        """The process_batch tail: decode, auth observe, monitor
+        publish, then the flow analytics on the caller's thread."""
         from ..monitor.api import decode_out
 
         batch = decode_out(out, hdr, row_map.numeric_array(),
@@ -892,6 +925,9 @@ class Daemon:
         if self.auth_manager is not None:
             self.auth_manager.observe(batch, now)
         self.monitor.publish(self._filter_events(batch))
+        # offline path: aggregate inline on the CALLER's thread (the
+        # serving path drains on the event-join worker)
+        self.analytics.drain()
         return batch
 
     def status(self) -> dict:
@@ -910,6 +946,7 @@ class Daemon:
             "dropped": int(m[1:].sum()),
             "monitor-events": self.monitor.published,
             "flows-seen": self.observer.seq,
+            "flow-aggregation": self.analytics.stats(),
             "map-pressure": self.pressure.stats(),
         }
         nat = (self.loader.nat_status(self._now())
@@ -1104,6 +1141,21 @@ class Daemon:
         # thread-affinity: any
         ep = self.endpoints.get(ep_id)
         return (ep.name, ep.id) if ep else ("", ep_id)
+
+    def _endpoint_identity(self, ep_id: int) -> int:
+        # thread-affinity: any
+        """ep id -> LOCAL numeric identity (the analytics plane's
+        src/dst attribution for the local side of a flow)."""
+        ep = self.endpoints.get(ep_id)
+        if ep is not None and ep.identity is not None:
+            return int(ep.identity.numeric_id)
+        return 0
+
+    def flows_aggregate(self, top: int = 16) -> dict:
+        """The analytics snapshot (``GET /flows/aggregate``): drains
+        pending batches on THIS thread, which is off the dispatch path
+        by definition."""
+        return self.analytics.snapshot(top=top)
 
     def add_relay_peer(self, name: str, observer) -> None:
         """Register a peer agent's Observer (or anything with its
@@ -1630,6 +1682,7 @@ class Daemon:
                "ring": {"windows": d.windows, "events": d.events,
                         "lost": d.lost},
                "event-plane": s["eventplane"].stats(),
+               "analytics": self.analytics.stats(),
                "pressure": self.pressure.stats(),
                "mode": s["ladder"].rung,
                "ladder": s["ladder"].to_dict(),
@@ -1868,7 +1921,7 @@ class Daemon:
         # thread-affinity: event-worker
         """The worker's join leg (never the drain thread): wait for the
         copy and decode, join packed rows back to wide columns, and
-        publish to the monitor."""
+        publish to the monitor, then aggregate the flow analytics."""
         self._event_check_horizon(dw, self._serving)
         rows, shards, _appended, _lost = dw.ring.fetch()
         try:
@@ -1887,6 +1940,23 @@ class Daemon:
                 d.events -= dw.appended - dw.lost
                 d.lost -= dw.lost
             raise
+        # the flow analytics drain HERE, on the event-join worker, never
+        # the drain thread, and only when no window waits behind this
+        # one: the windows come first (the reference drains after every
+        # window, and one 2^16-event ingest overflowed the window
+        # queue).  What stays pending drains at the next idle join, on
+        # the flow-agg-roll controller or in stop_serving.  Contained:
+        # the window's events were already delivered, so an analytics
+        # fault must not recount the window as a drop
+        s = self._serving
+        if s is not None and s["eventplane"].pending > 1:
+            return
+        try:
+            self.analytics.drain()
+        except Exception:  # noqa: BLE001
+            logging.getLogger(__name__).warning(
+                "flow-analytics drain failed at window join",
+                exc_info=True)
 
     @staticmethod
     def _event_check_horizon(dw, s) -> None:
@@ -1918,6 +1988,9 @@ class Daemon:
         d = s["drainer"]
         self._serving_drain_tick(s)
         ev = s["eventplane"].stop(drain=True)
+        # the worker is drained: aggregate whatever it published (the
+        # caller's thread; the drain loop has stopped)
+        self.analytics.drain()
         # the L7 plane stops AFTER the event plane: the join worker was
         # still fanning redirect rows into the pool until its drain
         # completed.  Drain the pool and keep its final stats

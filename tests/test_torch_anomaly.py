@@ -234,6 +234,9 @@ def test_serving_daemon_scores_every_published_event(trained):
     ("port_scan", dict(n_packets=2000, batch=256)),
     ("port_scan", dict(open_port=80)),
     ("syn_flood", dict(dport=443)),
+    ("l7_abuse", dict(n_packets=2000, batch=256)),
+    ("elephant_mice", dict(n_flows=128, n_packets=3000, zipf_a=1.4)),
+    ("endpoint_churn", dict(n_slots=5, rate_hz=100.0)),
 ])
 def test_scenario_batches_equal_the_reference(name, kw):
     for seed in (0, 21):
@@ -246,5 +249,5 @@ def test_scenario_batches_equal_the_reference(name, kw):
             np.testing.assert_array_equal(g, w)
         assert ours.signature() == ref.signature()
         assert ours.criteria == ref.criteria and ours.path == ref.path
-    with pytest.raises(ValueError, match="unknown scenario"):
-        twl.make_scenario("l7_abuse")
+    with pytest.raises(NotImplementedError, match="ROADMAP A21"):
+        twl.make_scenario("rotation_storm")

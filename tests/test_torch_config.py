@@ -3,8 +3,8 @@
 default differs on purpose are listed, each field of an unported plane
 set off its default raises NotImplementedError naming its ROADMAP item,
 and the knobs of the delta attach, mutual authentication, the Hubble
-flow plane, policy audit mode and monitor trace aggregation construct
-off their defaults and reach their planes."""
+flow plane, policy audit mode, monitor trace aggregation and the flow
+analytics plane construct off their defaults and reach their planes."""
 
 import dataclasses
 
@@ -14,10 +14,9 @@ from cilium_tpu.agent.daemon import DaemonConfig as JConfig
 from cilium_tpu_torch.agent import Daemon, DaemonConfig
 from cilium_tpu_torch.agent.daemon import _UNPORTED_KNOBS
 
-# field -> the port's default: their planes are not ported, so the port
-# starts with them off (the reference's defaults turn them on)
+# field -> the port's default: its plane is not ported, so the port
+# starts with it off (the reference's default turns it on)
 DIFFER_ON_PURPOSE = {
-    "flow_agg_enabled": False,  # A14
     "history_interval": 0.0,  # A14
 }
 
@@ -30,8 +29,7 @@ ITEMS = {
     "profile_batches": "A14", "sysdump_dir": "A14",
 }
 for _k in _UNPORTED_KNOBS:
-    for _prefix, _item in (("flow_agg_", "A14"), ("spike_", "A14"),
-                           ("sysdump_", "A14"), ("history_", "A14"),
+    for _prefix, _item in (("sysdump_", "A14"), ("history_", "A14"),
                            ("slo_", "A14"), ("cluster_", "A21")):
         if _k.startswith(_prefix):
             ITEMS.setdefault(_k, _item)
@@ -69,7 +67,10 @@ def test_the_unported_table_names_every_unported_field():
     assert set(DIFFER_ON_PURPOSE) <= set(_UNPORTED_KNOBS)
     live = {"backend", "state_dir", "ct_snapshot_interval",
             "flow_ring_capacity", "enable_hubble", "export_path",
-            "hubble_listen", "policy_audit_mode", "monitor_aggregation"}
+            "hubble_listen", "policy_audit_mode", "monitor_aggregation",
+            "flow_agg_enabled", "flow_agg_window_s", "flow_agg_windows",
+            "flow_agg_topk", "flow_agg_queue_depth", "flow_agg_max_duty",
+            "spike_factor", "spike_min_drops", "spike_baseline_windows"}
     assert not live & set(_UNPORTED_KNOBS)
 
 
@@ -82,7 +83,8 @@ def test_unported_field_off_its_default_raises_naming_its_item(knob):
 
 
 # the knobs of the delta attach, mutual authentication, the Hubble plane,
-# audit mode and trace aggregation: each off its default constructs, and
+# audit mode, trace aggregation and flow analytics: each off its default
+# constructs, and
 # the value reaches its plane (a value of its own where the kind's other
 # value would not be a valid setting)
 PORTED = {
@@ -103,6 +105,22 @@ PORTED = {
     "policy_audit_mode": (None, lambda d: d.config.policy_audit_mode),
     "monitor_aggregation": ("medium", lambda d: (
         d.config.monitor_aggregation == "medium")),
+    "flow_agg_enabled": (None, lambda d: (
+        not d.analytics.enabled and "analytics" in d.monitor._consumers
+        and d.controllers.get("flow-agg-roll") is None)),
+    "flow_agg_window_s": (None, lambda d: (
+        d.analytics.windows.window_s == 2.0
+        and d.controllers.get("flow-agg-roll") is not None)),
+    "flow_agg_windows": (None, lambda d: d.analytics.windows.retention == 9),
+    "flow_agg_topk": (None, lambda d: (
+        d.analytics.talkers.k == d.analytics.pairs.k == 33)),
+    "flow_agg_queue_depth": (None, lambda d: d.analytics.queue_depth == 17),
+    "flow_agg_max_duty": (0.5, lambda d: d.analytics.max_duty == 0.5),
+    "spike_factor": (None, lambda d: d.analytics.detector.factor == 5.0),
+    "spike_min_drops": (None, lambda d: (
+        d.analytics.detector.min_drops == 65)),
+    "spike_baseline_windows": (None, lambda d: (
+        d.analytics.detector._baseline.maxlen == 5)),
 }
 
 

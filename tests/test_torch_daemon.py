@@ -419,7 +419,7 @@ def test_dead_dispatch_restarts_and_accounts_the_batch():
 @pytest.mark.parametrize("knob,value,item", [
     ("serving_trace_sample", 4, "A14"), ("profile_dir", "/nonexistent",
                                          "A14"),
-    ("flow_agg_enabled", True, "A14"),
+    ("sysdump_retention", 9, "A14"),
     ("sysdump_dir", "/nonexistent", "A14"),
     ("history_interval", 10.0, "A14"),
     ("enable_encryption", True, "A15")])
@@ -521,7 +521,8 @@ def test_daemon_defaults_to_the_card():
 def test_controllers_sweep_and_sample_in_the_background():
     """start() schedules the ct-gc and map-pressure controllers (both
     tick on their own threads against the port's loader), the FQDN
-    sweep and, with mesh_auth on by default, the auth-gc sweep."""
+    sweep, with mesh_auth on by default the auth-gc sweep and, with the
+    flow analytics on by default, their window roll."""
     td = Daemon(DaemonConfig(ct_capacity=CT, ct_gc_interval=0.02,
                              map_pressure_interval=0.02), device="cpu")
     td.start()
@@ -530,7 +531,8 @@ def test_controllers_sweep_and_sample_in_the_background():
         time.sleep(0.01)
     assert td.pressure.samples >= 3
     st = td.controllers.statuses()
-    assert set(st) == {"ct-gc", "map-pressure", "fqdn-gc", "auth-gc"}
+    assert set(st) == {"ct-gc", "map-pressure", "fqdn-gc", "auth-gc",
+                       "flow-agg-roll"}
     td.shutdown()
 
 
